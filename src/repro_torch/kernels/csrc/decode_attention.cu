@@ -1,0 +1,219 @@
+// Decode attention for Hopper (sm_90a): one new query token per sequence
+// over a contiguous or ring-buffer KV cache.
+//
+// Replaces the TPU kernel repro/kernels/decode_attention/decode_attention.py
+// ::decode_attention (_kernel).  A key is valid when k_pos >= 0,
+// k_pos <= q_pos and q_pos - k_pos < window (if a window is set), which is
+// what lets ring buffers work unchanged.  The G query heads that share a KV
+// head are handled together, so each K/V row is read once for all G.
+// fp32 online-softmax statistics; a row with no valid key writes 0.
+//
+// What bounds it on the H100: reading the cache, 2 * L * Hkv * D elements
+// per batch row, with ~4 * G * D FLOPs per key: memory, by far.  At B = 1,
+// L ~ 545, Hkv = 8 that is ~2.2 MB, under a microsecond at 3.35 TB/s, so the
+// launch itself dominates.  This design keeps the TPU's grid: one block per
+// (KV head, batch row) walking the whole cache, which puts B * Hkv blocks on
+// 132 SMs (8 at B = 1).  Splitting the cache across blocks with a second
+// merge pass (split-KV) is queued in ROADMAP.md.
+//
+// Per K/V tile of BK keys staged in shared memory as fp32: threads compute
+// the G x BK scores as (head, key) pairs, one warp per head runs the online
+// softmax, and each thread keeps fixed (head, column) outputs in registers
+// across the key loop.
+
+#include <cstdint>
+
+#include "common.cuh"
+
+namespace repro_torch {
+namespace {
+
+constexpr int BK = 64;
+constexpr int NTHREADS = 256;
+constexpr int GMAX = 16;  // query heads per KV head
+
+template <int D>
+size_t da_smem_bytes(int G) {
+    return sizeof(float) * (size_t(G) * (D + 4) + 2 * size_t(BK) * (D + 4) +
+                            size_t(G) * (BK + 4) + 3 * size_t(G)) +
+           sizeof(int) * BK;
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(NTHREADS)
+decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const int* __restrict__ q_pos,
+                        const int* __restrict__ k_pos, T* __restrict__ o, int L,
+                        int Hkv, int G, int window, float softcap, float scale) {
+    static_assert(D % 4 == 0, "head dim must be a multiple of 4");
+    static_assert(BK == 64, "the softmax pass reads two keys per lane");
+    constexpr int DP = D + 4;
+    constexpr int SP = BK + 4;
+    constexpr int NA = (GMAX * D + NTHREADS - 1) / NTHREADS;  // outputs per thread
+
+    extern __shared__ float4 smem4[];
+    float* q_s = reinterpret_cast<float*>(smem4);  // G x DP
+    float* k_s = q_s + G * DP;                     // BK x DP
+    float* v_s = k_s + BK * DP;                    // BK x DP
+    float* s_s = v_s + BK * DP;                    // G x SP scores, then p
+    float* m_s = s_s + G * SP;
+    float* l_s = m_s + G;
+    float* a_s = l_s + G;
+    int* kp_s = reinterpret_cast<int*>(a_s + G);   // BK key positions
+
+    const int tid = threadIdx.x;
+    const int warp = tid / 32, ln = tid % 32;
+    const int h = blockIdx.x, b = blockIdx.y;
+    const size_t kv_stride = size_t(Hkv) * D;
+    // the G query heads of KV head h are heads h*G .. h*G+G-1: contiguous
+    const T* qb = q + (size_t(b) * Hkv + h) * G * D;
+    T* ob = o + (size_t(b) * Hkv + h) * G * D;
+    const T* kb = k + size_t(b) * L * kv_stride + size_t(h) * D;
+    const T* vb = v + size_t(b) * L * kv_stride + size_t(h) * D;
+    const int* kpb = k_pos + size_t(b) * L;
+    const int qp = q_pos[b];
+    const int GD = G * D;
+
+    for (int e = tid; e < GD; e += NTHREADS) q_s[(e / D) * DP + e % D] = to_float(qb[e]);
+    if (tid < G) {
+        m_s[tid] = kNegInf;
+        l_s[tid] = 0.f;
+    }
+    float acc[NA];
+#pragma unroll
+    for (int a = 0; a < NA; ++a) acc[a] = 0.f;
+    __syncthreads();
+
+    for (int t0 = 0; t0 < L; t0 += BK) {
+        int seen = 0;
+        if (tid < BK) {
+            const int kp = t0 + tid < L ? kpb[t0 + tid] : -1;
+            kp_s[tid] = kp;
+            seen = key_visible(qp, kp, true, window);
+        }
+        if (!__syncthreads_or(seen)) continue;
+
+        stage_kv<T, D, DP, BK, NTHREADS>(k_s, v_s, kb + size_t(t0) * kv_stride,
+                                         vb + size_t(t0) * kv_stride, kv_stride, L - t0);
+        __syncthreads();
+
+        for (int e = tid; e < G * BK; e += NTHREADS) {
+            const int g = e / BK, c = e % BK;
+            float s = 0.f;
+#pragma unroll 8
+            for (int d = 0; d < D; d += 4)
+                s = dot4(*reinterpret_cast<const float4*>(&q_s[g * DP + d]),
+                         *reinterpret_cast<const float4*>(&k_s[c * DP + d]), s);
+            s *= scale;
+            if (softcap > 0.f) s = tanhf(s / softcap) * softcap;
+            s_s[g * SP + c] = key_visible(qp, kp_s[c], true, window) ? s : -INFINITY;
+        }
+        __syncthreads();
+
+        for (int g = warp; g < G; g += NTHREADS / 32) {
+            const float m_prev = m_s[g];
+            const float x0 = s_s[g * SP + ln], x1 = s_s[g * SP + ln + 32];
+            float mx = fmaxf(x0, x1);
+#pragma unroll
+            for (int off = 16; off > 0; off >>= 1)
+                mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+            const float m_new = fmaxf(m_prev, mx);
+            const float p0 = expf(x0 - m_new), p1 = expf(x1 - m_new);
+            s_s[g * SP + ln] = p0;
+            s_s[g * SP + ln + 32] = p1;
+            float sum = p0 + p1;
+#pragma unroll
+            for (int off = 16; off > 0; off >>= 1)
+                sum += __shfl_xor_sync(0xffffffffu, sum, off);
+            if (ln == 0) {
+                const float alpha = expf(m_prev - m_new);
+                a_s[g] = alpha;
+                l_s[g] = l_s[g] * alpha + sum;
+                m_s[g] = m_new;
+            }
+        }
+        __syncthreads();
+
+#pragma unroll
+        for (int a = 0; a < NA; ++a) {
+            const int e = tid + NTHREADS * a;
+            if (e < GD) {
+                const int g = e / D, d = e % D;
+                const float* p = &s_s[g * SP];
+                float x = acc[a] * a_s[g];
+#pragma unroll 8
+                for (int c = 0; c < BK; ++c) x = fmaf(p[c], v_s[c * DP + d], x);
+                acc[a] = x;
+            }
+        }
+        __syncthreads();
+    }
+
+#pragma unroll
+    for (int a = 0; a < NA; ++a) {
+        const int e = tid + NTHREADS * a;
+        if (e < GD) ob[e] = from_float<T>(acc[a] / fmaxf(l_s[e / D], 1e-30f));
+    }
+}
+
+template <typename T, int D>
+int launch(const void* q, const void* k, const void* v, const int* q_pos,
+           const int* k_pos, void* o, int B, int L, int Hkv, int G, int window,
+           float softcap, float scale, cudaStream_t stream) {
+    const size_t smem = da_smem_bytes<D>(G);
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        decode_attention_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        int(da_smem_bytes<D>(GMAX)));
+    if (attr != cudaSuccess) return int(attr);
+    const dim3 grid(Hkv, B);
+    decode_attention_kernel<T, D><<<grid, NTHREADS, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        q_pos, k_pos, static_cast<T*>(o), L, Hkv, G, window, softcap, scale);
+    return int(cudaGetLastError());
+}
+
+template <typename T>
+int dispatch(const void* q, const void* k, const void* v, const void* q_pos,
+             const void* k_pos, void* o, int B, int L, int Hkv, int G, int D, int window,
+             float softcap, float scale, void* stream) {
+    if (G < 1 || G > GMAX) return int(cudaErrorInvalidValue);
+    const int* qp = static_cast<const int*>(q_pos);
+    const int* kp = static_cast<const int*>(k_pos);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define REPRO_DA_CASE(DIM)                                                                \
+    case DIM:                                                                             \
+        return launch<T, DIM>(q, k, v, qp, kp, o, B, L, Hkv, G, window, softcap, scale, st);
+    switch (D) {
+        REPRO_DA_CASE(8)
+        REPRO_DA_CASE(16)
+        REPRO_DA_CASE(32)
+        REPRO_DA_CASE(64)
+        REPRO_DA_CASE(80)
+        REPRO_DA_CASE(128)
+        REPRO_DA_CASE(256)
+        default:
+            return int(cudaErrorInvalidValue);
+    }
+#undef REPRO_DA_CASE
+}
+
+}  // namespace
+}  // namespace repro_torch
+
+// Launchers with a plain C interface (bound through ctypes).  Each returns
+// the CUDA status of the launch; 0 is success.
+extern "C" int decode_attention_bf16(const void* q, const void* k, const void* v,
+                                     const void* q_pos, const void* k_pos, void* o, int B,
+                                     int L, int Hkv, int G, int D, int window, float softcap,
+                                     float scale, void* stream) {
+    return repro_torch::dispatch<__nv_bfloat16>(q, k, v, q_pos, k_pos, o, B, L, Hkv, G, D,
+                                                window, softcap, scale, stream);
+}
+
+extern "C" int decode_attention_f32(const void* q, const void* k, const void* v,
+                                    const void* q_pos, const void* k_pos, void* o, int B,
+                                    int L, int Hkv, int G, int D, int window, float softcap,
+                                    float scale, void* stream) {
+    return repro_torch::dispatch<float>(q, k, v, q_pos, k_pos, o, B, L, Hkv, G, D, window,
+                                        softcap, scale, stream);
+}

@@ -1,0 +1,74 @@
+"""Kernel dispatch: route the hot-spot ops to the Hopper kernels or to their
+plain PyTorch versions, the counterpart of ``repro/kernels/dispatch.py``.
+
+The device of the inputs decides: a CUDA tensor goes to the kernel (which
+launches or raises), a CPU tensor to the plain version.  The one switch is
+``use_backend("torch")``, which sends CUDA tensors to the plain versions
+too, so a run can compare the two on the same inputs.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import threading
+
+from repro_torch.kernels.decode_attention import ops as decode_ops
+from repro_torch.kernels.decode_attention import ref as decode_ref
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention import ref as flash_ref
+from repro_torch.kernels.rmsnorm import ops as rmsnorm_ops
+from repro_torch.kernels.rmsnorm import ref as rmsnorm_ref
+
+BACKENDS = ("auto", "torch")
+
+
+class _State(threading.local):
+    def __init__(self):
+        self.backend = "auto"
+
+
+_STATE = _State()
+
+
+@contextlib.contextmanager
+def use_backend(backend: str):
+    """``"auto"``: kernels for CUDA tensors; ``"torch"``: plain versions."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend {backend!r} not in {BACKENDS}")
+    prev = _STATE.backend
+    _STATE.backend = backend
+    try:
+        yield
+    finally:
+        _STATE.backend = prev
+
+
+def _kernel(x) -> bool:
+    return x.is_cuda and _STATE.backend == "auto"
+
+
+def flash_attention(q, k, v, *, q_positions, k_positions, causal, window=0,
+                    softcap=0.0):
+    kw = dict(q_positions=q_positions, k_positions=k_positions, causal=causal,
+              window=window, softcap=softcap)
+    if _kernel(q):
+        return flash_ops.flash_attention(q, k, v, **kw)
+    # bound the S x T fp32 scores of the plain version, as the reference does
+    if q.shape[1] * k.shape[1] > 2048 * 2048:
+        return flash_ref.attention_chunked(q, k, v, **kw)
+    return flash_ref.attention(q, k, v, **kw)
+
+
+def decode_attention(q, k_cache, v_cache, *, q_positions, k_positions,
+                     window=0, softcap=0.0):
+    kw = dict(q_positions=q_positions, k_positions=k_positions, window=window,
+              softcap=softcap)
+    if _kernel(q):
+        return decode_ops.decode_attention(q, k_cache, v_cache, **kw)
+    return decode_ref.decode_attention(q, k_cache, v_cache, **kw)
+
+
+def rmsnorm(x, scale, eps=1e-6):
+    if _kernel(x):
+        return rmsnorm_ops.rmsnorm(x, scale, eps=eps)
+    return rmsnorm_ref.rmsnorm(x, scale, eps=eps)

@@ -1,0 +1,168 @@
+"""The dense decoder, the counterpart of ``repro/models/model.py`` for the
+block kinds ``attn`` and ``ffn``.
+
+The reference stacks each repetition of ``cfg.block_pattern`` on a leading
+axis and scans over it; here the layers are a plain ``nn.ModuleList`` run
+in order (``bridge.params_from_jax`` unstacks the reference's groups).
+
+Entry points:
+  * ``init(cfg, generator, device)`` — a model with random weights at the
+    reference initializer's scales.
+  * ``Model.init_cache``  — one cache entry per layer.
+  * ``Model.prefill``     — the prompt; fills the cache, returns the last
+    position's logits.
+  * ``Model.decode_step`` — one token against the cache (the TPOT step).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch import resolve_device
+from repro_torch.models import attention as attn_lib
+from repro_torch.models import cache as cache_lib
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import (
+    Embedding, Norm, apply_norm, embed_tokens, rope_tables, unembed,
+)
+from repro_torch.models.mlp import MLP, apply_mlp
+
+SUPPORTED_BLOCKS = ("attn", "ffn")
+
+Cache = List[Dict[str, torch.Tensor]]
+
+
+def _dtype(name: str) -> torch.dtype:
+    return getattr(torch, name)
+
+
+class Block(nn.Module):
+    def __init__(self, cfg: ModelConfig, kind: str, dtype, device):
+        super().__init__()
+        if kind not in SUPPORTED_BLOCKS:
+            raise NotImplementedError(
+                f"{cfg.name}: block kind {kind!r} is not ported yet "
+                f"(the port runs {SUPPORTED_BLOCKS})")
+        if cfg.is_moe or cfg.is_encdec:
+            raise NotImplementedError(f"{cfg.name}: MoE and enc-dec are not ported yet")
+        self.kind = kind
+        d = cfg.d_model
+        if kind == "attn":
+            self.norm1 = Norm(d, dtype, device)
+            self.attn = attn_lib.Attention(cfg, dtype, device)
+            if not cfg.parallel_block:  # one shared pre-norm (Cohere/GPT-J style)
+                self.norm2 = Norm(d, dtype, device)
+        else:
+            self.norm = Norm(d, dtype, device)
+        self.mlp = MLP(d, cfg.d_ff, cfg.mlp_gated, dtype, device)
+
+
+def _apply_block_seq(p: Block, cfg: ModelConfig, x: torch.Tensor,
+                     positions: torch.Tensor, rope, entry: Dict) -> torch.Tensor:
+    if p.kind == "ffn":
+        return x + apply_mlp(p.mlp, apply_norm(p.norm, x, cfg.norm_eps), cfg.mlp_act)
+    h = apply_norm(p.norm1, x, cfg.norm_eps)
+    a, _ = attn_lib.apply_attention_prefill(p.attn, h, cfg, positions, entry, rope=rope)
+    mlp_in = h if cfg.parallel_block else None
+    x = x + a
+    if mlp_in is None:
+        mlp_in = apply_norm(p.norm2, x, cfg.norm_eps)
+    return x + apply_mlp(p.mlp, mlp_in, cfg.mlp_act)
+
+
+def _apply_block_decode(p: Block, cfg: ModelConfig, x: torch.Tensor,
+                        positions: torch.Tensor, rope, entry: Dict,
+                        update_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    if p.kind == "ffn":
+        return x + apply_mlp(p.mlp, apply_norm(p.norm, x, cfg.norm_eps), cfg.mlp_act)
+    h = apply_norm(p.norm1, x, cfg.norm_eps)
+    a, _ = attn_lib.apply_attention_decode(p.attn, h, cfg, positions, entry, rope=rope,
+                                           update_mask=update_mask)
+    mlp_in = h if cfg.parallel_block else None
+    x = x + a
+    if mlp_in is None:
+        mlp_in = apply_norm(p.norm2, x, cfg.norm_eps)
+    return x + apply_mlp(p.mlp, mlp_in, cfg.mlp_act)
+
+
+class Model(nn.Module):
+    """Parameters of a dense decoder, named like the reference's tree:
+    ``embed.table``, ``lm_head.table`` (untied only), ``layers.<i>.<part>``
+    for ``decoder`` layer i, ``final_norm.scale``."""
+
+    def __init__(self, cfg: ModelConfig, device="cuda"):
+        super().__init__()
+        cfg.validate()
+        self.cfg = cfg
+        device = resolve_device(device)
+        dtype = _dtype(cfg.param_dtype)
+        self.embed = Embedding(cfg.vocab_size, cfg.d_model, dtype, device)
+        if not cfg.tie_embeddings:
+            self.lm_head = Embedding(cfg.vocab_size, cfg.d_model, dtype, device)
+        self.layers = nn.ModuleList(Block(cfg, kind, dtype, device) for kind in cfg.blocks())
+        self.final_norm = Norm(cfg.d_model, dtype, device)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.table.device
+
+    def _head(self) -> Embedding:
+        return self.lm_head if hasattr(self, "lm_head") else self.embed
+
+    def init_cache(self, batch: int, max_len: int, dtype=None) -> Cache:
+        dtype = dtype or _dtype(self.cfg.dtype)
+        return [cache_lib.init_block_cache(self.cfg, blk.kind, batch, max_len,
+                                           dtype, self.device)
+                for blk in self.layers]
+
+    @torch.no_grad()
+    def prefill(self, batch: Dict[str, torch.Tensor], cache: Cache
+                ) -> Tuple[torch.Tensor, Cache]:
+        """Process the prompt ``batch["tokens"]`` (B, S), fill ``cache`` in
+        place; returns the last position's fp32 logits (B, vocab)."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        x = embed_tokens(self.embed, tokens, cfg.emb_scale, cfg.d_model)
+        positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S).contiguous()
+        rope = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
+        for blk, entry in zip(self.layers, cache):
+            x = _apply_block_seq(blk, cfg, x, positions, rope, entry)
+        x = apply_norm(self.final_norm, x, cfg.norm_eps)
+        logits = unembed(self._head(), x[:, -1:], cfg.logit_softcap)[:, 0]
+        return logits, cache
+
+    @torch.no_grad()
+    def decode_step(self, token: torch.Tensor, position, cache: Cache,
+                    update_mask: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, Cache]:
+        """One decode step.  token (B, 1); position an int or (B,) tensor.
+        ``update_mask`` (B,) bool freezes the cache writes of masked-off
+        rows.  Updates ``cache`` in place; returns fp32 logits (B, vocab)."""
+        cfg = self.cfg
+        B = token.shape[0]
+        positions = torch.as_tensor(position, dtype=torch.int32,
+                                    device=token.device).expand(B).contiguous()
+        x = embed_tokens(self.embed, token, cfg.emb_scale, cfg.d_model)
+        rope = rope_tables(positions[:, None], cfg.resolved_head_dim, cfg.rope_theta)
+        for blk, entry in zip(self.layers, cache):
+            x = _apply_block_decode(blk, cfg, x, positions, rope, entry, update_mask)
+        x = apply_norm(self.final_norm, x, cfg.norm_eps)
+        logits = unembed(self._head(), x, cfg.logit_softcap)[:, 0]
+        return logits, cache
+
+
+@torch.no_grad()
+def init(cfg: ModelConfig, generator: torch.Generator, device="cuda") -> Model:
+    """A model with weights drawn from ``generator`` (which must live on
+    ``device``) at the reference initializer's scales: N(0,1)/sqrt(fan-in)
+    for projections, 1/sqrt(Hq*hd) for wo, 1/sqrt(d_ff) for wd, N(0,1) for
+    embeddings, zeros for norm scales and biases."""
+    model = Model(cfg, device=device)
+    for module in model.modules():
+        if hasattr(module, "init_"):
+            module.init_(generator)
+    return model

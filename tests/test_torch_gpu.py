@@ -1,0 +1,166 @@
+"""The port's Hopper kernels against their plain PyTorch versions, on a GPU.
+
+Every test here carries the ``gpu`` marker and skips (inside the ``cuda``
+fixture) where there is no CUDA device; on the card run
+``python -m pytest -m gpu tests/test_torch_*.py``.  This file imports
+neither JAX nor the reference package, which the card's machine does not
+have.  Tolerances are the reference's kernel tolerances: 2e-5 in fp32,
+2e-2 in bf16.
+"""
+
+import zlib
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import numpy as np  # noqa: E402
+
+from repro_torch.kernels import dispatch  # noqa: E402
+from repro_torch.kernels.decode_attention import ops as da_ops  # noqa: E402
+from repro_torch.kernels.decode_attention import ref as da_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
+from repro_torch.kernels.rmsnorm import ops as rn_ops  # noqa: E402
+from repro_torch.kernels.rmsnorm import ref as rn_ref  # noqa: E402
+
+pytestmark = pytest.mark.gpu
+
+DTYPES = ["float32", "bfloat16"]
+FLASH_SHAPES = [(128, 4, 4, 64), (128, 8, 2, 64), (256, 4, 1, 128), (96, 4, 2, 80),
+                (100, 8, 2, 8), (512, 32, 8, 128), (70, 2, 1, 256)]
+FLASH_MASKS = [(True, 0), (True, 32), (False, 0)]
+DECODE_SHAPES = [(256, 8, 2, 64), (512, 4, 4, 128), (128, 16, 1, 64), (96, 4, 2, 80),
+                 (545, 32, 8, 128), (300, 12, 1, 256)]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _rng(*key):
+    return np.random.default_rng(zlib.crc32(repr(key).encode()))
+
+
+def _on(dev, dtype, *arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev, getattr(torch, dtype))
+            for a in arrays]
+
+
+def _ints(dev, *arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(dev) for a in arrays]
+
+
+def _assert(got, want, dtype):
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    torch.testing.assert_close(got.float().cpu(), want.float().cpu(), rtol=tol, atol=tol)
+
+
+def _flash_inputs(B, S, T, Hq, Hkv, D, k_offset=0):
+    rng = _rng("flash", B, S, T, Hq, Hkv, D, k_offset)
+    return (rng.standard_normal((B, S, Hq, D), np.float32),
+            rng.standard_normal((B, T, Hkv, D), np.float32),
+            rng.standard_normal((B, T, Hkv, D), np.float32),
+            np.broadcast_to(np.arange(S), (B, S)).copy(),
+            np.broadcast_to(np.arange(T) + k_offset, (B, T)).copy())
+
+
+def _decode_inputs(B, L, Hq, Hkv, D):
+    rng = _rng("decode", B, L, Hq, Hkv, D)
+    return (rng.standard_normal((B, 1, Hq, D), np.float32),
+            rng.standard_normal((B, L, Hkv, D), np.float32),
+            rng.standard_normal((B, L, Hkv, D), np.float32))
+
+
+@pytest.mark.parametrize("S,Hq,Hkv,D", FLASH_SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("causal,window", FLASH_MASKS)
+def test_flash_kernel_matches_plain(cuda, S, Hq, Hkv, D, dtype, causal, window):
+    q, k, v, qp, kp = _flash_inputs(2, S, S, Hq, Hkv, D)
+    q, k, v = _on(cuda, dtype, q, k, v)
+    qp, kp = _ints(cuda, qp, kp)
+    kw = dict(q_positions=qp, k_positions=kp, causal=causal, window=window, softcap=0.0)
+    n = fa_ops.flash_attention.launches
+    got = fa_ops.flash_attention(q, k, v, **kw)
+    assert fa_ops.flash_attention.launches == n + 1
+    _assert(got, fa_ref.attention(q, k, v, **kw), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_kernel_softcap_cache_positions_and_empty_rows(cuda, dtype):
+    """Keys at positions 10.. with every 7th slot empty (-1): rows 0..9 see
+    no key and must be 0; softcap and window on."""
+    q, k, v, qp, kp = _flash_inputs(2, 80, 96, 8, 2, 64, k_offset=10)
+    kp[:, ::7] = -1
+    q, k, v = _on(cuda, dtype, q, k, v)
+    qp, kp = _ints(cuda, qp, kp)
+    kw = dict(q_positions=qp, k_positions=kp, causal=True, window=40, softcap=30.0)
+    got = fa_ops.flash_attention(q, k, v, **kw)
+    assert torch.all(got[:, :10] == 0)
+    _assert(got, fa_ref.attention(q, k, v, **kw), dtype)
+
+
+@pytest.mark.parametrize("L,Hq,Hkv,D", DECODE_SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_kernel_matches_plain(cuda, L, Hq, Hkv, D, dtype):
+    q, kc, vc = _on(cuda, dtype, *_decode_inputs(3, L, Hq, Hkv, D))
+    qp = np.asarray([[L // 3], [L // 2], [L - 1]])
+    kp = np.broadcast_to(np.arange(L), (3, L))
+    qp, kp = _ints(cuda, qp, np.where(kp <= qp, kp, -1))   # partially filled cache
+    kw = dict(q_positions=qp, k_positions=kp, window=0, softcap=0.0)
+    n = da_ops.decode_attention.launches
+    got = da_ops.decode_attention(q, kc, vc, **kw)
+    assert da_ops.decode_attention.launches == n + 1
+    _assert(got, da_ref.decode_attention(q, kc, vc, **kw), dtype)
+
+
+def test_decode_kernel_ring_softcap_and_empty_row(cuda):
+    B, L, cur = 3, 64, 150
+    q, kc, vc = _on(cuda, "float32", *_decode_inputs(B, L, 8, 2, 32))
+    kp = np.broadcast_to(cur - ((cur - np.arange(L)) % L), (B, L)).copy()
+    kp[0] = -1
+    qp, kp = _ints(cuda, np.full((B, 1), cur), kp)
+    kw = dict(q_positions=qp, k_positions=kp, window=L, softcap=30.0)
+    got = da_ops.decode_attention(q, kc, vc, **kw)
+    assert torch.all(got[0] == 0)
+    _assert(got, da_ref.decode_attention(q, kc, vc, **kw), "float32")
+
+
+@pytest.mark.parametrize("shape", [(1, 4096), (512, 4096), (3, 7, 12288), (5, 100)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rmsnorm_kernel_matches_plain(cuda, shape, dtype):
+    rng = _rng("rmsnorm", shape)
+    x, s = _on(cuda, dtype, rng.standard_normal(shape, np.float32),
+               rng.standard_normal(shape[-1], np.float32) * 0.1)
+    n = rn_ops.rmsnorm.launches
+    got = rn_ops.rmsnorm(x, s)
+    assert rn_ops.rmsnorm.launches == n + 1
+    _assert(got, rn_ref.rmsnorm(x, s), dtype)
+
+
+def test_dispatch_routes_cuda_tensors_to_the_kernels(cuda):
+    x, s = torch.randn(4, 64, device=cuda), torch.zeros(64, device=cuda)
+    n = rn_ops.rmsnorm.launches
+    dispatch.rmsnorm(x, s)
+    with dispatch.use_backend("torch"):
+        dispatch.rmsnorm(x, s)
+    assert rn_ops.rmsnorm.launches == n + 1
+
+
+def test_kernel_wrappers_raise_on_bad_inputs(cuda):
+    q = torch.zeros(1, 8, 4, 64, device=cuda)
+    pos = torch.arange(8, dtype=torch.int32, device=cuda)[None]
+    with pytest.raises(ValueError):  # non-contiguous k
+        fa_ops.flash_attention(q, q.transpose(1, 2).contiguous().transpose(1, 2), q,
+                               q_positions=pos, k_positions=pos, causal=True)
+    with pytest.raises(TypeError):  # int64 positions
+        fa_ops.flash_attention(q, q, q, q_positions=pos.long(), k_positions=pos,
+                               causal=True)
+    with pytest.raises(ValueError):  # head dim the kernel does not take
+        da_ops.decode_attention(torch.zeros(1, 1, 4, 12, device=cuda),
+                                torch.zeros(1, 8, 4, 12, device=cuda),
+                                torch.zeros(1, 8, 4, 12, device=cuda),
+                                q_positions=pos[:, :1].contiguous(), k_positions=pos)
