@@ -11,14 +11,21 @@ or of the ``repro`` package.  Phases:
 2. Each kernel against its plain PyTorch version at the main path's shapes
    (bf16, plus fp32 and edge cases), with kernel, plain, library and bound
    times; one ``{"kernels": [...]}`` line.
-3. The main path at full width: ``Elana("llama3.1-8b").measure`` (TTFT,
-   TPOT, TTLT), then the same with NVML energy; size and cache reports;
-   launch counts of every kernel checked against the forward passes run.
+3. The measured path at full width: ``Elana("llama3.1-8b").measure``
+   (TTFT, TPOT, TTLT), then the same with NVML energy; size and cache
+   reports; launch counts of every kernel checked against the forward
+   passes run.
 4. Device time by kernel and the device's busy share (torch.profiler).
-5. Full-width parity: prefill + 4 greedy decode steps through the kernels
+5. The serving path at full width: ``ServingEngine`` with a paged KV
+   cache and its decode step replayed from a CUDA graph serves 24
+   requests with NVML energy attribution; finishes, block accounting,
+   launch counts and one dispatch per step checked.  Then the same
+   greedy trace with and without the graph: identical streams.
+6. Full-width parity: prefill + 4 greedy decode steps through the kernels
    and through the plain versions, both held against an fp32 copy of the
-   same weights.
-6. The last line: ``{"ok": true, "device": {...}}``.
+   same weights, over a contiguous cache (B=1) and a paged one (B=4,
+   shuffled block tables).
+7. The last line: ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line is printed; so does a
 machine without a CUDA device.
@@ -36,6 +43,10 @@ sys.path.insert(0, str(ROOT / "src"))
 
 ARCH = "llama3.1-8b"
 BATCH, PROMPT, GEN, ITERS = 1, 512, 32, 3
+# the serving path: paged pool of 8 * 64 + 1 blocks of 16 tokens
+SERVE = dict(cache_layout="paged", kv_block_size=16, max_batch=8, max_len=1024,
+             prompt_bucket=64, seed=0)
+SERVE_REQUESTS = 24
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, published
 BF16_FLOPS = 989e12             # dense tensor-core bf16, published
 FP32_FLOPS = 67e12              # fp32 outside the tensor cores, published
@@ -223,6 +234,63 @@ def kernel_phase(dev):
             *tq[i], attn_mask=mask, enable_gqa=True), n),
         **bound(nbytes, flops, BF16_FLOPS)))
 
+    # -- K4 paged decode attention ---------------------------------------------
+    def pda_case(name, B, Hq, Hkv, D, dtype, q_pos, bs=16, nb=64, N=513, window=0,
+                 softcap=0.0, garbage_rows=()):
+        """Rows at ragged ``q_pos`` over a shuffled pool of N blocks; each
+        row's table names the blocks its keys need, unused entries (and
+        every entry of a garbage row) point at block 0."""
+        q = randn(B, 1, Hq, D, dtype=dtype)
+        kp, vp = randn(N, bs, Hkv, D, dtype=dtype), randn(N, bs, Hkv, D, dtype=dtype)
+        perm = (torch.randperm(N - 1, generator=g, device=dev) + 1).tolist()
+        tables = torch.zeros(B, nb, dtype=torch.int32)
+        for b, p in enumerate(q_pos):
+            need = 0 if b in garbage_rows else p // bs + 1
+            tables[b, :need] = torch.tensor([perm.pop() for _ in range(need)])
+        tables = tables.to(dev)
+        qp = torch.tensor(q_pos, dtype=torch.int32, device=dev)[:, None]
+        kw = dict(block_tables=tables, q_positions=qp, window=window, softcap=softcap)
+        out = da_ops.paged_decode_attention(q, kp, vp, **kw)
+        ref = da_ref.paged_decode_attention(q, kp, vp, **kw)
+        torch.cuda.synchronize()
+        check(out.shape == q.shape and torch.isfinite(out).all().item(), f"{name}: bad output")
+        err = max_err(out, ref)
+        close(out, ref, tol[dtype])
+        log(f"check paged_decode_attention {name}: max_abs_err={err:.3e} tol={tol[dtype]}")
+        return (q, kp, vp, kw), err
+
+    q_pos = torch.randint(64, 1001, (8,), generator=g, device=dev).tolist()
+    (q, kp, vp, kw), err = pda_case(f"main B=8 Hq=32 Hkv=8 D=128 bs=16 q_pos={q_pos}",
+                                    8, 32, 8, 128, bf16, q_pos)
+    errs = [err]
+    errs.append(pda_case("window=100 softcap=30", 4, 32, 8, 128, bf16, [0, 99, 500, 1000],
+                         window=100, softcap=30.0)[1])
+    errs.append(pda_case("G=1 D=64 garbage rows q_pos 0", 4, 8, 8, 64, bf16, [0, 300, 0, 31],
+                         garbage_rows=(0, 2))[1])
+    errs.append(pda_case("G=12 (command-r-plus) bs=32", 3, 96, 8, 128, bf16, [700, 63, 2],
+                         bs=32, nb=32, N=97)[1])
+    pda_case("fp32 window=64 G=4", 3, 16, 4, 128, torch.float32, [10, 640, 1000], window=64)
+
+    B, _, Hq, D = q.shape
+    N, bs, Hkv = kp.shape[:3]
+    tables, qp = kw["block_tables"], kw["q_positions"]
+    valid = int(sum(p + 1 for p in q_pos))  # keys the rows attend to
+    nbytes = (2 * (2 * valid * Hkv * D + 2 * q.numel())
+              + 4 * (sum(p // bs + 1 for p in q_pos) + qp.numel()))
+    n = copies(2 * 2 * valid * Hkv * D)
+    sets = [(q.clone(), kp.clone(), vp.clone()) for _ in range(n)]
+    entries.append(dict(
+        name="paged_decode_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/paged_decode_attention.cu",
+        replaces="src/repro/kernels/decode_attention/decode_attention.py:202",
+        shape=f"q ({B},1,{Hq},{D}) pool ({N},{bs},{Hkv},{D}) bf16, {valid} valid keys",
+        max_abs_err=max(errs),
+        ms=cuda_ms(lambda i: da_ops.paged_decode_attention(*sets[i], **kw), n),
+        plain_ms=cuda_ms(lambda i: da_ref.paged_decode_attention(*sets[i], **kw), n,
+                         iters=20),
+        library_ms=None,  # no one PyTorch call gathers through a block table and attends
+        **bound(nbytes, 4 * D * valid * Hq, BF16_FLOPS)))
+
     # -- K1 rmsnorm -------------------------------------------------------------
     def rn_case(rows, d, dtype):
         x, s = randn(rows, d, dtype=dtype), (randn(d) * 0.1).to(dtype)
@@ -276,6 +344,13 @@ def read_counts(counters):
     return {name: fn.launches for name, fn in counters.items()}
 
 
+def per_forward(cfg):
+    """(attention layers, RMSNorm launches) of one forward pass."""
+    n_attn = sum(k == "attn" for k in cfg.blocks())
+    norms = sum(1 if (k == "ffn" or cfg.parallel_block) else 2 for k in cfg.blocks()) + 1
+    return n_attn, norms
+
+
 class Calls:
     """Counts the model's forward passes, to hold the launch counts to."""
 
@@ -294,11 +369,11 @@ class Calls:
         model.prefill, model.decode_step = counted_prefill, counted_decode
 
     def expected(self, cfg):
-        n_attn = sum(k == "attn" for k in cfg.blocks())
-        norms = sum(1 if (k == "ffn" or cfg.parallel_block) else 2 for k in cfg.blocks()) + 1
+        n_attn, norms = per_forward(cfg)
         fwd = self.prefill + self.decode
         return {"flash_attention": n_attn * self.prefill,
                 "decode_attention": n_attn * self.decode,
+                "paged_decode_attention": 0,
                 "rmsnorm": norms * fwd}
 
 
@@ -327,7 +402,8 @@ def main_path_phase(counters):
     log(f"forward passes: {calls.prefill} prefill, {calls.decode} decode; "
         f"launches {launches}, expected {want}")
     check(launches == want, f"launch counts {launches} != {want}")
-    check(all(v > 0 for v in launches.values()), "a kernel of the path never launched")
+    check(all(v > 0 for k, v in launches.items() if k != "paged_decode_attention"),
+          "a kernel of the path never launched")
     check(all(math.isfinite(v) and v > 0 for v in m.values()), f"bad metrics {m}")
     log("measure: " + json.dumps({"arch": ARCH, "batch": BATCH, "prompt_len": PROMPT,
                                   "gen_len": GEN, "iters": ITERS, **m}))
@@ -408,62 +484,218 @@ def profile_phase(e, dev, decode_steps=8):
 
 
 # ---------------------------------------------------------------------------
-# phase 4: kernels against plain versions on the full-width model
+# phase 5: the serving path at full width
+# ---------------------------------------------------------------------------
+
+class TimedGraph:
+    """Stands in for the engine's CUDA graph: records device time around
+    each replay (CUDA events) and the host clock at each call."""
+
+    def __init__(self, graph):
+        import torch
+
+        self.graph, self.events, self.calls = graph, [], []
+        self._event = lambda: torch.cuda.Event(enable_timing=True)
+
+    def replay(self):
+        start, end = self._event(), self._event()
+        self.calls.append(time.perf_counter())
+        start.record()
+        self.graph.replay()
+        end.record()
+        self.events.append((start, end))
+
+    def device_ms(self):
+        return [s.elapsed_time(e) for s, e in self.events]
+
+
+def serve_arrivals(cfg, greedy_only=False):
+    """24 requests, all at t = 0: lognormal prompts (mean 256, 32..768),
+    16..63 new tokens; even uids greedy, odd ones at temperature 0.7,
+    top-k 50 (or every one greedy)."""
+    import dataclasses
+
+    from repro_torch.serving.workload import LengthDist, WorkloadSpec, poisson_trace
+
+    spec = WorkloadSpec(arrival_rate=0.0, num_requests=SERVE_REQUESTS,
+                        prompt_len=LengthDist(kind="lognormal", mean=256.0, low=32, high=768),
+                        output_len=LengthDist(kind="uniform", low=16, high=64),
+                        temperature=0.7, top_k=50, seed=0)
+    arrivals = poisson_trace(spec, cfg.vocab_size)
+    for i, a in enumerate(arrivals):
+        if greedy_only or i % 2 == 0:
+            a.params = dataclasses.replace(a.params, temperature=0.0)
+    return arrivals
+
+
+def serve(e, arrivals, **kw):
+    from repro_torch.serving.engine import ServingEngine
+
+    eng = ServingEngine(e.model, **SERVE, device="cuda", **kw)
+    for a in arrivals:
+        eng.submit(a.prompt, a.params)
+    return eng
+
+
+def serve_phase(e, counters):
+    """The engine at full width with NVML energy; returns the launches."""
+    import torch
+
+    from repro_torch.core.energy import NvmlReader, PowerMonitor
+
+    arrivals = serve_arrivals(e.cfg)
+    monitor = PowerMonitor(NvmlReader([0]))
+    eng = serve(e, arrivals, monitor=monitor)
+    check(eng._graph is not None, "the decode step was not captured")
+    eng._graph = timed = TimedGraph(eng._graph)
+    reset_counts(counters)
+    try:
+        with monitor:
+            finished = eng.run()
+    finally:
+        monitor.reader.close()
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    summary = eng.latency_summary()
+
+    n_attn, norms = per_forward(e.cfg)
+    want = {"flash_attention": n_attn * eng.prefills, "decode_attention": 0,
+            "paged_decode_attention": n_attn * eng.decode_forwards,
+            "rmsnorm": norms * (eng.prefills + eng.decode_forwards)}
+    log(f"serve: {eng.prefills} admission prefills, {eng.decode_forwards} graph replays; "
+        f"launches {launches}, expected {want}")
+    check(launches == want, f"serve launch counts {launches} != {want}")
+    check(len(finished) == SERVE_REQUESTS, f"{len(finished)} of {SERVE_REQUESTS} finished")
+    budgets = {i: a.params.max_new_tokens for i, a in enumerate(arrivals)}
+    check(all(len(r.output_tokens) == budgets[r.uid] for r in finished),
+          "a request did not emit its budget of tokens")
+    check(eng.blocks_in_use == 0, f"{eng.blocks_in_use} blocks still in use at drain")
+    check(not eng._state["block_tables"].any().item(), "a table row not back at block 0")
+    check(summary["dispatches_per_step_p50"] == 1, f"dispatches/step {summary}")
+    check(all(math.isfinite(v) for v in summary.values()), f"bad summary {summary}")
+    check(summary["joules_per_token"] > 0, "no energy attributed")
+
+    device = timed.device_ms()
+    gaps = [b - a for a, b in zip(timed.calls, timed.calls[1:])]
+    step_ms = 1e3 * sorted(gaps)[len(gaps) // 2]
+    replay_ms = sorted(device)[len(device) // 2]
+    keys = ("requests", "output_tokens", "tokens_per_sec", "ttft_ms", "ttft_p50_ms",
+            "ttft_p95_ms", "ttft_p99_ms", "tpot_ms", "tpot_p50_ms", "tpot_p95_ms",
+            "tpot_p99_ms", "ttlt_ms", "ttlt_p50_ms", "ttlt_p95_ms", "ttlt_p99_ms",
+            "kv_bytes_peak", "kv_bytes_worst_case", "steps_per_sec",
+            "dispatches_per_step_p50", "dispatches_per_step_p95", "pool_occupancy_p95",
+            "joules_total", "joules_per_request", "joules_per_token",
+            "power_samples_per_sec")
+    log("serve: " + json.dumps({"arch": ARCH, **SERVE, **{k: summary[k] for k in keys},
+                                "decode_replay_device_ms_p50": replay_ms,
+                                "decode_step_wall_ms_p50": step_ms,
+                                "decode_busy_share": replay_ms / step_ms}))
+    del eng
+    torch.cuda.empty_cache()
+    return launches
+
+
+def graph_phase(e):
+    """The same trace, every request greedy, with the decode step replayed
+    from its CUDA graph and run eagerly: the streams must be identical
+    (the same kernels at the same shapes)."""
+    import torch
+
+    arrivals = serve_arrivals(e.cfg, greedy_only=True)
+    streams, tpot = {}, {}
+    for graph in (True, False):
+        eng = serve(e, arrivals, cuda_graph=graph)
+        streams[graph] = {r.uid: r.output_tokens for r in eng.run()}
+        summary = eng.latency_summary()
+        tpot[graph] = {k: summary[k] for k in ("tpot_ms", "tpot_p50_ms", "tpot_p95_ms",
+                                                "ttft_ms", "steps_per_sec")}
+        del eng
+        torch.cuda.empty_cache()
+    same = sum(streams[True][u] == streams[False][u] for u in streams[True])
+    log("graph vs eager: " + json.dumps({"graph": tpot[True], "eager": tpot[False],
+                                         "identical_streams": f"{same}/{len(streams[True])}"}))
+    check(streams[True] == streams[False], "graph and eager streams differ")
+
+
+# ---------------------------------------------------------------------------
+# phase 6: kernels against plain versions on the full-width model
 # ---------------------------------------------------------------------------
 
 def parity_phase(e, dev):
     """Prefill + 4 greedy decode steps through the kernels and through the
     plain versions, both in bf16, each held against the plain versions run
-    on an fp32 copy of the same weights.  The kernels pass if they add no
-    more error than bf16 itself: the plain bf16 path's distance from fp32
-    is the floor (it rounds probabilities and activations to bf16, and 32
-    random layers amplify such differences), and the kernel path may be at
-    most twice as far.  Top-1 must match fp32 wherever fp32's top-2 margin
-    exceeds that floor."""
+    on an fp32 copy of the same weights; over a contiguous cache (B=1) and
+    over a paged one (B=4, each row's blocks shuffled through the pool).
+    The kernels pass if they add no more error than bf16 itself: the plain
+    bf16 path's distance from fp32 is the floor (it rounds probabilities
+    and activations to bf16, and 32 random layers amplify such
+    differences), and the kernel path may be at most twice as far.  Top-1
+    must match fp32 wherever fp32's top-2 margin exceeds that floor."""
     import torch
 
     from repro_torch.kernels import dispatch
+    from repro_torch.models.cache import blocks_per_slot
     from repro_torch.models.model import Model
 
     model = e.model
     g = torch.Generator(device=dev).manual_seed(1)
-    tokens = torch.randint(0, e.cfg.vocab_size, (BATCH, PROMPT), generator=g, device=dev)
-    steps = 4
+    steps, bs, paged_batch = 4, 16, 4
+    max_len = PROMPT + steps + 1
+    nb = blocks_per_slot(max_len, bs)
+    pool = paged_batch * nb + 9  # unnamed spare blocks besides the garbage block
+    tables = (torch.randperm(pool - 1, generator=g, device=dev)[:paged_batch * nb] + 1)
+    tables = tables.reshape(paged_batch, nb).to(torch.int32)
+    layouts = {
+        "contiguous": (BATCH, {}),
+        "paged": (paged_batch, dict(layout="paged", block_size=bs, num_blocks=pool)),
+    }
+    tokens = {name: torch.randint(0, e.cfg.vocab_size, (b, PROMPT), generator=g, device=dev)
+              for name, (b, _) in layouts.items()}
 
-    def run(m, dtype=None, forced=None):
-        cache = m.init_cache(BATCH, PROMPT + steps + 1, dtype)
-        logits, cache = m.prefill({"tokens": tokens}, cache)
+    def run(m, name, dtype=None, forced=None):
+        b, kw = layouts[name]
+        bt = tables if kw else None
+        cache = m.init_cache(b, max_len, dtype, **kw)
+        logits, cache = m.prefill({"tokens": tokens[name]}, cache, block_tables=bt)
         out, toks = [logits], []
         for i in range(steps):
             tok = logits.argmax(-1, keepdim=True) if forced is None else forced[i]
             toks.append(tok)
-            logits, cache = m.decode_step(tok, PROMPT + i, cache)
+            logits, cache = m.decode_step(tok, PROMPT + i, cache, block_tables=bt)
             out.append(logits)
         return torch.stack(out), toks
 
-    kern, toks = run(model)
+    results = {name: run(model, name) for name in layouts}
     with dispatch.use_backend("torch"):  # same inputs at every step
-        plain, _ = run(model, forced=toks)
+        plain = {name: run(model, name, forced=results[name][1])[0] for name in layouts}
         ref32 = Model(e.cfg.replace(dtype="float32", param_dtype="float32"), device=dev)
         with torch.no_grad():
             for p32, p in zip(ref32.parameters(), model.parameters()):
                 p32.copy_(p)
-        ref, _ = run(ref32, torch.float32, forced=toks)
+        ref = {name: run(ref32, name, torch.float32, forced=results[name][1])[0]
+               for name in layouts}
         del ref32
     torch.cuda.synchronize()
-    check(kern.shape == (steps + 1, BATCH, e.cfg.vocab_size), f"logits shape {kern.shape}")
-    check(all(torch.isfinite(t).all().item() for t in (kern, plain, ref)), "non-finite logits")
-    err_kern = (kern - ref).abs().max().item()
-    err_plain = (plain - ref).abs().max().item()
-    top2 = ref.topk(2, dim=-1).values
-    decided = (top2[..., 0] - top2[..., 1]) > err_plain
-    agree = kern.argmax(-1) == ref.argmax(-1)
-    log("parity: " + json.dumps({
-        "max_abs_logit_fp32": ref.abs().max().item(), "kernels_vs_fp32": err_kern,
-        "plain_bf16_vs_fp32": err_plain, "kernels_vs_plain": (kern - plain).abs().max().item(),
-        "top1_agree": f"{int(agree.sum())}/{agree.numel()}", "decided_rows": int(decided.sum())}))
-    check(err_kern <= 2 * err_plain, f"kernels {err_kern} from fp32, plain bf16 {err_plain}")
-    check(bool(agree[decided].all()), "top-1 differs from fp32 on a row with a clear margin")
+    for name, (b, _) in layouts.items():
+        kern = results[name][0]
+        check(kern.shape == (steps + 1, b, e.cfg.vocab_size), f"{name}: shape {kern.shape}")
+        check(all(torch.isfinite(t).all().item() for t in (kern, plain[name], ref[name])),
+              f"{name}: non-finite logits")
+        err_kern = (kern - ref[name]).abs().max().item()
+        err_plain = (plain[name] - ref[name]).abs().max().item()
+        top2 = ref[name].topk(2, dim=-1).values
+        decided = (top2[..., 0] - top2[..., 1]) > err_plain
+        agree = kern.argmax(-1) == ref[name].argmax(-1)
+        log(f"parity {name} B={b}: " + json.dumps({
+            "max_abs_logit_fp32": ref[name].abs().max().item(), "kernels_vs_fp32": err_kern,
+            "plain_bf16_vs_fp32": err_plain,
+            "kernels_vs_plain": (kern - plain[name]).abs().max().item(),
+            "top1_agree": f"{int(agree.sum())}/{agree.numel()}",
+            "decided_rows": int(decided.sum())}))
+        check(err_kern <= 2 * err_plain,
+              f"{name}: kernels {err_kern} from fp32, plain bf16 {err_plain}")
+        check(bool(agree[decided].all()),
+              f"{name}: top-1 differs from fp32 on a row with a clear margin")
 
 
 def main():
@@ -472,9 +704,7 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from repro_torch.kernels import _build
-    from repro_torch.kernels.decode_attention import ops as da_ops
-    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels import _build, dispatch
     from repro_torch.kernels.rmsnorm import ops as rn_ops
 
     torch.backends.cuda.matmul.allow_tf32 = False  # fp32 plain versions stay fp32
@@ -493,14 +723,17 @@ def main():
     torch.cuda.synchronize()
     log(f"compiled the Triton kernel in {time.perf_counter() - t0:.1f} s")
 
-    counters = {"flash_attention": fa_ops.flash_attention,
-                "decode_attention": da_ops.decode_attention,
-                "rmsnorm": rn_ops.rmsnorm}
+    counters = dispatch.KERNELS
     entries = kernel_phase(dev)
     e, launches = main_path_phase(counters)
-    for entry in entries:
-        entry["launches"] = launches[entry["name"]]
     profile_phase(e, dev)
+    serve_launches = serve_phase(e, counters)
+    for entry in entries:  # each path's count was read right after that path ran
+        k = entry["name"]
+        entry["launches"] = launches[k] + serve_launches[k]
+        entry["launches_by_path"] = {"measure": launches[k], "serve": serve_launches[k]}
+        check(entry["launches"] > 0, f"{k} never launched on its path")
+    graph_phase(e)
     parity_phase(e, dev)
 
     log(json.dumps({"kernels": entries}))

@@ -30,10 +30,15 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _FLASH = [_P] * 6 + [_I] * 8 + [_F, _F, _P]
 # q, k, v, q_pos, k_pos, out, B, L, Hkv, G, D, window, softcap, scale, stream
 _DECODE = [_P] * 6 + [_I] * 6 + [_F, _F, _P]
+# q, k_pool, v_pool, tables, q_pos, out, B, nb, bs, Hkv, G, D, window,
+# softcap, scale, stream
+_PAGED = [_P] * 6 + [_I] * 7 + [_F, _F, _P]
 SIGNATURES = {
     "flash_attention": {"flash_attention_bf16": _FLASH, "flash_attention_f32": _FLASH},
     "decode_attention": {"decode_attention_bf16": _DECODE,
                          "decode_attention_f32": _DECODE},
+    "paged_decode_attention": {"paged_decode_attention_bf16": _PAGED,
+                               "paged_decode_attention_f32": _PAGED},
 }
 
 

@@ -42,15 +42,17 @@ __device__ __forceinline__ void store16(float* dst, const uint4& raw) {
             make_float4(to_float(x[i]), to_float(x[i + 1]), to_float(x[i + 2]), to_float(x[i + 3]));
 }
 
-// Stage ROWS rows of D elements of K and of V (row stride `stride`
-// elements) into fp32 shared tiles with rows padded to DP floats.  16-byte
-// loads, up to 4 per tensor in flight per thread, so a block keeps enough
-// bytes in flight to stream the cache; rows at or past `valid` are zero.
-// Needs 16-byte aligned rows: D * sizeof(T) % 16 == 0 and aligned base
-// pointers (the wrappers check both).
-template <typename T, int D, int DP, int ROWS, int NTHREADS>
-__device__ __forceinline__ void stage_kv(float* k_dst, float* v_dst, const T* k_src,
-                                         const T* v_src, size_t stride, int valid) {
+// Stage ROWS rows of D elements of K and of V into fp32 shared tiles with
+// rows padded to DP floats; row r starts `row_offset(r)` elements past the
+// sources.  16-byte loads, up to 4 per tensor in flight per thread, so a
+// block keeps enough bytes in flight to stream the cache; rows at or past
+// `valid` are zero and never read.  Needs 16-byte aligned rows:
+// D * sizeof(T) % 16 == 0 and aligned base pointers (the wrappers check
+// both).
+template <typename T, int D, int DP, int ROWS, int NTHREADS, typename RowOffset>
+__device__ __forceinline__ void stage_kv_rows(float* k_dst, float* v_dst, const T* k_src,
+                                              const T* v_src, RowOffset row_offset,
+                                              int valid) {
     constexpr int VEC = 16 / int(sizeof(T));
     static_assert(D % VEC == 0, "a row must be whole 16-byte vectors");
     constexpr int NV = D / VEC, TOTAL = ROWS * NV;
@@ -63,7 +65,7 @@ __device__ __forceinline__ void stage_kv(float* k_dst, float* v_dst, const T* k_
         for (int j = 0; j < BATCH; ++j) {
             const int e = threadIdx.x + (i0 + j) * NTHREADS;
             const bool in = i0 + j < ITER && e < TOTAL && e / NV < valid;
-            const size_t off = size_t(e / NV) * stride + (e % NV) * VEC;
+            const size_t off = in ? row_offset(e / NV) + (e % NV) * VEC : 0;
             rk[j] = in ? __ldg(reinterpret_cast<const uint4*>(k_src + off)) : make_uint4(0u, 0u, 0u, 0u);
             rv[j] = in ? __ldg(reinterpret_cast<const uint4*>(v_src + off)) : make_uint4(0u, 0u, 0u, 0u);
         }
@@ -77,6 +79,85 @@ __device__ __forceinline__ void stage_kv(float* k_dst, float* v_dst, const T* k_
             }
         }
     }
+}
+
+// stage_kv_rows over rows `stride` elements apart (a contiguous cache).
+template <typename T, int D, int DP, int ROWS, int NTHREADS>
+__device__ __forceinline__ void stage_kv(float* k_dst, float* v_dst, const T* k_src,
+                                         const T* v_src, size_t stride, int valid) {
+    stage_kv_rows<T, D, DP, ROWS, NTHREADS>(
+        k_dst, v_dst, k_src, v_src, [stride](int r) { return size_t(r) * stride; }, valid);
+}
+
+// One K/V tile of the decode kernels (K3 and K4), after staging: the G x
+// BK scores as (head, key) pairs, one warp per head for the online-softmax
+// update of (m, l) and the rescale factor alpha, then P.V into each
+// thread's fixed (head, column) accumulators.  `visible(c)` says whether
+// staged key c counts.  Shared layout: q_s G x (D+4), k_s and v_s
+// BK x (D+4), s_s G x (BK+4), m_s, l_s, a_s G each.  Ends synchronised,
+// so the caller may restage at once.
+template <int D, int BK, int NTHREADS, int NA, typename Visible>
+__device__ __forceinline__ void decode_tile(const float* q_s, const float* k_s, const float* v_s,
+                                            float* s_s, float* m_s, float* l_s, float* a_s,
+                                            float (&acc)[NA], int G, float scale, float softcap,
+                                            Visible visible) {
+    static_assert(BK == 64, "the softmax pass reads two keys per lane");
+    constexpr int DP = D + 4;
+    constexpr int SP = BK + 4;
+    const int tid = threadIdx.x;
+    const int warp = tid / 32, ln = tid % 32;
+    const int GD = G * D;
+
+    for (int e = tid; e < G * BK; e += NTHREADS) {
+        const int g = e / BK, c = e % BK;
+        float s = 0.f;
+#pragma unroll 8
+        for (int d = 0; d < D; d += 4)
+            s = dot4(*reinterpret_cast<const float4*>(&q_s[g * DP + d]),
+                     *reinterpret_cast<const float4*>(&k_s[c * DP + d]), s);
+        s *= scale;
+        if (softcap > 0.f) s = tanhf(s / softcap) * softcap;
+        s_s[g * SP + c] = visible(c) ? s : -INFINITY;
+    }
+    __syncthreads();
+
+    for (int g = warp; g < G; g += NTHREADS / 32) {
+        const float m_prev = m_s[g];
+        const float x0 = s_s[g * SP + ln], x1 = s_s[g * SP + ln + 32];
+        float mx = fmaxf(x0, x1);
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+        const float m_new = fmaxf(m_prev, mx);
+        const float p0 = expf(x0 - m_new), p1 = expf(x1 - m_new);
+        s_s[g * SP + ln] = p0;
+        s_s[g * SP + ln + 32] = p1;
+        float sum = p0 + p1;
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+            sum += __shfl_xor_sync(0xffffffffu, sum, off);
+        if (ln == 0) {
+            const float alpha = expf(m_prev - m_new);
+            a_s[g] = alpha;
+            l_s[g] = l_s[g] * alpha + sum;
+            m_s[g] = m_new;
+        }
+    }
+    __syncthreads();
+
+#pragma unroll
+    for (int a = 0; a < NA; ++a) {
+        const int e = tid + NTHREADS * a;
+        if (e < GD) {
+            const int g = e / D, d = e % D;
+            const float* p = &s_s[g * SP];
+            float x = acc[a] * a_s[g];
+#pragma unroll 8
+            for (int c = 0; c < BK; ++c) x = fmaf(p[c], v_s[c * DP + d], x);
+            acc[a] = x;
+        }
+    }
+    __syncthreads();
 }
 
 // Key visibility from absolute positions: -1 marks an empty slot; causal

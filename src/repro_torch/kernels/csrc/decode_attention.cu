@@ -46,7 +46,6 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const int* __restrict__ k_pos, T* __restrict__ o, int L,
                         int Hkv, int G, int window, float softcap, float scale) {
     static_assert(D % 4 == 0, "head dim must be a multiple of 4");
-    static_assert(BK == 64, "the softmax pass reads two keys per lane");
     constexpr int DP = D + 4;
     constexpr int SP = BK + 4;
     constexpr int NA = (GMAX * D + NTHREADS - 1) / NTHREADS;  // outputs per thread
@@ -62,7 +61,6 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     int* kp_s = reinterpret_cast<int*>(a_s + G);   // BK key positions
 
     const int tid = threadIdx.x;
-    const int warp = tid / 32, ln = tid % 32;
     const int h = blockIdx.x, b = blockIdx.y;
     const size_t kv_stride = size_t(Hkv) * D;
     // the G query heads of KV head h are heads h*G .. h*G+G-1: contiguous
@@ -96,57 +94,8 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         stage_kv<T, D, DP, BK, NTHREADS>(k_s, v_s, kb + size_t(t0) * kv_stride,
                                          vb + size_t(t0) * kv_stride, kv_stride, L - t0);
         __syncthreads();
-
-        for (int e = tid; e < G * BK; e += NTHREADS) {
-            const int g = e / BK, c = e % BK;
-            float s = 0.f;
-#pragma unroll 8
-            for (int d = 0; d < D; d += 4)
-                s = dot4(*reinterpret_cast<const float4*>(&q_s[g * DP + d]),
-                         *reinterpret_cast<const float4*>(&k_s[c * DP + d]), s);
-            s *= scale;
-            if (softcap > 0.f) s = tanhf(s / softcap) * softcap;
-            s_s[g * SP + c] = key_visible(qp, kp_s[c], true, window) ? s : -INFINITY;
-        }
-        __syncthreads();
-
-        for (int g = warp; g < G; g += NTHREADS / 32) {
-            const float m_prev = m_s[g];
-            const float x0 = s_s[g * SP + ln], x1 = s_s[g * SP + ln + 32];
-            float mx = fmaxf(x0, x1);
-#pragma unroll
-            for (int off = 16; off > 0; off >>= 1)
-                mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-            const float m_new = fmaxf(m_prev, mx);
-            const float p0 = expf(x0 - m_new), p1 = expf(x1 - m_new);
-            s_s[g * SP + ln] = p0;
-            s_s[g * SP + ln + 32] = p1;
-            float sum = p0 + p1;
-#pragma unroll
-            for (int off = 16; off > 0; off >>= 1)
-                sum += __shfl_xor_sync(0xffffffffu, sum, off);
-            if (ln == 0) {
-                const float alpha = expf(m_prev - m_new);
-                a_s[g] = alpha;
-                l_s[g] = l_s[g] * alpha + sum;
-                m_s[g] = m_new;
-            }
-        }
-        __syncthreads();
-
-#pragma unroll
-        for (int a = 0; a < NA; ++a) {
-            const int e = tid + NTHREADS * a;
-            if (e < GD) {
-                const int g = e / D, d = e % D;
-                const float* p = &s_s[g * SP];
-                float x = acc[a] * a_s[g];
-#pragma unroll 8
-                for (int c = 0; c < BK; ++c) x = fmaf(p[c], v_s[c * DP + d], x);
-                acc[a] = x;
-            }
-        }
-        __syncthreads();
+        decode_tile<D, BK, NTHREADS>(q_s, k_s, v_s, s_s, m_s, l_s, a_s, acc, G, scale, softcap,
+                                     [&](int c) { return key_visible(qp, kp_s[c], true, window); });
     }
 
 #pragma unroll

@@ -1,7 +1,10 @@
-"""Wrapper of the CUDA decode-attention kernel (``csrc/decode_attention.cu``).
+"""Wrappers of the CUDA decode-attention kernels: contiguous caches
+(``csrc/decode_attention.cu``) and the paged block pool
+(``csrc/paged_decode_attention.cu``).
 
 A CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
-version in ``ref.py``.  Inference only.
+version in ``ref.py``.  Each wrapper launches on the current stream and
+never synchronises, so a CUDA graph can capture it.  Inference only.
 """
 
 from __future__ import annotations
@@ -16,6 +19,8 @@ from repro_torch.kernels.decode_attention import ref
 HEAD_DIMS = (8, 16, 32, 64, 80, 128, 256)
 MAX_GROUP = 16  # query heads per KV head the kernel takes
 _FN = {torch.bfloat16: "decode_attention_bf16", torch.float32: "decode_attention_f32"}
+_PAGED_FN = {torch.bfloat16: "paged_decode_attention_bf16",
+             torch.float32: "paged_decode_attention_f32"}
 
 
 def _check(q, k_cache, v_cache, q_positions, k_positions):
@@ -39,15 +44,50 @@ def _check(q, k_cache, v_cache, q_positions, k_positions):
     if k_cache.shape[0] != B or k_cache.shape[3] != D or Hkv == 0 or Hq % Hkv:
         raise ValueError(f"q {tuple(q.shape)} and cache {tuple(k_cache.shape)} "
                          f"do not form a GQA pair")
+    _check_heads(Hq, Hkv, D)
+    if tuple(q_positions.shape) != (B, 1) or tuple(k_positions.shape) != (B, L):
+        raise ValueError("positions must be (B, 1) and (B, L)")
+    if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
+        raise ValueError("the cache must start on a 16-byte boundary (16-byte loads)")
+
+
+def _check_heads(Hq, Hkv, D):
     if Hq // Hkv > MAX_GROUP:
         raise ValueError(f"{Hq // Hkv} query heads per KV head; the kernel takes "
                          f"at most {MAX_GROUP}")
     if D not in HEAD_DIMS:
         raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
-    if tuple(q_positions.shape) != (B, 1) or tuple(k_positions.shape) != (B, L):
-        raise ValueError("positions must be (B, 1) and (B, L)")
-    if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
-        raise ValueError("the cache must start on a 16-byte boundary (16-byte loads)")
+
+
+def _check_paged(q, k_pool, v_pool, block_tables, q_positions):
+    tensors = {"q": q, "k_pool": k_pool, "v_pool": v_pool,
+               "block_tables": block_tables, "q_positions": q_positions}
+    for name, t in tensors.items():
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if q.dtype not in _PAGED_FN or k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
+        raise TypeError(f"q and the pool must share one dtype of {list(_PAGED_FN)}, "
+                        f"got {q.dtype}/{k_pool.dtype}/{v_pool.dtype}")
+    if block_tables.dtype != torch.int32 or q_positions.dtype != torch.int32:
+        raise TypeError("block tables and positions must be int32")
+    if q.dim() != 4 or q.shape[1] != 1 or k_pool.dim() != 4 or k_pool.shape != v_pool.shape:
+        raise ValueError(f"want q (B,1,Hq,D), pools (N,bs,Hkv,D); got "
+                         f"{tuple(q.shape)}, {tuple(k_pool.shape)}")
+    B, _, Hq, D = q.shape
+    N, bs, Hkv = k_pool.shape[:3]
+    if N == 0 or bs == 0 or k_pool.shape[3] != D or Hkv == 0 or Hq % Hkv:
+        raise ValueError(f"q {tuple(q.shape)} and pool {tuple(k_pool.shape)} "
+                         f"do not form a GQA pair")
+    _check_heads(Hq, Hkv, D)
+    if block_tables.dim() != 2 or block_tables.shape[0] != B or block_tables.shape[1] == 0:
+        raise ValueError(f"block tables must be (B, nb) with B={B}, got "
+                         f"{tuple(block_tables.shape)}")
+    if tuple(q_positions.shape) != (B, 1):
+        raise ValueError("q_positions must be (B, 1)")
+    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError("the pools must start on a 16-byte boundary (16-byte loads)")
 
 
 def decode_attention(q, k_cache, v_cache, *, q_positions, k_positions,
@@ -73,3 +113,32 @@ def decode_attention(q, k_cache, v_cache, *, q_positions, k_positions,
 
 
 decode_attention.launches = 0
+
+
+def paged_decode_attention(q, k_pool, v_pool, *, block_tables, q_positions,
+                           window=0, softcap=0.0):
+    """Attention of one query token per row over the block pool, key j of
+    row b at ``pool[block_tables[b, j // bs], j % bs]``.  Table entries
+    must name blocks of the pool: the kernel reads through them unchecked
+    (checking would need the tables on the host)."""
+    if not q.is_cuda:
+        return ref.paged_decode_attention(q, k_pool, v_pool, block_tables=block_tables,
+                                          q_positions=q_positions, window=window,
+                                          softcap=softcap)
+    _check_paged(q, k_pool, v_pool, block_tables, q_positions)
+    B, _, Hq, D = q.shape
+    bs, Hkv = k_pool.shape[1], k_pool.shape[2]
+    out = torch.empty_like(q)
+    launcher = _build.load()[_PAGED_FN[q.dtype]]
+    status = launcher(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), block_tables.data_ptr(),
+        q_positions.data_ptr(), out.data_ptr(), B, block_tables.shape[1], bs, Hkv,
+        Hq // Hkv, D, int(window), float(softcap), 1.0 / math.sqrt(D),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if status != 0:
+        raise RuntimeError(f"paged_decode_attention launch failed: CUDA error {status}")
+    paged_decode_attention.launches += 1
+    return out
+
+
+paged_decode_attention.launches = 0

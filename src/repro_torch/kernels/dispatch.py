@@ -68,7 +68,23 @@ def decode_attention(q, k_cache, v_cache, *, q_positions, k_positions,
     return decode_ref.decode_attention(q, k_cache, v_cache, **kw)
 
 
+def paged_decode_attention(q, k_pool, v_pool, *, block_tables, q_positions,
+                           window=0, softcap=0.0):
+    kw = dict(block_tables=block_tables, q_positions=q_positions, window=window,
+              softcap=softcap)
+    if _kernel(q):
+        return decode_ops.paged_decode_attention(q, k_pool, v_pool, **kw)
+    return decode_ref.paged_decode_attention(q, k_pool, v_pool, **kw)
+
+
 def rmsnorm(x, scale, eps=1e-6):
     if _kernel(x):
         return rmsnorm_ops.rmsnorm(x, scale, eps=eps)
     return rmsnorm_ref.rmsnorm(x, scale, eps=eps)
+
+
+# every kernel wrapper, each with its ``launches`` count
+KERNELS = {"flash_attention": flash_ops.flash_attention,
+           "decode_attention": decode_ops.decode_attention,
+           "paged_decode_attention": decode_ops.paged_decode_attention,
+           "rmsnorm": rmsnorm_ops.rmsnorm}

@@ -1,5 +1,5 @@
-"""Grouped-query attention for prefill and decode over contiguous caches,
-the counterpart of ``repro/models/attention.py``.
+"""Grouped-query attention for prefill and decode over contiguous caches
+and paged block pools, the counterpart of ``repro/models/attention.py``.
 
 Projections are plain matrix products; the attention itself goes through
 ``repro_torch.kernels.dispatch``, which hands CUDA tensors to the Hopper
@@ -77,8 +77,12 @@ def apply_attention_prefill(
     *,
     rope,                      # layers.rope_tables(positions, ...)
     window: int = 0,
+    block_tables: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Dict]:
-    """Causal attention over the prompt; returns output + filled KV cache."""
+    """Causal attention over the prompt; returns output + filled KV cache.
+    The attention does not depend on the layout; only the cache write does:
+    a paged entry (``kp`` in the dict) takes the prompt's K/V into the pool
+    blocks that ``block_tables`` names."""
     q, k, v = _project_qkv(p, x)
     q = apply_rope(q, rope)
     k = apply_rope(k, rope)
@@ -87,7 +91,10 @@ def apply_attention_prefill(
         q_positions=positions, k_positions=positions,
         causal=True, window=window, softcap=cfg.logit_softcap,
     )
-    kv_cache = cache_lib.fill_attn_cache(kv_cache, k, v, positions)
+    if "kp" in kv_cache:
+        kv_cache = cache_lib.fill_paged_cache(kv_cache, k, v, block_tables)
+    else:
+        kv_cache = cache_lib.fill_attn_cache(kv_cache, k, v, positions)
     return _out_proj(p, o), kv_cache
 
 
@@ -100,12 +107,22 @@ def apply_attention_decode(
     *,
     rope,                      # layers.rope_tables(positions[:, None], ...)
     window: int = 0,
+    block_tables: Optional[torch.Tensor] = None,
     update_mask: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Dict]:
     pos_b = positions[:, None]
     q, k_new, v_new = _project_qkv(p, x)
     q = apply_rope(q, rope)
     k_new = apply_rope(k_new, rope)
+    if "kp" in kv_cache:  # paged: append through the table, attend on the pool
+        kv_cache = cache_lib.update_paged_cache(kv_cache, k_new, v_new, positions,
+                                                block_tables, update_mask)
+        o = dispatch.paged_decode_attention(
+            q.contiguous(), kv_cache["kp"], kv_cache["vp"],
+            block_tables=block_tables, q_positions=pos_b.contiguous(),
+            window=window, softcap=cfg.logit_softcap,
+        )
+        return _out_proj(p, o), kv_cache
     kv_cache = cache_lib.update_attn_cache(kv_cache, k_new, v_new, positions,
                                            update_mask)
     o = dispatch.decode_attention(

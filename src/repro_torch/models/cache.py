@@ -1,13 +1,28 @@
-"""Decode-time KV caches, contiguous layout: the counterpart of the
-contiguous and ring-buffer part of ``repro/models/cache.py``.
+"""Decode-time KV caches: the counterpart of the contiguous, ring-buffer
+and paged parts of ``repro/models/cache.py``.
 
-A layer's entry is a dict with the reference's leaves: ``k``/``v``
-``(batch, L, H, D)``, ``pos`` ``(batch, L)`` int32 absolute key positions
-(-1 = unfilled) and ``ring`` (a 0-d int32 flag, 1 when the entry is a
-sliding-window ring shorter than the context), so the byte counts of the
-two packages agree.  Unlike the reference's pure functions, the fill and
-update functions write into the entry in place and return it: a decode
-step then moves one token's K/V instead of copying the whole cache.
+Two layouts for full-context attention KV, with the reference's leaves so
+the byte counts of the two packages agree:
+
+* **contiguous** — a layer's entry holds ``k``/``v`` ``(batch, L, H, D)``,
+  ``pos`` ``(batch, L)`` int32 absolute key positions (-1 = unfilled) and
+  ``ring`` (a 0-d int32 flag, 1 when the entry is a sliding-window ring
+  shorter than the context).
+* **paged** — a layer's entry holds a global block pool ``kp``/``vp``
+  ``(num_blocks, block_size, H, D)`` shared by every slot and addressed
+  through an int32 block table ``(batch, blocks_per_slot)``: the token at
+  absolute position ``p`` of row ``b`` lives at
+  ``pool[table[b, p // bs], p % bs]``.  Block 0 is the reserved garbage
+  block: idle rows keep writing their frozen token there and freed rows
+  point their whole table row back at it.
+
+Unlike the reference's pure functions, the fill and update functions
+write into the entry in place and return it: a decode step then moves one
+token's K/V instead of copying the whole cache, and the tensors a CUDA
+graph captured stay the ones the next admission fills.
+
+``BlockPool`` is the host-side bookkeeping of the paged layout (the LIFO
+free stack).
 """
 
 from __future__ import annotations
@@ -18,6 +33,48 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
+
+GARBAGE_BLOCK = 0  # pool block reserved for idle-slot writes; never allocated
+
+
+def blocks_per_slot(max_len: int, block_size: int) -> int:
+    """Block-table width needed to address ``max_len`` tokens."""
+    return -(-max_len // block_size)
+
+
+def default_num_blocks(batch: int, max_len: int, block_size: int) -> int:
+    """Worst-case pool: every slot full, plus the reserved garbage block."""
+    return batch * blocks_per_slot(max_len, block_size) + 1
+
+
+class BlockPool:
+    """Host-side bookkeeping of the paged block pool: a LIFO free stack over
+    blocks ``1..num_blocks-1`` (block 0 is the garbage block).  A block is
+    either on the stack or owned by one live request."""
+
+    def __init__(self, num_blocks: int):
+        self.num_blocks = num_blocks
+        self.free_stack: List[int] = list(range(num_blocks - 1, 0, -1))
+
+    @property
+    def available(self) -> int:
+        """Blocks an admission may claim."""
+        return len(self.free_stack)
+
+    @property
+    def in_use(self) -> int:
+        """Blocks owned by live requests."""
+        return max(self.num_blocks - 1, 0) - self.available
+
+    def allocate(self, n: int) -> List[int]:
+        if n > self.available:
+            raise ValueError(f"allocate({n}) with only {self.available} blocks available")
+        return [self.free_stack.pop() for _ in range(n)]
+
+    def free(self, blocks: List[int]) -> None:
+        """Return a request's blocks, last first, so the next allocation
+        hands them out again in table order."""
+        self.free_stack.extend(reversed(blocks))
 
 
 def init_attn_cache(batch: int, max_len: int, n_kv: int, head_dim: int, dtype,
@@ -81,11 +138,68 @@ def update_attn_cache(cache: Dict, k_new: torch.Tensor, v_new: torch.Tensor,
     return cache
 
 
+def init_paged_attn_cache(num_blocks: int, block_size: int, n_kv: int, head_dim: int,
+                          dtype, device) -> Dict[str, torch.Tensor]:
+    shape = (num_blocks, block_size, n_kv, head_dim)
+    return {"kp": torch.zeros(shape, dtype=dtype, device=device),
+            "vp": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def fill_paged_cache(cache: Dict, k: torch.Tensor, v: torch.Tensor,
+                     block_tables: torch.Tensor) -> Dict:
+    """Write a full prefill's K/V (B, S, H, D) into pool blocks.
+
+    The prompt occupies absolute positions 0..S-1, so row ``b`` fills table
+    entries ``0..ceil(S/bs)-1`` of ``block_tables[b]`` in order.  S is
+    padded up to whole blocks with zeros, as the reference does, so the
+    pool holds the same bytes block for block; the pad lands at positions
+    >= S, which causal masking hides.
+    """
+    B, S = k.shape[:2]
+    bs = cache["kp"].shape[1]
+    nb = blocks_per_slot(S, bs)
+    pad = nb * bs - S
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    idx = block_tables[:, :nb].reshape(-1).long()
+    cache["kp"][idx] = k.reshape(B * nb, bs, *k.shape[2:]).to(cache["kp"].dtype)
+    cache["vp"][idx] = v.reshape(B * nb, bs, *v.shape[2:]).to(cache["vp"].dtype)
+    return cache
+
+
+def update_paged_cache(cache: Dict, k_new: torch.Tensor, v_new: torch.Tensor,
+                       positions: torch.Tensor, block_tables: torch.Tensor,
+                       update_mask: Optional[torch.Tensor] = None) -> Dict:
+    """Write one decoded token's K/V (B, 1, H, D) at per-row ``positions``
+    (B,) through the block tables.  ``update_mask`` (B,) bool routes
+    masked-off rows to the garbage block whatever their table row says."""
+    B = block_tables.shape[0]
+    positions = positions.to(torch.int32).expand(B)
+    bs = cache["kp"].shape[1]
+    rows = torch.arange(B, device=positions.device)
+    blk = block_tables[rows, (positions // bs).long()]
+    if update_mask is not None:
+        blk = torch.where(update_mask, blk, GARBAGE_BLOCK)
+    blk, off = blk.long(), (positions % bs).long()
+    cache["kp"][blk, off] = k_new[:, 0].to(cache["kp"].dtype)
+    cache["vp"][blk, off] = v_new[:, 0].to(cache["vp"].dtype)
+    return cache
+
+
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
-                     dtype, device) -> Dict[str, torch.Tensor]:
+                     dtype, device, *, layout: str = "contiguous",
+                     block_size: int = 16, num_blocks: int = 0) -> Dict[str, torch.Tensor]:
+    """One layer's cache entry.  ``layout="paged"`` gives full-context
+    attention a block pool of ``num_blocks`` x ``block_size`` tokens (0:
+    the worst case for ``batch`` rows of ``max_len``)."""
     if kind == "ffn":
         return {}
     if kind == "attn":
+        if layout == "paged":
+            n = num_blocks or default_num_blocks(batch, max_len, block_size)
+            return init_paged_attn_cache(n, block_size, cfg.num_kv_heads,
+                                         cfg.resolved_head_dim, dtype, device)
         return init_attn_cache(batch, max_len, cfg.num_kv_heads,
                                cfg.resolved_head_dim, dtype, device)
     raise NotImplementedError(f"no cache for block kind {kind!r} in the port yet")

@@ -61,11 +61,13 @@ class Block(nn.Module):
 
 
 def _apply_block_seq(p: Block, cfg: ModelConfig, x: torch.Tensor,
-                     positions: torch.Tensor, rope, entry: Dict) -> torch.Tensor:
+                     positions: torch.Tensor, rope, entry: Dict,
+                     block_tables: Optional[torch.Tensor]) -> torch.Tensor:
     if p.kind == "ffn":
         return x + apply_mlp(p.mlp, apply_norm(p.norm, x, cfg.norm_eps), cfg.mlp_act)
     h = apply_norm(p.norm1, x, cfg.norm_eps)
-    a, _ = attn_lib.apply_attention_prefill(p.attn, h, cfg, positions, entry, rope=rope)
+    a, _ = attn_lib.apply_attention_prefill(p.attn, h, cfg, positions, entry, rope=rope,
+                                            block_tables=block_tables)
     mlp_in = h if cfg.parallel_block else None
     x = x + a
     if mlp_in is None:
@@ -75,11 +77,13 @@ def _apply_block_seq(p: Block, cfg: ModelConfig, x: torch.Tensor,
 
 def _apply_block_decode(p: Block, cfg: ModelConfig, x: torch.Tensor,
                         positions: torch.Tensor, rope, entry: Dict,
+                        block_tables: Optional[torch.Tensor],
                         update_mask: Optional[torch.Tensor]) -> torch.Tensor:
     if p.kind == "ffn":
         return x + apply_mlp(p.mlp, apply_norm(p.norm, x, cfg.norm_eps), cfg.mlp_act)
     h = apply_norm(p.norm1, x, cfg.norm_eps)
     a, _ = attn_lib.apply_attention_decode(p.attn, h, cfg, positions, entry, rope=rope,
+                                           block_tables=block_tables,
                                            update_mask=update_mask)
     mlp_in = h if cfg.parallel_block else None
     x = x + a
@@ -112,17 +116,28 @@ class Model(nn.Module):
     def _head(self) -> Embedding:
         return self.lm_head if hasattr(self, "lm_head") else self.embed
 
-    def init_cache(self, batch: int, max_len: int, dtype=None) -> Cache:
+    def init_cache(self, batch: int, max_len: int, dtype=None, *,
+                   layout: str = "contiguous", block_size: int = 16,
+                   num_blocks: int = 0) -> Cache:
+        """One cache entry per layer.  ``layout="paged"`` gives attention
+        layers a global block pool (``num_blocks`` x ``block_size``; 0: the
+        worst case) that the caller addresses through block tables."""
+        if layout not in ("contiguous", "paged"):
+            raise ValueError(f"layout {layout!r} is not 'contiguous' or 'paged'")
         dtype = dtype or _dtype(self.cfg.dtype)
         return [cache_lib.init_block_cache(self.cfg, blk.kind, batch, max_len,
-                                           dtype, self.device)
+                                           dtype, self.device, layout=layout,
+                                           block_size=block_size, num_blocks=num_blocks)
                 for blk in self.layers]
 
     @torch.no_grad()
-    def prefill(self, batch: Dict[str, torch.Tensor], cache: Cache
+    def prefill(self, batch: Dict[str, torch.Tensor], cache: Cache,
+                block_tables: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Cache]:
         """Process the prompt ``batch["tokens"]`` (B, S), fill ``cache`` in
-        place; returns the last position's fp32 logits (B, vocab)."""
+        place; returns the last position's fp32 logits (B, vocab).  A paged
+        cache takes ``block_tables`` (B, blocks_per_slot) int32: the pool
+        blocks each row's prompt fills."""
         cfg = self.cfg
         tokens = batch["tokens"]
         B, S = tokens.shape
@@ -130,18 +145,22 @@ class Model(nn.Module):
         positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S).contiguous()
         rope = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
         for blk, entry in zip(self.layers, cache):
-            x = _apply_block_seq(blk, cfg, x, positions, rope, entry)
+            x = _apply_block_seq(blk, cfg, x, positions, rope, entry, block_tables)
         x = apply_norm(self.final_norm, x, cfg.norm_eps)
         logits = unembed(self._head(), x[:, -1:], cfg.logit_softcap)[:, 0]
         return logits, cache
 
     @torch.no_grad()
     def decode_step(self, token: torch.Tensor, position, cache: Cache,
+                    block_tables: Optional[torch.Tensor] = None,
                     update_mask: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, Cache]:
         """One decode step.  token (B, 1); position an int or (B,) tensor.
-        ``update_mask`` (B,) bool freezes the cache writes of masked-off
-        rows.  Updates ``cache`` in place; returns fp32 logits (B, vocab)."""
+        ``block_tables`` (B, blocks_per_slot) int32 is required for a paged
+        cache.  ``update_mask`` (B,) bool freezes the cache writes of
+        masked-off rows.  Updates ``cache`` in place; returns fp32 logits
+        (B, vocab).  Nothing here waits for the device, so a CUDA graph can
+        capture the step."""
         cfg = self.cfg
         B = token.shape[0]
         positions = torch.as_tensor(position, dtype=torch.int32,
@@ -149,7 +168,8 @@ class Model(nn.Module):
         x = embed_tokens(self.embed, token, cfg.emb_scale, cfg.d_model)
         rope = rope_tables(positions[:, None], cfg.resolved_head_dim, cfg.rope_theta)
         for blk, entry in zip(self.layers, cache):
-            x = _apply_block_decode(blk, cfg, x, positions, rope, entry, update_mask)
+            x = _apply_block_decode(blk, cfg, x, positions, rope, entry, block_tables,
+                                    update_mask)
         x = apply_norm(self.final_norm, x, cfg.norm_eps)
         logits = unembed(self._head(), x, cfg.logit_softcap)[:, 0]
         return logits, cache

@@ -32,6 +32,8 @@ FLASH_SHAPES = [(128, 4, 4, 64), (128, 8, 2, 64), (256, 4, 1, 128), (96, 4, 2, 8
 FLASH_MASKS = [(True, 0), (True, 32), (False, 0)]
 DECODE_SHAPES = [(256, 8, 2, 64), (512, 4, 4, 128), (128, 16, 1, 64), (96, 4, 2, 80),
                  (545, 32, 8, 128), (300, 12, 1, 256)]
+# (G, D, bs) of the paged sweep; Hkv = 2
+PAGED_SHAPES = [(g, d, bs) for g in (1, 4, 12) for d in (64, 128) for bs in (16, 32)]
 
 
 @pytest.fixture
@@ -127,6 +129,102 @@ def test_decode_kernel_ring_softcap_and_empty_row(cuda):
     got = da_ops.decode_attention(q, kc, vc, **kw)
     assert torch.all(got[0] == 0)
     _assert(got, da_ref.decode_attention(q, kc, vc, **kw), "float32")
+
+
+def _paged_inputs(G, D, bs, q_pos, nb, window=0):
+    """Rows with ragged q_pos over a shuffled pool; a row with q_pos 0 and
+    an all-garbage table among them, and unused entries at block 0."""
+    B, Hkv = len(q_pos), 2
+    rng = _rng("paged", G, D, bs, tuple(q_pos), nb, window)
+    N = B * nb + 5
+    perm = rng.permutation(np.arange(1, N))
+    tables = np.zeros((B, nb), np.int32)
+    ptr = 0
+    for b, p in enumerate(q_pos):
+        need = 0 if b == 0 else p // bs + 1
+        tables[b, :need] = perm[ptr:ptr + need]
+        ptr += need
+    return (rng.standard_normal((B, 1, G * Hkv, D), np.float32),
+            rng.standard_normal((N, bs, Hkv, D), np.float32),
+            rng.standard_normal((N, bs, Hkv, D), np.float32),
+            tables, np.asarray(q_pos)[:, None])
+
+
+@pytest.mark.parametrize("G,D,bs", PAGED_SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_paged_kernel_matches_plain(cuda, G, D, bs, dtype):
+    q, kp, vp, tables, qp = _paged_inputs(G, D, bs, [0, 5, 63, 200, 17], nb=16)
+    q, kp, vp = _on(cuda, dtype, q, kp, vp)
+    tables, qp = _ints(cuda, tables, qp)
+    kw = dict(block_tables=tables, q_positions=qp, window=0, softcap=0.0)
+    n = da_ops.paged_decode_attention.launches
+    got = da_ops.paged_decode_attention(q, kp, vp, **kw)
+    assert da_ops.paged_decode_attention.launches == n + 1
+    _assert(got, da_ref.paged_decode_attention(q, kp, vp, **kw), dtype)
+
+
+@pytest.mark.parametrize("window,softcap", [(24, 0.0), (0, 30.0), (70, 30.0), (1, 0.0)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_paged_kernel_window_and_softcap(cuda, window, softcap, dtype):
+    q, kp, vp, tables, qp = _paged_inputs(8, 128, 16, [0, 9, 130, 255, 64, 300], nb=20,
+                                          window=window)
+    q, kp, vp = _on(cuda, dtype, q, kp, vp)
+    tables, qp = _ints(cuda, tables, qp)
+    kw = dict(block_tables=tables, q_positions=qp, window=window, softcap=softcap)
+    _assert(da_ops.paged_decode_attention(q, kp, vp, **kw),
+            da_ref.paged_decode_attention(q, kp, vp, **kw), dtype)
+
+
+def test_paged_kernel_wrapper_raises_on_bad_inputs(cuda):
+    q = torch.zeros(2, 1, 8, 64, device=cuda)
+    pool = torch.zeros(9, 16, 2, 64, device=cuda)
+    tables = torch.zeros(2, 4, dtype=torch.int32, device=cuda)
+    qp = torch.zeros(2, 1, dtype=torch.int32, device=cuda)
+    call = da_ops.paged_decode_attention
+    with pytest.raises(TypeError):  # int64 tables
+        call(q, pool, pool, block_tables=tables.long(), q_positions=qp)
+    with pytest.raises(TypeError):  # pool dtype differs from q
+        call(q, pool.bfloat16(), pool.bfloat16(), block_tables=tables, q_positions=qp)
+    with pytest.raises(ValueError):  # non-contiguous pool
+        call(q, pool.transpose(1, 2).contiguous().transpose(1, 2), pool,
+             block_tables=tables, q_positions=qp)
+    with pytest.raises(ValueError):  # tables for another batch
+        call(q, pool, pool, block_tables=tables[:1], q_positions=qp)
+    with pytest.raises(ValueError):  # 17 query heads per KV head
+        call(torch.zeros(2, 1, 34, 64, device=cuda), pool, pool, block_tables=tables,
+             q_positions=qp)
+    with pytest.raises(ValueError):  # tables on the CPU
+        call(q, pool, pool, block_tables=tables.cpu(), q_positions=qp)
+
+
+def test_engine_cuda_graph_matches_eager(cuda):
+    """A small engine's greedy streams through the captured decode step
+    and through the same step run eagerly: identical, one dispatch per
+    decode-only step, and the replays credited to the kernels' counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as model_lib
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.sampling import SamplingParams
+
+    cfg = get_config("llama3.2-1b", smoke=True).replace(dtype="bfloat16",
+                                                        param_dtype="bfloat16")
+    model = model_lib.init(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    rng = _rng("engine")
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (5, 30, 17, 9, 40)]
+    outs = {}
+    for graph in (True, False):
+        eng = ServingEngine(model, max_batch=2, max_len=96, prompt_bucket=8,
+                            cache_layout="paged", device=cuda, cuda_graph=graph)
+        n0 = da_ops.paged_decode_attention.launches
+        for i, p in enumerate(prompts):
+            eng.submit(p, SamplingParams(max_new_tokens=6 + 3 * i))
+        outs[graph] = {r.uid: r.output_tokens for r in eng.run()}
+        n_attn = sum(k == "attn" for k in cfg.blocks())
+        assert da_ops.paged_decode_attention.launches - n0 == n_attn * eng.decode_forwards
+        assert eng.latency_summary()["dispatches_per_step_p50"] == 1
+        assert eng.blocks_in_use == 0 and not eng._state["block_tables"].any()
+    assert outs[True] == outs[False]
+    assert [len(outs[True][i]) for i in range(5)] == [6 + 3 * i for i in range(5)]
 
 
 @pytest.mark.parametrize("shape", [(1, 4096), (512, 4096), (3, 7, 12288), (5, 100)])

@@ -62,3 +62,22 @@ def test_entry_points_default_to_the_gpu():
         with pytest.raises(RuntimeError, match="no GPU"):
             Model(cfg)
     assert Elana("llama3.2-1b", device="cpu").device.type == "cpu"
+
+
+def test_serving_entry_points_default_to_the_gpu():
+    """``ServingEngine`` and ``launch.serve`` take ``cuda`` unless told
+    otherwise, and raise where there is no GPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import model as model_lib
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg = get_config("tinyllama-1.1b", smoke=True)
+    model = model_lib.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    assert ServingEngine(model, device="cpu").device.type == "cpu"
+    assert serve.build_parser().parse_args([]).device == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no GPU"):
+            ServingEngine(model)
+        with pytest.raises(RuntimeError, match="no GPU"):
+            serve.main(["--smoke", "--arch", "tinyllama-1.1b"])
