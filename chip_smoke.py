@@ -25,12 +25,19 @@ or of the ``repro`` package.  Phases:
    and through the plain versions, both held against an fp32 copy of the
    same weights, over a contiguous cache (B=1) and a paged one (B=4,
    shuffled block tables).
-7. The last line: ``{"ok": true, "device": {...}}``.
+7. Phases 3-6 again for the RG-LRU hybrid recurrentgemma-2b (26 layers:
+   18 RG-LRU, 8 local attention over a 2048-token ring), once llama3.1-8b
+   is freed: measure with exact launch counts (K5 18 per forward pass),
+   the profile, 16 requests served (paged, CUDA-graph step) and 8 greedy
+   ones with and without the graph, and the parity over a 2304-token
+   prompt, past the window, so the ring wraps.
+8. The last line: ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line is printed; so does a
 machine without a CUDA device.
 """
 
+import gc
 import json
 import math
 import subprocess
@@ -42,11 +49,15 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 ARCH = "llama3.1-8b"
+HYBRID = "recurrentgemma-2b"
+SIZE_GB = {ARCH: "16.06", HYBRID: "5.36"}   # the reference's size reports
 BATCH, PROMPT, GEN, ITERS = 1, 512, 32, 3
+HYBRID_PARITY_PROMPT = 2304  # past the 2048-token window: the ring wraps
 # the serving path: paged pool of 8 * 64 + 1 blocks of 16 tokens
 SERVE = dict(cache_layout="paged", kv_block_size=16, max_batch=8, max_len=1024,
              prompt_bucket=64, seed=0)
-SERVE_REQUESTS = 24
+SERVE_REQUESTS = {ARCH: 24, HYBRID: 16}
+GRAPH_REQUESTS = {ARCH: 24, HYBRID: 8}
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, published
 BF16_FLOPS = 989e12             # dense tensor-core bf16, published
 FP32_FLOPS = 67e12              # fp32 outside the tensor cores, published
@@ -115,12 +126,22 @@ def kernel_phase(dev):
 
     from repro_torch.kernels.decode_attention import ops as da_ops, ref as da_ref
     from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
+    from repro_torch.kernels.linear_recurrence import ops as lr_ops, ref as lr_ref
     from repro_torch.kernels.rmsnorm import ops as rn_ops, ref as rn_ref
 
     g = torch.Generator(device=dev).manual_seed(0)
     bf16 = torch.bfloat16
     tol = {bf16: 2e-2, torch.float32: 2e-5}   # as the reference's kernel tests
     entries = []
+
+    def log_time(name, shape, fn, case):
+        """Device time of ``fn`` at a second shape of the path, inputs
+        rotated past the L2 cache as for the table's shape."""
+        *tensors, kw = case
+        nbytes = sum(t.numel() * t.element_size() for t in tensors)
+        n = copies(nbytes)
+        sets = [[t.clone() for t in tensors] + [kw] for _ in range(n)]
+        log(f"time {name} {shape}: kernel_ms={cuda_ms(lambda i: fn(sets[i]), n):.4f}")
 
     def randn(*shape, dtype=bf16):
         return torch.randn(shape, generator=g, device=dev, dtype=torch.float32).to(dtype)
@@ -154,6 +175,16 @@ def kernel_phase(dev):
     check(out2[:, :10].abs().max().item() == 0.0, "no-valid-key rows must be 0")
     errs.append(e2)
     fa_case("fp32 window=24 S=100 D=64", 2, 100, 100, 8, 2, 64, torch.float32, window=24)
+    # recurrentgemma-2b's local attention: MQA G=10, D=256, window 2048, softcap 30
+    hybrid_fa, e_h = fa_case(f"recurrentgemma B=1 S={PROMPT} Hq=10 Hkv=1 D=256 window=2048 "
+                             f"softcap=30", 1, PROMPT, PROMPT, 10, 1, 256, bf16, window=2048,
+                             softcap=30.0)
+    errs.append(e_h)
+    errs.append(fa_case(f"recurrentgemma past the window S={HYBRID_PARITY_PROMPT}", 1,
+                        HYBRID_PARITY_PROMPT, HYBRID_PARITY_PROMPT, 10, 1, 256, bf16,
+                        window=2048, softcap=30.0)[1])
+    log_time("flash_attention", f"q (1,{PROMPT},10,256) window=2048 softcap=30",
+             lambda args: fa_ops.flash_attention(*args[:3], **args[3]), hybrid_fa)
 
     B, S, Hq, D = q.shape
     Hkv = k.shape[2]
@@ -180,7 +211,8 @@ def kernel_phase(dev):
     # -- K3 decode attention --------------------------------------------------
     L = PROMPT + GEN + 1
 
-    def da_case(name, B, L, Hq, Hkv, D, dtype, q_at, filled, window=0, ring_at=None):
+    def da_case(name, B, L, Hq, Hkv, D, dtype, q_at, filled, window=0, ring_at=None,
+                softcap=0.0):
         q = randn(B, 1, Hq, D, dtype=dtype)
         kc, vc = randn(B, L, Hkv, D, dtype=dtype), randn(B, L, Hkv, D, dtype=dtype)
         if ring_at is None:
@@ -190,7 +222,7 @@ def kernel_phase(dev):
             slots = torch.arange(L, device=dev)
             kp = (ring_at - (ring_at - slots) % L).to(torch.int32).expand(B, L).contiguous()
         qp = torch.full((B, 1), q_at, dtype=torch.int32, device=dev)
-        kw = dict(q_positions=qp, k_positions=kp, window=window)
+        kw = dict(q_positions=qp, k_positions=kp, window=window, softcap=softcap)
         out = da_ops.decode_attention(q, kc, vc, **kw)
         ref = da_ref.decode_attention(q, kc, vc, **kw)
         torch.cuda.synchronize()
@@ -210,6 +242,16 @@ def kernel_phase(dev):
     errs.append(da_case("no valid key", 1, 64, 4, 2, 64, bf16, q_at=5, filled=0)[1])
     da_case("fp32 MHA G=1 D=64", 3, 96, 4, 4, 64, torch.float32, q_at=50, filled=51)
     da_case("fp32 G=16 D=80", 2, 130, 16, 1, 80, torch.float32, q_at=129, filled=130)
+    # recurrentgemma-2b: G=10, D=256 over its 2048-token ring, wrapped; B=8
+    # over the serving engine's 1024-token ring
+    hybrid_da, e_h = da_case("recurrentgemma ring L=2048 window=2048 softcap=30 at 2304", 1,
+                             2048, 10, 1, 256, bf16, q_at=2304, filled=0, window=2048,
+                             ring_at=2304, softcap=30.0)
+    errs.append(e_h)
+    errs.append(da_case("recurrentgemma B=8 L=1024 softcap=30", 8, 1024, 10, 1, 256, bf16,
+                        q_at=700, filled=701, window=2048, softcap=30.0)[1])
+    log_time("decode_attention", "q (1,1,10,256) ring (1,2048,1,256) softcap=30",
+             lambda args: da_ops.decode_attention(*args[:3], **args[3]), hybrid_da)
 
     B, _, Hq, D = q.shape
     Hkv = kc.shape[2]
@@ -320,6 +362,58 @@ def kernel_phase(dev):
         plain_ms=cuda_ms(lambda i: rn_ref.rmsnorm(sets[i], s, 1e-6), n),
         library_ms=cuda_ms(lambda i: F.rms_norm(sets[i], (d,), weight=w, eps=1e-6), n),
         **bound(2 * (2 * x.numel() + d), 4 * x.numel(), FP32_FLOPS)))
+
+    # -- K5 linear recurrence -----------------------------------------------------
+    def lr_case(name, Bn, S, W, pad=False):
+        """a in (0.8, 1), b ~ 0.1 N, nonzero h0 (the reference's sweep);
+        ``pad`` makes the last third of every row identity steps (a=1,
+        b=0), as padded positions arrive.  rtol 1e-4 / atol 1e-5, as the
+        reference holds Pallas to its ref."""
+        f32 = torch.float32
+        a = torch.sigmoid(randn(Bn, S, W, dtype=f32)) * 0.2 + 0.8
+        b, h0 = randn(Bn, S, W, dtype=f32) * 0.1, randn(Bn, W, dtype=f32)
+        if pad:
+            a[:, S - S // 3:] = 1.0
+            b[:, S - S // 3:] = 0.0
+        out, ref = lr_ops.linear_recurrence(a, b, h0), lr_ref.linear_recurrence(a, b, h0)
+        torch.cuda.synchronize()
+        check(out.shape == a.shape and torch.isfinite(out).all().item(), f"{name}: bad output")
+        err = max_err(out, ref)
+        try:
+            torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-5)
+        except AssertionError as exc:
+            raise CheckFailed(f"linear_recurrence {name}: {exc}") from None
+        log(f"check linear_recurrence {name}: max_abs_err={err:.3e} rtol=1e-4 atol=1e-5")
+        return (a, b, h0), err
+
+    W = 2560  # recurrentgemma's lru_width
+    (a, b, h0), err = lr_case(f"main B=1 S={PROMPT} W={W}", 1, PROMPT, W)
+    errs = [err]
+    errs.append(lr_case(f"prompt past the window B=1 S={HYBRID_PARITY_PROMPT} W={W}", 1,
+                        HYBRID_PARITY_PROMPT, W)[1])
+    (a1, b1, h01), e1 = lr_case(f"serving decode B=8 S=1 W={W}", 8, 1, W)
+    errs.append(e1)
+    errs.append(lr_case("ragged B=2 S=37 W=100", 2, 37, 100)[1])
+    errs.append(lr_case("identity pad steps B=2 S=37 W=100", 2, 37, 100, pad=True)[1])
+    errs.append(lr_case(f"identity pad steps B=4 S=300 W={W}", 4, 300, W, pad=True)[1])
+    t1 = cuda_ms(lambda i: lr_ops.linear_recurrence(a1, b1, h01), 1)
+    log(f"time linear_recurrence 8x1x{W}: kernel_ms={t1:.4f} (the serving decode shape)")
+    Bn, S, W = a.shape
+    n = copies(3 * 4 * a.numel())
+    sets = [(a.clone(), b.clone(), h0.clone()) for _ in range(n)]
+    entries.append(dict(
+        name="linear_recurrence", route="cuda",
+        source="src/repro_torch/kernels/csrc/linear_recurrence.cu",
+        replaces="src/repro/kernels/linear_recurrence/linear_recurrence.py:55",
+        shape=f"a/b ({Bn},{S},{W}) h0 ({Bn},{W}) fp32",
+        max_abs_err=max(errs),
+        ms=cuda_ms(lambda i: lr_ops.linear_recurrence(*sets[i]), n),
+        plain_ms=cuda_ms(lambda i: lr_ref.linear_recurrence(*sets[i]), n),
+        # no one PyTorch call computes a first-order linear recurrence (the
+        # cumprod/cumsum closed form divides by the decay product, which
+        # underflows)
+        library_ms=None,
+        **bound(4 * (3 * a.numel() + h0.numel()), 2 * a.numel(), FP32_FLOPS)))
     for e in entries:
         e["kernel_ms"] = e["ms"]
     return entries
@@ -345,10 +439,29 @@ def read_counts(counters):
 
 
 def per_forward(cfg):
-    """(attention layers, RMSNorm launches) of one forward pass."""
-    n_attn = sum(k == "attn" for k in cfg.blocks())
-    norms = sum(1 if (k == "ffn" or cfg.parallel_block) else 2 for k in cfg.blocks()) + 1
-    return n_attn, norms
+    """Layers of one forward pass by the kernel they launch: attention
+    layers (K2 in a prefill; in a decode step K3, or K4 for full-context
+    layers over a paged pool), full-context ones among them, RG-LRU layers
+    (K5), and RMSNorm launches (K1: two per block, one per ``ffn`` or
+    parallel attention block, one final)."""
+    kinds = cfg.blocks()
+    attn = ("attn", "local_attn")
+    norms = sum(1 if (k == "ffn" or (k in attn and cfg.parallel_block)) else 2
+                for k in kinds) + 1
+    return dict(attn=sum(k in attn for k in kinds), full=sum(k == "attn" for k in kinds),
+                rec=sum(k == "rglru" for k in kinds), norms=norms)
+
+
+def expected_launches(cfg, prefills, decodes, paged=False):
+    """Launches of each kernel over ``prefills`` prefills and ``decodes``
+    decode steps."""
+    n = per_forward(cfg)
+    full_paged = n["full"] if paged else 0
+    return {"flash_attention": n["attn"] * prefills,
+            "decode_attention": (n["attn"] - full_paged) * decodes,
+            "paged_decode_attention": full_paged * decodes,
+            "rmsnorm": n["norms"] * (prefills + decodes),
+            "linear_recurrence": n["rec"] * (prefills + decodes)}
 
 
 class Calls:
@@ -369,25 +482,29 @@ class Calls:
         model.prefill, model.decode_step = counted_prefill, counted_decode
 
     def expected(self, cfg):
-        n_attn, norms = per_forward(cfg)
-        fwd = self.prefill + self.decode
-        return {"flash_attention": n_attn * self.prefill,
-                "decode_attention": n_attn * self.decode,
-                "paged_decode_attention": 0,
-                "rmsnorm": norms * fwd}
+        return expected_launches(cfg, self.prefill, self.decode)
 
 
-def main_path_phase(counters):
+def main_path_phase(arch, counters):
     import torch
 
     from repro_torch.core.energy import NvmlReader, PowerReader
     from repro_torch.core.profiler import Elana
 
-    e = Elana(ARCH, device="cuda", seed=0)
+    e = Elana(arch, device="cuda", seed=0)
     size = e.size_report()
     log(size.fmt())
-    check(f"{size.param_bytes / 1e9:.2f}" == "16.06", "llama3.1-8b must read 16.06 GB")
+    check(f"{size.param_bytes / 1e9:.2f}" == SIZE_GB[arch],
+          f"{arch} must read {SIZE_GB[arch]} GB")
     log(e.cache_report(BATCH, PROMPT + GEN + 1).fmt())
+    # bounds: the weights' matrix products over the prompt at the bf16 peak
+    # (embedding tables only gathered, or used at one position), and one
+    # read of every weight per decode step
+    itemsize = getattr(torch, e.cfg.param_dtype).itemsize
+    tables = sum(size.by_component.get(k, 0) for k in ("embed", "lm_head")) // itemsize
+    bounds = {"ttft_bound_ms": 2 * (size.param_count - tables) * BATCH * PROMPT
+              / BF16_FLOPS * 1e3,
+              "tpot_bound_ms": size.param_bytes / HBM_BYTES_PER_S * 1e3}
     t0 = time.perf_counter()
     model = e.model
     torch.cuda.synchronize()
@@ -399,14 +516,16 @@ def main_path_phase(counters):
     m = e.measure(batch=BATCH, prompt_len=PROMPT, gen_len=GEN, iters=ITERS)
     launches = read_counts(counters)
     want = calls.expected(e.cfg)
-    log(f"forward passes: {calls.prefill} prefill, {calls.decode} decode; "
-        f"launches {launches}, expected {want}")
+    log(f"{arch} forward passes: {calls.prefill} prefill, {calls.decode} decode; "
+        f"per forward {per_forward(e.cfg)}; launches {launches}, expected {want}")
     check(launches == want, f"launch counts {launches} != {want}")
-    check(all(v > 0 for k, v in launches.items() if k != "paged_decode_attention"),
-          "a kernel of the path never launched")
+    path = {"flash_attention", "decode_attention", "rmsnorm"}
+    if per_forward(e.cfg)["rec"]:
+        path.add("linear_recurrence")
+    check(all(launches[k] > 0 for k in path), "a kernel of the path never launched")
     check(all(math.isfinite(v) and v > 0 for v in m.values()), f"bad metrics {m}")
-    log("measure: " + json.dumps({"arch": ARCH, "batch": BATCH, "prompt_len": PROMPT,
-                                  "gen_len": GEN, "iters": ITERS, **m}))
+    log("measure: " + json.dumps({"arch": arch, "batch": BATCH, "prompt_len": PROMPT,
+                                  "gen_len": GEN, "iters": ITERS, **m, **bounds}))
 
     class CountingReader(PowerReader):
         def __init__(self, inner):
@@ -431,7 +550,7 @@ def main_path_phase(counters):
     check(energy_launches == calls.expected(e.cfg),
           f"energy run launch counts {energy_launches} != {calls.expected(e.cfg)}")
     check(all(math.isfinite(v) and v > 0 for v in me.values()), f"bad energy metrics {me}")
-    log("energy: " + json.dumps({**me, "sampler_hz": hz}))
+    log("energy: " + json.dumps({"arch": arch, **me, "sampler_hz": hz}))
     return e, launches
 
 
@@ -509,15 +628,15 @@ class TimedGraph:
         return [s.elapsed_time(e) for s, e in self.events]
 
 
-def serve_arrivals(cfg, greedy_only=False):
-    """24 requests, all at t = 0: lognormal prompts (mean 256, 32..768),
+def serve_arrivals(cfg, n_requests, greedy_only=False):
+    """``n_requests``, all at t = 0: lognormal prompts (mean 256, 32..768),
     16..63 new tokens; even uids greedy, odd ones at temperature 0.7,
     top-k 50 (or every one greedy)."""
     import dataclasses
 
     from repro_torch.serving.workload import LengthDist, WorkloadSpec, poisson_trace
 
-    spec = WorkloadSpec(arrival_rate=0.0, num_requests=SERVE_REQUESTS,
+    spec = WorkloadSpec(arrival_rate=0.0, num_requests=n_requests,
                         prompt_len=LengthDist(kind="lognormal", mean=256.0, low=32, high=768),
                         output_len=LengthDist(kind="uniform", low=16, high=64),
                         temperature=0.7, top_k=50, seed=0)
@@ -543,7 +662,8 @@ def serve_phase(e, counters):
 
     from repro_torch.core.energy import NvmlReader, PowerMonitor
 
-    arrivals = serve_arrivals(e.cfg)
+    n_requests = SERVE_REQUESTS[e.cfg.name]
+    arrivals = serve_arrivals(e.cfg, n_requests)
     monitor = PowerMonitor(NvmlReader([0]))
     eng = serve(e, arrivals, monitor=monitor)
     check(eng._graph is not None, "the decode step was not captured")
@@ -558,14 +678,12 @@ def serve_phase(e, counters):
     launches = read_counts(counters)
     summary = eng.latency_summary()
 
-    n_attn, norms = per_forward(e.cfg)
-    want = {"flash_attention": n_attn * eng.prefills, "decode_attention": 0,
-            "paged_decode_attention": n_attn * eng.decode_forwards,
-            "rmsnorm": norms * (eng.prefills + eng.decode_forwards)}
-    log(f"serve: {eng.prefills} admission prefills, {eng.decode_forwards} graph replays; "
-        f"launches {launches}, expected {want}")
+    # replays are credited per replay as the engine's capture counted them
+    want = expected_launches(e.cfg, eng.prefills, eng.decode_forwards, paged=True)
+    log(f"serve {e.cfg.name}: {eng.prefills} admission prefills, {eng.decode_forwards} "
+        f"graph replays; launches {launches}, expected {want}")
     check(launches == want, f"serve launch counts {launches} != {want}")
-    check(len(finished) == SERVE_REQUESTS, f"{len(finished)} of {SERVE_REQUESTS} finished")
+    check(len(finished) == n_requests, f"{len(finished)} of {n_requests} finished")
     budgets = {i: a.params.max_new_tokens for i, a in enumerate(arrivals)}
     check(all(len(r.output_tokens) == budgets[r.uid] for r in finished),
           "a request did not emit its budget of tokens")
@@ -586,7 +704,8 @@ def serve_phase(e, counters):
             "dispatches_per_step_p50", "dispatches_per_step_p95", "pool_occupancy_p95",
             "joules_total", "joules_per_request", "joules_per_token",
             "power_samples_per_sec")
-    log("serve: " + json.dumps({"arch": ARCH, **SERVE, **{k: summary[k] for k in keys},
+    log("serve: " + json.dumps({"arch": e.cfg.name, "requests_submitted": n_requests,
+                                **SERVE, **{k: summary[k] for k in keys},
                                 "decode_replay_device_ms_p50": replay_ms,
                                 "decode_step_wall_ms_p50": step_ms,
                                 "decode_busy_share": replay_ms / step_ms}))
@@ -601,7 +720,7 @@ def graph_phase(e):
     (the same kernels at the same shapes)."""
     import torch
 
-    arrivals = serve_arrivals(e.cfg, greedy_only=True)
+    arrivals = serve_arrivals(e.cfg, GRAPH_REQUESTS[e.cfg.name], greedy_only=True)
     streams, tpot = {}, {}
     for graph in (True, False):
         eng = serve(e, arrivals, cuda_graph=graph)
@@ -612,7 +731,8 @@ def graph_phase(e):
         del eng
         torch.cuda.empty_cache()
     same = sum(streams[True][u] == streams[False][u] for u in streams[True])
-    log("graph vs eager: " + json.dumps({"graph": tpot[True], "eager": tpot[False],
+    log("graph vs eager: " + json.dumps({"arch": e.cfg.name, "graph": tpot[True],
+                                         "eager": tpot[False],
                                          "identical_streams": f"{same}/{len(streams[True])}"}))
     check(streams[True] == streams[False], "graph and eager streams differ")
 
@@ -621,11 +741,12 @@ def graph_phase(e):
 # phase 6: kernels against plain versions on the full-width model
 # ---------------------------------------------------------------------------
 
-def parity_phase(e, dev):
+def parity_phase(e, dev, prompt=PROMPT, paged=True):
     """Prefill + 4 greedy decode steps through the kernels and through the
     plain versions, both in bf16, each held against the plain versions run
-    on an fp32 copy of the same weights; over a contiguous cache (B=1) and
-    over a paged one (B=4, each row's blocks shuffled through the pool).
+    on an fp32 copy of the same weights; over a contiguous cache (B=1) and,
+    with ``paged``, over a paged one (B=4, each row's blocks shuffled
+    through the pool).
     The kernels pass if they add no more error than bf16 itself: the plain
     bf16 path's distance from fp32 is the floor (it rounds probabilities
     and activations to bf16, and 32 random layers amplify such
@@ -640,16 +761,15 @@ def parity_phase(e, dev):
     model = e.model
     g = torch.Generator(device=dev).manual_seed(1)
     steps, bs, paged_batch = 4, 16, 4
-    max_len = PROMPT + steps + 1
+    max_len = prompt + steps + 1
     nb = blocks_per_slot(max_len, bs)
     pool = paged_batch * nb + 9  # unnamed spare blocks besides the garbage block
     tables = (torch.randperm(pool - 1, generator=g, device=dev)[:paged_batch * nb] + 1)
     tables = tables.reshape(paged_batch, nb).to(torch.int32)
-    layouts = {
-        "contiguous": (BATCH, {}),
-        "paged": (paged_batch, dict(layout="paged", block_size=bs, num_blocks=pool)),
-    }
-    tokens = {name: torch.randint(0, e.cfg.vocab_size, (b, PROMPT), generator=g, device=dev)
+    layouts = {"contiguous": (BATCH, {})}
+    if paged:
+        layouts["paged"] = (paged_batch, dict(layout="paged", block_size=bs, num_blocks=pool))
+    tokens = {name: torch.randint(0, e.cfg.vocab_size, (b, prompt), generator=g, device=dev)
               for name, (b, _) in layouts.items()}
 
     def run(m, name, dtype=None, forced=None):
@@ -661,7 +781,7 @@ def parity_phase(e, dev):
         for i in range(steps):
             tok = logits.argmax(-1, keepdim=True) if forced is None else forced[i]
             toks.append(tok)
-            logits, cache = m.decode_step(tok, PROMPT + i, cache, block_tables=bt)
+            logits, cache = m.decode_step(tok, prompt + i, cache, block_tables=bt)
             out.append(logits)
         return torch.stack(out), toks
 
@@ -686,7 +806,7 @@ def parity_phase(e, dev):
         top2 = ref[name].topk(2, dim=-1).values
         decided = (top2[..., 0] - top2[..., 1]) > err_plain
         agree = kern.argmax(-1) == ref[name].argmax(-1)
-        log(f"parity {name} B={b}: " + json.dumps({
+        log(f"parity {e.cfg.name} {name} B={b} prompt={prompt}: " + json.dumps({
             "max_abs_logit_fp32": ref[name].abs().max().item(), "kernels_vs_fp32": err_kern,
             "plain_bf16_vs_fp32": err_plain,
             "kernels_vs_plain": (kern - plain[name]).abs().max().item(),
@@ -725,16 +845,28 @@ def main():
 
     counters = dispatch.KERNELS
     entries = kernel_phase(dev)
-    e, launches = main_path_phase(counters)
+    paths = {}  # each path's counts, read right after that path ran
+    e, paths[f"{ARCH} measure"] = main_path_phase(ARCH, counters)
     profile_phase(e, dev)
-    serve_launches = serve_phase(e, counters)
-    for entry in entries:  # each path's count was read right after that path ran
-        k = entry["name"]
-        entry["launches"] = launches[k] + serve_launches[k]
-        entry["launches_by_path"] = {"measure": launches[k], "serve": serve_launches[k]}
-        check(entry["launches"] > 0, f"{k} never launched on its path")
+    paths[f"{ARCH} serve"] = serve_phase(e, counters)
     graph_phase(e)
     parity_phase(e, dev)
+    del e  # free llama3.1-8b before the second model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    h, paths[f"{HYBRID} measure"] = main_path_phase(HYBRID, counters)
+    profile_phase(h, dev)
+    paths[f"{HYBRID} serve"] = serve_phase(h, counters)
+    graph_phase(h)
+    parity_phase(h, dev, prompt=HYBRID_PARITY_PROMPT, paged=False)
+    log(f"{HYBRID} phases took {time.perf_counter() - t0:.1f} s")
+    for entry in entries:
+        k = entry["name"]
+        entry["launches_by_path"] = {path: counts[k] for path, counts in paths.items()}
+        entry["launches"] = sum(entry["launches_by_path"].values())
+        check(entry["launches"] > 0, f"{k} never launched on its path")
 
     log(json.dumps({"kernels": entries}))
     log(smi[0] if smi else "nvidia-smi: no output")

@@ -1,8 +1,8 @@
 """Architecture registry of the port: ``--arch <id>`` lookup.
 
-The port runs the dense decoders.  The other architectures of the
-reference registry are known by name and raise ``KeyError`` until their
-families are ported.
+The port runs the dense decoders and the RG-LRU hybrid (recurrentgemma).
+The other architectures of the reference registry are known by name and
+raise ``KeyError`` until their families are ported.
 """
 from __future__ import annotations
 
@@ -20,6 +20,7 @@ _MODULES: Dict[str, str] = {
     "qwen2.5-7b": "qwen25_7b",
     "llama3.2-1b": "llama32_1b",
     "qwen2.5-1.5b": "qwen25_1_5b",
+    "recurrentgemma-2b": "recurrentgemma_2b",
 }
 
 NOT_PORTED: Dict[str, str] = {
@@ -28,7 +29,6 @@ NOT_PORTED: Dict[str, str] = {
     "moonshot-v1-16b-a3b": "moe",
     "qwen3-moe-30b-a3b": "moe",
     "xlstm-1.3b": "ssm",
-    "recurrentgemma-2b": "hybrid",
     "nemotron-h-8b": "hybrid",
 }
 

@@ -2,8 +2,10 @@
 ``repro/core/cache.py``.
 
 The report counts the cache that ``Model.init_cache`` would allocate for a
-(batch, seq_len) workload, built on the ``meta`` device: K/V leaves are
-``kv``, position bookkeeping (``pos``, ``ring``) is ``meta``.
+(batch, seq_len) workload, built on the ``meta`` device, leaf by leaf as
+the reference's ``_classify`` files them: K/V (``k``, ``v``, ``kp``,
+``vp``) is ``kv``, position bookkeeping (``pos``, ``ring``) is ``meta``,
+recurrent states (the RG-LRU's ``h`` and ``conv``) are ``state``.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ class CacheReport:
     seq_len: int
     total_bytes: int
     kv_bytes: int           # self-attention KV
-    state_bytes: int        # recurrent states (none in the ported families)
+    state_bytes: int        # recurrent states (RG-LRU h, conv)
     cross_bytes: int        # encoder-decoder memory (none in the ported families)
     meta_bytes: int         # position bookkeeping
     by_kind: Dict[str, int]
@@ -40,13 +42,21 @@ class CacheReport:
         )
 
 
+def _classify(leaf: str) -> str:
+    if leaf in ("pos", "ring"):
+        return "meta"
+    if leaf in ("k", "v", "kp", "vp"):
+        return "kv"
+    return "state"
+
+
 def profile_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype=None) -> CacheReport:
     dtype = dtype or getattr(torch, cfg.dtype)
     by_kind: Dict[str, int] = {"kv": 0, "state": 0, "cross": 0, "meta": 0}
     for kind in cfg.blocks():
         entry = cache_lib.init_block_cache(cfg, kind, batch, seq_len, dtype, "meta")
         for leaf, t in entry.items():
-            by_kind["kv" if leaf in ("k", "v") else "meta"] += t.numel() * t.element_size()
+            by_kind[_classify(leaf)] += t.numel() * t.element_size()
     return CacheReport(
         name=cfg.name, batch=batch, seq_len=seq_len,
         total_bytes=sum(by_kind.values()),

@@ -46,7 +46,7 @@ class SizeReport:
 
 def _component(name: str) -> str:
     """The reference's component names: ``embed``, ``lm_head`` and
-    ``decoder.<attn|mlp|norms>``."""
+    ``decoder.<attn|rec|mlp|norms>``."""
     parts = name.split(".")
     if parts[0] in ("embed", "lm_head"):
         return parts[0]
@@ -56,7 +56,7 @@ def _component(name: str) -> str:
 
 def profile_size(cfg: ModelConfig, model: Optional[nn.Module] = None) -> SizeReport:
     """Size report of ``model``, or of ``cfg``'s model built on ``meta``.
-    The port runs dense models only, so every parameter is active."""
+    The port has no MoE model yet, so every parameter is active."""
     model = model if model is not None else Model(cfg, device="meta")
     count = nbytes = 0
     by_comp: Dict[str, int] = {}

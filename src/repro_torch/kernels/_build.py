@@ -33,12 +33,15 @@ _DECODE = [_P] * 6 + [_I] * 6 + [_F, _F, _P]
 # q, k_pool, v_pool, tables, q_pos, out, B, nb, bs, Hkv, G, D, window,
 # softcap, scale, stream
 _PAGED = [_P] * 6 + [_I] * 7 + [_F, _F, _P]
+# a, b, h0, h, B, S, W, stream
+_LINREC = [_P] * 4 + [_I] * 3 + [_P]
 SIGNATURES = {
     "flash_attention": {"flash_attention_bf16": _FLASH, "flash_attention_f32": _FLASH},
     "decode_attention": {"decode_attention_bf16": _DECODE,
                          "decode_attention_f32": _DECODE},
     "paged_decode_attention": {"paged_decode_attention_bf16": _PAGED,
                                "paged_decode_attention_f32": _PAGED},
+    "linear_recurrence": {"linear_recurrence_f32": _LINREC},
 }
 
 

@@ -16,6 +16,8 @@ from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.decode_attention import ref as decode_ref
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention import ref as flash_ref
+from repro_torch.kernels.linear_recurrence import ops as linrec_ops
+from repro_torch.kernels.linear_recurrence import ref as linrec_ref
 from repro_torch.kernels.rmsnorm import ops as rmsnorm_ops
 from repro_torch.kernels.rmsnorm import ref as rmsnorm_ref
 
@@ -77,6 +79,13 @@ def paged_decode_attention(q, k_pool, v_pool, *, block_tables, q_positions,
     return decode_ref.paged_decode_attention(q, k_pool, v_pool, **kw)
 
 
+def linear_recurrence(a, b, h0):
+    """h_t = a_t * h_{t-1} + b_t over axis 1.  a, b: (B, S, W) fp32; h0: (B, W)."""
+    if _kernel(a):
+        return linrec_ops.linear_recurrence(a, b, h0)
+    return linrec_ref.linear_recurrence(a, b, h0)
+
+
 def rmsnorm(x, scale, eps=1e-6):
     if _kernel(x):
         return rmsnorm_ops.rmsnorm(x, scale, eps=eps)
@@ -87,4 +96,5 @@ def rmsnorm(x, scale, eps=1e-6):
 KERNELS = {"flash_attention": flash_ops.flash_attention,
            "decode_attention": decode_ops.decode_attention,
            "paged_decode_attention": decode_ops.paged_decode_attention,
-           "rmsnorm": rmsnorm_ops.rmsnorm}
+           "rmsnorm": rmsnorm_ops.rmsnorm,
+           "linear_recurrence": linrec_ops.linear_recurrence}

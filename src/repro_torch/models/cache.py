@@ -1,5 +1,5 @@
-"""Decode-time KV caches: the counterpart of the contiguous, ring-buffer
-and paged parts of ``repro/models/cache.py``.
+"""Decode-time caches: the counterpart of the contiguous, ring-buffer,
+paged and RG-LRU parts of ``repro/models/cache.py``.
 
 Two layouts for full-context attention KV, with the reference's leaves so
 the byte counts of the two packages agree:
@@ -20,6 +20,11 @@ Unlike the reference's pure functions, the fill and update functions
 write into the entry in place and return it: a decode step then moves one
 token's K/V instead of copying the whole cache, and the tensors a CUDA
 graph captured stay the ones the next admission fills.
+
+Sliding-window (``local_attn``) layers keep a ring of ``min(window,
+max_len)`` entries in both layouts, and RG-LRU layers a per-row state
+``h`` (fp32) and ``conv`` (the last K-1 inputs); both belong to their slot,
+never to the pool.
 
 ``BlockPool`` is the host-side bookkeeping of the paged layout (the LIFO
 free stack).
@@ -187,21 +192,35 @@ def update_paged_cache(cache: Dict, k_new: torch.Tensor, v_new: torch.Tensor,
     return cache
 
 
+def init_rglru_state(batch: int, width: int, conv_width: int, dtype,
+                     device) -> Dict[str, torch.Tensor]:
+    return {
+        "h": torch.zeros((batch, width), dtype=torch.float32, device=device),
+        "conv": torch.zeros((batch, conv_width - 1, width), dtype=dtype, device=device),
+    }
+
+
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                      dtype, device, *, layout: str = "contiguous",
                      block_size: int = 16, num_blocks: int = 0) -> Dict[str, torch.Tensor]:
     """One layer's cache entry.  ``layout="paged"`` gives full-context
     attention a block pool of ``num_blocks`` x ``block_size`` tokens (0:
-    the worst case for ``batch`` rows of ``max_len``)."""
+    the worst case for ``batch`` rows of ``max_len``); rings and recurrent
+    states are the same in both layouts."""
+    hd = cfg.resolved_head_dim
     if kind == "ffn":
         return {}
     if kind == "attn":
         if layout == "paged":
             n = num_blocks or default_num_blocks(batch, max_len, block_size)
-            return init_paged_attn_cache(n, block_size, cfg.num_kv_heads,
-                                         cfg.resolved_head_dim, dtype, device)
-        return init_attn_cache(batch, max_len, cfg.num_kv_heads,
-                               cfg.resolved_head_dim, dtype, device)
+            return init_paged_attn_cache(n, block_size, cfg.num_kv_heads, hd, dtype, device)
+        return init_attn_cache(batch, max_len, cfg.num_kv_heads, hd, dtype, device)
+    if kind == "local_attn":
+        return init_attn_cache(batch, max_len, cfg.num_kv_heads, hd, dtype, device,
+                               window=cfg.sliding_window)
+    if kind == "rglru":
+        return init_rglru_state(batch, cfg.resolved_lru_width, cfg.rglru_conv_width,
+                                dtype, device)
     raise NotImplementedError(f"no cache for block kind {kind!r} in the port yet")
 
 

@@ -2,9 +2,9 @@
 
 The fields and their defaults are those of ``repro/models/config.py``, so a
 configuration file reads the same in both packages and tests can compare
-them field by field.  The port runs the dense block kinds (``attn`` and
-``ffn``); the other kinds stay declared so that every field keeps its
-meaning, and ``models.model`` rejects them.
+them field by field.  The port runs the block kinds ``attn``, ``local_attn``,
+``ffn`` and ``rglru``; the other kinds stay declared so that every field
+keeps its meaning, and ``models.model`` rejects them.
 """
 
 from __future__ import annotations
@@ -76,6 +76,14 @@ class ModelConfig:
     @property
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.d_model // self.num_heads
+
+    @property
+    def resolved_lru_width(self) -> int:
+        return self.lru_width or self.d_model
+
+    @property
+    def resolved_rec_heads(self) -> int:
+        return self.rec_heads or self.num_heads
 
     @property
     def is_encdec(self) -> bool:

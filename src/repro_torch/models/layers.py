@@ -120,8 +120,9 @@ class Embedding(nn.Module):
 def embed_tokens(p: Embedding, tokens: torch.Tensor, scale: bool,
                  d_model: int) -> torch.Tensor:
     x = F.embedding(tokens, p.table)
-    if scale:  # the factor is rounded to the activation dtype first
-        x = x * torch.tensor(math.sqrt(d_model), dtype=x.dtype, device=x.device)
+    if scale:  # the factor is rounded to the activation dtype first, on the
+        # host: a host-to-device copy could not be captured in a CUDA graph
+        x = x * torch.tensor(math.sqrt(d_model), dtype=x.dtype).item()
     return x
 
 

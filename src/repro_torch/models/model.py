@@ -1,5 +1,6 @@
-"""The dense decoder, the counterpart of ``repro/models/model.py`` for the
-block kinds ``attn`` and ``ffn``.
+"""The decoder, the counterpart of ``repro/models/model.py`` for the block
+kinds ``attn``, ``local_attn`` (sliding window over a ring cache), ``ffn``
+and ``rglru`` (Griffin's recurrent block).
 
 The reference stacks each repetition of ``cfg.block_pattern`` on a leading
 axis and scans over it; here the layers are a plain ``nn.ModuleList`` run
@@ -24,13 +25,15 @@ from torch import nn
 from repro_torch import resolve_device
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import cache as cache_lib
+from repro_torch.models import recurrent as rec_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     Embedding, Norm, apply_norm, embed_tokens, rope_tables, unembed,
 )
 from repro_torch.models.mlp import MLP, apply_mlp
 
-SUPPORTED_BLOCKS = ("attn", "ffn")
+SUPPORTED_BLOCKS = ("attn", "local_attn", "ffn", "rglru")
+ATTN_BLOCKS = ("attn", "local_attn")
 
 Cache = List[Dict[str, torch.Tensor]]
 
@@ -50,14 +53,45 @@ class Block(nn.Module):
             raise NotImplementedError(f"{cfg.name}: MoE and enc-dec are not ported yet")
         self.kind = kind
         d = cfg.d_model
-        if kind == "attn":
+        if kind in ATTN_BLOCKS:
             self.norm1 = Norm(d, dtype, device)
             self.attn = attn_lib.Attention(cfg, dtype, device)
             if not cfg.parallel_block:  # one shared pre-norm (Cohere/GPT-J style)
                 self.norm2 = Norm(d, dtype, device)
+        elif kind == "rglru":
+            self.norm1 = Norm(d, dtype, device)
+            self.rec = rec_lib.RGLRU(cfg, dtype, device)
+            self.norm2 = Norm(d, dtype, device)
         else:
             self.norm = Norm(d, dtype, device)
         self.mlp = MLP(d, cfg.d_ff, cfg.mlp_gated, dtype, device)
+
+
+def _window(cfg: ModelConfig, kind: str) -> int:
+    return cfg.sliding_window if kind == "local_attn" else 0
+
+
+def _write_state(entry: Dict, new: Dict, update_mask: Optional[torch.Tensor] = None) -> None:
+    """Write a recurrent layer's new state into its cache entry in place,
+    so the tensors a CUDA graph captured stay the ones it reads.  Rows
+    masked off by ``update_mask`` keep their old state, as the reference's
+    ``_gate_entry`` freezes them."""
+    for leaf, t in new.items():
+        if update_mask is not None:
+            m = update_mask.reshape((-1,) + (1,) * (t.dim() - 1))
+            t = torch.where(m, t, entry[leaf])
+        entry[leaf].copy_(t)
+
+
+def _apply_rglru_block(p: Block, cfg: ModelConfig, x: torch.Tensor, entry: Dict,
+                       update_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """norm1 -> RG-LRU from the entry's state -> residual -> norm2 -> MLP.
+    The scan starts from the state in ``entry`` (zeros in a fresh cache)."""
+    y, state = rec_lib.apply_rglru_seq(p.rec, apply_norm(p.norm1, x, cfg.norm_eps), cfg,
+                                       entry)
+    _write_state(entry, state, update_mask)
+    x = x + y
+    return x + apply_mlp(p.mlp, apply_norm(p.norm2, x, cfg.norm_eps), cfg.mlp_act)
 
 
 def _apply_block_seq(p: Block, cfg: ModelConfig, x: torch.Tensor,
@@ -65,8 +99,11 @@ def _apply_block_seq(p: Block, cfg: ModelConfig, x: torch.Tensor,
                      block_tables: Optional[torch.Tensor]) -> torch.Tensor:
     if p.kind == "ffn":
         return x + apply_mlp(p.mlp, apply_norm(p.norm, x, cfg.norm_eps), cfg.mlp_act)
+    if p.kind == "rglru":
+        return _apply_rglru_block(p, cfg, x, entry)
     h = apply_norm(p.norm1, x, cfg.norm_eps)
     a, _ = attn_lib.apply_attention_prefill(p.attn, h, cfg, positions, entry, rope=rope,
+                                            window=_window(cfg, p.kind),
                                             block_tables=block_tables)
     mlp_in = h if cfg.parallel_block else None
     x = x + a
@@ -81,8 +118,11 @@ def _apply_block_decode(p: Block, cfg: ModelConfig, x: torch.Tensor,
                         update_mask: Optional[torch.Tensor]) -> torch.Tensor:
     if p.kind == "ffn":
         return x + apply_mlp(p.mlp, apply_norm(p.norm, x, cfg.norm_eps), cfg.mlp_act)
+    if p.kind == "rglru":
+        return _apply_rglru_block(p, cfg, x, entry, update_mask)
     h = apply_norm(p.norm1, x, cfg.norm_eps)
     a, _ = attn_lib.apply_attention_decode(p.attn, h, cfg, positions, entry, rope=rope,
+                                           window=_window(cfg, p.kind),
                                            block_tables=block_tables,
                                            update_mask=update_mask)
     mlp_in = h if cfg.parallel_block else None
@@ -93,7 +133,7 @@ def _apply_block_decode(p: Block, cfg: ModelConfig, x: torch.Tensor,
 
 
 class Model(nn.Module):
-    """Parameters of a dense decoder, named like the reference's tree:
+    """Parameters of a decoder, named like the reference's tree:
     ``embed.table``, ``lm_head.table`` (untied only), ``layers.<i>.<part>``
     for ``decoder`` layer i, ``final_norm.scale``."""
 
@@ -119,9 +159,11 @@ class Model(nn.Module):
     def init_cache(self, batch: int, max_len: int, dtype=None, *,
                    layout: str = "contiguous", block_size: int = 16,
                    num_blocks: int = 0) -> Cache:
-        """One cache entry per layer.  ``layout="paged"`` gives attention
-        layers a global block pool (``num_blocks`` x ``block_size``; 0: the
-        worst case) that the caller addresses through block tables."""
+        """One cache entry per layer.  ``layout="paged"`` gives full-context
+        attention layers a global block pool (``num_blocks`` x
+        ``block_size``; 0: the worst case) that the caller addresses through
+        block tables; sliding-window rings and recurrent states stay per
+        row."""
         if layout not in ("contiguous", "paged"):
             raise ValueError(f"layout {layout!r} is not 'contiguous' or 'paged'")
         dtype = dtype or _dtype(self.cfg.dtype)
@@ -135,9 +177,10 @@ class Model(nn.Module):
                 block_tables: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Cache]:
         """Process the prompt ``batch["tokens"]`` (B, S), fill ``cache`` in
-        place; returns the last position's fp32 logits (B, vocab).  A paged
-        cache takes ``block_tables`` (B, blocks_per_slot) int32: the pool
-        blocks each row's prompt fills."""
+        place; returns the last position's fp32 logits (B, vocab).
+        Recurrent layers start from the state in ``cache`` (zeros in a fresh
+        one).  A paged cache takes ``block_tables`` (B, blocks_per_slot)
+        int32: the pool blocks each row's prompt fills."""
         cfg = self.cfg
         tokens = batch["tokens"]
         B, S = tokens.shape
@@ -157,10 +200,10 @@ class Model(nn.Module):
                     ) -> Tuple[torch.Tensor, Cache]:
         """One decode step.  token (B, 1); position an int or (B,) tensor.
         ``block_tables`` (B, blocks_per_slot) int32 is required for a paged
-        cache.  ``update_mask`` (B,) bool freezes the cache writes of
-        masked-off rows.  Updates ``cache`` in place; returns fp32 logits
-        (B, vocab).  Nothing here waits for the device, so a CUDA graph can
-        capture the step."""
+        cache.  ``update_mask`` (B,) bool freezes the cache writes and
+        recurrent states of masked-off rows.  Updates ``cache`` in place;
+        returns fp32 logits (B, vocab).  Nothing here waits for the device,
+        so a CUDA graph can capture the step."""
         cfg = self.cfg
         B = token.shape[0]
         positions = torch.as_tensor(position, dtype=torch.int32,
@@ -180,7 +223,8 @@ def init(cfg: ModelConfig, generator: torch.Generator, device="cuda") -> Model:
     """A model with weights drawn from ``generator`` (which must live on
     ``device``) at the reference initializer's scales: N(0,1)/sqrt(fan-in)
     for projections, 1/sqrt(Hq*hd) for wo, 1/sqrt(d_ff) for wd, N(0,1) for
-    embeddings, zeros for norm scales and biases."""
+    embeddings, zeros for norm scales and biases; the RG-LRU's ``lambda``
+    is the reference's fixed formula."""
     model = Model(cfg, device=device)
     for module in model.modules():
         if hasattr(module, "init_"):

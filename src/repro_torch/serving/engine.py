@@ -6,7 +6,9 @@ A request waits in a FCFS queue until a slot (and, paged, enough pool
 blocks for its prompt plus its whole budget) is free.  Admission batches
 every queued request of the head's prompt bucket into one prefill, left-
 pads each prompt to the bucket (a longer prompt keeps its tail) and
-samples the first token from the prefill's logits.  Every engine step
+samples the first token from the prefill's logits; what belongs to a
+slot (contiguous K/V, sliding-window rings, RG-LRU states) is prefilled
+fresh and scattered into the admitted slots.  Every engine step
 then runs the decode step of ``serving.step`` over all ``max_batch``
 slots at once (idle slots masked) and reads back one packed (3, B) int32
 tensor: the step's only host sync.  On the GPU the step is one CUDA-graph
@@ -317,14 +319,40 @@ class ServingEngine:
             self.queue = deque(r for r in self.queue if id(r) not in picked_ids)
             self._admit_batch(picked, free[:len(picked)], plen)
 
+    def _admission_cache(self, n: int):
+        """The cache an admission prefill of ``n`` rows fills: the live pool
+        of every paged layer (shared by all slots; the prefill writes the
+        prompts' K/V into their blocks), a fresh ``n``-row entry for every
+        per-slot layer (contiguous K/V, sliding-window rings, recurrent
+        states), so each admitted row starts from zeros."""
+        dtype = getattr(torch, self.cfg.dtype)
+        return [entry if "kp" in entry else
+                cache_lib.init_block_cache(self.cfg, blk.kind, n, self.max_len, dtype,
+                                           self.device)
+                for blk, entry in zip(self.model.layers, self.cache)]
+
+    def _merge_admitted(self, part, slots_for: List[int]) -> None:
+        """Row ``r`` of each fresh per-slot entry lands in slot
+        ``slots_for[r]``, one scatter per leaf, in place (the tensors the
+        CUDA graph captured stay the live ones).  Pools were written in
+        place already; scalars such as ``ring`` pass through."""
+        rows = torch.tensor(slots_for, device=self.device)
+        for entry, new in zip(self.cache, part):
+            if new is entry:
+                continue
+            for leaf, t in new.items():
+                if t.dim() > 0:
+                    entry[leaf][rows] = t
+
     def _admit_batch(self, reqs: List[Request], slots_for: List[int], plen: int) -> None:
-        """One prefill for ``reqs`` (all bucketed to ``plen``).  Paged: the
-        prompts' K/V go straight into their pool blocks.  Contiguous: into
-        a fresh ``len(reqs)``-row cache whose rows then land in the slots."""
+        """One prefill for ``reqs`` (all bucketed to ``plen``) into
+        ``_admission_cache``, then into the slots (``_merge_admitted``), as
+        the reference's merge does.  Paged: the prompts' K/V go straight
+        into their pool blocks."""
         n = len(reqs)
         tokens = torch.from_numpy(np.stack([self._padded_prompt(r, plen) for r in reqs]))
         batch = {"tokens": tokens.to(self.device)}
-        tables_np = None
+        tables_np, tables = None, None
         if self.layout == "paged":
             tables_np = np.zeros((n, self.max_blocks_per_slot), np.int32)
             for r, (req, slot) in enumerate(zip(reqs, slots_for)):
@@ -334,15 +362,9 @@ class ServingEngine:
                 self._slot_blocks[slot] = blocks
             self.peak_blocks_in_use = max(self.peak_blocks_in_use, self.blocks_in_use)
             tables = torch.from_numpy(tables_np).to(self.device)
-            logits, _ = self.model.prefill(batch, self.cache, block_tables=tables)
-        else:
-            part = self.model.init_cache(n, self.max_len)
-            logits, part = self.model.prefill(batch, part)
-            rows = torch.tensor(slots_for, device=self.device)
-            for entry, new in zip(self.cache, part):
-                for leaf in ("k", "v", "pos"):
-                    if leaf in entry:
-                        entry[leaf][rows] = new[leaf]
+        part = self._admission_cache(n)
+        logits, part = self.model.prefill(batch, part, block_tables=tables)
+        self._merge_admitted(part, slots_for)
         self._dispatches += 1
         self.prefills += 1
         for r, (req, slot) in enumerate(zip(reqs, slots_for)):

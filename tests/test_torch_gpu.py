@@ -21,6 +21,8 @@ from repro_torch.kernels.decode_attention import ops as da_ops  # noqa: E402
 from repro_torch.kernels.decode_attention import ref as da_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
+from repro_torch.kernels.linear_recurrence import ops as lr_ops  # noqa: E402
+from repro_torch.kernels.linear_recurrence import ref as lr_ref  # noqa: E402
 from repro_torch.kernels.rmsnorm import ops as rn_ops  # noqa: E402
 from repro_torch.kernels.rmsnorm import ref as rn_ref  # noqa: E402
 
@@ -34,6 +36,9 @@ DECODE_SHAPES = [(256, 8, 2, 64), (512, 4, 4, 128), (128, 16, 1, 64), (96, 4, 2,
                  (545, 32, 8, 128), (300, 12, 1, 256)]
 # (G, D, bs) of the paged sweep; Hkv = 2
 PAGED_SHAPES = [(g, d, bs) for g in (1, 4, 12) for d in (64, 128) for bs in (16, 32)]
+# (B, S, W) of K5: the measure prefill, a prompt past the 2048 window, the
+# serving decode step, ragged shapes
+LINREC_SHAPES = [(1, 512, 2560), (1, 2304, 2560), (8, 1, 2560), (2, 37, 100), (3, 300, 129)]
 
 
 @pytest.fixture
@@ -262,3 +267,119 @@ def test_kernel_wrappers_raise_on_bad_inputs(cuda):
                                 torch.zeros(1, 8, 4, 12, device=cuda),
                                 torch.zeros(1, 8, 4, 12, device=cuda),
                                 q_positions=pos[:, :1].contiguous(), k_positions=pos)
+
+
+def _linrec_inputs(dev, shape, pad):
+    """a in (0.8, 1), b ~ 0.1 N, h0 ~ N (the reference's sweep); ``pad``
+    makes the last third of every row identity steps (a=1, b=0)."""
+    Bn, S, W = shape
+    rng = _rng("linrec", shape, pad)
+    a = 1 / (1 + np.exp(-rng.standard_normal(shape))) * 0.2 + 0.8
+    b = rng.standard_normal(shape) * 0.1
+    if pad:
+        a[:, S - S // 3:] = 1.0
+        b[:, S - S // 3:] = 0.0
+    return _on(dev, "float32", a, b, rng.standard_normal((Bn, W)))
+
+
+@pytest.mark.parametrize("pad", [False, True])
+@pytest.mark.parametrize("shape", LINREC_SHAPES)
+def test_linear_recurrence_kernel_matches_plain(cuda, shape, pad):
+    """rtol 1e-4 / atol 1e-5, as the reference holds Pallas to its ref."""
+    a, b, h0 = _linrec_inputs(cuda, shape, pad)
+    n = lr_ops.linear_recurrence.launches
+    got = lr_ops.linear_recurrence(a, b, h0)
+    assert lr_ops.linear_recurrence.launches == n + 1
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, lr_ref.linear_recurrence(a, b, h0), rtol=1e-4, atol=1e-5)
+
+
+def test_linear_recurrence_wrapper_raises_on_bad_inputs(cuda):
+    a, b, h0 = _linrec_inputs(cuda, (2, 8, 64), False)
+    with pytest.raises(TypeError):  # bf16: the kernel takes fp32 only
+        lr_ops.linear_recurrence(a.bfloat16(), b, h0)
+    with pytest.raises(ValueError):  # non-contiguous
+        lr_ops.linear_recurrence(a.transpose(1, 2).contiguous().transpose(1, 2), b, h0)
+    with pytest.raises(ValueError):  # h0 not (B, W)
+        lr_ops.linear_recurrence(a, b, h0[:1])
+    with pytest.raises(ValueError):  # h0 on the CPU
+        lr_ops.linear_recurrence(a, b, h0.cpu())
+
+
+def test_rglru_decode_step_in_a_cuda_graph_matches_eager(cuda):
+    """recurrentgemma's smoke decode step (RG-LRU and ring layers) captured
+    once and replayed against the same steps run eagerly: the same logits
+    and cache, and the row masked off by ``update_mask`` frozen, which is
+    how the serving step gates idle slots inside its graph."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as model_lib
+
+    cfg = get_config("recurrentgemma-2b", smoke=True)
+    model = model_lib.init(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    tokens = torch.from_numpy(_rng("rglru-graph").integers(0, cfg.vocab_size, (2, 20))).to(cuda)
+    cache = model.init_cache(2, 40)
+    logits, _ = model.prefill({"tokens": tokens}, cache)
+    eager = [{k: t.clone() for k, t in e.items()} for e in cache]
+    tok = logits.argmax(-1, keepdim=True)
+    pos = torch.full((2,), 20, dtype=torch.int32, device=cuda)
+    mask = torch.zeros(2, dtype=torch.bool, device=cuda)  # warm-up changes nothing
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            model.decode_step(tok, pos, cache, update_mask=mask)
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out, _ = model.decode_step(tok, pos, cache, update_mask=mask)
+    frozen = [{k: t[1].clone() for k, t in e.items() if t.dim()} for e in cache]
+
+    mask.copy_(torch.tensor([True, False]))
+    tok_e, pos_e = tok.clone(), pos.clone()
+    for _ in range(5):
+        graph.replay()
+        want, _ = model.decode_step(tok_e, pos_e, eager, update_mask=mask)
+        torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
+        tok.copy_(out.argmax(-1, keepdim=True))
+        tok_e = want.argmax(-1, keepdim=True)
+        assert torch.equal(tok[0], tok_e[0])
+        pos.add_(1)
+        pos_e += 1
+    torch.cuda.synchronize()
+    assert (cache[2]["pos"][0] >= cfg.sliding_window).any()  # the ring wrapped
+    for entry, ref, old in zip(cache, eager, frozen):
+        for leaf, t in entry.items():
+            torch.testing.assert_close(t, ref[leaf], rtol=1e-5, atol=1e-5)
+            if t.dim():
+                assert torch.equal(t[1], old[leaf]), leaf
+
+
+def test_hybrid_engine_cuda_graph_matches_eager(cuda):
+    """A small recurrentgemma engine (bf16) in both layouts: greedy streams
+    through the captured decode step equal those of the eager step, and
+    the replays credit K5 with one launch per RG-LRU layer."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as model_lib
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.sampling import SamplingParams
+
+    cfg = get_config("recurrentgemma-2b", smoke=True).replace(dtype="bfloat16",
+                                                              param_dtype="bfloat16")
+    model = model_lib.init(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    rng = _rng("hybrid-engine")
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (5, 30, 17, 9, 40)]
+    n_rec = sum(k == "rglru" for k in cfg.blocks())
+    for layout in ("contiguous", "paged"):
+        outs = {}
+        for graph in (True, False):
+            eng = ServingEngine(model, max_batch=2, max_len=96, prompt_bucket=8,
+                                cache_layout=layout, device=cuda, cuda_graph=graph)
+            n0 = lr_ops.linear_recurrence.launches
+            for i, p in enumerate(prompts):
+                eng.submit(p, SamplingParams(max_new_tokens=6 + 3 * i))
+            outs[graph] = {r.uid: r.output_tokens for r in eng.run()}
+            assert lr_ops.linear_recurrence.launches - n0 == \
+                n_rec * (eng.prefills + eng.decode_forwards)
+            assert eng.latency_summary()["dispatches_per_step_p50"] == 1
+        assert outs[True] == outs[False], layout
+        assert [len(outs[True][i]) for i in range(5)] == [6 + 3 * i for i in range(5)]

@@ -167,7 +167,7 @@ def test_unported_blocks_raise():
     from repro_torch.configs import get_config as port_config
 
     with pytest.raises(KeyError, match="not ported"):
-        port_config("recurrentgemma-2b")
-    cfg = get_config("llama3.2-1b", smoke=True).replace(block_pattern=("rglru",))
+        port_config("xlstm-1.3b")
+    cfg = get_config("llama3.2-1b", smoke=True).replace(block_pattern=("mlstm",))
     with pytest.raises(NotImplementedError):
         model_lib.Model(cfg, device="meta")
