@@ -10,7 +10,8 @@ or of the ``repro`` package.  Phases:
 1. Device: name, count, ``nvidia-smi`` name and power limit, build time.
 2. Each kernel against its plain PyTorch version at the main path's shapes
    (bf16, plus fp32 and edge cases), with kernel, plain, library and bound
-   times; one ``{"kernels": [...]}`` line.
+   times; one K3 call captured in a CUDA graph and replayed as q_pos
+   crosses its chunk boundaries; one ``{"kernels": [...]}`` line.
 3. The measured path at full width: ``Elana("llama3.1-8b").measure``
    (TTFT, TPOT, TTLT), then the same with NVML energy; size and cache
    reports; launch counts of every kernel checked against the forward
@@ -150,10 +151,11 @@ def kernel_phase(dev):
         return (torch.arange(n, dtype=torch.int32, device=dev) + offset).expand(B, n).contiguous()
 
     # -- K2 flash attention ---------------------------------------------------
-    def fa_case(name, B, S, T, Hq, Hkv, D, dtype, window=0, softcap=0.0, k_offset=0):
+    def fa_case(name, B, S, T, Hq, Hkv, D, dtype, window=0, softcap=0.0, k_offset=0,
+                q_offset=0):
         q, k, v = randn(B, S, Hq, D, dtype=dtype), randn(B, T, Hkv, D, dtype=dtype), \
             randn(B, T, Hkv, D, dtype=dtype)
-        qp, kp = arange_pos(B, S), arange_pos(B, T, k_offset)
+        qp, kp = arange_pos(B, S, q_offset), arange_pos(B, T, k_offset)
         kw = dict(q_positions=qp, k_positions=kp, causal=True, window=window, softcap=softcap)
         out = fa_ops.flash_attention(q, k, v, **kw)
         ref = fa_ref.attention(q, k, v, **kw)
@@ -180,11 +182,22 @@ def kernel_phase(dev):
                              f"softcap=30", 1, PROMPT, PROMPT, 10, 1, 256, bf16, window=2048,
                              softcap=30.0)
     errs.append(e_h)
-    errs.append(fa_case(f"recurrentgemma past the window S={HYBRID_PARITY_PROMPT}", 1,
-                        HYBRID_PARITY_PROMPT, HYBRID_PARITY_PROMPT, 10, 1, 256, bf16,
-                        window=2048, softcap=30.0)[1])
-    log_time("flash_attention", f"q (1,{PROMPT},10,256) window=2048 softcap=30",
-             lambda args: fa_ops.flash_attention(*args[:3], **args[3]), hybrid_fa)
+    hybrid_long, e_l = fa_case(f"recurrentgemma past the window S={HYBRID_PARITY_PROMPT}", 1,
+                               HYBRID_PARITY_PROMPT, HYBRID_PARITY_PROMPT, 10, 1, 256, bf16,
+                               window=2048, softcap=30.0)
+    errs.append(e_l)
+    # the tensor-core kernel's edges: D = 8 padded to the mma depth, D = 256
+    # with a ragged query tile, and a chunk of 96 queries over a cache
+    errs.append(fa_case("D=8 padded S=100", 2, 100, 100, 8, 2, 8, bf16)[1])
+    errs.append(fa_case("D=256 ragged S=70 softcap=30", 1, 70, 70, 10, 1, 256, bf16,
+                        softcap=30.0)[1])
+    errs.append(fa_case("chunk S=96 at 320.. over T=400 keys at 16..", 2, 96, 400, 32, 8, 128,
+                        bf16, q_offset=320, k_offset=16)[1])
+    fa_call = lambda args: fa_ops.flash_attention(*args[:3], **args[3])  # noqa: E731
+    log_time("flash_attention", f"q (1,{PROMPT},10,256) window=2048 softcap=30", fa_call,
+             hybrid_fa)
+    log_time("flash_attention", f"q (1,{HYBRID_PARITY_PROMPT},10,256) window=2048 softcap=30",
+             fa_call, hybrid_long)
 
     B, S, Hq, D = q.shape
     Hkv = k.shape[2]
@@ -210,6 +223,7 @@ def kernel_phase(dev):
 
     # -- K3 decode attention --------------------------------------------------
     L = PROMPT + GEN + 1
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def da_case(name, B, L, Hq, Hkv, D, dtype, q_at, filled, window=0, ring_at=None,
                 softcap=0.0):
@@ -225,11 +239,16 @@ def kernel_phase(dev):
         kw = dict(q_positions=qp, k_positions=kp, window=window, softcap=softcap)
         out = da_ops.decode_attention(q, kc, vc, **kw)
         ref = da_ref.decode_attention(q, kc, vc, **kw)
+        # the merge algebra at the chunks the kernel itself splits into
+        chunk = da_ops.split_plan(B, Hkv, L, sms)[1]
+        split = da_ref.decode_attention_split(q, kc, vc, chunk=chunk, **kw)
         torch.cuda.synchronize()
         check(out.shape == q.shape and torch.isfinite(out).all().item(), f"{name}: bad output")
         err = max_err(out, ref)
         close(out, ref, tol[dtype])
-        log(f"check decode_attention {name}: max_abs_err={err:.3e} tol={tol[dtype]}")
+        close(out, split, tol[dtype])
+        log(f"check decode_attention {name}: max_abs_err={err:.3e} tol={tol[dtype]}; "
+            f"against the split merge at chunk {chunk}: {max_err(out, split):.3e}")
         return (q, kc, vc, kw), err
 
     fill = PROMPT + 8  # slots beyond the decoded tokens are still -1
@@ -250,8 +269,30 @@ def kernel_phase(dev):
     errs.append(e_h)
     errs.append(da_case("recurrentgemma B=8 L=1024 softcap=30", 8, 1024, 10, 1, 256, bf16,
                         q_at=700, filled=701, window=2048, softcap=30.0)[1])
-    log_time("decode_attention", "q (1,1,10,256) ring (1,2048,1,256) softcap=30",
-             lambda args: da_ops.decode_attention(*args[:3], **args[3]), hybrid_da)
+    # split-KV edges: a wrapped ring whose window of 300 leaves every chunk
+    # between slots 100 and 1849 invisible; L = 1000 in 4 chunks of 256
+    # (the last ragged); one row empty over 32 chunks; the serving ring
+    ring_at = 2 * 2048 + 100
+    errs.append(da_case(f"ring L=2048 window=300 at {ring_at}: middle chunks empty", 1, 2048,
+                        10, 1, 256, bf16, q_at=ring_at, filled=0, window=300,
+                        ring_at=ring_at)[1])
+    errs.append(da_case("B=8 L=1000 Hq=32 Hkv=8", 8, 1000, 32, 8, 128, bf16, q_at=999,
+                        filled=1000)[1])
+    (q0, kc0, vc0, kw0), e0 = da_case("no valid key over L=2048", 1, 2048, 10, 1, 256, bf16,
+                                      q_at=5, filled=0)
+    check(da_ops.decode_attention(q0, kc0, vc0, **kw0).abs().max().item() == 0.0,
+          "a row with no valid key in any chunk must be 0")
+    errs.append(e0)
+    serving_da, e_s = da_case("recurrentgemma serving B=8 ring L=1024 at 1500", 8, 1024, 10, 1,
+                              256, bf16, q_at=1500, filled=0, window=2048, ring_at=1500,
+                              softcap=30.0)
+    errs.append(e_s)
+    da_call = lambda args: da_ops.decode_attention(*args[:3], **args[3])  # noqa: E731
+    log_time("decode_attention", "q (1,1,10,256) ring (1,2048,1,256) softcap=30", da_call,
+             hybrid_da)
+    log_time("decode_attention", "q (8,1,10,256) ring (8,1024,1,256) softcap=30", da_call,
+             serving_da)
+    decode_graph_check(dev, randn)
 
     B, _, Hq, D = q.shape
     Hkv = kc.shape[2]
@@ -301,7 +342,8 @@ def kernel_phase(dev):
         log(f"check paged_decode_attention {name}: max_abs_err={err:.3e} tol={tol[dtype]}")
         return (q, kp, vp, kw), err
 
-    q_pos = torch.randint(64, 1001, (8,), generator=g, device=dev).tolist()
+    # fixed row lengths (5266 valid keys), so K4's time compares from run to run
+    q_pos = [447, 768, 758, 604, 388, 823, 517, 953]
     (q, kp, vp, kw), err = pda_case(f"main B=8 Hq=32 Hkv=8 D=128 bs=16 q_pos={q_pos}",
                                     8, 32, 8, 128, bf16, q_pos)
     errs = [err]
@@ -417,6 +459,39 @@ def kernel_phase(dev):
     for e in entries:
         e["kernel_ms"] = e["ms"]
     return entries
+
+
+def decode_graph_check(dev, randn):
+    """One K3 call captured in a CUDA graph at recurrentgemma's ring shape,
+    replayed as q_pos advances across chunk boundaries (slots filled up to
+    it): bit-identical to the eager call, and within bf16 tolerance of the
+    plain version, at every position."""
+    import torch
+
+    from repro_torch.kernels.decode_attention import ops as da_ops, ref as da_ref
+
+    B, L = 1, 2048
+    q = randn(B, 1, 10, 256)
+    kc, vc = randn(B, L, 1, 256), randn(B, L, 1, 256)
+    qp = torch.zeros(B, 1, dtype=torch.int32, device=dev)
+    kp = torch.full((B, L), -1, dtype=torch.int32, device=dev)
+    slots = torch.arange(L, dtype=torch.int32, device=dev)[None]
+    kw = dict(q_positions=qp, k_positions=kp, window=2048, softcap=30.0)
+    da_ops.decode_attention(q, kc, vc, **kw)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = da_ops.decode_attention(q, kc, vc, **kw)
+    positions = (62, 63, 64, 65, 127, 128, 1000, 2047)
+    for pos in positions:
+        qp.fill_(pos)
+        kp.copy_(torch.where(slots <= pos, slots, -1))
+        graph.replay()
+        eager = da_ops.decode_attention(q, kc, vc, **kw)
+        torch.cuda.synchronize()
+        check(torch.equal(out, eager), f"graph replay at q_pos {pos} differs from eager")
+        close(out, da_ref.decode_attention(q, kc, vc, **kw), 2e-2)
+    log(f"check decode_attention in a CUDA graph: {len(positions)} replays at q_pos "
+        f"{positions} equal eager")
 
 
 def bound(nbytes, flops, peak_flops):

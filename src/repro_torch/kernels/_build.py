@@ -28,8 +28,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # q, k, v, q_pos, k_pos, out, B, S, T, Hq, Hkv, D, causal, window, softcap,
 # scale, stream
 _FLASH = [_P] * 6 + [_I] * 8 + [_F, _F, _P]
-# q, k, v, q_pos, k_pos, out, B, L, Hkv, G, D, window, softcap, scale, stream
-_DECODE = [_P] * 6 + [_I] * 6 + [_F, _F, _P]
+# q, k, v, q_pos, k_pos, out, m_ws, l_ws, acc_ws, B, L, Hkv, G, D, chunk,
+# n_split, window, softcap, scale, stream
+_DECODE = [_P] * 9 + [_I] * 8 + [_F, _F, _P]
 # q, k_pool, v_pool, tables, q_pos, out, B, nb, bs, Hkv, G, D, window,
 # softcap, scale, stream
 _PAGED = [_P] * 6 + [_I] * 7 + [_F, _F, _P]

@@ -13,6 +13,9 @@ namespace repro_torch {
 // and contribute exp(-inf) = 0.
 constexpr float kNegInf = -1073741824.0f;  // -2^30
 
+// Most query heads per KV head the decode kernels take.
+constexpr int kMaxGroup = 16;
+
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 
@@ -90,12 +93,13 @@ __device__ __forceinline__ void stage_kv(float* k_dst, float* v_dst, const T* k_
 }
 
 // One K/V tile of the decode kernels (K3 and K4), after staging: the G x
-// BK scores as (head, key) pairs, one warp per head for the online-softmax
-// update of (m, l) and the rescale factor alpha, then P.V into each
-// thread's fixed (head, column) accumulators.  `visible(c)` says whether
-// staged key c counts.  Shared layout: q_s G x (D+4), k_s and v_s
-// BK x (D+4), s_s G x (BK+4), m_s, l_s, a_s G each.  Ends synchronised,
-// so the caller may restage at once.
+// BK scores (G <= kMaxGroup) as (head, key) pairs, one warp per head for
+// the online-softmax update of (m, l) and the rescale factor alpha, then
+// P.V into each thread's fixed (head, column) accumulators: output a of
+// thread t is element e = t + NTHREADS * a of the G x D tile.
+// `visible(c)` says whether staged key c counts.  Shared layout: q_s
+// G x (D+4), k_s and v_s BK x (D+4), s_s G x (BK+4), m_s, l_s, a_s G
+// each.  Ends synchronised, so the caller may restage at once.
 template <int D, int BK, int NTHREADS, int NA, typename Visible>
 __device__ __forceinline__ void decode_tile(const float* q_s, const float* k_s, const float* v_s,
                                             float* s_s, float* m_s, float* l_s, float* a_s,
@@ -145,19 +149,66 @@ __device__ __forceinline__ void decode_tile(const float* q_s, const float* k_s, 
     }
     __syncthreads();
 
+    if constexpr (NTHREADS % D == 0) {
+        // Output a of this thread is column d of head g0 + a * HSTEP: each V
+        // element is read once for all of them, P four keys at a time.
+        constexpr int HSTEP = NTHREADS / D;
+        const int d = tid % D, g0 = tid / D;
 #pragma unroll
-    for (int a = 0; a < NA; ++a) {
-        const int e = tid + NTHREADS * a;
-        if (e < GD) {
-            const int g = e / D, d = e % D;
-            const float* p = &s_s[g * SP];
-            float x = acc[a] * a_s[g];
+        for (int a = 0; a < NA; ++a)
+            if (g0 + a * HSTEP < G) acc[a] *= a_s[g0 + a * HSTEP];
+#pragma unroll 2
+        for (int c = 0; c < BK; c += 4) {
+            float vv[4];
+#pragma unroll
+            for (int cc = 0; cc < 4; ++cc) vv[cc] = v_s[(c + cc) * DP + d];
+#pragma unroll
+            for (int a = 0; a < NA; ++a) {
+                const int g = g0 + a * HSTEP;
+                if (g < G) {
+                    const float4 p = *reinterpret_cast<const float4*>(&s_s[g * SP + c]);
+                    acc[a] = fmaf(p.w, vv[3], fmaf(p.z, vv[2], fmaf(p.y, vv[1],
+                                  fmaf(p.x, vv[0], acc[a]))));
+                }
+            }
+        }
+    } else {
+#pragma unroll
+        for (int a = 0; a < NA; ++a) {
+            const int e = tid + NTHREADS * a;
+            if (e < GD) {
+                const int g = e / D, d = e % D;
+                const float* p = &s_s[g * SP];
+                float x = acc[a] * a_s[g];
 #pragma unroll 8
-            for (int c = 0; c < BK; ++c) x = fmaf(p[c], v_s[c * DP + d], x);
-            acc[a] = x;
+                for (int c = 0; c < BK; ++c) x = fmaf(p[c], v_s[c * DP + d], x);
+                acc[a] = x;
+            }
         }
     }
     __syncthreads();
+}
+
+// Split-KV merge of one output column (the decode kernels' second pass):
+// the partials of n chunks, each chunk's running max m_i and sum l_i
+// `stride` floats apart and its unnormalised output acc_i `acc_stride`
+// apart, rescaled by exp(m_i - m) to the overall max m and summed.  A
+// chunk with no visible key holds m = kNegInf, l = 0, acc = 0, so a row
+// with no visible key anywhere writes 0.
+template <typename T>
+__device__ __forceinline__ T merge_partials(const float* m, const float* l, const float* acc,
+                                            int n, int stride, size_t acc_stride) {
+    float mx = kNegInf;
+#pragma unroll 8
+    for (int i = 0; i < n; ++i) mx = fmaxf(mx, m[i * stride]);
+    float num = 0.f, den = 0.f;
+#pragma unroll 8
+    for (int i = 0; i < n; ++i) {
+        const float w = expf(m[i * stride] - mx);
+        den = fmaf(w, l[i * stride], den);
+        num = fmaf(w, acc[i * acc_stride], num);
+    }
+    return from_float<T>(num / fmaxf(den, 1e-30f));
 }
 
 // Key visibility from absolute positions: -1 marks an empty slot; causal

@@ -36,7 +36,6 @@ namespace {
 
 constexpr int BK = 64;
 constexpr int NTHREADS = 256;
-constexpr int GMAX = 16;  // query heads per KV head
 
 template <int D>
 size_t pda_smem_bytes(int G) {
@@ -54,7 +53,7 @@ paged_decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_p
     static_assert(D % 4 == 0, "head dim must be a multiple of 4");
     constexpr int DP = D + 4;
     constexpr int SP = BK + 4;
-    constexpr int NA = (GMAX * D + NTHREADS - 1) / NTHREADS;  // outputs per thread
+    constexpr int NA = (kMaxGroup * D + NTHREADS - 1) / NTHREADS;  // outputs per thread
 
     extern __shared__ float4 smem4[];
     float* q_s = reinterpret_cast<float*>(smem4);  // G x DP
@@ -116,7 +115,7 @@ int launch(const void* q, const void* k_pool, const void* v_pool, const int* tab
     const size_t smem = pda_smem_bytes<D>(G);
     static const cudaError_t attr = cudaFuncSetAttribute(
         paged_decode_attention_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        int(pda_smem_bytes<D>(GMAX)));
+        int(pda_smem_bytes<D>(kMaxGroup)));
     if (attr != cudaSuccess) return int(attr);
     const dim3 grid(Hkv, B);
     paged_decode_attention_kernel<T, D><<<grid, NTHREADS, smem, stream>>>(
@@ -129,7 +128,7 @@ template <typename T>
 int dispatch(const void* q, const void* k_pool, const void* v_pool, const void* tables,
              const void* q_pos, void* o, int B, int nb, int bs, int Hkv, int G, int D,
              int window, float softcap, float scale, void* stream) {
-    if (G < 1 || G > GMAX || bs < 1) return int(cudaErrorInvalidValue);
+    if (G < 1 || G > kMaxGroup || bs < 1) return int(cudaErrorInvalidValue);
     const int* tp = static_cast<const int*>(tables);
     const int* qp = static_cast<const int*>(q_pos);
     cudaStream_t st = static_cast<cudaStream_t>(stream);

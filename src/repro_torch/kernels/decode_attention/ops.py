@@ -5,10 +5,16 @@
 A CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
 version in ``ref.py``.  Each wrapper launches on the current stream and
 never synchronises, so a CUDA graph can capture it.  Inference only.
+
+The contiguous kernel splits the cache into chunks across blocks and
+merges their partials in a second pass (split-KV): one call is two kernel
+launches when there is more than one chunk, and counts as one launch of
+the wrapper.  ``split_plan`` picks the chunks from the shapes alone.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -18,6 +24,8 @@ from repro_torch.kernels.decode_attention import ref
 
 HEAD_DIMS = (8, 16, 32, 64, 80, 128, 256)
 MAX_GROUP = 16  # query heads per KV head the kernel takes
+TILE = 64       # keys per staged tile; a chunk is a whole number of tiles
+BLOCKS_PER_SM = 2
 _FN = {torch.bfloat16: "decode_attention_bf16", torch.float32: "decode_attention_f32"}
 _PAGED_FN = {torch.bfloat16: "paged_decode_attention_bf16",
              torch.float32: "paged_decode_attention_f32"}
@@ -90,6 +98,23 @@ def _check_paged(q, k_pool, v_pool, block_tables, q_positions):
         raise ValueError("the pools must start on a 16-byte boundary (16-byte loads)")
 
 
+def split_plan(B: int, Hkv: int, L: int, sms: int) -> tuple[int, int]:
+    """``(n_split, chunk)``: the cache's L slots cut into n_split chunks of
+    ``chunk`` slots (a whole number of tiles, the last one ragged) so that
+    the B * Hkv * n_split blocks of pass 1 are about ``BLOCKS_PER_SM`` per
+    SM, and no chunk is empty.  Shapes only, so a captured call stays
+    right as positions advance."""
+    tiles = -(-L // TILE)
+    want = min(tiles, max(1, -(-BLOCKS_PER_SM * sms // (B * Hkv))))
+    per = -(-tiles // want)
+    return -(-tiles // per), per * TILE
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def decode_attention(q, k_cache, v_cache, *, q_positions, k_positions,
                      window=0, softcap=0.0):
     if not q.is_cuda:
@@ -99,12 +124,19 @@ def decode_attention(q, k_cache, v_cache, *, q_positions, k_positions,
     _check(q, k_cache, v_cache, q_positions, k_positions)
     B, _, Hq, D = q.shape
     L, Hkv = k_cache.shape[1], k_cache.shape[2]
+    G = Hq // Hkv
+    n_split, chunk = split_plan(B, Hkv, L, _sm_count(q.device.index or 0))
     out = torch.empty_like(q)
+    scratch = [0, 0, 0]  # m, l, acc partials of pass 1, fp32
+    if n_split > 1:
+        stats = torch.empty(2, B * Hkv * n_split * G, device=q.device, dtype=torch.float32)
+        acc = torch.empty(B * Hkv * n_split * G * D, device=q.device, dtype=torch.float32)
+        scratch = [stats[0].data_ptr(), stats[1].data_ptr(), acc.data_ptr()]
     launcher = _build.load()[_FN[q.dtype]]
     status = launcher(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        q_positions.data_ptr(), k_positions.data_ptr(), out.data_ptr(),
-        B, L, Hkv, Hq // Hkv, D, int(window), float(softcap), 1.0 / math.sqrt(D),
+        q_positions.data_ptr(), k_positions.data_ptr(), out.data_ptr(), *scratch,
+        B, L, Hkv, G, D, chunk, n_split, int(window), float(softcap), 1.0 / math.sqrt(D),
         torch.cuda.current_stream(q.device).cuda_stream)
     if status != 0:
         raise RuntimeError(f"decode_attention launch failed: CUDA error {status}")

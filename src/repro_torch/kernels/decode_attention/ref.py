@@ -9,6 +9,11 @@ buffers work unchanged.
 ``paged_decode_attention``: the same over a block pool, gathered through a
 per-sequence block table; gathered index j is absolute position j.
 
+``decode_attention_split``: ``decode_attention`` computed chunk by chunk
+and merged as the split-KV kernel does, the plain statement of its merge
+algebra (for tests and ``chip_smoke.py``, which hold the kernel to it at
+the chunks ``ops.split_plan`` picks; not for the model).
+
 A row with no valid key returns 0, as the kernels do.
 """
 
@@ -46,6 +51,46 @@ def decode_attention(
     probs = torch.softmax(scores, dim=-1) * valid.any(dim=-1, keepdim=True)
     o = torch.einsum("bhgst,bthd->bshgd", probs.to(v_cache.dtype), v_cache)
     return o.reshape(B, S, Hq, D)
+
+
+def decode_attention_split(
+    q: torch.Tensor,            # (B, 1, Hq, D)
+    k_cache: torch.Tensor,      # (B, L, Hkv, D)
+    v_cache: torch.Tensor,      # (B, L, Hkv, D)
+    *,
+    q_positions: torch.Tensor,  # (B, 1)
+    k_positions: torch.Tensor,  # (B, L)
+    window: int = 0,
+    softcap: float = 0.0,
+    chunk: int,
+) -> torch.Tensor:
+    """Each chunk of ``chunk`` slots gives its running max m, sum l and
+    unnormalised output acc (m = NEG_INF, l = acc = 0 where it sees no
+    key); the chunks merge as sum(exp(m_i - m) acc_i) / sum(exp(m_i - m)
+    l_i), with m the largest m_i and the sum clamped at 1e-30.  fp32."""
+    B, S, Hq, D = q.shape
+    L, Hkv = k_cache.shape[1], k_cache.shape[2]
+    qg = q.reshape(B, S, Hkv, Hq // Hkv, D).float()
+    valid = (k_positions >= 0) & (k_positions <= q_positions)  # (B, L)
+    if window > 0:
+        valid = valid & (q_positions - k_positions < window)
+    parts = []
+    for c0 in range(0, L, chunk):
+        kc, vc = k_cache[:, c0:c0 + chunk].float(), v_cache[:, c0:c0 + chunk].float()
+        s = torch.einsum("bshgd,bthd->bhgst", qg, kc) / math.sqrt(D)
+        if softcap > 0.0:
+            s = torch.tanh(s / softcap) * softcap
+        vis = valid[:, None, None, None, c0:c0 + chunk]
+        s = torch.where(vis, s, -math.inf)
+        m = s.amax(-1, keepdim=True).clamp_min(NEG_INF)
+        p = torch.exp(s - m)
+        parts.append((m, p.sum(-1, keepdim=True), torch.einsum("bhgst,bthd->bhgsd", p, vc)))
+    m = torch.stack([mi for mi, _, _ in parts]).amax(0)
+    w = [torch.exp(mi - m) for mi, _, _ in parts]
+    num = sum(wi * acc for wi, (_, _, acc) in zip(w, parts))
+    den = sum(wi * li for wi, (_, li, _) in zip(w, parts))
+    o = num / den.clamp_min(1e-30)                        # (B, Hkv, G, S, D)
+    return o.permute(0, 3, 1, 2, 4).reshape(B, S, Hq, D).to(q.dtype)
 
 
 def paged_decode_attention(

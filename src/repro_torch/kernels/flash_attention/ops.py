@@ -1,7 +1,9 @@
-"""Wrapper of the CUDA flash-attention kernel (``csrc/flash_attention.cu``).
+"""Wrapper of the CUDA flash-attention kernels (``csrc/flash_attention.cu``).
 
-A CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
-version in ``ref.py``.  Forward only, as on the reference's prefill path.
+A CUDA tensor launches a kernel or raises; a CPU tensor takes the plain
+version in ``ref.py``.  The dtype picks the kernel: bf16 runs on the
+tensor cores, fp32 on FMAs (tensor-core products cannot hold fp32 to its
+tolerance).  Forward only, as on the reference's prefill path.
 """
 
 from __future__ import annotations
@@ -42,8 +44,8 @@ def _check(q, k, v, q_positions, k_positions):
         raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
     if tuple(q_positions.shape) != (B, S) or tuple(k_positions.shape) != (B, T):
         raise ValueError("positions must be (B, S) and (B, T)")
-    if k.data_ptr() % 16 or v.data_ptr() % 16:
-        raise ValueError("k and v must start on a 16-byte boundary (16-byte loads)")
+    if q.data_ptr() % 16 or k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("q, k and v must start on a 16-byte boundary (16-byte loads)")
 
 
 def flash_attention(q, k, v, *, q_positions, k_positions, causal, window=0,

@@ -136,6 +136,151 @@ def test_decode_kernel_ring_softcap_and_empty_row(cuda):
     _assert(got, da_ref.decode_attention(q, kc, vc, **kw), "float32")
 
 
+def _flash_case(cuda, dtype, B, S, T, Hq, Hkv, D, q_offset=0, k_offset=0, **kw):
+    """Queries at positions q_offset.., keys at k_offset..: with q_offset =
+    T - S + k_offset, a chunk of S new tokens over a cache of T - S."""
+    q, k, v, _, _ = _flash_inputs(B, S, T, Hq, Hkv, D, k_offset)
+    qp = np.broadcast_to(np.arange(S) + q_offset, (B, S))
+    kp = np.broadcast_to(np.arange(T) + k_offset, (B, T))
+    q, k, v = _on(cuda, dtype, q, k, v)
+    qp, kp = _ints(cuda, qp, kp)
+    kw = dict(q_positions=qp, k_positions=kp, causal=True, **kw)
+    return fa_ops.flash_attention(q, k, v, **kw), fa_ref.attention(q, k, v, **kw)
+
+
+@pytest.mark.parametrize("D", fa_ops.HEAD_DIMS)
+def test_flash_bf16_tensor_cores_every_head_dim(cuda, D):
+    """The tensor-core kernel at every head dim it takes: D = 8 pads the
+    contraction to 16, D = 80 is five k-steps, D = 256 uses 32-key tiles
+    and re-reads Q from shared memory; S = 100 leaves a ragged tile."""
+    got, want = _flash_case(cuda, "bfloat16", 2, 100, 100, 4, 2, D)
+    _assert(got, want, "bfloat16")
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("window", [0, 100])
+def test_flash_bf16_chunk_over_a_cache(cuda, D, window):
+    """S != T: 96 queries at positions 320..415 over 400 keys at 16..415,
+    as a prefill chunk over a cache passes them."""
+    got, want = _flash_case(cuda, "bfloat16", 2, 96, 400, 8, 2, D, q_offset=320,
+                            k_offset=16, window=window)
+    _assert(got, want, "bfloat16")
+
+
+@pytest.mark.parametrize("D", [128, 256])
+def test_flash_bf16_softcap_window_and_empty_rows(cuda, D):
+    """recurrentgemma's masks on the tensor cores: softcap 30, a window,
+    keys from position 10 with every 7th slot empty; rows 0..9 see no key
+    and must be exactly 0."""
+    q, k, v, qp, kp = _flash_inputs(2, 80, 96, 10, 1, D, k_offset=10)
+    kp[:, ::7] = -1
+    q, k, v = _on(cuda, "bfloat16", q, k, v)
+    qp, kp = _ints(cuda, qp, kp)
+    kw = dict(q_positions=qp, k_positions=kp, causal=True, window=40, softcap=30.0)
+    got = fa_ops.flash_attention(q, k, v, **kw)
+    assert torch.all(got[:, :10] == 0)
+    _assert(got, fa_ref.attention(q, k, v, **kw), "bfloat16")
+
+
+@pytest.mark.parametrize("S", [70, 130])
+def test_flash_bf16_ragged_d256(cuda, S):
+    """D = 256 with a ragged last query tile and a ragged key tile, softcap
+    and window as recurrentgemma runs them."""
+    got, want = _flash_case(cuda, "bfloat16", 1, S, S, 10, 1, 256, window=48, softcap=30.0)
+    _assert(got, want, "bfloat16")
+
+
+def _ring_positions(B, L, cur):
+    """A ring of L slots decoded up to position ``cur``: slot j holds the
+    latest position = j (mod L)."""
+    return np.broadcast_to(cur - ((cur - np.arange(L)) % L), (B, L)).copy()
+
+
+def _decode_case(cuda, dtype, q, kc, vc, qp, kp, **kw):
+    """The kernel's output and the plain version's; the kernel is also held
+    to the split merge algebra at the chunks it splits the cache into."""
+    q, kc, vc = _on(cuda, dtype, q, kc, vc)
+    qp, kp = _ints(cuda, qp, kp)
+    kw = dict(q_positions=qp, k_positions=kp, **kw)
+    got = da_ops.decode_attention(q, kc, vc, **kw)
+    B, L, Hkv = kc.shape[:3]
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    chunk = da_ops.split_plan(B, Hkv, L, sms)[1]
+    _assert(got, da_ref.decode_attention_split(q, kc, vc, chunk=chunk, **kw), dtype)
+    return got, da_ref.decode_attention(q, kc, vc, **kw)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_split_full_ring_mqa(cuda, dtype):
+    """recurrentgemma's MQA shape over its whole 2048-slot ring, wrapped
+    (position 2304), window 2048, softcap 30: 32 chunks of one tile."""
+    B, L, cur = 1, 2048, 2304
+    got, want = _decode_case(cuda, dtype, *_decode_inputs(B, L, 10, 1, 256),
+                             np.full((B, 1), cur), _ring_positions(B, L, cur),
+                             window=2048, softcap=30.0)
+    _assert(got, want, dtype)
+
+
+@pytest.mark.parametrize("Hq,Hkv,D", [(10, 1, 256), (32, 8, 128)])
+def test_decode_split_window_empties_middle_chunks(cuda, Hq, Hkv, D):
+    """A wrapped ring whose window of 300 leaves slots 0..100 and
+    1849..2047 visible: every chunk in between sees no key."""
+    B, L, cur = 2, 2048, 2 * 2048 + 100
+    got, want = _decode_case(cuda, "bfloat16", *_decode_inputs(B, L, Hq, Hkv, D),
+                             np.full((B, 1), cur), _ring_positions(B, L, cur), window=300)
+    _assert(got, want, "bfloat16")
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_split_row_empty_everywhere(cuda, dtype):
+    """Row 1's cache is empty over every chunk: exactly 0; rows 0 and 2
+    are filled up to ragged positions, L = 1000 not a whole number of
+    chunks."""
+    B, L = 3, 1000
+    kp = np.broadcast_to(np.arange(L), (B, L)).copy()
+    qp = np.asarray([[999], [500], [613]])
+    kp = np.where(kp <= qp, kp, -1)
+    kp[1] = -1
+    got, want = _decode_case(cuda, dtype, *_decode_inputs(B, L, 8, 2, 64), qp, kp)
+    assert torch.all(got[1] == 0)
+    _assert(got, want, dtype)
+
+
+def test_decode_split_serving_shape(cuda):
+    """recurrentgemma's serving step: B = 8 rows over 1024-slot rings at
+    ragged positions, some wrapped, G = 10, D = 256, softcap 30."""
+    B, L = 8, 1024
+    cur = np.asarray([3, 64, 500, 1023, 1024, 1500, 2047, 3000])
+    kp = np.stack([_ring_positions(1, L, c)[0] for c in cur])
+    kp = np.where(kp >= 0, kp, -1)
+    got, want = _decode_case(cuda, "bfloat16", *_decode_inputs(B, L, 10, 1, 256),
+                             cur[:, None], kp, window=2048, softcap=30.0)
+    _assert(got, want, "bfloat16")
+
+
+def test_decode_split_in_a_cuda_graph(cuda):
+    """One K3 call captured in a CUDA graph and replayed as q_pos advances
+    across a chunk boundary (slots filled up to it): the same output as
+    the eager call at every step."""
+    B, L = 1, 2048
+    q, kc, vc = _on(cuda, "bfloat16", *_decode_inputs(B, L, 10, 1, 256))
+    qp = torch.zeros(B, 1, dtype=torch.int32, device=cuda)
+    kp = torch.full((B, L), -1, dtype=torch.int32, device=cuda)
+    slots = torch.arange(L, dtype=torch.int32, device=cuda)[None]
+    kw = dict(q_positions=qp, k_positions=kp, window=2048, softcap=30.0)
+    da_ops.decode_attention(q, kc, vc, **kw)  # build and load outside the capture
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = da_ops.decode_attention(q, kc, vc, **kw)
+    for pos in (60, 63, 64, 65, 130, 1000, 2047):
+        qp.fill_(pos)
+        kp.copy_(torch.where(slots <= pos, slots, -1))
+        graph.replay()
+        torch.testing.assert_close(out, da_ops.decode_attention(q, kc, vc, **kw), rtol=0,
+                                   atol=0)
+        _assert(out, da_ref.decode_attention(q, kc, vc, **kw), "bfloat16")
+
+
 def _paged_inputs(G, D, bs, q_pos, nb, window=0):
     """Rows with ragged q_pos over a shuffled pool; a row with q_pos 0 and
     an all-garbage table among them, and unused entries at block 0."""

@@ -201,6 +201,62 @@ def test_decode_plain_softcap_and_no_valid_key_row():
     _assert(got, ref, "float32", rows=slice(1, None))
 
 
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+@pytest.mark.parametrize("chunk", [1, 7, 64])
+def test_decode_split_merge_matches_unsplit_and_jax(chunk, softcap):
+    """The split-KV merge algebra (``ref.decode_attention_split``, what the
+    kernel's two passes compute) against the unsplit plain version and the
+    JAX ref, 1e-5 in fp32.  Row 0 has no key at all (exactly 0; the JAX ref
+    returns the mean of V there, so it is left out of that comparison);
+    row 1's window of 40 leaves every chunk before slot 101 with no
+    visible key; row 2's cache is filled up to its query at 70."""
+    B, L, Hq, Hkv, D = 3, 150, 8, 2, 32
+    q, kc, vc = _decode_inputs(B, L, Hq, Hkv, D, seed=chunk)
+    kp = np.broadcast_to(np.arange(L), (B, L)).copy()
+    kp[0] = -1
+    kp[2, 71:] = -1
+    qp = np.asarray([[149], [140], [70]])
+    (jq, tq), (jk, tk), (jv, tv) = _pair(q), _pair(kc), _pair(vc)
+    (jqp, tqp), (jkp, tkp) = _ints(qp), _ints(kp)
+    window = np.asarray([0, 40, 0])
+    got, want, jax_want = [], [], []
+    for b in range(B):  # one window per row
+        kw = dict(window=int(window[b]), softcap=softcap)
+        rows = slice(b, b + 1)
+        got.append(da_ref.decode_attention_split(
+            tq[rows], tk[rows], tv[rows], q_positions=tqp[rows], k_positions=tkp[rows],
+            chunk=chunk, **kw))
+        want.append(da_ref.decode_attention(
+            tq[rows], tk[rows], tv[rows], q_positions=tqp[rows], k_positions=tkp[rows], **kw))
+        jax_want.append(_np(jda_ref.decode_attention(
+            jq[rows], jk[rows], jv[rows], q_positions=jqp[rows], k_positions=jkp[rows], **kw)))
+    got, want = torch.cat(got), torch.cat(want)
+    assert torch.all(got[0] == 0)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(_np(got)[1:], np.concatenate(jax_want[1:]), rtol=1e-5,
+                               atol=1e-5)
+
+
+# (B, Hkv, L, SMs) -> (n_split, chunk): the table's shape, recurrentgemma's
+# full ring and its serving shape, a batch whose chunks are 4 tiles with
+# a ragged last one, and a batch that fills the card without a split
+SPLIT_PLANS = [((1, 8, 545, 132), (9, 64)), ((1, 1, 2048, 132), (32, 64)),
+               ((8, 1, 1024, 132), (16, 64)), ((8, 8, 1000, 132), (4, 256)),
+               ((64, 8, 545, 132), (1, 576))]
+
+
+@pytest.mark.parametrize("shape,plan", SPLIT_PLANS)
+def test_decode_split_plan(shape, plan):
+    """Chunks are whole tiles, none empty, they cover the cache, and the
+    blocks of pass 1 come to about two per SM where the cache allows."""
+    B, Hkv, L, sms = shape
+    n_split, chunk = da_ops.split_plan(B, Hkv, L, sms)
+    assert (n_split, chunk) == plan
+    assert chunk % da_ops.TILE == 0
+    assert (n_split - 1) * chunk < L <= n_split * chunk
+    assert B * Hkv * n_split <= max(B * Hkv, 2 * sms)
+
+
 @pytest.mark.parametrize("window", [0, 24])
 def test_paged_plain_matches_jax(window):
     """The plain paged version (for the next slice) against the Pallas
