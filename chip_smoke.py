@@ -10,8 +10,9 @@ or of the ``repro`` package.  Phases:
 1. Device: name, count, ``nvidia-smi`` name and power limit, build time.
 2. Each kernel against its plain PyTorch version at the main path's shapes
    (bf16, plus fp32 and edge cases), with kernel, plain, library and bound
-   times; one K3 call captured in a CUDA graph and replayed as q_pos
-   crosses its chunk boundaries; one ``{"kernels": [...]}`` line.
+   times; one K3 call and one K4 call captured in CUDA graphs and
+   replayed as q_pos crosses their chunk boundaries; K4 and K5 also timed
+   at other chunk plans; one ``{"kernels": [...]}`` line.
 3. The measured path at full width: ``Elana("llama3.1-8b").measure``
    (TTFT, TPOT, TTLT), then the same with NVML energy; size and cache
    reports; launch counts of every kernel checked against the forward
@@ -38,6 +39,7 @@ Any failed check exits non-zero before the last line is printed; so does a
 machine without a CUDA device.
 """
 
+import contextlib
 import gc
 import json
 import math
@@ -322,24 +324,30 @@ def kernel_phase(dev):
                  softcap=0.0, garbage_rows=()):
         """Rows at ragged ``q_pos`` over a shuffled pool of N blocks; each
         row's table names the blocks its keys need, unused entries (and
-        every entry of a garbage row) point at block 0."""
+        every entry of a garbage row, or of a row at -1 with no valid key)
+        point at block 0.  Also held to the split merge algebra at the
+        chunk the kernel splits the positions into."""
         q = randn(B, 1, Hq, D, dtype=dtype)
         kp, vp = randn(N, bs, Hkv, D, dtype=dtype), randn(N, bs, Hkv, D, dtype=dtype)
         perm = (torch.randperm(N - 1, generator=g, device=dev) + 1).tolist()
         tables = torch.zeros(B, nb, dtype=torch.int32)
         for b, p in enumerate(q_pos):
-            need = 0 if b in garbage_rows else p // bs + 1
+            need = 0 if b in garbage_rows else max(p, -1) // bs + 1
             tables[b, :need] = torch.tensor([perm.pop() for _ in range(need)])
         tables = tables.to(dev)
         qp = torch.tensor(q_pos, dtype=torch.int32, device=dev)[:, None]
         kw = dict(block_tables=tables, q_positions=qp, window=window, softcap=softcap)
         out = da_ops.paged_decode_attention(q, kp, vp, **kw)
         ref = da_ref.paged_decode_attention(q, kp, vp, **kw)
+        chunk = da_ops.split_plan(B, Hkv, nb * bs, sms)[1]
+        split = da_ref.paged_decode_attention_split(q, kp, vp, chunk=chunk, **kw)
         torch.cuda.synchronize()
         check(out.shape == q.shape and torch.isfinite(out).all().item(), f"{name}: bad output")
         err = max_err(out, ref)
         close(out, ref, tol[dtype])
-        log(f"check paged_decode_attention {name}: max_abs_err={err:.3e} tol={tol[dtype]}")
+        close(out, split, tol[dtype])
+        log(f"check paged_decode_attention {name}: max_abs_err={err:.3e} tol={tol[dtype]}; "
+            f"against the split merge at chunk {chunk}: {max_err(out, split):.3e}")
         return (q, kp, vp, kw), err
 
     # fixed row lengths (5266 valid keys), so K4's time compares from run to run
@@ -354,6 +362,21 @@ def kernel_phase(dev):
     errs.append(pda_case("G=12 (command-r-plus) bs=32", 3, 96, 8, 128, bf16, [700, 63, 2],
                          bs=32, nb=32, N=97)[1])
     pda_case("fp32 window=64 G=4", 3, 16, 4, 128, torch.float32, [10, 640, 1000], window=64)
+    # split-KV edges at the serving shape's 4 chunks of 256: rows on either
+    # side of each boundary, the last position, a row with no valid key; a
+    # window of 300 that empties the first three chunks of a long row; 48
+    # positions a pool block (not a divisor of the 64-key tile)
+    edges = [255, 256, 257, 511, 512, 767, 1023, -1]
+    (q0, kp0, vp0, kw0), e0 = pda_case(f"split edges q_pos={edges}", 8, 32, 8, 128, bf16,
+                                       edges)
+    check(da_ops.paged_decode_attention(q0, kp0, vp0, **kw0)[-1].abs().max().item() == 0.0,
+          "a row with no valid key must be 0")
+    errs.append(e0)
+    errs.append(pda_case("window=300 empties leading chunks", 4, 32, 8, 128, bf16,
+                         [1000, 900, 300, 40], window=300)[1])
+    errs.append(pda_case("bs=48 G=10 D=256 softcap=30", 4, 20, 2, 256, bf16,
+                         [1000, 47, 48, 600], bs=48, nb=22, N=89, softcap=30.0)[1])
+    paged_graph_check(dev, randn)
 
     B, _, Hq, D = q.shape
     N, bs, Hkv = kp.shape[:3]
@@ -363,13 +386,19 @@ def kernel_phase(dev):
               + 4 * (sum(p // bs + 1 for p in q_pos) + qp.numel()))
     n = copies(2 * 2 * valid * Hkv * D)
     sets = [(q.clone(), kp.clone(), vp.clone()) for _ in range(n)]
+    pda_call = lambda i: da_ops.paged_decode_attention(*sets[i], **kw)  # noqa: E731
+    for per_sm in (1, 2, 4, 8):  # the chunk plan's aim, beside the one it takes
+        with patched(da_ops, "BLOCKS_PER_SM", per_sm):
+            plan = da_ops.split_plan(B, Hkv, tables.shape[1] * bs, sms)
+            log(f"time paged_decode_attention at {per_sm} blocks per SM, (n_split, chunk) = "
+                f"{plan}: kernel_ms={cuda_ms(pda_call, n):.4f}")
     entries.append(dict(
         name="paged_decode_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/paged_decode_attention.cu",
         replaces="src/repro/kernels/decode_attention/decode_attention.py:202",
         shape=f"q ({B},1,{Hq},{D}) pool ({N},{bs},{Hkv},{D}) bf16, {valid} valid keys",
         max_abs_err=max(errs),
-        ms=cuda_ms(lambda i: da_ops.paged_decode_attention(*sets[i], **kw), n),
+        ms=cuda_ms(pda_call, n),
         plain_ms=cuda_ms(lambda i: da_ref.paged_decode_attention(*sets[i], **kw), n,
                          iters=20),
         library_ms=None,  # no one PyTorch call gathers through a block table and attends
@@ -406,41 +435,60 @@ def kernel_phase(dev):
         **bound(2 * (2 * x.numel() + d), 4 * x.numel(), FP32_FLOPS)))
 
     # -- K5 linear recurrence -----------------------------------------------------
-    def lr_case(name, Bn, S, W, pad=False):
+    def lr_case(name, Bn, S, W, pad=False, a_max=None):
         """a in (0.8, 1), b ~ 0.1 N, nonzero h0 (the reference's sweep);
         ``pad`` makes the last third of every row identity steps (a=1,
-        b=0), as padded positions arrive.  rtol 1e-4 / atol 1e-5, as the
-        reference holds Pallas to its ref."""
+        b=0), as padded positions arrive; ``a_max`` draws a from (0,
+        a_max) instead, where chunk products underflow.  rtol 1e-4 / atol
+        1e-5, as the reference holds Pallas to its ref; also held to the
+        split algebra at the chunk the kernel splits S into."""
         f32 = torch.float32
         a = torch.sigmoid(randn(Bn, S, W, dtype=f32)) * 0.2 + 0.8
+        if a_max is not None:
+            a = torch.rand(Bn, S, W, generator=g, device=dev) * a_max
         b, h0 = randn(Bn, S, W, dtype=f32) * 0.1, randn(Bn, W, dtype=f32)
         if pad:
             a[:, S - S // 3:] = 1.0
             b[:, S - S // 3:] = 0.0
         out, ref = lr_ops.linear_recurrence(a, b, h0), lr_ref.linear_recurrence(a, b, h0)
+        chunk = lr_ops.scan_plan(Bn, S, W, sms)[1]
+        split = lr_ref.linear_recurrence_chunked(a, b, h0, chunk)
         torch.cuda.synchronize()
         check(out.shape == a.shape and torch.isfinite(out).all().item(), f"{name}: bad output")
         err = max_err(out, ref)
         try:
             torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-5)
+            torch.testing.assert_close(out, split, rtol=1e-4, atol=1e-5)
         except AssertionError as exc:
             raise CheckFailed(f"linear_recurrence {name}: {exc}") from None
-        log(f"check linear_recurrence {name}: max_abs_err={err:.3e} rtol=1e-4 atol=1e-5")
+        log(f"check linear_recurrence {name}: max_abs_err={err:.3e} rtol=1e-4 atol=1e-5; "
+            f"against the split algebra at chunk {chunk}: {max_err(out, split):.3e}")
         return (a, b, h0), err
 
     W = 2560  # recurrentgemma's lru_width
     (a, b, h0), err = lr_case(f"main B=1 S={PROMPT} W={W}", 1, PROMPT, W)
     errs = [err]
-    errs.append(lr_case(f"prompt past the window B=1 S={HYBRID_PARITY_PROMPT} W={W}", 1,
-                        HYBRID_PARITY_PROMPT, W)[1])
+    long_lr, e_l = lr_case(f"prompt past the window B=1 S={HYBRID_PARITY_PROMPT} W={W}", 1,
+                           HYBRID_PARITY_PROMPT, W)
+    errs.append(e_l)
     (a1, b1, h01), e1 = lr_case(f"serving decode B=8 S=1 W={W}", 8, 1, W)
     errs.append(e1)
     errs.append(lr_case("ragged B=2 S=37 W=100", 2, 37, 100)[1])
     errs.append(lr_case("identity pad steps B=2 S=37 W=100", 2, 37, 100, pad=True)[1])
     errs.append(lr_case(f"identity pad steps B=4 S=300 W={W}", 4, 300, W, pad=True)[1])
+    errs.append(lr_case(f"admission B=8 S={PROMPT} W={W}", 8, PROMPT, W)[1])
+    errs.append(lr_case(f"a in (0, 1e-3), decay products underflow B=1 S={PROMPT} W={W}", 1,
+                        PROMPT, W, a_max=1e-3)[1])
+    errs.append(lr_case("ragged split B=3 S=300 W=129", 3, 300, 129)[1])
     t1 = cuda_ms(lambda i: lr_ops.linear_recurrence(a1, b1, h01), 1)
     log(f"time linear_recurrence 8x1x{W}: kernel_ms={t1:.4f} (the serving decode shape)")
+    lr_call = lambda args: lr_ops.linear_recurrence(*args[:3])  # noqa: E731
     Bn, S, W = a.shape
+    for case, shape in (((a, b, h0, {}), (Bn, S, W)), (long_lr + ({},), long_lr[0].shape)):
+        log_time("linear_recurrence", f"{tuple(shape)} in {lr_ops.scan_plan(*shape, sms)} "
+                 f"(n_chunks, chunk)", lr_call, case)
+        with patched(lr_ops, "MIN_CHUNK", 1 << 30):  # one chunk: the single pass
+            log_time("linear_recurrence", f"{tuple(shape)} in one chunk", lr_call, case)
     n = copies(3 * 4 * a.numel())
     sets = [(a.clone(), b.clone(), h0.clone()) for _ in range(n)]
     entries.append(dict(
@@ -455,6 +503,8 @@ def kernel_phase(dev):
         # cumprod/cumsum closed form divides by the decay product, which
         # underflows)
         library_ms=None,
+        # one pass's bytes (a, b read once, h written once), though the
+        # split kernel reads a and b twice
         **bound(4 * (3 * a.numel() + h0.numel()), 2 * a.numel(), FP32_FLOPS)))
     for e in entries:
         e["kernel_ms"] = e["ms"]
@@ -492,6 +542,51 @@ def decode_graph_check(dev, randn):
         close(out, da_ref.decode_attention(q, kc, vc, **kw), 2e-2)
     log(f"check decode_attention in a CUDA graph: {len(positions)} replays at q_pos "
         f"{positions} equal eager")
+
+
+def paged_graph_check(dev, randn):
+    """One K4 call at llama3.1-8b's serving shape (8 rows of 64 blocks of
+    16 positions, G = 4, D = 128) captured in a CUDA graph, replayed as the
+    rows' q_pos advance across the chunk boundaries of its plan: identical
+    to the eager call, and within bf16 tolerance of the plain version, at
+    every position."""
+    import torch
+
+    from repro_torch.kernels.decode_attention import ops as da_ops, ref as da_ref
+
+    B, nb, bs, Hkv = 8, 64, 16, 8
+    q = randn(B, 1, 32, 128)
+    kp, vp = randn(B * nb + 1, bs, Hkv, 128), randn(B * nb + 1, bs, Hkv, 128)
+    tables = (torch.randperm(B * nb, device=dev) + 1).to(torch.int32).reshape(B, nb)
+    qp = torch.zeros(B, 1, dtype=torch.int32, device=dev)
+    kw = dict(block_tables=tables, q_positions=qp)
+    da_ops.paged_decode_attention(q, kp, vp, **kw)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = da_ops.paged_decode_attention(q, kp, vp, **kw)
+    rows = torch.arange(B, dtype=torch.int32, device=dev)[:, None]
+    positions = (0, 62, 63, 250, 255, 256, 505, 760, 1015)
+    for pos in positions:
+        qp.copy_(pos + rows)  # rows one position apart, straddling the boundaries
+        graph.replay()
+        eager = da_ops.paged_decode_attention(q, kp, vp, **kw)
+        torch.cuda.synchronize()
+        check(torch.equal(out, eager), f"paged graph replay at q_pos {pos}.. differs from eager")
+        close(out, da_ref.paged_decode_attention(q, kp, vp, **kw), 2e-2)
+    log(f"check paged_decode_attention in a CUDA graph: {len(positions)} replays at rows "
+        f"from q_pos {positions} equal eager")
+
+
+@contextlib.contextmanager
+def patched(obj, name, value):
+    """``obj.name`` set to ``value`` inside the block (to time a kernel at
+    another plan than the one its wrapper picks)."""
+    old = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, old)
 
 
 def bound(nbytes, flops, peak_flops):

@@ -31,11 +31,11 @@ _FLASH = [_P] * 6 + [_I] * 8 + [_F, _F, _P]
 # q, k, v, q_pos, k_pos, out, m_ws, l_ws, acc_ws, B, L, Hkv, G, D, chunk,
 # n_split, window, softcap, scale, stream
 _DECODE = [_P] * 9 + [_I] * 8 + [_F, _F, _P]
-# q, k_pool, v_pool, tables, q_pos, out, B, nb, bs, Hkv, G, D, window,
-# softcap, scale, stream
-_PAGED = [_P] * 6 + [_I] * 7 + [_F, _F, _P]
-# a, b, h0, h, B, S, W, stream
-_LINREC = [_P] * 4 + [_I] * 3 + [_P]
+# q, k_pool, v_pool, tables, q_pos, out, m_ws, l_ws, acc_ws, B, nb, bs, Hkv,
+# G, D, chunk, n_split, window, softcap, scale, stream
+_PAGED = [_P] * 9 + [_I] * 9 + [_F, _F, _P]
+# a, b, h0, h, agg_a, agg_b, B, S, W, chunk, n_chunks, stream
+_LINREC = [_P] * 6 + [_I] * 5 + [_P]
 SIGNATURES = {
     "flash_attention": {"flash_attention_bf16": _FLASH, "flash_attention_f32": _FLASH},
     "decode_attention": {"decode_attention_bf16": _DECODE,

@@ -2,6 +2,7 @@
 #pragma once
 
 #include <cmath>
+#include <cstdint>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -210,6 +211,127 @@ __device__ __forceinline__ T merge_partials(const float* m, const float* l, cons
     }
     return from_float<T>(num / fmaxf(den, 1e-30f));
 }
+
+// Split-KV partials of the decode kernels (K3 and K4): pass 1 on a grid of
+// (KV head h, batch row b, chunk z) writes partial p = (b * Hkv + h) *
+// n_split + z of its G heads at m_ws/l_ws[p * G + g] and
+// acc_ws[(p * G + g) * D + d].
+constexpr int kMergeThreads = 64;
+
+// Pass 2: block (row, column block) merges output row = b * Hq + hq =
+// (b * Hkv + h) * G + g over the n_split chunks.
+template <typename T>
+__global__ void __launch_bounds__(kMergeThreads)
+decode_merge_kernel(const float* __restrict__ m_ws, const float* __restrict__ l_ws,
+                    const float* __restrict__ acc_ws, T* __restrict__ o, int G, int D,
+                    int n_split) {
+    const int row = blockIdx.x;
+    const int d = blockIdx.y * kMergeThreads + threadIdx.x;
+    if (d >= D) return;
+    const size_t first = (size_t(row / G) * n_split) * G + row % G;  // chunk 0's partial
+    o[size_t(row) * D + d] = merge_partials<T>(m_ws + first, l_ws + first,
+                                               acc_ws + first * D + d, n_split, G,
+                                               size_t(G) * D);
+}
+
+// Launch pass 2 over the `rows` = B * Hq output rows of D columns.
+template <typename T>
+cudaError_t launch_decode_merge(const float* m_ws, const float* l_ws, const float* acc_ws,
+                                T* o, int rows, int G, int D, int n_split,
+                                cudaStream_t stream) {
+    const dim3 grid(rows, (D + kMergeThreads - 1) / kMergeThreads);
+    decode_merge_kernel<T><<<grid, kMergeThreads, 0, stream>>>(m_ws, l_ws, acc_ws, o, G, D,
+                                                               n_split);
+    return cudaGetLastError();
+}
+
+// The checks every split-KV entry point makes of its plan: `chunk` slots a
+// chunk, a whole number of `tile`-key tiles; n_split chunks that cover the
+// L slots with none empty; scratch for the partials when there are two or
+// more.
+inline bool split_plan_ok(int L, int chunk, int n_split, int tile, const void* m_ws,
+                          const void* l_ws, const void* acc_ws) {
+    return L >= 1 && chunk >= 1 && chunk % tile == 0 && n_split >= 1 &&
+           size_t(chunk) * (n_split - 1) < size_t(L) && size_t(chunk) * n_split >= size_t(L) &&
+           (n_split == 1 || (m_ws && l_ws && acc_ws));
+}
+
+// ---------------------------------------------------------------------------
+// Tensor-core and asynchronous-copy helpers (K2's bf16 kernel and K4's)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte asynchronous copy; src_bytes = 0 writes zeros and reads nothing.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+                 "r"(src_bytes)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], uint32_t addr) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+                 : "=r"(r[0]), "=r"(r[1])
+                 : "r"(addr));
+}
+
+// c += a.b for one m16n8k16 tile: a 16x16 (row), b 16x8 (col), c 16x8 fp32.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats as a bf16 pair, the first in the low half (the lower index).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float exp2_approx(float x) {  // 2^x; 2^-inf = 0
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+    return y;
+}
+
+// tanh from one exp: accurate to ~1e-7 absolute, and clamped where fp32
+// tanh is +-1, so the fast division never sees an infinite divisor.
+__device__ __forceinline__ float tanh_exp(float y) {
+    const float e = __expf(2.f * fminf(fmaxf(y, -15.f), 15.f));
+    return 1.f - __fdividef(2.f, e + 1.f);
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
 
 // Key visibility from absolute positions: -1 marks an empty slot; causal
 // and window tests compare the query's position with the key's.

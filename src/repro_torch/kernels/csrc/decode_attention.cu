@@ -18,19 +18,19 @@
 // Split-KV.  Pass 1 (decode_attention_kernel) runs on a grid of (KV head,
 // batch row, chunk): each block walks one chunk of `chunk` cache slots (a
 // whole number of 64-key tiles) and writes its partial (m, l, acc[G, D])
-// in fp32 to scratch the wrapper allocates.  Pass 2 (decode_merge_kernel,
-// through common.cuh:merge_partials) rescales and sums the partials of
-// each output column.  The wrapper picks the number of chunks from the
+// in fp32 to scratch the wrapper allocates.  Pass 2
+// (common.cuh:decode_merge_kernel, shared with the paged kernel) rescales
+// and sums the partials of each output column.  The wrapper picks the number of chunks from the
 // shapes alone (about two blocks per SM), never from positions, so one
 // CUDA graph replays correctly as q_pos advances.  With one chunk, pass 1
 // writes the output itself and pass 2 is not launched.
 //
 // Per K/V tile of BK keys staged in shared memory as fp32
 // (common.cuh:decode_tile, shared with the paged kernel): threads compute
-// the G x BK scores (four threads per key for all G heads when G >= 8, as
-// recurrentgemma's G = 10), one warp per head runs the online softmax, and
-// each thread keeps fixed (head, column) outputs in registers across the
-// key loop, reading each V element once for all its heads.
+// the G x BK scores as (head, key) pairs, one warp per head runs the
+// online softmax, and each thread keeps fixed (head, column) outputs in
+// registers across the key loop, reading each V element once for all its
+// heads.
 
 #include <cstdint>
 
@@ -41,7 +41,6 @@ namespace {
 
 constexpr int BK = 64;
 constexpr int NTHREADS = 256;
-constexpr int MERGE_THREADS = 64;
 
 template <int D>
 size_t da_smem_bytes(int G) {
@@ -136,22 +135,6 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 }
 
-// Pass 2: block (row, column block) merges output row = b * Hq + hq =
-// (b * Hkv + h) * G + g over the n_split chunks.
-template <typename T>
-__global__ void __launch_bounds__(MERGE_THREADS)
-decode_merge_kernel(const float* __restrict__ m_ws, const float* __restrict__ l_ws,
-                    const float* __restrict__ acc_ws, T* __restrict__ o, int G, int D,
-                    int n_split) {
-    const int row = blockIdx.x;
-    const int d = blockIdx.y * MERGE_THREADS + threadIdx.x;
-    if (d >= D) return;
-    const size_t first = (size_t(row / G) * n_split) * G + row % G;  // chunk 0's partial
-    o[size_t(row) * D + d] = merge_partials<T>(m_ws + first, l_ws + first,
-                                               acc_ws + first * D + d, n_split, G,
-                                               size_t(G) * D);
-}
-
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const int* q_pos,
            const int* k_pos, void* o, float* m_ws, float* l_ws, float* acc_ws, int B, int L,
@@ -169,10 +152,8 @@ int launch(const void* q, const void* k, const void* v, const int* q_pos,
         softcap, scale);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess || n_split == 1) return int(err);
-    const dim3 merge_grid(B * Hkv * G, (D + MERGE_THREADS - 1) / MERGE_THREADS);
-    decode_merge_kernel<T><<<merge_grid, MERGE_THREADS, 0, stream>>>(
-        m_ws, l_ws, acc_ws, static_cast<T*>(o), G, D, n_split);
-    return int(cudaGetLastError());
+    return int(launch_decode_merge<T>(m_ws, l_ws, acc_ws, static_cast<T*>(o), B * Hkv * G, G,
+                                      D, n_split, stream));
 }
 
 template <typename T>
@@ -180,8 +161,7 @@ int dispatch(const void* q, const void* k, const void* v, const void* q_pos,
              const void* k_pos, void* o, void* m_ws, void* l_ws, void* acc_ws, int B, int L,
              int Hkv, int G, int D, int chunk, int n_split, int window, float softcap,
              float scale, void* stream) {
-    if (G < 1 || G > kMaxGroup || chunk < 1 || chunk % BK || n_split < 1 ||
-        (n_split > 1 && (!m_ws || !l_ws || !acc_ws)) || size_t(chunk) * (n_split - 1) >= size_t(L))
+    if (G < 1 || G > kMaxGroup || !split_plan_ok(L, chunk, n_split, BK, m_ws, l_ws, acc_ws))
         return int(cudaErrorInvalidValue);
     const int* qp = static_cast<const int*>(q_pos);
     const int* kp = static_cast<const int*>(k_pos);
@@ -213,8 +193,8 @@ int dispatch(const void* q, const void* k, const void* v, const void* q_pos,
 // Launchers with a plain C interface (bound through ctypes).  Each returns
 // the CUDA status of its launches; 0 is success.  m_ws, l_ws: B * Hkv *
 // n_split * G floats; acc_ws: that times D (unused, and may be null, when
-// n_split is 1).  Every chunk but the last must hold a cache slot:
-// chunk * (n_split - 1) < L.
+// n_split is 1).  The chunks must cover the cache and every one of them
+// hold a cache slot: chunk * (n_split - 1) < L <= chunk * n_split.
 extern "C" int decode_attention_bf16(const void* q, const void* k, const void* v,
                                      const void* q_pos, const void* k_pos, void* o,
                                      void* m_ws, void* l_ws, void* acc_ws, int B, int L,

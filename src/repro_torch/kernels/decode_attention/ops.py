@@ -6,10 +6,13 @@ A CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
 version in ``ref.py``.  Each wrapper launches on the current stream and
 never synchronises, so a CUDA graph can capture it.  Inference only.
 
-The contiguous kernel splits the cache into chunks across blocks and
-merges their partials in a second pass (split-KV): one call is two kernel
-launches when there is more than one chunk, and counts as one launch of
-the wrapper.  ``split_plan`` picks the chunks from the shapes alone.
+Both kernels split the keys into chunks across blocks and merge their
+partials in a second pass (split-KV): one call is two kernel launches when
+there is more than one chunk, and counts as one launch of the wrapper.
+``split_plan`` picks the chunks from the shapes alone, never from the
+positions, so a captured call replays right as they advance.  What bounds
+both is then the few tiles each block loads in turn, one memory round
+trip each, and the merge's launch (times in PERF.md).
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ from repro_torch.kernels.decode_attention import ref
 HEAD_DIMS = (8, 16, 32, 64, 80, 128, 256)
 MAX_GROUP = 16  # query heads per KV head the kernel takes
 TILE = 64       # keys per staged tile; a chunk is a whole number of tiles
-BLOCKS_PER_SM = 2
+BLOCKS_PER_SM = 2  # pass-1 blocks per SM the split aims for (both kernels)
 _FN = {torch.bfloat16: "decode_attention_bf16", torch.float32: "decode_attention_f32"}
 _PAGED_FN = {torch.bfloat16: "paged_decode_attention_bf16",
              torch.float32: "paged_decode_attention_f32"}
@@ -99,7 +102,7 @@ def _check_paged(q, k_pool, v_pool, block_tables, q_positions):
 
 
 def split_plan(B: int, Hkv: int, L: int, sms: int) -> tuple[int, int]:
-    """``(n_split, chunk)``: the cache's L slots cut into n_split chunks of
+    """``(n_split, chunk)``: the L key slots cut into n_split chunks of
     ``chunk`` slots (a whole number of tiles, the last one ragged) so that
     the B * Hkv * n_split blocks of pass 1 are about ``BLOCKS_PER_SM`` per
     SM, and no chunk is empty.  Shapes only, so a captured call stays
@@ -108,6 +111,27 @@ def split_plan(B: int, Hkv: int, L: int, sms: int) -> tuple[int, int]:
     want = min(tiles, max(1, -(-BLOCKS_PER_SM * sms // (B * Hkv))))
     per = -(-tiles // want)
     return -(-tiles // per), per * TILE
+
+
+def check_plan(L: int, n_split: int, chunk: int) -> None:
+    """Raise ``ValueError`` unless n_split chunks of ``chunk`` slots, each
+    a whole number of tiles, cover the L slots with none empty: what the
+    C entry points check again before they launch."""
+    if (L < 1 or n_split < 1 or chunk < 1 or chunk % TILE
+            or chunk * (n_split - 1) >= L or chunk * n_split < L):
+        raise ValueError(f"{n_split} chunks of {chunk} slots do not tile {L} slots "
+                         f"in whole {TILE}-key tiles")
+
+
+def _partials(q, n_parts: int, D: int, n_split: int):
+    """Pointers to pass 1's fp32 scratch, m and l (``n_parts`` floats
+    each) and acc (``n_parts * D``), and the tensors that hold them; null
+    pointers when there is one chunk, which writes the output itself."""
+    if n_split == 1:
+        return [0, 0, 0], ()
+    stats = torch.empty(2, n_parts, device=q.device, dtype=torch.float32)
+    acc = torch.empty(n_parts * D, device=q.device, dtype=torch.float32)
+    return [stats[0].data_ptr(), stats[1].data_ptr(), acc.data_ptr()], (stats, acc)
 
 
 @functools.cache
@@ -126,12 +150,9 @@ def decode_attention(q, k_cache, v_cache, *, q_positions, k_positions,
     L, Hkv = k_cache.shape[1], k_cache.shape[2]
     G = Hq // Hkv
     n_split, chunk = split_plan(B, Hkv, L, _sm_count(q.device.index or 0))
+    check_plan(L, n_split, chunk)
     out = torch.empty_like(q)
-    scratch = [0, 0, 0]  # m, l, acc partials of pass 1, fp32
-    if n_split > 1:
-        stats = torch.empty(2, B * Hkv * n_split * G, device=q.device, dtype=torch.float32)
-        acc = torch.empty(B * Hkv * n_split * G * D, device=q.device, dtype=torch.float32)
-        scratch = [stats[0].data_ptr(), stats[1].data_ptr(), acc.data_ptr()]
+    scratch, _keep = _partials(q, B * Hkv * n_split * G, D, n_split)
     launcher = _build.load()[_FN[q.dtype]]
     status = launcher(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
@@ -150,9 +171,10 @@ decode_attention.launches = 0
 def paged_decode_attention(q, k_pool, v_pool, *, block_tables, q_positions,
                            window=0, softcap=0.0):
     """Attention of one query token per row over the block pool, key j of
-    row b at ``pool[block_tables[b, j // bs], j % bs]``.  Table entries
-    must name blocks of the pool: the kernel reads through them unchecked
-    (checking would need the tables on the host)."""
+    row b at ``pool[block_tables[b, j // bs], j % bs]``, split-KV over the
+    table's nb * bs positions as ``decode_attention`` is over the cache.
+    Table entries must name blocks of the pool: the kernel reads through
+    them unchecked (checking would need the tables on the host)."""
     if not q.is_cuda:
         return ref.paged_decode_attention(q, k_pool, v_pool, block_tables=block_tables,
                                           q_positions=q_positions, window=window,
@@ -160,12 +182,16 @@ def paged_decode_attention(q, k_pool, v_pool, *, block_tables, q_positions,
     _check_paged(q, k_pool, v_pool, block_tables, q_positions)
     B, _, Hq, D = q.shape
     bs, Hkv = k_pool.shape[1], k_pool.shape[2]
+    nb, G = block_tables.shape[1], Hq // Hkv
+    n_split, chunk = split_plan(B, Hkv, nb * bs, _sm_count(q.device.index or 0))
+    check_plan(nb * bs, n_split, chunk)
     out = torch.empty_like(q)
+    scratch, _keep = _partials(q, B * Hkv * n_split * G, D, n_split)
     launcher = _build.load()[_PAGED_FN[q.dtype]]
     status = launcher(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), block_tables.data_ptr(),
-        q_positions.data_ptr(), out.data_ptr(), B, block_tables.shape[1], bs, Hkv,
-        Hq // Hkv, D, int(window), float(softcap), 1.0 / math.sqrt(D),
+        q_positions.data_ptr(), out.data_ptr(), *scratch, B, nb, bs, Hkv, G, D, chunk,
+        n_split, int(window), float(softcap), 1.0 / math.sqrt(D),
         torch.cuda.current_stream(q.device).cuda_stream)
     if status != 0:
         raise RuntimeError(f"paged_decode_attention launch failed: CUDA error {status}")

@@ -9,10 +9,11 @@ buffers work unchanged.
 ``paged_decode_attention``: the same over a block pool, gathered through a
 per-sequence block table; gathered index j is absolute position j.
 
-``decode_attention_split``: ``decode_attention`` computed chunk by chunk
-and merged as the split-KV kernel does, the plain statement of its merge
-algebra (for tests and ``chip_smoke.py``, which hold the kernel to it at
-the chunks ``ops.split_plan`` picks; not for the model).
+``decode_attention_split`` and ``paged_decode_attention_split``: the two
+computed chunk by chunk and merged as the split-KV kernels do, the plain
+statement of their merge algebra (for tests and ``chip_smoke.py``, which
+hold the kernels to it at the chunks ``ops.split_plan`` picks; not for the
+model).
 
 A row with no valid key returns 0, as the kernels do.
 """
@@ -93,6 +94,19 @@ def decode_attention_split(
     return o.permute(0, 3, 1, 2, 4).reshape(B, S, Hq, D).to(q.dtype)
 
 
+def _gather_pool(k_pool, v_pool, block_tables):
+    """K and V of each row gathered through its table, (B, nb * bs, Hkv,
+    D), and their positions: gathered index j is absolute position j."""
+    B, nb = block_tables.shape
+    L = nb * k_pool.shape[1]
+    idx = block_tables.long()
+    k = k_pool[idx].reshape(B, L, *k_pool.shape[2:])
+    v = v_pool[idx].reshape(B, L, *v_pool.shape[2:])
+    k_positions = torch.arange(L, dtype=torch.int32,
+                               device=k_pool.device)[None].expand(B, L)
+    return k, v, k_positions
+
+
 def paged_decode_attention(
     q: torch.Tensor,             # (B, 1, Hq, D)
     k_pool: torch.Tensor,        # (N, bs, Hkv, D) global block pool
@@ -103,14 +117,27 @@ def paged_decode_attention(
     window: int = 0,
     softcap: float = 0.0,
 ) -> torch.Tensor:
-    B, nb = block_tables.shape
-    bs = k_pool.shape[1]
-    L = nb * bs
-    idx = block_tables.long()
-    k = k_pool[idx].reshape(B, L, *k_pool.shape[2:])
-    v = v_pool[idx].reshape(B, L, *v_pool.shape[2:])
-    k_positions = torch.arange(L, dtype=torch.int32,
-                               device=q.device)[None].expand(B, L)
+    k, v, k_positions = _gather_pool(k_pool, v_pool, block_tables)
     return decode_attention(q, k, v, q_positions=q_positions,
                             k_positions=k_positions, window=window,
                             softcap=softcap)
+
+
+def paged_decode_attention_split(
+    q: torch.Tensor,             # (B, 1, Hq, D)
+    k_pool: torch.Tensor,        # (N, bs, Hkv, D)
+    v_pool: torch.Tensor,        # (N, bs, Hkv, D)
+    *,
+    block_tables: torch.Tensor,  # (B, max_blocks) int32
+    q_positions: torch.Tensor,   # (B, 1)
+    window: int = 0,
+    softcap: float = 0.0,
+    chunk: int,
+) -> torch.Tensor:
+    """``paged_decode_attention`` with its positions cut into chunks of
+    ``chunk`` (position j in chunk j // chunk, whatever pool block holds
+    it), each chunk's partial merged as in ``decode_attention_split``."""
+    k, v, k_positions = _gather_pool(k_pool, v_pool, block_tables)
+    return decode_attention_split(q, k, v, q_positions=q_positions,
+                                  k_positions=k_positions, window=window,
+                                  softcap=softcap, chunk=chunk)

@@ -37,8 +37,10 @@ DECODE_SHAPES = [(256, 8, 2, 64), (512, 4, 4, 128), (128, 16, 1, 64), (96, 4, 2,
 # (G, D, bs) of the paged sweep; Hkv = 2
 PAGED_SHAPES = [(g, d, bs) for g in (1, 4, 12) for d in (64, 128) for bs in (16, 32)]
 # (B, S, W) of K5: the measure prefill, a prompt past the 2048 window, the
-# serving decode step, ragged shapes
-LINREC_SHAPES = [(1, 512, 2560), (1, 2304, 2560), (8, 1, 2560), (2, 37, 100), (3, 300, 129)]
+# serving decode step, ragged shapes; serving admission of 8 prompts of 512
+# (3 chunks), and 2 chunks of 32 steps
+LINREC_SHAPES = [(1, 512, 2560), (1, 2304, 2560), (8, 1, 2560), (2, 37, 100), (3, 300, 129),
+                 (8, 512, 2560), (4, 64, 200)]
 
 
 @pytest.fixture
@@ -347,6 +349,128 @@ def test_paged_kernel_wrapper_raises_on_bad_inputs(cuda):
         call(q, pool, pool, block_tables=tables.cpu(), q_positions=qp)
 
 
+def _paged_split_case(cuda, dtype, G, D, q_pos, bs=16, nb=64, Hkv=2, **kw):
+    """K4 over rows at ``q_pos`` (a row at -1 has no valid key and an
+    all-garbage table) through a shuffled pool: the kernel's output, held
+    to the plain version and to the split merge algebra at the chunk the
+    kernel itself splits into, and the plain output."""
+    B = len(q_pos)
+    rng = _rng("paged-split", G, D, bs, tuple(q_pos), nb, tuple(kw.items()))
+    need = [max(p, -1) // bs + 1 for p in q_pos]
+    N = sum(need) + 5
+    perm = rng.permutation(np.arange(1, N))
+    tables = np.zeros((B, nb), np.int32)
+    ptr = 0
+    for b, n in enumerate(need):
+        tables[b, :n] = perm[ptr:ptr + n]
+        ptr += n
+    q, kp, vp = _on(cuda, dtype, rng.standard_normal((B, 1, G * Hkv, D), np.float32),
+                    rng.standard_normal((N, bs, Hkv, D), np.float32),
+                    rng.standard_normal((N, bs, Hkv, D), np.float32))
+    tables, qp = _ints(cuda, tables, np.asarray(q_pos)[:, None])
+    kw = dict(block_tables=tables, q_positions=qp, **kw)
+    n = da_ops.paged_decode_attention.launches
+    got = da_ops.paged_decode_attention(q, kp, vp, **kw)
+    assert da_ops.paged_decode_attention.launches == n + 1
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    chunk = da_ops.split_plan(B, Hkv, nb * bs, sms)[1]
+    _assert(got, da_ref.paged_decode_attention_split(q, kp, vp, chunk=chunk, **kw), dtype)
+    want = da_ref.paged_decode_attention(q, kp, vp, **kw)
+    _assert(got, want, dtype)
+    return got
+
+
+@pytest.mark.parametrize("D", da_ops.HEAD_DIMS)
+@pytest.mark.parametrize("G", [1, 4, 12])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_paged_split_every_head_dim(cuda, D, G, dtype):
+    """Every head dim at G = 1, 4 and 12 (command-r-plus), bf16 and fp32,
+    rows on the boundaries of 64-position chunks and of 256, the last
+    position of the table, and a row with no valid key (exactly 0)."""
+    got = _paged_split_case(cuda, dtype, G, D, [63, 64, 65, 255, 256, 1023, -1])
+    assert torch.all(got[-1] == 0)
+
+
+@pytest.mark.parametrize("window,softcap", [(100, 0.0), (300, 30.0), (1, 30.0)])
+@pytest.mark.parametrize("bs", [16, 48])
+def test_paged_split_window_empties_leading_chunks(cuda, window, softcap, bs):
+    """A window leaves every chunk before q_pos - window + 1 with no
+    visible key; block sizes 16 and 48 (not a divisor of the tile)."""
+    _paged_split_case(cuda, "bfloat16", 4, 128, [1000, 700, 300, 64, 5], bs=bs,
+                      nb=1023 // bs + 1, window=window, softcap=softcap)
+
+
+def test_paged_split_in_a_cuda_graph(cuda):
+    """One K4 call at llama3.1-8b's serving shape (8 rows of 64 blocks of
+    16, G = 4, D = 128) captured in a CUDA graph and replayed as the rows'
+    q_pos advance across chunk boundaries: the same output as the eager
+    call at every step."""
+    B, nb, bs, Hkv = 8, 64, 16, 8
+    rng = _rng("paged-graph")
+    tables = rng.permutation(np.arange(1, B * nb + 1)).reshape(B, nb)
+    q, kp, vp = _on(cuda, "bfloat16", rng.standard_normal((B, 1, 32, 128), np.float32),
+                    rng.standard_normal((B * nb + 1, bs, Hkv, 128), np.float32),
+                    rng.standard_normal((B * nb + 1, bs, Hkv, 128), np.float32))
+    (tables,) = _ints(cuda, tables)
+    qp = torch.zeros(B, 1, dtype=torch.int32, device=cuda)
+    kw = dict(block_tables=tables, q_positions=qp)
+    da_ops.paged_decode_attention(q, kp, vp, **kw)  # build and load outside the capture
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = da_ops.paged_decode_attention(q, kp, vp, **kw)
+    row = torch.arange(B, dtype=torch.int32, device=cuda)[:, None]
+    for pos in (0, 62, 63, 64, 255, 256, 257, 700, 1015):
+        qp.copy_(pos + row)  # rows one position apart, straddling each boundary
+        graph.replay()
+        torch.testing.assert_close(out, da_ops.paged_decode_attention(q, kp, vp, **kw),
+                                   rtol=0, atol=0)
+        _assert(out, da_ref.paged_decode_attention(q, kp, vp, **kw), "bfloat16")
+
+
+def test_split_entry_points_refuse_bad_plans(cuda):
+    """The C entry points of K4 and K5 return an error, and launch
+    nothing, for a split without scratch, a chunk not a whole number of
+    tiles, or chunks that do not cover the keys or steps."""
+    from repro_torch.kernels import _build
+
+    fns = _build.load()
+    q = torch.zeros(2, 1, 8, 64, device=cuda)
+    out = torch.full_like(q, 7.0)
+    pool = torch.zeros(9, 16, 2, 64, device=cuda)
+    tables = torch.zeros(2, 8, dtype=torch.int32, device=cuda)  # 128 positions a row
+    qp = torch.zeros(2, 1, dtype=torch.int32, device=cuda)
+    stats = torch.zeros(3, 4096, device=cuda)
+    s = torch.cuda.current_stream().cuda_stream
+
+    def paged(chunk, n_split, scratch):
+        return fns["paged_decode_attention_f32"](
+            q.data_ptr(), pool.data_ptr(), pool.data_ptr(), tables.data_ptr(), qp.data_ptr(),
+            out.data_ptr(), *scratch, 2, 8, 16, 2, 4, 64, chunk, n_split, 0, 0.0, 0.125, s)
+
+    full = [t.data_ptr() for t in stats]
+    assert paged(64, 2, full) == 0       # two chunks of one tile: fine
+    torch.cuda.synchronize()
+    out.fill_(7.0)
+    assert paged(32, 4, full) != 0       # chunk not a whole number of 64-key tiles
+    assert paged(64, 2, [0, 0, 0]) != 0  # two chunks, no scratch
+    assert paged(64, 3, full) != 0       # the third chunk is empty
+    assert paged(64, 1, [0, 0, 0]) != 0  # stops short of the last 64 positions
+    a = torch.ones(1, 100, 8, device=cuda)
+    h = torch.full_like(a, 7.0)
+
+    def scan(chunk, n_chunks, scratch):
+        return fns["linear_recurrence_f32"](a.data_ptr(), a.data_ptr(), a[:, 0].data_ptr(),
+                                            h.data_ptr(), *scratch, 1, 100, 8, chunk,
+                                            n_chunks, s)
+
+    agg = [stats[0].data_ptr(), stats[1].data_ptr()]
+    assert scan(50, 2, [0, 0]) != 0      # two chunks, no scratch
+    assert scan(32, 3, agg) != 0         # stops short of step 100
+    assert scan(50, 3, agg) != 0         # the third chunk is empty
+    torch.cuda.synchronize()
+    assert torch.all(out == 7.0) and torch.all(h == 7.0)
+
+
 def test_engine_cuda_graph_matches_eager(cuda):
     """A small engine's greedy streams through the captured decode step
     and through the same step run eagerly: identical, one dispatch per
@@ -437,6 +561,26 @@ def test_linear_recurrence_kernel_matches_plain(cuda, shape, pad):
     assert lr_ops.linear_recurrence.launches == n + 1
     torch.cuda.synchronize()
     torch.testing.assert_close(got, lr_ref.linear_recurrence(a, b, h0), rtol=1e-4, atol=1e-5)
+    _assert_chunked(cuda, got, a, b, h0)
+
+
+def _assert_chunked(cuda, got, a, b, h0):
+    """K5's output against the split algebra at the chunks it splits into."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    chunk = lr_ops.scan_plan(*a.shape, sms)[1]
+    torch.testing.assert_close(got, lr_ref.linear_recurrence_chunked(a, b, h0, chunk),
+                               rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [(1, 512, 2560), (8, 512, 2560)])
+def test_linear_recurrence_split_decay_underflows(cuda, shape):
+    """a in (0, 1e-3), as RG-LRU's gates can be: every chunk's decay
+    product underflows to 0, which the split form takes exactly."""
+    a, b, h0 = _linrec_inputs(cuda, shape, False)
+    a = torch.from_numpy(_rng("underflow", shape).uniform(0.0, 1e-3, shape)).to(cuda, torch.float32)
+    got = lr_ops.linear_recurrence(a, b, h0)
+    torch.testing.assert_close(got, lr_ref.linear_recurrence(a, b, h0), rtol=1e-4, atol=1e-5)
+    _assert_chunked(cuda, got, a, b, h0)
 
 
 def test_linear_recurrence_wrapper_raises_on_bad_inputs(cuda):

@@ -284,6 +284,79 @@ def test_paged_plain_matches_jax(window):
     _assert(got, pal, "float32")
 
 
+# rows at chunk boundaries +- 1 for chunks of 64 and 128, a garbage row
+# (q_pos 0, every table entry the garbage block 0) and a long row
+PAGED_SPLIT_Q_POS = [63, 64, 65, 127, 128, 129, 0, 250]
+
+
+@pytest.mark.parametrize("window", [0, 40])
+@pytest.mark.parametrize("bs", [16, 32, 48])
+def test_paged_split_matches_unsplit_and_jax(bs, window):
+    """The paged split-KV merge (``ref.paged_decode_attention_split``, what
+    K4's two passes compute) at chunks of 64, 128 and 192 positions
+    against the unsplit plain version, the JAX ref and the Pallas
+    block-pool kernel in interpret mode, 1e-5 in fp32.  Block sizes 16,
+    32 and 48 (not a divisor of the 64-key tile); window 40 leaves every
+    chunk before position 211 of the long row with no visible key."""
+    B, Hq, Hkv, D = len(PAGED_SPLIT_Q_POS), 8, 2, 32
+    rng = _rng("paged-split", bs, window)
+    nb = max(PAGED_SPLIT_Q_POS) // bs + 1
+    need = [0 if b == 6 else p // bs + 1 for b, p in enumerate(PAGED_SPLIT_Q_POS)]
+    N = sum(need) + 3
+    perm = rng.permutation(np.arange(1, N))  # block 0 is the garbage block
+    tables = np.zeros((B, nb), np.int32)
+    ptr = 0
+    for b, n in enumerate(need):
+        tables[b, :n] = perm[ptr:ptr + n]
+        ptr += n
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(rng.standard_normal(s, np.float32)) for s in
+                                    ((B, 1, Hq, D), (N, bs, Hkv, D), (N, bs, Hkv, D)))
+    (jt, tt), (jqp, tqp) = _ints(tables), _ints(np.asarray(PAGED_SPLIT_Q_POS)[:, None])
+    kw = dict(window=window, softcap=30.0 if window else 0.0)
+    want = da_ref.paged_decode_attention(tq, tk, tv, block_tables=tt, q_positions=tqp, **kw)
+    pal = jda_ops.paged_decode_attention(jq, jk, jv, block_tables=jt, q_positions=jqp,
+                                         interpret=True, **kw)
+    jax_want = jda_ref.paged_decode_attention(jq, jk, jv, block_tables=jt, q_positions=jqp,
+                                              **kw)
+    for chunk in (64, 128, 192):
+        got = da_ref.paged_decode_attention_split(tq, tk, tv, block_tables=tt,
+                                                  q_positions=tqp, chunk=chunk, **kw)
+        for other in (want, pal, jax_want):
+            np.testing.assert_allclose(_np(got), _np(other), rtol=1e-5, atol=1e-5)
+
+
+# (B, Hkv, nb * bs, SMs) -> (n_split, chunk) of K4:
+# llama3.1-8b's serving shape (the table's: 8 rows of 64 blocks of 16),
+# command-r-plus's G = 12 at 3 rows of 32 blocks of 32, one row, 48-slot
+# blocks (a ragged last chunk), and a batch that fills the card unsplit
+PAGED_SPLIT_PLANS = [((8, 8, 1024, 132), (4, 256)), ((3, 8, 1024, 132), (8, 128)),
+                     ((1, 8, 1024, 132), (16, 64)), ((4, 8, 288, 132), (5, 64)),
+                     ((64, 8, 1024, 132), (1, 1024))]
+
+
+@pytest.mark.parametrize("shape,plan", PAGED_SPLIT_PLANS)
+def test_paged_split_plan(shape, plan):
+    """K4's chunks: whole tiles, none empty, covering the table's
+    positions, from shapes only."""
+    B, Hkv, L, sms = shape
+    n_split, chunk = da_ops.split_plan(B, Hkv, L, sms)
+    assert (n_split, chunk) == plan
+    da_ops.check_plan(L, n_split, chunk)
+
+
+@pytest.mark.parametrize("L,n_split,chunk", [
+    (1024, 4, 200),    # not a whole number of 64-key tiles
+    (1024, 3, 256),    # the chunks stop short of the last slots
+    (1024, 5, 256),    # the last chunk is empty
+    (1024, 0, 1024),   # no chunk
+])
+def test_split_plan_check_raises(L, n_split, chunk):
+    """The plan check the wrappers make before a launch (the C entry
+    points refuse the same plans, and a split plan without scratch)."""
+    with pytest.raises(ValueError):
+        da_ops.check_plan(L, n_split, chunk)
+
+
 # ---------------------------------------------------------------------------
 # rmsnorm
 # ---------------------------------------------------------------------------

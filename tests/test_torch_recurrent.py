@@ -114,6 +114,67 @@ def test_linear_recurrence_plain_matches_sequential(S):
     np.testing.assert_allclose(got, np.stack(expected, axis=1), rtol=1e-5, atol=1e-6)
 
 
+# the split scan's edges: S not a multiple of the chunk, a chunk >= S,
+# a in (0, 1e-3) (chunk products underflow to 0), identity pad steps
+CHUNKED_CASES = [
+    ("ragged", 100, 96, 32),
+    ("chunk at least S", 40, 64, 64),
+    ("chunk of one step", 37, 24, 1),
+    ("underflow", 130, 128, 32),
+    ("pad steps", 150, 160, 64),
+]
+# fp32, the recurrence reassociated across chunks: another rounding
+CHUNKED_TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("name,S,W,chunk", CHUNKED_CASES)
+def test_linear_recurrence_chunked_matches_unsplit_and_jax(name, S, W, chunk):
+    """The split-S algebra (``ref.linear_recurrence_chunked``, what K5's two
+    passes compute) against the unsplit plain version, the JAX ref and the
+    Pallas kernel in interpret mode."""
+    a, b, h0 = _scan_inputs(2, S, W, pad=name == "pad steps")
+    if name == "underflow":
+        a = _rng("underflow", S, W).uniform(0.0, 1e-3, a.shape).astype(np.float32)
+    got = lr_ref.linear_recurrence_chunked(*map(torch.from_numpy, (a, b, h0)), chunk).numpy()
+    ja, jb, jh0 = map(jnp.asarray, (a, b, h0))
+    for want in (lr_ref.linear_recurrence(*map(torch.from_numpy, (a, b, h0))).numpy(),
+                 np.asarray(jlr_ref.linear_recurrence(ja, jb, jh0)),
+                 np.asarray(jlr_ops.linear_recurrence(ja, jb, jh0, interpret=True))):
+        np.testing.assert_allclose(got, want, **CHUNKED_TOL)
+    if name == "underflow":  # a chunk's decay product is exactly 0 there
+        assert np.prod(a[0, :chunk, 0]) == 0.0
+
+
+# (B, S, W, SMs) -> (n_chunks, chunk): recurrentgemma-2b's measure prefill
+# (the table's shape), its prompt past the window, the serving decode step
+# (S = 1: one pass), serving admission of 8 prompts of 512 and of 64, a
+# batch whose channels fill the card, and a ragged shape
+SCAN_PLANS = [((1, 512, 2560, 132), (16, 32)), ((1, 2304, 2560, 132), (20, 116)),
+              ((8, 1, 2560, 132), (1, 1)), ((8, 512, 2560, 132), (3, 171)),
+              ((8, 64, 2560, 132), (2, 32)), ((64, 512, 2560, 132), (1, 512)),
+              ((3, 300, 129, 132), (9, 34))]
+
+
+@pytest.mark.parametrize("shape,plan", SCAN_PLANS)
+def test_scan_plan(shape, plan):
+    """K5's chunks: at least MIN_CHUNK steps unless there is one, none
+    empty, covering S, from shapes only."""
+    B, S, W, sms = shape
+    n_chunks, chunk = lr_ops.scan_plan(B, S, W, sms)
+    assert (n_chunks, chunk) == plan
+    lr_ops.check_plan(S, n_chunks, chunk)
+    assert n_chunks == 1 or chunk >= lr_ops.MIN_CHUNK
+
+
+@pytest.mark.parametrize("S,n_chunks,chunk", [(512, 15, 32), (512, 17, 32), (512, 0, 512),
+                                              (512, 2, 0)])
+def test_scan_plan_check_raises(S, n_chunks, chunk):
+    """Chunks that stop short of S, leave one empty, or do not exist: the
+    wrapper refuses them before a launch, as the C entry point does."""
+    with pytest.raises(ValueError):
+        lr_ops.check_plan(S, n_chunks, chunk)
+
+
 def test_linear_recurrence_wrapper_takes_the_plain_version_on_the_cpu():
     a, b, h0 = map(torch.from_numpy, _scan_inputs(2, 40, 24, False))
     n = lr_ops.linear_recurrence.launches
