@@ -4,20 +4,23 @@
     python3 chip_smoke.py
 
 run from the root of a checkout; it puts ``src`` on the path itself and
-builds the CUDA and Triton kernels on first use.  It imports nothing of JAX
+builds the CUDA kernels on first use.  It imports nothing of JAX
 or of the ``repro`` package.  Phases:
 
 1. Device: name, count, ``nvidia-smi`` name and power limit, build time.
 2. Each kernel against its plain PyTorch version at the main path's shapes
    (bf16, plus fp32 and edge cases), with kernel, plain, library and bound
-   times; one K3 call and one K4 call captured in CUDA graphs and
-   replayed as q_pos crosses their chunk boundaries; K4 and K5 also timed
-   at other chunk plans; one ``{"kernels": [...]}`` line.
+   times; K1 plain and with the residual add fused, at the decode and
+   prefill shapes, also with its host time per eager call; one K3 call and
+   one K4 call captured in CUDA graphs and replayed as q_pos crosses their
+   chunk boundaries; K4 and K5 also timed at other chunk plans; one
+   ``{"kernels": [...]}`` line.
 3. The measured path at full width: ``Elana("llama3.1-8b").measure``
    (TTFT, TPOT, TTLT), then the same with NVML energy; size and cache
    reports; launch counts of every kernel checked against the forward
    passes run.
-4. Device time by kernel and the device's busy share (torch.profiler).
+4. Device time by kernel, the number of device kernels and the device's
+   busy share (torch.profiler).
 5. The serving path at full width: ``ServingEngine`` with a paged KV
    cache and its decode step replayed from a CUDA graph serves 24
    requests with NVML energy attribution; finishes, block accounting,
@@ -99,6 +102,27 @@ def cuda_ms(fn, n_inputs, iters=60, warmup=6):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_us(fn, calls=200, rounds=5):
+    """Host time per eager call (µs): the median over ``rounds`` of
+    ``calls`` calls enqueued behind a device spin, so the device never
+    holds the host back."""
+    import statistics
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    per_call = []
+    for _ in range(rounds):
+        torch.cuda._sleep(200_000_000)
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        per_call.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(per_call)
 
 
 def copies(nbytes):
@@ -404,35 +428,73 @@ def kernel_phase(dev):
         library_ms=None,  # no one PyTorch call gathers through a block table and attends
         **bound(nbytes, 4 * D * valid * Hq, BF16_FLOPS)))
 
-    # -- K1 rmsnorm -------------------------------------------------------------
-    def rn_case(rows, d, dtype):
+    # -- K1 rmsnorm, plain and with the residual add fused in front ------------
+    def rn_case(rows, d, dtype, fused):
+        """Held to the plain version; the fused sum bit for bit ``x + r``."""
         x, s = randn(rows, d, dtype=dtype), (randn(d) * 0.1).to(dtype)
-        out, ref = rn_ops.rmsnorm(x, s, 1e-6), rn_ref.rmsnorm(x, s, 1e-6)
+        r = randn(rows, d, dtype=dtype) * 3.0 if fused else None
+        if fused:
+            (got_s, out), ref = rn_ops.add_rmsnorm(x, r, s, 1e-6), \
+                rn_ref.add_rmsnorm(x, r, s, 1e-6)[1]
+        else:
+            out, ref = rn_ops.rmsnorm(x, s, 1e-6), rn_ref.rmsnorm(x, s, 1e-6)
         torch.cuda.synchronize()
+        if fused:
+            check(torch.equal(got_s, x + r), f"add_rmsnorm {rows}x{d}: sum differs from x + r")
         err = max_err(out, ref)
         close(out, ref, tol[dtype])
-        log(f"check rmsnorm {rows}x{d} {dtype}: max_abs_err={err:.3e} tol={tol[dtype]}")
-        return x, s, err
+        log(f"check {'add_rmsnorm' if fused else 'rmsnorm'} {rows}x{d} {dtype}: "
+            f"max_abs_err={err:.3e} tol={tol[dtype]}" + ("; sum == x + r" if fused else ""))
+        return (x, r, s), err
 
-    x1, s1, e1 = rn_case(1, 4096, bf16)
-    x, s, err = rn_case(PROMPT, 4096, bf16)
-    rn_case(7, 12288, torch.float32)
-    n = copies(2 * x.numel() * 2)
-    sets = [x.clone() for _ in range(n)]
-    w = (1.0 + s.float()).to(bf16)
-    rows, d = x.shape
-    t1 = cuda_ms(lambda i: rn_ops.rmsnorm(x1, s1, 1e-6), 1)
-    log(f"time rmsnorm 1x{d}: kernel_ms={t1:.4f} (the decode-step shape)")
+    errs = [rn_case(rows, d, dtype, fused)[1] for fused in (False, True)
+            for rows, d, dtype in ((7, 12288, torch.float32), (5, 100, bf16),
+                                   (5, 100, torch.float32))]
+    # the floor of a launch in this timing: a kernel that does nothing
+    empty_ms = cuda_ms(lambda i: torch.cuda._sleep(1), 1)
+    log(f"time empty kernel (torch.cuda._sleep(1)): kernel_ms={empty_ms:.4f}")
+    modes = []
+    for rows in (1, 8, PROMPT):
+        for fused in (False, True):
+            (x, r, s), err = rn_case(rows, 4096, bf16, fused)
+            errs.append(err)
+            d, numel = 4096, rows * 4096
+            # decode rows arrive hot from the kernel that wrote them; prompt
+            # rows are rotated past the L2 cache, as for the other kernels
+            n = copies(2 * 2 * numel) if rows == PROMPT else 1
+            sets = [(x.clone(), None if r is None else r.clone()) for _ in range(n)]
+            w = (1.0 + s.float()).to(bf16)
+            if fused:
+                kern = lambda i: rn_ops.add_rmsnorm(*sets[i], s, 1e-6)  # noqa: E731
+                plain = lambda i: rn_ref.add_rmsnorm(*sets[i], s, 1e-6)  # noqa: E731
+                lib = lambda i: F.rms_norm(sets[i][0] + sets[i][1], (d,), weight=w,  # noqa: E731
+                                           eps=1e-6)
+                sep = lambda i: rn_ops.rmsnorm(sets[i][0] + sets[i][1], s, 1e-6)  # noqa: E731
+                nbytes, flops = 2 * (4 * numel + d), 5 * numel
+            else:
+                kern = lambda i: rn_ops.rmsnorm(sets[i][0], s, 1e-6)  # noqa: E731
+                plain = lambda i: rn_ref.rmsnorm(sets[i][0], s, 1e-6)  # noqa: E731
+                lib = lambda i: F.rms_norm(sets[i][0], (d,), weight=w, eps=1e-6)  # noqa: E731
+                sep = None
+                nbytes, flops = 2 * (2 * numel + d), 4 * numel
+            mode = dict(mode="add_rmsnorm" if fused else "rmsnorm", shape=f"({rows},{d}) bf16",
+                        max_abs_err=err, ms=cuda_ms(kern, n), plain_ms=cuda_ms(plain, n),
+                        library_ms=cuda_ms(lib, n),
+                        separate_add_then_kernel_ms=None if sep is None else cuda_ms(sep, n),
+                        host_us=host_us(lambda: kern(0)),
+                        **bound(nbytes, flops, FP32_FLOPS))
+            log("time " + json.dumps(mode))
+            modes.append(mode)
+    table = next(m for m in modes
+                 if m["mode"] == "rmsnorm" and m["shape"].startswith(f"({PROMPT},"))
     entries.append(dict(
-        name="rmsnorm", route="triton",
-        source="src/repro_torch/kernels/rmsnorm/rmsnorm.py",
+        name="rmsnorm", route="cuda",
+        source="src/repro_torch/kernels/csrc/rmsnorm.cu",
         replaces="src/repro/kernels/rmsnorm/rmsnorm.py:26",
-        shape=f"x ({rows},{d}) bf16",
-        max_abs_err=max(err, e1),
-        ms=cuda_ms(lambda i: rn_ops.rmsnorm(sets[i], s, 1e-6), n),
-        plain_ms=cuda_ms(lambda i: rn_ref.rmsnorm(sets[i], s, 1e-6), n),
-        library_ms=cuda_ms(lambda i: F.rms_norm(sets[i], (d,), weight=w, eps=1e-6), n),
-        **bound(2 * (2 * x.numel() + d), 4 * x.numel(), FP32_FLOPS)))
+        shape=f"x {table['shape']}, plain mode (every mode and shape under 'modes')",
+        max_abs_err=max(errs),
+        **{k: table[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+        empty_kernel_ms=empty_ms, modes=modes))
 
     # -- K5 linear recurrence -----------------------------------------------------
     def lr_case(name, Bn, S, W, pad=False, a_max=None):
@@ -725,9 +787,10 @@ def main_path_phase(arch, counters):
 
 
 def profile_phase(e, dev, decode_steps=8):
-    """Where the time goes: device time by kernel and the device's busy
-    share of the wall clock, for one prefill and for ``decode_steps``
-    decode steps (torch.profiler over the CUDA activity)."""
+    """Where the time goes: device time by kernel, the number of device
+    kernels (memory copies and sets aside) and the device's busy share of
+    the wall clock, for one prefill and for ``decode_steps`` decode steps,
+    each with its greedy pick (torch.profiler over the CUDA activity)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -757,16 +820,20 @@ def profile_phase(e, dev, decode_steps=8):
             wall_us = (time.perf_counter() - t0) * 1e6
         if name == "prefill":
             logits = res
-        by_kernel = {}
+        by_kernel, kernels = {}, 0
         for evt in prof.key_averages():
             if evt.device_type != DeviceType.CUDA:
                 continue  # host ops: their kernels are listed on their own
             us = evt.device_time_total
             by_kernel[evt.key[:70]] = by_kernel.get(evt.key[:70], 0.0) + us
+            if not evt.key.startswith(("Memcpy", "Memset")):
+                kernels += evt.count
         busy = sum(by_kernel.values())
         top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
+        steps = decode_steps if name == "decode" else 1
         out[name] = {"wall_ms": wall_us / 1e3, "device_ms": busy / 1e3,
-                     "busy_share": busy / wall_us,
+                     "busy_share": busy / wall_us, "device_kernels": kernels,
+                     "device_kernels_per_step": kernels / steps,
                      "top_ms": {k: v / 1e3 for k, v in top}}
         log(f"profile {name}: " + json.dumps(out[name]))
     return out
@@ -995,7 +1062,6 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from repro_torch.kernels import _build, dispatch
-    from repro_torch.kernels.rmsnorm import ops as rn_ops
 
     torch.backends.cuda.matmul.allow_tf32 = False  # fp32 plain versions stay fp32
     torch.backends.cudnn.allow_tf32 = False
@@ -1008,10 +1074,6 @@ def main():
     t0 = time.perf_counter()
     _build.load()
     log(f"built the CUDA kernels in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    rn_ops.rmsnorm(torch.ones(2, 64, device=dev), torch.zeros(64, device=dev))
-    torch.cuda.synchronize()
-    log(f"compiled the Triton kernel in {time.perf_counter() - t0:.1f} s")
 
     counters = dispatch.KERNELS
     entries = kernel_phase(dev)

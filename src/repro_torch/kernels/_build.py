@@ -19,6 +19,8 @@ import tempfile
 from pathlib import Path
 from typing import Callable, Dict
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -36,6 +38,8 @@ _DECODE = [_P] * 9 + [_I] * 8 + [_F, _F, _P]
 _PAGED = [_P] * 9 + [_I] * 9 + [_F, _F, _P]
 # a, b, h0, h, agg_a, agg_b, B, S, W, chunk, n_chunks, stream
 _LINREC = [_P] * 6 + [_I] * 5 + [_P]
+# x, r, scale, s, y, rows, d, scale_f32, eps, stream
+_RMSNORM = [_P] * 5 + [_I] * 3 + [_F, _P]
 SIGNATURES = {
     "flash_attention": {"flash_attention_bf16": _FLASH, "flash_attention_f32": _FLASH},
     "decode_attention": {"decode_attention_bf16": _DECODE,
@@ -43,6 +47,7 @@ SIGNATURES = {
     "paged_decode_attention": {"paged_decode_attention_bf16": _PAGED,
                                "paged_decode_attention_f32": _PAGED},
     "linear_recurrence": {"linear_recurrence_f32": _LINREC},
+    "rmsnorm": {"rmsnorm_bf16": _RMSNORM, "rmsnorm_f32": _RMSNORM},
 }
 
 
@@ -90,6 +95,14 @@ def build() -> Dict[str, Path]:
     if errors:
         raise RuntimeError("\n".join(errors))
     return libs
+
+
+def stream(t) -> int:
+    """The raw handle of the current CUDA stream on tensor ``t``'s device,
+    the stream a launcher takes: the capturing stream inside a CUDA graph
+    capture.  (``torch.cuda.current_stream`` builds a ``Stream`` object,
+    several microseconds of host time a launch.)"""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 @functools.cache

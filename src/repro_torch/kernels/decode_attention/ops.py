@@ -158,7 +158,7 @@ def decode_attention(q, k_cache, v_cache, *, q_positions, k_positions,
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         q_positions.data_ptr(), k_positions.data_ptr(), out.data_ptr(), *scratch,
         B, L, Hkv, G, D, chunk, n_split, int(window), float(softcap), 1.0 / math.sqrt(D),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        _build.stream(q))
     if status != 0:
         raise RuntimeError(f"decode_attention launch failed: CUDA error {status}")
     decode_attention.launches += 1
@@ -192,7 +192,7 @@ def paged_decode_attention(q, k_pool, v_pool, *, block_tables, q_positions,
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), block_tables.data_ptr(),
         q_positions.data_ptr(), out.data_ptr(), *scratch, B, nb, bs, Hkv, G, D, chunk,
         n_split, int(window), float(softcap), 1.0 / math.sqrt(D),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        _build.stream(q))
     if status != 0:
         raise RuntimeError(f"paged_decode_attention launch failed: CUDA error {status}")
     paged_decode_attention.launches += 1

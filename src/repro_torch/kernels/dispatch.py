@@ -92,6 +92,13 @@ def rmsnorm(x, scale, eps=1e-6):
     return rmsnorm_ref.rmsnorm(x, scale, eps=eps)
 
 
+def add_rmsnorm(x, r, scale, eps=1e-6):
+    """``(x + r, rmsnorm(x + r))``: the residual add fused into K1."""
+    if _kernel(x):
+        return rmsnorm_ops.add_rmsnorm(x, r, scale, eps=eps)
+    return rmsnorm_ref.add_rmsnorm(x, r, scale, eps=eps)
+
+
 # every kernel wrapper, each with its ``launches`` count
 KERNELS = {"flash_attention": flash_ops.flash_attention,
            "decode_attention": decode_ops.decode_attention,

@@ -63,7 +63,7 @@ def flash_attention(q, k, v, *, q_positions, k_positions, causal, window=0,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), q_positions.data_ptr(),
         k_positions.data_ptr(), out.data_ptr(), B, S, T, Hq, Hkv, D,
         int(causal), int(window), float(softcap), 1.0 / math.sqrt(D),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        _build.stream(q))
     if status != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {status}")
     flash_attention.launches += 1

@@ -85,7 +85,7 @@ def linear_recurrence(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> tor
         scratch = [agg[0].data_ptr(), agg[1].data_ptr()]
     status = _build.load()["linear_recurrence_f32"](
         a.data_ptr(), b.data_ptr(), h0.data_ptr(), out.data_ptr(), *scratch,
-        B, S, W, chunk, n_chunks, torch.cuda.current_stream(a.device).cuda_stream)
+        B, S, W, chunk, n_chunks, _build.stream(a))
     if status != 0:
         raise RuntimeError(f"linear_recurrence launch failed: CUDA error {status}")
     linear_recurrence.launches += 1

@@ -12,7 +12,7 @@ explicit ``torch.Generator`` at the reference initializer's scales
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -55,6 +55,16 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.T
 
 def apply_norm(p: Norm, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return rms_norm(x, p.scale, eps)
+
+
+def add_norm(p: Norm, x: torch.Tensor, r: Optional[torch.Tensor],
+             eps: float = 1e-6) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The residual add ``x + r`` and the norm of the sum, one kernel:
+    returns ``(x + r, norm(x + r))``, or ``(x, norm(x))`` when ``r`` is
+    None.  The reference's ``x = x + r; apply_norm(p, x)``, bit for bit."""
+    if r is None:
+        return x, apply_norm(p, x, eps)
+    return dispatch.add_rmsnorm(x, r, p.scale, eps)
 
 
 # --------------------------------------------------------------------------

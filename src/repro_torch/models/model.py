@@ -28,7 +28,7 @@ from repro_torch.models import cache as cache_lib
 from repro_torch.models import recurrent as rec_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
-    Embedding, Norm, apply_norm, embed_tokens, rope_tables, unembed,
+    Embedding, Norm, add_norm, embed_tokens, rope_tables, unembed,
 )
 from repro_torch.models.mlp import MLP, apply_mlp
 
@@ -83,53 +83,67 @@ def _write_state(entry: Dict, new: Dict, update_mask: Optional[torch.Tensor] = N
         entry[leaf].copy_(t)
 
 
-def _apply_rglru_block(p: Block, cfg: ModelConfig, x: torch.Tensor, entry: Dict,
-                       update_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+# Each block takes the residual stream ``x`` and the branch output ``r`` not
+# yet added to it (None before the first block), and returns the new pair.
+# The add is folded into the next norm (``add_norm``, K1's fused mode), so
+# every norm but the first block's is one launch for the add and the norm.
+# A cross-attention block would fold its ``a`` into ``norm_c`` the same way.
+Residual = Tuple[torch.Tensor, Optional[torch.Tensor]]
+
+
+def _apply_rglru_block(p: Block, cfg: ModelConfig, x: torch.Tensor,
+                       r: Optional[torch.Tensor], entry: Dict,
+                       update_mask: Optional[torch.Tensor] = None) -> Residual:
     """norm1 -> RG-LRU from the entry's state -> residual -> norm2 -> MLP.
     The scan starts from the state in ``entry`` (zeros in a fresh cache)."""
-    y, state = rec_lib.apply_rglru_seq(p.rec, apply_norm(p.norm1, x, cfg.norm_eps), cfg,
-                                       entry)
+    x, h = add_norm(p.norm1, x, r, cfg.norm_eps)
+    y, state = rec_lib.apply_rglru_seq(p.rec, h, cfg, entry)
     _write_state(entry, state, update_mask)
-    x = x + y
-    return x + apply_mlp(p.mlp, apply_norm(p.norm2, x, cfg.norm_eps), cfg.mlp_act)
+    x, h = add_norm(p.norm2, x, y, cfg.norm_eps)
+    return x, apply_mlp(p.mlp, h, cfg.mlp_act)
+
+
+def _mlp_branch(p: Block, cfg: ModelConfig, x: torch.Tensor, h: torch.Tensor,
+                a: torch.Tensor) -> Residual:
+    """An attention block after its attention output ``a``: the MLP branch,
+    left pending.  A parallel block's MLP reads the shared pre-norm ``h``
+    and adds ``a`` first, as the reference adds ``(x + a) + m``."""
+    if cfg.parallel_block:
+        return x + a, apply_mlp(p.mlp, h, cfg.mlp_act)
+    x, h = add_norm(p.norm2, x, a, cfg.norm_eps)
+    return x, apply_mlp(p.mlp, h, cfg.mlp_act)
 
 
 def _apply_block_seq(p: Block, cfg: ModelConfig, x: torch.Tensor,
-                     positions: torch.Tensor, rope, entry: Dict,
-                     block_tables: Optional[torch.Tensor]) -> torch.Tensor:
-    if p.kind == "ffn":
-        return x + apply_mlp(p.mlp, apply_norm(p.norm, x, cfg.norm_eps), cfg.mlp_act)
+                     r: Optional[torch.Tensor], positions: torch.Tensor, rope, entry: Dict,
+                     block_tables: Optional[torch.Tensor]) -> Residual:
     if p.kind == "rglru":
-        return _apply_rglru_block(p, cfg, x, entry)
-    h = apply_norm(p.norm1, x, cfg.norm_eps)
+        return _apply_rglru_block(p, cfg, x, r, entry)
+    if p.kind == "ffn":
+        x, h = add_norm(p.norm, x, r, cfg.norm_eps)
+        return x, apply_mlp(p.mlp, h, cfg.mlp_act)
+    x, h = add_norm(p.norm1, x, r, cfg.norm_eps)
     a, _ = attn_lib.apply_attention_prefill(p.attn, h, cfg, positions, entry, rope=rope,
                                             window=_window(cfg, p.kind),
                                             block_tables=block_tables)
-    mlp_in = h if cfg.parallel_block else None
-    x = x + a
-    if mlp_in is None:
-        mlp_in = apply_norm(p.norm2, x, cfg.norm_eps)
-    return x + apply_mlp(p.mlp, mlp_in, cfg.mlp_act)
+    return _mlp_branch(p, cfg, x, h, a)
 
 
 def _apply_block_decode(p: Block, cfg: ModelConfig, x: torch.Tensor,
-                        positions: torch.Tensor, rope, entry: Dict,
-                        block_tables: Optional[torch.Tensor],
-                        update_mask: Optional[torch.Tensor]) -> torch.Tensor:
-    if p.kind == "ffn":
-        return x + apply_mlp(p.mlp, apply_norm(p.norm, x, cfg.norm_eps), cfg.mlp_act)
+                        r: Optional[torch.Tensor], positions: torch.Tensor, rope,
+                        entry: Dict, block_tables: Optional[torch.Tensor],
+                        update_mask: Optional[torch.Tensor]) -> Residual:
     if p.kind == "rglru":
-        return _apply_rglru_block(p, cfg, x, entry, update_mask)
-    h = apply_norm(p.norm1, x, cfg.norm_eps)
+        return _apply_rglru_block(p, cfg, x, r, entry, update_mask)
+    if p.kind == "ffn":
+        x, h = add_norm(p.norm, x, r, cfg.norm_eps)
+        return x, apply_mlp(p.mlp, h, cfg.mlp_act)
+    x, h = add_norm(p.norm1, x, r, cfg.norm_eps)
     a, _ = attn_lib.apply_attention_decode(p.attn, h, cfg, positions, entry, rope=rope,
                                            window=_window(cfg, p.kind),
                                            block_tables=block_tables,
                                            update_mask=update_mask)
-    mlp_in = h if cfg.parallel_block else None
-    x = x + a
-    if mlp_in is None:
-        mlp_in = apply_norm(p.norm2, x, cfg.norm_eps)
-    return x + apply_mlp(p.mlp, mlp_in, cfg.mlp_act)
+    return _mlp_branch(p, cfg, x, h, a)
 
 
 class Model(nn.Module):
@@ -187,10 +201,11 @@ class Model(nn.Module):
         x = embed_tokens(self.embed, tokens, cfg.emb_scale, cfg.d_model)
         positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S).contiguous()
         rope = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
+        r = None
         for blk, entry in zip(self.layers, cache):
-            x = _apply_block_seq(blk, cfg, x, positions, rope, entry, block_tables)
-        x = apply_norm(self.final_norm, x, cfg.norm_eps)
-        logits = unembed(self._head(), x[:, -1:], cfg.logit_softcap)[:, 0]
+            x, r = _apply_block_seq(blk, cfg, x, r, positions, rope, entry, block_tables)
+        _, h = add_norm(self.final_norm, x, r, cfg.norm_eps)
+        logits = unembed(self._head(), h[:, -1:], cfg.logit_softcap)[:, 0]
         return logits, cache
 
     @torch.no_grad()
@@ -210,11 +225,12 @@ class Model(nn.Module):
                                     device=token.device).expand(B).contiguous()
         x = embed_tokens(self.embed, token, cfg.emb_scale, cfg.d_model)
         rope = rope_tables(positions[:, None], cfg.resolved_head_dim, cfg.rope_theta)
+        r = None
         for blk, entry in zip(self.layers, cache):
-            x = _apply_block_decode(blk, cfg, x, positions, rope, entry, block_tables,
-                                    update_mask)
-        x = apply_norm(self.final_norm, x, cfg.norm_eps)
-        logits = unembed(self._head(), x, cfg.logit_softcap)[:, 0]
+            x, r = _apply_block_decode(blk, cfg, x, r, positions, rope, entry, block_tables,
+                                       update_mask)
+        _, h = add_norm(self.final_norm, x, r, cfg.norm_eps)
+        logits = unembed(self._head(), h, cfg.logit_softcap)[:, 0]
         return logits, cache
 
 

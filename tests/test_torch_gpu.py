@@ -513,13 +513,82 @@ def test_rmsnorm_kernel_matches_plain(cuda, shape, dtype):
     _assert(got, rn_ref.rmsnorm(x, s), dtype)
 
 
+@pytest.mark.parametrize("shape", [(1, 4096), (8, 4096), (512, 4096), (3, 7, 12288), (5, 100)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_add_rmsnorm_kernel_matches_plain(cuda, shape, dtype):
+    """The fused mode: one launch; the sum bit for bit torch's ``x + r``,
+    the norm within tolerance of the plain version."""
+    rng = _rng("add_rmsnorm", shape)
+    x, r, s = _on(cuda, dtype, rng.standard_normal(shape, np.float32),
+                  rng.standard_normal(shape, np.float32) * 3.0,
+                  rng.standard_normal(shape[-1], np.float32) * 0.1)
+    n = rn_ops.rmsnorm.launches
+    got_s, got_y = rn_ops.add_rmsnorm(x, r, s)
+    assert rn_ops.rmsnorm.launches == n + 1
+    assert torch.equal(got_s, x + r)
+    _assert(got_y, rn_ref.add_rmsnorm(x, r, s)[1], dtype)
+
+
+@pytest.mark.parametrize("d", [4096, 100])
+def test_rmsnorm_kernel_unaligned_rows_and_fp32_scale(cuda, d):
+    """bf16 rows one element off 16-byte alignment (the one-element path)
+    and an fp32 scale beside bf16 activations, plain and fused."""
+    rng = _rng("rmsnorm unaligned", d)
+    buf, rbuf = _on(cuda, "bfloat16", rng.standard_normal(8 * d + 1, np.float32),
+                    rng.standard_normal(8 * d + 1, np.float32))
+    x, r = buf[1:].view(8, d), rbuf[1:].view(8, d)
+    (s,) = _on(cuda, "float32", rng.standard_normal(d, np.float32) * 0.1)
+    _assert(rn_ops.rmsnorm(x, s), rn_ref.rmsnorm(x, s), "bfloat16")
+    got_s, got_y = rn_ops.add_rmsnorm(x, r, s)
+    assert torch.equal(got_s, x + r)
+    _assert(got_y, rn_ref.add_rmsnorm(x, r, s)[1], "bfloat16")
+
+
+def test_add_rmsnorm_raises_on_mismatched_inputs(cuda):
+    x = torch.zeros(4, 64, device=cuda, dtype=torch.bfloat16)
+    s = torch.zeros(64, device=cuda)
+    n = rn_ops.rmsnorm.launches
+    with pytest.raises(TypeError):
+        rn_ops.add_rmsnorm(x, x.float(), s)
+    with pytest.raises(ValueError):
+        rn_ops.add_rmsnorm(x, x[:1], s)
+    with pytest.raises(ValueError):
+        rn_ops.add_rmsnorm(x, torch.zeros(64, 4, device=cuda, dtype=torch.bfloat16).t(), s)
+    with pytest.raises(ValueError):
+        rn_ops.add_rmsnorm(x, x.cpu(), s)
+    assert rn_ops.rmsnorm.launches == n
+
+
+def test_add_rmsnorm_replays_from_a_cuda_graph(cuda):
+    """One fused call captured in a CUDA graph, replayed on new inputs
+    written in place: equal to the eager call."""
+    rng = _rng("add_rmsnorm graph")
+    x, r, s = _on(cuda, "bfloat16", rng.standard_normal((8, 4096), np.float32),
+                  rng.standard_normal((8, 4096), np.float32),
+                  rng.standard_normal(4096, np.float32) * 0.1)
+    rn_ops.add_rmsnorm(x, r, s)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out_s, out_y = rn_ops.add_rmsnorm(x, r, s)
+    for _ in range(3):
+        x.copy_(torch.randn_like(x))
+        r.copy_(torch.randn_like(r))
+        graph.replay()
+        want_s, want_y = rn_ops.add_rmsnorm(x, r, s)
+        torch.cuda.synchronize()
+        assert torch.equal(out_s, want_s) and torch.equal(out_y, want_y)
+
+
 def test_dispatch_routes_cuda_tensors_to_the_kernels(cuda):
     x, s = torch.randn(4, 64, device=cuda), torch.zeros(64, device=cuda)
     n = rn_ops.rmsnorm.launches
     dispatch.rmsnorm(x, s)
+    dispatch.add_rmsnorm(x, x, s)
     with dispatch.use_backend("torch"):
         dispatch.rmsnorm(x, s)
-    assert rn_ops.rmsnorm.launches == n + 1
+        dispatch.add_rmsnorm(x, x, s)
+    assert rn_ops.rmsnorm.launches == n + 2
 
 
 def test_kernel_wrappers_raise_on_bad_inputs(cuda):

@@ -373,6 +373,36 @@ def test_rmsnorm_plain_matches_jax(shape, dtype):
     _assert(got, jrn_ref.rmsnorm(jx, js), dtype)
 
 
+@pytest.mark.parametrize("shape", [(8, 128), (2, 33, 384), (1, 7, 5, 256), (7, 4096)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_add_rmsnorm_plain_matches_jax(shape, dtype):
+    """The fused mode: the sum bit for bit the reference's ``x + a``, and
+    the norm of that rounded sum, as the reference's model computes
+    ``apply_norm(p["norm2"], x + a)``."""
+    rng = _rng("add_rmsnorm", shape)
+    (jx, tx) = _pair(rng.standard_normal(shape, np.float32), dtype)
+    (jr, tr) = _pair(rng.standard_normal(shape, np.float32) * 3.0, dtype)
+    (js, ts) = _pair(rng.standard_normal(shape[-1], np.float32) * 0.1)
+    s, y = rn_ref.add_rmsnorm(tx, tr, ts)
+    assert s.dtype == y.dtype == tx.dtype and s.shape == y.shape == tx.shape
+    js_sum = jx + jr
+    np.testing.assert_array_equal(_np(s), _np(js_sum))
+    assert torch.equal(y, rn_ref.rmsnorm(s, ts))
+    _assert(y, jrn_ops.rmsnorm(js_sum, js, interpret=True), dtype)
+    _assert(y, jrn_ref.rmsnorm(js_sum, js), dtype)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape"])
+def test_add_rmsnorm_refuses_mismatched_inputs(bad):
+    """No silent promotion or broadcast: r must match x."""
+    x, s = torch.zeros(4, 64, dtype=torch.bfloat16), torch.zeros(64)
+    r = x.float() if bad == "dtype" else torch.zeros(1, 64, dtype=torch.bfloat16)
+    with pytest.raises(TypeError if bad == "dtype" else ValueError):
+        rn_ops.add_rmsnorm(x, r, s)
+    with pytest.raises(TypeError if bad == "dtype" else ValueError):
+        dispatch.add_rmsnorm(x, r, s)
+
+
 # ---------------------------------------------------------------------------
 # wrappers and dispatch on the CPU
 # ---------------------------------------------------------------------------
@@ -391,6 +421,9 @@ def test_wrappers_take_the_plain_version_on_cpu():
                        da_ref.decode_attention(q1, k, v, **kv))
     x, s = q.reshape(-1, 16), torch.linspace(-0.1, 0.1, 16)
     assert torch.equal(rn_ops.rmsnorm(x, s), rn_ref.rmsnorm(x, s))
+    r = x.roll(1, 0)
+    for fused in (rn_ops.add_rmsnorm(x, r, s), dispatch.add_rmsnorm(x, r, s)):
+        assert all(torch.equal(a, b) for a, b in zip(fused, rn_ref.add_rmsnorm(x, r, s)))
     assert (fa_ops.flash_attention.launches, da_ops.decode_attention.launches,
             rn_ops.rmsnorm.launches) == before
     with pytest.raises(ValueError):

@@ -163,6 +163,32 @@ def test_update_mask_freezes_masked_rows():
         assert new["pos"][0, 6] == 6 and not torch.equal(old["k"][0], new["k"][0])
 
 
+@pytest.mark.parametrize("arch,fused_per_layer", [
+    ("llama3.1-8b", 2), ("command-r-plus-104b", 1), ("recurrentgemma-2b", 2)])
+def test_norms_fold_the_residual_add(arch, fused_per_layer, monkeypatch):
+    """Every norm after the first block's first one takes the pending
+    residual add with it: 2 fused calls a layer (1 for a parallel block,
+    whose ``x + a`` stays a plain add), the final norm among them, and one
+    plain norm, per prefill and per decode step."""
+    from repro_torch.kernels import dispatch
+
+    calls = {"rmsnorm": 0, "add_rmsnorm": 0}
+    for name in calls:
+        def counted(*a, _fn=getattr(dispatch, name), _name=name, **kw):
+            calls[_name] += 1
+            return _fn(*a, **kw)
+        monkeypatch.setattr(dispatch, name, counted)
+    cfg = get_config(arch, smoke=True)
+    model = model_lib.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    L = len(cfg.blocks())
+    tokens = torch.randint(0, cfg.vocab_size, (2, 6), generator=torch.Generator().manual_seed(1))
+    cache = model.init_cache(2, 10)
+    logits, cache = model.prefill({"tokens": tokens}, cache)
+    assert calls == {"rmsnorm": 1, "add_rmsnorm": fused_per_layer * L}
+    model.decode_step(logits.argmax(-1, keepdim=True), 6, cache)
+    assert calls == {"rmsnorm": 2, "add_rmsnorm": 2 * fused_per_layer * L}
+
+
 def test_unported_blocks_raise():
     from repro_torch.configs import get_config as port_config
 
