@@ -7,7 +7,8 @@ run from the root of a checkout; it puts ``src`` on the path itself and
 builds the CUDA kernels on first use.  It imports nothing of JAX
 or of the ``repro`` package.  Phases:
 
-1. Device: name, count, ``nvidia-smi`` name and power limit, build time.
+1. Device: name, count, ``nvidia-smi`` name and power limit, the board's
+   idle power from NVML before any model is drawn, build time.
 2. Each kernel against its plain PyTorch version at the main path's shapes
    (bf16, plus fp32 and edge cases), with kernel, plain, library and bound
    times; K1 plain and with the residual add fused, at the decode and
@@ -16,11 +17,16 @@ or of the ``repro`` package.  Phases:
    chunk boundaries; K4 and K5 also timed at other chunk plans; one
    ``{"kernels": [...]}`` line.
 3. The measured path at full width: ``Elana("llama3.1-8b").measure``
-   (TTFT, TPOT, TTLT), then the same with NVML energy; size and cache
-   reports; launch counts of every kernel checked against the forward
-   passes run.
+   (TTFT eager; TPOT and TTLT from the decode step replayed from a CUDA
+   graph), then the same with NVML energy; size and cache reports; launch
+   counts of every kernel checked against the forward passes run, replays
+   credited.  Then the replayed loop against the eager one on the same
+   prompt (identical greedy tokens), TPOT both ways with the device time
+   per replay and the busy share, one replay traced with
+   ``capture_torch_trace``, and the ``h100`` estimate beside the
+   measurement.
 4. Device time by kernel, the number of device kernels and the device's
-   busy share (torch.profiler).
+   busy share (torch.profiler) of an eager prefill and eager decode steps.
 5. The serving path at full width: ``ServingEngine`` with a paged KV
    cache and its decode step replayed from a CUDA graph serves 24
    requests with NVML energy attribution; finishes, block accounting,
@@ -33,9 +39,9 @@ or of the ``repro`` package.  Phases:
 7. Phases 3-6 again for the RG-LRU hybrid recurrentgemma-2b (26 layers:
    18 RG-LRU, 8 local attention over a 2048-token ring), once llama3.1-8b
    is freed: measure with exact launch counts (K5 18 per forward pass),
-   the profile, 16 requests served (paged, CUDA-graph step) and 8 greedy
-   ones with and without the graph, and the parity over a 2304-token
-   prompt, past the window, so the ring wraps.
+   graph against eager, the profile, 16 requests served (paged, CUDA-graph
+   step) and 8 greedy ones with and without the graph, and the parity over
+   a 2304-token prompt, past the window, so the ring wraps.
 8. The last line: ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line is printed; so does a
@@ -713,8 +719,32 @@ class Calls:
 
         model.prefill, model.decode_step = counted_prefill, counted_decode
 
-    def expected(self, cfg):
-        return expected_launches(cfg, self.prefill, self.decode)
+    def forwards(self, lp):
+        """(prefills, decode steps) the kernels ran so far: Python calls of
+        ``decode_step``, less the one per capture (whose launches the
+        capture takes back), plus the graph replays, which make no call."""
+        runs = lp.runners.values()
+        return self.prefill, (self.decode - sum(r.graph is not None for r in runs)
+                              + sum(r.replays for r in runs))
+
+
+def measured_launches(e, counters, calls, **measure_kw):
+    """``e.measure(**measure_kw)`` with every count from 0; the launches
+    checked against the forward passes it ran.  Returns (metrics,
+    launches)."""
+    lp = e._latency_profiler()
+    (p0, d0), r0 = calls.forwards(lp), sum(r.replays for r in lp.runners.values())
+    reset_counts(counters)
+    m = e.measure(batch=BATCH, prompt_len=PROMPT, gen_len=GEN, iters=ITERS, **measure_kw)
+    launches = read_counts(counters)
+    (p1, d1), r1 = calls.forwards(lp), sum(r.replays for r in lp.runners.values())
+    want = expected_launches(e.cfg, p1 - p0, d1 - d0)
+    log(f"{e.cfg.name} forward passes: {p1 - p0} prefill, {d1 - d0} decode ({r1 - r0} of "
+        f"them graph replays); per forward {per_forward(e.cfg)}; launches {launches}, "
+        f"expected {want}")
+    check(launches == want, f"launch counts {launches} != {want}")
+    check(r1 - r0 > 0, "no decode step was replayed from the graph")
+    return m, launches
 
 
 def main_path_phase(arch, counters):
@@ -744,13 +774,7 @@ def main_path_phase(arch, counters):
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
     calls = Calls(model)
 
-    reset_counts(counters)
-    m = e.measure(batch=BATCH, prompt_len=PROMPT, gen_len=GEN, iters=ITERS)
-    launches = read_counts(counters)
-    want = calls.expected(e.cfg)
-    log(f"{arch} forward passes: {calls.prefill} prefill, {calls.decode} decode; "
-        f"per forward {per_forward(e.cfg)}; launches {launches}, expected {want}")
-    check(launches == want, f"launch counts {launches} != {want}")
+    m, launches = measured_launches(e, counters, calls)
     path = {"flash_attention", "decode_attention", "rmsnorm"}
     if per_forward(e.cfg)["rec"]:
         path.add("linear_recurrence")
@@ -769,21 +793,111 @@ def main_path_phase(arch, counters):
 
     nvml = NvmlReader([0])
     reader = CountingReader(nvml)
-    calls.prefill = calls.decode = 0
-    reset_counts(counters)
     t0 = time.perf_counter()
     try:
-        me = e.measure(batch=BATCH, prompt_len=PROMPT, gen_len=GEN, iters=ITERS,
-                       power_reader=reader)
+        me, _ = measured_launches(e, counters, calls, power_reader=reader)
     finally:
         nvml.close()
     hz = reader.reads / (time.perf_counter() - t0)
-    energy_launches = read_counts(counters)
-    check(energy_launches == calls.expected(e.cfg),
-          f"energy run launch counts {energy_launches} != {calls.expected(e.cfg)}")
     check(all(math.isfinite(v) and v > 0 for v in me.values()), f"bad energy metrics {me}")
     log("energy: " + json.dumps({"arch": arch, **me, "sampler_hz": hz}))
-    return e, launches
+    return e, launches, {**me, **m, **bounds}
+
+
+def kernel_family(name):
+    """A traced kernel's family: the port's own kernels by name, cuBLAS's
+    matrix products, and PyTorch's other kernels (elementwise, copies,
+    gathers, reductions)."""
+    import re
+
+    own = re.search(r"repro_torch::(?:\(anonymous namespace\)::)?(\w+)", name)
+    if own:
+        return own.group(1)
+    if any(k in name for k in ("nvjet", "gemm", "gemv", "cutlass", "cublas")):
+        return "cublas matmul"
+    return "torch other"
+
+
+def measure_graph_phase(e, dev, measured):
+    """The measured decode step replayed from its CUDA graph against the
+    same step run eagerly, on one prompt: identical greedy tokens for GEN
+    steps; TPOT both ways, the device time of each replay (CUDA events)
+    and the busy share; one replay traced with ``capture_torch_trace``
+    (its JSON parsed, its kernel events counted); and the ``h100``
+    estimate beside the measured TTFT/TPOT/TTLT and joules."""
+    import statistics
+
+    import torch
+
+    from repro_torch.core.latency import LatencyProfiler
+    from repro_torch.core.trace import capture_torch_trace
+
+    lp = e._latency_profiler()
+    eager = LatencyProfiler(e.cfg, e.model, seed=0, device=dev, cuda_graph=False)
+    g = torch.Generator(device=dev).manual_seed(3)
+    tokens = torch.randint(0, e.cfg.vocab_size, (BATCH, PROMPT), generator=g, device=dev)
+    toks = {graph: p.greedy(tokens, GEN).cpu() for graph, p in ((True, lp), (False, eager))}
+    same = int((toks[True] == toks[False]).all(dim=0).sum())
+    check(torch.equal(toks[True], toks[False]),
+          f"graph and eager greedy tokens differ: {toks[True].tolist()} {toks[False].tolist()}")
+
+    run = lp.runner(BATCH, PROMPT + GEN + 1)
+    check(run.graph is not None, "the measured decode step was not captured")
+    timed = TimedGraph(run.graph)
+    run.graph = timed
+    try:
+        graph_st = lp.tpot(BATCH, PROMPT, gen_len=GEN)
+    finally:
+        run.graph = timed.graph
+    eager_st = eager.tpot(BATCH, PROMPT, gen_len=GEN)
+    replay_ms = statistics.median(timed.device_ms()[-GEN:])
+    out = {"arch": e.cfg.name, "identical_tokens": f"{same}/{GEN + 1}",
+           "distinct_tokens": len(set(toks[True][0].tolist())),
+           "tpot_graph_ms": graph_st.mean_ms, "tpot_graph_p50_ms": graph_st.p50_s * 1e3,
+           "tpot_eager_ms": eager_st.mean_ms, "tpot_eager_p50_ms": eager_st.p50_s * 1e3,
+           "replay_device_ms_p50": replay_ms,
+           "replay_busy_share": replay_ms / (graph_st.p50_s * 1e3),
+           "capture_and_warmup_ms": graph_st.compile_s * 1e3,
+           "tpot_bound_ms": measured["tpot_bound_ms"]}
+    log("measure graph vs eager: " + json.dumps(out))
+    del eager
+    torch.cuda.empty_cache()
+
+    path = ROOT / "build" / f"trace_{e.cfg.name}_decode_replay.json"
+    path.parent.mkdir(exist_ok=True)
+    capture_torch_trace(str(path), run.step)
+    events = json.loads(path.read_text())["traceEvents"]
+    kernels = [ev for ev in events if ev.get("cat") == "kernel"]
+    check(kernels, f"the trace of a replay holds no kernel event ({len(events)} events)")
+    by_name, by_family = {}, {}
+    for ev in kernels:
+        name, us = ev["name"], ev.get("dur", 0.0)
+        by_name[name[:70]] = by_name.get(name[:70], 0.0) + us
+        fam = kernel_family(name)
+        n, t = by_family.get(fam, (0, 0.0))
+        by_family[fam] = (n + 1, t + us)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    log("trace of one replay: " + json.dumps({
+        "path": str(path.relative_to(ROOT)), "events": len(events),
+        "kernel_events": len(kernels), "kernel_us": sum(by_name.values()),
+        "span_us": (max(ev["ts"] + ev.get("dur", 0.0) for ev in kernels)
+                    - min(ev["ts"] for ev in kernels)),
+        "graph_launches": sum("GraphLaunch" in ev.get("name", "") for ev in events),
+        "by_family_count_us": dict(sorted(by_family.items(), key=lambda kv: -kv[1][1])),
+        "top_us": {k: v for k, v in top}}))
+
+    est = e.estimate(hardware="h100", batch=BATCH, prompt_len=PROMPT, gen_len=GEN)
+    row = {}
+    for key, est_v in (("ttft_ms", est.ttft.latency_s * 1e3),
+                       ("tpot_ms", est.tpot.latency_s * 1e3),
+                       ("ttlt_ms", est.ttlt.latency_s * 1e3),
+                       ("j_per_prompt", est.ttft.joules), ("j_per_token", est.tpot.joules),
+                       ("j_per_request", est.ttlt.joules)):
+        row[key] = {"measured": measured[key], "estimated": est_v,
+                    "measured_over_estimated": measured[key] / est_v}
+    log("estimate h100 vs measured: " + json.dumps({"arch": e.cfg.name, "batch": BATCH,
+                                                   "prompt_len": PROMPT, "gen_len": GEN,
+                                                   **row}))
 
 
 def profile_phase(e, dev, decode_steps=8):
@@ -1055,6 +1169,26 @@ def parity_phase(e, dev, prompt=PROMPT, paged=True):
               f"{name}: top-1 differs from fp32 on a row with a clear margin")
 
 
+def idle_power(samples=20, interval_s=0.1):
+    """The board's power from NVML before any model is drawn (the ``h100``
+    spec's ``idle_watts``)."""
+    import statistics
+
+    from repro_torch.core.energy import NvmlReader
+
+    nvml = NvmlReader([0])
+    try:
+        watts = []
+        for _ in range(samples):
+            watts.append(nvml.read_watts()[0])
+            time.sleep(interval_s)
+    finally:
+        nvml.close()
+    log("idle power: " + json.dumps({"watts_median": statistics.median(watts),
+                                     "watts_min": min(watts), "watts_max": max(watts),
+                                     "samples": samples, "interval_s": interval_s}))
+
+
 def main():
     import torch
 
@@ -1071,6 +1205,7 @@ def main():
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60).stdout.strip().splitlines()
     log(f"device: {name} x{count}; torch {torch.__version__} cuda {torch.version.cuda}")
+    idle_power()
     t0 = time.perf_counter()
     _build.load()
     log(f"built the CUDA kernels in {time.perf_counter() - t0:.1f} s")
@@ -1078,7 +1213,8 @@ def main():
     counters = dispatch.KERNELS
     entries = kernel_phase(dev)
     paths = {}  # each path's counts, read right after that path ran
-    e, paths[f"{ARCH} measure"] = main_path_phase(ARCH, counters)
+    e, paths[f"{ARCH} measure"], measured = main_path_phase(ARCH, counters)
+    measure_graph_phase(e, dev, measured)
     profile_phase(e, dev)
     paths[f"{ARCH} serve"] = serve_phase(e, counters)
     graph_phase(e)
@@ -1088,7 +1224,8 @@ def main():
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    h, paths[f"{HYBRID} measure"] = main_path_phase(HYBRID, counters)
+    h, paths[f"{HYBRID} measure"], measured = main_path_phase(HYBRID, counters)
+    measure_graph_phase(h, dev, measured)
     profile_phase(h, dev)
     paths[f"{HYBRID} serve"] = serve_phase(h, counters)
     graph_phase(h)

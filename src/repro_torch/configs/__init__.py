@@ -32,6 +32,11 @@ NOT_PORTED: Dict[str, str] = {
     "nemotron-h-8b": "hybrid",
 }
 
+# the models profiled in the ELANA paper itself (Tables 2-4), as the
+# reference lists them
+PAPER: List[str] = ["llama3.1-8b", "qwen2.5-7b", "nemotron-h-8b", "llama3.2-1b",
+                    "qwen2.5-1.5b"]
+
 
 def get_config(name: str, smoke: bool = False) -> ModelConfig:
     if name in NOT_PORTED:

@@ -7,6 +7,9 @@ sampler in a background thread around a workload (CUDA work runs with the
 interpreter lock released, so the thread keeps its cadence).
 
 * ``NvmlReader``      — NVIDIA GPUs, through ``libnvidia-ml.so.1`` by ctypes.
+* ``ProcStatReader``  — the host CPU: /proc/stat busy fraction × a TDP model.
+* ``ModelReader``     — a utilization-scaled TDP model, for hardware without
+  a power API or for estimator-mode accounting.
 * ``SyntheticReader`` — a deterministic waveform, for tests.
 """
 
@@ -40,6 +43,48 @@ class SyntheticReader(PowerReader):
     def read_watts(self) -> Sequence[float]:
         w = self._fn(time.perf_counter() - self._t0)
         return [w] * self._n
+
+
+class ModelReader(PowerReader):
+    """Utilization-scaled TDP model: idle + (tdp - idle) * utilization."""
+
+    def __init__(self, idle_watts: float, tdp_watts: float,
+                 utilization_fn: Optional[Callable[[], float]] = None,
+                 n_devices: int = 1):
+        self.idle = idle_watts
+        self.tdp = tdp_watts
+        self.util_fn = utilization_fn or (lambda: 1.0)
+        self._n = n_devices
+
+    def read_watts(self) -> Sequence[float]:
+        u = min(max(self.util_fn(), 0.0), 1.0)
+        return [self.idle + (self.tdp - self.idle) * u] * self._n
+
+
+class ProcStatReader(PowerReader):
+    """CPU package power proxy from /proc/stat busy fraction × TDP."""
+
+    def __init__(self, idle_watts: float = 10.0, tdp_watts: float = 65.0):
+        self.idle = idle_watts
+        self.tdp = tdp_watts
+        self._last = self._read_stat()
+
+    @staticmethod
+    def _read_stat() -> Tuple[float, float]:
+        with open("/proc/stat") as f:
+            parts = f.readline().split()[1:]
+        vals = [float(x) for x in parts[:8]]
+        idle = vals[3] + vals[4]
+        total = sum(vals)
+        return idle, total
+
+    def read_watts(self) -> Sequence[float]:
+        idle, total = self._read_stat()
+        last_idle, last_total = self._last
+        self._last = (idle, total)
+        d_total = total - last_total
+        busy = 1.0 - (idle - last_idle) / d_total if d_total > 0 else 0.0
+        return [self.idle + (self.tdp - self.idle) * busy]
 
 
 class NvmlReader(PowerReader):
@@ -240,3 +285,18 @@ class PowerMonitor:
             samples_per_sec=len(self._samples) / duration,
             dropped_reads=self.dropped_reads,
         )
+
+
+def measure_energy(
+    fn: Callable[[], object], reader: PowerReader, interval_s: float = 0.1
+) -> EnergyResult:
+    """Run ``fn`` under the sampler, waiting for the GPU's queued work
+    before the window closes; energy = the sampled power integrated over
+    the window."""
+    import torch
+
+    with PowerMonitor(reader, interval_s) as mon:
+        fn()
+        if torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+    return mon.result()

@@ -11,6 +11,9 @@ from __future__ import annotations
 
 import contextlib
 import threading
+from typing import Callable, Dict, Tuple
+
+import torch
 
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.decode_attention import ref as decode_ref
@@ -105,3 +108,36 @@ KERNELS = {"flash_attention": flash_ops.flash_attention,
            "paged_decode_attention": decode_ops.paged_decode_attention,
            "rmsnorm": rmsnorm_ops.rmsnorm,
            "linear_recurrence": linrec_ops.linear_recurrence}
+
+
+def capture_graph(fn: Callable[[], object], device
+                  ) -> Tuple[torch.cuda.CUDAGraph, object, Dict[str, int]]:
+    """Capture ``fn()`` once as a CUDA graph, the way every captured step of
+    the port is: two runs on a side stream first build and first-launch the
+    kernels and make cuBLAS pick its algorithms, then the capture.  A
+    replay launches what the capture recorded, so the capture's launches
+    are taken back from each kernel's count, to be credited per replay
+    (``credit``).  Returns (graph, what the captured call returned,
+    launches per replay).  A capture that fails raises."""
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream(device).wait_stream(side)
+    before = {name: k.launches for name, k in KERNELS.items()}
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    launches = {}
+    for name, k in KERNELS.items():
+        launches[name] = k.launches - before[name]
+        k.launches = before[name]
+    return graph, out, launches
+
+
+def credit(launches: Dict[str, int]) -> None:
+    """Count one replay of a captured graph: ``launches`` from
+    ``capture_graph``."""
+    for name, n in launches.items():
+        KERNELS[name].launches += n

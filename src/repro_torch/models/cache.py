@@ -224,5 +224,19 @@ def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
     raise NotImplementedError(f"no cache for block kind {kind!r} in the port yet")
 
 
+def reset_cache(cache: List[Dict[str, torch.Tensor]]) -> List[Dict[str, torch.Tensor]]:
+    """Return every entry to what ``init_block_cache`` makes, in place:
+    positions -1, K/V and recurrent states zero (the ring flag follows from
+    shapes and stays).  A CUDA graph reads the tensors it captured, so a
+    captured step's cache is reset, never replaced."""
+    for entry in cache:
+        for leaf, t in entry.items():
+            if leaf == "pos":
+                t.fill_(-1)
+            elif leaf != "ring":
+                t.zero_()
+    return cache
+
+
 def cache_bytes(cache: List[Dict[str, torch.Tensor]]) -> int:
     return sum(t.numel() * t.element_size() for entry in cache for t in entry.values())

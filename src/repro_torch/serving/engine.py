@@ -186,27 +186,11 @@ class ServingEngine:
 
     # -- the decode step as a CUDA graph ------------------------------------------
     def _capture(self) -> None:
-        """Capture the decode step once.  Two runs on a side stream first
-        (with every slot idle, so they change nothing but the garbage
-        block) build the CUDA kernels, jit the Triton kernel and make
-        cuBLAS pick its algorithms.  A replay launches what the capture
-        recorded, so each kernel's ``launches`` count is credited per
-        replay (``_graph_launches``), not at capture, where nothing ran."""
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            for _ in range(2):
-                self._step(self._state, self.cache)
-        torch.cuda.current_stream(self.device).wait_stream(side)
-        before = {name: fn.launches for name, fn in dispatch.KERNELS.items()}
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            self._graph_out = self._step(self._state, self.cache)
-        self._graph_launches = {}
-        for name, fn in dispatch.KERNELS.items():
-            self._graph_launches[name] = fn.launches - before[name]
-            fn.launches = before[name]
-        self._graph = graph
+        """Capture the decode step once (``dispatch.capture_graph``).  Its
+        two warm-up runs find every slot idle, so they change nothing but
+        the garbage block."""
+        self._graph, self._graph_out, self._graph_launches = dispatch.capture_graph(
+            lambda: self._step(self._state, self.cache), self.device)
 
     # -- public API -----------------------------------------------------------
     def submit(self, prompt: np.ndarray, params: Optional[SamplingParams] = None) -> int:
@@ -401,8 +385,7 @@ class ServingEngine:
         if self._graph is not None:
             self._graph.replay()
             out = self._graph_out
-            for name, n in self._graph_launches.items():
-                dispatch.KERNELS[name].launches += n
+            dispatch.credit(self._graph_launches)
         else:
             out = self._step(self._state, self.cache)
         self._dispatches += 1

@@ -741,3 +741,42 @@ def test_hybrid_engine_cuda_graph_matches_eager(cuda):
             assert eng.latency_summary()["dispatches_per_step_p50"] == 1
         assert outs[True] == outs[False], layout
         assert [len(outs[True][i]) for i in range(5)] == [6 + 3 * i for i in range(5)]
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "recurrentgemma-2b"])
+def test_latency_profiler_graph_matches_eager(cuda, arch):
+    """The measured decode loop replayed from its CUDA graph and run
+    eagerly (bf16 smoke models): identical greedy tokens, the replays
+    credited to every kernel's launch count as the eager calls count, and
+    TPOT's samples taken through the same captured runner."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.latency import LatencyProfiler
+    from repro_torch.models import model as model_lib
+
+    cfg = get_config(arch, smoke=True).replace(dtype="bfloat16", param_dtype="bfloat16")
+    model = model_lib.init(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    with torch.no_grad():
+        model.embed.table.mul_(0.05)  # streams that depend on the context
+    S, gen = 40, 12
+    tokens = torch.from_numpy(_rng("profiler", arch).integers(0, cfg.vocab_size, (2, S)))
+    tokens = tokens.to(cuda)
+    n_attn = sum(k in ("attn", "local_attn") for k in cfg.blocks())
+    n_rec = sum(k == "rglru" for k in cfg.blocks())
+    out, counts = {}, {}
+    for graph in (True, False):
+        lp = LatencyProfiler(cfg, model, device=cuda, cuda_graph=graph)
+        run = lp.runner(2, S + gen + 1)
+        assert (run.graph is not None) == graph
+        before = {k: fn.launches for k, fn in dispatch.KERNELS.items()}
+        out[graph] = lp.greedy(tokens, gen)
+        torch.cuda.synchronize()
+        counts[graph] = {k: fn.launches - before[k] for k, fn in dispatch.KERNELS.items()}
+        assert run.replays == (gen if graph else 0)
+        st = lp.tpot(2, S, gen_len=gen, warmup=1)
+        assert len(st.samples_s) == gen and len(lp.runners) == 1
+        assert run.replays == (2 * gen + 1 if graph else 0)
+    assert torch.equal(out[True], out[False])
+    assert counts[True] == counts[False]
+    assert counts[True]["decode_attention"] == n_attn * gen
+    assert counts[True]["flash_attention"] == n_attn
+    assert counts[True]["linear_recurrence"] == n_rec * (gen + 1)
