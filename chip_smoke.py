@@ -14,8 +14,11 @@ or of the ``repro`` package.  Phases:
    times; K1 plain and with the residual add fused, at the decode and
    prefill shapes, also with its host time per eager call; one K3 call and
    one K4 call captured in CUDA graphs and replayed as q_pos crosses their
-   chunk boundaries; K4 and K5 also timed at other chunk plans; one
-   ``{"kernels": [...]}`` line.
+   chunk boundaries; K2 at the serving engine's unified-step shapes
+   (llama3.1-8b over the gathered pool, recurrentgemma-2b over its ring
+   and the chunk) captured and replayed, timed with its bound and SDPA,
+   beside the pool gather that feeds it; K4 and K5 also timed at other
+   chunk plans; one ``{"kernels": [...]}`` line.
 3. The measured path at full width: ``Elana("llama3.1-8b").measure``
    (TTFT eager; TPOT and TTLT from the decode step replayed from a CUDA
    graph), then the same with NVML energy; size and cache reports; launch
@@ -30,18 +33,30 @@ or of the ``repro`` package.  Phases:
 5. The serving path at full width: ``ServingEngine`` with a paged KV
    cache and its decode step replayed from a CUDA graph serves 24
    requests with NVML energy attribution; finishes, block accounting,
-   launch counts and one dispatch per step checked.  Then the same
-   greedy trace with and without the graph: identical streams.
+   launch counts and dispatches per step checked; one decode replay
+   traced and split by kernel family in an untimed run of its own.  Then
+   the same greedy trace with and without the graph: identical streams.
+   Then chunked prefill (chunk and budget 256) through the unified step,
+   replayed from its own CUDA graph: with the prefix cache on a
+   shared-prefix trace (24 requests, 2 prefixes of 448 tokens; prefix
+   counters checked, and the same run without the graphs gives identical
+   streams), and without it on the first trace, printed beside the
+   whole-prompt numbers, with the unified replay's device time, busy
+   share and split by kernel family.
 6. Full-width parity: prefill + 4 greedy decode steps through the kernels
    and through the plain versions, both held against an fp32 copy of the
-   same weights, over a contiguous cache (B=1) and a paged one (B=4,
-   shuffled block tables).
+   same weights, over a contiguous cache (B=1), a paged one (B=4,
+   shuffled block tables) and the paged one prefilled in chunks of 256,
+   whose first-token logits and greedy streams are also held to the
+   whole prompt's.
 7. Phases 3-6 again for the RG-LRU hybrid recurrentgemma-2b (26 layers:
    18 RG-LRU, 8 local attention over a 2048-token ring), once llama3.1-8b
    is freed: measure with exact launch counts (K5 18 per forward pass),
    graph against eager, the profile, 16 requests served (paged, CUDA-graph
-   step) and 8 greedy ones with and without the graph, and the parity over
-   a 2304-token prompt, past the window, so the ring wraps.
+   step) and 8 greedy ones with and without the graph, the same 16
+   chunked through the unified step, and the parity over a 2304-token
+   prompt, past the window, so the ring wraps (whole and in chunks), with
+   the tied embedding table scaled by 0.05 so that rows decide.
 8. The last line: ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line is printed; so does a
@@ -69,6 +84,10 @@ HYBRID_PARITY_PROMPT = 2304  # past the 2048-token window: the ring wraps
 SERVE = dict(cache_layout="paged", kv_block_size=16, max_batch=8, max_len=1024,
              prompt_bucket=64, seed=0)
 SERVE_REQUESTS = {ARCH: 24, HYBRID: 16}
+# chunked prefill through the unified step, and the shared-prefix trace's
+# system prompt (28 blocks of 16)
+CHUNKED = dict(prefill_chunk=256, prefill_budget=256)
+SHARED_PREFIX = 448
 GRAPH_REQUESTS = {ARCH: 24, HYBRID: 8}
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, published
 BF16_FLOPS = 989e12             # dense tensor-core bf16, published
@@ -252,6 +271,7 @@ def kernel_phase(dev):
         library_ms=cuda_ms(lambda i: F.scaled_dot_product_attention(
             *tq[i], is_causal=True, enable_gqa=True), n),
         **bound(nbytes, flops, BF16_FLOPS)))
+    entries[-1]["unified"] = unified_flash_check(dev, randn)
 
     # -- K3 decode attention --------------------------------------------------
     L = PROMPT + GEN + 1
@@ -579,6 +599,118 @@ def kernel_phase(dev):
     return entries
 
 
+def unified_flash_case(dev, randn, layout, starts, lengths, W=256):
+    """K2's inputs in the serving engine's unified step, B = len(starts)
+    chunk rows of W queries at ``starts`` (``lengths`` of them tokens).
+    ``paged`` (llama3.1-8b): over the gathered pool of 64 blocks of 16,
+    keys at 0..1023.  ``ring`` (recurrentgemma-2b): over a 1024-slot ring
+    filled up to each row's start (-1 where a row has no chunk and
+    nothing cached) plus the chunk, its pad columns at -1, window 2048,
+    softcap 30: T = 1280 keys, not sorted."""
+    import torch
+
+    B = len(starts)
+    st = torch.tensor(starts, dtype=torch.int32, device=dev)[:, None]
+    ln = torch.tensor(lengths, dtype=torch.int32, device=dev)[:, None]
+    col = torch.arange(W, dtype=torch.int32, device=dev)[None]
+    qp = (st + col).contiguous()
+    if layout == "paged":
+        Hq, Hkv, D, T, kw = 32, 8, 128, 1024, {}
+        kp = torch.arange(T, dtype=torch.int32, device=dev).expand(B, T).contiguous()
+    else:
+        Hq, Hkv, D, L, kw = 10, 1, 256, 1024, dict(window=2048, softcap=30.0)
+        slots = torch.arange(L, dtype=torch.int32, device=dev)[None]
+        ring = (st - 1) - torch.remainder(st - 1 - slots, L)
+        ring = torch.where((ring >= 0) & (ln > 0), ring, -1)
+        kp = torch.cat([ring, torch.where(col < ln, qp, -1)], dim=1).to(torch.int32)
+        kp, T = kp.contiguous(), L + W
+    q, k, v = randn(B, W, Hq, D), randn(B, T, Hkv, D), randn(B, T, Hkv, D)
+    return q, k, v, dict(q_positions=qp, k_positions=kp, causal=True, **kw)
+
+
+def unified_flash_check(dev, randn):
+    """K2 at the unified step's shapes.  llama3.1-8b: q (8,256,32,128) over
+    1024 gathered keys, one row a cursor at 256 (its second chunk), seven
+    without a chunk at 0, as the main path gives them; recurrentgemma-2b:
+    q (8,256,10,256) over its ring plus the chunk.  Each held to its plain
+    version (bf16 tolerance), captured in a CUDA graph and replayed as the
+    starts move (equal to the eager call); the llama shape timed against
+    its bound, its plain version and SDPA (a boolean mask from the same
+    positions), and the pool gather (``cache.gather_paged_kv``) that feeds
+    it, per layer, against the gather's bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
+    from repro_torch.models import cache as cache_lib
+
+    out = {}
+    for layout, lengths in (("paged", [256] + [0] * 7), ("ring", [256, 0, 0, 77, 0, 0, 0, 0])):
+        starts = [256] + [0] * 7
+        q, k, v, kw = unified_flash_case(dev, randn, layout, starts, lengths)
+        got, ref = fa_ops.flash_attention(q, k, v, **kw), fa_ref.attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = max_err(got, ref)
+        close(got, ref, 2e-2)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            replayed = fa_ops.flash_attention(q, k, v, **kw)
+        moves = ([768, 3, 0, 100, 900, 0, 17, 0], [0, 0, 1023, 767, 0, 5, 0, 1], starts)
+        for st in moves:
+            new = unified_flash_case(dev, randn, layout, st, lengths)[3]
+            kw["q_positions"].copy_(new["q_positions"])
+            kw["k_positions"].copy_(new["k_positions"])
+            graph.replay()
+            eager = fa_ops.flash_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            check(torch.equal(replayed, eager), f"unified K2 {layout}: replay differs from eager")
+            close(replayed, fa_ref.attention(q, k, v, **kw), 2e-2)
+        del graph
+        log(f"check flash_attention unified step {layout} q {tuple(q.shape)} k "
+            f"{tuple(k.shape)}: max_abs_err={err:.3e} tol=2e-2; {len(moves)} graph replays "
+            f"equal eager")
+        n = copies(2 * (2 * q.numel() + k.numel() + v.numel()))
+        sets = [(q.clone(), k.clone(), v.clone()) for _ in range(n)]
+        row = dict(shape=f"q {tuple(q.shape)} k/v {tuple(k.shape)} bf16 causal"
+                   + (" window=2048 softcap=30" if layout == "ring" else ""),
+                   starts=starts, lengths=lengths, max_abs_err=err,
+                   ms=cuda_ms(lambda i: fa_ops.flash_attention(*sets[i], **kw), n))
+        if layout == "paged":
+            qp, kp = kw["q_positions"], kw["k_positions"]
+            pairs = ((kp[:, None, :] >= 0) & (qp[:, :, None] >= kp[:, None, :])).sum().item()
+            B, S, Hq, D = q.shape
+            # K and V only of the keys some query of the row sees (at or
+            # before its last query position): 2304 of the 8 x 1024 here
+            seen = ((kp >= 0) & (kp <= qp.max(dim=1, keepdim=True).values)).sum().item()
+            nbytes = (2 * 2 * q.numel() + 2 * 2 * seen * k.shape[2] * D
+                      + 4 * (qp.numel() + kp.numel()))
+            mask = ((kp[:, None, :] >= 0) & (qp[:, :, None] >= kp[:, None, :]))[:, None]
+            tq = [(a.transpose(1, 2).contiguous(), b.transpose(1, 2).contiguous(),
+                   c.transpose(1, 2).contiguous()) for a, b, c in sets]
+            row.update(plain_ms=cuda_ms(lambda i: fa_ref.attention(*sets[i], **kw), n, iters=10),
+                       library_ms=cuda_ms(lambda i: F.scaled_dot_product_attention(
+                           *tq[i], attn_mask=mask, enable_gqa=True), n),
+                       keys_seen=seen, **bound(nbytes, 4 * D * pairs * Hq, BF16_FLOPS))
+            # the gather of one attention layer: the serving pool (513 blocks
+            # of 16) through 8 shuffled table rows of 64 blocks
+            pool = [dict(kp=randn(513, 16, 8, 128), vp=randn(513, 16, 8, 128))
+                    for _ in range(2)]
+            tables = (torch.randperm(512, device=dev) + 1).to(torch.int32).reshape(8, 64)
+            gathered = cache_lib.gather_paged_kv(pool[0], tables)
+            check(torch.equal(gathered[0][3, 16 * 5:16 * 6], pool[0]["kp"][tables[3, 5]]),
+                  "gather_paged_kv does not read the table's blocks")
+            # K and V: each referenced block read once, each gathered row
+            # written once (bf16), and the table
+            gbytes = 2 * 2 * 2 * gathered[0].numel() + 4 * tables.numel()
+            row["gather"] = dict(
+                shape="pool (513,16,8,128) x2 bf16 -> (8,1024,8,128) x2",
+                ms=cuda_ms(lambda i: cache_lib.gather_paged_kv(pool[i % 2], tables), 2),
+                **bound(gbytes, 0, BF16_FLOPS))
+        log("time flash_attention unified " + layout + ": " + json.dumps(row))
+        out[layout] = row
+    return out
+
+
 def decode_graph_check(dev, randn):
     """One K3 call captured in a CUDA graph at recurrentgemma's ring shape,
     replayed as q_pos advances across chunk boundaries (slots filled up to
@@ -690,16 +822,19 @@ def per_forward(cfg):
                 rec=sum(k == "rglru" for k in kinds), norms=norms)
 
 
-def expected_launches(cfg, prefills, decodes, paged=False):
-    """Launches of each kernel over ``prefills`` prefills and ``decodes``
-    decode steps."""
+def expected_launches(cfg, prefills, decodes, paged=False, chunks=0):
+    """Launches of each kernel over ``prefills`` prefills, ``chunks`` chunk
+    passes (``prefill_chunk``: K2 over the cache and the chunk, so counted
+    as a prefill) and ``decodes`` decode steps; a unified step is one chunk
+    pass and one decode step."""
     n = per_forward(cfg)
     full_paged = n["full"] if paged else 0
-    return {"flash_attention": n["attn"] * prefills,
+    seq = prefills + chunks
+    return {"flash_attention": n["attn"] * seq,
             "decode_attention": (n["attn"] - full_paged) * decodes,
             "paged_decode_attention": full_paged * decodes,
-            "rmsnorm": n["norms"] * (prefills + decodes),
-            "linear_recurrence": n["rec"] * (prefills + decodes)}
+            "rmsnorm": n["norms"] * (seq + decodes),
+            "linear_recurrence": n["rec"] * (seq + decodes)}
 
 
 class Calls:
@@ -818,13 +953,38 @@ def kernel_family(name):
     return "torch other"
 
 
+def trace_split(path):
+    """A traced replay's kernel events (``capture_torch_trace``'s chrome
+    JSON) counted and timed by ``kernel_family``, with the eight longest
+    kernels."""
+    events = json.loads(Path(path).read_text())["traceEvents"]
+    kernels = [ev for ev in events if ev.get("cat") == "kernel"]
+    check(kernels, f"the trace of a replay holds no kernel event ({len(events)} events)")
+    by_name, by_family = {}, {}
+    for ev in kernels:
+        name, us = ev["name"], ev.get("dur", 0.0)
+        by_name[name[:70]] = by_name.get(name[:70], 0.0) + us
+        fam = kernel_family(name)
+        n, t = by_family.get(fam, (0, 0.0))
+        by_family[fam] = (n + 1, t + us)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"path": str(Path(path).relative_to(ROOT)), "events": len(events),
+            "kernel_events": len(kernels), "kernel_us": sum(by_name.values()),
+            "span_us": (max(ev["ts"] + ev.get("dur", 0.0) for ev in kernels)
+                        - min(ev["ts"] for ev in kernels)),
+            "graph_launches": sum("GraphLaunch" in ev.get("name", "") for ev in events),
+            "by_family_count_us": dict(sorted(by_family.items(), key=lambda kv: -kv[1][1])),
+            "top_us": {k: v for k, v in top}}
+
+
 def measure_graph_phase(e, dev, measured):
     """The measured decode step replayed from its CUDA graph against the
     same step run eagerly, on one prompt: identical greedy tokens for GEN
     steps; TPOT both ways, the device time of each replay (CUDA events)
     and the busy share; one replay traced with ``capture_torch_trace``
     (its JSON parsed, its kernel events counted); and the ``h100``
-    estimate beside the measured TTFT/TPOT/TTLT and joules."""
+    estimate beside the measured TTFT/TPOT/TTLT and joules.  Returns the
+    replay's split by kernel family."""
     import statistics
 
     import torch
@@ -866,25 +1026,8 @@ def measure_graph_phase(e, dev, measured):
     path = ROOT / "build" / f"trace_{e.cfg.name}_decode_replay.json"
     path.parent.mkdir(exist_ok=True)
     capture_torch_trace(str(path), run.step)
-    events = json.loads(path.read_text())["traceEvents"]
-    kernels = [ev for ev in events if ev.get("cat") == "kernel"]
-    check(kernels, f"the trace of a replay holds no kernel event ({len(events)} events)")
-    by_name, by_family = {}, {}
-    for ev in kernels:
-        name, us = ev["name"], ev.get("dur", 0.0)
-        by_name[name[:70]] = by_name.get(name[:70], 0.0) + us
-        fam = kernel_family(name)
-        n, t = by_family.get(fam, (0, 0.0))
-        by_family[fam] = (n + 1, t + us)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    log("trace of one replay: " + json.dumps({
-        "path": str(path.relative_to(ROOT)), "events": len(events),
-        "kernel_events": len(kernels), "kernel_us": sum(by_name.values()),
-        "span_us": (max(ev["ts"] + ev.get("dur", 0.0) for ev in kernels)
-                    - min(ev["ts"] for ev in kernels)),
-        "graph_launches": sum("GraphLaunch" in ev.get("name", "") for ev in events),
-        "by_family_count_us": dict(sorted(by_family.items(), key=lambda kv: -kv[1][1])),
-        "top_us": {k: v for k, v in top}}))
+    split = trace_split(path)
+    log("trace of one replay: " + json.dumps(split))
 
     est = e.estimate(hardware="h100", batch=BATCH, prompt_len=PROMPT, gen_len=GEN)
     row = {}
@@ -898,6 +1041,7 @@ def measure_graph_phase(e, dev, measured):
     log("estimate h100 vs measured: " + json.dumps({"arch": e.cfg.name, "batch": BATCH,
                                                    "prompt_len": PROMPT, "gen_len": GEN,
                                                    **row}))
+    return split
 
 
 def profile_phase(e, dev, decode_steps=8):
@@ -958,20 +1102,29 @@ def profile_phase(e, dev, decode_steps=8):
 # ---------------------------------------------------------------------------
 
 class TimedGraph:
-    """Stands in for the engine's CUDA graph: records device time around
-    each replay (CUDA events) and the host clock at each call."""
+    """Stands in for one of the engine's CUDA graphs: records device time
+    around each replay (CUDA events) and the host clock at each call; the
+    ``trace_at``-th replay (0-based) runs under ``capture_torch_trace``
+    into ``trace_path``."""
 
-    def __init__(self, graph):
+    def __init__(self, graph, trace_at=None, trace_path=None):
         import torch
 
         self.graph, self.events, self.calls = graph, [], []
+        self.trace_at, self.trace_path = trace_at, trace_path
         self._event = lambda: torch.cuda.Event(enable_timing=True)
 
     def replay(self):
+        from repro_torch.core.trace import capture_torch_trace
+
         start, end = self._event(), self._event()
+        traced = len(self.calls) == self.trace_at
         self.calls.append(time.perf_counter())
         start.record()
-        self.graph.replay()
+        if traced:
+            capture_torch_trace(str(self.trace_path), self.graph.replay)
+        else:
+            self.graph.replay()
         end.record()
         self.events.append((start, end))
 
@@ -1007,18 +1160,82 @@ def serve(e, arrivals, **kw):
     return eng
 
 
-def serve_phase(e, counters):
-    """The engine at full width with NVML energy; returns the launches."""
+SERVE_KEYS = ("requests", "output_tokens", "tokens_per_sec", "ttft_ms", "ttft_p50_ms",
+              "ttft_p95_ms", "ttft_p99_ms", "tpot_ms", "tpot_p50_ms", "tpot_p95_ms",
+              "tpot_p99_ms", "ttlt_ms", "ttlt_p50_ms", "ttlt_p95_ms", "ttlt_p99_ms",
+              "kv_bytes_peak", "kv_bytes_worst_case", "steps_per_sec",
+              "dispatches_per_step_p50", "dispatches_per_step_p95", "pool_occupancy_p95",
+              "joules_total", "joules_per_request", "joules_per_token",
+              "power_samples_per_sec")
+PREFIX_KEYS = ("prefix_lookups", "prefix_hit_rate", "prefix_blocks_reused",
+               "prefill_tokens_skipped", "prefix_block_hits", "prefix_block_misses",
+               "prefix_block_evictions", "prefix_blocks_resident")
+
+
+def p50(xs):
+    return sorted(xs)[len(xs) // 2] if xs else float("nan")
+
+
+def traced_replay(e, arrivals, trace_name, **engine_kw):
+    """One replay of the engine's CUDA graph (decode replay 40, or unified
+    replay 8 where the engine has that step) traced by kernel, in a run of
+    its own that serves the same trace up to that replay and is timed by
+    nothing: the profiler's start, stop and export stay out of every
+    serving statistic.  All arrivals are at t = 0, so that replay meets the
+    same batch as in the timed run.  Returns ``trace_split`` of it."""
+    import torch
+
+    eng = serve(e, arrivals, **engine_kw)
+    trace = ROOT / "build" / f"trace_{e.cfg.name}_{trace_name}_replay.json"
+    trace.parent.mkdir(exist_ok=True)
+    if eng.unified:
+        timed = eng._unified_graph = TimedGraph(eng._unified_graph, 8, trace)
+    else:
+        timed = eng._graph = TimedGraph(eng._graph, 40, trace)
+    while len(timed.calls) <= timed.trace_at:
+        check(eng.step(), f"{trace_name}: the trace drained before replay {timed.trace_at}")
+    torch.cuda.synchronize()
+    del eng, timed
+    torch.cuda.empty_cache()
+    return trace_split(trace)
+
+
+def served(e, arrivals, counters, trace_name, **engine_kw):
+    """Serve ``arrivals`` at full width with NVML energy, each of the
+    engine's CUDA graphs timed per replay; the counts from 0 for this run
+    only.  Checks: launch counts exact against the forward passes run,
+    replays credited; every request emits its budget; blocks drained and
+    table rows back at block 0; dispatches per step p50 = 1 and p95 <= 2.
+    Then one replay traced by kernel in an untimed run of its own
+    (``traced_replay``).  Returns (launches, stats, streams, engine
+    counters)."""
     import torch
 
     from repro_torch.core.energy import NvmlReader, PowerMonitor
 
-    n_requests = SERVE_REQUESTS[e.cfg.name]
-    arrivals = serve_arrivals(e.cfg, n_requests)
     monitor = PowerMonitor(NvmlReader([0]))
-    eng = serve(e, arrivals, monitor=monitor)
+    eng = serve(e, arrivals, monitor=monitor, **engine_kw)
     check(eng._graph is not None, "the decode step was not captured")
-    eng._graph = timed = TimedGraph(eng._graph)
+    check(eng.unified == (eng._unified_graph is not None), "the unified step was not captured")
+    timed = {"decode": TimedGraph(eng._graph)}
+    eng._graph = timed["decode"]
+    if eng.unified:
+        timed["unified"] = TimedGraph(eng._unified_graph)
+        eng._unified_graph = timed["unified"]
+    walls = []
+    step = eng.step
+
+    def timed_step():
+        before = ({k: len(t.calls) for k, t in timed.items()}, eng.prefills)
+        t0 = time.perf_counter()
+        out = step()
+        ms = (time.perf_counter() - t0) * 1e3
+        ran = [k for k, t in timed.items() if len(t.calls) > before[0][k]]
+        kind = ("prefill+decode" if eng.prefills > before[1] else ran[0] if ran else "host")
+        walls.append((kind, ms))
+        return out
+
+    eng.step = timed_step
     reset_counts(counters)
     try:
         with monitor:
@@ -1029,40 +1246,115 @@ def serve_phase(e, counters):
     launches = read_counts(counters)
     summary = eng.latency_summary()
 
-    # replays are credited per replay as the engine's capture counted them
-    want = expected_launches(e.cfg, eng.prefills, eng.decode_forwards, paged=True)
-    log(f"serve {e.cfg.name}: {eng.prefills} admission prefills, {eng.decode_forwards} "
-        f"graph replays; launches {launches}, expected {want}")
+    want = expected_launches(e.cfg, eng.prefills, eng.decode_forwards, paged=True,
+                             chunks=eng.chunk_forwards)
+    log(f"serve {e.cfg.name} {trace_name}: {eng.prefills} admission prefills, "
+        f"{eng.chunk_forwards} chunk passes, {eng.decode_forwards} decode passes "
+        f"({len(timed['decode'].calls)} decode and "
+        f"{len(timed['unified'].calls) if 'unified' in timed else 0} unified replays); "
+        f"launches {launches}, expected {want}")
     check(launches == want, f"serve launch counts {launches} != {want}")
-    check(len(finished) == n_requests, f"{len(finished)} of {n_requests} finished")
+    check(len(finished) == len(arrivals), f"{len(finished)} of {len(arrivals)} finished")
     budgets = {i: a.params.max_new_tokens for i, a in enumerate(arrivals)}
     check(all(len(r.output_tokens) == budgets[r.uid] for r in finished),
           "a request did not emit its budget of tokens")
     check(eng.blocks_in_use == 0, f"{eng.blocks_in_use} blocks still in use at drain")
     check(not eng._state["block_tables"].any().item(), "a table row not back at block 0")
-    check(summary["dispatches_per_step_p50"] == 1, f"dispatches/step {summary}")
+    check(summary["dispatches_per_step_p50"] == 1 and summary["dispatches_per_step_p95"] <= 2,
+          f"dispatches/step {summary}")
     check(all(math.isfinite(v) for v in summary.values()), f"bad summary {summary}")
     check(summary["joules_per_token"] > 0, "no energy attributed")
 
-    device = timed.device_ms()
-    gaps = [b - a for a, b in zip(timed.calls, timed.calls[1:])]
-    step_ms = 1e3 * sorted(gaps)[len(gaps) // 2]
-    replay_ms = sorted(device)[len(device) // 2]
-    keys = ("requests", "output_tokens", "tokens_per_sec", "ttft_ms", "ttft_p50_ms",
-            "ttft_p95_ms", "ttft_p99_ms", "tpot_ms", "tpot_p50_ms", "tpot_p95_ms",
-            "tpot_p99_ms", "ttlt_ms", "ttlt_p50_ms", "ttlt_p95_ms", "ttlt_p99_ms",
-            "kv_bytes_peak", "kv_bytes_worst_case", "steps_per_sec",
-            "dispatches_per_step_p50", "dispatches_per_step_p95", "pool_occupancy_p95",
-            "joules_total", "joules_per_request", "joules_per_token",
-            "power_samples_per_sec")
-    log("serve: " + json.dumps({"arch": e.cfg.name, "requests_submitted": n_requests,
-                                **SERVE, **{k: summary[k] for k in keys},
-                                "decode_replay_device_ms_p50": replay_ms,
-                                "decode_step_wall_ms_p50": step_ms,
-                                "decode_busy_share": replay_ms / step_ms}))
-    del eng
+    stats = {k: summary[k] for k in SERVE_KEYS + (PREFIX_KEYS if eng.prefix_cache else ())}
+    device = {k: t.device_ms() for k, t in timed.items()}
+    for kind in timed:
+        step_ms = p50([ms for k, ms in walls if k == kind])
+        stats[f"{kind}_replays"] = len(device[kind])
+        stats[f"{kind}_replay_device_ms_p50"] = p50(device[kind])
+        stats[f"{kind}_step_wall_ms_p50"] = step_ms
+        stats[f"{kind}_busy_share"] = p50(device[kind]) / step_ms
+    stats["steps_by_kind"] = {k: sum(1 for kk, _ in walls if kk == k)
+                              for k in sorted({k for k, _ in walls})}
+    stats["replay_device_share_of_steps"] = (sum(sum(d) for d in device.values())
+                                             / sum(ms for _, ms in walls))
+    streams = {r.uid: list(r.output_tokens) for r in finished}
+    counts = {k: getattr(eng, k) for k in ("prefills", "chunk_forwards", "decode_forwards",
+                                           "prefix_hits", "prefix_blocks_reused",
+                                           "prefill_tokens_skipped")}
+    del eng, timed
     torch.cuda.empty_cache()
-    return launches
+    stats["trace"] = traced_replay(e, arrivals, trace_name, **engine_kw)
+    return launches, stats, streams, counts
+
+
+def serve_phase(e, counters):
+    """The whole-prompt engine at full width on ``serve_arrivals``;
+    returns its launches, stats and streams."""
+    arrivals = serve_arrivals(e.cfg, SERVE_REQUESTS[e.cfg.name])
+    launches, stats, streams, _ = served(e, arrivals, counters, "serve_decode")
+    log("serve: " + json.dumps({"arch": e.cfg.name, **SERVE, **stats}))
+    return launches, stats, streams
+
+
+def chunked_serve_phase(e, counters, whole, measure_split):
+    """Chunked prefill (chunk and budget 256) through the unified step,
+    replayed from its CUDA graph.  llama3.1-8b: first with the prefix
+    cache on ``shared_prefix_trace`` (24 requests at t = 0, 2 prefixes of
+    448 tokens + 64, 32 new tokens, greedy; prompts of 32 blocks, 28
+    shareable): prefix hits, tokens skipped = 16 x blocks reused <= 448 x
+    hits, and the same run without the graphs gives identical streams.
+    Both models: then ``serve_arrivals`` without the prefix cache, beside
+    the whole-prompt serve phase (``whole``: launches, stats, streams) of
+    the same run.  Returns each path's launches."""
+    import torch
+
+    from repro_torch.serving.workload import shared_prefix_trace
+
+    paths = {}
+    if e.cfg.name == ARCH:
+        arrivals = shared_prefix_trace(e.cfg.vocab_size, num_requests=24,
+                                       shared_prefix_len=SHARED_PREFIX, num_prefixes=2,
+                                       suffix_len=64, max_new=32, seed=0)
+        launches, stats, streams, n = served(e, arrivals, counters, "prefix_unified",
+                                             prefix_cache=True, **CHUNKED)
+        paths[f"{e.cfg.name} prefix serve"] = launches
+        check(n["prefix_hits"] > 0, "no prefix hit")
+        check(n["prefill_tokens_skipped"] == 16 * n["prefix_blocks_reused"]
+              <= SHARED_PREFIX * n["prefix_hits"],
+              f"prefix counters {n}: a hit reached past the shared prefix")
+        eng = serve(e, arrivals, cuda_graph=False, prefix_cache=True, **CHUNKED)
+        eager = {r.uid: list(r.output_tokens) for r in eng.run()}
+        del eng
+        torch.cuda.empty_cache()
+        same = sum(streams[u] == eager[u] for u in streams)
+        log("prefix serve: " + json.dumps({
+            "arch": e.cfg.name, **SERVE, **CHUNKED, "prefix_cache": True,
+            "shared_prefix_len": SHARED_PREFIX, "suffix_len": 64, "max_new": 32, **n, **stats,
+            "graph_vs_eager_identical_streams": f"{same}/{len(streams)}"}))
+        check(streams == eager, "unified graph and eager streams differ")
+
+    arrivals = serve_arrivals(e.cfg, SERVE_REQUESTS[e.cfg.name])
+    launches, stats, streams, n = served(e, arrivals, counters, "chunked_unified", **CHUNKED)
+    paths[f"{e.cfg.name} chunked serve"] = launches
+    w_launches, w_stats, w_streams = whole
+    keys = ("ttft_ms", "ttft_p50_ms", "ttft_p95_ms", "ttft_p99_ms", "tpot_ms", "tpot_p50_ms",
+            "tpot_p95_ms", "tpot_p99_ms", "ttlt_ms", "tokens_per_sec", "steps_per_sec",
+            "dispatches_per_step_p50", "dispatches_per_step_p95", "joules_per_token",
+            "decode_replay_device_ms_p50", "decode_busy_share")
+    log("chunked vs whole-prompt serve: " + json.dumps({
+        "arch": e.cfg.name, **SERVE, **CHUNKED, **n,
+        "chunked": {**stats, "trace": None}, "whole": {k: w_stats[k] for k in keys},
+        "identical_streams": f"{sum(streams[u] == w_streams[u] for u in streams)}"
+                             f"/{len(streams)}"}))
+    log("serving replays by kernel family: " + json.dumps({
+        "arch": e.cfg.name, "measure_decode_B1": measure_split["by_family_count_us"],
+        "serve_decode_B8": w_stats["trace"]["by_family_count_us"],
+        "serve_decode_B8_kernel_us": w_stats["trace"]["kernel_us"],
+        "unified_B8_W256": stats["trace"]["by_family_count_us"],
+        "unified_B8_W256_kernel_us": stats["trace"]["kernel_us"]}))
+    for path, counts in paths.items():
+        check(counts["flash_attention"] > 0, f"K2 never launched on {path}")
+    return paths
 
 
 def graph_phase(e):
@@ -1092,22 +1384,28 @@ def graph_phase(e):
 # phase 6: kernels against plain versions on the full-width model
 # ---------------------------------------------------------------------------
 
-def parity_phase(e, dev, prompt=PROMPT, paged=True):
+def parity_phase(e, dev, prompt=PROMPT, paged=True, table_scale=1.0):
     """Prefill + 4 greedy decode steps through the kernels and through the
     plain versions, both in bf16, each held against the plain versions run
     on an fp32 copy of the same weights; over a contiguous cache (B=1) and,
     with ``paged``, over a paged one (B=4, each row's blocks shuffled
-    through the pool).
+    through the pool); and ``chunked``: the prompt of the last of those
+    layouts through ``prefill_chunk`` in chunks of 256 (per-row starts and
+    lengths, as the unified step passes them) before the same decode steps.
     The kernels pass if they add no more error than bf16 itself: the plain
     bf16 path's distance from fp32 is the floor (it rounds probabilities
     and activations to bf16, and 32 random layers amplify such
     differences), and the kernel path may be at most twice as far.  Top-1
-    must match fp32 wherever fp32's top-2 margin exceeds that floor."""
+    must match fp32 wherever fp32's top-2 margin exceeds that floor.  The
+    chunked kernels' first-token logits are held to the whole prompt's
+    within that same bound, and their greedy streams must agree wherever
+    the whole prompt's top-2 margin exceeds it.  ``table_scale`` scales the
+    embedding table for the phase (recurrentgemma-2b's tied table: random
+    weights otherwise drive every logit into the softcap, where no row's
+    top-2 margin clears the floor)."""
     import torch
 
-    from repro_torch.kernels import dispatch
     from repro_torch.models.cache import blocks_per_slot
-    from repro_torch.models.model import Model
 
     model = e.model
     g = torch.Generator(device=dev).manual_seed(1)
@@ -1122,12 +1420,27 @@ def parity_phase(e, dev, prompt=PROMPT, paged=True):
         layouts["paged"] = (paged_batch, dict(layout="paged", block_size=bs, num_blocks=pool))
     tokens = {name: torch.randint(0, e.cfg.vocab_size, (b, prompt), generator=g, device=dev)
               for name, (b, _) in layouts.items()}
+    whole = list(layouts)[-1]
+    layouts["chunked"], tokens["chunked"] = layouts[whole], tokens[whole]
+    chunk = CHUNKED["prefill_chunk"]
+
+    def prefill(m, name, cache, bt):
+        if name != "chunked":
+            return m.prefill({"tokens": tokens[name]}, cache, block_tables=bt)[0]
+        b = tokens[name].shape[0]
+        for i in range(0, prompt, chunk):
+            c = min(chunk, prompt - i)
+            logits, _ = m.prefill_chunk(
+                tokens[name][:, i:i + c], cache,
+                torch.full((b,), i, dtype=torch.int32, device=dev), block_tables=bt,
+                lengths=torch.full((b,), c, dtype=torch.int32, device=dev))
+        return logits
 
     def run(m, name, dtype=None, forced=None):
         b, kw = layouts[name]
         bt = tables if kw else None
         cache = m.init_cache(b, max_len, dtype, **kw)
-        logits, cache = m.prefill({"tokens": tokens[name]}, cache, block_tables=bt)
+        logits = prefill(m, name, cache, bt)
         out, toks = [logits], []
         for i in range(steps):
             tok = logits.argmax(-1, keepdim=True) if forced is None else forced[i]
@@ -1136,6 +1449,23 @@ def parity_phase(e, dev, prompt=PROMPT, paged=True):
             out.append(logits)
         return torch.stack(out), toks
 
+    saved = model.embed.table.clone() if table_scale != 1.0 else None
+    if saved is not None:
+        model.embed.table.mul_(table_scale)
+    try:
+        _parity_checks(e, model, layouts, run, steps, prompt, whole, table_scale)
+    finally:
+        if saved is not None:
+            model.embed.table.copy_(saved)
+
+
+def _parity_checks(e, model, layouts, run, steps, prompt, whole, table_scale):
+    import torch
+
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.model import Model
+
+    dev = model.device
     results = {name: run(model, name) for name in layouts}
     with dispatch.use_backend("torch"):  # same inputs at every step
         plain = {name: run(model, name, forced=results[name][1])[0] for name in layouts}
@@ -1147,6 +1477,7 @@ def parity_phase(e, dev, prompt=PROMPT, paged=True):
                for name in layouts}
         del ref32
     torch.cuda.synchronize()
+    floor = {}
     for name, (b, _) in layouts.items():
         kern = results[name][0]
         check(kern.shape == (steps + 1, b, e.cfg.vocab_size), f"{name}: shape {kern.shape}")
@@ -1167,6 +1498,24 @@ def parity_phase(e, dev, prompt=PROMPT, paged=True):
               f"{name}: kernels {err_kern} from fp32, plain bf16 {err_plain}")
         check(bool(agree[decided].all()),
               f"{name}: top-1 differs from fp32 on a row with a clear margin")
+        floor[name] = err_plain
+    # the chunked prompt against the whole one, both through the kernels
+    tol = 2 * floor["chunked"]
+    kc, kw_ = results["chunked"][0], results[whole][0]
+    first = (kc[0] - kw_[0]).abs().max().item()
+    tc, tw = (torch.cat(results[n][1], dim=1) for n in ("chunked", whole))
+    top2 = kw_[:steps].topk(2, dim=-1).values
+    margin = (top2[..., 0] - top2[..., 1]).transpose(0, 1)  # (B, steps)
+    same = (tc == tw).int().cumprod(dim=1).bool()   # agreed so far
+    first_diff = ~same & torch.cat([torch.ones_like(same[:, :1]), same[:, :-1]], dim=1)
+    log(f"parity {e.cfg.name} chunked vs whole prompt={prompt}: " + json.dumps({
+        "first_token_max_abs_diff": first, "tol": tol, "table_scale": table_scale,
+        "identical_greedy_streams": f"{int(same[:, -1].sum())}/{same.shape[0]}",
+        "first_token_decided_rows": int((margin[:, 0] > tol).sum()),
+        "diverged_at_decided_step": int((first_diff & (margin > tol)).sum())}))
+    check(first <= tol, f"chunked first-token logits {first} from the whole prompt's, tol {tol}")
+    check(not bool((first_diff & (margin > tol)).any()),
+          "chunked and whole-prompt greedy streams differ on a step with a clear margin")
 
 
 def idle_power(samples=20, interval_s=0.1):
@@ -1214,10 +1563,12 @@ def main():
     entries = kernel_phase(dev)
     paths = {}  # each path's counts, read right after that path ran
     e, paths[f"{ARCH} measure"], measured = main_path_phase(ARCH, counters)
-    measure_graph_phase(e, dev, measured)
+    measure_split = measure_graph_phase(e, dev, measured)
     profile_phase(e, dev)
-    paths[f"{ARCH} serve"] = serve_phase(e, counters)
+    whole = serve_phase(e, counters)
+    paths[f"{ARCH} serve"] = whole[0]
     graph_phase(e)
+    paths.update(chunked_serve_phase(e, counters, whole, measure_split))
     parity_phase(e, dev)
     del e  # free llama3.1-8b before the second model
     gc.collect()
@@ -1225,11 +1576,13 @@ def main():
 
     t0 = time.perf_counter()
     h, paths[f"{HYBRID} measure"], measured = main_path_phase(HYBRID, counters)
-    measure_graph_phase(h, dev, measured)
+    measure_split = measure_graph_phase(h, dev, measured)
     profile_phase(h, dev)
-    paths[f"{HYBRID} serve"] = serve_phase(h, counters)
+    whole = serve_phase(h, counters)
+    paths[f"{HYBRID} serve"] = whole[0]
     graph_phase(h)
-    parity_phase(h, dev, prompt=HYBRID_PARITY_PROMPT, paged=False)
+    paths.update(chunked_serve_phase(h, counters, whole, measure_split))
+    parity_phase(h, dev, prompt=HYBRID_PARITY_PROMPT, paged=False, table_scale=0.05)
     log(f"{HYBRID} phases took {time.perf_counter() - t0:.1f} s")
     for entry in entries:
         k = entry["name"]

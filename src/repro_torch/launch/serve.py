@@ -5,6 +5,8 @@ flags of the engine the port has.
 
     python -m repro_torch.launch.serve --arch llama3.1-8b --cache-layout paged
     python -m repro_torch.launch.serve --arch tinyllama-1.1b --smoke --device cpu
+    python -m repro_torch.launch.serve --arch llama3.1-8b --cache-layout paged \
+        --prefill-chunk 256 --prefix-cache --shared-prefix-len 448
 
 The weights are random, drawn from ``--seed``.  Energy is read by
 ``--power-reader`` (NVML on the GPU by default, none on the CPU) and
@@ -47,8 +49,37 @@ def build_parser() -> argparse.ArgumentParser:
                     help="power source for energy attribution (default: nvml on the "
                          "GPU, none on the CPU)")
     ap.add_argument("--cuda-graph", default="on", choices=["on", "off"],
-                    help="replay the decode step from a CUDA graph (GPU only; 'off' "
-                         "exists to compare the two)")
+                    help="replay the decode and unified steps from CUDA graphs (GPU "
+                         "only; 'off' exists to compare the two)")
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="chunked prefill: prefill prompts in chunks of this many tokens, "
+                         "interleaved with decode steps (0 = whole-prompt admission); "
+                         "bounds how long in-flight decodes stall on a new prompt")
+    ap.add_argument("--prefill-budget", type=int, default=0,
+                    help="prompt tokens of chunk work per engine step (0 = one chunk; "
+                         "at least --prefill-chunk); only with --prefill-chunk")
+    ap.add_argument("--unified-step", default="on", choices=["on", "off"],
+                    help="advance the chunks and decode every armed slot in one step "
+                         "(needs --prefill-chunk > 0); 'off' runs one dispatch per chunk "
+                         "plus the decode step")
+    ap.add_argument("--pad-side", default="left", choices=["left", "right"],
+                    help="prompt-bucket padding: 'right' keeps the prompt at the row's "
+                         "start, so prompts sharing a prefix with suffixes of other "
+                         "lengths share cached blocks (streams differ from 'left': the "
+                         "positions shift)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="block-level prefix caching (paged layout, attention-only "
+                         "models): share the resident blocks of a common prompt prefix "
+                         "read-only and skip their prefill")
+    ap.add_argument("--shared-prefix-len", type=int, default=0,
+                    help="a shared-prefix workload instead of independent prompts: each "
+                         "request starts with one of --shared-prefixes fixed prompts of "
+                         "this many tokens (0 = off)")
+    ap.add_argument("--shared-prefixes", type=int, default=2,
+                    help="distinct prefixes in the shared-prefix workload")
+    ap.add_argument("--shared-suffix-len", type=int, default=16,
+                    help="tokens appended to each shared prefix (fixed, so padded lengths "
+                         "match); the --prompt-len-* flags are ignored then")
     return ap
 
 
@@ -62,14 +93,18 @@ def _make_monitor(kind: str):
 
 
 def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    if args.prefix_cache and args.cache_layout != "paged":
+        ap.error("--prefix-cache requires --cache-layout paged")
     import torch
 
     from repro_torch import resolve_device
     from repro_torch.configs import get_config
     from repro_torch.models import model as model_lib
     from repro_torch.serving.engine import ServingEngine
-    from repro_torch.serving.workload import LengthDist, WorkloadSpec, poisson_trace
+    from repro_torch.serving.workload import (LengthDist, WorkloadSpec, poisson_trace,
+                                              shared_prefix_trace)
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
@@ -82,7 +117,13 @@ def main(argv=None) -> int:
         output_len=LengthDist(kind="fixed", mean=args.max_new, low=1,
                               high=max(args.max_new, 1)),
         temperature=args.temperature, seed=args.seed)
-    arrivals = poisson_trace(spec, cfg.vocab_size)
+    if args.shared_prefix_len > 0:
+        arrivals = shared_prefix_trace(
+            cfg.vocab_size, num_requests=args.requests, shared_prefix_len=args.shared_prefix_len,
+            num_prefixes=args.shared_prefixes, suffix_len=args.shared_suffix_len,
+            max_new=args.max_new, seed=args.seed, temperature=args.temperature, top_k=20)
+    else:
+        arrivals = poisson_trace(spec, cfg.vocab_size)
 
     reader = args.power_reader or ("nvml" if device.type == "cuda" else "none")
     monitor = _make_monitor(reader)
@@ -91,7 +132,11 @@ def main(argv=None) -> int:
                            seed=args.seed, cache_layout=args.cache_layout,
                            kv_block_size=args.kv_block_size,
                            kv_num_blocks=args.kv_num_blocks, device=device,
-                           cuda_graph=args.cuda_graph == "on")
+                           cuda_graph=args.cuda_graph == "on",
+                           prefill_chunk=args.prefill_chunk,
+                           prefill_budget=args.prefill_budget,
+                           unified_step=args.unified_step == "on", pad_side=args.pad_side,
+                           prefix_cache=args.prefix_cache)
     for a in arrivals:
         engine.submit(a.prompt, a.params)
     try:

@@ -98,6 +98,52 @@ def apply_attention_prefill(
     return _out_proj(p, o), kv_cache
 
 
+def apply_attention_prefill_chunk(
+    p: Attention,
+    x: torch.Tensor,           # (B, C, d) one prompt chunk
+    cfg: ModelConfig,
+    positions: torch.Tensor,   # (B, C) int32 absolute positions start..start+C-1
+    kv_cache: Dict,
+    *,
+    rope,                      # layers.rope_tables(positions, ...)
+    window: int = 0,
+    block_tables: Optional[torch.Tensor] = None,
+    valid: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Dict]:
+    """Chunked prefill: the chunk attends to the earlier chunks in the
+    cache plus itself (causally), then its K/V stays for the next chunks
+    and for decode.
+
+    A contiguous or ring cache attends over (cache before the append ++
+    chunk), so a chunk longer than a window still sees its own early keys
+    (the append would evict them from the ring); a paged cache appends
+    first and attends over the gathered pool, where index is position.
+    ``valid`` (B, C) bool marks each row's real tokens when ragged chunks
+    are packed into one width (the unified step): pad columns write
+    nothing (paged: to the garbage block, at positions past every query;
+    contiguous: their key positions are -1), and their outputs are garbage
+    the caller drops."""
+    q, k, v = _project_qkv(p, x)
+    q = apply_rope(q, rope).contiguous()
+    k = apply_rope(k, rope)
+    if "kp" in kv_cache:
+        kv_cache = cache_lib.append_paged_cache(kv_cache, k, v, positions, block_tables,
+                                                valid)
+        k_all, v_all, k_pos = cache_lib.gather_paged_kv(kv_cache, block_tables)
+    else:
+        k_all = torch.cat([kv_cache["k"].to(k.dtype), k], dim=1)
+        v_all = torch.cat([kv_cache["v"].to(v.dtype), v], dim=1)
+        chunk_pos = positions if valid is None else torch.where(valid, positions, -1)
+        k_pos = torch.cat([kv_cache["pos"], chunk_pos.to(torch.int32)], dim=1)
+    o = dispatch.flash_attention(
+        q, k_all, v_all, q_positions=positions, k_positions=k_pos,
+        causal=True, window=window, softcap=cfg.logit_softcap,
+    )
+    if "kp" not in kv_cache:
+        kv_cache = cache_lib.append_attn_cache(kv_cache, k, v, positions, valid)
+    return _out_proj(p, o), kv_cache
+
+
 def apply_attention_decode(
     p: Attention,
     x: torch.Tensor,           # (B, 1, d)

@@ -26,12 +26,19 @@ max_len)`` entries in both layouts, and RG-LRU layers a per-row state
 ``h`` (fp32) and ``conv`` (the last K-1 inputs); both belong to their slot,
 never to the pool.
 
-``BlockPool`` is the host-side bookkeeping of the paged layout (the LIFO
-free stack).
+``BlockPool`` is the host-side bookkeeping of the paged layout: the LIFO
+free stack and, for block-level prefix caching, refcounts, a ``hash ->
+block`` registry over ``hash_token_blocks`` and an evictable LRU.
+
+Chunked prefill writes a chunk of K/V next to the earlier ones
+(``append_attn_cache``, ``append_paged_cache``) and reads the pool back
+as dense K/V (``gather_paged_kv``); ``reset_rows`` returns a slot's rows
+to their initial values before its first chunk.
 """
 
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import Dict, List, Optional
 
 import torch
@@ -52,19 +59,67 @@ def default_num_blocks(batch: int, max_len: int, block_size: int) -> int:
     return batch * blocks_per_slot(max_len, block_size) + 1
 
 
+_FNV_OFFSET = 0xCBF29CE484222325
+_FNV_PRIME = 0x100000001B3
+_MASK64 = (1 << 64) - 1
+
+
+def hash_token_blocks(tokens, block_size: int) -> List[int]:
+    """Chained FNV-1a hash of each *full* ``block_size`` block of
+    ``tokens``: ``hashes[i]`` covers ``tokens[:(i + 1) * block_size]``, so
+    a match at ``i`` means (up to a collision) the whole prefix matches,
+    and with it the K/V of blocks ``0..i``.  A trailing partial block is
+    not hashed: it is still being written and is never shared."""
+    hashes: List[int] = []
+    h = _FNV_OFFSET
+    for i in range(len(tokens) // block_size):
+        for t in tokens[i * block_size:(i + 1) * block_size]:
+            h = ((h ^ (int(t) & _MASK64)) * _FNV_PRIME) & _MASK64
+        hashes.append(h)
+    return hashes
+
+
 class BlockPool:
-    """Host-side bookkeeping of the paged block pool: a LIFO free stack over
-    blocks ``1..num_blocks-1`` (block 0 is the garbage block).  A block is
-    either on the stack or owned by one live request."""
+    """Host-side bookkeeping of the paged block pool: a LIFO free stack
+    over blocks ``1..num_blocks-1`` (block 0 is the garbage block) and, for
+    block-level prefix caching, per-block refcounts, the ``hash -> block``
+    registry and an LRU of evictable cached blocks.
+
+    A block's life::
+
+        free stack --allocate--> private (owned by one request)
+          private --register--> shared (refcount = live readers)
+          shared --lookup hit--> refcount + 1
+          shared --freed by its last reader--> evictable LRU (content kept)
+          evictable --lookup hit--> shared again
+          evictable --pool pressure--> evicted: unregistered, reallocated
+          private --freed--> free stack
+
+    A registered block is visible to ``lookup`` only once ``mark_ready``
+    says its K/V is written (a chunked prefill registers at admission and
+    fills over many steps).
+    """
 
     def __init__(self, num_blocks: int):
         self.num_blocks = num_blocks
         self.free_stack: List[int] = list(range(num_blocks - 1, 0, -1))
+        self.refs: Dict[int, int] = {}        # registered block -> live readers
+        self.block_of: Dict[int, int] = {}    # prefix hash -> block
+        self.hash_of: Dict[int, int] = {}     # block -> prefix hash
+        self.ready: set = set()               # registered blocks fully written
+        self.evictable: "OrderedDict[int, None]" = OrderedDict()  # LRU first
+        self.evictions = 0
+        # hash -> [hits, misses, evictions]; ``lookup`` counts hits and
+        # misses (``peek`` is a budget probe and counts nothing)
+        self.prefix_stats: Dict[int, List[int]] = {}
+
+    def _stat(self, h: int) -> List[int]:
+        return self.prefix_stats.setdefault(h, [0, 0, 0])
 
     @property
     def available(self) -> int:
-        """Blocks an admission may claim."""
-        return len(self.free_stack)
+        """Blocks an admission may claim: free plus evictable."""
+        return len(self.free_stack) + len(self.evictable)
 
     @property
     def in_use(self) -> int:
@@ -72,14 +127,98 @@ class BlockPool:
         return max(self.num_blocks - 1, 0) - self.available
 
     def allocate(self, n: int) -> List[int]:
+        """Pop ``n`` blocks, evicting the LRU cached ones when the free
+        stack runs dry."""
         if n > self.available:
             raise ValueError(f"allocate({n}) with only {self.available} blocks available")
-        return [self.free_stack.pop() for _ in range(n)]
+        return [self.free_stack.pop() if self.free_stack else self._evict_lru()
+                for _ in range(n)]
+
+    def _evict_lru(self) -> int:
+        blk, _ = self.evictable.popitem(last=False)
+        if self.refs.get(blk, 0):
+            raise RuntimeError(f"evicting block {blk}, which has live readers")
+        h = self.hash_of.get(blk)
+        if h is not None:
+            self._stat(h)[2] += 1
+        self._unregister(blk)
+        self.evictions += 1
+        return blk
+
+    def _unregister(self, blk: int) -> None:
+        h = self.hash_of.pop(blk, None)
+        if h is not None:
+            del self.block_of[h]
+        self.refs.pop(blk, None)
+        self.ready.discard(blk)
+
+    def register(self, h: int, blk: int) -> bool:
+        """Claim hash ``h`` for ``blk`` (its owner holds one reference; not
+        ready yet).  False if ``h`` is registered already: the block then
+        stays private."""
+        if h in self.block_of:
+            return False
+        self.block_of[h] = blk
+        self.hash_of[blk] = h
+        self.refs[blk] = 1
+        return True
+
+    def mark_ready(self, blk: int) -> None:
+        """Make a registered block's content visible to ``lookup``."""
+        if blk in self.hash_of:
+            self.ready.add(blk)
+
+    def peek(self, hashes: List[int]) -> int:
+        """Leading blocks of ``hashes`` that are registered, ready and
+        referenced: a budget estimate that never overstates ``lookup``
+        (an evictable block could be evicted before the admission
+        commits, so it does not count)."""
+        n = 0
+        for h in hashes:
+            blk = self.block_of.get(h)
+            if blk is None or blk not in self.ready or self.refs.get(blk, 0) <= 0:
+                break
+            n += 1
+        return n
+
+    def lookup(self, hashes: List[int]) -> List[int]:
+        """The longest ready cached prefix of ``hashes``: takes a reference
+        on each matched block (an evictable one leaves the LRU) and returns
+        them in prefix order."""
+        out: List[int] = []
+        for h in hashes:
+            blk = self.block_of.get(h)
+            if blk is None or blk not in self.ready:
+                self._stat(h)[1] += 1  # the first miss ends the usable prefix
+                break
+            if self.refs[blk] == 0:
+                del self.evictable[blk]
+            self.refs[blk] += 1
+            self._stat(h)[0] += 1
+            out.append(blk)
+        return out
 
     def free(self, blocks: List[int]) -> None:
-        """Return a request's blocks, last first, so the next allocation
-        hands them out again in table order."""
-        self.free_stack.extend(reversed(blocks))
+        """Return a request's blocks, last first.  A shared block loses a
+        reference; its last reader parks it on the evictable LRU, or
+        unregisters it if it never became ready.  A private block goes
+        back on the free stack, so the next allocation hands the blocks
+        out again in table order.  Parking tail first makes a chain's tail
+        the oldest on the LRU: pressure evicts a cached prefix from the
+        right, and its head keeps matching."""
+        for blk in reversed(blocks):
+            if blk in self.hash_of:
+                self.refs[blk] -= 1
+                if self.refs[blk] < 0:
+                    raise RuntimeError(f"double free of block {blk}")
+                if self.refs[blk] == 0:
+                    if blk in self.ready:
+                        self.evictable[blk] = None
+                    else:
+                        self._unregister(blk)
+                        self.free_stack.append(blk)
+            else:
+                self.free_stack.append(blk)
 
 
 def init_attn_cache(batch: int, max_len: int, n_kv: int, head_dim: int, dtype,
@@ -143,6 +282,51 @@ def update_attn_cache(cache: Dict, k_new: torch.Tensor, v_new: torch.Tensor,
     return cache
 
 
+def append_attn_cache(cache: Dict, k: torch.Tensor, v: torch.Tensor,
+                      positions: torch.Tensor,
+                      valid: Optional[torch.Tensor] = None) -> Dict:
+    """Write a prompt chunk's K/V (B, C, H, D) at absolute ``positions``
+    (B, C) into a contiguous or ring cache, next to the entries already
+    there.  A chunk longer than a ring keeps its tail.
+
+    ``valid`` (B, C) bool makes masked-off entries no-op writes (the
+    current content is written back): the unified step packs ragged
+    chunks into one static width, and pad columns must not clobber live
+    entries.  With ``valid`` and C > L each row keeps its last <= L
+    *valid* entries."""
+    B, C = k.shape[:2]
+    L = cache["k"].shape[1]
+    positions = positions.to(torch.int32)
+    if C > L and valid is None:
+        k, v, positions = k[:, C - L:], v[:, C - L:], positions[:, C - L:]
+    elif C > L:
+        # ragged rows: gather each row's window of L columns ending at its
+        # last valid one; positions are consecutive within a row, so they
+        # are recomputed, which keeps the L slots distinct where the
+        # gather index saturates at C - 1 (those entries are invalid)
+        n = valid.sum(dim=1, dtype=torch.int32)
+        base = (n - L).clamp_min(0)
+        idx = base[:, None] + torch.arange(L, dtype=torch.int32, device=k.device)[None]
+        gat = idx.clamp_max(C - 1).long()[..., None, None].expand(-1, -1, *k.shape[2:])
+        k, v = torch.gather(k, 1, gat), torch.gather(v, 1, gat)
+        positions = positions[:, :1] + idx
+        valid = idx < n[:, None]
+    rows = torch.arange(B, device=k.device)[:, None]
+    slots = (positions % L).long()
+    k = k.to(cache["k"].dtype)
+    v = v.to(cache["v"].dtype)
+    if valid is not None:
+        # a row's C <= L slots are distinct, so writing back is a no-op
+        m = valid[..., None, None]
+        k = torch.where(m, k, cache["k"][rows, slots])
+        v = torch.where(m, v, cache["v"][rows, slots])
+        positions = torch.where(valid, positions, cache["pos"][rows, slots])
+    cache["k"][rows, slots] = k
+    cache["v"][rows, slots] = v
+    cache["pos"][rows, slots] = positions
+    return cache
+
+
 def init_paged_attn_cache(num_blocks: int, block_size: int, n_kv: int, head_dim: int,
                           dtype, device) -> Dict[str, torch.Tensor]:
     shape = (num_blocks, block_size, n_kv, head_dim)
@@ -192,6 +376,46 @@ def update_paged_cache(cache: Dict, k_new: torch.Tensor, v_new: torch.Tensor,
     return cache
 
 
+def append_paged_cache(cache: Dict, k: torch.Tensor, v: torch.Tensor,
+                       positions: torch.Tensor, block_tables: torch.Tensor,
+                       valid: Optional[torch.Tensor] = None) -> Dict:
+    """Write a prompt chunk's K/V (B, C, H, D) at absolute ``positions``
+    (B, C) through the block tables: position ``p`` of row ``b`` lands at
+    ``pool[table[b, p // bs], p % bs]``, so a chunk may start and end
+    anywhere inside a block.  ``valid`` (B, C) bool routes masked-off
+    entries to the garbage block (a pad column's position may lie past
+    the row's blocks, or the whole row may be idle)."""
+    bs = cache["kp"].shape[1]
+    positions = positions.to(torch.int32)
+    idx = positions // bs
+    if valid is not None:  # pad positions can run past the table
+        idx = idx.clamp(0, block_tables.shape[1] - 1)
+    blk = torch.gather(block_tables, 1, idx.long())
+    if valid is not None:
+        blk = torch.where(valid, blk, GARBAGE_BLOCK)
+    blk, off = blk.long(), (positions % bs).long()
+    cache["kp"][blk, off] = k.to(cache["kp"].dtype)
+    cache["vp"][blk, off] = v.to(cache["vp"].dtype)
+    return cache
+
+
+def gather_paged_kv(cache: Dict, block_tables: torch.Tensor):
+    """Each row's pool blocks as dense K/V plus key positions: ``(k, v,
+    k_positions)`` of shapes (B, M*bs, H, D) twice and (B, M*bs), M the
+    table width.  Gathered index ``j`` is absolute position ``j``; table
+    entries past a row's blocks point at the garbage block, at positions
+    past every query, which causal masking hides.  The chunked prefill
+    attends over this; decode reads the pool through the table (K4)."""
+    kp, vp = cache["kp"], cache["vp"]
+    B, M = block_tables.shape
+    bs = kp.shape[1]
+    idx = block_tables.long()
+    k = kp[idx].reshape(B, M * bs, *kp.shape[2:])
+    v = vp[idx].reshape(B, M * bs, *vp.shape[2:])
+    pos = torch.arange(M * bs, dtype=torch.int32, device=kp.device).expand(B, M * bs)
+    return k, v, pos.contiguous()
+
+
 def init_rglru_state(batch: int, width: int, conv_width: int, dtype,
                      device) -> Dict[str, torch.Tensor]:
     return {
@@ -236,6 +460,19 @@ def reset_cache(cache: List[Dict[str, torch.Tensor]]) -> List[Dict[str, torch.Te
             elif leaf != "ring":
                 t.zero_()
     return cache
+
+
+def reset_rows(cache: List[Dict[str, torch.Tensor]], rows: torch.Tensor) -> None:
+    """Return rows ``rows`` (int64 indices) of every per-slot leaf to what
+    ``init_block_cache`` makes, in place: positions -1, K/V and recurrent
+    states 0.  Pools belong to no row and are left alone, as is the ring
+    flag.  A chunk writes only its own span, so a slot's rows are reset
+    before its first chunk."""
+    for entry in cache:
+        for leaf, t in entry.items():
+            if leaf in ("kp", "vp") or t.dim() == 0:
+                continue
+            t.index_fill_(0, rows, -1 if leaf == "pos" else 0)
 
 
 def cache_bytes(cache: List[Dict[str, torch.Tensor]]) -> int:

@@ -12,6 +12,8 @@ Entry points:
   * ``Model.init_cache``  — one cache entry per layer.
   * ``Model.prefill``     — the prompt; fills the cache, returns the last
     position's logits.
+  * ``Model.prefill_chunk`` — one chunk of a prompt against the cache
+    (chunked prefill; ragged rows for the serving engine's unified step).
   * ``Model.decode_step`` — one token against the cache (the TPOT step).
 """
 
@@ -129,6 +131,30 @@ def _apply_block_seq(p: Block, cfg: ModelConfig, x: torch.Tensor,
     return _mlp_branch(p, cfg, x, h, a)
 
 
+def _apply_block_chunk(p: Block, cfg: ModelConfig, x: torch.Tensor,
+                       r: Optional[torch.Tensor], positions: torch.Tensor, rope, entry: Dict,
+                       block_tables: Optional[torch.Tensor],
+                       valid: Optional[torch.Tensor]) -> Residual:
+    """A prompt chunk against the cache: attention over the earlier
+    chunks plus this one, an RG-LRU resumed from the carried state with
+    identity steps at pad columns (so its state is written unmasked: a row
+    with no valid column keeps it bit for bit)."""
+    if p.kind == "rglru":
+        x, h = add_norm(p.norm1, x, r, cfg.norm_eps)
+        y, state = rec_lib.apply_rglru_seq(p.rec, h, cfg, entry, valid)
+        _write_state(entry, state)
+        x, h = add_norm(p.norm2, x, y, cfg.norm_eps)
+        return x, apply_mlp(p.mlp, h, cfg.mlp_act)
+    if p.kind == "ffn":
+        x, h = add_norm(p.norm, x, r, cfg.norm_eps)
+        return x, apply_mlp(p.mlp, h, cfg.mlp_act)
+    x, h = add_norm(p.norm1, x, r, cfg.norm_eps)
+    a, _ = attn_lib.apply_attention_prefill_chunk(p.attn, h, cfg, positions, entry,
+                                                  rope=rope, window=_window(cfg, p.kind),
+                                                  block_tables=block_tables, valid=valid)
+    return _mlp_branch(p, cfg, x, h, a)
+
+
 def _apply_block_decode(p: Block, cfg: ModelConfig, x: torch.Tensor,
                         r: Optional[torch.Tensor], positions: torch.Tensor, rope,
                         entry: Dict, block_tables: Optional[torch.Tensor],
@@ -207,6 +233,42 @@ class Model(nn.Module):
         _, h = add_norm(self.final_norm, x, r, cfg.norm_eps)
         logits = unembed(self._head(), h[:, -1:], cfg.logit_softcap)[:, 0]
         return logits, cache
+
+    @torch.no_grad()
+    def prefill_chunk(self, tokens: torch.Tensor, cache: Cache, start,
+                      block_tables: Optional[torch.Tensor] = None,
+                      lengths: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, Cache]:
+        """One prompt chunk ``tokens`` (B, C) at positions ``start ..
+        start + C - 1`` against a cache that holds positions ``0 ..
+        start - 1``; updates ``cache`` in place.  ``start`` is an int or a
+        (B,) int32 tensor (one start per row, the unified step).
+        ``lengths`` (B,) int32 marks how many of each row's C columns are
+        tokens: pad columns write nothing, recurrent states take identity
+        steps there, and a row of length 0 leaves its cache rows as they
+        were.  Returns the fp32 logits (B, vocab) of each row's last valid
+        position (of the last column without ``lengths``; garbage for a
+        row of length 0).  Nothing here waits for the device, so a CUDA
+        graph can capture it."""
+        cfg = self.cfg
+        B, C = tokens.shape
+        cols = torch.arange(C, dtype=torch.int32, device=tokens.device)
+        start = torch.as_tensor(start, dtype=torch.int32, device=tokens.device)
+        positions = (start.reshape(-1, 1) + cols[None]).expand(B, C).contiguous()
+        valid = None if lengths is None else cols[None] < lengths[:, None]
+        x = embed_tokens(self.embed, tokens, cfg.emb_scale, cfg.d_model)
+        rope = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
+        r = None
+        for blk, entry in zip(self.layers, cache):
+            x, r = _apply_block_chunk(blk, cfg, x, r, positions, rope, entry, block_tables,
+                                      valid)
+        if lengths is None:
+            x, r = x[:, -1:], r[:, -1:]
+        else:  # each row's last valid column, before the final norm (rowwise)
+            idx = (lengths.long() - 1).clamp(0, C - 1)[:, None, None].expand(-1, 1, x.shape[2])
+            x, r = torch.gather(x, 1, idx), torch.gather(r, 1, idx)
+        _, h = add_norm(self.final_norm, x, r, cfg.norm_eps)
+        return unembed(self._head(), h, cfg.logit_softcap)[:, 0], cache
 
     @torch.no_grad()
     def decode_step(self, token: torch.Tensor, position, cache: Cache,

@@ -23,7 +23,7 @@ entry in place.
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -71,18 +71,29 @@ class RGLRU(nn.Module):
         init_normal_(self.out, gen, scale=1.0 / math.sqrt(self.out.shape[0]))
 
 
-def _causal_conv(x: torch.Tensor, w: torch.Tensor,
-                 history: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, history: torch.Tensor,
+                 lengths: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Depthwise causal conv of width K by shifted adds: x (B, S, W), w
     (K, W), ``history`` (B, K-1, W) the previous inputs.  Returns (y,
-    new_history), the new history being the last K-1 inputs."""
+    new_history), the new history being the last K-1 inputs.
+
+    ``lengths`` (B,) marks each row's valid prefix of ``x``: the new
+    history is then each row's last K-1 *valid* inputs, so ragged rows of
+    a packed chunk carry the right conv state (a row of length 0 keeps
+    its old history).  Outputs at pad positions are garbage."""
     K = w.shape[0]
     S = x.shape[1]
     xp = torch.cat([history.to(x.dtype), x], dim=1)  # (B, S+K-1, W)
     y = torch.zeros_like(x)
     for i in range(K):
         y = y + xp[:, i:i + S] * w[K - 1 - i]
-    return y, (xp[:, S:] if K > 1 else history)
+    if K <= 1:
+        return y, history
+    if lengths is None:
+        return y, xp[:, S:]
+    idx = lengths.long()[:, None] + torch.arange(K - 1, device=x.device)[None]
+    return y, torch.gather(xp, 1, idx[..., None].expand(-1, -1, xp.shape[2]))
 
 
 def _block_diag_linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -112,14 +123,25 @@ def _rglru_gates(p: RGLRU, xc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor
 
 
 def apply_rglru_seq(p: RGLRU, x: torch.Tensor, cfg: ModelConfig,
-                    state: Dict[str, torch.Tensor]
+                    state: Dict[str, torch.Tensor],
+                    valid: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x (B, S, d) from ``state`` (a cache entry).  Returns (y (B, S, d),
-    new_state): the state after the last step, as fresh tensors."""
+    new_state): the state after the last step, as fresh tensors.
+
+    ``valid`` (B, S) bool marks each row's valid prefix of a packed chunk:
+    pad steps are identity (a = 1, b = 0), so ``h[:, -1]`` is the state
+    after each row's last valid input, and a row with none keeps its
+    state bit for bit."""
     g = act_fn("gelu")(torch.matmul(x, p.in_g))
     xr = torch.matmul(x, p.in_x)
-    xc, conv_hist = _causal_conv(xr, p.conv_w, state["conv"])
+    lengths = None if valid is None else valid.sum(dim=1, dtype=torch.int32)
+    xc, conv_hist = _causal_conv(xr, p.conv_w, state["conv"], lengths)
     a, b = _rglru_gates(p, xc)
+    if valid is not None:
+        m = valid[..., None]
+        a = torch.where(m, a, 1.0)
+        b = torch.where(m, b, 0.0)
     h = dispatch.linear_recurrence(a, b, state["h"])  # (B, S, W) fp32
     y = torch.matmul(h.to(x.dtype) * g, p.out)
     return y, {"h": h[:, -1], "conv": conv_hist}

@@ -1,26 +1,51 @@
 """Continuous-batching serving engine, the counterpart of
-``repro/serving/engine.py`` for whole-prompt admission over a contiguous
-or paged KV cache.
+``repro/serving/engine.py``: whole-prompt or Sarathi-style chunked
+admission over a contiguous or paged KV cache, with block-level prefix
+caching on the paged one.
 
 A request waits in a FCFS queue until a slot (and, paged, enough pool
 blocks for its prompt plus its whole budget) is free.  Admission batches
-every queued request of the head's prompt bucket into one prefill, left-
-pads each prompt to the bucket (a longer prompt keeps its tail) and
-samples the first token from the prefill's logits; what belongs to a
-slot (contiguous K/V, sliding-window rings, RG-LRU states) is prefilled
-fresh and scattered into the admitted slots.  Every engine step
-then runs the decode step of ``serving.step`` over all ``max_batch``
-slots at once (idle slots masked) and reads back one packed (3, B) int32
-tensor: the step's only host sync.  On the GPU the step is one CUDA-graph
-replay, captured once per engine; on the CPU it runs as it is.  Finished
-requests give back their slot and blocks at once.
+every queued request of the head's prompt bucket.  Prompts are padded to
+the bucket on the left (a longer prompt keeps its tail), or on the right
+with ``pad_side="right"``, where each row is computed only as far as its
+prompt goes.
+
+* Whole-prompt admission (``prefill_chunk=0``): one prefill, whose
+  per-slot rows (contiguous K/V, sliding-window rings, RG-LRU states) are
+  prefilled fresh and scattered into the admitted slots; the first token
+  is sampled from its logits.
+* Chunked prefill (``prefill_chunk > 0``): admission only reserves the
+  slot (and blocks) and opens a cursor; the slots' rows are reset in one
+  batched ``reset_rows`` per step.  Every step then spends a budget of
+  ``prefill_budget`` prompt tokens on the cursors, FCFS, so no step waits
+  on more prompt work than that.  With ``unified_step`` (the default) the
+  chunks of every cursor the budget reaches and the decode of every
+  armed slot run as one step (``step.make_engine_step``); without it,
+  each chunk runs on its own before the decode step.  A cursor's first
+  token is sampled once its last chunk lands.
+* Prefix caching (``prefix_cache=True``, paged, attention-only models):
+  full prompt blocks are hashed (``cache.hash_token_blocks``) and shared
+  read-only through the pool's refcounts, so a request whose prefix is
+  resident starts at its first uncached block.  The block holding the last
+  prompt position is always recomputed privately, so decode never writes
+  a shared block.
+
+Every engine step runs the decode step over all ``max_batch`` slots at
+once (idle and prefilling slots masked) and reads back one packed int32
+tensor: the step's only host sync.  On the GPU the decode step and the
+unified step are each one CUDA-graph replay, captured once per engine
+(the unified one at its width W = min(budget, max_len - 1)); on the CPU
+they run as they are.  Dispatches are counted as the reference counts its
+launches: a whole-prompt prefill, a row reset, a chunk, a decode or a
+unified step each count one.  Finished requests give back their slot and
+blocks at once.
 
 Per request the engine records TTFT, TPOT and TTLT, and with a
 ``PowerMonitor`` attached it splits the energy of each window between
 requests by the tokens each emitted in it (``latency_summary``).
 
-Chunked prefill, the unified step, prefix caching, preemption,
-speculation and tensor parallelism are not ported yet (ROADMAP.md).
+Preemption, speculation and tensor parallelism are not ported yet
+(ROADMAP.md); the constructor refuses them.
 """
 
 from __future__ import annotations
@@ -38,8 +63,9 @@ from repro_torch.core.energy import PowerMonitor
 from repro_torch.kernels import dispatch
 from repro_torch.models import cache as cache_lib
 from repro_torch.serving.sampling import SamplingParams, request_key, sample
-from repro_torch.serving.step import (init_slot_state, invalidate_slot,
-                                      make_decode_sample_step, write_slot)
+from repro_torch.serving.step import (CHUNK_FIELDS, init_slot_state, invalidate_slot,
+                                      make_decode_sample_step, make_engine_step, pack_chunk,
+                                      write_slot)
 
 _RING = 64  # host-side token ring buffer depth (tokens per slot per flush)
 
@@ -56,6 +82,10 @@ class Request:
     output_tokens: List[int] = dataclasses.field(default_factory=list)
     truncated: bool = False
     joules: float = 0.0
+    # (plen, block hashes), memoized: admission may probe a request that
+    # waits on the pool every step
+    _hash_cache: Optional[tuple] = dataclasses.field(default=None, repr=False,
+                                                     compare=False)
 
     @property
     def ttft_s(self) -> float:
@@ -83,10 +113,25 @@ def _percentile(xs: List[float], q: float) -> float:
     return ys[min(k, len(ys) - 1)]
 
 
+@dataclasses.dataclass
+class _PrefillCursor:
+    """A slot's chunked-prefill progress (its third state, between free
+    and decoding)."""
+    req: Request
+    tokens: np.ndarray                       # (bucket,) the padded prompt row
+    plen: int                                # positions to compute (the span)
+    next: int = 0                            # next position to prefill
+    tables_np: Optional[np.ndarray] = None   # (max_blocks,) paged table row
+    # prefix cache: (end position, block) of each block this cursor
+    # registered, marked ready once the cursor has passed its end
+    pending_ready: List = dataclasses.field(default_factory=list)
+
+
 class ServingEngine:
     """Serves ``model`` (a ``models.model.Model``) on ``device``: ``cuda``
     unless the caller asks for the CPU.  ``cuda_graph=False`` runs the
-    decode step without its CUDA graph, only to compare the two."""
+    decode and unified steps without their CUDA graphs, only to compare
+    the two."""
 
     def __init__(
         self,
@@ -103,9 +148,36 @@ class ServingEngine:
         kv_num_blocks: int = 0,
         device="cuda",
         cuda_graph: bool = True,
+        prefill_chunk: int = 0,
+        prefill_budget: int = 0,
+        prefix_cache: bool = False,
+        unified_step: bool = True,
+        pad_side: str = "left",
+        preemption: str = "off",
+        speculative: str = "off",
     ):
         if cache_layout not in ("contiguous", "paged"):
             raise ValueError(f"cache_layout {cache_layout!r} is not 'contiguous' or 'paged'")
+        if pad_side not in ("left", "right"):
+            raise ValueError(f"pad_side {pad_side!r} is not 'left' or 'right'")
+        if preemption != "off":
+            raise ValueError(
+                f"preemption={preemption!r} is not ported yet: preemption with recompute "
+                f"(lazy block growth, LIFO victims) is the port's next paged-engine slice")
+        if speculative != "off":
+            raise ValueError(
+                f"speculative={speculative!r} is not ported yet: speculative decoding "
+                f"(prompt-lookup drafts, batched verify) is the port's next paged-engine slice")
+        if prefix_cache:
+            if cache_layout != "paged":
+                raise ValueError("prefix_cache requires cache_layout='paged': only pool blocks "
+                                 "can be shared read-only across requests")
+            bad = sorted({k for k in model.cfg.blocks() if k not in ("attn", "ffn")})
+            if bad:
+                raise ValueError(
+                    f"prefix_cache shares paged full-attention KV blocks only; "
+                    f"{model.cfg.name!r} carries per-slot state that a skipped prefill "
+                    f"would leave stale ({', '.join(bad)})")
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"the model is on {model.device}, the engine on {self.device}")
@@ -116,6 +188,14 @@ class ServingEngine:
         self.prompt_bucket = prompt_bucket
         self.layout = cache_layout
         self.seed = seed
+        self.pad_side = pad_side
+        self.prefix_cache = prefix_cache
+        # chunked prefill: 0 is whole-prompt admission; the budget is prompt
+        # tokens of chunk work per step, at least one chunk (a smaller one
+        # would never fit the head cursor's next chunk)
+        self.chunk = max(int(prefill_chunk), 0)
+        self.chunk_budget = max(int(prefill_budget) or self.chunk, self.chunk)
+        self.unified = bool(unified_step) and self.chunk > 0
         # static bound on per-request top-k inside the step; requests asking
         # for more are clamped, first token included
         self.top_k_max = min(top_k_max, cfg.vocab_size)
@@ -142,19 +222,32 @@ class ServingEngine:
         self._slot_blocks: List[List[int]] = [[] for _ in range(max_batch)]
         self.peak_blocks_in_use = 0
         self._occ_samples: List[float] = []
+        # prefix-cache counters (latency_summary)
+        self.prefix_lookups = 0
+        self.prefix_hits = 0
+        self.prefix_blocks_reused = 0
+        self.prefill_tokens_skipped = 0
 
         self.cache = model.init_cache(max_batch, max_len, layout=cache_layout,
                                       block_size=kv_block_size, num_blocks=self.num_blocks)
         self.slots: List[Optional[Request]] = [None] * max_batch
+        # chunked prefill: _cursors[s] is set while slot s prefills;
+        # _prefill_order is their FCFS service order
+        self._cursors: List[Optional[_PrefillCursor]] = [None] * max_batch
+        self._prefill_order: List[int] = []
+        self._pending_reset: List[int] = []  # slots admitted this step
         self.queue: deque = deque()
         self.finished: List[Request] = []
         self._uid = 0
 
-        # device-dispatch accounting: admission prefills and decode steps
-        # (graph replays), the counterpart of the reference's jitted launches
+        # device-dispatch accounting, the counterpart of the reference's
+        # jitted launches; and the forward passes the kernels ran: whole
+        # prefills, chunk passes (one per chunk or unified step) and decode
+        # passes (one per decode or unified step, graph replays included)
         self._dispatches = 0
         self._dispatch_samples: List[int] = []
         self.prefills = 0
+        self.chunk_forwards = 0
         self.decode_forwards = 0
         self._decode_tokens = 0
         self._decode_dispatches = 0
@@ -167,6 +260,14 @@ class ServingEngine:
             self.device)
         self._step = make_decode_sample_step(model, max_len, k_max=self.top_k_max)
         self._graph: Optional[torch.cuda.CUDAGraph] = None
+        self._unified_graph: Optional[torch.cuda.CUDAGraph] = None
+        if self.unified:
+            # the packed frontier's static width: the budget bounds a step's
+            # chunk work, and no cursor holds more than max_len - 1 tokens
+            width = min(self.chunk_budget, max(max_len - 1, 1))
+            self._unified_step = make_engine_step(model, max_len, k_max=self.top_k_max)
+            self._chunk_buf = torch.zeros((max_batch, width + len(CHUNK_FIELDS)),
+                                          dtype=torch.int32, device=self.device)
         if cuda_graph and self.device.type == "cuda":
             self._capture()
 
@@ -184,13 +285,19 @@ class ServingEngine:
         # tokens leave the device, before the ring buffer defers them
         self.stream_hook: Optional[Callable[[int, List[int], bool], None]] = None
 
-    # -- the decode step as a CUDA graph ------------------------------------------
+    # -- the steps as CUDA graphs --------------------------------------------------
     def _capture(self) -> None:
-        """Capture the decode step once (``dispatch.capture_graph``).  Its
-        two warm-up runs find every slot idle, so they change nothing but
+        """Capture the decode step, and the unified step at its width, once
+        each (``dispatch.capture_graph``).  Their warm-up runs find every
+        slot idle and every chunk row empty, so they change nothing but
         the garbage block."""
         self._graph, self._graph_out, self._graph_launches = dispatch.capture_graph(
             lambda: self._step(self._state, self.cache), self.device)
+        if self.unified:
+            self._unified_graph, self._unified_out, self._unified_launches = \
+                dispatch.capture_graph(
+                    lambda: self._unified_step(self._state, self._chunk_buf, self.cache),
+                    self.device)
 
     # -- public API -----------------------------------------------------------
     def submit(self, prompt: np.ndarray, params: Optional[SamplingParams] = None) -> int:
@@ -208,13 +315,21 @@ class ServingEngine:
         return bool(self.queue) or any(s is not None for s in self.slots)
 
     def step(self) -> bool:
-        """One admit + decode round; returns True if work was done."""
+        """One admit + chunk + decode round; returns True if work was done.
+        With the unified step the FCFS chunk frontier is picked on the host
+        first and then advanced with the decode in one dispatch; without
+        it each chunk is a dispatch of its own before the decode step."""
         if not self.busy:
             return False
         t0 = time.perf_counter()
         d0 = self._dispatches
         self._admit()
-        self._decode_once()
+        self._flush_resets()  # one batched row reset per step
+        if self.unified:
+            self._unified_once(self._pick_frontier())
+        else:
+            self._advance_chunks()
+            self._decode_once()
         if self.layout == "paged":
             self._occ_samples.append(self._pool.in_use / max(self.num_blocks - 1, 1))
         if self._steps_t0 is None:
@@ -248,6 +363,15 @@ class ServingEngine:
         self._win_tokens = {}
 
     # -- admission ----------------------------------------------------------------
+    def _flush_resets(self) -> None:
+        """Reset the rows of the slots admitted this step, as one dispatch.
+        It counts as one also when the cache has no per-slot leaf to reset
+        (a paged attention-only model), as the reference counts its launch."""
+        if self._pending_reset:
+            slots, self._pending_reset = self._pending_reset, []
+            cache_lib.reset_rows(self.cache, torch.tensor(slots, device=self.device))
+            self._dispatches += 1
+
     def _bucketed(self, n: int) -> int:
         b = self.prompt_bucket
         return min(self.max_len - 1, ((n + b - 1) // b) * b)
@@ -261,18 +385,51 @@ class ServingEngine:
 
     @property
     def blocks_in_use(self) -> int:
+        """Blocks owned by live requests; evictable cached blocks, kept only
+        for future prefix hits, do not count."""
         return self._pool.in_use if self.layout == "paged" else 0
 
     def _padded_prompt(self, req: Request, plen: int) -> np.ndarray:
-        """The bucketed, left-padded token row admission prefills (a prompt
-        longer than the bucket keeps its newest tokens)."""
+        """The bucketed token row admission prefills (a prompt longer than
+        the bucket keeps its newest tokens): zero-padded on the left, so
+        the tokens end at the bucket's end, or with ``pad_side="right"`` on
+        the right, so prompts that share a prefix hash to the same block
+        chain whatever their suffix lengths."""
         use = req.prompt
         if len(use) > plen:
             use = use[-plen:]
             req.truncated = True
         toks = np.zeros(plen, np.int32)
-        toks[plen - len(use):] = use
+        if self.pad_side == "left":
+            toks[plen - len(use):] = use
+        else:
+            toks[:len(use)] = use
         return toks
+
+    def _true_span(self, req: Request, plen: int) -> int:
+        """Positions of the bucketed row that are computed: all of it when
+        left-padded, the prompt only when right-padded."""
+        return plen if self.pad_side == "left" else min(len(req.prompt), plen)
+
+    def _lookup_width(self, span: int) -> int:
+        """Blocks a prefix hit may cover: never the one holding the last
+        prompt position, which is recomputed so the first token's logits
+        exist even on a full hit, and decode writes only private blocks."""
+        return (span - 1) // self.block_size
+
+    def _hashes_for(self, req: Request, plen: int) -> List[int]:
+        """The request's full-block hash chain, memoized on the request."""
+        if req._hash_cache is None or req._hash_cache[0] != plen:
+            req._hash_cache = (plen, cache_lib.hash_token_blocks(
+                self._padded_prompt(req, plen), self.block_size))
+        return req._hash_cache[1]
+
+    def _peek_hit(self, req: Request, plen: int) -> int:
+        """Reusable blocks, conservatively, for the admission budget."""
+        if not self.prefix_cache:
+            return 0
+        hashes = self._hashes_for(req, plen)
+        return self._pool.peek(hashes[:self._lookup_width(self._true_span(req, plen))])
 
     def _admit(self) -> None:
         while self.queue:
@@ -281,8 +438,9 @@ class ServingEngine:
                 return
             # the head of the queue sets the prompt bucket; every queued
             # request of that bucket joins, in FCFS order, up to the free
-            # slots and (paged) the free blocks.  A head that does not fit
-            # in the pool blocks admission: strict FCFS backpressure.
+            # slots and (paged) the free blocks, less the prefix hits.  A
+            # head that does not fit in the pool blocks admission: strict
+            # FCFS backpressure.
             plen = self._bucketed(len(self.queue[0].prompt))
             picked: List[Request] = []
             blocks_reserved = 0
@@ -292,7 +450,8 @@ class ServingEngine:
                 if self._bucketed(len(req.prompt)) != plen:
                     continue
                 if self.layout == "paged":
-                    nb = self._blocks_for(plen, req.params.max_new_tokens)
+                    nb = (self._blocks_for(self._true_span(req, plen), req.params.max_new_tokens)
+                          - self._peek_hit(req, plen))
                     if blocks_reserved + nb > self._pool.available:
                         break
                     blocks_reserved += nb
@@ -301,7 +460,13 @@ class ServingEngine:
                 return  # pool backpressure: wait for finishes to free blocks
             picked_ids = {id(r) for r in picked}
             self.queue = deque(r for r in self.queue if id(r) not in picked_ids)
-            self._admit_batch(picked, free[:len(picked)], plen)
+            slots_for = free[:len(picked)]
+            if self.chunk > 0:
+                self._admit_chunked(picked, slots_for, plen)
+            elif self.pad_side == "right":
+                self._admit_right_unchunked(picked, slots_for, plen)
+            else:
+                self._admit_batch(picked, slots_for, plen)
 
     def _admission_cache(self, n: int):
         """The cache an admission prefill of ``n`` rows fills: the live pool
@@ -328,14 +493,39 @@ class ServingEngine:
                 if t.dim() > 0:
                     entry[leaf][rows] = t
 
+    def _slot_view(self, slot: int):
+        """The live cache seen as one row, slot ``slot``'s: views of the
+        per-slot leaves and the whole pools, so a chunk's in-place writes
+        land in the live tensors."""
+        return [{leaf: t if leaf in ("kp", "vp") or t.dim() == 0 else t[slot:slot + 1]
+                 for leaf, t in entry.items()} for entry in self.cache]
+
     def _admit_batch(self, reqs: List[Request], slots_for: List[int], plen: int) -> None:
         """One prefill for ``reqs`` (all bucketed to ``plen``) into
         ``_admission_cache``, then into the slots (``_merge_admitted``), as
         the reference's merge does.  Paged: the prompts' K/V go straight
-        into their pool blocks."""
+        into their pool blocks.  With the prefix cache, requests whose
+        prefix is resident are admitted first through their suffix alone
+        (``_admit_prefix_hit``); the rest register their full prompt
+        blocks, first come first served."""
+        padded = [self._padded_prompt(r, plen) for r in reqs]
+        hashes: List[Optional[List[int]]] = [None] * len(reqs)
+        if self.prefix_cache:
+            keep: List[int] = []
+            for i, (req, slot) in enumerate(zip(reqs, slots_for)):
+                hashes[i] = self._hashes_for(req, plen)
+                hit = self._pool.lookup(hashes[i][:self._lookup_width(plen)])
+                self.prefix_lookups += 1
+                if hit:
+                    self._admit_prefix_hit(req, slot, plen, padded[i], hashes[i], hit)
+                else:
+                    keep.append(i)
+            if not keep:
+                return
+            reqs, slots_for, padded, hashes = ([xs[i] for i in keep]
+                                               for xs in (reqs, slots_for, padded, hashes))
         n = len(reqs)
-        tokens = torch.from_numpy(np.stack([self._padded_prompt(r, plen) for r in reqs]))
-        batch = {"tokens": tokens.to(self.device)}
+        batch = {"tokens": torch.from_numpy(np.stack(padded)).to(self.device)}
         tables_np, tables = None, None
         if self.layout == "paged":
             tables_np = np.zeros((n, self.max_blocks_per_slot), np.int32)
@@ -344,6 +534,10 @@ class ServingEngine:
                 blocks = self._pool.allocate(nb)
                 tables_np[r, :nb] = blocks
                 self._slot_blocks[slot] = blocks
+                if self.prefix_cache:  # written by the prefill below
+                    for i in range(plen // self.block_size):
+                        if self._pool.register(hashes[r][i], blocks[i]):
+                            self._pool.mark_ready(blocks[i])
             self.peak_blocks_in_use = max(self.peak_blocks_in_use, self.blocks_in_use)
             tables = torch.from_numpy(tables_np).to(self.device)
         part = self._admission_cache(n)
@@ -356,12 +550,203 @@ class ServingEngine:
             self._start_decoding(req, slot, plen, logits[r:r + 1],
                                  None if tables_np is None else tables_np[r])
 
+    def _claim_prefix_blocks(self, req: Request, slot: int, span: int, hashes: List[int],
+                             hit: List[int]):
+        """Commit one admission's blocks: the reused prefix blocks first
+        (``lookup`` took their references), fresh ones after, in table
+        order.  Full prompt blocks past the hit are registered for later
+        sharers, not ready until the caller has written them.  Returns
+        (table row, first position to prefill, (end, block) pairs to mark
+        ready as the prefill passes them)."""
+        h = len(hit)
+        nb = self._blocks_for(span, req.params.max_new_tokens)
+        blocks = hit + self._pool.allocate(nb - h)
+        tables_np = np.zeros(self.max_blocks_per_slot, np.int32)
+        tables_np[:nb] = blocks
+        self._slot_blocks[slot] = blocks
+        pending = [((i + 1) * self.block_size, blocks[i])
+                   for i in range(h, span // self.block_size)
+                   if self._pool.register(hashes[i], blocks[i])]
+        if h:
+            self.prefix_hits += 1
+        self.prefix_blocks_reused += h
+        start = h * self.block_size
+        self.prefill_tokens_skipped += start
+        self.peak_blocks_in_use = max(self.peak_blocks_in_use, self.blocks_in_use)
+        return tables_np, start, pending
+
+    def _admit_prefix_hit(self, req: Request, slot: int, plen: int, toks: np.ndarray,
+                          hashes: List[int], hit: List[int]) -> None:
+        """Whole-prompt admission of a request with resident prefix blocks:
+        only its suffix is prefilled, as one chunk over the live pool."""
+        tables_np, start, pending = self._claim_prefix_blocks(req, slot, plen, hashes, hit)
+        self.slots[slot] = req
+        cur = _PrefillCursor(req=req, tokens=toks, plen=plen, next=start, tables_np=tables_np)
+        logits = self._run_chunk(slot, cur, plen - start)
+        for _, blk in pending:  # the suffix is written: publish its blocks
+            self._pool.mark_ready(blk)
+        self._start_decoding(req, slot, plen, logits, tables_np)
+
+    def _admit_chunked(self, reqs: List[Request], slots_for: List[int], plen: int) -> None:
+        """Chunked admission: reserve each slot (and its blocks, reusing
+        resident prefix blocks) and open its cursor; no prompt work yet, so
+        admission never stalls the decodes in flight.  The slots' rows are
+        reset by the step's one ``_flush_resets``: a chunk writes only its
+        own span, and the last occupant's positions or recurrent state
+        would leak into its attention and state."""
+        for req, slot in zip(reqs, slots_for):
+            toks = self._padded_prompt(req, plen)
+            span = self._true_span(req, plen)
+            tables_np, start, pending = None, 0, []
+            if self.prefix_cache:
+                hashes = self._hashes_for(req, plen)
+                hit = self._pool.lookup(hashes[:self._lookup_width(span)])
+                self.prefix_lookups += 1
+                tables_np, start, pending = self._claim_prefix_blocks(req, slot, span, hashes,
+                                                                      hit)
+            elif self.layout == "paged":
+                nb = self._blocks_for(span, req.params.max_new_tokens)
+                blocks = self._pool.allocate(nb)
+                tables_np = np.zeros(self.max_blocks_per_slot, np.int32)
+                tables_np[:nb] = blocks
+                self._slot_blocks[slot] = blocks
+            self.slots[slot] = req
+            self._cursors[slot] = _PrefillCursor(req=req, tokens=toks, plen=span, next=start,
+                                                 tables_np=tables_np, pending_ready=pending)
+            self._prefill_order.append(slot)
+            if tables_np is not None:
+                # the unified step's chunk reads the tables in the state; the
+                # slot stays inactive, so its decode writes go to block 0
+                self._state["block_tables"][slot].copy_(torch.from_numpy(tables_np))
+        if self.layout == "paged":
+            self.peak_blocks_in_use = max(self.peak_blocks_in_use, self.blocks_in_use)
+        self._pending_reset.extend(slots_for)
+
+    def _admit_right_unchunked(self, reqs: List[Request], slots_for: List[int],
+                               plen: int) -> None:
+        """Whole-prompt admission of right-padded rows: reserve through the
+        chunked path (per-request spans, prefix hits), then run each span
+        at once as one chunk padded to the bucket, so the request decodes
+        in this same step."""
+        self._admit_chunked(reqs, slots_for, plen)
+        self._flush_resets()
+        for slot in slots_for:
+            cur = self._cursors[slot]
+            logits = self._run_chunk(slot, cur, cur.plen - cur.next, pad_to=plen)
+            cur.next = cur.plen
+            for _, blk in cur.pending_ready:
+                self._pool.mark_ready(blk)
+            self._prefill_order.remove(slot)
+            self._cursors[slot] = None
+            self._start_decoding(cur.req, slot, cur.plen, logits, cur.tables_np)
+
+    # -- chunked prefill ----------------------------------------------------------
+    def _advance_chunks(self) -> None:
+        """Spend the step's prefill budget on the cursors, FCFS, one chunk
+        dispatch each; a cursor's next chunk runs only if it fits what is
+        left of the budget."""
+        budget = self.chunk_budget
+        while budget > 0 and self._prefill_order:
+            slot = self._prefill_order[0]
+            cur = self._cursors[slot]
+            c = min(self.chunk, cur.plen - cur.next)
+            if c > budget:
+                return
+            budget -= c
+            logits = self._run_chunk(slot, cur, c)
+            cur.next += c
+            self._chunk_landed(slot, cur, logits=logits)
+
+    def _chunk_landed(self, slot: int, cur: _PrefillCursor, *, logits=None,
+                      first: Optional[int] = None) -> None:
+        """After a cursor's chunk: publish the registered blocks it has
+        written, so later admissions can share a prompt still being
+        prefilled; after its last chunk the slot starts decoding."""
+        while cur.pending_ready and cur.pending_ready[0][0] <= cur.next:
+            self._pool.mark_ready(cur.pending_ready.pop(0)[1])
+        if cur.next == cur.plen:
+            self._prefill_order.remove(slot)
+            self._cursors[slot] = None
+            self._start_decoding(cur.req, slot, cur.plen, logits, cur.tables_np, first=first)
+
+    def _run_chunk(self, slot: int, cur: _PrefillCursor, c: int, pad_to: int = 0):
+        """The next ``c`` tokens of one slot's prompt through
+        ``model.prefill_chunk`` on the slot's view of the live cache;
+        ``pad_to > c`` pads the row to that width and passes the true
+        length.  Returns the logits of the last valid position."""
+        toks = cur.tokens[cur.next:cur.next + c]
+        lengths = None
+        if pad_to > c:
+            toks = np.concatenate([toks, np.zeros(pad_to - c, np.int32)])
+            lengths = torch.tensor([c], dtype=torch.int32, device=self.device)
+        tables = (None if cur.tables_np is None
+                  else torch.from_numpy(cur.tables_np[None]).to(self.device))
+        logits, _ = self.model.prefill_chunk(
+            torch.from_numpy(toks[None]).to(self.device), self._slot_view(slot), cur.next,
+            block_tables=tables, lengths=lengths)
+        self._dispatches += 1
+        self.chunk_forwards += 1
+        return logits
+
+    def _pick_frontier(self) -> List[tuple]:
+        """The cursor frontier one unified step advances: the chunks
+        ``_advance_chunks`` would run, with the consecutive chunks of one
+        cursor merged into one row.  Returns [(slot, cursor, tokens)]; a
+        head chunk that does not fit the budget ends the scan, and no
+        budget passes a cursor left unfinished."""
+        budget = self.chunk_budget
+        frontier: List[tuple] = []
+        for slot in self._prefill_order:
+            cur = self._cursors[slot]
+            take = 0
+            while True:
+                c = min(self.chunk, cur.plen - cur.next - take)
+                if c <= 0 or c > budget:
+                    break
+                take += c
+                budget -= c
+            if take:
+                frontier.append((slot, cur, take))
+            if cur.next + take < cur.plen:
+                break
+        return frontier
+
+    def _unified_once(self, frontier: List[tuple]) -> None:
+        """One unified step: upload the packed frontier (one copy), advance
+        it and decode every armed slot in one dispatch, read back the
+        (4, B) result.  Without a frontier it is the plain decode step."""
+        if not frontier:
+            self._decode_once()
+            return
+        buf = np.zeros(tuple(self._chunk_buf.shape), np.int32)
+        for slot, cur, c in frontier:
+            pack_chunk(buf, slot, cur.tokens[cur.next:cur.next + c], cur.next,
+                       cur.req.params, request_key(self.seed, cur.req.uid))
+        self._chunk_buf.copy_(torch.from_numpy(buf))
+        if self._unified_graph is not None:
+            self._unified_graph.replay()
+            out = self._unified_out
+            dispatch.credit(self._unified_launches)
+        else:
+            out = self._unified_step(self._state, self._chunk_buf, self.cache)
+        self._dispatches += 1
+        self.chunk_forwards += 1
+        self.decode_forwards += 1
+        out_np = out.cpu().numpy()  # the step's one host sync
+        for slot, cur, c in frontier:
+            cur.next += c
+            self._chunk_landed(slot, cur, first=int(out_np[3, slot]))
+        self._process_decode_out(out_np[:3])
+
     def _start_decoding(self, req: Request, slot: int, plen: int, logits,
-                        table_row: Optional[np.ndarray]) -> None:
-        """Sample the first token (draw 0 of the request's stream) and arm
-        the slot's device row; its decode draws continue from draw 1."""
+                        table_row: Optional[np.ndarray], first: Optional[int] = None) -> None:
+        """Take the first token (draw 0 of the request's stream: sampled
+        here from ``logits``, or ``first`` as the unified step drew it)
+        and arm the slot's device row; its decode draws continue from
+        draw 1."""
         key = request_key(self.seed, req.uid)
-        first = int(sample(logits, req.params, key, index=0)[0])
+        if first is None:
+            first = int(sample(logits, req.params, key, index=0)[0])
         req.first_token_time = time.perf_counter()
         req.output_tokens.append(first)
         self._count_token(req)
@@ -380,7 +765,10 @@ class ServingEngine:
 
     # -- decode -------------------------------------------------------------------
     def _decode_once(self) -> None:
-        if not any(req is not None for req in self.slots):
+        # a prefilling slot is not armed: its first token comes with its
+        # last chunk
+        if not any(req is not None and cur is None
+                   for req, cur in zip(self.slots, self._cursors)):
             return
         if self._graph is not None:
             self._graph.replay()
@@ -428,12 +816,17 @@ class ServingEngine:
         req = self.slots[slot]
         if req is None:
             return
+        if self._cursors[slot] is not None:  # abandoned mid-prefill
+            self._cursors[slot] = None
+            self._prefill_order.remove(slot)
         self._flush_ring(slot)
         req.finish_time = time.perf_counter()
         self.finished.append(req)
         self.slots[slot] = None
         invalidate_slot(self._state, slot, garbage_block=cache_lib.GARBAGE_BLOCK)
         if self._slot_blocks[slot]:
+            # shared blocks lose a reference (the last reader parks them on
+            # the evictable LRU); private ones go back on the free stack
             self._pool.free(self._slot_blocks[slot])
             self._slot_blocks[slot] = []
         self._flush_energy()
@@ -535,6 +928,18 @@ class ServingEngine:
             summary["recompute_tokens"] = 0
             summary["pool_occupancy_p50"] = _percentile(self._occ_samples, 50)
             summary["pool_occupancy_p95"] = _percentile(self._occ_samples, 95)
+        if self.prefix_cache:
+            summary["prefix_lookups"] = self.prefix_lookups
+            summary["prefix_hit_rate"] = self.prefix_hits / max(self.prefix_lookups, 1)
+            summary["prefix_blocks_reused"] = self.prefix_blocks_reused
+            summary["prefill_tokens_skipped"] = self.prefill_tokens_skipped
+            # per registered hash: [hits, misses, evictions] at block grain
+            stats = self._pool.prefix_stats.values()
+            summary["prefix_block_hits"] = sum(st[0] for st in stats)
+            summary["prefix_block_misses"] = sum(st[1] for st in stats)
+            summary["prefix_block_evictions"] = sum(st[2] for st in stats)
+            summary["prefix_hashes_tracked"] = len(self._pool.prefix_stats)
+            summary["prefix_blocks_resident"] = len(self._pool.ready)
         if self.monitor is not None:
             total_j = sum(r.joules for r in self.finished)
             summary["joules_total"] = total_j

@@ -1,5 +1,5 @@
-"""The serving engine's decode step, the counterpart of
-``repro/serving/step.py``.
+"""The serving engine's decode step and its unified prefill + decode step,
+the counterpart of ``repro/serving/step.py``.
 
 ``make_decode_sample_step`` fuses the decode forward pass, per-slot
 sampling, position and budget bookkeeping and finish detection into one
@@ -26,6 +26,23 @@ each column (``temperature`` viewed as float32):
                by the step so far (draw 0 is the first token's)
 
 plus ``block_tables`` (B, blocks_per_slot) int32 in the paged layout.
+
+``make_engine_step`` is the unified step: one chunk of every prefilling
+slot's prompt, packed slot-aligned at a static width W, then the decode
+step over the chunk-updated cache.  Its input is one (B, W + 5) int32
+chunk buffer (``pack_chunk``), so the host uploads it with one copy:
+
+  tokens       columns 0..W-1, the row's next prompt tokens
+  start        absolute position of column 0
+  length       valid columns (0: the slot has no chunk this step)
+  temperature  the request's sampling temperature (float32 bits)
+  top_k        its top-k
+  key          its random-stream key (int32 bits)
+
+Each row's first token is drawn inside the step from the chunk's
+last-valid-position logits, as draw 0 of the request's stream (the draw
+depends only on key and index, so it equals the host's ``sample`` on the
+same logits); the host keeps it only for rows whose prompt ended.
 """
 
 from __future__ import annotations
@@ -39,6 +56,7 @@ from repro_torch.serving.sampling import SamplingParams, sample_slots_keyed
 
 FIELDS = ("tokens", "positions", "active", "remaining", "temperature", "top_k", "eos",
           "key", "count")
+CHUNK_FIELDS = ("start", "length", "temperature", "top_k", "key")
 
 
 def init_slot_state(max_batch: int, max_blocks: int = 0,
@@ -62,6 +80,16 @@ def write_slot(state: Dict[str, torch.Tensor], slot: int, *, token: int, positio
                     params.eos_token, np.int64(key).astype(np.int32), count], np.int32)
     row[FIELDS.index("temperature")] = np.float32(params.temperature).view(np.int32)
     state["packed"][slot].copy_(torch.from_numpy(row))
+
+
+def pack_chunk(buf: np.ndarray, slot: int, tokens: np.ndarray, start: int,
+               params: SamplingParams, key: int) -> None:
+    """Write one slot's row of a host chunk buffer (B, W + 5) int32 (zeros
+    elsewhere: rows without a chunk)."""
+    W = buf.shape[1] - len(CHUNK_FIELDS)
+    buf[slot, :len(tokens)] = tokens
+    buf[slot, W:] = [start, len(tokens), np.float32(params.temperature).view(np.int32),
+                     params.top_k, np.int64(key).astype(np.int32)]
 
 
 def invalidate_slot(state: Dict[str, torch.Tensor], slot: int, *,
@@ -113,3 +141,29 @@ def _decode_sample_body(model, max_len: int, k_max: int, state: Dict[str, torch.
     state["count"].add_(act_i)
     state["active"].copy_((active & ~done).int())
     return torch.stack([tok, done.int(), act_i])
+
+
+def make_engine_step(model, max_len: int, k_max: int = 64) -> Callable:
+    """The unified step ``step(state, chunk, cache) -> out``: the chunk
+    advance (``model.prefill_chunk`` over the packed rows; rows of length
+    0 write nothing), then ``_decode_sample_body`` over the chunk-updated
+    cache, in the order of the per-chunk path, so the streams are the
+    same.  A prefilling slot is inactive in ``state``, so the decode
+    half's ``update_mask`` keeps it off the chunk's fresh K/V and state.
+    ``out`` is (4, B) int32: the decode step's three rows, then each
+    row's first token drawn from its chunk's logits."""
+
+    def step(state: Dict[str, torch.Tensor], chunk: torch.Tensor, cache) -> torch.Tensor:
+        W = chunk.shape[1] - len(CHUNK_FIELDS)
+        start, length, temperature, top_k, key = (chunk[:, W + i]
+                                                  for i in range(len(CHUNK_FIELDS)))
+        logits, _ = model.prefill_chunk(chunk[:, :W], cache, start,
+                                        block_tables=state.get("block_tables"),
+                                        lengths=length)
+        first = sample_slots_keyed(logits, temperature.view(torch.float32), top_k,
+                                   key.long() & 0xFFFFFFFF, torch.zeros_like(key, dtype=torch.int64),
+                                   k_max=k_max).int()
+        out = _decode_sample_body(model, max_len, k_max, state, cache)
+        return torch.cat([out, first[None]])
+
+    return step

@@ -1,10 +1,13 @@
-"""Traffic for the serving engine, the counterpart of the Poisson part of
-``repro/serving/workload.py``: numpy only, so a seed gives the same trace
-as the reference.
+"""Traffic for the serving engine, the counterpart of the Poisson and
+shared-prefix parts of ``repro/serving/workload.py``: numpy only, so a
+seed gives the same trace as the reference.
 
-``WorkloadSpec`` + ``poisson_trace`` — Poisson arrivals at a target rate
-(0: every request at t = 0) with fixed, uniform or lognormal prompt and
-output lengths, fully determined by the seed.
+* ``WorkloadSpec`` + ``poisson_trace`` — Poisson arrivals at a target rate
+  (0: every request at t = 0) with fixed, uniform or lognormal prompt and
+  output lengths, fully determined by the seed.
+* ``shared_prefix_trace`` — every prompt is one of a few fixed system
+  prompts plus a fresh suffix: the traffic block-level prefix caching
+  serves.
 """
 
 from __future__ import annotations
@@ -76,4 +79,41 @@ def poisson_trace(spec: WorkloadSpec, vocab_size: int) -> List[Arrival]:
                 temperature=spec.temperature, top_k=spec.top_k,
                 eos_token=spec.eos_token,
                 max_new_tokens=spec.output_len.sample(rng))))
+    return arrivals
+
+
+def shared_prefix_trace(
+    vocab_size: int,
+    *,
+    num_requests: int = 8,
+    shared_prefix_len: int = 64,
+    num_prefixes: int = 2,
+    suffix_len: int = 16,
+    max_new: int = 8,
+    arrival_rate: float = 0.0,
+    seed: int = 0,
+    temperature: float = 0.0,
+    top_k: int = 0,
+    eos_token: int = -1,
+) -> List[Arrival]:
+    """Each request draws one of ``num_prefixes`` fixed prefixes of
+    ``shared_prefix_len`` tokens (the system prompt) and appends a fresh
+    ``suffix_len``-token suffix.  Left padding aligns blocks only between
+    prompts of one padded length, so the suffix length is fixed.  Poisson
+    arrivals at ``arrival_rate`` (0: all at t = 0); same arguments, same
+    trace."""
+    rng = np.random.default_rng(seed)
+    prefixes = [rng.integers(0, vocab_size, shared_prefix_len).astype(np.int32)
+                for _ in range(num_prefixes)]
+    arrivals: List[Arrival] = []
+    t = 0.0
+    for _ in range(num_requests):
+        if arrival_rate > 0:
+            t += float(rng.exponential(1.0 / arrival_rate))
+        k = int(rng.integers(0, num_prefixes))
+        suffix = rng.integers(0, vocab_size, suffix_len).astype(np.int32)
+        arrivals.append(Arrival(
+            time_s=t, prompt=np.concatenate([prefixes[k], suffix]),
+            params=SamplingParams(temperature=temperature, top_k=top_k, eos_token=eos_token,
+                                  max_new_tokens=max_new)))
     return arrivals

@@ -780,3 +780,86 @@ def test_latency_profiler_graph_matches_eager(cuda, arch):
     assert counts[True]["decode_attention"] == n_attn * gen
     assert counts[True]["flash_attention"] == n_attn
     assert counts[True]["linear_recurrence"] == n_rec * (gen + 1)
+
+
+def _unified_attention_case(cuda, layout, lengths, starts):
+    """K2's inputs in the unified step, from ``chip_smoke.unified_flash_case``
+    (paged: llama3.1-8b over the gathered pool; ring: recurrentgemma-2b
+    over its ring plus the chunk), q/k/v drawn from a seeded numpy rng."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from chip_smoke import unified_flash_case
+
+    rng = _rng("unified-k2", layout)
+
+    def randn(*shape):
+        return _on(cuda, "bfloat16", rng.standard_normal(shape, np.float32))[0]
+
+    return unified_flash_case(cuda, randn, layout, starts, lengths)
+
+
+@pytest.mark.parametrize("layout", ["paged", "ring"])
+def test_flash_at_the_unified_step_shapes_in_a_cuda_graph(cuda, layout):
+    """K2 at the unified step's shapes (llama3.1-8b paged: q (8,256,32,128)
+    over 1024 gathered keys; recurrentgemma-2b: q (8,256,10,256) over a
+    1024-slot ring + the chunk, T = 1280, keys unsorted), most rows of
+    length 0, captured in a CUDA graph and replayed as the starts move:
+    equal to the eager call, within bf16 tolerance of the plain version
+    (rows with no valid key are 0 in both)."""
+    lengths = [256, 0, 0, 77, 0, 0, 0, 0]
+    q, k, v, kw = _unified_attention_case(cuda, layout, lengths, [0] * 8)
+    fa_ops.flash_attention(q, k, v, **kw)  # build and load outside the capture
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fa_ops.flash_attention(q, k, v, **kw)
+    for starts in ([0, 0, 0, 512, 0, 0, 0, 0], [768, 3, 0, 100, 900, 0, 17, 0],
+                   [256, 0, 1023, 767, 0, 5, 0, 1]):
+        _, _, _, new = _unified_attention_case(cuda, layout, lengths, starts)
+        kw["q_positions"].copy_(new["q_positions"])
+        kw["k_positions"].copy_(new["k_positions"])
+        graph.replay()
+        torch.testing.assert_close(out, fa_ops.flash_attention(q, k, v, **kw), rtol=0, atol=0)
+        _assert(out, fa_ref.attention(q, k, v, **kw), "bfloat16")
+
+
+@pytest.mark.parametrize("arch,layout,prefix_cache", [("llama3.2-1b", "paged", True),
+                                                      ("recurrentgemma-2b", "contiguous", False)])
+def test_unified_engine_cuda_graph_matches_eager(cuda, arch, layout, prefix_cache):
+    """A small bf16 engine with chunked prefill (chunk 8, budget 16) and the
+    unified step, replayed from its CUDA graphs and run eagerly: identical
+    streams, at most two dispatches a step, the unified replays credited
+    (K2 once per attention layer per chunk pass), blocks drained."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as model_lib
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.sampling import SamplingParams
+
+    cfg = get_config(arch, smoke=True).replace(dtype="bfloat16", param_dtype="bfloat16")
+    model = model_lib.init(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    with torch.no_grad():
+        model.embed.table.mul_(0.05)  # streams that depend on the context
+    rng = _rng("unified-engine", arch)
+    shared = rng.integers(0, cfg.vocab_size, 24)
+    prompts = [np.concatenate([shared, rng.integers(0, cfg.vocab_size, n)])
+               for n in (5, 30, 17, 9, 40)]
+    n_attn = sum(k in ("attn", "local_attn") for k in cfg.blocks())
+    outs = {}
+    for graph in (True, False):
+        eng = ServingEngine(model, max_batch=2, max_len=96, prompt_bucket=8,
+                            cache_layout=layout, prefill_chunk=8, prefill_budget=16,
+                            prefix_cache=prefix_cache, device=cuda, cuda_graph=graph)
+        assert (eng._unified_graph is not None) == graph
+        n0 = fa_ops.flash_attention.launches
+        for i, p in enumerate(prompts):
+            eng.submit(p, SamplingParams(max_new_tokens=6 + 3 * i))
+        outs[graph] = {r.uid: r.output_tokens for r in eng.run()}
+        torch.cuda.synchronize()
+        assert fa_ops.flash_attention.launches - n0 == n_attn * eng.chunk_forwards
+        assert max(eng._dispatch_samples) <= 2
+        assert eng.blocks_in_use == 0
+        if prefix_cache:
+            assert eng.prefix_hits > 0
+    assert outs[True] == outs[False]
+    assert [len(outs[True][i]) for i in range(5)] == [6 + 3 * i for i in range(5)]

@@ -281,5 +281,6 @@ def test_serve_cli_help_runs_without_a_gpu():
                           cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     for flag in ("--cache-layout", "--kv-block-size", "--kv-num-blocks", "--power-reader",
-                 "--cuda-graph", "--prompt-len-dist"):
+                 "--cuda-graph", "--prompt-len-dist", "--prefill-chunk", "--prefill-budget",
+                 "--unified-step", "--pad-side", "--prefix-cache", "--shared-prefix-len"):
         assert flag in proc.stdout
