@@ -17,8 +17,10 @@ or of the ``repro`` package.  Phases:
    chunk boundaries; K2 at the serving engine's unified-step shapes
    (llama3.1-8b over the gathered pool, recurrentgemma-2b over its ring
    and the chunk) captured and replayed, timed with its bound and SDPA,
-   beside the pool gather that feeds it; K4 and K5 also timed at other
-   chunk plans; one ``{"kernels": [...]}`` line.
+   beside the pool gather that feeds it, and K2 at the speculative verify
+   window's shape (q (8,5,32,128) over the gathered pool) the same way;
+   K4 and K5 also timed at other chunk plans; one ``{"kernels": [...]}``
+   line.
 3. The measured path at full width: ``Elana("llama3.1-8b").measure``
    (TTFT eager; TPOT and TTLT from the decode step replayed from a CUDA
    graph), then the same with NVML energy; size and cache reports; launch
@@ -48,7 +50,13 @@ or of the ``repro`` package.  Phases:
    same weights, over a contiguous cache (B=1), a paged one (B=4,
    shuffled block tables) and the paged one prefilled in chunks of 256,
    whose first-token logits and greedy streams are also held to the
-   whole prompt's.
+   whole prompt's.  Then, for llama3.1-8b, preemption with recompute (the
+   first trace on a pool cut to 129 blocks, chunked through the unified
+   graph, against the same trace uncontended) and prompt-lookup
+   speculation (a tiled-motif trace, whole-prompt and chunked, and an
+   adversarial drafter on the first trace, each against the run without
+   speculation), every difference between two runs' streams held to the
+   margin of the decision it flipped.
 7. Phases 3-6 again for the RG-LRU hybrid recurrentgemma-2b (26 layers:
    18 RG-LRU, 8 local attention over a 2048-token ring), once llama3.1-8b
    is freed: measure with exact launch counts (K5 18 per forward pass),
@@ -89,6 +97,14 @@ SERVE_REQUESTS = {ARCH: 24, HYBRID: 16}
 CHUNKED = dict(prefill_chunk=256, prefill_budget=256)
 SHARED_PREFIX = 448
 GRAPH_REQUESTS = {ARCH: 24, HYBRID: 8}
+# preemption: the pool cut to two worst-case requests and the garbage block
+# (2 * 64 + 1 blocks of 16), overcommit survived by recompute
+PREEMPT = dict(kv_num_blocks=129, preemption="recompute")
+# speculation: prompt-lookup drafts of up to 4 tokens, on prompts that tile
+# a motif of 8 tokens 8 times, 64 greedy tokens each
+SPEC = dict(speculative="lookup", spec_tokens=4)
+LOOKUP = dict(num_requests=16, motif_len=8, repeats=8, max_new=64)
+VERIFY_W = SPEC["spec_tokens"] + 1   # the verify window: last token + draft
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, published
 BF16_FLOPS = 989e12             # dense tensor-core bf16, published
 FP32_FLOPS = 67e12              # fp32 outside the tensor cores, published
@@ -708,7 +724,81 @@ def unified_flash_check(dev, randn):
                 **bound(gbytes, 0, BF16_FLOPS))
         log("time flash_attention unified " + layout + ": " + json.dumps(row))
         out[layout] = row
+    out["verify"] = verify_flash_check(dev, randn)
     return out
+
+
+VERIFY_STARTS = [700, 433, 0, 911, 0, 250, 1019, 0]
+VERIFY_LENGTHS = [5, 5, 0, 3, 0, 5, 5, 0]
+
+
+def verify_flash_check(dev, randn):
+    """K2 at the speculative verify step's shape on llama3.1-8b: q
+    (8, 5, 32, 128), each row's window at its own position over the 1024
+    keys gathered from the pool, three rows idle (length 0: their queries
+    run at a frozen position, their outputs dropped).  Held to the plain
+    version (bf16 tolerance), captured in a CUDA graph and replayed as the
+    positions move (equal to the eager call), timed against its bound
+    (K and V only of the keys some query of a row sees), its plain version
+    and SDPA (a boolean mask from the same positions); the pool gather
+    that feeds it timed per layer at this shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
+    from repro_torch.models import cache as cache_lib
+
+    q, k, v, kw = unified_flash_case(dev, randn, "paged", VERIFY_STARTS, VERIFY_LENGTHS,
+                                     W=VERIFY_W)
+    got, ref = fa_ops.flash_attention(q, k, v, **kw), fa_ref.attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    err = max_err(got, ref)
+    close(got, ref, 2e-2)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = fa_ops.flash_attention(q, k, v, **kw)
+    moves = ([0, 1, 2, 63, 64, 511, 512, 1019], [1019, 800, 17, 0, 300, 0, 955, 64],
+             VERIFY_STARTS)
+    for st in moves:
+        kw["q_positions"].copy_(unified_flash_case(dev, randn, "paged", st, VERIFY_LENGTHS,
+                                                   W=VERIFY_W)[3]["q_positions"])
+        graph.replay()
+        eager = fa_ops.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        check(torch.equal(replayed, eager), "verify K2: replay differs from eager")
+        close(replayed, fa_ref.attention(q, k, v, **kw), 2e-2)
+    del graph
+    log(f"check flash_attention verify window q {tuple(q.shape)} k {tuple(k.shape)} at "
+        f"{VERIFY_STARTS}: max_abs_err={err:.3e} tol=2e-2; {len(moves)} graph replays equal "
+        f"eager")
+    n = copies(2 * (2 * q.numel() + k.numel() + v.numel()))
+    sets = [(q.clone(), k.clone(), v.clone()) for _ in range(n)]
+    qp, kp = kw["q_positions"], kw["k_positions"]
+    B, S, Hq, D = q.shape
+    pairs = ((kp[:, None, :] >= 0) & (qp[:, :, None] >= kp[:, None, :])).sum().item()
+    seen = ((kp >= 0) & (kp <= qp.max(dim=1, keepdim=True).values)).sum().item()
+    nbytes = 2 * 2 * q.numel() + 2 * 2 * seen * k.shape[2] * D + 4 * (qp.numel() + kp.numel())
+    mask = ((kp[:, None, :] >= 0) & (qp[:, :, None] >= kp[:, None, :]))[:, None]
+    tq = [(a.transpose(1, 2).contiguous(), b.transpose(1, 2).contiguous(),
+           c.transpose(1, 2).contiguous()) for a, b, c in sets]
+    row = dict(shape=f"q {tuple(q.shape)} k/v {tuple(k.shape)} bf16 causal",
+               starts=VERIFY_STARTS, lengths=VERIFY_LENGTHS, max_abs_err=err,
+               ms=cuda_ms(lambda i: fa_ops.flash_attention(*sets[i], **kw), n),
+               plain_ms=cuda_ms(lambda i: fa_ref.attention(*sets[i], **kw), n),
+               library_ms=cuda_ms(lambda i: F.scaled_dot_product_attention(
+                   *tq[i], attn_mask=mask, enable_gqa=True), n),
+               keys_seen=seen, **bound(nbytes, 4 * D * pairs * Hq, BF16_FLOPS))
+    pool = [dict(kp=randn(513, 16, 8, 128), vp=randn(513, 16, 8, 128)) for _ in range(2)]
+    tables = (torch.randperm(512, device=dev) + 1).to(torch.int32).reshape(8, 64)
+    gathered = cache_lib.gather_paged_kv(pool[0], tables)
+    check(torch.equal(gathered[1][6, 16 * 63:], pool[0]["vp"][tables[6, 63]]),
+          "gather_paged_kv does not read the table's blocks")
+    row["gather"] = dict(
+        shape="pool (513,16,8,128) x2 bf16 -> (8,1024,8,128) x2",
+        ms=cuda_ms(lambda i: cache_lib.gather_paged_kv(pool[i % 2], tables), 2),
+        **bound(2 * 2 * 2 * gathered[0].numel() + 4 * tables.numel(), 0, BF16_FLOPS))
+    log("time flash_attention verify: " + json.dumps(row))
+    return row
 
 
 def decode_graph_check(dev, randn):
@@ -826,7 +916,8 @@ def expected_launches(cfg, prefills, decodes, paged=False, chunks=0):
     """Launches of each kernel over ``prefills`` prefills, ``chunks`` chunk
     passes (``prefill_chunk``: K2 over the cache and the chunk, so counted
     as a prefill) and ``decodes`` decode steps; a unified step is one chunk
-    pass and one decode step."""
+    pass and one decode step, a verify step one chunk pass, and a unified
+    step with speculation two."""
     n = per_forward(cfg)
     full_paged = n["full"] if paged else 0
     seq = prefills + chunks
@@ -1176,9 +1267,10 @@ def p50(xs):
     return sorted(xs)[len(xs) // 2] if xs else float("nan")
 
 
-def traced_replay(e, arrivals, trace_name, **engine_kw):
-    """One replay of the engine's CUDA graph (decode replay 40, or unified
-    replay 8 where the engine has that step) traced by kernel, in a run of
+def traced_replay(e, arrivals, trace_name, at=None, **engine_kw):
+    """One replay of the engine's CUDA graph (decode replay ``at``, 40 by
+    default, or unified replay 8 where the engine has that step) traced by
+    kernel, in a run of
     its own that serves the same trace up to that replay and is timed by
     nothing: the profiler's start, stop and export stay out of every
     serving statistic.  All arrivals are at t = 0, so that replay meets the
@@ -1191,7 +1283,7 @@ def traced_replay(e, arrivals, trace_name, **engine_kw):
     if eng.unified:
         timed = eng._unified_graph = TimedGraph(eng._unified_graph, 8, trace)
     else:
-        timed = eng._graph = TimedGraph(eng._graph, 40, trace)
+        timed = eng._graph = TimedGraph(eng._graph, 40 if at is None else at, trace)
     while len(timed.calls) <= timed.trace_at:
         check(eng.step(), f"{trace_name}: the trace drained before replay {timed.trace_at}")
     torch.cuda.synchronize()
@@ -1200,13 +1292,22 @@ def traced_replay(e, arrivals, trace_name, **engine_kw):
     return trace_split(trace)
 
 
-def served(e, arrivals, counters, trace_name, **engine_kw):
+ENGINE_COUNTS = ("prefills", "chunk_forwards", "decode_forwards", "prefix_hits",
+                 "prefix_blocks_reused", "prefill_tokens_skipped", "preemptions",
+                 "recompute_tokens", "_drafted_tokens", "_accepted_tokens", "_spec_verifies",
+                 "_decode_tokens", "num_blocks")
+
+
+def served(e, arrivals, counters, trace_name, trace=True, trace_at=None, setup=None,
+           **engine_kw):
     """Serve ``arrivals`` at full width with NVML energy, each of the
-    engine's CUDA graphs timed per replay; the counts from 0 for this run
-    only.  Checks: launch counts exact against the forward passes run,
-    replays credited; every request emits its budget; blocks drained and
-    table rows back at block 0; dispatches per step p50 = 1 and p95 <= 2.
-    Then one replay traced by kernel in an untimed run of its own
+    engine's CUDA graphs timed per replay (the decode step's is the verify
+    step's with speculation); the counts from 0 for this run only;
+    ``setup(engine)`` first where given.  Checks: launch counts exact
+    against the forward passes run, replays credited; every request emits
+    its budget; blocks drained, the free stack full and table rows back at
+    block 0; dispatches per step p50 = 1 and p95 <= 2.  Then, with
+    ``trace``, one replay traced by kernel in an untimed run of its own
     (``traced_replay``).  Returns (launches, stats, streams, engine
     counters)."""
     import torch
@@ -1215,10 +1316,13 @@ def served(e, arrivals, counters, trace_name, **engine_kw):
 
     monitor = PowerMonitor(NvmlReader([0]))
     eng = serve(e, arrivals, monitor=monitor, **engine_kw)
+    if setup is not None:
+        setup(eng)
     check(eng._graph is not None, "the decode step was not captured")
     check(eng.unified == (eng._unified_graph is not None), "the unified step was not captured")
-    timed = {"decode": TimedGraph(eng._graph)}
-    eng._graph = timed["decode"]
+    step_kind = "verify" if eng.spec_k else "decode"
+    timed = {step_kind: TimedGraph(eng._graph)}
+    eng._graph = timed[step_kind]
     if eng.unified:
         timed["unified"] = TimedGraph(eng._unified_graph)
         eng._unified_graph = timed["unified"]
@@ -1250,7 +1354,7 @@ def served(e, arrivals, counters, trace_name, **engine_kw):
                              chunks=eng.chunk_forwards)
     log(f"serve {e.cfg.name} {trace_name}: {eng.prefills} admission prefills, "
         f"{eng.chunk_forwards} chunk passes, {eng.decode_forwards} decode passes "
-        f"({len(timed['decode'].calls)} decode and "
+        f"({len(timed[step_kind].calls)} {step_kind} and "
         f"{len(timed['unified'].calls) if 'unified' in timed else 0} unified replays); "
         f"launches {launches}, expected {want}")
     check(launches == want, f"serve launch counts {launches} != {want}")
@@ -1259,6 +1363,8 @@ def served(e, arrivals, counters, trace_name, **engine_kw):
     check(all(len(r.output_tokens) == budgets[r.uid] for r in finished),
           "a request did not emit its budget of tokens")
     check(eng.blocks_in_use == 0, f"{eng.blocks_in_use} blocks still in use at drain")
+    check(len(eng._pool.free_stack) + len(eng._pool.evictable) == eng.num_blocks - 1,
+          "the pool's free stack is not full at drain")
     check(not eng._state["block_tables"].any().item(), "a table row not back at block 0")
     check(summary["dispatches_per_step_p50"] == 1 and summary["dispatches_per_step_p95"] <= 2,
           f"dispatches/step {summary}")
@@ -1278,12 +1384,15 @@ def served(e, arrivals, counters, trace_name, **engine_kw):
     stats["replay_device_share_of_steps"] = (sum(sum(d) for d in device.values())
                                              / sum(ms for _, ms in walls))
     streams = {r.uid: list(r.output_tokens) for r in finished}
-    counts = {k: getattr(eng, k) for k in ("prefills", "chunk_forwards", "decode_forwards",
-                                           "prefix_hits", "prefix_blocks_reused",
-                                           "prefill_tokens_skipped")}
+    counts = {k: getattr(eng, k) for k in ENGINE_COUNTS}
+    for k in ("spec_accept_rate", "drafted_tokens", "accepted_tokens", "tokens_per_dispatch",
+              "preemptions", "recompute_tokens"):
+        if k in summary:
+            stats[k] = summary[k]
     del eng, timed
     torch.cuda.empty_cache()
-    stats["trace"] = traced_replay(e, arrivals, trace_name, **engine_kw)
+    stats["trace"] = (traced_replay(e, arrivals, trace_name, at=trace_at, **engine_kw)
+                      if trace else None)
     return launches, stats, streams, counts
 
 
@@ -1453,7 +1562,7 @@ def parity_phase(e, dev, prompt=PROMPT, paged=True, table_scale=1.0):
     if saved is not None:
         model.embed.table.mul_(table_scale)
     try:
-        _parity_checks(e, model, layouts, run, steps, prompt, whole, table_scale)
+        return _parity_checks(e, model, layouts, run, steps, prompt, whole, table_scale)
     finally:
         if saved is not None:
             model.embed.table.copy_(saved)
@@ -1516,6 +1625,207 @@ def _parity_checks(e, model, layouts, run, steps, prompt, whole, table_scale):
     check(first <= tol, f"chunked first-token logits {first} from the whole prompt's, tol {tol}")
     check(not bool((first_diff & (margin > tol)).any()),
           "chunked and whole-prompt greedy streams differ on a step with a clear margin")
+    return tol
+
+
+# ---------------------------------------------------------------------------
+# phase 6b: preemption with recompute and speculative decoding at full width
+# ---------------------------------------------------------------------------
+
+def suggested_blocks(arrivals):
+    """``--kv-num-blocks auto`` for ``arrivals`` at the serving shape."""
+    from repro_torch.models.cache import suggest_num_blocks
+    from repro_torch.serving.workload import estimate_concurrency
+
+    return suggest_num_blocks([len(a.prompt) + a.params.max_new_tokens for a in arrivals],
+                              SERVE["kv_block_size"], SERVE["max_len"], SERVE["max_batch"],
+                              concurrency=estimate_concurrency(arrivals, SERVE["max_batch"]))
+
+
+def decision_margins(e, a, uid, stream):
+    """The margin of every decision that drew request ``uid``'s ``stream``
+    (arrival ``a``), recomputed eagerly through the kernels on the context
+    the engine saw: the prompt left-padded to its bucket, prefilled whole
+    (token 0's logits), then the stream but its last token as one chunk
+    with every column's logits (tokens 1..).  A greedy request's margin is
+    the top-2 gap of its logits; a sampled one's the top-2 gap of its
+    masked, scaled logits plus its Gumbel noise at each draw
+    (``sampling.sample_slots_keyed``), times the temperature, so both read
+    in logit units.  Returns a (len(stream),) fp32 tensor."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serving.sampling import _mask_slot_logits, _uniforms, request_key
+
+    model, dev, n = e.model, e.model.device, len(stream)
+    b = SERVE["prompt_bucket"]
+    plen = min(SERVE["max_len"] - 1, -(-len(a.prompt) // b) * b)
+    prompt = np.concatenate([np.zeros(plen - len(a.prompt), np.int64), a.prompt])
+    cache = model.init_cache(1, plen + n)
+    logits = [model.prefill({"tokens": torch.from_numpy(prompt)[None].to(dev)}, cache)[0]]
+    if n > 1:
+        rest = torch.as_tensor(np.asarray(stream[:-1], np.int64))[None].to(dev)
+        logits.append(model.prefill_chunk(rest, cache, plen, all_logits=True)[0][0])
+    logits = torch.cat(logits)
+    p = a.params
+    if p.temperature > 0:
+        full = lambda v, dt: torch.full((n,), v, dtype=dt, device=dev)  # noqa: E731
+        masked = _mask_slot_logits(logits, full(p.temperature, torch.float32),
+                                   full(p.top_k, torch.int32), 64)
+        u = _uniforms(full(request_key(SERVE["seed"], uid), torch.int64),
+                      torch.arange(n, device=dev), logits.shape[-1])
+        logits = (masked - torch.log(-torch.log(u))) * p.temperature
+    top2 = logits.topk(2, dim=-1).values
+    return (top2[:, 0] - top2[:, 1]).float().cpu()
+
+
+def gate_streams(e, arrivals, base, other, tol, label, exact_before=None):
+    """``other`` against ``base`` (streams by uid), both from kernels in
+    bf16, whose paths may round differently: where a stream differs, its
+    first differing token must be one whose decision in ``base`` had a
+    margin below ``tol`` (``decision_margins``), and it must not differ
+    before ``exact_before[uid]`` tokens where given.  Also reports each
+    such margin's rank among the margins of all the stream's decisions (a
+    flip by rounding falls among the smallest).  Returns the count of
+    identical streams and, per differing stream, (token, margin, rank)."""
+    check(set(base) == set(other), f"{label}: different requests finished")
+    flips = {}
+    for uid, want in base.items():
+        got = other[uid]
+        check(len(got) == len(want), f"{label}: request {uid} emitted {len(got)} tokens, "
+                                     f"{len(want)} in the run it is held to")
+        diff = [j for j, (x, y) in enumerate(zip(got, want)) if x != y]
+        if not diff:
+            continue
+        j = diff[0]
+        if exact_before is not None and uid in exact_before:
+            check(j >= exact_before[uid], f"{label}: request {uid} differs at token {j}, "
+                                          f"before its first preemption at {exact_before[uid]}")
+        margins = decision_margins(e, arrivals[uid], uid, want)
+        m = margins[j].item()
+        flips[uid] = (j, round(m, 4), round((margins <= m).float().mean().item(), 3))
+        check(m < tol, f"{label}: request {uid} differs at token {j}, where the margin {m} "
+                       f"is above tol {tol}")
+    ranks = sorted(r for _, _, r in flips.values())
+    log(f"{label}: {len(base) - len(flips)}/{len(base)} streams identical; first differences "
+        f"(uid: token, margin, rank among the stream's margins) {flips}, tol {tol}; ranks "
+        f"median {ranks[len(ranks) // 2] if ranks else None}")
+    return len(base) - len(flips), flips
+
+
+def preemption_phase(e, counters, tol):
+    """``serve_arrivals`` (24 requests, EOS off, so the schedule depends on
+    lengths alone) on the pool cut to 129 blocks under
+    ``preemption="recompute"``, chunked through the unified graph, then the
+    same trace uncontended on the full pool.  Checks (beside ``served``'s):
+    preemptions and recomputed tokens happened; each stream equals the
+    uncontended run's up to the request's first preemption, and any later
+    difference is one the bf16 recompute may make (``gate_streams``).
+    Prints the suggested ``--kv-num-blocks auto`` size.  Returns the
+    path's launches."""
+    t0 = time.perf_counter()
+    arrivals = serve_arrivals(e.cfg, SERVE_REQUESTS[e.cfg.name])
+    first = {}
+
+    def record_preemptions(eng):
+        preempt = eng._preempt
+
+        def recorded(slot):
+            req = eng.slots[slot]
+            first.setdefault(req.uid, len(req.output_tokens) + int(eng._ring_n[slot]))
+            preempt(slot)
+
+        eng._preempt = recorded
+
+    launches, stats, streams, n = served(e, arrivals, counters, "preempt_unified",
+                                         setup=record_preemptions, **CHUNKED, **PREEMPT)
+    check(n["preemptions"] >= 1 and n["recompute_tokens"] > 0 and first,
+          f"the cut pool never preempted: {n}")
+    base_launches, base_stats, base, _ = served(e, arrivals, counters, "preempt_uncontended",
+                                                trace=False, **CHUNKED)
+    same, flips = gate_streams(e, arrivals, base, streams, tol, "preemption vs uncontended",
+                                 exact_before=first)
+    keys = ("ttft_ms", "tpot_ms", "tpot_p95_ms", "tokens_per_sec", "steps_per_sec",
+            "joules_per_token", "pool_occupancy_p95", "kv_bytes_peak",
+            "dispatches_per_step_p50", "dispatches_per_step_p95", "unified_replays",
+            "unified_replay_device_ms_p50", "decode_replays", "decode_replay_device_ms_p50")
+    log("preemption serve: " + json.dumps({
+        "arch": e.cfg.name, **SERVE, **CHUNKED, **PREEMPT,
+        "preemptions": n["preemptions"], "recompute_tokens": n["recompute_tokens"],
+        "first_preemption_at_token": first,
+        "suggested_kv_num_blocks": suggested_blocks(arrivals),
+        "identical_streams": f"{same}/{len(base)}", "first_differences": flips,
+        "preempted": {k: stats.get(k) for k in keys}, "trace": stats["trace"],
+        "uncontended": {k: base_stats.get(k) for k in keys},
+        "wall_s": time.perf_counter() - t0}))
+    return {f"{e.cfg.name} preemption serve": launches,
+            f"{e.cfg.name} uncontended serve": base_launches}
+
+
+def speculative_phase(e, counters, tol):
+    """Prompt-lookup speculation (``spec_tokens`` 4) at full width.
+    ``lookup_friendly_trace`` (16 greedy requests, a motif of 8 tiled 8
+    times, 64 tokens each), whole-prompt and chunked through the unified
+    graph, each with and without speculation; then a drafter that always
+    proposes [3, 1, 4, 1] on the sampled ``serve_arrivals`` trace, with and
+    without.  Checks (beside ``served``'s): streams equal those without
+    speculation, any difference gated by its margin (``gate_streams``);
+    drafts were made; the adversarial run rejects drafts; every verify
+    emits its accepted tokens and one more.  Prints the accept rate,
+    tokens per dispatch, the verify replay's device ms and busy share, its
+    split by kernel family (one traced replay, untimed), and TTFT, TPOT
+    and J per token beside the run without speculation; no speed-up is
+    asserted.  Returns the paths' launches."""
+    from repro_torch.serving import engine as engine_mod
+    from repro_torch.serving.workload import lookup_friendly_trace
+
+    t0 = time.perf_counter()
+    paths, rows = {}, {}
+    lookup = lookup_friendly_trace(e.cfg.vocab_size, seed=0, **LOOKUP)
+    adversarial = serve_arrivals(e.cfg, SERVE_REQUESTS[e.cfg.name])
+    runs = (("lookup whole", lookup, {}), ("lookup chunked", lookup, CHUNKED),
+            ("adversarial chunked", adversarial, CHUNKED))
+    for label, arrivals, kw in runs:
+        name = label.replace(" ", "_")
+        streams, stats = {}, {}
+        for spec in (False, True):
+            drafter = engine_mod.prompt_lookup_draft
+            if spec and label.startswith("adversarial"):
+                drafter = lambda hist, k, ngram_max=3: [3, 1, 4, 1][:k]  # noqa: E731
+            with patched(engine_mod, "prompt_lookup_draft", drafter):
+                launches, st, streams[spec], n = served(
+                    e, arrivals, counters, f"{name}_{'spec' if spec else 'plain'}",
+                    trace=spec and label == "lookup whole", trace_at=8, **kw,
+                    **(SPEC if spec else {}))
+            paths[f"{e.cfg.name} {label}{' spec' if spec else ''}"] = launches
+            stats[spec] = st
+            if spec:
+                check(n["_drafted_tokens"] > 0, f"{label}: nothing was drafted")
+                check(n["_decode_tokens"] == n["_spec_verifies"] + n["_accepted_tokens"],
+                      f"{label}: emission balance {n}")
+                check(n["decode_forwards"] == 0, f"{label}: a plain decode step ran")
+                if label.startswith("adversarial"):
+                    check(n["_accepted_tokens"] < n["_drafted_tokens"],
+                          "the adversarial drafter's drafts were all accepted")
+        same, flips = gate_streams(e, arrivals, streams[False], streams[True], tol,
+                                   f"speculative vs plain, {label}")
+        keys = ("ttft_ms", "ttft_p50_ms", "tpot_ms", "tpot_p50_ms", "tpot_p95_ms",
+                "tokens_per_sec", "steps_per_sec", "joules_per_token", "tokens_per_dispatch",
+                "dispatches_per_step_p50", "dispatches_per_step_p95", "decode_replays",
+                "decode_replay_device_ms_p50", "decode_busy_share", "verify_replays",
+                "verify_replay_device_ms_p50", "verify_busy_share", "unified_replays",
+                "unified_replay_device_ms_p50", "unified_busy_share", "spec_accept_rate",
+                "drafted_tokens", "accepted_tokens")
+        rows[label] = {"identical_streams": f"{same}/{len(arrivals)}",
+                       "first_differences": flips,
+                       "spec": {k: stats[True][k] for k in keys if k in stats[True]},
+                       "plain": {k: stats[False][k] for k in keys if k in stats[False]}}
+        if stats[True]["trace"] is not None:
+            rows[label]["verify_trace"] = stats[True]["trace"]
+        log(f"speculative serve {label}: " + json.dumps({"arch": e.cfg.name, **SERVE, **kw,
+                                                        **SPEC, **rows[label]}))
+    log(f"speculative phase: {time.perf_counter() - t0:.1f} s")
+    return paths
 
 
 def idle_power(samples=20, interval_s=0.1):
@@ -1569,7 +1879,9 @@ def main():
     paths[f"{ARCH} serve"] = whole[0]
     graph_phase(e)
     paths.update(chunked_serve_phase(e, counters, whole, measure_split))
-    parity_phase(e, dev)
+    tol = parity_phase(e, dev)
+    paths.update(preemption_phase(e, counters, tol))
+    paths.update(speculative_phase(e, counters, tol))
     del e  # free llama3.1-8b before the second model
     gc.collect()
     torch.cuda.empty_cache()

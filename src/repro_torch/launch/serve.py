@@ -7,6 +7,9 @@ flags of the engine the port has.
     python -m repro_torch.launch.serve --arch tinyllama-1.1b --smoke --device cpu
     python -m repro_torch.launch.serve --arch llama3.1-8b --cache-layout paged \
         --prefill-chunk 256 --prefix-cache --shared-prefix-len 448
+    python -m repro_torch.launch.serve --arch llama3.1-8b --cache-layout paged \
+        --preemption recompute --kv-num-blocks auto --speculative lookup \
+        --spec-tokens 4 --lookup-friendly
 
 The weights are random, drawn from ``--seed``.  Energy is read by
 ``--power-reader`` (NVML on the GPU by default, none on the CPU) and
@@ -43,8 +46,17 @@ def build_parser() -> argparse.ArgumentParser:
                     help="KV layout: worst-case contiguous slots or a shared block "
                          "pool with per-slot block tables")
     ap.add_argument("--kv-block-size", type=int, default=16)
-    ap.add_argument("--kv-num-blocks", type=int, default=0,
-                    help="paged pool size in blocks; 0 = worst case")
+    ap.add_argument("--kv-num-blocks", default="0",
+                    help="paged pool size in blocks; 0 = worst case, 'auto' = sized from the "
+                         "trace (p95 sequence length x estimated concurrency, "
+                         "cache.suggest_num_blocks; pair with --preemption recompute so a "
+                         "bursty tail preempts instead of failing)")
+    ap.add_argument("--preemption", default="off", choices=["off", "recompute"],
+                    help="pool overcommit (paged only): 'off' reserves each request's worst "
+                         "case at admission; 'recompute' reserves lazily, grows blocks as "
+                         "decodes need them and, when the pool is dry, preempts the newest "
+                         "request (never the head of line), re-admitting it later by "
+                         "recomputing its prompt and emitted tokens")
     ap.add_argument("--power-reader", default=None, choices=["nvml", "synthetic", "none"],
                     help="power source for energy attribution (default: nvml on the "
                          "GPU, none on the CPU)")
@@ -80,6 +92,21 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--shared-suffix-len", type=int, default=16,
                     help="tokens appended to each shared prefix (fixed, so padded lengths "
                          "match); the --prompt-len-* flags are ignored then")
+    ap.add_argument("--speculative", default="off", choices=["off", "lookup"],
+                    help="speculative decoding: 'lookup' drafts each request's next tokens "
+                         "from its own prompt and output (n-gram lookup, no draft model) and "
+                         "verifies every window in one step; the streams equal 'off', only "
+                         "the tokens per step change")
+    ap.add_argument("--spec-tokens", type=int, default=4,
+                    help="most draft tokens per verify window with --speculative lookup (the "
+                         "window scores k + 1 positions)")
+    ap.add_argument("--lookup-friendly", action="store_true",
+                    help="the self-similar workload speculation serves: each prompt is one "
+                         "motif tiled, and greedy generation keeps cycling it")
+    ap.add_argument("--motif-len", type=int, default=8,
+                    help="motif tokens per --lookup-friendly prompt")
+    ap.add_argument("--motif-repeats", type=int, default=4,
+                    help="times each --lookup-friendly motif is tiled")
     return ap
 
 
@@ -97,13 +124,26 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.prefix_cache and args.cache_layout != "paged":
         ap.error("--prefix-cache requires --cache-layout paged")
+    if args.preemption != "off" and args.cache_layout != "paged":
+        ap.error("--preemption recompute requires --cache-layout paged")
+    if args.kv_num_blocks != "auto":
+        try:
+            args.kv_num_blocks = int(args.kv_num_blocks)
+        except ValueError:
+            ap.error("--kv-num-blocks takes an integer or 'auto'")
+        if args.kv_num_blocks < 0:
+            ap.error("--kv-num-blocks takes an integer >= 0 or 'auto'")
+    elif args.cache_layout != "paged":
+        ap.error("--kv-num-blocks auto requires --cache-layout paged")
     import torch
 
     from repro_torch import resolve_device
     from repro_torch.configs import get_config
+    from repro_torch.models import cache as cache_lib
     from repro_torch.models import model as model_lib
     from repro_torch.serving.engine import ServingEngine
-    from repro_torch.serving.workload import (LengthDist, WorkloadSpec, poisson_trace,
+    from repro_torch.serving.workload import (LengthDist, WorkloadSpec, estimate_concurrency,
+                                              lookup_friendly_trace, poisson_trace,
                                               shared_prefix_trace)
 
     device = resolve_device(args.device)
@@ -117,7 +157,12 @@ def main(argv=None) -> int:
         output_len=LengthDist(kind="fixed", mean=args.max_new, low=1,
                               high=max(args.max_new, 1)),
         temperature=args.temperature, seed=args.seed)
-    if args.shared_prefix_len > 0:
+    if args.lookup_friendly:
+        arrivals = lookup_friendly_trace(
+            cfg.vocab_size, num_requests=args.requests, motif_len=args.motif_len,
+            repeats=args.motif_repeats, max_new=args.max_new, seed=args.seed,
+            temperature=args.temperature, top_k=20)
+    elif args.shared_prefix_len > 0:
         arrivals = shared_prefix_trace(
             cfg.vocab_size, num_requests=args.requests, shared_prefix_len=args.shared_prefix_len,
             num_prefixes=args.shared_prefixes, suffix_len=args.shared_suffix_len,
@@ -125,18 +170,29 @@ def main(argv=None) -> int:
     else:
         arrivals = poisson_trace(spec, cfg.vocab_size)
 
+    kv_num_blocks = args.kv_num_blocks
+    if kv_num_blocks == "auto":
+        seq_lens = [len(a.prompt) + a.params.max_new_tokens for a in arrivals]
+        kv_num_blocks = cache_lib.suggest_num_blocks(
+            seq_lens, args.kv_block_size, args.max_len, args.max_batch,
+            concurrency=estimate_concurrency(arrivals, args.max_batch))
+        worst = cache_lib.default_num_blocks(args.max_batch, args.max_len, args.kv_block_size)
+        print(f"# --kv-num-blocks auto -> {kv_num_blocks} blocks (worst case {worst}); pair "
+              f"with --preemption recompute to survive a bursty tail")
+
     reader = args.power_reader or ("nvml" if device.type == "cuda" else "none")
     monitor = _make_monitor(reader)
     model = model_lib.init(cfg, torch.Generator(device=device).manual_seed(args.seed), device)
     engine = ServingEngine(model, max_batch=args.max_batch, max_len=args.max_len,
                            seed=args.seed, cache_layout=args.cache_layout,
                            kv_block_size=args.kv_block_size,
-                           kv_num_blocks=args.kv_num_blocks, device=device,
+                           kv_num_blocks=kv_num_blocks, device=device,
                            cuda_graph=args.cuda_graph == "on",
                            prefill_chunk=args.prefill_chunk,
                            prefill_budget=args.prefill_budget,
                            unified_step=args.unified_step == "on", pad_side=args.pad_side,
-                           prefix_cache=args.prefix_cache)
+                           prefix_cache=args.prefix_cache, preemption=args.preemption,
+                           speculative=args.speculative, spec_tokens=args.spec_tokens)
     for a in arrivals:
         engine.submit(a.prompt, a.params)
     try:

@@ -109,6 +109,7 @@ def apply_attention_prefill_chunk(
     window: int = 0,
     block_tables: Optional[torch.Tensor] = None,
     valid: Optional[torch.Tensor] = None,
+    overwrite_from: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Dict]:
     """Chunked prefill: the chunk attends to the earlier chunks in the
     cache plus itself (causally), then its K/V stays for the next chunks
@@ -122,7 +123,16 @@ def apply_attention_prefill_chunk(
     are packed into one width (the unified step): pad columns write
     nothing (paged: to the garbage block, at positions past every query;
     contiguous: their key positions are -1), and their outputs are garbage
-    the caller drops."""
+    the caller drops.
+
+    ``overwrite_from`` (B,) int32 hides the cached contiguous entries at
+    positions >= the row's value.  The speculative verify step writes
+    again positions its last window wrote (a rejected draft suffix is
+    never rolled back): those stale entries share the chunk's positions,
+    and the contiguous read over cache ++ chunk would attend to them and
+    count the overlap twice.  The paged branch needs no mask: it appends
+    before it gathers, and stale positions past the window lie past every
+    query."""
     q, k, v = _project_qkv(p, x)
     q = apply_rope(q, rope).contiguous()
     k = apply_rope(k, rope)
@@ -134,7 +144,10 @@ def apply_attention_prefill_chunk(
         k_all = torch.cat([kv_cache["k"].to(k.dtype), k], dim=1)
         v_all = torch.cat([kv_cache["v"].to(v.dtype), v], dim=1)
         chunk_pos = positions if valid is None else torch.where(valid, positions, -1)
-        k_pos = torch.cat([kv_cache["pos"], chunk_pos.to(torch.int32)], dim=1)
+        cache_pos = kv_cache["pos"]
+        if overwrite_from is not None:
+            cache_pos = torch.where(cache_pos >= overwrite_from[:, None], -1, cache_pos)
+        k_pos = torch.cat([cache_pos, chunk_pos.to(torch.int32)], dim=1)
     o = dispatch.flash_attention(
         q, k_all, v_all, q_positions=positions, k_positions=k_pos,
         causal=True, window=window, softcap=cfg.logit_softcap,

@@ -59,6 +59,28 @@ def default_num_blocks(batch: int, max_len: int, block_size: int) -> int:
     return batch * blocks_per_slot(max_len, block_size) + 1
 
 
+def suggest_num_blocks(seq_lens, block_size: int, max_len: int, max_batch: int,
+                       concurrency: int = 0, q: float = 95.0) -> int:
+    """A pool sized for the workload (``--kv-num-blocks auto``) instead of
+    the worst case: the ``q``-th percentile of the trace's sequence lengths
+    (prompt + budget, at most ``max_len``) for each of ``concurrency``
+    live slots (0: ``max_batch``, the saturated case; see
+    ``serving.workload.estimate_concurrency``), one slack block per slot
+    and the garbage block.  Clamped between one worst-case request plus
+    the garbage block (below it a long request could never finish) and
+    the worst case.  Such a pool can still run dry on a bursty tail: pair
+    it with ``preemption="recompute"``."""
+    lens = sorted(min(int(n), max_len) for n in seq_lens)
+    if not lens:
+        return default_num_blocks(max_batch, max_len, block_size)
+    k = max(int(-(-len(lens) * q // 100)), 1) - 1
+    p_len = lens[min(k, len(lens) - 1)]
+    slots = min(max(int(concurrency) or max_batch, 1), max_batch)
+    want = slots * (blocks_per_slot(p_len, block_size) + 1) + 1
+    floor = blocks_per_slot(max_len, block_size) + 1
+    return min(max(want, floor), default_num_blocks(max_batch, max_len, block_size))
+
+
 _FNV_OFFSET = 0xCBF29CE484222325
 _FNV_PRIME = 0x100000001B3
 _MASK64 = (1 << 64) - 1

@@ -13,7 +13,8 @@ Entry points:
   * ``Model.prefill``     — the prompt; fills the cache, returns the last
     position's logits.
   * ``Model.prefill_chunk`` — one chunk of a prompt against the cache
-    (chunked prefill; ragged rows for the serving engine's unified step).
+    (chunked prefill; ragged rows for the serving engine's unified step;
+    the speculative verify window, with every column's logits).
   * ``Model.decode_step`` — one token against the cache (the TPOT step).
 """
 
@@ -134,7 +135,8 @@ def _apply_block_seq(p: Block, cfg: ModelConfig, x: torch.Tensor,
 def _apply_block_chunk(p: Block, cfg: ModelConfig, x: torch.Tensor,
                        r: Optional[torch.Tensor], positions: torch.Tensor, rope, entry: Dict,
                        block_tables: Optional[torch.Tensor],
-                       valid: Optional[torch.Tensor]) -> Residual:
+                       valid: Optional[torch.Tensor],
+                       overwrite_from: Optional[torch.Tensor] = None) -> Residual:
     """A prompt chunk against the cache: attention over the earlier
     chunks plus this one, an RG-LRU resumed from the carried state with
     identity steps at pad columns (so its state is written unmasked: a row
@@ -151,7 +153,8 @@ def _apply_block_chunk(p: Block, cfg: ModelConfig, x: torch.Tensor,
     x, h = add_norm(p.norm1, x, r, cfg.norm_eps)
     a, _ = attn_lib.apply_attention_prefill_chunk(p.attn, h, cfg, positions, entry,
                                                   rope=rope, window=_window(cfg, p.kind),
-                                                  block_tables=block_tables, valid=valid)
+                                                  block_tables=block_tables, valid=valid,
+                                                  overwrite_from=overwrite_from)
     return _mlp_branch(p, cfg, x, h, a)
 
 
@@ -237,8 +240,9 @@ class Model(nn.Module):
     @torch.no_grad()
     def prefill_chunk(self, tokens: torch.Tensor, cache: Cache, start,
                       block_tables: Optional[torch.Tensor] = None,
-                      lengths: Optional[torch.Tensor] = None
-                      ) -> Tuple[torch.Tensor, Cache]:
+                      lengths: Optional[torch.Tensor] = None,
+                      overwrite_from: Optional[torch.Tensor] = None,
+                      all_logits: bool = False) -> Tuple[torch.Tensor, Cache]:
         """One prompt chunk ``tokens`` (B, C) at positions ``start ..
         start + C - 1`` against a cache that holds positions ``0 ..
         start - 1``; updates ``cache`` in place.  ``start`` is an int or a
@@ -249,7 +253,13 @@ class Model(nn.Module):
         were.  Returns the fp32 logits (B, vocab) of each row's last valid
         position (of the last column without ``lengths``; garbage for a
         row of length 0).  Nothing here waits for the device, so a CUDA
-        graph can capture it."""
+        graph can capture it.
+
+        The speculative verify step scores a draft window through this
+        path: ``overwrite_from`` (B,) int32 hides stale contiguous cache
+        entries at positions >= the row's value
+        (``attention.apply_attention_prefill_chunk``), and ``all_logits``
+        returns the fp32 logits of every column, (B, C, vocab)."""
         cfg = self.cfg
         B, C = tokens.shape
         cols = torch.arange(C, dtype=torch.int32, device=tokens.device)
@@ -261,7 +271,10 @@ class Model(nn.Module):
         r = None
         for blk, entry in zip(self.layers, cache):
             x, r = _apply_block_chunk(blk, cfg, x, r, positions, rope, entry, block_tables,
-                                      valid)
+                                      valid, overwrite_from)
+        if all_logits:
+            _, h = add_norm(self.final_norm, x, r, cfg.norm_eps)
+            return unembed(self._head(), h, cfg.logit_softcap), cache
         if lengths is None:
             x, r = x[:, -1:], r[:, -1:]
         else:  # each row's last valid column, before the final norm (rowwise)

@@ -4,7 +4,8 @@ admission over a contiguous or paged KV cache, with block-level prefix
 caching on the paged one.
 
 A request waits in a FCFS queue until a slot (and, paged, enough pool
-blocks for its prompt plus its whole budget) is free.  Admission batches
+blocks for its prompt plus its whole budget, or under preemption for its
+prompt and first decode write) is free.  Admission batches
 every queued request of the head's prompt bucket.  Prompts are padded to
 the bucket on the left (a longer prompt keeps its tail), or on the right
 with ``pad_side="right"``, where each row is computed only as far as its
@@ -29,6 +30,23 @@ prompt goes.
   resident starts at its first uncached block.  The block holding the last
   prompt position is always recomputed privately, so decode never writes
   a shared block.
+* Preemption with recompute (``preemption="recompute"``, paged): blocks
+  are reserved lazily and grown as decodes cross block boundaries
+  (``_grow_decode_blocks``); when the pool runs dry the newest admitted
+  request, never the head of line, is preempted: its blocks are freed
+  (shared prefix blocks lose a reference) and it is parked.  Parked
+  requests are re-admitted first, oldest first, by recomputing the
+  prompt and the tokens they had emitted through the chunk path, and
+  resume with the draw index they would have had, so every stream,
+  greedy or sampled, equals the uncontended run's.
+* Prompt-lookup speculative decoding (``speculative="lookup"``,
+  attention-only models): each step the host drafts up to
+  ``spec_tokens`` tokens per slot from the request's own history
+  (``prompt_lookup_draft``), and the verify step
+  (``step.make_spec_decode_step``) scores every window in one forward
+  and emits 1 + the accepted draft tokens.  The emitted tokens are the
+  model's own draws, so the streams equal those without speculation;
+  only the tokens per step change.
 
 Every engine step runs the decode step over all ``max_batch`` slots at
 once (idle and prefilling slots masked) and reads back one packed int32
@@ -36,16 +54,15 @@ tensor: the step's only host sync.  On the GPU the decode step and the
 unified step are each one CUDA-graph replay, captured once per engine
 (the unified one at its width W = min(budget, max_len - 1)); on the CPU
 they run as they are.  Dispatches are counted as the reference counts its
-launches: a whole-prompt prefill, a row reset, a chunk, a decode or a
-unified step each count one.  Finished requests give back their slot and
-blocks at once.
+launches: a whole-prompt prefill, a row reset, a chunk, a decode, verify
+or unified step and a resumed request's draw index each count one.
+Finished requests give back their slot and blocks at once.
 
 Per request the engine records TTFT, TPOT and TTLT, and with a
 ``PowerMonitor`` attached it splits the energy of each window between
 requests by the tokens each emitted in it (``latency_summary``).
 
-Preemption, speculation and tensor parallelism are not ported yet
-(ROADMAP.md); the constructor refuses them.
+Tensor parallelism is not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -64,10 +81,39 @@ from repro_torch.kernels import dispatch
 from repro_torch.models import cache as cache_lib
 from repro_torch.serving.sampling import SamplingParams, request_key, sample
 from repro_torch.serving.step import (CHUNK_FIELDS, init_slot_state, invalidate_slot,
-                                      make_decode_sample_step, make_engine_step, pack_chunk,
-                                      write_slot)
+                                      make_decode_sample_step, make_engine_step,
+                                      make_spec_decode_step, pack_chunk, write_slot)
 
 _RING = 64  # host-side token ring buffer depth (tokens per slot per flush)
+
+
+def prompt_lookup_draft(hist: List[int], k: int, ngram_max: int = 3) -> List[int]:
+    """Drafting without a draft model: the ``k`` tokens that followed an
+    earlier occurrence of the stream's trailing n-gram, the longest n
+    first (``ngram_max`` down to 1).  Among the occurrences of the longest
+    n-gram that matches, the most recent one with a full ``k``-token
+    continuation wins, else the one with the longest continuation; ``[]``
+    when nothing matches (the verify step then emits one token, as a
+    decode step does).  A draft only decides how many tokens a verify
+    step may emit, never which."""
+    L = len(hist)
+    if k <= 0 or L < 2:
+        return []
+    for n in range(min(ngram_max, L - 1), 0, -1):
+        pat = hist[L - n:]
+        best = None  # (continuation length, match index)
+        for i in range(L - n - 1, -1, -1):
+            if hist[i:i + n] == pat:
+                c = min(k, L - i - n)
+                if c == k:
+                    best = (c, i)
+                    break
+                if best is None or c > best[0]:
+                    best = (c, i)
+        if best is not None:
+            c, i = best
+            return hist[i + n:i + n + c]
+    return []
 
 
 @dataclasses.dataclass
@@ -82,6 +128,11 @@ class Request:
     output_tokens: List[int] = dataclasses.field(default_factory=list)
     truncated: bool = False
     joules: float = 0.0
+    # order of first admission, kept across re-admissions, so the oldest
+    # request in flight (the head of line) is never a victim; -1: never
+    # admitted
+    admit_seq: int = -1
+    preemptions: int = 0
     # (plen, block hashes), memoized: admission may probe a request that
     # waits on the pool every step
     _hash_cache: Optional[tuple] = dataclasses.field(default=None, repr=False,
@@ -125,6 +176,10 @@ class _PrefillCursor:
     # prefix cache: (end position, block) of each block this cursor
     # registered, marked ready once the cursor has passed its end
     pending_ready: List = dataclasses.field(default_factory=list)
+    # recompute after a preemption: the tokens the request had emitted (0:
+    # a fresh admission, whose first token comes from the last chunk; > 0:
+    # the slot resumes with its last emitted token)
+    resume_n: int = 0
 
 
 class ServingEngine:
@@ -155,19 +210,32 @@ class ServingEngine:
         pad_side: str = "left",
         preemption: str = "off",
         speculative: str = "off",
+        spec_tokens: int = 4,
     ):
         if cache_layout not in ("contiguous", "paged"):
             raise ValueError(f"cache_layout {cache_layout!r} is not 'contiguous' or 'paged'")
         if pad_side not in ("left", "right"):
             raise ValueError(f"pad_side {pad_side!r} is not 'left' or 'right'")
-        if preemption != "off":
-            raise ValueError(
-                f"preemption={preemption!r} is not ported yet: preemption with recompute "
-                f"(lazy block growth, LIFO victims) is the port's next paged-engine slice")
+        if speculative not in ("off", "lookup"):
+            raise ValueError(f"speculative must be 'off' or 'lookup', got {speculative!r}")
+        self.spec_k = int(spec_tokens) if speculative != "off" else 0
         if speculative != "off":
-            raise ValueError(
-                f"speculative={speculative!r} is not ported yet: speculative decoding "
-                f"(prompt-lookup drafts, batched verify) is the port's next paged-engine slice")
+            if self.spec_k < 1:
+                raise ValueError(f"--spec-tokens={spec_tokens} must be >= 1 when "
+                                 f"--speculative is on")
+            bad = sorted({k for k in model.cfg.blocks() if k not in ("attn", "ffn")})
+            if bad:
+                raise ValueError(
+                    f"speculative='lookup' relies on rejected draft suffixes being "
+                    f"re-writable cache positions, which only full-attention KV supports; "
+                    f"{model.cfg.name!r} carries per-slot state that cannot rewind "
+                    f"({', '.join(bad)})")
+        if preemption not in ("off", "recompute"):
+            raise ValueError(f"preemption must be 'off' or 'recompute', got {preemption!r}")
+        if preemption != "off" and cache_layout != "paged":
+            raise ValueError("preemption requires cache_layout='paged': only a block pool "
+                             "can run dry mid-decode and reclaim a victim's blocks")
+        self.preemption = preemption
         if prefix_cache:
             if cache_layout != "paged":
                 raise ValueError("prefix_cache requires cache_layout='paged': only pool blocks "
@@ -227,6 +295,20 @@ class ServingEngine:
         self.prefix_hits = 0
         self.prefix_blocks_reused = 0
         self.prefill_tokens_skipped = 0
+        # preemption: parked requests (oldest admission first, re-admitted
+        # ahead of the queue), the counters, and the host mirror of each
+        # decoding slot's next write position, which block growth reads
+        self._preempted: List[Request] = []
+        self._admit_seq = 0
+        self.preemptions = 0
+        self.recompute_tokens = 0
+        self._next_pos = np.zeros(max_batch, np.int64)
+        # speculation: drafter counters, and each slot's uploaded draft
+        # length (block growth covers the verify window's writes)
+        self._drafted_tokens = 0
+        self._accepted_tokens = 0
+        self._spec_verifies = 0
+        self._draft_len_host = np.zeros(max_batch, np.int64)
 
         self.cache = model.init_cache(max_batch, max_len, layout=cache_layout,
                                       block_size=kv_block_size, num_blocks=self.num_blocks)
@@ -242,8 +324,10 @@ class ServingEngine:
 
         # device-dispatch accounting, the counterpart of the reference's
         # jitted launches; and the forward passes the kernels ran: whole
-        # prefills, chunk passes (one per chunk or unified step) and decode
-        # passes (one per decode or unified step, graph replays included)
+        # prefills, chunk passes (one per chunk, verify step or unified
+        # step, two for a unified step with speculation) and decode passes
+        # (one per decode or unified step without speculation), graph
+        # replays included
         self._dispatches = 0
         self._dispatch_samples: List[int] = []
         self.prefills = 0
@@ -257,15 +341,19 @@ class ServingEngine:
 
         self._state = init_slot_state(
             max_batch, self.max_blocks_per_slot if cache_layout == "paged" else 0,
-            self.device)
-        self._step = make_decode_sample_step(model, max_len, k_max=self.top_k_max)
+            self.device, spec_k=self.spec_k)
+        if self.spec_k:
+            self._step = make_spec_decode_step(model, max_len, k_max=self.top_k_max)
+        else:
+            self._step = make_decode_sample_step(model, max_len, k_max=self.top_k_max)
         self._graph: Optional[torch.cuda.CUDAGraph] = None
         self._unified_graph: Optional[torch.cuda.CUDAGraph] = None
         if self.unified:
             # the packed frontier's static width: the budget bounds a step's
             # chunk work, and no cursor holds more than max_len - 1 tokens
             width = min(self.chunk_budget, max(max_len - 1, 1))
-            self._unified_step = make_engine_step(model, max_len, k_max=self.top_k_max)
+            self._unified_step = make_engine_step(model, max_len, k_max=self.top_k_max,
+                                                  spec_k=self.spec_k)
             self._chunk_buf = torch.zeros((max_batch, width + len(CHUNK_FIELDS)),
                                           dtype=torch.int32, device=self.device)
         if cuda_graph and self.device.type == "cuda":
@@ -287,10 +375,10 @@ class ServingEngine:
 
     # -- the steps as CUDA graphs --------------------------------------------------
     def _capture(self) -> None:
-        """Capture the decode step, and the unified step at its width, once
-        each (``dispatch.capture_graph``).  Their warm-up runs find every
-        slot idle and every chunk row empty, so they change nothing but
-        the garbage block."""
+        """Capture the decode (or verify) step, and the unified step at its
+        width, once each (``dispatch.capture_graph``).  Their warm-up runs
+        find every slot idle and every chunk row empty, so they change
+        nothing but the garbage block."""
         self._graph, self._graph_out, self._graph_launches = dispatch.capture_graph(
             lambda: self._step(self._state, self.cache), self.device)
         if self.unified:
@@ -312,13 +400,16 @@ class ServingEngine:
 
     @property
     def busy(self) -> bool:
-        return bool(self.queue) or any(s is not None for s in self.slots)
+        return (bool(self.queue) or bool(self._preempted)
+                or any(s is not None for s in self.slots))
 
     def step(self) -> bool:
         """One admit + chunk + decode round; returns True if work was done.
         With the unified step the FCFS chunk frontier is picked on the host
         first and then advanced with the decode in one dispatch; without
-        it each chunk is a dispatch of its own before the decode step."""
+        it each chunk is a dispatch of its own before the decode step.
+        Drafts are armed and blocks grown (preempting if the pool is dry)
+        right before the dispatch."""
         if not self.busy:
             return False
         t0 = time.perf_counter()
@@ -326,9 +417,16 @@ class ServingEngine:
         self._admit()
         self._flush_resets()  # one batched row reset per step
         if self.unified:
-            self._unified_once(self._pick_frontier())
+            frontier = self._pick_frontier()
+            if self.spec_k:
+                self._arm_drafts()
+            self._grow_decode_blocks()
+            self._unified_once(frontier)
         else:
             self._advance_chunks()
+            if self.spec_k:
+                self._arm_drafts()
+            self._grow_decode_blocks()
             self._decode_once()
         if self.layout == "paged":
             self._occ_samples.append(self._pool.in_use / max(self.num_blocks - 1, 1))
@@ -378,8 +476,11 @@ class ServingEngine:
 
     def _blocks_for(self, plen: int, max_new: int) -> int:
         """Pool blocks reserved at admission: the prompt plus the whole
-        decode budget, so the decode step never has to allocate."""
-        tokens = min(plen + max_new, self.max_len)
+        decode budget, so the decode step never has to allocate; under
+        ``preemption="recompute"`` only the prompt and the first decode
+        write, the rest grown on demand (``_grow_decode_blocks``)."""
+        budget = 1 if self.preemption != "off" else max_new
+        tokens = min(plen + budget, self.max_len)
         return min(cache_lib.blocks_per_slot(tokens, self.block_size),
                    self.max_blocks_per_slot)
 
@@ -432,6 +533,12 @@ class ServingEngine:
         return self._pool.peek(hashes[:self._lookup_width(self._true_span(req, plen))])
 
     def _admit(self) -> None:
+        # parked requests first, oldest admission first; a parked head that
+        # does not fit blocks the queue too, so new arrivals never starve a
+        # request that has emitted tokens
+        while self._preempted:
+            if not self._try_readmit():
+                return
         while self.queue:
             free = [s for s in range(self.max_batch) if self.slots[s] is None]
             if not free:
@@ -460,6 +567,9 @@ class ServingEngine:
                 return  # pool backpressure: wait for finishes to free blocks
             picked_ids = {id(r) for r in picked}
             self.queue = deque(r for r in self.queue if id(r) not in picked_ids)
+            for req in picked:
+                req.admit_seq = self._admit_seq
+                self._admit_seq += 1
             slots_for = free[:len(picked)]
             if self.chunk > 0:
                 self._admit_chunked(picked, slots_for, plen)
@@ -551,15 +661,18 @@ class ServingEngine:
                                  None if tables_np is None else tables_np[r])
 
     def _claim_prefix_blocks(self, req: Request, slot: int, span: int, hashes: List[int],
-                             hit: List[int]):
+                             hit: List[int], nb: Optional[int] = None):
         """Commit one admission's blocks: the reused prefix blocks first
         (``lookup`` took their references), fresh ones after, in table
         order.  Full prompt blocks past the hit are registered for later
-        sharers, not ready until the caller has written them.  Returns
-        (table row, first position to prefill, (end, block) pairs to mark
-        ready as the prefill passes them)."""
+        sharers, not ready until the caller has written them.  ``nb``
+        overrides the block count (a re-admission covers the prompt and
+        the emitted tokens).  Returns (table row, first position to
+        prefill, (end, block) pairs to mark ready as the prefill passes
+        them)."""
         h = len(hit)
-        nb = self._blocks_for(span, req.params.max_new_tokens)
+        if nb is None:
+            nb = self._blocks_for(span, req.params.max_new_tokens)
         blocks = hit + self._pool.allocate(nb - h)
         tables_np = np.zeros(self.max_blocks_per_slot, np.int32)
         tables_np[:nb] = blocks
@@ -661,13 +774,18 @@ class ServingEngine:
                       first: Optional[int] = None) -> None:
         """After a cursor's chunk: publish the registered blocks it has
         written, so later admissions can share a prompt still being
-        prefilled; after its last chunk the slot starts decoding."""
+        prefilled; after its last chunk the slot starts decoding, or a
+        recomputed one resumes where it was preempted."""
         while cur.pending_ready and cur.pending_ready[0][0] <= cur.next:
             self._pool.mark_ready(cur.pending_ready.pop(0)[1])
         if cur.next == cur.plen:
             self._prefill_order.remove(slot)
             self._cursors[slot] = None
-            self._start_decoding(cur.req, slot, cur.plen, logits, cur.tables_np, first=first)
+            if cur.resume_n > 0:
+                self._resume_decoding(cur.req, slot, cur.plen, cur.resume_n, cur.tables_np)
+            else:
+                self._start_decoding(cur.req, slot, cur.plen, logits, cur.tables_np,
+                                     first=first)
 
     def _run_chunk(self, slot: int, cur: _PrefillCursor, c: int, pad_to: int = 0):
         """The next ``c`` tokens of one slot's prompt through
@@ -713,8 +831,12 @@ class ServingEngine:
 
     def _unified_once(self, frontier: List[tuple]) -> None:
         """One unified step: upload the packed frontier (one copy), advance
-        it and decode every armed slot in one dispatch, read back the
-        (4, B) result.  Without a frontier it is the plain decode step."""
+        it and decode (or verify) every armed slot in one dispatch, read
+        back the packed result.  Without a frontier it is the plain decode
+        step.  A cursor preempted after the frontier was picked has its
+        table row at the garbage block, so its chunk wrote there (and into
+        per-slot rows that the next occupant resets): its advance is
+        dropped."""
         if not frontier:
             self._decode_once()
             return
@@ -731,12 +853,18 @@ class ServingEngine:
             out = self._unified_step(self._state, self._chunk_buf, self.cache)
         self._dispatches += 1
         self.chunk_forwards += 1
-        self.decode_forwards += 1
+        if self.spec_k:
+            self.chunk_forwards += 1  # the verify window is a second chunk pass
+        else:
+            self.decode_forwards += 1
         out_np = out.cpu().numpy()  # the step's one host sync
+        firsts = out_np[:, -1] if self.spec_k else out_np[3]
         for slot, cur, c in frontier:
+            if self._cursors[slot] is not cur:
+                continue
             cur.next += c
-            self._chunk_landed(slot, cur, first=int(out_np[3, slot]))
-        self._process_decode_out(out_np[:3])
+            self._chunk_landed(slot, cur, first=int(firsts[slot]))
+        self._process_out(out_np[:, :-1] if self.spec_k else out_np[:3])
 
     def _start_decoding(self, req: Request, slot: int, plen: int, logits,
                         table_row: Optional[np.ndarray], first: Optional[int] = None) -> None:
@@ -758,9 +886,32 @@ class ServingEngine:
         write_slot(self._state, slot, token=first, position=plen,
                    remaining=req.params.max_new_tokens - 1, params=req.params,
                    active=not done, key=key, count=1)
+        self._next_pos[slot] = plen
         if table_row is not None:
             self._state["block_tables"][slot].copy_(torch.from_numpy(table_row))
         if done:
+            self._finish(slot)
+
+    def _resume_decoding(self, req: Request, slot: int, position: int, n: int,
+                         table_row: Optional[np.ndarray]) -> None:
+        """Re-arm a recomputed slot where the preemption cut it off: its
+        next input is the last token it emitted (whose K/V the next step
+        writes, as any decode write), and its next draw is draw ``n`` of
+        its stream, the index it would have had without the preemption, so
+        the resumed stream equals an unpreempted one.  Nothing is sampled
+        here.  Counted as one dispatch, as the reference counts the launch
+        that restores its random chain."""
+        remaining = req.params.max_new_tokens - n
+        # a parked request always has budget and room left; if not, finish
+        active = remaining > 0 and position < self.max_len - 1
+        write_slot(self._state, slot, token=req.output_tokens[-1], position=position,
+                   remaining=remaining, params=req.params, active=active,
+                   key=request_key(self.seed, req.uid), count=n)
+        self._dispatches += 1
+        self._next_pos[slot] = position
+        if table_row is not None:
+            self._state["block_tables"][slot].copy_(torch.from_numpy(table_row))
+        if not active:
             self._finish(slot)
 
     # -- decode -------------------------------------------------------------------
@@ -777,8 +928,19 @@ class ServingEngine:
         else:
             out = self._step(self._state, self.cache)
         self._dispatches += 1
-        self.decode_forwards += 1
-        self._process_decode_out(out.cpu().numpy())  # the step's one host sync
+        if self.spec_k:
+            self.chunk_forwards += 1  # the verify window is a chunk pass
+        else:
+            self.decode_forwards += 1
+        self._process_out(out.cpu().numpy())  # the step's one host sync
+
+    def _process_out(self, out_np: np.ndarray) -> None:
+        """One step's packed output: the (3, B) decode output or the
+        (B, 2 (k + 1) + 1) verify output."""
+        if self.spec_k:
+            self._process_spec_out(out_np)
+        else:
+            self._process_decode_out(out_np)
 
     def _process_decode_out(self, out_np: np.ndarray) -> None:
         tokens, done, emitted = out_np[0], out_np[1], out_np[2]
@@ -789,6 +951,7 @@ class ServingEngine:
                 continue
             any_emit = True
             self._decode_tokens += 1
+            self._next_pos[slot] += 1  # the step wrote its K/V there
             n = int(self._ring_n[slot])
             self._ring[slot, n] = tokens[slot]
             self._ring_n[slot] = n + 1
@@ -800,6 +963,210 @@ class ServingEngine:
                 self._finish(slot)
         if any_emit:
             self._decode_dispatches += 1
+
+    # -- speculative decoding -------------------------------------------------------
+    def _arm_drafts(self) -> None:
+        """Draft each decoding slot's next tokens from its prompt and
+        emitted tokens (ring included), on the host, and upload every
+        draft and length as one (B, k + 1) copy into the step's buffer.
+        A draft is cut so that the window, which writes K/V at the slot's
+        next position and one past it per draft token and may emit one
+        token more than the draft, stays inside the budget and the cache.
+        The buffer is rebuilt from zero every step, so a slot re-armed,
+        preempted or finished never replays a stale draft."""
+        K = self.spec_k
+        drafts = np.zeros((self.max_batch, K + 1), np.int32)
+        self._draft_len_host[:] = 0
+        for slot in range(self.max_batch):
+            req = self.slots[slot]
+            if req is None or self._cursors[slot] is not None:
+                continue
+            n_ring = int(self._ring_n[slot])
+            emitted = len(req.output_tokens) + n_ring
+            p = int(self._next_pos[slot])
+            cap = min(K, req.params.max_new_tokens - emitted - 1, self.max_len - 2 - p)
+            if cap <= 0:
+                continue
+            hist = ([int(t) for t in req.prompt] + req.output_tokens
+                    + [int(t) for t in self._ring[slot, :n_ring]])
+            d = prompt_lookup_draft(hist, cap)
+            if not d:
+                continue
+            drafts[slot, :len(d)] = d
+            drafts[slot, K] = len(d)
+            self._draft_len_host[slot] = len(d)
+            self._drafted_tokens += len(d)
+        self._state["drafts"].copy_(torch.from_numpy(drafts))
+
+    def _process_spec_out(self, out_np: np.ndarray) -> None:
+        """One verify step's (B, 2 (k + 1) + 1) output: per slot, the
+        emission mask is a prefix of the window, so its first n token
+        columns are the slot's emitted tokens in stream order."""
+        K1 = self.spec_k + 1
+        tokens, emit, done = out_np[:, :K1], out_np[:, K1:2 * K1], out_np[:, 2 * K1]
+        any_emit = False
+        for slot in range(self.max_batch):
+            req = self.slots[slot]
+            n = int(emit[slot].sum())
+            if req is None or n == 0:
+                continue
+            any_emit = True
+            self._spec_verifies += 1
+            self._accepted_tokens += n - 1
+            self._decode_tokens += n
+            for i in range(n):
+                self._next_pos[slot] += 1  # the step wrote its K/V there
+                rn = int(self._ring_n[slot])
+                self._ring[slot, rn] = tokens[slot, i]
+                self._ring_n[slot] = rn + 1
+                if rn + 1 == _RING:
+                    self._flush_ring(slot)
+                self._count_token(req)
+            self._notify_stream(req, [int(t) for t in tokens[slot, :n]])
+            if done[slot]:
+                self._finish(slot)
+            elif self.preemption != "off":
+                self._rollback_spec_blocks(slot)
+        if any_emit:
+            self._decode_dispatches += 1
+
+    def _rollback_spec_blocks(self, slot: int) -> None:
+        """Free the grown blocks a rejected draft suffix no longer needs
+        (under preemption only: otherwise the window never grows past the
+        admission's blocks), their table entries back at the garbage block.
+        The rejected K/V is never rolled back: the next window writes the
+        positions it reads again first, positions past it lie past every
+        query, and a freed block handed to another request holds only
+        positions that request has not reached."""
+        keep = int(self._next_pos[slot]) // self.block_size + 1
+        blocks = self._slot_blocks[slot]
+        if len(blocks) <= keep:
+            return
+        extra = blocks[keep:]
+        self._slot_blocks[slot] = blocks[:keep]
+        self._pool.free(extra)
+        self._state["block_tables"][slot, keep:keep + len(extra)] = cache_lib.GARBAGE_BLOCK
+
+    # -- preemption with recompute ------------------------------------------------
+    def _grow_decode_blocks(self) -> None:
+        """Lazy growth (``preemption="recompute"``): before the step runs,
+        each decoding slot whose next writes (the verify window's too)
+        reach past its blocks gets more.  When the pool is dry (free stack
+        and evictable LRU empty) the newest admitted request in flight,
+        possibly the growing one, is preempted and its blocks serve the
+        growth.  The head of line is never a victim, so it always
+        progresses and the engine drains."""
+        if self.layout != "paged" or self.preemption == "off":
+            return
+        bs = self.block_size
+        for slot in range(self.max_batch):
+            req = self.slots[slot]
+            if req is None or self._cursors[slot] is not None:
+                continue
+            need = (int(self._next_pos[slot]) + int(self._draft_len_host[slot])) // bs + 1
+            while len(self._slot_blocks[slot]) < need:
+                if self.slots[slot] is not req:
+                    break  # the growing slot itself was preempted
+                if self._pool.available == 0:
+                    victim = self._pick_victim()
+                    assert victim is not None, ("pool dry with no preemptible victim: the "
+                                                "pool is smaller than one worst-case request")
+                    self._preempt(victim)
+                    continue
+                blk = self._pool.allocate(1)[0]
+                self._slot_blocks[slot].append(blk)
+                self._state["block_tables"][slot, len(self._slot_blocks[slot]) - 1] = blk
+            self.peak_blocks_in_use = max(self.peak_blocks_in_use, self.blocks_in_use)
+
+    def _pick_victim(self) -> Optional[int]:
+        """The newest admitted request in flight, never the oldest (the
+        head of line)."""
+        live = [s for s in range(self.max_batch) if self.slots[s] is not None]
+        if len(live) < 2:
+            return None
+        head = min(live, key=lambda s: self.slots[s].admit_seq)
+        return max((s for s in live if s != head), key=lambda s: self.slots[s].admit_seq)
+
+    def _preempt(self, slot: int) -> None:
+        """Park one request in flight: flush its emitted tokens, drop a
+        cursor it was prefilling, retire its device row, free its blocks
+        (a shared prefix block only loses a reference) and queue it for
+        re-admission."""
+        req = self.slots[slot]
+        assert req is not None
+        assert any(r is not None and r.admit_seq < req.admit_seq for r in self.slots), \
+            "head-of-line request preempted"
+        self._flush_ring(slot)
+        if self._cursors[slot] is not None:  # parked mid-prefill
+            self._cursors[slot] = None
+            self._prefill_order.remove(slot)
+        self.slots[slot] = None
+        invalidate_slot(self._state, slot, garbage_block=cache_lib.GARBAGE_BLOCK)
+        if self._slot_blocks[slot]:
+            self._pool.free(self._slot_blocks[slot])
+            self._slot_blocks[slot] = []
+        self.preemptions += 1
+        req.preemptions += 1
+        self._preempted.append(req)
+        self._preempted.sort(key=lambda r: r.admit_seq)
+
+    def _try_readmit(self) -> bool:
+        """Re-admit the oldest parked request if a slot and its blocks are
+        free: its prompt and every token it emitted but the last are
+        recomputed through the chunk path (cursors, or one chunk at once
+        without chunked prefill), reusing resident prefix blocks as any
+        admission does; then the slot resumes where it stopped."""
+        req = self._preempted[0]
+        free = [s for s in range(self.max_batch) if self.slots[s] is None]
+        if not free:
+            return False
+        plen = self._bucketed(len(req.prompt))
+        span = self._true_span(req, plen)
+        n = len(req.output_tokens)
+        total = span + max(n - 1, 0)  # positions to recompute: 0 .. total - 1
+        nb = min(cache_lib.blocks_per_slot(min(total + 1, self.max_len), self.block_size),
+                 self.max_blocks_per_slot)
+        if nb - self._peek_hit(req, plen) > self._pool.available:
+            return False
+        self._preempted.pop(0)
+        slot = free[0]
+        toks = self._padded_prompt(req, plen)[:span]
+        if n > 1:
+            toks = np.concatenate([toks, np.asarray(req.output_tokens[:n - 1], np.int32)])
+        start, pending = 0, []
+        if self.prefix_cache:
+            hashes = self._hashes_for(req, plen)
+            hit = self._pool.lookup(hashes[:self._lookup_width(span)])
+            self.prefix_lookups += 1
+            tables_np, start, pending = self._claim_prefix_blocks(req, slot, span, hashes, hit,
+                                                                  nb=nb)
+        else:
+            blocks = self._pool.allocate(nb)
+            tables_np = np.zeros(self.max_blocks_per_slot, np.int32)
+            tables_np[:nb] = blocks
+            self._slot_blocks[slot] = blocks
+            self.peak_blocks_in_use = max(self.peak_blocks_in_use, self.blocks_in_use)
+        self.slots[slot] = req
+        self.recompute_tokens += total - start
+        # another request may have held the row since: reset it before the
+        # replay (in the step's one batched reset)
+        self._pending_reset.append(slot)
+        cur = _PrefillCursor(req=req, tokens=toks, plen=total, next=start,
+                             tables_np=tables_np, pending_ready=pending, resume_n=n)
+        if self.chunk > 0:
+            self._cursors[slot] = cur
+            self._prefill_order.append(slot)
+            self._state["block_tables"][slot].copy_(torch.from_numpy(tables_np))
+        else:
+            self._flush_resets()  # the replay runs now
+            logits = self._run_chunk(slot, cur, total - start)
+            for _, blk in pending:
+                self._pool.mark_ready(blk)
+            if n > 0:
+                self._resume_decoding(req, slot, total, n, tables_np)
+            else:
+                self._start_decoding(req, slot, total, logits, tables_np)
+        return True
 
     def _notify_stream(self, req: Request, tokens: List[int], finished: bool = False) -> None:
         if self.stream_hook is not None:
@@ -873,7 +1240,7 @@ class ServingEngine:
         total = sum(self._win_tokens.values())
         if total > 0 and joules > 0.0:
             by_uid = {r.uid: r for r in self.finished}
-            for s in self.slots:
+            for s in self.slots + self._preempted:
                 if s is not None:
                     by_uid[s.uid] = s
             for uid, n in self._win_tokens.items():
@@ -922,10 +1289,13 @@ class ServingEngine:
             summary["steps_per_sec"] = self._steps_done / wall
             summary["dispatches_per_step_p50"] = _percentile(self._dispatch_samples, 50)
             summary["dispatches_per_step_p95"] = _percentile(self._dispatch_samples, 95)
+        if self.spec_k:
+            summary["drafted_tokens"] = self._drafted_tokens
+            summary["accepted_tokens"] = self._accepted_tokens
+            summary["spec_accept_rate"] = self._accepted_tokens / max(self._drafted_tokens, 1)
         if self.layout == "paged":
-            # preemption is not ported: nothing is ever preempted or recomputed
-            summary["preemptions"] = 0
-            summary["recompute_tokens"] = 0
+            summary["preemptions"] = self.preemptions
+            summary["recompute_tokens"] = self.recompute_tokens
             summary["pool_occupancy_p50"] = _percentile(self._occ_samples, 50)
             summary["pool_occupancy_p95"] = _percentile(self._occ_samples, 95)
         if self.prefix_cache:

@@ -5,6 +5,8 @@
   first token of a request, sampled from its prefill's logits).
 * ``sample_slots_keyed`` — every row with its own temperature, top-k and
   random stream, all tensors: the sampler inside the engine's decode step.
+* ``verify_slots_keyed`` — the speculative verify step's acceptance chain
+  over a draft window, drawing each emitted token as the decode step would.
 
 Greedy rows (temperature <= 0) take ``argmax``, as in the reference.  A
 stochastic row draws from the temperature-scaled logits restricted to its
@@ -86,6 +88,56 @@ def sample_slots_keyed(logits: torch.Tensor, temperature: torch.Tensor,
     gumbel = -torch.log(-torch.log(_uniforms(keys, counts, logits.shape[-1])))
     sampled = torch.argmax(masked + gumbel, dim=-1)
     return torch.where(temperature <= 0.0, greedy, sampled)
+
+
+def verify_slots_keyed(logits: torch.Tensor, draft: torch.Tensor, draft_len: torch.Tensor,
+                       temperature: torch.Tensor, top_k: torch.Tensor, keys: torch.Tensor,
+                       counts: torch.Tensor, *, active: torch.Tensor, tokens0: torch.Tensor,
+                       positions: torch.Tensor, remaining: torch.Tensor, eos: torch.Tensor,
+                       max_len: int, k_max: int = 64) -> dict:
+    """The acceptance chain over a verified draft window, unrolled over its
+    K + 1 positions, all on the device.
+
+    ``logits[:, i]`` (B, K+1, V) is the model's next-token distribution
+    after window input i (input 0 is the slot's last emitted token, inputs
+    1..K its draft (B, K), ``draft_len`` (B,) of them valid).  Position 0
+    draws exactly as the decode step does (draw ``counts`` of the row's
+    stream).  The chain goes on to position i only while every earlier
+    draw equalled the draft token fed after it, since only then is row i
+    the distribution after the emitted stream.  The emitted token is
+    always the model's own draw, never the draft's, so greedy and sampled
+    streams equal those without speculation.  Each emitted token advances
+    position, budget and draw index once; EOS, the budget or the length
+    bound ends the chain inside the window where a decode step would have
+    stopped.  ``active`` (B,) bool; ``tokens0``, ``positions``,
+    ``remaining``, ``eos`` (B,) int32; ``keys``, ``counts`` (B,) int64.
+    Returns the emitted tokens (B, K+1) int32 and emission mask (B, K+1)
+    bool (a prefix of the window), ``done`` (B,) bool, and the rows' new
+    ``last_token``, ``positions``, ``remaining``, ``counts`` and
+    ``active``."""
+    cont = active
+    tok = tokens0
+    done = torch.zeros_like(active)
+    done_any = torch.zeros_like(active)
+    tok_cols, emit_cols = [], []
+    for i in range(logits.shape[1]):
+        if i > 0:
+            cont = cont & ~done & (i <= draft_len) & (tok == draft[:, i - 1])
+        drawn = sample_slots_keyed(logits[:, i], temperature, top_k, keys, counts,
+                                   k_max=k_max).to(tok.dtype)
+        tok = torch.where(cont, drawn, tok)
+        ci = cont.to(positions.dtype)
+        positions = positions + ci
+        remaining = remaining - ci
+        counts = counts + ci
+        hit_eos = (eos >= 0) & (tok == eos)
+        done = cont & (hit_eos | (remaining <= 0) | (positions >= max_len - 1))
+        done_any = done_any | done
+        tok_cols.append(tok)
+        emit_cols.append(cont)
+    return {"tokens": torch.stack(tok_cols, dim=1), "emit": torch.stack(emit_cols, dim=1),
+            "done": done_any, "last_token": tok, "positions": positions,
+            "remaining": remaining, "counts": counts, "active": active & ~done_any}
 
 
 def sample(logits: torch.Tensor, params: SamplingParams, key: int,

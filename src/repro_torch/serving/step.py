@@ -25,7 +25,18 @@ each column (``temperature`` viewed as float32):
   count        index of the next draw in that stream: 1 + tokens emitted
                by the step so far (draw 0 is the first token's)
 
-plus ``block_tables`` (B, blocks_per_slot) int32 in the paged layout.
+plus ``block_tables`` (B, blocks_per_slot) int32 in the paged layout, and
+with speculation (``spec_k > 0``) one (B, spec_k + 1) int32 tensor the
+host fills with one copy before every verify step: ``draft`` (its first
+spec_k columns, each slot's drafted tokens) and ``draft_len`` (its last,
+how many of them are valid).
+
+``make_spec_decode_step`` replaces the decode step when the engine
+speculates: one multi-token forward (``model.prefill_chunk`` over each
+slot's window [last token, draft...], every column's logits) and the
+acceptance chain (``sampling.verify_slots_keyed``), which emits 1 + the
+accepted draft tokens per slot.  Its packed output is (B, 2 (spec_k + 1)
++ 1) int32: emitted tokens, emission mask, finished flag.
 
 ``make_engine_step`` is the unified step: one chunk of every prefilling
 slot's prompt, packed slot-aligned at a static width W, then the decode
@@ -43,6 +54,8 @@ Each row's first token is drawn inside the step from the chunk's
 last-valid-position logits, as draw 0 of the request's stream (the draw
 depends only on key and index, so it equals the host's ``sample`` on the
 same logits); the host keeps it only for rows whose prompt ended.
+With speculation the decode half is the verify body, and the first
+tokens ride as one more column of its (B, 2 (spec_k + 1) + 1) output.
 """
 
 from __future__ import annotations
@@ -52,15 +65,16 @@ from typing import Callable, Dict
 import numpy as np
 import torch
 
-from repro_torch.serving.sampling import SamplingParams, sample_slots_keyed
+from repro_torch.serving.sampling import (SamplingParams, sample_slots_keyed,
+                                          verify_slots_keyed)
 
 FIELDS = ("tokens", "positions", "active", "remaining", "temperature", "top_k", "eos",
           "key", "count")
 CHUNK_FIELDS = ("start", "length", "temperature", "top_k", "key")
 
 
-def init_slot_state(max_batch: int, max_blocks: int = 0,
-                    device="cpu") -> Dict[str, torch.Tensor]:
+def init_slot_state(max_batch: int, max_blocks: int = 0, device="cpu",
+                    spec_k: int = 0) -> Dict[str, torch.Tensor]:
     packed = torch.zeros((max_batch, len(FIELDS)), dtype=torch.int32, device=device)
     state = {name: packed[:, i] for i, name in enumerate(FIELDS)}
     state["temperature"] = state["temperature"].view(torch.float32)
@@ -69,6 +83,9 @@ def init_slot_state(max_batch: int, max_blocks: int = 0,
     if max_blocks > 0:
         state["block_tables"] = torch.zeros((max_batch, max_blocks), dtype=torch.int32,
                                             device=device)
+    if spec_k > 0:
+        drafts = torch.zeros((max_batch, spec_k + 1), dtype=torch.int32, device=device)
+        state.update(drafts=drafts, draft=drafts[:, :spec_k], draft_len=drafts[:, spec_k])
     return state
 
 
@@ -143,7 +160,50 @@ def _decode_sample_body(model, max_len: int, k_max: int, state: Dict[str, torch.
     return torch.stack([tok, done.int(), act_i])
 
 
-def make_engine_step(model, max_len: int, k_max: int = 64) -> Callable:
+def _spec_verify_body(model, max_len: int, k_max: int, state: Dict[str, torch.Tensor],
+                      cache) -> torch.Tensor:
+    """Score every slot's window [last emitted token, draft...] in one
+    forward, a ragged (B, spec_k + 1) chunk at the slot's next write
+    position (length draft_len + 1 for an active slot, 0 otherwise, so
+    idle and prefilling slots write nothing), then run the acceptance
+    chain.  The window's K/V is written where it is computed: accepted
+    positions hold what step-at-a-time decoding would have written, and a
+    rejected suffix is written again by the next window before it is read
+    (``overwrite_from`` hides it from a contiguous read meanwhile; a paged
+    read masks it causally)."""
+    active = state["active"] != 0
+    window = torch.cat([state["tokens"][:, None], state["draft"]], dim=1)
+    lengths = torch.where(active, state["draft_len"] + 1, 0)
+    positions = state["positions"].contiguous()
+    logits, _ = model.prefill_chunk(window, cache, positions,
+                                    block_tables=state.get("block_tables"), lengths=lengths,
+                                    overwrite_from=positions, all_logits=True)
+    res = verify_slots_keyed(
+        logits, state["draft"], state["draft_len"], state["temperature"], state["top_k"],
+        state["key"].long() & 0xFFFFFFFF, state["count"].long(), active=active,
+        tokens0=state["tokens"], positions=state["positions"], remaining=state["remaining"],
+        eos=state["eos"], max_len=max_len, k_max=k_max)
+    state["tokens"].copy_(res["last_token"])
+    state["positions"].copy_(res["positions"])
+    state["remaining"].copy_(res["remaining"])
+    state["count"].copy_(res["counts"])
+    state["active"].copy_(res["active"].int())
+    return torch.cat([res["tokens"], res["emit"].int(), res["done"].int()[:, None]], dim=1)
+
+
+def make_spec_decode_step(model, max_len: int, k_max: int = 64) -> Callable:
+    """``step(state, cache) -> out``, the verify step that replaces the
+    decode step when the engine speculates; ``out`` is (B, 2 (k + 1) + 1)
+    int32: the tokens each slot emitted, in stream order, the emission
+    mask (a prefix of the window) and the finished flag."""
+
+    def step(state: Dict[str, torch.Tensor], cache) -> torch.Tensor:
+        return _spec_verify_body(model, max_len, k_max, state, cache)
+
+    return step
+
+
+def make_engine_step(model, max_len: int, k_max: int = 64, spec_k: int = 0) -> Callable:
     """The unified step ``step(state, chunk, cache) -> out``: the chunk
     advance (``model.prefill_chunk`` over the packed rows; rows of length
     0 write nothing), then ``_decode_sample_body`` over the chunk-updated
@@ -151,7 +211,10 @@ def make_engine_step(model, max_len: int, k_max: int = 64) -> Callable:
     same.  A prefilling slot is inactive in ``state``, so the decode
     half's ``update_mask`` keeps it off the chunk's fresh K/V and state.
     ``out`` is (4, B) int32: the decode step's three rows, then each
-    row's first token drawn from its chunk's logits."""
+    row's first token drawn from its chunk's logits.  With ``spec_k > 0``
+    the verify body takes the decode body's place, and ``out`` is its
+    (B, 2 (spec_k + 1) + 1) output with the first tokens as one more
+    column: still one step, so speculation keeps the dispatch bound."""
 
     def step(state: Dict[str, torch.Tensor], chunk: torch.Tensor, cache) -> torch.Tensor:
         W = chunk.shape[1] - len(CHUNK_FIELDS)
@@ -163,6 +226,9 @@ def make_engine_step(model, max_len: int, k_max: int = 64) -> Callable:
         first = sample_slots_keyed(logits, temperature.view(torch.float32), top_k,
                                    key.long() & 0xFFFFFFFF, torch.zeros_like(key, dtype=torch.int64),
                                    k_max=k_max).int()
+        if spec_k > 0:
+            out = _spec_verify_body(model, max_len, k_max, state, cache)
+            return torch.cat([out, first[:, None]], dim=1)
         out = _decode_sample_body(model, max_len, k_max, state, cache)
         return torch.cat([out, first[None]])
 

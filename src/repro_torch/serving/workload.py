@@ -8,12 +8,16 @@ seed gives the same trace as the reference.
 * ``shared_prefix_trace`` — every prompt is one of a few fixed system
   prompts plus a fresh suffix: the traffic block-level prefix caching
   serves.
+* ``lookup_friendly_trace`` — every prompt is one random motif tiled: the
+  traffic prompt-lookup speculative decoding serves.
+* ``estimate_concurrency`` — the in-flight request count a trace implies,
+  for ``cache.suggest_num_blocks`` (``--kv-num-blocks auto``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+from typing import List, Sequence
 
 import numpy as np
 
@@ -117,3 +121,58 @@ def shared_prefix_trace(
             params=SamplingParams(temperature=temperature, top_k=top_k, eos_token=eos_token,
                                   max_new_tokens=max_new)))
     return arrivals
+
+
+def lookup_friendly_trace(
+    vocab_size: int,
+    *,
+    num_requests: int = 8,
+    motif_len: int = 8,
+    repeats: int = 4,
+    max_new: int = 32,
+    arrival_rate: float = 0.0,
+    seed: int = 0,
+    temperature: float = 0.0,
+    top_k: int = 0,
+    eos_token: int = -1,
+) -> List[Arrival]:
+    """Each prompt is one random ``motif_len``-token motif tiled ``repeats``
+    times.  Greedy decoding of such a prompt tends to keep cycling the
+    motif, so every generated token's trailing n-gram occurs earlier in
+    the stream: what ``speculative="lookup"`` drafts from.  Poisson
+    arrivals at ``arrival_rate`` (0: all at t = 0); same arguments, same
+    trace."""
+    rng = np.random.default_rng(seed)
+    arrivals: List[Arrival] = []
+    t = 0.0
+    for _ in range(num_requests):
+        if arrival_rate > 0:
+            t += float(rng.exponential(1.0 / arrival_rate))
+        motif = rng.integers(0, vocab_size, motif_len).astype(np.int32)
+        arrivals.append(Arrival(
+            time_s=t, prompt=np.tile(motif, repeats),
+            params=SamplingParams(temperature=temperature, top_k=top_k, eos_token=eos_token,
+                                  max_new_tokens=max_new)))
+    return arrivals
+
+
+def estimate_concurrency(arrivals: Sequence[Arrival], max_batch: int,
+                         q: float = 95.0) -> int:
+    """The ``q``-th percentile of the in-flight request count a trace
+    implies.  Service times are unknown before the run, so the engine is
+    assumed to sustain exactly the offered token load: request i holds a
+    slot for tokens_i / R seconds, R = total tokens / the trace's span.
+    The count is sampled at every arrival and capped at ``max_batch``; a
+    trace with every arrival at one instant saturates the slots."""
+    if not arrivals:
+        return 1
+    t = np.asarray([a.time_s for a in arrivals], np.float64)
+    tokens = np.asarray([len(a.prompt) + a.params.max_new_tokens for a in arrivals],
+                        np.float64)
+    span = float(t.max() - t.min())
+    if span <= 0.0:
+        return max_batch
+    end = t + tokens / (tokens.sum() / span)
+    counts = sorted(min(int(np.sum((t <= now) & (now < end))), max_batch) for now in t)
+    k = max(int(-(-len(counts) * q // 100)), 1) - 1
+    return max(counts[min(k, len(counts) - 1)], 1)

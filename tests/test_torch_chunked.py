@@ -312,11 +312,14 @@ def test_budget_bounds_prompt_work_per_step(models):
 
 
 def test_engine_refuses_what_is_not_ported(models):
+    """Tensor parallelism (the reference's ``mesh``) is not ported; nor are
+    padding sides, preemption policies or drafters the reference lacks."""
     _, _, model = models
-    with pytest.raises(ValueError, match="preemption='recompute' is not ported"):
-        ServingEngine(model, **ENGINE, cache_layout="paged", preemption="recompute",
-                      device="cpu")
-    with pytest.raises(ValueError, match="speculative='lookup' is not ported"):
-        ServingEngine(model, **ENGINE, speculative="lookup", device="cpu")
+    with pytest.raises(TypeError, match="mesh"):
+        ServingEngine(model, **ENGINE, mesh=None, device="cpu")
+    with pytest.raises(ValueError, match="preemption"):
+        ServingEngine(model, **ENGINE, cache_layout="paged", preemption="swap", device="cpu")
+    with pytest.raises(ValueError, match="speculative"):
+        ServingEngine(model, **ENGINE, speculative="draft-model", device="cpu")
     with pytest.raises(ValueError, match="pad_side"):
         ServingEngine(model, **ENGINE, pad_side="middle", device="cpu")

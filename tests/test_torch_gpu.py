@@ -782,22 +782,28 @@ def test_latency_profiler_graph_matches_eager(cuda, arch):
     assert counts[True]["linear_recurrence"] == n_rec * (gen + 1)
 
 
-def _unified_attention_case(cuda, layout, lengths, starts):
-    """K2's inputs in the unified step, from ``chip_smoke.unified_flash_case``
-    (paged: llama3.1-8b over the gathered pool; ring: recurrentgemma-2b
-    over its ring plus the chunk), q/k/v drawn from a seeded numpy rng."""
+def _chip_smoke():
+    """``chip_smoke.py`` at the repository's root, as a module."""
     import sys
     from pathlib import Path
 
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-    from chip_smoke import unified_flash_case
+    import chip_smoke
 
-    rng = _rng("unified-k2", layout)
+    return chip_smoke
+
+
+def _unified_attention_case(cuda, layout, lengths, starts, W=256):
+    """K2's inputs in the unified step (W = 256) or the verify step (W = 5),
+    from ``chip_smoke.unified_flash_case`` (paged: llama3.1-8b over the
+    gathered pool; ring: recurrentgemma-2b over its ring plus the chunk),
+    q/k/v drawn from a seeded numpy rng."""
+    rng = _rng("unified-k2", layout, W)
 
     def randn(*shape):
         return _on(cuda, "bfloat16", rng.standard_normal(shape, np.float32))[0]
 
-    return unified_flash_case(cuda, randn, layout, starts, lengths)
+    return _chip_smoke().unified_flash_case(cuda, randn, layout, starts, lengths, W=W)
 
 
 @pytest.mark.parametrize("layout", ["paged", "ring"])
@@ -863,3 +869,65 @@ def test_unified_engine_cuda_graph_matches_eager(cuda, arch, layout, prefix_cach
             assert eng.prefix_hits > 0
     assert outs[True] == outs[False]
     assert [len(outs[True][i]) for i in range(5)] == [6 + 3 * i for i in range(5)]
+
+
+def test_flash_at_the_verify_window_shape_in_a_cuda_graph(cuda):
+    """K2 at the speculative verify step's shape on llama3.1-8b (q
+    (8, 5, 32, 128) over 1024 gathered keys, rows at their own positions,
+    three idle), captured in a CUDA graph and replayed as the positions
+    move: equal to the eager call and within bf16 tolerance of the plain
+    version."""
+    cs = _chip_smoke()
+    VERIFY_LENGTHS, VERIFY_STARTS, VERIFY_W = cs.VERIFY_LENGTHS, cs.VERIFY_STARTS, cs.VERIFY_W
+    q, k, v, kw = _unified_attention_case(cuda, "paged", VERIFY_LENGTHS, VERIFY_STARTS,
+                                          W=VERIFY_W)
+    _assert(fa_ops.flash_attention(q, k, v, **kw), fa_ref.attention(q, k, v, **kw), "bfloat16")
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fa_ops.flash_attention(q, k, v, **kw)
+    for starts in ([0, 1, 2, 63, 64, 511, 512, 1019], [1019, 800, 17, 0, 300, 0, 955, 64]):
+        _, _, _, new = _unified_attention_case(cuda, "paged", VERIFY_LENGTHS, starts,
+                                               W=VERIFY_W)
+        kw["q_positions"].copy_(new["q_positions"])
+        graph.replay()
+        torch.testing.assert_close(out, fa_ops.flash_attention(q, k, v, **kw), rtol=0, atol=0)
+        _assert(out, fa_ref.attention(q, k, v, **kw), "bfloat16")
+
+
+def test_speculative_preempting_engine_cuda_graph_matches_eager(cuda):
+    """A small bf16 engine with prompt-lookup speculation and preemption on
+    a cut pool (chunk 8, budget 16, the unified step), replayed from its
+    CUDA graphs and run eagerly: identical streams, drafts accepted,
+    requests preempted, K2 launched once per attention layer per chunk
+    pass (a verify step is one), no decode-step kernel, blocks drained."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as model_lib
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.workload import lookup_friendly_trace
+
+    cfg = get_config("llama3.2-1b", smoke=True).replace(dtype="bfloat16", param_dtype="bfloat16")
+    model = model_lib.init(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    with torch.no_grad():
+        model.embed.table.mul_(0.05)  # streams that depend on the context
+    arrivals = lookup_friendly_trace(cfg.vocab_size, num_requests=6, motif_len=6, repeats=4,
+                                     max_new=40, seed=1)
+    n_attn = sum(k == "attn" for k in cfg.blocks())
+    outs = {}
+    for graph in (True, False):
+        eng = ServingEngine(model, max_batch=3, max_len=96, prompt_bucket=8,
+                            cache_layout="paged", kv_block_size=8, kv_num_blocks=19,
+                            prefill_chunk=8, prefill_budget=16, preemption="recompute",
+                            speculative="lookup", spec_tokens=4, device=cuda, cuda_graph=graph)
+        n0 = {name: k.launches for name, k in dispatch.KERNELS.items()}
+        for a in arrivals:
+            eng.submit(a.prompt, a.params)
+        outs[graph] = {r.uid: r.output_tokens for r in eng.run()}
+        torch.cuda.synchronize()
+        launched = {name: k.launches - n0[name] for name, k in dispatch.KERNELS.items()}
+        assert launched["flash_attention"] == n_attn * eng.chunk_forwards
+        assert launched["paged_decode_attention"] == 0 and eng.decode_forwards == 0
+        assert eng.preemptions > 0 and eng._accepted_tokens > 0
+        assert eng.latency_summary()["dispatches_per_step_p50"] == 1
+        assert eng.blocks_in_use == 0 and not eng._state["block_tables"].any()
+    assert outs[True] == outs[False]
+    assert all(len(outs[True][i]) == 40 for i in range(6))
