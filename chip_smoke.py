@@ -12,9 +12,12 @@ or of the ``repro`` package.  Phases:
 2. Each kernel against its plain PyTorch version at the main path's shapes
    (bf16, plus fp32 and edge cases), with kernel, plain, library and bound
    times; K1 plain and with the residual add fused, at the decode and
-   prefill shapes, also with its host time per eager call; one K3 call and
-   one K4 call captured in CUDA graphs and replayed as q_pos crosses their
-   chunk boundaries; K2 at the serving engine's unified-step shapes
+   prefill shapes, also with its host time per eager call; K3 also at
+   ``bench_serve``'s contiguous cache (8 rows over 1024 slots), checked
+   with rows on both sides of every chunk edge and timed with its bound,
+   plain and SDPA times in the band its traffic decodes in; K3 calls (at
+   recurrentgemma's ring and at that cache) and one K4 call captured in
+   CUDA graphs and replayed as q_pos crosses their chunk boundaries; K2 at the serving engine's unified-step shapes
    (llama3.1-8b over the gathered pool, recurrentgemma-2b over its ring
    and the chunk) captured and replayed, timed with its bound and SDPA,
    beside the pool gather that feeds it, and K2 at the speculative verify
@@ -56,7 +59,22 @@ or of the ``repro`` package.  Phases:
    speculation (a tiled-motif trace, whole-prompt and chunked, and an
    adversarial drafter on the first trace, each against the run without
    speculation), every difference between two runs' streams held to the
-   margin of the decision it flipped.
+   margin of the decision it flipped.  Then the serving front end, llama
+   only: the paged engine (CUDA-graph decode step, NVML energy) prewarmed
+   and served over HTTP by ``start_http_server``, the 24 greedy requests
+   of ``serve_arrivals`` sent at once by the port's ``stream_completion``
+   (every request streams its budget in contiguous chunks, each emitted
+   before it arrived; client TTFT >= engine TTFT; ``/metrics`` dispatches
+   per step p50 = 1, p95 <= 2; streams gated against the same trace
+   served directly; the client-minus-engine TTFT split into its parts
+   from the server's stamps); ``OpenLoopDriver`` over the same lengths arriving as
+   a Poisson process at 8 requests/s (no request submitted early; streams
+   gated against the same trace at t = 0); and, once the model is freed,
+   ``bench_serve.main``'s two steps twice in this process (llama3.1-8b
+   drawn anew, contiguous cache, prompt 256, 32 new tokens, 3 s warm-up,
+   a 10 s window, NVML, ``--check``), closed loop at concurrency 8 and
+   open loop at 4 requests/s: every request sent finished without an
+   error with its budget, launch counts exact, the TTFT split printed.
 7. Phases 3-6 again for the RG-LRU hybrid recurrentgemma-2b (26 layers:
    18 RG-LRU, 8 local attention over a 2048-token ring), once llama3.1-8b
    is freed: measure with exact launch counts (K5 18 per forward pass),
@@ -295,15 +313,21 @@ def kernel_phase(dev):
 
     def da_case(name, B, L, Hq, Hkv, D, dtype, q_at, filled, window=0, ring_at=None,
                 softcap=0.0):
+        """``q_at`` and ``filled`` (slots below it hold keys) are one value
+        for every row or a list of one per row."""
+        def rows(x):
+            return torch.tensor(x if isinstance(x, list) else [x] * B, dtype=torch.int32,
+                                device=dev)[:, None]
+
         q = randn(B, 1, Hq, D, dtype=dtype)
         kc, vc = randn(B, L, Hkv, D, dtype=dtype), randn(B, L, Hkv, D, dtype=dtype)
         if ring_at is None:
             kp = arange_pos(B, L)
-            kp = torch.where(kp < filled, kp, -1).to(torch.int32).contiguous()
+            kp = torch.where(kp < rows(filled), kp, -1).to(torch.int32).contiguous()
         else:  # ring: slot j holds the latest position = j (mod L)
             slots = torch.arange(L, device=dev)
             kp = (ring_at - (ring_at - slots) % L).to(torch.int32).expand(B, L).contiguous()
-        qp = torch.full((B, 1), q_at, dtype=torch.int32, device=dev)
+        qp = rows(q_at).contiguous()
         kw = dict(q_positions=qp, k_positions=kp, window=window, softcap=softcap)
         out = da_ops.decode_attention(q, kc, vc, **kw)
         ref = da_ref.decode_attention(q, kc, vc, **kw)
@@ -346,6 +370,16 @@ def kernel_phase(dev):
                         ring_at=ring_at)[1])
     errs.append(da_case("B=8 L=1000 Hq=32 Hkv=8", 8, 1000, 32, 8, 128, bf16, q_at=999,
                         filled=1000)[1])
+    # llama3.1-8b behind bench_serve: a contiguous (8, 1024) cache, split
+    # into 4 chunks of 256; rows on both sides of each chunk edge, then
+    # rows in the band its traffic decodes in
+    spread = [0, 255, 256, 270, 511, 512, 768, 1023]
+    errs.append(da_case(f"llama B=8 L=1024 rows at {spread}", 8, 1024, 32, 8, 128, bf16,
+                        q_at=spread, filled=[p + 1 for p in spread])[1])
+    band = [256 + 4 * b for b in range(8)]
+    serving_llama, e_l = da_case(f"llama bench_serve B=8 L=1024 rows at {band}", 8, 1024, 32,
+                                 8, 128, bf16, q_at=band, filled=[p + 1 for p in band])
+    errs.append(e_l)
     (q0, kc0, vc0, kw0), e0 = da_case("no valid key over L=2048", 1, 2048, 10, 1, 256, bf16,
                                       q_at=5, filled=0)
     check(da_ops.decode_attention(q0, kc0, vc0, **kw0).abs().max().item() == 0.0,
@@ -360,30 +394,42 @@ def kernel_phase(dev):
              hybrid_da)
     log_time("decode_attention", "q (8,1,10,256) ring (8,1024,1,256) softcap=30", da_call,
              serving_da)
-    decode_graph_check(dev, randn)
+    decode_graph_check(dev, randn, 1, 2048, 10, 1, 256, (62, 63, 64, 65, 127, 128, 1000, 2047),
+                       window=2048, softcap=30.0)
+    decode_graph_check(dev, randn, 8, 1024, 32, 8, 128, ([255] * 8, band, spread,
+                                                           [p + 1 for p in spread], [1023] * 8))
 
-    B, _, Hq, D = q.shape
-    Hkv = kc.shape[2]
-    qp, kp = kw["q_positions"], kw["k_positions"]
-    valid = ((kp >= 0) & (kp <= qp)).sum().item()
-    nbytes = 2 * (2 * valid * Hkv * D + 2 * q.numel()) + 4 * (qp.numel() + kp.numel())
-    flops = 4 * D * valid * Hq
-    n = copies(2 * 2 * kc.numel())
-    sets = [(q.clone(), kc.clone(), vc.clone()) for _ in range(n)]
-    tq = [(a.transpose(1, 2).contiguous(), b.transpose(1, 2).contiguous(),
-           c.transpose(1, 2).contiguous()) for a, b, c in sets]
-    mask = ((kp >= 0) & (kp <= qp))[:, None, None, :]
+    def da_row(case):
+        """Kernel, plain and SDPA times of K3 on ``case``'s inputs, with the
+        bound of the keys its rows see."""
+        q, kc, vc, kw = case
+        B, L, Hkv, D = kc.shape
+        Hq = q.shape[2]
+        qp, kp = kw["q_positions"], kw["k_positions"]
+        valid = ((kp >= 0) & (kp <= qp)).sum().item()
+        nbytes = 2 * (2 * valid * Hkv * D + 2 * q.numel()) + 4 * (qp.numel() + kp.numel())
+        n = copies(2 * 2 * kc.numel())
+        sets = [(q.clone(), kc.clone(), vc.clone()) for _ in range(n)]
+        tq = [(a.transpose(1, 2).contiguous(), b.transpose(1, 2).contiguous(),
+               c.transpose(1, 2).contiguous()) for a, b, c in sets]
+        mask = ((kp >= 0) & (kp <= qp))[:, None, None, :]
+        return dict(
+            shape=f"q ({B},1,{Hq},{D}) cache ({B},{L},{Hkv},{D}) bf16, {valid} valid keys",
+            ms=cuda_ms(lambda i: da_ops.decode_attention(*sets[i], **kw), n),
+            plain_ms=cuda_ms(lambda i: da_ref.decode_attention(*sets[i], **kw), n),
+            library_ms=cuda_ms(lambda i: F.scaled_dot_product_attention(
+                *tq[i], attn_mask=mask, enable_gqa=True), n),
+            **bound(nbytes, 4 * D * valid * Hq, BF16_FLOPS))
+
     entries.append(dict(
         name="decode_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention/decode_attention.py:93",
-        shape=f"q ({B},1,{Hq},{D}) cache ({B},{L},{Hkv},{D}) bf16",
-        max_abs_err=max(errs),
-        ms=cuda_ms(lambda i: da_ops.decode_attention(*sets[i], **kw), n),
-        plain_ms=cuda_ms(lambda i: da_ref.decode_attention(*sets[i], **kw), n),
-        library_ms=cuda_ms(lambda i: F.scaled_dot_product_attention(
-            *tq[i], attn_mask=mask, enable_gqa=True), n),
-        **bound(nbytes, flops, BF16_FLOPS)))
+        max_abs_err=max(errs), **da_row((q, kc, vc, kw))))
+    # bench_serve's contiguous cache (B = 8, max_len 1024): prompts of 256
+    # and 32 new tokens put every row in the 256-287 band
+    entries[-1]["serving"] = da_row(serving_llama)
+    log("time decode_attention bench_serve: " + json.dumps(entries[-1]["serving"]))
 
     # -- K4 paged decode attention ---------------------------------------------
     def pda_case(name, B, Hq, Hkv, D, dtype, q_pos, bs=16, nb=64, N=513, window=0,
@@ -801,37 +847,37 @@ def verify_flash_check(dev, randn):
     return row
 
 
-def decode_graph_check(dev, randn):
-    """One K3 call captured in a CUDA graph at recurrentgemma's ring shape,
-    replayed as q_pos advances across chunk boundaries (slots filled up to
-    it): bit-identical to the eager call, and within bf16 tolerance of the
-    plain version, at every position."""
+def decode_graph_check(dev, randn, B, L, Hq, Hkv, D, positions, window=0, softcap=0.0):
+    """One K3 call over a (B, L) cache captured in a CUDA graph, replayed
+    at each entry of ``positions`` (one q_pos for every row, or a list of
+    one per row; each row's slots filled up to it), across the chunk
+    boundaries of its plan: bit-identical to the eager call, and within
+    bf16 tolerance of the plain version, at every position."""
     import torch
 
     from repro_torch.kernels.decode_attention import ops as da_ops, ref as da_ref
 
-    B, L = 1, 2048
-    q = randn(B, 1, 10, 256)
-    kc, vc = randn(B, L, 1, 256), randn(B, L, 1, 256)
+    q = randn(B, 1, Hq, D)
+    kc, vc = randn(B, L, Hkv, D), randn(B, L, Hkv, D)
     qp = torch.zeros(B, 1, dtype=torch.int32, device=dev)
     kp = torch.full((B, L), -1, dtype=torch.int32, device=dev)
     slots = torch.arange(L, dtype=torch.int32, device=dev)[None]
-    kw = dict(q_positions=qp, k_positions=kp, window=2048, softcap=30.0)
+    kw = dict(q_positions=qp, k_positions=kp, window=window, softcap=softcap)
     da_ops.decode_attention(q, kc, vc, **kw)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         out = da_ops.decode_attention(q, kc, vc, **kw)
-    positions = (62, 63, 64, 65, 127, 128, 1000, 2047)
     for pos in positions:
-        qp.fill_(pos)
-        kp.copy_(torch.where(slots <= pos, slots, -1))
+        qp.copy_(torch.tensor(pos if isinstance(pos, list) else [pos] * B,
+                              dtype=torch.int32, device=dev)[:, None])
+        kp.copy_(torch.where(slots <= qp, slots, -1))
         graph.replay()
         eager = da_ops.decode_attention(q, kc, vc, **kw)
         torch.cuda.synchronize()
         check(torch.equal(out, eager), f"graph replay at q_pos {pos} differs from eager")
         close(out, da_ref.decode_attention(q, kc, vc, **kw), 2e-2)
-    log(f"check decode_attention in a CUDA graph: {len(positions)} replays at q_pos "
-        f"{positions} equal eager")
+    log(f"check decode_attention in a CUDA graph over ({B},{L},{Hkv},{D}): "
+        f"{len(positions)} replays at q_pos {positions} equal eager")
 
 
 def paged_graph_check(dev, randn):
@@ -1223,15 +1269,16 @@ class TimedGraph:
         return [s.elapsed_time(e) for s, e in self.events]
 
 
-def serve_arrivals(cfg, n_requests, greedy_only=False):
-    """``n_requests``, all at t = 0: lognormal prompts (mean 256, 32..768),
-    16..63 new tokens; even uids greedy, odd ones at temperature 0.7,
-    top-k 50 (or every one greedy)."""
+def serve_arrivals(cfg, n_requests, greedy_only=False, arrival_rate=0.0):
+    """``n_requests``, all at t = 0 (or Poisson at ``arrival_rate`` per
+    second): lognormal prompts (mean 256, 32..768), 16..63 new tokens; even
+    uids greedy, odd ones at temperature 0.7, top-k 50 (or every one
+    greedy)."""
     import dataclasses
 
     from repro_torch.serving.workload import LengthDist, WorkloadSpec, poisson_trace
 
-    spec = WorkloadSpec(arrival_rate=0.0, num_requests=n_requests,
+    spec = WorkloadSpec(arrival_rate=arrival_rate, num_requests=n_requests,
                         prompt_len=LengthDist(kind="lognormal", mean=256.0, low=32, high=768),
                         output_len=LengthDist(kind="uniform", low=16, high=64),
                         temperature=0.7, top_k=50, seed=0)
@@ -1299,11 +1346,14 @@ ENGINE_COUNTS = ("prefills", "chunk_forwards", "decode_forwards", "prefix_hits",
 
 
 def served(e, arrivals, counters, trace_name, trace=True, trace_at=None, setup=None,
-           **engine_kw):
+           open_loop=False, **engine_kw):
     """Serve ``arrivals`` at full width with NVML energy, each of the
     engine's CUDA graphs timed per replay (the decode step's is the verify
     step's with speculation); the counts from 0 for this run only;
-    ``setup(engine)`` first where given.  Checks: launch counts exact
+    ``setup(engine)`` first where given.  Every request is submitted at the
+    start, or with ``open_loop`` at its time in the trace by
+    ``OpenLoopDriver`` (each request's submit time less its scheduled time
+    then in ``stats["submit_lag_s"]``).  Checks: launch counts exact
     against the forward passes run, replays credited; every request emits
     its budget; blocks drained, the free stack full and table rows back at
     block 0; dispatches per step p50 = 1 and p95 <= 2.  Then, with
@@ -1313,9 +1363,11 @@ def served(e, arrivals, counters, trace_name, trace=True, trace_at=None, setup=N
     import torch
 
     from repro_torch.core.energy import NvmlReader, PowerMonitor
+    from repro_torch.serving.workload import OpenLoopDriver
 
     monitor = PowerMonitor(NvmlReader([0]))
-    eng = serve(e, arrivals, monitor=monitor, **engine_kw)
+    eng = serve(e, [] if open_loop else arrivals, monitor=monitor, **engine_kw)
+    driver = OpenLoopDriver(eng, arrivals)
     if setup is not None:
         setup(eng)
     check(eng._graph is not None, "the decode step was not captured")
@@ -1343,7 +1395,7 @@ def served(e, arrivals, counters, trace_name, trace=True, trace_at=None, setup=N
     reset_counts(counters)
     try:
         with monitor:
-            finished = eng.run()
+            finished = driver.run() if open_loop else eng.run()
     finally:
         monitor.reader.close()
     torch.cuda.synchronize()
@@ -1383,13 +1435,16 @@ def served(e, arrivals, counters, trace_name, trace=True, trace_at=None, setup=N
                               for k in sorted({k for k, _ in walls})}
     stats["replay_device_share_of_steps"] = (sum(sum(d) for d in device.values())
                                              / sum(ms for _, ms in walls))
+    if open_loop:
+        stats["submit_lag_s"] = [r.submit_time - driver.t0 - arrivals[r.uid].time_s
+                                 for r in sorted(finished, key=lambda r: r.uid)]
     streams = {r.uid: list(r.output_tokens) for r in finished}
     counts = {k: getattr(eng, k) for k in ENGINE_COUNTS}
     for k in ("spec_accept_rate", "drafted_tokens", "accepted_tokens", "tokens_per_dispatch",
               "preemptions", "recompute_tokens"):
         if k in summary:
             stats[k] = summary[k]
-    del eng, timed
+    del eng, timed, driver
     torch.cuda.empty_cache()
     stats["trace"] = (traced_replay(e, arrivals, trace_name, at=trace_at, **engine_kw)
                       if trace else None)
@@ -1469,7 +1524,8 @@ def chunked_serve_phase(e, counters, whole, measure_split):
 def graph_phase(e):
     """The same trace, every request greedy, with the decode step replayed
     from its CUDA graph and run eagerly: the streams must be identical
-    (the same kernels at the same shapes)."""
+    (the same kernels at the same shapes).  Returns the graph run's streams
+    and latencies."""
     import torch
 
     arrivals = serve_arrivals(e.cfg, GRAPH_REQUESTS[e.cfg.name], greedy_only=True)
@@ -1479,7 +1535,7 @@ def graph_phase(e):
         streams[graph] = {r.uid: r.output_tokens for r in eng.run()}
         summary = eng.latency_summary()
         tpot[graph] = {k: summary[k] for k in ("tpot_ms", "tpot_p50_ms", "tpot_p95_ms",
-                                                "ttft_ms", "steps_per_sec")}
+                                                "ttft_ms", "tokens_per_sec", "steps_per_sec")}
         del eng
         torch.cuda.empty_cache()
     same = sum(streams[True][u] == streams[False][u] for u in streams[True])
@@ -1487,6 +1543,7 @@ def graph_phase(e):
                                          "eager": tpot[False],
                                          "identical_streams": f"{same}/{len(streams[True])}"}))
     check(streams[True] == streams[False], "graph and eager streams differ")
+    return streams[True], tpot[True]
 
 
 # ---------------------------------------------------------------------------
@@ -1828,6 +1885,272 @@ def speculative_phase(e, counters, tol):
     return paths
 
 
+# ---------------------------------------------------------------------------
+# phase 6c: the serving front end at full width: HTTP, open loop, bench_serve
+# ---------------------------------------------------------------------------
+
+def request_stats(recs):
+    """The load generator's summary of the client records ``recs`` over
+    the span from the first send to the last chunk (``loadgen.summarize``:
+    client TTFT/TPOT and the client-minus-engine deltas), with the engine's
+    side it lacks, from the engine's stamps in the final chunks: mean TTFT
+    and TPOT, tokens/s over the engine's span and J/token from the
+    requests' joules (the prewarm requests the server's ``/metrics`` also
+    counts left out)."""
+    from repro_torch.serving.loadgen import summarize
+
+    eng = [r.engine for r in recs]
+    tokens = sum(len(r.tokens) for r in recs)
+    span = max(x["engine_finish_s"] for x in eng) - min(x["engine_submit_s"] for x in eng)
+    window = (min(r.send_time for r in recs), max(r.last_chunk_time for r in recs))
+    return {"ttft_ms": sum(x["engine_ttft_s"] for x in eng) / len(eng) * 1e3,
+            "tpot_ms": sum(x["engine_tpot_s"] for x in eng) / len(eng) * 1e3,
+            "tokens_per_sec": tokens / span,
+            "joules_per_token": sum(x["joules"] for x in eng) / tokens,
+            **summarize(recs, window)}
+
+
+TTFT_PARTS = ("send_to_queued", "queued_to_admitted", "first_token_to_hook", "hook_to_client")
+
+
+def ttft_split(recs, server):
+    """The client-minus-engine TTFT of ``recs`` in its parts (ms, mean and
+    p95), from the client's send and first-chunk stamps and the server's
+    ``front_stamps``: send -> queued (HTTP, parsing and the event loop's
+    wait for the interpreter lock), queued -> admitted (the wait for the
+    engine thread's current step), first token -> stream hook, hook ->
+    first chunk at the client.  Checks that the parts add up to the
+    delta."""
+    from repro_torch.serving.loadgen import _percentile
+
+    stamps = {s[0]: s for s in server.front_stamps}
+    parts = {k: [] for k in TTFT_PARTS + ("total",)}
+    for r in recs:
+        submit, queued, hook = stamps[r.engine["engine_submit_s"]]
+        values = (queued - r.send_time, submit - queued, hook - r.engine["engine_first_token_s"],
+                  r.first_chunk_time - hook, r.client_ttft_s - r.engine_ttft_s)
+        check(abs(sum(values[:-1]) - values[-1]) < 1e-6, "the TTFT parts do not add up")
+        for k, v in zip(parts, values):
+            parts[k].append(v * 1e3)
+    return {f"{k}_ms": {"mean": sum(v) / len(v), "p95": _percentile(v, 95)}
+            for k, v in parts.items()}
+
+
+def http_serve_phase(e, counters, tol, direct):
+    """The ``SERVE`` engine (NVML monitor, CUDA-graph decode step) prewarmed
+    at the traffic's bucket and served by ``start_http_server``; the 24
+    greedy requests of ``serve_arrivals`` sent at once by the port's
+    ``stream_completion``, each chunk recorded as it arrives.  Checks: every
+    request finishes without error with its budget; within each stream the
+    chunks are contiguous and in order and each was emitted before it
+    arrived; client TTFT >= engine TTFT; launch counts exact against the
+    forward passes run (the counts from 0 after the prewarm); ``/metrics``
+    dispatches per step p50 = 1 and p95 <= 2; the engine thread did not
+    fail (closing re-raises); the streams equal ``direct`` (the same trace
+    served by the engine at t = 0, ``graph_phase``) but where a decision's
+    margin is below ``tol`` (``gate_streams``).  The monitor is attached
+    after the prewarm, so only the traffic's tokens take its energy.
+    Returns the launches."""
+    import asyncio
+
+    import torch
+
+    from repro_torch.core.energy import NvmlReader, PowerMonitor
+    from repro_torch.serving import client as client_mod
+    from repro_torch.serving.client import fetch_metrics, stream_completion
+    from repro_torch.serving.loadgen import prewarm_engine
+    from repro_torch.serving.server import start_http_server
+
+    t0 = time.perf_counter()
+    arrivals = serve_arrivals(e.cfg, GRAPH_REQUESTS[ARCH], greedy_only=True)
+    eng = serve(e, [])
+    check(eng._graph is not None, "the decode step was not captured")
+    prewarm_engine(eng, prompt_len=256, concurrency=SERVE["max_batch"],
+                   vocab_size=e.cfg.vocab_size)
+    torch.cuda.synchronize()
+    monitor = PowerMonitor(NvmlReader([0]))
+    eng.attach_monitor(monitor)
+    before = (eng.prefills, eng.chunk_forwards, eng.decode_forwards)
+    seen = []  # (arrival time, SSE data) of each stream, as stream_completion reads them
+    sse_data = client_mod.sse_data
+
+    def recording(blocks):
+        events = []
+        seen.append(events)
+
+        async def gen():
+            async for data in sse_data(blocks):
+                events.append((time.perf_counter(), data))
+                yield data
+        return gen()
+
+    async def go(url):
+        recs = await asyncio.gather(*[
+            stream_completion(url, a.prompt.tolist(), max_tokens=a.params.max_new_tokens,
+                              timeout_s=300.0) for a in arrivals])
+        return recs, await fetch_metrics(url)
+
+    reset_counts(counters)
+    try:
+        with monitor, patched(client_mod, "sse_data", recording):
+            with start_http_server(eng, model_name=e.cfg.name) as handle:
+                recs, metrics = asyncio.run(go(handle.url))
+    finally:
+        monitor.reader.close()
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    ran = [n - b for n, b in zip((eng.prefills, eng.chunk_forwards, eng.decode_forwards), before)]
+    want = expected_launches(e.cfg, ran[0], ran[2], paged=True, chunks=ran[1])
+    log(f"http serve {e.cfg.name}: {ran[0]} admission prefills, {ran[2]} decode passes; "
+        f"launches {launches}, expected {want}")
+    check(launches == want, f"http serve launch counts {launches} != {want}")
+    errors = [r.error for r in recs if r.error]
+    check(not errors, f"{len(errors)} requests failed over HTTP: {errors[:3]}")
+    check(all(len(r.tokens) == a.params.max_new_tokens and r.finish_reason == "length"
+              for r, a in zip(recs, arrivals)), "a request did not stream its budget")
+    check(all(r.client_ttft_s >= r.engine_ttft_s > 0 for r in recs),
+          "a client TTFT is below the engine's")
+    by_submit = {r.engine["engine_submit_s"]: r for r in recs}
+    check(len(seen) == len(recs), f"{len(seen)} event streams for {len(recs)} requests")
+    for events in seen:
+        objs = [(t, json.loads(d)) for t, d in events if d != "[DONE]"]
+        rec = by_submit[objs[-1][1]["elana"]["engine_submit_s"]]
+        index = 0
+        for t, obj in objs[:-1]:
+            ext = obj["elana"]
+            check(ext["first_index"] == index, "a stream's chunks are not contiguous")
+            check(ext["emit_s"] <= t, "a chunk arrived before it was emitted")
+            index += len(ext["tokens"])
+        check(index == len(rec.tokens) and events[-1][1] == "[DONE]",
+              "a stream's chunks do not add up to its tokens")
+    check(metrics["dispatches_per_step_p50"] == 1 and metrics["dispatches_per_step_p95"] <= 2,
+          f"dispatches/step under the server {metrics}")
+    check(eng.blocks_in_use == 0, f"{eng.blocks_in_use} blocks still in use at drain")
+    stats = {**request_stats(recs), "ttft_split": ttft_split(recs, handle.server),
+             "requests": len(recs),
+             "chunks": sum(r.chunks for r in recs),
+             "server_requests_received": metrics["server_requests_received"],
+             "server_chunks_streamed": metrics["server_chunks_streamed"],
+             "metrics_dispatches_per_step_p50": metrics["dispatches_per_step_p50"],
+             "metrics_dispatches_per_step_p95": metrics["dispatches_per_step_p95"],
+             "power_samples_per_sec": metrics["power_samples_per_sec"]}
+    del eng
+    torch.cuda.empty_cache()
+    streams = {i: r.tokens for i, r in enumerate(recs)}
+    same, flips = gate_streams(e, arrivals, direct[0], streams, tol, "http vs direct")
+    log("http serve: " + json.dumps({
+        "arch": e.cfg.name, **SERVE, "prewarm": {"prompt_len": 256,
+                                                 "concurrency": SERVE["max_batch"]},
+        "http": stats, "direct_t0": direct[1], "identical_streams": f"{same}/{len(recs)}",
+        "first_differences": flips, "wall_s": time.perf_counter() - t0}))
+    return launches
+
+
+OPEN_LOOP_RATE = 8.0  # requests / s
+
+
+def open_loop_phase(e, counters, tol):
+    """``OpenLoopDriver`` on the ``SERVE`` engine over ``serve_arrivals``
+    arriving as a Poisson process at 8 requests/s (24 greedy requests),
+    then the same trace submitted at t = 0 (``served`` both, with its
+    checks).  Checks: no request submitted before its time; the streams
+    equal the t = 0 run's but where a decision's margin is below ``tol``.
+    Returns the paths' launches."""
+    t0 = time.perf_counter()
+    arrivals = serve_arrivals(e.cfg, GRAPH_REQUESTS[ARCH], greedy_only=True,
+                              arrival_rate=OPEN_LOOP_RATE)
+    launches, stats, streams, _ = served(e, arrivals, counters, "open_loop", trace=False,
+                                         open_loop=True)
+    lag = stats.pop("submit_lag_s")
+    check(min(lag) >= 0, f"a request was submitted {-min(lag)} s before its time")
+    base_launches, base_stats, base, _ = served(e, arrivals, counters, "open_loop_t0",
+                                                trace=False)
+    same, flips = gate_streams(e, arrivals, base, streams, tol, "open loop vs t = 0")
+    keys = ("ttft_ms", "ttft_p50_ms", "ttft_p95_ms", "tpot_ms", "tpot_p50_ms", "tpot_p95_ms",
+            "ttlt_ms", "tokens_per_sec", "steps_per_sec", "joules_per_token",
+            "dispatches_per_step_p50", "dispatches_per_step_p95", "decode_replays",
+            "decode_replay_device_ms_p50", "decode_busy_share", "steps_by_kind")
+    log("open loop serve: " + json.dumps({
+        "arch": e.cfg.name, **SERVE, "arrival_rate": OPEN_LOOP_RATE,
+        "trace_span_s": arrivals[-1].time_s,
+        "submit_lag_ms": {"min": min(lag) * 1e3, "p50": p50(lag) * 1e3, "max": max(lag) * 1e3},
+        "open_loop": {k: stats[k] for k in keys}, "t0": {k: base_stats[k] for k in keys},
+        "identical_streams": f"{same}/{len(arrivals)}", "first_differences": flips,
+        "wall_s": time.perf_counter() - t0}))
+    return {f"{e.cfg.name} open loop": launches, f"{e.cfg.name} open loop t=0": base_launches}
+
+
+BENCH_SERVE = ["--arch", ARCH, "--max-batch", "8", "--max-len", "1024", "--prompt-len", "256",
+               "--max-new", "32", "--warmup-s", "3", "--duration-s", "10",
+               "--power-reader", "nvml", "--check"]
+BENCH_MODES = {"closed": ["--mode", "closed", "--concurrency", "8"],
+               "open": ["--mode", "open", "--qps", "4"]}
+
+
+def bench_serve_phase(counters):
+    """The two steps of ``bench_serve.main`` in this process (so its
+    launches count), ``run`` then ``report``: closed loop at concurrency 8
+    and open loop at 4 requests/s, each drawing llama3.1-8b's weights anew
+    and serving from a contiguous cache (K3).  Its ``--check`` gates hold;
+    every request sent, warm-up and the window's tail included, finished
+    without an error with its budget, and the engine finished each of them
+    beside the prewarm's; the launch counts are exact against the forward
+    passes its engine ran and the capture's two warm-up runs.  Prints each
+    run's output and its client-minus-engine TTFT split.  Returns the
+    paths' launches."""
+    import io
+
+    import torch
+
+    from repro_torch.launch import bench_serve
+
+    paths = {}
+    for mode, flags in BENCH_MODES.items():
+        t0 = time.perf_counter()
+        args = bench_serve.build_parser().parse_args(BENCH_SERVE + flags)
+        out = io.StringIO()
+        reset_counts(counters)
+        with contextlib.redirect_stdout(out):
+            bench = bench_serve.run(args)
+        torch.cuda.synchronize()
+        launches = read_counts(counters)
+        try:
+            with contextlib.redirect_stdout(out):
+                bench_serve.report(bench, args)
+        except SystemExit as exc:  # a failed --check
+            log(out.getvalue())
+            raise CheckFailed(f"bench_serve {mode}: {exc.code}") from None
+        log(out.getvalue())
+        result, eng = bench.result, bench.server.engine
+        sent = result.all_records
+        errors = [r.error for r in sent if r.error]
+        check(result.summary["errors"] == 0 and not errors,
+              f"bench_serve {mode}: {len(errors)} requests failed: {errors[:3]}")
+        check(all(len(r.tokens) == args.max_new and r.finish_reason == "length" for r in sent),
+              f"bench_serve {mode}: a request did not stream its budget")
+        prewarm = max(min(args.concurrency, args.max_batch), 1)
+        check(len(eng.finished) == prewarm + len(sent),
+              f"bench_serve {mode}: the engine finished {len(eng.finished)} requests, "
+              f"{prewarm} prewarm + {len(sent)} sent")
+        # the engine was built inside the counted run, and its capture ran
+        # the decode step twice before capturing it (dispatch.capture_graph)
+        check(eng._graph is not None and eng._unified_graph is None,
+              "bench_serve's engine has not the one captured decode step")
+        want = expected_launches(eng.cfg, eng.prefills, eng.decode_forwards + 2)
+        log(f"bench_serve {mode}: " + json.dumps({
+            "arch": ARCH, "argv": BENCH_SERVE + flags, "prefills": eng.prefills,
+            "decode_forwards": eng.decode_forwards, "requests_sent": len(sent),
+            "requests_served": len(eng.finished), "launches": launches, "expected": want,
+            "summary": result.summary, "ttft_split": ttft_split(result.records, bench.server),
+            "wall_s": time.perf_counter() - t0}, default=float))
+        check(launches == want, f"bench_serve {mode} launch counts {launches} != {want}")
+        paths[f"{ARCH} bench_serve {mode}"] = launches
+        del eng, bench, result, sent
+        gc.collect()
+        torch.cuda.empty_cache()
+    return paths
+
+
 def idle_power(samples=20, interval_s=0.1):
     """The board's power from NVML before any model is drawn (the ``h100``
     spec's ``idle_watts``)."""
@@ -1877,14 +2200,25 @@ def main():
     profile_phase(e, dev)
     whole = serve_phase(e, counters)
     paths[f"{ARCH} serve"] = whole[0]
-    graph_phase(e)
+    direct = graph_phase(e)
     paths.update(chunked_serve_phase(e, counters, whole, measure_split))
     tol = parity_phase(e, dev)
     paths.update(preemption_phase(e, counters, tol))
     paths.update(speculative_phase(e, counters, tol))
-    del e  # free llama3.1-8b before the second model
+    paths[f"{ARCH} http serve"] = http_serve_phase(e, counters, tol, direct)
+    paths.update(open_loop_phase(e, counters, tol))
+    del e  # free llama3.1-8b before bench_serve draws it anew
     gc.collect()
     torch.cuda.empty_cache()
+    paths.update(bench_serve_phase(counters))
+    gc.collect()
+    torch.cuda.empty_cache()
+    for path, decode in (("http serve", "paged_decode_attention"),
+                         ("open loop", "paged_decode_attention"),
+                         ("bench_serve closed", "decode_attention"),
+                         ("bench_serve open", "decode_attention")):
+        check(all(paths[f"{ARCH} {path}"][k] > 0 for k in ("rmsnorm", "flash_attention", decode)),
+              f"K1, K2 or {decode} never launched on {path}")
 
     t0 = time.perf_counter()
     h, paths[f"{HYBRID} measure"], measured = main_path_phase(HYBRID, counters)

@@ -142,6 +142,21 @@ class NvmlReader(PowerReader):
         self._lib.nvmlShutdown()
 
 
+def make_reader(kind: str, synthetic: Callable[[float], float] = lambda t: 42.0) -> PowerReader:
+    """The power reader a CLI's ``--power-reader`` names: ``nvml`` (the
+    GPUs), ``proc`` (/proc/stat), ``model`` (a 10 W idle, 65 W TDP model)
+    or ``synthetic`` (the waveform ``synthetic``, watts at t seconds)."""
+    if kind == "nvml":
+        return NvmlReader()
+    if kind == "proc":
+        return ProcStatReader()
+    if kind == "model":
+        return ModelReader(idle_watts=10.0, tdp_watts=65.0)
+    if kind == "synthetic":
+        return SyntheticReader(synthetic)
+    raise ValueError(f"unknown power reader {kind!r}")
+
+
 @dataclasses.dataclass
 class EnergyResult:
     duration_s: float

@@ -1,27 +1,40 @@
-"""Serving driver of the port: closed-loop traffic (every request submitted
-at the start) against the continuous-batching engine, with per-request
-energy attribution.  The counterpart of ``repro/launch/serve.py`` for the
-flags of the engine the port has.
+"""Serving driver of the port: open-loop traffic against the
+continuous-batching engine, with per-request energy attribution.  The
+counterpart of ``repro/launch/serve.py`` (all its flags but ``--tp``).
 
     python -m repro_torch.launch.serve --arch llama3.1-8b --cache-layout paged
-    python -m repro_torch.launch.serve --arch tinyllama-1.1b --smoke --device cpu
+    python -m repro_torch.launch.serve --arch tinyllama-1.1b --smoke --device cpu \
+        --arrival-rate 4
+    python -m repro_torch.launch.serve --arch tinyllama-1.1b --smoke --device cpu \
+        --replay 0:8:4,0.05:16:4
+    python -m repro_torch.launch.serve --arch tinyllama-1.1b --smoke --device cpu \
+        --power-reader synthetic --http-port 8000
     python -m repro_torch.launch.serve --arch llama3.1-8b --cache-layout paged \
         --prefill-chunk 256 --prefix-cache --shared-prefix-len 448
     python -m repro_torch.launch.serve --arch llama3.1-8b --cache-layout paged \
         --preemption recompute --kv-num-blocks auto --speculative lookup \
         --spec-tokens 4 --lookup-friendly
 
-The weights are random, drawn from ``--seed``.  Energy is read by
+``--arrival-rate 0`` (the default) submits every request at the start;
+otherwise arrivals are Poisson at that rate, replayed against the wall
+clock by ``OpenLoopDriver``.  ``--replay t:plen:max_new,...`` replays an
+explicit schedule instead, and ``--bursty`` waves of same-instant
+arrivals.  ``--http-port`` serves the OpenAI-compatible HTTP API
+(``serving/server.py``) until Ctrl-C instead of replaying a trace.  The
+weights are random, drawn from ``--seed``.  Energy is read by
 ``--power-reader`` (NVML on the GPU by default, none on the CPU) and
 split between requests by the tokens each emitted in every window.
-Prints ``latency_summary()`` as JSON.
+Prints ``latency_summary()`` as JSON, then markdown tables of the latency
+percentiles, the step economics and the requests.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import sys
+import time
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -42,6 +55,24 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--prompt-len-dist", default="uniform",
                     choices=["fixed", "uniform", "lognormal"])
     ap.add_argument("--prompt-len-mean", type=float, default=24.0)
+    ap.add_argument("--arrival-rate", type=float, default=0.0,
+                    help="Poisson arrivals/sec; 0 = submit all up front")
+    ap.add_argument("--replay", default="",
+                    help="deterministic schedule t:plen:max_new,... (overrides "
+                         "--arrival-rate)")
+    ap.add_argument("--bursty", action="store_true",
+                    help="the bursty overcommit workload (waves of simultaneous arrivals) "
+                         "instead of Poisson traffic: what --preemption recompute is for")
+    ap.add_argument("--burst-size", type=int, default=4,
+                    help="requests per wave of the --bursty trace")
+    ap.add_argument("--burst-gap", type=float, default=0.25,
+                    help="seconds between --bursty waves")
+    ap.add_argument("--http-port", type=int, default=0,
+                    help="serve over HTTP instead of replaying a trace: the OpenAI-compatible "
+                         "server (POST /v1/completions, stream=true for server-sent events; "
+                         "GET /v1/models, /metrics) on this port until Ctrl-C (0 = off; the "
+                         "workload flags are ignored)")
+    ap.add_argument("--http-host", default="127.0.0.1", help="bind address for --http-port")
     ap.add_argument("--cache-layout", default="contiguous", choices=["contiguous", "paged"],
                     help="KV layout: worst-case contiguous slots or a shared block "
                          "pool with per-slot block tables")
@@ -57,7 +88,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "decodes need them and, when the pool is dry, preempts the newest "
                          "request (never the head of line), re-admitting it later by "
                          "recomputing its prompt and emitted tokens")
-    ap.add_argument("--power-reader", default=None, choices=["nvml", "synthetic", "none"],
+    ap.add_argument("--power-reader", default=None,
+                    choices=["nvml", "proc", "model", "synthetic", "none"],
                     help="power source for energy attribution (default: nvml on the "
                          "GPU, none on the CPU)")
     ap.add_argument("--cuda-graph", default="on", choices=["on", "off"],
@@ -111,12 +143,20 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _make_monitor(kind: str):
-    from repro_torch.core.energy import NvmlReader, PowerMonitor, SyntheticReader
+    from repro_torch.core.energy import PowerMonitor, make_reader
 
-    if kind == "none":
-        return None
-    reader = NvmlReader() if kind == "nvml" else SyntheticReader(lambda t: 42.0)
-    return PowerMonitor(reader)
+    return None if kind == "none" else PowerMonitor(make_reader(kind))
+
+
+def _parse_replay(text: str):
+    rows = []
+    for item in text.split(","):
+        try:
+            t, plen, max_new = item.split(":")
+            rows.append((float(t), int(plen), int(max_new)))
+        except ValueError:
+            raise ValueError(f"bad --replay item {item!r}: expected t:plen:max_new")
+    return rows
 
 
 def main(argv=None) -> int:
@@ -139,34 +179,50 @@ def main(argv=None) -> int:
 
     from repro_torch import resolve_device
     from repro_torch.configs import get_config
+    from repro_torch.core import report
     from repro_torch.models import cache as cache_lib
     from repro_torch.models import model as model_lib
     from repro_torch.serving.engine import ServingEngine
-    from repro_torch.serving.workload import (LengthDist, WorkloadSpec, estimate_concurrency,
+    from repro_torch.serving.workload import (LengthDist, OpenLoopDriver, WorkloadSpec,
+                                              bursty_trace, estimate_concurrency,
                                               lookup_friendly_trace, poisson_trace,
-                                              shared_prefix_trace)
+                                              replay_trace, shared_prefix_trace)
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
     plo = max(int(args.prompt_len_mean // 4), 1)
     phi = max(int(args.prompt_len_mean * 2), plo + 1)
     spec = WorkloadSpec(
-        arrival_rate=0.0, num_requests=args.requests,
+        arrival_rate=args.arrival_rate, num_requests=args.requests,
         prompt_len=LengthDist(kind=args.prompt_len_dist, mean=args.prompt_len_mean,
                               low=plo, high=phi),
         output_len=LengthDist(kind="fixed", mean=args.max_new, low=1,
                               high=max(args.max_new, 1)),
         temperature=args.temperature, seed=args.seed)
-    if args.lookup_friendly:
+    if args.replay:
+        try:
+            schedule = _parse_replay(args.replay)
+        except ValueError as e:
+            ap.error(str(e))
+        arrivals = replay_trace(schedule, cfg.vocab_size, seed=args.seed,
+                                temperature=args.temperature, top_k=20)
+    elif args.bursty:
+        bursts = max(-(-args.requests // max(args.burst_size, 1)), 1)
+        arrivals = bursty_trace(
+            cfg.vocab_size, bursts=bursts, burst_size=args.burst_size, gap_s=args.burst_gap,
+            prompt_len=max(int(args.prompt_len_mean), 1), max_new=args.max_new,
+            seed=args.seed, temperature=args.temperature, top_k=20)[:args.requests]
+    elif args.lookup_friendly:
         arrivals = lookup_friendly_trace(
             cfg.vocab_size, num_requests=args.requests, motif_len=args.motif_len,
-            repeats=args.motif_repeats, max_new=args.max_new, seed=args.seed,
-            temperature=args.temperature, top_k=20)
+            repeats=args.motif_repeats, max_new=args.max_new, arrival_rate=args.arrival_rate,
+            seed=args.seed, temperature=args.temperature, top_k=20)
     elif args.shared_prefix_len > 0:
         arrivals = shared_prefix_trace(
             cfg.vocab_size, num_requests=args.requests, shared_prefix_len=args.shared_prefix_len,
             num_prefixes=args.shared_prefixes, suffix_len=args.shared_suffix_len,
-            max_new=args.max_new, seed=args.seed, temperature=args.temperature, top_k=20)
+            max_new=args.max_new, arrival_rate=args.arrival_rate, seed=args.seed,
+            temperature=args.temperature, top_k=20)
     else:
         arrivals = poisson_trace(spec, cfg.vocab_size)
 
@@ -193,22 +249,59 @@ def main(argv=None) -> int:
                            unified_step=args.unified_step == "on", pad_side=args.pad_side,
                            prefix_cache=args.prefix_cache, preemption=args.preemption,
                            speculative=args.speculative, spec_tokens=args.spec_tokens)
-    for a in arrivals:
-        engine.submit(a.prompt, a.params)
+    device_name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    if args.http_port:
+        return _serve_http(args, cfg, engine, monitor, device_name)
+    if monitor is not None:
+        engine.attach_monitor(monitor)
     try:
-        if monitor is not None:
-            engine.attach_monitor(monitor)
-            with monitor:
-                engine.run()
-        else:
-            engine.run()
+        with monitor or contextlib.nullcontext():
+            finished = OpenLoopDriver(engine, arrivals).run()
     finally:
         if monitor is not None:
             monitor.reader.close()
     summary = engine.latency_summary()
-    summary["device"] = (torch.cuda.get_device_name(device) if device.type == "cuda"
-                         else "cpu")
+    summary["device"] = device_name
     print(json.dumps(summary, indent=2))
+    print("\n## Latency percentiles\n")
+    print(report.to_markdown(report.serving_summary_rows(summary)))
+    throughput = report.serving_throughput_rows(summary)
+    if throughput:
+        print("\n## Step economics\n")
+        print(report.to_markdown(throughput))
+    print("\n## Per-request (energy attributed per token window)\n")
+    print(report.to_markdown(report.serving_request_rows(sorted(finished, key=lambda r: r.uid))))
+    return 0
+
+
+def _serve_http(args, cfg, engine, monitor, device_name) -> int:
+    """``--http-port``: serve until Ctrl-C, then print the summary."""
+    from repro_torch.core import report
+    from repro_torch.serving.server import start_http_server
+
+    if monitor is not None:
+        engine.attach_monitor(monitor)
+    try:
+        with monitor or contextlib.nullcontext():
+            handle = start_http_server(engine, host=args.http_host, port=args.http_port,
+                                       model_name=cfg.name)
+            print(f"# serving {cfg.name} at {handle.url} (POST /v1/completions; Ctrl-C to "
+                  f"stop)", flush=True)
+            try:
+                while True:
+                    time.sleep(1.0)
+            except KeyboardInterrupt:
+                pass
+            finally:
+                handle.close()
+        summary = handle.server.summary()
+    finally:
+        if monitor is not None:
+            monitor.reader.close()
+    summary["device"] = device_name
+    print(json.dumps(summary, indent=2, default=float))
+    print("\n## Latency percentiles\n")
+    print(report.to_markdown(report.serving_summary_rows(summary)))
     return 0
 
 

@@ -501,6 +501,38 @@ def test_engine_cuda_graph_matches_eager(cuda):
     assert [len(outs[True][i]) for i in range(5)] == [6 + 3 * i for i in range(5)]
 
 
+def test_http_greedy_stream_matches_direct_engine(cuda):
+    """Greedy requests through the HTTP server on the card, one at a time,
+    stream exactly what the same engine settings emit driven directly:
+    the engine thread replays the graphs the constructing thread captured,
+    on the engine's device."""
+    import asyncio
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as model_lib
+    from repro_torch.serving.client import stream_completion
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.sampling import SamplingParams
+    from repro_torch.serving.server import start_http_server
+
+    cfg = get_config("llama3.2-1b", smoke=True).replace(dtype="bfloat16",
+                                                        param_dtype="bfloat16")
+    model = model_lib.init(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    rng = _rng("http")
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (5, 30, 17)]
+    kw = dict(max_batch=2, max_len=96, prompt_bucket=8, cache_layout="paged", device=cuda)
+    direct = ServingEngine(model, **kw)
+    want = []
+    for p in prompts:
+        direct.submit(np.asarray(p), SamplingParams(max_new_tokens=9))
+        want.append(list(direct.run()[-1].output_tokens))
+    with start_http_server(ServingEngine(model, **kw)) as handle:
+        got = [asyncio.run(stream_completion(handle.url, p, max_tokens=9)) for p in prompts]
+    assert all(not r.error for r in got)
+    assert [r.tokens for r in got] == want
+    assert all(r.client_ttft_s >= r.engine_ttft_s > 0 for r in got)
+
+
 @pytest.mark.parametrize("shape", [(1, 4096), (512, 4096), (3, 7, 12288), (5, 100)])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_rmsnorm_kernel_matches_plain(cuda, shape, dtype):

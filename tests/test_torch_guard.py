@@ -1,6 +1,6 @@
-"""Guards of the port's boundary: it imports nothing of JAX or of the
-reference package, and its entry points run on the GPU unless told
-otherwise."""
+"""Guards of the port's boundary: it imports nothing of JAX, of the
+reference package or of aiohttp (which the GPU's machine does not have),
+and its entry points run on the GPU unless told otherwise."""
 
 import json
 import os
@@ -16,7 +16,7 @@ torch = pytest.importorskip("torch")
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
               + sorted((ROOT / "tools").glob("*.py")))
-FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)", re.M)
+FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro|aiohttp)(\.|\s|$)", re.M)
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -32,7 +32,7 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torc
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+             if m.split(".")[0] in ("jax", "jaxlib", "repro", "aiohttp"))
 print(json.dumps({"imported": len(names), "bad": bad}))
 """
 
@@ -63,6 +63,24 @@ def test_entry_points_default_to_the_gpu():
         with pytest.raises(RuntimeError, match="no GPU"):
             Model(cfg)
     assert Elana("llama3.2-1b", device="cpu").device.type == "cpu"
+    # the HTTP benchmark, and the engine a server is handed, likewise
+    from repro_torch.launch import bench_serve
+    from repro_torch.models import model as model_lib
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.server import start_http_server
+
+    assert bench_serve.build_parser().parse_args([]).device == "cuda"
+    tiny = get_config("tinyllama-1.1b", smoke=True)
+    if torch.cuda.is_available():
+        model = model_lib.init(tiny, torch.Generator(device="cuda").manual_seed(0))
+        with start_http_server(ServingEngine(model, max_len=64)) as handle:
+            assert handle.server.engine.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no GPU"):
+            bench_serve.main(["--smoke", "--arch", "tinyllama-1.1b"])
+        model = model_lib.init(tiny, torch.Generator().manual_seed(0), device="cpu")
+        with pytest.raises(RuntimeError, match="no GPU"):
+            start_http_server(ServingEngine(model))
 
 
 def test_serving_entry_points_default_to_the_gpu():

@@ -328,7 +328,7 @@ def test_serve_cli_auto_blocks_preemption_and_speculation(capsys):
                            "--kv-block-size", "8", "--temperature", "0"]) == 0
     lines = capsys.readouterr().out.splitlines()
     assert lines[0].startswith("# --kv-num-blocks auto -> ")
-    out = json.loads("\n".join(lines[1:]))
+    out, _ = json.JSONDecoder().raw_decode("\n".join(lines[1:]))
     assert out["requests"] == 6 and out["output_tokens"] == 96
     for key in ("preemptions", "recompute_tokens", "spec_accept_rate", "tokens_per_dispatch",
                 "drafted_tokens", "accepted_tokens"):

@@ -320,7 +320,7 @@ def test_serve_cli_chunked_prefix_cached_on_the_cpu(capsys):
                            "paged", "--prefill-chunk", "16", "--prefix-cache",
                            "--shared-prefix-len", "32", "--requests", "6", "--max-new", "4",
                            "--max-len", "128", "--temperature", "0"]) == 0
-    out = json.loads(capsys.readouterr().out)
+    out, _ = json.JSONDecoder().raw_decode(capsys.readouterr().out)
     assert out["requests"] == 6 and out["output_tokens"] == 24
     for key in SUMMARY_KEYS + ("prefill_tokens_per_sec",):
         assert key in out, key

@@ -270,7 +270,7 @@ def test_serve_cli_runs_on_the_cpu(capsys):
     assert serve_cli.main(["--arch", ARCH, "--smoke", "--device", "cpu", "--requests", "3",
                            "--max-new", "4", "--max-len", "128", "--cache-layout", "paged",
                            "--power-reader", "synthetic"]) == 0
-    out = json.loads(capsys.readouterr().out)
+    out, _ = json.JSONDecoder().raw_decode(capsys.readouterr().out)
     assert out["requests"] == 3 and out["output_tokens"] == 12
     assert out["device"] == "cpu" and out["joules_total"] > 0
 
