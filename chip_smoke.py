@@ -83,7 +83,17 @@ or of the ``repro`` package.  Phases:
    chunked through the unified step, and the parity over a 2304-token
    prompt, past the window, so the ring wraps (whole and in chunks), with
    the tied embedding table scaled by 0.05 so that rows decide.
-8. The last line: ``{"ok": true, "device": {...}}``.
+8. The xLSTM family, each model drawn once the one before it is freed:
+   phases 3-6 for nemotron-h-8b at full width (52 layers: 32 mLSTM cells
+   of 128 heads x 64, 14 FFN-only layers, 6 GQA attention layers; K1 twice
+   per mLSTM block, K2/K3 on the attention layers, K4 when served paged),
+   16 requests served and 8 greedy ones with and without the graph, the
+   same 16 chunked through the unified step, and the parity at 512 tokens
+   (contiguous, paged, paged in chunks of 256); then xlstm-1.3b (42 mLSTM
+   and 6 sLSTM layers, no attention: K1 only): measure, graph against
+   eager, the profile and the parity over a contiguous cache, whole and
+   in chunks.  Each model's phases print their time.
+9. The last line: ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line is printed; so does a
 machine without a CUDA device.
@@ -103,18 +113,21 @@ sys.path.insert(0, str(ROOT / "src"))
 
 ARCH = "llama3.1-8b"
 HYBRID = "recurrentgemma-2b"
-SIZE_GB = {ARCH: "16.06", HYBRID: "5.36"}   # the reference's size reports
+NEMOTRON = "nemotron-h-8b"   # the paper's mLSTM hybrid
+XLSTM = "xlstm-1.3b"         # mLSTM and sLSTM, no attention
+SIZE_GB = {ARCH: "16.06", HYBRID: "5.36", NEMOTRON: "16.38",   # the reference's
+           XLSTM: "3.77"}                                      # size reports
 BATCH, PROMPT, GEN, ITERS = 1, 512, 32, 3
 HYBRID_PARITY_PROMPT = 2304  # past the 2048-token window: the ring wraps
 # the serving path: paged pool of 8 * 64 + 1 blocks of 16 tokens
 SERVE = dict(cache_layout="paged", kv_block_size=16, max_batch=8, max_len=1024,
              prompt_bucket=64, seed=0)
-SERVE_REQUESTS = {ARCH: 24, HYBRID: 16}
+SERVE_REQUESTS = {ARCH: 24, HYBRID: 16, NEMOTRON: 16}
 # chunked prefill through the unified step, and the shared-prefix trace's
 # system prompt (28 blocks of 16)
 CHUNKED = dict(prefill_chunk=256, prefill_budget=256)
 SHARED_PREFIX = 448
-GRAPH_REQUESTS = {ARCH: 24, HYBRID: 8}
+GRAPH_REQUESTS = {ARCH: 24, HYBRID: 8, NEMOTRON: 8}
 # preemption: the pool cut to two worst-case requests and the garbage block
 # (2 * 64 + 1 blocks of 16), overcommit survived by recompute
 PREEMPT = dict(kv_num_blocks=129, preemption="recompute")
@@ -542,37 +555,42 @@ def kernel_phase(dev):
     empty_ms = cuda_ms(lambda i: torch.cuda._sleep(1), 1)
     log(f"time empty kernel (torch.cuda._sleep(1)): kernel_ms={empty_ms:.4f}")
     modes = []
-    for rows in (1, 8, PROMPT):
-        for fused in (False, True):
-            (x, r, s), err = rn_case(rows, 4096, bf16, fused)
-            errs.append(err)
-            d, numel = 4096, rows * 4096
-            # decode rows arrive hot from the kernel that wrote them; prompt
-            # rows are rotated past the L2 cache, as for the other kernels
-            n = copies(2 * 2 * numel) if rows == PROMPT else 1
-            sets = [(x.clone(), None if r is None else r.clone()) for _ in range(n)]
-            w = (1.0 + s.float()).to(bf16)
-            if fused:
-                kern = lambda i: rn_ops.add_rmsnorm(*sets[i], s, 1e-6)  # noqa: E731
-                plain = lambda i: rn_ref.add_rmsnorm(*sets[i], s, 1e-6)  # noqa: E731
-                lib = lambda i: F.rms_norm(sets[i][0] + sets[i][1], (d,), weight=w,  # noqa: E731
-                                           eps=1e-6)
-                sep = lambda i: rn_ops.rmsnorm(sets[i][0] + sets[i][1], s, 1e-6)  # noqa: E731
-                nbytes, flops = 2 * (4 * numel + d), 5 * numel
-            else:
-                kern = lambda i: rn_ops.rmsnorm(sets[i][0], s, 1e-6)  # noqa: E731
-                plain = lambda i: rn_ref.rmsnorm(sets[i][0], s, 1e-6)  # noqa: E731
-                lib = lambda i: F.rms_norm(sets[i][0], (d,), weight=w, eps=1e-6)  # noqa: E731
-                sep = None
-                nbytes, flops = 2 * (2 * numel + d), 4 * numel
-            mode = dict(mode="add_rmsnorm" if fused else "rmsnorm", shape=f"({rows},{d}) bf16",
-                        max_abs_err=err, ms=cuda_ms(kern, n), plain_ms=cuda_ms(plain, n),
-                        library_ms=cuda_ms(lib, n),
-                        separate_add_then_kernel_ms=None if sep is None else cuda_ms(sep, n),
-                        host_us=host_us(lambda: kern(0)),
-                        **bound(nbytes, flops, FP32_FLOPS))
-            log("time " + json.dumps(mode))
-            modes.append(mode)
+    shapes = [(rows, 4096, fused) for rows in (1, 8, PROMPT) for fused in (False, True)]
+    # the xLSTM paths' norms: nemotron-h-8b's mLSTM cell norm over W = 8192
+    # (plain mode); xlstm-1.3b's blocks at d = 2048 (both modes; its cell
+    # norm's W = 4096 is the width above)
+    shapes += [(rows, 8192, False) for rows in (1, 8, PROMPT)]
+    shapes += [(rows, 2048, fused) for rows in (1, PROMPT) for fused in (False, True)]
+    for rows, d, fused in shapes:
+        (x, r, s), err = rn_case(rows, d, bf16, fused)
+        errs.append(err)
+        numel = rows * d
+        # decode rows arrive hot from the kernel that wrote them; prompt
+        # rows are rotated past the L2 cache, as for the other kernels
+        n = copies(2 * 2 * numel) if rows == PROMPT else 1
+        sets = [(x.clone(), None if r is None else r.clone()) for _ in range(n)]
+        w = (1.0 + s.float()).to(bf16)
+        if fused:
+            kern = lambda i: rn_ops.add_rmsnorm(*sets[i], s, 1e-6)  # noqa: E731
+            plain = lambda i: rn_ref.add_rmsnorm(*sets[i], s, 1e-6)  # noqa: E731
+            lib = lambda i: F.rms_norm(sets[i][0] + sets[i][1], (d,), weight=w,  # noqa: E731
+                                       eps=1e-6)
+            sep = lambda i: rn_ops.rmsnorm(sets[i][0] + sets[i][1], s, 1e-6)  # noqa: E731
+            nbytes, flops = 2 * (4 * numel + d), 5 * numel
+        else:
+            kern = lambda i: rn_ops.rmsnorm(sets[i][0], s, 1e-6)  # noqa: E731
+            plain = lambda i: rn_ref.rmsnorm(sets[i][0], s, 1e-6)  # noqa: E731
+            lib = lambda i: F.rms_norm(sets[i][0], (d,), weight=w, eps=1e-6)  # noqa: E731
+            sep = None
+            nbytes, flops = 2 * (2 * numel + d), 4 * numel
+        mode = dict(mode="add_rmsnorm" if fused else "rmsnorm", shape=f"({rows},{d}) bf16",
+                    max_abs_err=err, ms=cuda_ms(kern, n), plain_ms=cuda_ms(plain, n),
+                    library_ms=cuda_ms(lib, n),
+                    separate_add_then_kernel_ms=None if sep is None else cuda_ms(sep, n),
+                    host_us=host_us(lambda: kern(0)),
+                    **bound(nbytes, flops, FP32_FLOPS))
+        log("time " + json.dumps(mode))
+        modes.append(mode)
     table = next(m for m in modes
                  if m["mode"] == "rmsnorm" and m["shape"].startswith(f"({PROMPT},"))
     entries.append(dict(
@@ -948,14 +966,17 @@ def per_forward(cfg):
     """Layers of one forward pass by the kernel they launch: attention
     layers (K2 in a prefill; in a decode step K3, or K4 for full-context
     layers over a paged pool), full-context ones among them, RG-LRU layers
-    (K5), and RMSNorm launches (K1: two per block, one per ``ffn`` or
-    parallel attention block, one final)."""
+    (K5), mLSTM and sLSTM layers (no kernel of their own: plain products),
+    and RMSNorm launches (K1: two per attention, RG-LRU, mLSTM or sLSTM
+    block, the last two being the block norm and the cell's norm over its
+    width; one per ``ffn`` or parallel attention block; one final)."""
     kinds = cfg.blocks()
     attn = ("attn", "local_attn")
     norms = sum(1 if (k == "ffn" or (k in attn and cfg.parallel_block)) else 2
                 for k in kinds) + 1
     return dict(attn=sum(k in attn for k in kinds), full=sum(k == "attn" for k in kinds),
-                rec=sum(k == "rglru" for k in kinds), norms=norms)
+                rec=sum(k == "rglru" for k in kinds),
+                xlstm=sum(k in ("mlstm", "slstm") for k in kinds), norms=norms)
 
 
 def expected_launches(cfg, prefills, decodes, paged=False, chunks=0):
@@ -1036,9 +1057,11 @@ def main_path_phase(arch, counters):
     # read of every weight per decode step
     itemsize = getattr(torch, e.cfg.param_dtype).itemsize
     tables = sum(size.by_component.get(k, 0) for k in ("embed", "lm_head")) // itemsize
+    # and of each recurrent state (read once, written once)
+    state = e.cache_report(BATCH, PROMPT + GEN + 1).state_bytes
     bounds = {"ttft_bound_ms": 2 * (size.param_count - tables) * BATCH * PROMPT
               / BF16_FLOPS * 1e3,
-              "tpot_bound_ms": size.param_bytes / HBM_BYTES_PER_S * 1e3}
+              "tpot_bound_ms": (size.param_bytes + 2 * state) / HBM_BYTES_PER_S * 1e3}
     t0 = time.perf_counter()
     model = e.model
     torch.cuda.synchronize()
@@ -1047,8 +1070,11 @@ def main_path_phase(arch, counters):
     calls = Calls(model)
 
     m, launches = measured_launches(e, counters, calls)
-    path = {"flash_attention", "decode_attention", "rmsnorm"}
-    if per_forward(e.cfg)["rec"]:
+    n = per_forward(e.cfg)
+    path = {"rmsnorm"}
+    if n["attn"]:
+        path |= {"flash_attention", "decode_attention"}
+    if n["rec"]:
         path.add("linear_recurrence")
     check(all(launches[k] > 0 for k in path), "a kernel of the path never launched")
     check(all(math.isfinite(v) and v > 0 for v in m.values()), f"bad metrics {m}")
@@ -2151,6 +2177,32 @@ def bench_serve_phase(counters):
     return paths
 
 
+def model_phases(arch, dev, counters, paths, serve=True, **parity_kw):
+    """Phases 3-6 for one more model at full width, drawn once the model
+    before it is freed: measure with exact launch counts, graph against
+    eager, the profile; with ``serve`` the whole-prompt serve (paged,
+    CUDA-graph step), greedy streams with and without the graph and the
+    chunked serve through the unified step; then the parity
+    (``parity_phase(**parity_kw)``).  Adds each path's launches to
+    ``paths``; frees the model and prints the phases' time."""
+    import torch
+
+    t0 = time.perf_counter()
+    e, paths[f"{arch} measure"], measured = main_path_phase(arch, counters)
+    measure_split = measure_graph_phase(e, dev, measured)
+    profile_phase(e, dev)
+    if serve:
+        whole = serve_phase(e, counters)
+        paths[f"{arch} serve"] = whole[0]
+        graph_phase(e)
+        paths.update(chunked_serve_phase(e, counters, whole, measure_split))
+    parity_phase(e, dev, **parity_kw)
+    del e
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"{arch} phases took {time.perf_counter() - t0:.1f} s")
+
+
 def idle_power(samples=20, interval_s=0.1):
     """The board's power from NVML before any model is drawn (the ``h100``
     spec's ``idle_watts``)."""
@@ -2195,6 +2247,7 @@ def main():
     counters = dispatch.KERNELS
     entries = kernel_phase(dev)
     paths = {}  # each path's counts, read right after that path ran
+    t_arch = time.perf_counter()
     e, paths[f"{ARCH} measure"], measured = main_path_phase(ARCH, counters)
     measure_split = measure_graph_phase(e, dev, measured)
     profile_phase(e, dev)
@@ -2220,16 +2273,14 @@ def main():
         check(all(paths[f"{ARCH} {path}"][k] > 0 for k in ("rmsnorm", "flash_attention", decode)),
               f"K1, K2 or {decode} never launched on {path}")
 
-    t0 = time.perf_counter()
-    h, paths[f"{HYBRID} measure"], measured = main_path_phase(HYBRID, counters)
-    measure_split = measure_graph_phase(h, dev, measured)
-    profile_phase(h, dev)
-    whole = serve_phase(h, counters)
-    paths[f"{HYBRID} serve"] = whole[0]
-    graph_phase(h)
-    paths.update(chunked_serve_phase(h, counters, whole, measure_split))
-    parity_phase(h, dev, prompt=HYBRID_PARITY_PROMPT, paged=False, table_scale=0.05)
-    log(f"{HYBRID} phases took {time.perf_counter() - t0:.1f} s")
+    log(f"{ARCH} phases took {time.perf_counter() - t_arch:.1f} s")
+
+    model_phases(HYBRID, dev, counters, paths, prompt=HYBRID_PARITY_PROMPT, paged=False,
+                 table_scale=0.05)
+    model_phases(NEMOTRON, dev, counters, paths)
+    check(paths[f"{NEMOTRON} serve"]["paged_decode_attention"] > 0,
+          f"K4 never launched on the {NEMOTRON} serve path")
+    model_phases(XLSTM, dev, counters, paths, serve=False, paged=False)
     for entry in entries:
         k = entry["name"]
         entry["launches_by_path"] = {path: counts[k] for path, counts in paths.items()}

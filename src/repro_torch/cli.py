@@ -15,6 +15,9 @@ and then it needs a GPU).  ``size``, ``cache``, ``estimate``, ``trace`` and
 ``report`` work from shapes alone (the ``meta`` device), so
 ``--device cpu`` runs them anywhere.  ``energy`` reads the GPU's power from
 NVML; with ``--device cpu`` it reads the host CPU's from /proc/stat.
+``--hardware <platform>`` reads that platform's power model instead, as the
+reference's ``energy`` does (``cpu``: /proc/stat scaled to the ``cpu``
+spec; any other name: ``ModelReader`` over its idle and TDP watts).
 """
 
 from __future__ import annotations
@@ -68,15 +71,26 @@ def cmd_latency(args) -> int:
     return 0
 
 
-def cmd_energy(args) -> int:
+def power_reader(hardware, device):
+    """The reader ``energy`` integrates: NVML for the GPU and /proc/stat for
+    the CPU by default; for a named ``hardware`` the reference's choice,
+    ``ProcStatReader`` for ``cpu`` and ``ModelReader`` for any other
+    platform, each over that platform's idle and TDP watts."""
     from repro_torch.core import energy
     from repro_torch.core.hardware import get_hardware
 
-    if args.device == "cpu":
-        hw = get_hardware("cpu")
-        reader = energy.ProcStatReader(hw.idle_watts, hw.tdp_watts)
-    else:
-        reader = energy.NvmlReader()
+    if hardware is None:
+        if device != "cpu":
+            return energy.NvmlReader()
+        hardware = "cpu"
+    hw = get_hardware(hardware)
+    if hardware == "cpu":
+        return energy.ProcStatReader(hw.idle_watts, hw.tdp_watts)
+    return energy.ModelReader(hw.idle_watts, hw.tdp_watts)
+
+
+def cmd_energy(args) -> int:
+    reader = power_reader(args.hardware, args.device)
     try:
         out = _elana(args).measure(batch=args.batch, prompt_len=args.prompt,
                                    gen_len=args.gen, iters=args.iters,
@@ -169,6 +183,9 @@ def build_parser() -> argparse.ArgumentParser:
         p.add_argument("--gen", type=int, default=16)
         p.add_argument("--iters", type=int, default=5)
         p.add_argument("--seed", type=int, default=0)
+        p.add_argument("--hardware", default=None,
+                       help="energy's power model: a platform of the hardware registry "
+                            "(default: NVML on the GPU, cpu with --device cpu)")
         p.set_defaults(fn=fn)
 
     p = sub.add_parser("estimate")

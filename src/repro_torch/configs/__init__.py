@@ -1,6 +1,7 @@
 """Architecture registry of the port: ``--arch <id>`` lookup.
 
-The port runs the dense decoders and the RG-LRU hybrid (recurrentgemma).
+The port runs the dense decoders, the RG-LRU hybrid (recurrentgemma) and
+the xLSTM family (nemotron-h-8b's mLSTM hybrid, xlstm-1.3b).
 The other architectures of the reference registry are known by name and
 raise ``KeyError`` until their families are ported.
 """
@@ -21,6 +22,8 @@ _MODULES: Dict[str, str] = {
     "llama3.2-1b": "llama32_1b",
     "qwen2.5-1.5b": "qwen25_1_5b",
     "recurrentgemma-2b": "recurrentgemma_2b",
+    "xlstm-1.3b": "xlstm_1_3b",
+    "nemotron-h-8b": "nemotron_h_8b",
 }
 
 NOT_PORTED: Dict[str, str] = {
@@ -28,8 +31,6 @@ NOT_PORTED: Dict[str, str] = {
     "seamless-m4t-large-v2": "encdec",
     "moonshot-v1-16b-a3b": "moe",
     "qwen3-moe-30b-a3b": "moe",
-    "xlstm-1.3b": "ssm",
-    "nemotron-h-8b": "hybrid",
 }
 
 # the models profiled in the ELANA paper itself (Tables 2-4), as the

@@ -5,7 +5,7 @@ The report counts the cache that ``Model.init_cache`` would allocate for a
 (batch, seq_len) workload, built on the ``meta`` device, leaf by leaf as
 the reference's ``_classify`` files them: K/V (``k``, ``v``, ``kp``,
 ``vp``) is ``kv``, position bookkeeping (``pos``, ``ring``) is ``meta``,
-recurrent states (the RG-LRU's ``h`` and ``conv``) are ``state``.
+recurrent states (RG-LRU, mLSTM and sLSTM leaves) are ``state``.
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ class CacheReport:
     seq_len: int
     total_bytes: int
     kv_bytes: int           # self-attention KV
-    state_bytes: int        # recurrent states (RG-LRU h, conv)
+    state_bytes: int        # recurrent states (RG-LRU, mLSTM, sLSTM)
     cross_bytes: int        # encoder-decoder memory (none in the ported families)
     meta_bytes: int         # position bookkeeping
     by_kind: Dict[str, int]

@@ -10,12 +10,15 @@ metrics behind it.  The counterpart of ``repro/core/profiler.py``.
     e.trace(path="trace.json")                    # §2.5 Perfetto timeline
 
 Size, cache, estimate and trace work from shapes alone; only ``measure``
-draws weights on the device.
+draws weights on the device.  A model the registry does not name comes in
+through ``config=`` (weights drawn from the seed) or ``builder=``, the
+paper's ``_build_model_and_tokenizer`` extension point: a callable that
+returns ``(ModelConfig, Model)``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -28,14 +31,27 @@ from repro_torch.core import latency as lat_lib
 from repro_torch.core import size as size_prof
 from repro_torch.core import trace as trace_lib
 from repro_torch.models import model as model_lib
+from repro_torch.models.config import ModelConfig
 
 
 class Elana:
-    def __init__(self, arch: str, *, smoke: bool = False, device="cuda", seed: int = 0):
+    def __init__(self, arch: Optional[str] = None, *, config: Optional[ModelConfig] = None,
+                 builder: Optional[Callable[[], Tuple[ModelConfig, model_lib.Model]]] = None,
+                 smoke: bool = False, device="cuda", seed: int = 0):
         self.device = resolve_device(device)
-        self.cfg = get_config(arch, smoke=smoke)
-        self._seed = seed
         self._model: Optional[model_lib.Model] = None
+        if builder is not None:
+            self.cfg, self._model = builder()
+            if self._model.device != self.device:
+                raise ValueError(f"the builder's model is on {self._model.device}, "
+                                 f"the profiler on {self.device}")
+        elif config is not None:
+            self.cfg = config.validate()
+        elif arch is not None:
+            self.cfg = get_config(arch, smoke=smoke)
+        else:
+            raise ValueError("Elana needs an arch, config= or builder=")
+        self._seed = seed
         self._lat: Optional[lat_lib.LatencyProfiler] = None
 
     # -- lazy weights (measured mode only) ------------------------------------
@@ -54,7 +70,9 @@ class Elana:
 
     # -- §2.2 sizes ------------------------------------------------------------
     def size_report(self) -> size_prof.SizeReport:
-        return size_prof.profile_size(self.cfg)
+        """Of the model where one is built or drawn, else of ``cfg``'s
+        shapes (the same parameters)."""
+        return size_prof.profile_size(self.cfg, self._model)
 
     def cache_report(self, batch: int, seq_len: int) -> cache_prof.CacheReport:
         return cache_prof.profile_cache(self.cfg, batch, seq_len)

@@ -1,5 +1,5 @@
 """Decode-time caches: the counterpart of the contiguous, ring-buffer,
-paged and RG-LRU parts of ``repro/models/cache.py``.
+paged and recurrent-state parts of ``repro/models/cache.py``.
 
 Two layouts for full-context attention KV, with the reference's leaves so
 the byte counts of the two packages agree:
@@ -22,9 +22,12 @@ token's K/V instead of copying the whole cache, and the tensors a CUDA
 graph captured stay the ones the next admission fills.
 
 Sliding-window (``local_attn``) layers keep a ring of ``min(window,
-max_len)`` entries in both layouts, and RG-LRU layers a per-row state
-``h`` (fp32) and ``conv`` (the last K-1 inputs); both belong to their slot,
-never to the pool.
+max_len)`` entries in both layouts; RG-LRU layers a per-row state ``h``
+(fp32) and ``conv`` (the last K-1 inputs); mLSTM layers the matrix memory
+``C``, its normalizer ``n`` and stabilizer ``m`` (fp32) and ``conv``;
+sLSTM layers ``c``, ``n``, ``m``, ``h`` (fp32) and ``conv``.  All of them
+belong to their slot, never to the pool.  A stabilizer ``m`` starts at
+-1e30 (``M_INIT``), every other state leaf at 0.
 
 ``BlockPool`` is the host-side bookkeeping of the paged layout: the LIFO
 free stack and, for block-level prefix caching, refcounts, a ``hash ->
@@ -47,6 +50,9 @@ import torch.nn.functional as F
 from repro_torch.models.config import ModelConfig
 
 GARBAGE_BLOCK = 0  # pool block reserved for idle-slot writes; never allocated
+M_INIT = -1e30     # an xLSTM stabilizer's initial value: below every log gate
+# the initial value of each leaf that does not start at 0
+INIT_FILL = {"pos": -1, "m": M_INIT}
 
 
 def blocks_per_slot(max_len: int, block_size: int) -> int:
@@ -446,6 +452,31 @@ def init_rglru_state(batch: int, width: int, conv_width: int, dtype,
     }
 
 
+def init_mlstm_state(batch: int, heads: int, dk: int, dv: int, conv_width: int,
+                     dtype, device) -> Dict[str, torch.Tensor]:
+    st = {
+        "C": torch.zeros((batch, heads, dk, dv), dtype=torch.float32, device=device),
+        "n": torch.zeros((batch, heads, dk), dtype=torch.float32, device=device),
+        "m": torch.full((batch, heads), M_INIT, dtype=torch.float32, device=device),
+    }
+    if conv_width > 0:
+        st["conv"] = torch.zeros((batch, conv_width - 1, heads * dv), dtype=dtype,
+                                 device=device)
+    return st
+
+
+def init_slstm_state(batch: int, heads: int, dh: int, conv_width: int, dtype,
+                     device) -> Dict[str, torch.Tensor]:
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        "c": torch.zeros((batch, heads, dh), **f32),
+        "n": torch.zeros((batch, heads, dh), **f32),
+        "m": torch.full((batch, heads, dh), M_INIT, **f32),
+        "h": torch.zeros((batch, heads, dh), **f32),
+        "conv": torch.zeros((batch, conv_width - 1, heads * dh), dtype=dtype, device=device),
+    }
+
+
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                      dtype, device, *, layout: str = "contiguous",
                      block_size: int = 16, num_blocks: int = 0) -> Dict[str, torch.Tensor]:
@@ -467,34 +498,40 @@ def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
     if kind == "rglru":
         return init_rglru_state(batch, cfg.resolved_lru_width, cfg.rglru_conv_width,
                                 dtype, device)
-    raise NotImplementedError(f"no cache for block kind {kind!r} in the port yet")
+    if kind == "mlstm":
+        w = int(cfg.d_model * cfg.mlstm_proj_factor)
+        h = cfg.resolved_rec_heads
+        return init_mlstm_state(batch, h, w // h, w // h, cfg.rglru_conv_width, dtype, device)
+    if kind == "slstm":
+        h = cfg.resolved_rec_heads
+        return init_slstm_state(batch, h, cfg.d_model // h, cfg.rglru_conv_width, dtype,
+                                device)
+    raise ValueError(f"no cache for block kind {kind!r}")
 
 
 def reset_cache(cache: List[Dict[str, torch.Tensor]]) -> List[Dict[str, torch.Tensor]]:
     """Return every entry to what ``init_block_cache`` makes, in place:
-    positions -1, K/V and recurrent states zero (the ring flag follows from
-    shapes and stays).  A CUDA graph reads the tensors it captured, so a
-    captured step's cache is reset, never replaced."""
+    each leaf to its initial value (``INIT_FILL``: positions -1,
+    stabilizers -1e30; K/V and the other states 0); the ring flag follows
+    from shapes and stays.  A CUDA graph reads the tensors it captured, so
+    a captured step's cache is reset, never replaced."""
     for entry in cache:
         for leaf, t in entry.items():
-            if leaf == "pos":
-                t.fill_(-1)
-            elif leaf != "ring":
-                t.zero_()
+            if leaf != "ring":
+                t.fill_(INIT_FILL.get(leaf, 0))
     return cache
 
 
 def reset_rows(cache: List[Dict[str, torch.Tensor]], rows: torch.Tensor) -> None:
     """Return rows ``rows`` (int64 indices) of every per-slot leaf to what
-    ``init_block_cache`` makes, in place: positions -1, K/V and recurrent
-    states 0.  Pools belong to no row and are left alone, as is the ring
-    flag.  A chunk writes only its own span, so a slot's rows are reset
-    before its first chunk."""
+    ``init_block_cache`` makes, in place (``INIT_FILL``).  Pools belong to
+    no row and are left alone, as is the ring flag.  A chunk writes only
+    its own span, so a slot's rows are reset before its first chunk."""
     for entry in cache:
         for leaf, t in entry.items():
             if leaf in ("kp", "vp") or t.dim() == 0:
                 continue
-            t.index_fill_(0, rows, -1 if leaf == "pos" else 0)
+            t.index_fill_(0, rows, INIT_FILL.get(leaf, 0))
 
 
 def cache_bytes(cache: List[Dict[str, torch.Tensor]]) -> int:

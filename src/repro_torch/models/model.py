@@ -1,6 +1,7 @@
 """The decoder, the counterpart of ``repro/models/model.py`` for the block
-kinds ``attn``, ``local_attn`` (sliding window over a ring cache), ``ffn``
-and ``rglru`` (Griffin's recurrent block).
+kinds ``attn``, ``local_attn`` (sliding window over a ring cache), ``ffn``,
+``rglru`` (Griffin's recurrent block) and the xLSTM cells ``mlstm`` and
+``slstm`` (a norm and the cell, no MLP).
 
 The reference stacks each repetition of ``cfg.block_pattern`` on a leading
 axis and scans over it; here the layers are a plain ``nn.ModuleList`` run
@@ -35,8 +36,9 @@ from repro_torch.models.layers import (
 )
 from repro_torch.models.mlp import MLP, apply_mlp
 
-SUPPORTED_BLOCKS = ("attn", "local_attn", "ffn", "rglru")
+SUPPORTED_BLOCKS = ("attn", "local_attn", "ffn", "rglru", "mlstm", "slstm")
 ATTN_BLOCKS = ("attn", "local_attn")
+XLSTM_BLOCKS = ("mlstm", "slstm")
 
 Cache = List[Dict[str, torch.Tensor]]
 
@@ -67,7 +69,11 @@ class Block(nn.Module):
             self.norm2 = Norm(d, dtype, device)
         else:
             self.norm = Norm(d, dtype, device)
-        self.mlp = MLP(d, cfg.d_ff, cfg.mlp_gated, dtype, device)
+        if kind in XLSTM_BLOCKS:  # no MLP: the cell holds the block's projections
+            cell = rec_lib.MLSTM if kind == "mlstm" else rec_lib.SLSTM
+            self.cell = cell(cfg, dtype, device)
+        else:
+            self.mlp = MLP(d, cfg.d_ff, cfg.mlp_gated, dtype, device)
 
 
 def _window(cfg: ModelConfig, kind: str) -> int:
@@ -98,12 +104,33 @@ def _apply_rglru_block(p: Block, cfg: ModelConfig, x: torch.Tensor,
                        r: Optional[torch.Tensor], entry: Dict,
                        update_mask: Optional[torch.Tensor] = None) -> Residual:
     """norm1 -> RG-LRU from the entry's state -> residual -> norm2 -> MLP.
-    The scan starts from the state in ``entry`` (zeros in a fresh cache)."""
+    The scan starts from the state in ``entry`` (its initial values in a
+    fresh cache)."""
     x, h = add_norm(p.norm1, x, r, cfg.norm_eps)
     y, state = rec_lib.apply_rglru_seq(p.rec, h, cfg, entry)
     _write_state(entry, state, update_mask)
     x, h = add_norm(p.norm2, x, y, cfg.norm_eps)
     return x, apply_mlp(p.mlp, h, cfg.mlp_act)
+
+
+def _apply_xlstm_block(p: Block, cfg: ModelConfig, x: torch.Tensor,
+                       r: Optional[torch.Tensor], entry: Dict,
+                       valid: Optional[torch.Tensor] = None,
+                       update_mask: Optional[torch.Tensor] = None,
+                       step: bool = False) -> Residual:
+    """norm -> the mLSTM or sLSTM cell from the entry's state, its output
+    left pending.  A sequence or chunk (``valid``: identity steps at pad
+    columns, so its state is written unmasked) or, with ``step``, one
+    decode step (rows off in ``update_mask`` keep their state)."""
+    x, h = add_norm(p.norm, x, r, cfg.norm_eps)
+    if step:
+        fn = rec_lib.apply_mlstm_step if p.kind == "mlstm" else rec_lib.apply_slstm_step
+        y, state = fn(p.cell, h, cfg, entry)
+    else:
+        fn = rec_lib.apply_mlstm_seq if p.kind == "mlstm" else rec_lib.apply_slstm_seq
+        y, state = fn(p.cell, h, cfg, entry, valid)
+    _write_state(entry, state, update_mask)
+    return x, y
 
 
 def _mlp_branch(p: Block, cfg: ModelConfig, x: torch.Tensor, h: torch.Tensor,
@@ -122,6 +149,8 @@ def _apply_block_seq(p: Block, cfg: ModelConfig, x: torch.Tensor,
                      block_tables: Optional[torch.Tensor]) -> Residual:
     if p.kind == "rglru":
         return _apply_rglru_block(p, cfg, x, r, entry)
+    if p.kind in XLSTM_BLOCKS:
+        return _apply_xlstm_block(p, cfg, x, r, entry)
     if p.kind == "ffn":
         x, h = add_norm(p.norm, x, r, cfg.norm_eps)
         return x, apply_mlp(p.mlp, h, cfg.mlp_act)
@@ -138,15 +167,17 @@ def _apply_block_chunk(p: Block, cfg: ModelConfig, x: torch.Tensor,
                        valid: Optional[torch.Tensor],
                        overwrite_from: Optional[torch.Tensor] = None) -> Residual:
     """A prompt chunk against the cache: attention over the earlier
-    chunks plus this one, an RG-LRU resumed from the carried state with
-    identity steps at pad columns (so its state is written unmasked: a row
-    with no valid column keeps it bit for bit)."""
+    chunks plus this one, a recurrent cell resumed from the carried state
+    with identity steps at pad columns (so its state is written unmasked:
+    a row with no valid column keeps it)."""
     if p.kind == "rglru":
         x, h = add_norm(p.norm1, x, r, cfg.norm_eps)
         y, state = rec_lib.apply_rglru_seq(p.rec, h, cfg, entry, valid)
         _write_state(entry, state)
         x, h = add_norm(p.norm2, x, y, cfg.norm_eps)
         return x, apply_mlp(p.mlp, h, cfg.mlp_act)
+    if p.kind in XLSTM_BLOCKS:
+        return _apply_xlstm_block(p, cfg, x, r, entry, valid)
     if p.kind == "ffn":
         x, h = add_norm(p.norm, x, r, cfg.norm_eps)
         return x, apply_mlp(p.mlp, h, cfg.mlp_act)
@@ -164,6 +195,8 @@ def _apply_block_decode(p: Block, cfg: ModelConfig, x: torch.Tensor,
                         update_mask: Optional[torch.Tensor]) -> Residual:
     if p.kind == "rglru":
         return _apply_rglru_block(p, cfg, x, r, entry, update_mask)
+    if p.kind in XLSTM_BLOCKS:
+        return _apply_xlstm_block(p, cfg, x, r, entry, update_mask=update_mask, step=True)
     if p.kind == "ffn":
         x, h = add_norm(p.norm, x, r, cfg.norm_eps)
         return x, apply_mlp(p.mlp, h, cfg.mlp_act)
@@ -221,9 +254,9 @@ class Model(nn.Module):
                 ) -> Tuple[torch.Tensor, Cache]:
         """Process the prompt ``batch["tokens"]`` (B, S), fill ``cache`` in
         place; returns the last position's fp32 logits (B, vocab).
-        Recurrent layers start from the state in ``cache`` (zeros in a fresh
-        one).  A paged cache takes ``block_tables`` (B, blocks_per_slot)
-        int32: the pool blocks each row's prompt fills."""
+        Recurrent layers start from the state in ``cache`` (its initial
+        values in a fresh one).  A paged cache takes ``block_tables`` (B,
+        blocks_per_slot) int32: the pool blocks each row's prompt fills."""
         cfg = self.cfg
         tokens = batch["tokens"]
         B, S = tokens.shape
@@ -315,7 +348,8 @@ def init(cfg: ModelConfig, generator: torch.Generator, device="cuda") -> Model:
     ``device``) at the reference initializer's scales: N(0,1)/sqrt(fan-in)
     for projections, 1/sqrt(Hq*hd) for wo, 1/sqrt(d_ff) for wd, N(0,1) for
     embeddings, zeros for norm scales and biases; the RG-LRU's ``lambda``
-    is the reference's fixed formula."""
+    is the reference's fixed formula, the xLSTM forget biases its
+    ``linspace(3, 6)``."""
     model = Model(cfg, device=device)
     for module in model.modules():
         if hasattr(module, "init_"):

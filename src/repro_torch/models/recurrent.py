@@ -1,8 +1,7 @@
-"""The RG-LRU recurrent block of Griffin (RecurrentGemma), the counterpart of
-the RG-LRU part of ``repro/models/recurrent.py``.  mLSTM and sLSTM (xlstm)
-are not ported yet.
+"""Recurrent blocks, the counterpart of ``repro/models/recurrent.py``:
+Griffin's RG-LRU (RecurrentGemma) and the xLSTM cells mLSTM and sLSTM.
 
-The block: a GeLU gate branch ``x @ in_g`` and a recurrent branch
+The RG-LRU block: a GeLU gate branch ``x @ in_g`` and a recurrent branch
 ``x @ in_x`` -> depthwise causal conv (width K) -> per-timestep decay
 ``a = exp(-8 softplus(lambda) r)`` and normalised input
 ``b = sqrt(1 - a^2) (i * xc)`` from block-diagonal gates -> the linear
@@ -14,10 +13,23 @@ shifted adds, ``softplus`` as ``logaddexp(x, 0)``, the clip inside the
 square root, ``h`` cast to the activation dtype before the gate multiply),
 so fp32 runs on the CPU agree with the reference to rounding.
 
-The state a layer carries is its cache entry ``{"h": (B, W) fp32,
-"conv": (B, K-1, W)}`` (``cache.init_rglru_state``).  The functions here
-return the new state as fresh tensors; ``models.model`` writes it into the
-entry in place.
+The mLSTM cell (xLSTM's matrix memory; nemotron-h-8b's stand-in for
+Mamba-2): up-projections ``u`` and ``z`` to width W = d * proj_factor,
+a causal conv and SiLU on ``u``, block-diagonal q/k (from the conv'd
+branch) and v (from ``u``), log input and forget gates per head, and the
+stabilized matrix-memory recurrence in fp32, chunkwise-parallel over a
+sequence (``_mlstm_chunk_scan``: a Python loop over chunks of static
+shape, so a CUDA graph can capture it) and O(1) per decode step; then
+``rms_norm`` over W (K1 on the GPU), the SiLU(z) gate and the down
+projection.  The sLSTM cell (scalar memory with recurrent gate weights)
+is a loop over time steps in both cases.  Neither cell has a kernel of
+its own: their products are plain ``matmul``/``einsum``, and only their
+norms go through a kernel (K1).
+
+The state a layer carries is its cache entry (``cache.init_rglru_state``,
+``init_mlstm_state``, ``init_slstm_state``).  The functions here return
+the new state as fresh tensors; ``models.model`` writes it into the entry
+in place.
 """
 
 from __future__ import annotations
@@ -27,11 +39,16 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels import dispatch
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import act_fn, init_normal_, new_param
+from repro_torch.models.layers import act_fn, init_normal_, new_param, rms_norm
+
+# a pad step's log input gate: below the -1e30 a stabilizer starts at, so
+# an identity step contributes nothing even to a fresh state
+_PAD_LOG_I = -2e30
 
 
 def lambda_init(width: int) -> np.ndarray:
@@ -152,3 +169,277 @@ def apply_rglru_step(p: RGLRU, x: torch.Tensor, cfg: ModelConfig,
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x (B, 1, d): one decode step against the carried state."""
     return apply_rglru_seq(p, x, cfg, state)
+
+
+# ---------------------------------------------------------------------------
+# mLSTM (xLSTM matrix-memory cell, chunkwise-parallel)
+# ---------------------------------------------------------------------------
+
+class MLSTM(nn.Module):
+    """mLSTM parameters, named like the reference's ``make_mlstm_block``
+    leaves."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        d = cfg.d_model
+        W = int(d * cfg.mlstm_proj_factor)
+        H = cfg.resolved_rec_heads
+        self.up_u = new_param((d, W), dtype, device)
+        self.up_z = new_param((d, W), dtype, device)
+        self.conv_w = new_param((cfg.rglru_conv_width, W), dtype, device)
+        self.wq = new_param((H, W // H, W // H), dtype, device)
+        self.wk = new_param((H, W // H, W // H), dtype, device)
+        self.wv = new_param((H, W // H, W // H), dtype, device)
+        self.w_i = new_param((W, H), dtype, device)
+        self.b_i = new_param((H,), dtype, device)
+        self.w_f = new_param((W, H), dtype, device)
+        self.b_f = new_param((H,), dtype, device)
+        self.norm_scale = new_param((W,), dtype, device)
+        self.down = new_param((W, d), dtype, device)
+
+    def init_(self, gen: torch.Generator) -> None:
+        init_normal_(self.up_u, gen)
+        init_normal_(self.up_z, gen)
+        init_normal_(self.conv_w, gen, scale=0.1)
+        dh = self.wq.shape[1]
+        for w in (self.wq, self.wk, self.wv):
+            init_normal_(w, gen, scale=1.0 / math.sqrt(dh))
+        init_normal_(self.w_i, gen, scale=0.01)
+        init_normal_(self.w_f, gen, scale=0.01)
+        self.b_i.zero_()
+        self.b_f.copy_(torch.linspace(3.0, 6.0, self.b_f.shape[0]))  # long-memory init
+        self.norm_scale.zero_()
+        init_normal_(self.down, gen, scale=1.0 / math.sqrt(self.down.shape[0]))
+
+
+def _mlstm_chunk_scan(q, k, v, log_i, log_f, state: Dict[str, torch.Tensor], chunk: int):
+    """Chunkwise-parallel stabilized mLSTM, the reference's arithmetic step
+    for step.  q, k, v (B, S, H, D) fp32; log_i, log_f (B, S, H) fp32;
+    state ``C`` (B, H, D, D), ``n`` (B, H, D), ``m`` (B, H).  Returns h
+    (B, S, H, D) fp32 and the final state.  A ragged last chunk is padded
+    with identity steps (log_f = 0 keeps the carry, log_i = -2e30 adds
+    nothing)."""
+    B, S, H, D = q.shape
+    L = min(chunk, S)
+    S_orig = S
+    if S % L:
+        pad = L - S % L
+        q, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
+        log_f = F.pad(log_f, (0, 0, 0, pad))
+        log_i = F.pad(log_i, (0, 0, 0, pad), value=_PAD_LOG_I)
+        S += pad
+    C, n, m = state["C"], state["n"], state["m"]
+    scale = 1.0 / math.sqrt(D)
+    causal = torch.ones((L, L), dtype=torch.bool, device=q.device).tril()
+    hs = []
+    for c0 in range(0, S, L):
+        qc, kc, vc = (t[:, c0:c0 + L].transpose(1, 2) for t in (q, k, v))  # (B,H,L,D)
+        li, lf = (t[:, c0:c0 + L].transpose(1, 2) for t in (log_i, log_f))  # (B,H,L)
+        b = torch.cumsum(lf, dim=-1)            # inclusive log-decay to t
+        a = li - b                              # a_s = log_i_s - b_s
+        mm = torch.maximum(m[..., None], torch.cummax(a, dim=-1).values)   # (B,H,L)
+        m_t = b + mm
+        # intra-chunk scores
+        s_qk = torch.matmul(qc, kc.transpose(-1, -2)) * scale
+        decay = a[:, :, None, :] - mm[:, :, :, None]                       # (B,H,L(t),L(s))
+        w_intra = torch.where(causal, torch.exp(decay), 0.0)
+        h_intra = torch.matmul(s_qk * w_intra, vc)
+        n_intra = torch.matmul(w_intra, kc)     # normalizer state at t
+        # inter-chunk (carry) contribution
+        w_inter = torch.exp(m[..., None] - mm)                             # (B,H,L)
+        qs = qc * scale
+        h_inter = torch.matmul(qs, C) * w_inter[..., None]
+        num = h_intra + h_inter
+        # denominator: |q.n_t| with n_t the stabilized normalizer state at t
+        n_at_t = n_intra + n[:, :, None, :] * w_inter[..., None]
+        denom = torch.abs((qs * n_at_t).sum(-1))
+        denom = torch.maximum(denom, torch.exp(-m_t))
+        hs.append((num / denom[..., None]).transpose(1, 2))                # (B,L,H,D)
+        # end-of-chunk state; sum_l w_c k_l v_l^T as one (D,L)@(L,D) product
+        g = b[..., -1]                                                     # (B,H)
+        m_next = m_t[..., -1]
+        w_c = torch.exp(g[..., None] + a - m_next[..., None])              # (B,H,L)
+        carry = torch.exp(g + m - m_next)
+        wk = w_c[..., None] * kc
+        C = carry[..., None, None] * C + torch.matmul(wk.transpose(-1, -2), vc)
+        n = carry[..., None] * n + wk.sum(dim=-2)
+        m = m_next
+    # contiguous: a padded tail's slice would leave the cell norm (K1,
+    # which takes contiguous rows) a strided view in fp32
+    h = torch.cat(hs, dim=1)[:, :S_orig].contiguous()
+    return h, {"C": C, "n": n, "m": m}
+
+
+def _mlstm_qkv_gates(p: MLSTM, u: torch.Tensor, uc: torch.Tensor, H: int, D: int):
+    """q, k, v (B, S, H, D) and the log gates (B, S, H), all fp32, from the
+    up-projected ``u`` and its conv'd, SiLU'd ``uc``."""
+    B, S = u.shape[:2]
+    q = _block_diag_linear(uc, p.wq).reshape(B, S, H, D).float()
+    k = _block_diag_linear(uc, p.wk).reshape(B, S, H, D).float()
+    v = _block_diag_linear(u, p.wv).reshape(B, S, H, D).float()
+    log_i = (torch.matmul(uc, p.w_i) + p.b_i).float()
+    log_f = F.logsigmoid((torch.matmul(uc, p.w_f) + p.b_f).float())
+    return q, k, v, log_i, log_f
+
+
+def _mlstm_out(p: MLSTM, h: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """The cell's output: ``rms_norm`` over W (K1), the SiLU(z) gate, the
+    down projection."""
+    h = rms_norm(h, p.norm_scale, 1e-6)
+    return torch.matmul(h * act_fn("silu")(z), p.down)
+
+
+def apply_mlstm_seq(p: MLSTM, x: torch.Tensor, cfg: ModelConfig,
+                    state: Dict[str, torch.Tensor],
+                    valid: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x (B, S, d) from ``state`` (a cache entry).  Returns (y, new_state).
+    ``valid`` (B, S) bool marks each row's valid prefix of a packed chunk:
+    pad steps are identity (log_f = 0, log_i = -2e30), so the state is
+    that after each row's last valid input."""
+    B, S, d = x.shape
+    W = int(d * cfg.mlstm_proj_factor)
+    H = cfg.resolved_rec_heads
+    D = W // H
+    u = torch.matmul(x, p.up_u)
+    z = torch.matmul(x, p.up_z)
+    lengths = None if valid is None else valid.sum(dim=1, dtype=torch.int32)
+    uc, conv_hist = _causal_conv(u, p.conv_w, state["conv"], lengths)
+    uc = act_fn("silu")(uc)
+    q, k, v, log_i, log_f = _mlstm_qkv_gates(p, u, uc, H, D)
+    if valid is not None:
+        m = valid[..., None]
+        log_f = torch.where(m, log_f, 0.0)
+        log_i = torch.where(m, log_i, _PAD_LOG_I)
+    h, cell = _mlstm_chunk_scan(q, k, v, log_i, log_f, state, cfg.recurrent_chunk)
+    y = _mlstm_out(p, h.reshape(B, S, W).to(x.dtype), z)
+    return y, {**cell, "conv": conv_hist}
+
+
+def apply_mlstm_step(p: MLSTM, x: torch.Tensor, cfg: ModelConfig,
+                     state: Dict[str, torch.Tensor]
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x (B, 1, d): one decode step, an O(1) update of the matrix memory."""
+    B, _, d = x.shape
+    W = int(d * cfg.mlstm_proj_factor)
+    H = cfg.resolved_rec_heads
+    D = W // H
+    u = torch.matmul(x, p.up_u)
+    z = torch.matmul(x, p.up_z)
+    uc, conv_hist = _causal_conv(u, p.conv_w, state["conv"])
+    uc = act_fn("silu")(uc)
+    q, k, v, log_i, log_f = (t[:, 0] for t in _mlstm_qkv_gates(p, u, uc, H, D))
+    scale = 1.0 / math.sqrt(D)
+    m_new = torch.maximum(log_f + state["m"], log_i)
+    w_old = torch.exp(log_f + state["m"] - m_new)
+    w_in = torch.exp(log_i - m_new)
+    C = w_old[..., None, None] * state["C"] + w_in[..., None, None] * (
+        k[..., :, None] * v[..., None, :])
+    n = w_old[..., None] * state["n"] + w_in[..., None] * k
+    qs = q * scale
+    num = torch.matmul(qs[..., None, :], C)[..., 0, :]
+    denom = torch.maximum(torch.abs((qs * n).sum(-1)), torch.exp(-m_new))
+    h = (num / denom[..., None]).reshape(B, 1, W).to(x.dtype)
+    return _mlstm_out(p, h, z), {"C": C, "n": n, "m": m_new, "conv": conv_hist}
+
+
+# ---------------------------------------------------------------------------
+# sLSTM (xLSTM scalar-memory cell, sequential)
+# ---------------------------------------------------------------------------
+
+SLSTM_GATES = ("z", "i", "f", "o")
+
+
+class SLSTM(nn.Module):
+    """sLSTM parameters, named like the reference's ``make_slstm_block``
+    leaves: per gate an input weight ``w_<g>`` (d, d), a block-diagonal
+    recurrent weight ``r_<g>`` (H, Dh, Dh) and a bias ``b_<g>`` (H, Dh)."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        d = cfg.d_model
+        H = cfg.resolved_rec_heads
+        Dh = d // H
+        ff = int(d * cfg.slstm_proj_factor)
+        for g in SLSTM_GATES:
+            setattr(self, f"w_{g}", new_param((d, d), dtype, device))
+            setattr(self, f"r_{g}", new_param((H, Dh, Dh), dtype, device))
+            setattr(self, f"b_{g}", new_param((H, Dh), dtype, device))
+        self.conv_w = new_param((cfg.rglru_conv_width, d), dtype, device)
+        self.norm_scale = new_param((d,), dtype, device)
+        self.ff_up = new_param((d, ff), dtype, device)
+        self.ff_down = new_param((ff, d), dtype, device)
+
+    def init_(self, gen: torch.Generator) -> None:
+        for g in SLSTM_GATES:
+            init_normal_(getattr(self, f"w_{g}"), gen)
+            r = getattr(self, f"r_{g}")
+            init_normal_(r, gen, scale=1.0 / math.sqrt(r.shape[1]))
+            b = getattr(self, f"b_{g}")
+            if g == "f":
+                b.copy_(torch.linspace(3.0, 6.0, b.numel()).reshape(b.shape))
+            else:
+                b.zero_()
+        init_normal_(self.conv_w, gen, scale=0.1)
+        self.norm_scale.zero_()
+        init_normal_(self.ff_up, gen)
+        init_normal_(self.ff_down, gen, scale=1.0 / math.sqrt(self.ff_down.shape[0]))
+
+
+def _slstm_cell(p: SLSTM, carry, xs):
+    """One time step.  carry (c, n, m, h), each (B, H, Dh) fp32; xs the
+    gates' pre-activations from the input, (B, H, Dh) in the activation
+    dtype, to which ``h`` is cast before the recurrent products."""
+    c, n, m, h = carry
+    zx, ix, fx, ox = xs
+    hx = h.to(zx.dtype)
+
+    def rec(g):
+        return torch.einsum("bhd,hde->bhe", hx, getattr(p, f"r_{g}")).float()
+
+    z = torch.tanh(zx.float() + rec("z"))
+    log_i = ix.float() + rec("i")
+    log_f = F.logsigmoid(fx.float() + rec("f"))
+    o = torch.sigmoid(ox.float() + rec("o"))
+    m_new = torch.maximum(log_f + m, log_i)
+    c_new = torch.exp(log_f + m - m_new) * c + torch.exp(log_i - m_new) * z
+    n_new = torch.clamp(torch.exp(log_f + m - m_new) * n + torch.exp(log_i - m_new), min=1e-6)
+    h_new = o * (c_new / n_new)
+    return (c_new, n_new, m_new, h_new)
+
+
+def apply_slstm_seq(p: SLSTM, x: torch.Tensor, cfg: ModelConfig,
+                    state: Dict[str, torch.Tensor],
+                    valid: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x (B, S, d) from ``state``: a Python loop over the S steps.
+    ``valid`` (B, S) bool freezes a row's carry at its pad steps."""
+    B, S, d = x.shape
+    H = cfg.resolved_rec_heads
+    Dh = d // H
+    lengths = None if valid is None else valid.sum(dim=1, dtype=torch.int32)
+    xc, conv_hist = _causal_conv(x, p.conv_w, state["conv"], lengths)
+    xc = act_fn("silu")(xc)
+    pre = [torch.matmul(src, getattr(p, f"w_{g}")).reshape(B, S, H, Dh) + getattr(p, f"b_{g}")
+           for g, src in zip(SLSTM_GATES, (x, xc, xc, x))]
+    carry = (state["c"], state["n"], state["m"], state["h"])
+    hs = []
+    for t in range(S):
+        new = _slstm_cell(p, carry, [g[:, t] for g in pre])
+        if valid is not None:
+            v_t = valid[:, t, None, None]
+            new = tuple(torch.where(v_t, nw, od) for nw, od in zip(new, carry))
+        carry = new
+        hs.append(carry[3])
+    h = torch.stack(hs, dim=1).reshape(B, S, d).to(x.dtype)
+    h = rms_norm(h, p.norm_scale, 1e-6)
+    y = torch.matmul(act_fn("gelu")(torch.matmul(h, p.ff_up)), p.ff_down)
+    c, n, m, h_fin = carry
+    return y, {"c": c, "n": n, "m": m, "h": h_fin, "conv": conv_hist}
+
+
+def apply_slstm_step(p: SLSTM, x: torch.Tensor, cfg: ModelConfig,
+                     state: Dict[str, torch.Tensor]
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x (B, 1, d): one decode step against the carried state."""
+    return apply_slstm_seq(p, x, cfg, state)

@@ -12,7 +12,7 @@ with ``pad_side="right"``, where each row is computed only as far as its
 prompt goes.
 
 * Whole-prompt admission (``prefill_chunk=0``): one prefill, whose
-  per-slot rows (contiguous K/V, sliding-window rings, RG-LRU states) are
+  per-slot rows (contiguous K/V, sliding-window rings, recurrent states) are
   prefilled fresh and scattered into the admitted slots; the first token
   is sampled from its logits.
 * Chunked prefill (``prefill_chunk > 0``): admission only reserves the
@@ -583,7 +583,7 @@ class ServingEngine:
         of every paged layer (shared by all slots; the prefill writes the
         prompts' K/V into their blocks), a fresh ``n``-row entry for every
         per-slot layer (contiguous K/V, sliding-window rings, recurrent
-        states), so each admitted row starts from zeros."""
+        states), so each admitted row starts from its initial values."""
         dtype = getattr(torch, self.cfg.dtype)
         return [entry if "kp" in entry else
                 cache_lib.init_block_cache(self.cfg, blk.kind, n, self.max_len, dtype,

@@ -50,18 +50,19 @@ def test_trace_prints_and_writes_the_reference_timeline(capsys, tmp_path, arch, 
 
 
 def test_report_prints_the_reference_tables_for_the_ported_paper_models(capsys):
-    """Default: the paper's models; the one not ported is named after the
-    tables, which equal the reference's over the ported ones."""
+    """Default: the paper's models, every one ported, so the tables equal
+    the reference's over all of them; an arch not ported yet is named
+    after the tables and left out of them."""
     assert PAPER == JAX_PAPER
-    ported = [a for a in PAPER if a not in NOT_PORTED]
-    assert ported != PAPER
+    assert not set(PAPER) & set(NOT_PORTED)
     ours = _run(capsys, cli.main, ["report", "--hardware", "a6000", "--device", "cpu"])
-    ref = _run(capsys, jax_cli.main, ["report", "--hardware", "a6000",
-                                      "--archs", ",".join(ported)])
-    assert ours == ref + "not ported yet, left out: nemotron-h-8b (hybrid)\n"
+    ref = _run(capsys, jax_cli.main, ["report", "--hardware", "a6000"])
+    assert ours == ref and "nemotron-h-8b" in ours and "left out" not in ours
     few = _run(capsys, cli.main, ["report", "--hardware", "a6000", "--device", "cpu",
-                                  "--archs", "nemotron-h-8b,llama3.2-1b"])
-    assert "llama3.2-1b" in few and few.endswith("left out: nemotron-h-8b (hybrid)\n")
+                                  "--archs", "qwen3-moe-30b-a3b,llama3.2-1b"])
+    assert few == _run(capsys, jax_cli.main, ["report", "--hardware", "a6000",
+                                              "--archs", "llama3.2-1b"]) + \
+        "not ported yet, left out: qwen3-moe-30b-a3b (moe)\n"
 
 
 def test_new_subcommands_default_to_the_h100():
@@ -97,3 +98,46 @@ def test_energy_on_the_cpu_reads_proc_stat(capsys, monkeypatch):
     assert {"j_per_prompt", "j_per_token", "j_per_request", "ttft_ms", "tpot_ms",
             "ttlt_ms"} <= set(out)
     assert all(v > 0 for v in out.values())
+
+
+@pytest.mark.parametrize("hardware", ["a6000", "cpu"])
+def test_energy_hardware_picks_the_reference_reader(capsys, monkeypatch, hardware):
+    """``energy --hardware <platform>`` reads what the reference CLI reads:
+    ``ModelReader`` over the platform's idle and TDP watts, or, for
+    ``cpu``, ``ProcStatReader``; the port's measure then integrates it."""
+    from repro.core import energy as jax_energy
+    from repro.core.profiler import Elana as JaxElana
+
+    seen = {}
+
+    def record(self, *a, **kw):  # the reference's run stops at its reader
+        seen["ref"] = self
+        seen["reader"] = kw["power_reader"]
+        return {}
+
+    monkeypatch.setattr(JaxElana, "measure", record)
+    argv = ["energy", "--arch", "qwen1.5-0.5b", "--smoke", "--hardware", hardware,
+            "--prompt", "8", "--gen", "4", "--iters", "2"]
+    _run(capsys, jax_cli.main, argv)
+    ref = seen["reader"]
+    reads = []
+    for cls in (energy.ModelReader, energy.ProcStatReader):
+        orig = cls.read_watts
+        monkeypatch.setattr(cls, "read_watts",
+                            lambda self, orig=orig: reads.append(self) or orig(self))
+    out = json.loads(_run(capsys, cli.main, argv + ["--device", "cpu"]))
+    assert reads and {type(r).__name__ for r in reads} == {type(ref).__name__}
+    assert type(ref) is {"a6000": jax_energy.ModelReader, "cpu": jax_energy.ProcStatReader}[
+        hardware]
+    assert (reads[0].idle, reads[0].tdp) == (ref.idle, ref.tdp)
+    assert all(v > 0 for v in out.values())
+
+
+def test_latency_takes_hardware_and_energy_defaults_by_device():
+    args = cli.build_parser().parse_args(["latency", "--arch", "llama3.1-8b",
+                                          "--hardware", "a6000"])
+    assert args.hardware == "a6000"
+    assert isinstance(cli.power_reader(None, "cpu"), energy.ProcStatReader)
+    assert isinstance(cli.power_reader("h100", "cuda"), energy.ModelReader)
+    with pytest.raises(KeyError):
+        cli.power_reader("tpu-v5e", "cpu")

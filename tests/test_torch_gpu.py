@@ -744,6 +744,70 @@ def test_rglru_decode_step_in_a_cuda_graph_matches_eager(cuda):
                 assert torch.equal(t[1], old[leaf]), leaf
 
 
+@pytest.mark.parametrize("arch", ["nemotron-h-8b", "xlstm-1.3b"])
+def test_xlstm_decode_step_in_a_cuda_graph_matches_eager(cuda, arch):
+    """The xLSTM smoke decode step (mLSTM, and sLSTM for xlstm-1.3b, beside
+    attention and FFN layers for nemotron-h-8b) captured once and replayed
+    against the same steps run eagerly: the same logits and states, and the
+    row masked off by ``update_mask`` frozen; then the cache reset in place
+    (stabilizers back at -1e30) and the capture replayed from a fresh
+    prefill, as the measured loop does."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.cache import M_INIT, reset_cache
+
+    cfg = get_config(arch, smoke=True)
+    model = model_lib.init(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    tokens = torch.from_numpy(_rng("xlstm-graph", arch).integers(0, cfg.vocab_size, (2, 20)))
+    tokens = tokens.to(cuda)
+    cache = model.init_cache(2, 40)
+    logits, _ = model.prefill({"tokens": tokens}, cache)
+    eager = [{k: t.clone() for k, t in e.items()} for e in cache]
+    tok = logits.argmax(-1, keepdim=True)
+    pos = torch.full((2,), 20, dtype=torch.int32, device=cuda)
+    mask = torch.zeros(2, dtype=torch.bool, device=cuda)  # warm-up changes nothing
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            model.decode_step(tok, pos, cache, update_mask=mask)
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out, _ = model.decode_step(tok, pos, cache, update_mask=mask)
+    frozen = [{k: t[1].clone() for k, t in e.items() if t.dim()} for e in cache]
+
+    mask.copy_(torch.tensor([True, False]))
+    tok_e, pos_e = tok.clone(), pos.clone()
+    for _ in range(5):
+        graph.replay()
+        want, _ = model.decode_step(tok_e, pos_e, eager, update_mask=mask)
+        torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
+        tok.copy_(out.argmax(-1, keepdim=True))
+        tok_e = want.argmax(-1, keepdim=True)
+        assert torch.equal(tok[0], tok_e[0])
+        pos.add_(1)
+        pos_e += 1
+    torch.cuda.synchronize()
+    for entry, ref, old in zip(cache, eager, frozen):
+        for leaf, t in entry.items():
+            torch.testing.assert_close(t, ref[leaf], rtol=1e-5, atol=1e-5)
+            if t.dim():
+                assert torch.equal(t[1], old[leaf]), leaf
+
+    reset_cache(cache)
+    assert all((e["m"] == M_INIT).all() for e in cache if "m" in e)
+    mask.fill_(True)
+    logits, _ = model.prefill({"tokens": tokens}, cache)
+    fresh = model.init_cache(2, 40)
+    want, _ = model.prefill({"tokens": tokens}, fresh)
+    tok.copy_(logits.argmax(-1, keepdim=True))
+    pos.fill_(20)
+    graph.replay()
+    want, _ = model.decode_step(want.argmax(-1, keepdim=True), 20, fresh)
+    torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
+
+
 def test_hybrid_engine_cuda_graph_matches_eager(cuda):
     """A small recurrentgemma engine (bf16) in both layouts: greedy streams
     through the captured decode step equal those of the eager step, and
@@ -775,7 +839,8 @@ def test_hybrid_engine_cuda_graph_matches_eager(cuda):
         assert [len(outs[True][i]) for i in range(5)] == [6 + 3 * i for i in range(5)]
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-1b", "recurrentgemma-2b"])
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "recurrentgemma-2b", "nemotron-h-8b",
+                                  "xlstm-1.3b"])
 def test_latency_profiler_graph_matches_eager(cuda, arch):
     """The measured decode loop replayed from its CUDA graph and run
     eagerly (bf16 smoke models): identical greedy tokens, the replays
@@ -863,7 +928,8 @@ def test_flash_at_the_unified_step_shapes_in_a_cuda_graph(cuda, layout):
 
 
 @pytest.mark.parametrize("arch,layout,prefix_cache", [("llama3.2-1b", "paged", True),
-                                                      ("recurrentgemma-2b", "contiguous", False)])
+                                                      ("recurrentgemma-2b", "contiguous", False),
+                                                      ("nemotron-h-8b", "paged", False)])
 def test_unified_engine_cuda_graph_matches_eager(cuda, arch, layout, prefix_cache):
     """A small bf16 engine with chunked prefill (chunk 8, budget 16) and the
     unified step, replayed from its CUDA graphs and run eagerly: identical

@@ -47,7 +47,9 @@ def _tokens(cfg, batch, n, seed):
 
 @pytest.mark.parametrize("arch,layout", [("llama3.2-1b", "contiguous"),
                                          ("llama3.2-1b", "paged"),
-                                         ("recurrentgemma-2b", "contiguous")])
+                                         ("recurrentgemma-2b", "contiguous"),
+                                         ("nemotron-h-8b", "paged"),
+                                         ("xlstm-1.3b", "contiguous")])
 def test_reset_cache_equals_a_fresh_cache(arch, layout):
     """After a prefill and decode steps wrote every kind of leaf, a reset
     cache equals a fresh ``init_cache`` leaf by leaf, in the same tensors."""
@@ -71,7 +73,8 @@ def test_reset_cache_equals_a_fresh_cache(arch, layout):
             assert got[leaf].dtype == want[leaf].dtype and torch.equal(got[leaf], want[leaf]), leaf
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-1b", "recurrentgemma-2b"])
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "recurrentgemma-2b", "nemotron-h-8b",
+                                  "xlstm-1.3b"])
 def test_profiler_greedy_loop_reuses_one_reset_cache(arch):
     """The decode loop TTLT times runs on one cache per (batch, max_len),
     reset before each prompt: its streams equal a fresh cache's, prompt
@@ -189,3 +192,34 @@ def test_measure_energy_integrates_the_call():
     res = energy.measure_energy(lambda: time.sleep(0.03), reader, interval_s=0.01)
     assert res.duration_s >= 0.03
     assert res.joules == pytest.approx(50.0 * res.duration_s, rel=1e-6)
+
+
+def test_elana_custom_builder_hook():
+    """The paper's ``_build_model_and_tokenizer`` extension point, the twin
+    of the reference's ``test_system.py::test_elana_custom_builder_hook``:
+    ``builder()`` returns (config, model); the size report counts that
+    model's parameters and ``measure`` runs it."""
+    def builder():
+        cfg = get_config("tinyllama-1.1b", smoke=True)
+        return cfg, model_lib.init(cfg, torch.Generator().manual_seed(7), device="cpu")
+
+    e = Elana(builder=builder, device="cpu")
+    assert e.size_report().param_count == sum(p.numel() for p in e.model.parameters())
+    m = e.measure(batch=1, prompt_len=8, gen_len=2, iters=1)
+    assert m["ttft_ms"] > 0
+
+
+def test_elana_takes_a_config_or_refuses_without_one():
+    """``config=`` draws the model from the seed, as an arch does; a
+    builder's model must live on the profiler's device."""
+    cfg = get_config("qwen1.5-0.5b", smoke=True).replace(name="custom", num_layers=2)
+    e = Elana(config=cfg, device="cpu", seed=3)
+    assert e.cfg is cfg and len(e.model.layers) == 2
+    assert e.size_report().param_count == sum(p.numel() for p in e.model.parameters())
+    want = model_lib.init(cfg, torch.Generator().manual_seed(3), device="cpu")
+    assert all(torch.equal(a, b) for a, b in zip(e.model.parameters(), want.parameters()))
+    assert e.measure(batch=1, prompt_len=6, gen_len=2, iters=1)["tpot_ms"] > 0
+    with pytest.raises(ValueError):
+        Elana(device="cpu")
+    with pytest.raises(ValueError):
+        Elana(builder=lambda: (cfg, model_lib.Model(cfg, device="meta")), device="cpu")
