@@ -22,8 +22,13 @@ or of the ``repro`` package.  Phases:
    and the chunk) captured and replayed, timed with its bound and SDPA,
    beside the pool gather that feeds it, and K2 at the speculative verify
    window's shape (q (8,5,32,128) over the gathered pool) the same way;
-   K4 and K5 also timed at other chunk plans; one ``{"kernels": [...]}``
-   line.
+   K4 and K5 also timed at other chunk plans; K1-K4 also at the MoE
+   paths' shapes (qwen3-moe-30b-a3b's heads 32/4 and moonshot-v1-16b-a3b's
+   16/16 of 128: K2 at the prefill and the unified step, K3 at the measure
+   path's cache and a serving one, K3 and K4 replayed from CUDA graphs;
+   K1 at d = 2048 over the serving decode's 8 rows and the unified step's
+   2048), each held to its plain version and timed under ``moe`` (K1
+   under ``modes``); one ``{"kernels": [...]}`` line.
 3. The measured path at full width: ``Elana("llama3.1-8b").measure``
    (TTFT eager; TPOT and TTLT from the decode step replayed from a CUDA
    graph), then the same with NVML energy; size and cache reports; launch
@@ -93,7 +98,23 @@ or of the ``repro`` package.  Phases:
    and 6 sLSTM layers, no attention: K1 only): measure, graph against
    eager, the profile and the parity over a contiguous cache, whole and
    in chunks.  Each model's phases print their time.
-9. The last line: ``{"ok": true, "device": {...}}``.
+9. The MoE family, each model drawn once the one before it is freed
+   (capacity dispatch into (E, C, d) and the three expert products over
+   every expert, plain ``torch.bmm``; K1-K4 as for a dense decoder, no
+   kernel for the experts): phases 3-6 for qwen3-moe-30b-a3b at full width
+   and depth (48 layers, 128 experts top-8, 61.06 GB; the TPOT bound
+   printed with every expert read and with the active ones only), 16
+   requests served and 8 greedy ones with and without the graph, the same
+   16 chunked through the unified step; then the same for
+   moonshot-v1-16b-a3b (48 layers, 64 experts top-6 and 2 shared, 57.11
+   GB).  Each model's parity runs on a model of
+   4 layers at full width drawn once the whole one is freed, with every
+   routing decision also forced to the fp32 run's (the count of top-k
+   sets that flip under bf16 printed; the kernels held to the plain path
+   with the routes forced), and its chunked-vs-whole check at a capacity
+   factor of E / k, where nothing is dropped, with the chunked run's routes
+   forced to the whole run's.
+10. The last line: ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line is printed; so does a
 machine without a CUDA device.
@@ -115,19 +136,24 @@ ARCH = "llama3.1-8b"
 HYBRID = "recurrentgemma-2b"
 NEMOTRON = "nemotron-h-8b"   # the paper's mLSTM hybrid
 XLSTM = "xlstm-1.3b"         # mLSTM and sLSTM, no attention
+QWEN_MOE = "qwen3-moe-30b-a3b"   # 128 routed experts, top-8
+MOONSHOT = "moonshot-v1-16b-a3b"  # 64 routed experts, top-6, 2 shared
 SIZE_GB = {ARCH: "16.06", HYBRID: "5.36", NEMOTRON: "16.38",   # the reference's
-           XLSTM: "3.77"}                                      # size reports
+           XLSTM: "3.77", QWEN_MOE: "61.06", MOONSHOT: "57.11"}  # size reports
+# the MoE models' parity: a model of this many layers at full width, drawn
+# once the whole model is freed (an fp32 copy of all 48 would not fit)
+MOE_PARITY_LAYERS = 4
 BATCH, PROMPT, GEN, ITERS = 1, 512, 32, 3
 HYBRID_PARITY_PROMPT = 2304  # past the 2048-token window: the ring wraps
 # the serving path: paged pool of 8 * 64 + 1 blocks of 16 tokens
 SERVE = dict(cache_layout="paged", kv_block_size=16, max_batch=8, max_len=1024,
              prompt_bucket=64, seed=0)
-SERVE_REQUESTS = {ARCH: 24, HYBRID: 16, NEMOTRON: 16}
+SERVE_REQUESTS = {ARCH: 24, HYBRID: 16, NEMOTRON: 16, QWEN_MOE: 16, MOONSHOT: 16}
 # chunked prefill through the unified step, and the shared-prefix trace's
 # system prompt (28 blocks of 16)
 CHUNKED = dict(prefill_chunk=256, prefill_budget=256)
 SHARED_PREFIX = 448
-GRAPH_REQUESTS = {ARCH: 24, HYBRID: 8, NEMOTRON: 8}
+GRAPH_REQUESTS = {ARCH: 24, HYBRID: 8, NEMOTRON: 8, QWEN_MOE: 8, MOONSHOT: 8}
 # preemption: the pool cut to two worst-case requests and the garbage block
 # (2 * 64 + 1 blocks of 16), overcommit survived by recompute
 PREEMPT = dict(kv_num_blocks=129, preemption="recompute")
@@ -223,6 +249,7 @@ def kernel_phase(dev):
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.configs import get_config
     from repro_torch.kernels.decode_attention import ops as da_ops, ref as da_ref
     from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
     from repro_torch.kernels.linear_recurrence import ops as lr_ops, ref as lr_ref
@@ -232,6 +259,16 @@ def kernel_phase(dev):
     bf16 = torch.bfloat16
     tol = {bf16: 2e-2, torch.float32: 2e-5}   # as the reference's kernel tests
     entries = []
+    moe_heads = [(arch, get_config(arch).num_heads, get_config(arch).num_kv_heads)
+                 for arch in (QWEN_MOE, MOONSHOT)]
+
+    def moe_rows(entry, rows):
+        """The MoE paths' rows under ``entry["moe"]``; their errors count in
+        the entry's ``max_abs_err``."""
+        for row in rows:
+            log(f"time {entry['name']} {row['arch']} {row['path']}: " + json.dumps(row))
+        entry["moe"] = rows
+        entry["max_abs_err"] = max([entry["max_abs_err"]] + [r["max_abs_err"] for r in rows])
 
     def log_time(name, shape, fn, case):
         """Device time of ``fn`` at a second shape of the path, inputs
@@ -297,28 +334,55 @@ def kernel_phase(dev):
     log_time("flash_attention", f"q (1,{HYBRID_PARITY_PROMPT},10,256) window=2048 softcap=30",
              fa_call, hybrid_long)
 
-    B, S, Hq, D = q.shape
-    Hkv = k.shape[2]
-    n = copies(4 * q.numel() * 2)
-    sets = [(q.clone(), k.clone(), v.clone()) for _ in range(n)]
-    qp, kp = kw["q_positions"], kw["k_positions"]
-    pairs = ((kp[:, None, :] >= 0) & (qp[:, :, None] >= kp[:, None, :])).sum().item()
-    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel()) + 4 * (qp.numel() + kp.numel())
-    flops = 4 * D * pairs * Hq
-    tq = [(a.transpose(1, 2).contiguous(), b.transpose(1, 2).contiguous(),
-           c.transpose(1, 2).contiguous()) for a, b, c in sets]
+    def fa_row(case, prefill=True):
+        """Kernel, plain and SDPA times of K2 on ``case``'s inputs, with the
+        bound of the K and V rows some query of each row sees (all of them
+        in a prefill).  SDPA: causal in a prefill, else a boolean mask from
+        the same positions."""
+        q, k, v, kw = case
+        B, S, Hq, D = q.shape
+        qp, kp = kw["q_positions"], kw["k_positions"]
+        pairs = ((kp[:, None, :] >= 0) & (qp[:, :, None] >= kp[:, None, :])).sum().item()
+        seen = ((kp >= 0) & (kp <= qp.max(dim=1, keepdim=True).values)).sum().item()
+        nbytes = 2 * 2 * q.numel() + 2 * 2 * seen * k.shape[2] * D + 4 * (qp.numel() + kp.numel())
+        n = copies(2 * (2 * q.numel() + k.numel() + v.numel()))
+        sets = [(q.clone(), k.clone(), v.clone()) for _ in range(n)]
+        tq = [(a.transpose(1, 2).contiguous(), b.transpose(1, 2).contiguous(),
+               c.transpose(1, 2).contiguous()) for a, b, c in sets]
+        mask = None if prefill else ((kp[:, None, :] >= 0)
+                                     & (qp[:, :, None] >= kp[:, None, :]))[:, None]
+        return dict(
+            shape=f"q {tuple(q.shape)} k/v {tuple(k.shape)} bf16 causal",
+            ms=cuda_ms(lambda i: fa_ops.flash_attention(*sets[i], **kw), n),
+            plain_ms=cuda_ms(lambda i: fa_ref.attention(*sets[i], **kw), n, iters=20),
+            library_ms=cuda_ms(lambda i: F.scaled_dot_product_attention(
+                *tq[i], attn_mask=mask, is_causal=prefill, enable_gqa=True), n),
+            **bound(nbytes, 4 * D * pairs * Hq, BF16_FLOPS))
+
     entries.append(dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention/flash_attention.py:100",
-        shape=f"q ({B},{S},{Hq},{D}) k/v ({B},{S},{Hkv},{D}) bf16 causal",
-        max_abs_err=max(errs),
-        ms=cuda_ms(lambda i: fa_ops.flash_attention(*sets[i], **kw), n),
-        plain_ms=cuda_ms(lambda i: fa_ref.attention(*sets[i], **kw), n, iters=20),
-        library_ms=cuda_ms(lambda i: F.scaled_dot_product_attention(
-            *tq[i], is_causal=True, enable_gqa=True), n),
-        **bound(nbytes, flops, BF16_FLOPS)))
+        max_abs_err=max(errs), **fa_row((q, k, v, kw))))
     entries[-1]["unified"] = unified_flash_check(dev, randn)
+    # the MoE paths: the measure path's prefill and the unified step's
+    # (8, 256) frontier over the 1024 gathered keys, at each model's heads
+    moe = []
+    for arch, Hq, Hkv in moe_heads:
+        case, err = fa_case(f"{arch} B=1 S={PROMPT} Hq={Hq} Hkv={Hkv} D=128 causal", BATCH,
+                            PROMPT, PROMPT, Hq, Hkv, 128, bf16)
+        moe.append(dict(arch=arch, path="prefill", max_abs_err=err, **fa_row(case)))
+        starts = [256] + [0] * 7
+        q, k, v, kw = unified_flash_case(dev, randn, "paged", starts, starts, heads=(Hq, Hkv))
+        got, ref = fa_ops.flash_attention(q, k, v, **kw), fa_ref.attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = max_err(got, ref)
+        close(got, ref, tol[bf16])
+        log(f"check flash_attention {arch} unified step q {tuple(q.shape)} k {tuple(k.shape)}: "
+            f"max_abs_err={err:.3e} tol={tol[bf16]}")
+        moe.append(dict(arch=arch, path="unified step", max_abs_err=err,
+                        **fa_row((q, k, v, kw), prefill=False)))
+    moe_rows(entries[-1], moe)
 
     # -- K3 decode attention --------------------------------------------------
     L = PROMPT + GEN + 1
@@ -443,6 +507,21 @@ def kernel_phase(dev):
     # and 32 new tokens put every row in the 256-287 band
     entries[-1]["serving"] = da_row(serving_llama)
     log("time decode_attention bench_serve: " + json.dumps(entries[-1]["serving"]))
+    # the MoE paths: the measure path's decode over (1, 545), replayed
+    # from a graph across its chunk edges, and a contiguous serving cache
+    # (8, 1024) with rows on both sides of each chunk edge
+    moe = []
+    for arch, Hq, Hkv in moe_heads:
+        case, err = da_case(f"{arch} B=1 L={L} Hq={Hq} Hkv={Hkv} D=128", 1, L, Hq, Hkv, 128,
+                            bf16, q_at=fill - 1, filled=fill)
+        moe.append(dict(arch=arch, path="measure decode", max_abs_err=err, **da_row(case)))
+        chunk = da_ops.split_plan(1, Hkv, L, sms)[1]
+        decode_graph_check(dev, randn, 1, L, Hq, Hkv, 128,
+                           (0, chunk - 1, chunk, 2 * chunk, fill - 1, L - 1))
+        case, err = da_case(f"{arch} B=8 L=1024 Hq={Hq} Hkv={Hkv} rows at {spread}", 8, 1024,
+                            Hq, Hkv, 128, bf16, q_at=spread, filled=[p + 1 for p in spread])
+        moe.append(dict(arch=arch, path="serving decode", max_abs_err=err, **da_row(case)))
+    moe_rows(entries[-1], moe)
 
     # -- K4 paged decode attention ---------------------------------------------
     def pda_case(name, B, Hq, Hkv, D, dtype, q_pos, bs=16, nb=64, N=513, window=0,
@@ -503,31 +582,50 @@ def kernel_phase(dev):
                          [1000, 47, 48, 600], bs=48, nb=22, N=89, softcap=30.0)[1])
     paged_graph_check(dev, randn)
 
-    B, _, Hq, D = q.shape
-    N, bs, Hkv = kp.shape[:3]
-    tables, qp = kw["block_tables"], kw["q_positions"]
-    valid = int(sum(p + 1 for p in q_pos))  # keys the rows attend to
-    nbytes = (2 * (2 * valid * Hkv * D + 2 * q.numel())
-              + 4 * (sum(p // bs + 1 for p in q_pos) + qp.numel()))
-    n = copies(2 * 2 * valid * Hkv * D)
+    def pda_row(case):
+        """Kernel and plain times of K4 on ``case``'s inputs (no window),
+        with the bound of the keys its rows see and their table entries."""
+        q, kp, vp, kw = case
+        B, _, Hq, D = q.shape
+        N, bs, Hkv = kp.shape[:3]
+        q_pos = kw["q_positions"][:, 0].tolist()
+        valid = int(sum(max(p, -1) + 1 for p in q_pos))  # keys the rows attend to
+        nbytes = (2 * (2 * valid * Hkv * D + 2 * q.numel())
+                  + 4 * (sum(max(p, -1) // bs + 1 for p in q_pos) + len(q_pos)))
+        n = copies(2 * 2 * valid * Hkv * D)
+        sets = [(q.clone(), kp.clone(), vp.clone()) for _ in range(n)]
+        return dict(
+            shape=f"q ({B},1,{Hq},{D}) pool ({N},{bs},{Hkv},{D}) bf16, {valid} valid keys",
+            ms=cuda_ms(lambda i: da_ops.paged_decode_attention(*sets[i], **kw), n),
+            plain_ms=cuda_ms(lambda i: da_ref.paged_decode_attention(*sets[i], **kw), n,
+                             iters=20),
+            library_ms=None,  # no one PyTorch call gathers through a block table and attends
+            **bound(nbytes, 4 * D * valid * Hq, BF16_FLOPS))
+
+    B, Hkv, bs, nb = q.shape[0], kp.shape[2], kp.shape[1], kw["block_tables"].shape[1]
+    n = copies(2 * 2 * int(sum(p + 1 for p in q_pos)) * Hkv * q.shape[3])
     sets = [(q.clone(), kp.clone(), vp.clone()) for _ in range(n)]
     pda_call = lambda i: da_ops.paged_decode_attention(*sets[i], **kw)  # noqa: E731
     for per_sm in (1, 2, 4, 8):  # the chunk plan's aim, beside the one it takes
         with patched(da_ops, "BLOCKS_PER_SM", per_sm):
-            plan = da_ops.split_plan(B, Hkv, tables.shape[1] * bs, sms)
+            plan = da_ops.split_plan(B, Hkv, nb * bs, sms)
             log(f"time paged_decode_attention at {per_sm} blocks per SM, (n_split, chunk) = "
                 f"{plan}: kernel_ms={cuda_ms(pda_call, n):.4f}")
     entries.append(dict(
         name="paged_decode_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/paged_decode_attention.cu",
         replaces="src/repro/kernels/decode_attention/decode_attention.py:202",
-        shape=f"q ({B},1,{Hq},{D}) pool ({N},{bs},{Hkv},{D}) bf16, {valid} valid keys",
-        max_abs_err=max(errs),
-        ms=cuda_ms(pda_call, n),
-        plain_ms=cuda_ms(lambda i: da_ref.paged_decode_attention(*sets[i], **kw), n,
-                         iters=20),
-        library_ms=None,  # no one PyTorch call gathers through a block table and attends
-        **bound(nbytes, 4 * D * valid * Hq, BF16_FLOPS)))
+        max_abs_err=max(errs), **pda_row((q, kp, vp, kw))))
+    # the MoE paths' serving decode: 8 rows at the main case's positions
+    # over the engine's pool, at each model's heads, also replayed from a
+    # graph across the chunk edges
+    moe = []
+    for arch, Hq, Hkv in moe_heads:
+        case, err = pda_case(f"{arch} B=8 Hq={Hq} Hkv={Hkv} D=128 bs=16 q_pos={q_pos}", 8, Hq,
+                             Hkv, 128, bf16, q_pos)
+        moe.append(dict(arch=arch, path="serving decode", max_abs_err=err, **pda_row(case)))
+        paged_graph_check(dev, randn, Hq, Hkv)
+    moe_rows(entries[-1], moe)
 
     # -- K1 rmsnorm, plain and with the residual add fused in front ------------
     def rn_case(rows, d, dtype, fused):
@@ -561,13 +659,16 @@ def kernel_phase(dev):
     # norm's W = 4096 is the width above)
     shapes += [(rows, 8192, False) for rows in (1, 8, PROMPT)]
     shapes += [(rows, 2048, fused) for rows in (1, PROMPT) for fused in (False, True)]
+    # the MoE models' blocks at d = 2048: the serving decode's 8 rows and
+    # the unified step's 8 x 256
+    shapes += [(rows, 2048, fused) for rows in (8, 8 * 256) for fused in (False, True)]
     for rows, d, fused in shapes:
         (x, r, s), err = rn_case(rows, d, bf16, fused)
         errs.append(err)
         numel = rows * d
         # decode rows arrive hot from the kernel that wrote them; prompt
         # rows are rotated past the L2 cache, as for the other kernels
-        n = copies(2 * 2 * numel) if rows == PROMPT else 1
+        n = copies(2 * 2 * numel) if rows >= PROMPT else 1
         sets = [(x.clone(), None if r is None else r.clone()) for _ in range(n)]
         w = (1.0 + s.float()).to(bf16)
         if fused:
@@ -679,11 +780,11 @@ def kernel_phase(dev):
     return entries
 
 
-def unified_flash_case(dev, randn, layout, starts, lengths, W=256):
+def unified_flash_case(dev, randn, layout, starts, lengths, W=256, heads=(32, 8)):
     """K2's inputs in the serving engine's unified step, B = len(starts)
     chunk rows of W queries at ``starts`` (``lengths`` of them tokens).
-    ``paged`` (llama3.1-8b): over the gathered pool of 64 blocks of 16,
-    keys at 0..1023.  ``ring`` (recurrentgemma-2b): over a 1024-slot ring
+    ``paged`` (llama3.1-8b's ``heads``, Hq and Hkv of 128, or another
+    model's): over the gathered pool of 64 blocks of 16, keys at 0..1023.  ``ring`` (recurrentgemma-2b): over a 1024-slot ring
     filled up to each row's start (-1 where a row has no chunk and
     nothing cached) plus the chunk, its pad columns at -1, window 2048,
     softcap 30: T = 1280 keys, not sorted."""
@@ -695,7 +796,7 @@ def unified_flash_case(dev, randn, layout, starts, lengths, W=256):
     col = torch.arange(W, dtype=torch.int32, device=dev)[None]
     qp = (st + col).contiguous()
     if layout == "paged":
-        Hq, Hkv, D, T, kw = 32, 8, 128, 1024, {}
+        (Hq, Hkv), D, T, kw = heads, 128, 1024, {}
         kp = torch.arange(T, dtype=torch.int32, device=dev).expand(B, T).contiguous()
     else:
         Hq, Hkv, D, L, kw = 10, 1, 256, 1024, dict(window=2048, softcap=30.0)
@@ -898,9 +999,10 @@ def decode_graph_check(dev, randn, B, L, Hq, Hkv, D, positions, window=0, softca
         f"{len(positions)} replays at q_pos {positions} equal eager")
 
 
-def paged_graph_check(dev, randn):
-    """One K4 call at llama3.1-8b's serving shape (8 rows of 64 blocks of
-    16 positions, G = 4, D = 128) captured in a CUDA graph, replayed as the
+def paged_graph_check(dev, randn, Hq=32, Hkv=8):
+    """One K4 call at the serving shape (8 rows of 64 blocks of 16
+    positions, D = 128; llama3.1-8b's heads unless given) captured in a
+    CUDA graph, replayed as the
     rows' q_pos advance across the chunk boundaries of its plan: identical
     to the eager call, and within bf16 tolerance of the plain version, at
     every position."""
@@ -908,8 +1010,8 @@ def paged_graph_check(dev, randn):
 
     from repro_torch.kernels.decode_attention import ops as da_ops, ref as da_ref
 
-    B, nb, bs, Hkv = 8, 64, 16, 8
-    q = randn(B, 1, 32, 128)
+    B, nb, bs = 8, 64, 16
+    q = randn(B, 1, Hq, 128)
     kp, vp = randn(B * nb + 1, bs, Hkv, 128), randn(B * nb + 1, bs, Hkv, 128)
     tables = (torch.randperm(B * nb, device=dev) + 1).to(torch.int32).reshape(B, nb)
     qp = torch.zeros(B, 1, dtype=torch.int32, device=dev)
@@ -927,8 +1029,8 @@ def paged_graph_check(dev, randn):
         torch.cuda.synchronize()
         check(torch.equal(out, eager), f"paged graph replay at q_pos {pos}.. differs from eager")
         close(out, da_ref.paged_decode_attention(q, kp, vp, **kw), 2e-2)
-    log(f"check paged_decode_attention in a CUDA graph: {len(positions)} replays at rows "
-        f"from q_pos {positions} equal eager")
+    log(f"check paged_decode_attention in a CUDA graph, Hq={Hq} Hkv={Hkv}: {len(positions)} "
+        f"replays at rows from q_pos {positions} equal eager")
 
 
 @contextlib.contextmanager
@@ -1040,6 +1142,21 @@ def measured_launches(e, counters, calls, **measure_kw):
     return m, launches
 
 
+def prefill_flops(cfg, params, tokens):
+    """Operations of one prefill's weight products over ``tokens`` tokens:
+    2 per parameter per token, except that a MoE layer's experts compute
+    their full capacity of rows each (the reference's (E, C, d) buffer)."""
+    if not cfg.is_moe:
+        return 2 * params * tokens
+    from repro_torch.models.moe import capacity
+
+    E, k = cfg.num_experts, cfg.num_experts_per_tok
+    per_expert = 3 * cfg.d_model * cfg.d_ff
+    layers = sum(kind in ("attn", "local_attn") for kind in cfg.blocks())
+    C = capacity(tokens, E, k, cfg.moe_capacity_factor)
+    return 2 * (params - layers * E * per_expert) * tokens + 2 * layers * E * C * per_expert
+
+
 def main_path_phase(arch, counters):
     import torch
 
@@ -1059,9 +1176,12 @@ def main_path_phase(arch, counters):
     tables = sum(size.by_component.get(k, 0) for k in ("embed", "lm_head")) // itemsize
     # and of each recurrent state (read once, written once)
     state = e.cache_report(BATCH, PROMPT + GEN + 1).state_bytes
-    bounds = {"ttft_bound_ms": 2 * (size.param_count - tables) * BATCH * PROMPT
-              / BF16_FLOPS * 1e3,
+    bounds = {"ttft_bound_ms": prefill_flops(e.cfg, size.param_count - tables,
+                                             BATCH * PROMPT) / BF16_FLOPS * 1e3,
               "tpot_bound_ms": (size.param_bytes + 2 * state) / HBM_BYTES_PER_S * 1e3}
+    if e.cfg.is_moe:  # the function reads every expert; the estimator the active ones
+        bounds["tpot_bound_active_experts_ms"] = (size.active_param_bytes
+                                                  / HBM_BYTES_PER_S * 1e3)
     t0 = time.perf_counter()
     model = e.model
     torch.cuda.synchronize()
@@ -1651,23 +1771,106 @@ def parity_phase(e, dev, prompt=PROMPT, paged=True, table_scale=1.0):
             model.embed.table.copy_(saved)
 
 
+@contextlib.contextmanager
+def moe_routes(log=None, forced=None):
+    """Inside the block, each MoE routing decision's (T, k) expert ids are
+    appended to ``log``; with ``forced``, each call takes the next of those
+    ids instead of its own top-k (its gates recomputed from its own
+    probabilities at them), so two paths route alike."""
+    import torch
+
+    from repro_torch.models import moe as moe_lib
+
+    route = moe_lib.route
+    given = iter(forced) if forced is not None else None
+
+    def routed(logits, k, normalize=True):
+        if given is None:
+            w, idx = route(logits, k, normalize)
+        else:
+            idx = next(given)
+            w = torch.softmax(logits.float(), dim=-1).gather(-1, idx)
+            if normalize:
+                w = w / w.sum(dim=-1, keepdim=True)
+        if log is not None:
+            log.append(idx)
+        return w, idx
+
+    with patched(moe_lib, "route", routed):
+        yield
+    check(given is None or next(given, None) is None, "a forced route was left over")
+
+
+def route_flips(a, b):
+    """(token rows whose top-k expert sets differ between two runs' routing
+    logs, rows compared)."""
+    flips = sum(int((x.sort(-1).values != y.sort(-1).values).any(-1).sum())
+                for x, y in zip(a, b))
+    return flips, sum(x.shape[0] for x in a)
+
+
+def chunk_routes(log, b, prompt, chunk):
+    """A whole-prompt run's routing log in the order a run of the same
+    prompt in chunks of ``chunk`` routes: each chunk's rows of every
+    prefill layer's (b * prompt, k) ids, chunk by chunk, then the decode
+    steps' ids as they are."""
+    pre = [x for x in log if x.shape[0] == b * prompt]
+    return [x.reshape(b, prompt, -1)[:, i:i + chunk].reshape(-1, x.shape[-1])
+            for i in range(0, prompt, chunk) for x in pre] + log[len(pre):]
+
+
 def _parity_checks(e, model, layouts, run, steps, prompt, whole, table_scale):
+    """The checks of ``parity_phase``.  A MoE model routes each token by a
+    top-k over bf16-rounded activations, so a token whose k-th and
+    (k+1)-th experts lie within bf16 noise of each other can take another
+    expert on either bf16 path than in fp32; its error then measures the
+    flip, not the kernels.  So for MoE the kernels and the plain bf16 path
+    are also run with every routing decision forced to the fp32 run's, and
+    the kernels must be within twice the plain path's distance from fp32
+    with the routes forced (the unforced distances are printed, not held:
+    the flips swamp them); the top-1 check holds on the forced runs, the
+    floor is the forced plain distance, and the number of (layer, token)
+    top-k sets that differ from fp32's is printed.  The chunked-vs-whole
+    comparison of a MoE model runs at a capacity factor of E / k, where
+    nothing is dropped (capacity is per call, so 256-token chunks drop
+    other pairs than the 512-token prompt, a real difference of the
+    function), with the chunked run's routes forced to the whole run's, so
+    that a flip cannot stand in for a kernel fault."""
     import torch
 
     from repro_torch.kernels import dispatch
     from repro_torch.models.model import Model
 
     dev = model.device
-    results = {name: run(model, name) for name in layouts}
+    moe = e.cfg.is_moe
+    logs = {}
+
+    def logged(tag, fn, forced=None):
+        if not moe:
+            return fn()
+        logs[tag] = []
+        with moe_routes(logs[tag], forced):
+            return fn()
+
+    results = {name: logged(("kern", name), lambda n=name: run(model, n)) for name in layouts}
+    forced_res = {}
     with dispatch.use_backend("torch"):  # same inputs at every step
-        plain = {name: run(model, name, forced=results[name][1])[0] for name in layouts}
+        plain = {name: logged(("plain", name), lambda n=name: run(
+            model, n, forced=results[n][1])[0]) for name in layouts}
         ref32 = Model(e.cfg.replace(dtype="float32", param_dtype="float32"), device=dev)
         with torch.no_grad():
             for p32, p in zip(ref32.parameters(), model.parameters()):
                 p32.copy_(p)
-        ref = {name: run(ref32, name, torch.float32, forced=results[name][1])[0]
-               for name in layouts}
+        ref = {name: logged(("ref", name), lambda n=name: run(
+            ref32, n, torch.float32, forced=results[n][1])[0]) for name in layouts}
         del ref32
+        if moe:  # the bf16 plain path with the fp32 run's routes
+            forced_res["plain"] = {name: logged(("plain forced", name), lambda n=name: run(
+                model, n, forced=results[n][1])[0], forced=logs["ref", name])
+                for name in layouts}
+    if moe:  # and the kernels
+        forced_res["kern"] = {name: logged(("kern forced", name), lambda n=name: run(
+            model, n, forced=results[n][1])[0], forced=logs["ref", name]) for name in layouts}
     torch.cuda.synchronize()
     floor = {}
     for name, (b, _) in layouts.items():
@@ -1677,22 +1880,41 @@ def _parity_checks(e, model, layouts, run, steps, prompt, whole, table_scale):
               f"{name}: non-finite logits")
         err_kern = (kern - ref[name]).abs().max().item()
         err_plain = (plain[name] - ref[name]).abs().max().item()
+        stats = {"max_abs_logit_fp32": ref[name].abs().max().item(), "kernels_vs_fp32": err_kern,
+                 "plain_bf16_vs_fp32": err_plain,
+                 "kernels_vs_plain": (kern - plain[name]).abs().max().item()}
+        if moe:
+            for path in ("kern", "plain"):
+                flips, rows = route_flips(logs[path, name], logs["ref", name])
+                stats[f"route_flips_{path}_vs_fp32"] = f"{flips}/{rows}"
+            kern = forced_res["kern"][name]
+            check(all(torch.isfinite(t).all().item() for t in (kern, forced_res["plain"][name])),
+                  f"{name}: non-finite logits with forced routes")
+            err_kern = (kern - ref[name]).abs().max().item()
+            err_plain = (forced_res["plain"][name] - ref[name]).abs().max().item()
+            stats.update(forced_routes_kernels_vs_fp32=err_kern,
+                         forced_routes_plain_bf16_vs_fp32=err_plain)
+        floor[name] = err_plain
         top2 = ref[name].topk(2, dim=-1).values
         decided = (top2[..., 0] - top2[..., 1]) > err_plain
         agree = kern.argmax(-1) == ref[name].argmax(-1)
         log(f"parity {e.cfg.name} {name} B={b} prompt={prompt}: " + json.dumps({
-            "max_abs_logit_fp32": ref[name].abs().max().item(), "kernels_vs_fp32": err_kern,
-            "plain_bf16_vs_fp32": err_plain,
-            "kernels_vs_plain": (kern - plain[name]).abs().max().item(),
-            "top1_agree": f"{int(agree.sum())}/{agree.numel()}",
+            **stats, "top1_agree": f"{int(agree.sum())}/{agree.numel()}",
             "decided_rows": int(decided.sum())}))
         check(err_kern <= 2 * err_plain,
               f"{name}: kernels {err_kern} from fp32, plain bf16 {err_plain}")
         check(bool(agree[decided].all()),
               f"{name}: top-1 differs from fp32 on a row with a clear margin")
-        floor[name] = err_plain
     # the chunked prompt against the whole one, both through the kernels
     tol = 2 * floor["chunked"]
+    factor = None
+    if moe:
+        factor = e.cfg.num_experts / e.cfg.num_experts_per_tok
+        b = layouts[whole][0]
+        with patched(model, "cfg", e.cfg.replace(moe_capacity_factor=factor)):
+            results = {whole: logged("whole", lambda: run(model, whole))}
+            forced = chunk_routes(logs["whole"], b, prompt, CHUNKED["prefill_chunk"])
+            results["chunked"] = logged("chunked", lambda: run(model, "chunked"), forced=forced)
     kc, kw_ = results["chunked"][0], results[whole][0]
     first = (kc[0] - kw_[0]).abs().max().item()
     tc, tw = (torch.cat(results[n][1], dim=1) for n in ("chunked", whole))
@@ -1702,6 +1924,7 @@ def _parity_checks(e, model, layouts, run, steps, prompt, whole, table_scale):
     first_diff = ~same & torch.cat([torch.ones_like(same[:, :1]), same[:, :-1]], dim=1)
     log(f"parity {e.cfg.name} chunked vs whole prompt={prompt}: " + json.dumps({
         "first_token_max_abs_diff": first, "tol": tol, "table_scale": table_scale,
+        "moe_capacity_factor": factor,
         "identical_greedy_streams": f"{int(same[:, -1].sum())}/{same.shape[0]}",
         "first_token_decided_rows": int((margin[:, 0] > tol).sum()),
         "diverged_at_decided_step": int((first_diff & (margin > tol)).sum())}))
@@ -2177,15 +2400,19 @@ def bench_serve_phase(counters):
     return paths
 
 
-def model_phases(arch, dev, counters, paths, serve=True, **parity_kw):
+def model_phases(arch, dev, counters, paths, serve=True, parity_layers=0, **parity_kw):
     """Phases 3-6 for one more model at full width, drawn once the model
     before it is freed: measure with exact launch counts, graph against
     eager, the profile; with ``serve`` the whole-prompt serve (paged,
     CUDA-graph step), greedy streams with and without the graph and the
     chunked serve through the unified step; then the parity
-    (``parity_phase(**parity_kw)``).  Adds each path's launches to
-    ``paths``; frees the model and prints the phases' time."""
+    (``parity_phase(**parity_kw)``), with ``parity_layers`` on a model of
+    that many layers at full width drawn once the whole one is freed.
+    Adds each path's launches to ``paths``; frees the model and prints the
+    phases' time."""
     import torch
+
+    from repro_torch.core.profiler import Elana
 
     t0 = time.perf_counter()
     e, paths[f"{arch} measure"], measured = main_path_phase(arch, counters)
@@ -2196,6 +2423,14 @@ def model_phases(arch, dev, counters, paths, serve=True, **parity_kw):
         paths[f"{arch} serve"] = whole[0]
         graph_phase(e)
         paths.update(chunked_serve_phase(e, counters, whole, measure_split))
+    if parity_layers:
+        cfg = e.cfg.replace(num_layers=parity_layers)
+        log(f"parity {arch}: a model of {parity_layers} of its {e.cfg.num_layers} layers at "
+            f"full width, drawn from seed 0 once the whole model is freed")
+        del e
+        gc.collect()
+        torch.cuda.empty_cache()
+        e = Elana(config=cfg, device="cuda", seed=0)
     parity_phase(e, dev, **parity_kw)
     del e
     gc.collect()
@@ -2281,6 +2516,14 @@ def main():
     check(paths[f"{NEMOTRON} serve"]["paged_decode_attention"] > 0,
           f"K4 never launched on the {NEMOTRON} serve path")
     model_phases(XLSTM, dev, counters, paths, serve=False, paged=False)
+    for arch in (QWEN_MOE, MOONSHOT):
+        model_phases(arch, dev, counters, paths, parity_layers=MOE_PARITY_LAYERS)
+        for path in ("measure", "serve", "chunked serve"):
+            check(all(paths[f"{arch} {path}"][k] > 0 for k in ("rmsnorm", "flash_attention")),
+                  f"K1 or K2 never launched on the {arch} {path} path")
+        check(paths[f"{arch} measure"]["decode_attention"] > 0
+              and paths[f"{arch} serve"]["paged_decode_attention"] > 0,
+              f"K3 or K4 never launched on the {arch} paths")
     for entry in entries:
         k = entry["name"]
         entry["launches_by_path"] = {path: counts[k] for path, counts in paths.items()}

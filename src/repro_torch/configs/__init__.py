@@ -1,7 +1,8 @@
 """Architecture registry of the port: ``--arch <id>`` lookup.
 
-The port runs the dense decoders, the RG-LRU hybrid (recurrentgemma) and
-the xLSTM family (nemotron-h-8b's mLSTM hybrid, xlstm-1.3b).
+The port runs the dense decoders, the RG-LRU hybrid (recurrentgemma), the
+xLSTM family (nemotron-h-8b's mLSTM hybrid, xlstm-1.3b) and the MoE family
+(qwen3-moe-30b-a3b, moonshot-v1-16b-a3b with its shared experts).
 The other architectures of the reference registry are known by name and
 raise ``KeyError`` until their families are ported.
 """
@@ -24,13 +25,13 @@ _MODULES: Dict[str, str] = {
     "recurrentgemma-2b": "recurrentgemma_2b",
     "xlstm-1.3b": "xlstm_1_3b",
     "nemotron-h-8b": "nemotron_h_8b",
+    "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
 }
 
 NOT_PORTED: Dict[str, str] = {
     "llava-next-34b": "vlm",
     "seamless-m4t-large-v2": "encdec",
-    "moonshot-v1-16b-a3b": "moe",
-    "qwen3-moe-30b-a3b": "moe",
 }
 
 # the models profiled in the ELANA paper itself (Tables 2-4), as the

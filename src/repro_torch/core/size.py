@@ -54,18 +54,33 @@ def _component(name: str) -> str:
     return "decoder." + ("norms" if "norm" in part else part)
 
 
+def moe_active_fraction(cfg: ModelConfig) -> float:
+    """Fraction of expert weights active per token (1.0 for dense)."""
+    if not cfg.is_moe:
+        return 1.0
+    return cfg.num_experts_per_tok / cfg.num_experts
+
+
 def profile_size(cfg: ModelConfig, model: Optional[nn.Module] = None) -> SizeReport:
     """Size report of ``model``, or of ``cfg``'s model built on ``meta``.
-    The port has no MoE model yet, so every parameter is active."""
+    In a MoE model the routed experts' ``wg``/``wu``/``wd`` (under ``mlp``,
+    not under ``shared``) count k/E of their size as active per token."""
     model = model if model is not None else Model(cfg, device="meta")
-    count = nbytes = 0
+    count = nbytes = expert_count = expert_bytes = 0
     by_comp: Dict[str, int] = {}
     for name, p in model.named_parameters():
-        b = p.numel() * p.element_size()
-        count += p.numel()
+        n, b = p.numel(), p.numel() * p.element_size()
+        count += n
         nbytes += b
         comp = _component(name)
         by_comp[comp] = by_comp.get(comp, 0) + b
+        parts = name.split(".")
+        if cfg.is_moe and parts[-1] in ("wg", "wu", "wd") and "shared" not in parts \
+                and "mlp" in parts:
+            expert_count += n
+            expert_bytes += b
+    frac = moe_active_fraction(cfg)
     return SizeReport(name=cfg.name, param_count=count, param_bytes=nbytes,
-                      active_param_count=count, active_param_bytes=nbytes,
+                      active_param_count=count - expert_count + int(expert_count * frac),
+                      active_param_bytes=nbytes - expert_bytes + int(expert_bytes * frac),
                       by_component=by_comp, dtype=str(cfg.param_dtype))

@@ -2,7 +2,7 @@
 
 The fields and their defaults are those of ``repro/models/config.py``, so a
 configuration file reads the same in both packages and tests can compare
-them field by field.  The port runs every block kind; MoE, enc-dec and
+them field by field.  The port runs every block kind and MoE; enc-dec and
 vision configurations stay declared so that every field keeps its meaning,
 and ``models.model`` rejects them.
 """

@@ -1,7 +1,9 @@
 """The decoder, the counterpart of ``repro/models/model.py`` for the block
 kinds ``attn``, ``local_attn`` (sliding window over a ring cache), ``ffn``,
 ``rglru`` (Griffin's recurrent block) and the xLSTM cells ``mlstm`` and
-``slstm`` (a norm and the cell, no MLP).
+``slstm`` (a norm and the cell, no MLP).  In a MoE config the attention
+blocks' MLP is the mixture of experts (``models/moe.py``); ``ffn`` and
+``rglru`` blocks keep the dense MLP, as in the reference.
 
 The reference stacks each repetition of ``cfg.block_pattern`` on a leading
 axis and scans over it; here the layers are a plain ``nn.ModuleList`` run
@@ -29,6 +31,7 @@ from torch import nn
 from repro_torch import resolve_device
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import cache as cache_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import recurrent as rec_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
@@ -54,8 +57,8 @@ class Block(nn.Module):
             raise NotImplementedError(
                 f"{cfg.name}: block kind {kind!r} is not ported yet "
                 f"(the port runs {SUPPORTED_BLOCKS})")
-        if cfg.is_moe or cfg.is_encdec:
-            raise NotImplementedError(f"{cfg.name}: MoE and enc-dec are not ported yet")
+        if cfg.is_encdec:
+            raise NotImplementedError(f"{cfg.name}: enc-dec is not ported yet")
         self.kind = kind
         d = cfg.d_model
         if kind in ATTN_BLOCKS:
@@ -72,6 +75,8 @@ class Block(nn.Module):
         if kind in XLSTM_BLOCKS:  # no MLP: the cell holds the block's projections
             cell = rec_lib.MLSTM if kind == "mlstm" else rec_lib.SLSTM
             self.cell = cell(cfg, dtype, device)
+        elif kind in ATTN_BLOCKS and cfg.is_moe:
+            self.mlp = moe_lib.MoE(cfg, dtype, device)
         else:
             self.mlp = MLP(d, cfg.d_ff, cfg.mlp_gated, dtype, device)
 
@@ -135,12 +140,16 @@ def _apply_xlstm_block(p: Block, cfg: ModelConfig, x: torch.Tensor,
 
 def _mlp_branch(p: Block, cfg: ModelConfig, x: torch.Tensor, h: torch.Tensor,
                 a: torch.Tensor) -> Residual:
-    """An attention block after its attention output ``a``: the MLP branch,
-    left pending.  A parallel block's MLP reads the shared pre-norm ``h``
-    and adds ``a`` first, as the reference adds ``(x + a) + m``."""
+    """An attention block after its attention output ``a``: the MLP branch
+    (the mixture of experts in a MoE config), left pending.  A parallel
+    block's MLP reads the shared pre-norm ``h`` and adds ``a`` first, as
+    the reference adds ``(x + a) + m``."""
     if cfg.parallel_block:
-        return x + a, apply_mlp(p.mlp, h, cfg.mlp_act)
-    x, h = add_norm(p.norm2, x, a, cfg.norm_eps)
+        x = x + a
+    else:
+        x, h = add_norm(p.norm2, x, a, cfg.norm_eps)
+    if cfg.is_moe:
+        return x, moe_lib.apply_moe(p.mlp, h, cfg)
     return x, apply_mlp(p.mlp, h, cfg.mlp_act)
 
 
@@ -346,8 +355,9 @@ class Model(nn.Module):
 def init(cfg: ModelConfig, generator: torch.Generator, device="cuda") -> Model:
     """A model with weights drawn from ``generator`` (which must live on
     ``device``) at the reference initializer's scales: N(0,1)/sqrt(fan-in)
-    for projections, 1/sqrt(Hq*hd) for wo, 1/sqrt(d_ff) for wd, N(0,1) for
-    embeddings, zeros for norm scales and biases; the RG-LRU's ``lambda``
+    for projections (the experts' wg and wu on their first dimension, E),
+    1/sqrt(Hq*hd) for wo, 1/sqrt(d_ff) for wd, N(0,1) for embeddings, zeros
+    for norm scales and biases; the RG-LRU's ``lambda``
     is the reference's fixed formula, the xLSTM forget biases its
     ``linspace(3, 6)``."""
     model = Model(cfg, device=device)

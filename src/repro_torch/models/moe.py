@@ -1,0 +1,150 @@
+"""Mixture-of-experts FFN, the counterpart of ``repro/models/moe.py``:
+tokens choose their top-k experts, and a stable sort by expert gives each
+(token, expert) pair its position in that expert's buffer of ``capacity``
+rows; pairs past it are dropped.  The expert products run over every expert
+(``torch.bmm`` over the (E, C, d) buffer), as the reference's einsums do.
+
+Supports Moonlight-style shared experts (an always-on dense branch) and
+Qwen3-MoE-style normalized top-k gates.
+
+Nothing here waits for the device (no ``nonzero``, ``bincount``, boolean
+indexing or ``.item()``; the capacity is a Python int from shapes), so the
+serving engine's decode and unified steps stay capturable in CUDA graphs.
+The capacity counts every row of a call, pad columns and idle slots
+included, so whether a token is dropped depends on the rows beside it.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import act_fn, init_normal_, new_param
+from repro_torch.models.mlp import MLP, apply_mlp
+
+
+def capacity(num_tokens: int, num_experts: int, k: int, factor: float) -> int:
+    cap = int(math.ceil(num_tokens * k * factor / num_experts))
+    # rounded up to a multiple of 8; at least k so that tiny inputs route
+    return max(k, ((cap + 7) // 8) * 8)
+
+
+class MoE(nn.Module):
+    """``router`` (d, E), ``wg``/``wu`` (E, d, ff), ``wd`` (E, ff, d) and,
+    with ``num_shared_experts``, a gated ``shared`` MLP of width
+    ff * num_shared_experts: the reference's leaf names."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        d, e, ff = cfg.d_model, cfg.num_experts, cfg.d_ff
+        self.router = new_param((d, e), dtype, device)
+        self.wg = new_param((e, d, ff), dtype, device)
+        self.wu = new_param((e, d, ff), dtype, device)
+        self.wd = new_param((e, ff, d), dtype, device)
+        if cfg.num_shared_experts > 0:
+            self.shared = MLP(d, ff * cfg.num_shared_experts, True, dtype, device)
+
+    def init_(self, gen: torch.Generator) -> None:
+        # the reference's scales: wg and wu take Maker.normal's default,
+        # fan-in on the first dimension, which is E for these leaves
+        init_normal_(self.router, gen, scale=1.0 / math.sqrt(self.router.shape[0]))
+        init_normal_(self.wg, gen)
+        init_normal_(self.wu, gen)
+        init_normal_(self.wd, gen, scale=1.0 / math.sqrt(self.wd.shape[1]))
+
+
+def route(logits: torch.Tensor, k: int, normalize: bool = True
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k of the fp32 softmax probabilities.  logits (T, E) -> weights
+    (T, k) fp32, expert ids (T, k) int64."""
+    probs = torch.softmax(logits.float(), dim=-1)
+    weights, idx = torch.topk(probs, k, dim=-1)
+    if normalize:
+        weights = weights / weights.sum(dim=-1, keepdim=True)
+    return weights, idx
+
+
+def router_logits(p: MoE, xf: torch.Tensor) -> torch.Tensor:
+    """(T, d) -> (T, E) fp32: the router product in fp32, as the
+    reference's ``preferred_element_type=float32``."""
+    return torch.matmul(xf.float(), p.router.float())
+
+
+def positions_in_expert(e_flat: torch.Tensor, E: int) -> torch.Tensor:
+    """Each (token, expert) pair's position within its expert, in the order
+    of a stable sort by expert id (flat order within an expert)."""
+    order = torch.argsort(e_flat, stable=True)
+    e_sorted = e_flat[order]
+    counts = torch.zeros(E, dtype=torch.int64, device=e_flat.device).index_add_(
+        0, e_sorted, torch.ones_like(e_sorted))
+    starts = torch.cumsum(counts, 0) - counts                # (E,)
+    pos_sorted = torch.arange(e_flat.numel(), device=e_flat.device) - starts[e_sorted]
+    return torch.empty_like(pos_sorted).scatter_(0, order, pos_sorted)
+
+
+def _moe_tokens(p: MoE, xf: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The routed experts of tokens ``xf`` (T, d), capacity over these T:
+    route, position in expert, dispatch, expert FFN, combine."""
+    T, d = xf.shape
+    E, k = cfg.num_experts, cfg.num_experts_per_tok
+    weights, idx = route(router_logits(p, xf), k)          # (T, k) each
+
+    pos = positions_in_expert(idx.reshape(-1), E).reshape(T, k)
+    C = capacity(T, E, k, cfg.moe_capacity_factor)
+    keep = pos < C
+
+    # dispatch: each pair's token into (E, C + 1, d); positions are unique
+    # per (expert, slot), and row C is the drop bin, never read
+    buf = torch.zeros(E, C + 1, d, dtype=xf.dtype, device=xf.device)
+    buf[idx, torch.where(keep, pos, C)] = xf[:, None, :]
+    buf = buf[:, :C]
+
+    # the expert FFN over every expert
+    h = act_fn(cfg.mlp_act)(torch.bmm(buf, p.wg)) * torch.bmm(buf, p.wu)
+    y = torch.bmm(h, p.wd)                                   # (E, C, d)
+
+    # combine: gather back, gates cast to the activations' dtype and zero
+    # for a dropped pair (whose gathered row is some other pair's), sum
+    # over k
+    yk = y[idx, pos.clamp(max=C - 1)]                        # (T, k, d)
+    gates = torch.where(keep, weights, 0).to(xf.dtype)
+    return torch.sum(yk * gates[..., None], dim=1)
+
+
+def apply_moe(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """x (B, S, d) -> (B, S, d); the capacity counts all B * S rows."""
+    B, S, d = x.shape
+    out = _moe_tokens(p, x.reshape(B * S, d), cfg).reshape(B, S, d)
+    if hasattr(p, "shared"):
+        out = out + apply_mlp(p.shared, x, cfg.mlp_act)
+    return out
+
+
+def apply_moe_blocked(p: MoE, x: torch.Tensor, cfg: ModelConfig,
+                      shards: int = 1) -> torch.Tensor:
+    """Block-local dispatch: the tokens in ``shards`` equal blocks, each
+    routed with its own capacity, as the reference's ``apply_moe_blocked``
+    does with one block per data shard of its mesh.  The port has no mesh,
+    so the caller gives the count; an uneven split falls back to one
+    block, as the reference's does."""
+    B, S, d = x.shape
+    n = shards
+    if (B * S) % n or (B % n and n > 1):
+        n = 1
+    xf = x.reshape(n, B * S // n, d)
+    out = torch.cat([_moe_tokens(p, blk, cfg) for blk in xf]).reshape(B, S, d)
+    if hasattr(p, "shared"):
+        out = out + apply_mlp(p.shared, x, cfg.mlp_act)
+    return out
+
+
+def aux_load_balance_loss(logits: torch.Tensor, idx: torch.Tensor, E: int) -> torch.Tensor:
+    """Switch-style load-balancing auxiliary loss: E * sum over experts of
+    (fraction of tokens whose top-1 is the expert) * (mean probability)."""
+    probs = torch.softmax(logits.float(), dim=-1)            # (T, E)
+    top1 = torch.zeros_like(probs).scatter_(1, idx[:, :1], 1.0)
+    return E * torch.sum(top1.mean(dim=0) * probs.mean(dim=0))

@@ -59,10 +59,10 @@ def test_report_prints_the_reference_tables_for_the_ported_paper_models(capsys):
     ref = _run(capsys, jax_cli.main, ["report", "--hardware", "a6000"])
     assert ours == ref and "nemotron-h-8b" in ours and "left out" not in ours
     few = _run(capsys, cli.main, ["report", "--hardware", "a6000", "--device", "cpu",
-                                  "--archs", "qwen3-moe-30b-a3b,llama3.2-1b"])
+                                  "--archs", "llava-next-34b,llama3.2-1b"])
     assert few == _run(capsys, jax_cli.main, ["report", "--hardware", "a6000",
                                               "--archs", "llama3.2-1b"]) + \
-        "not ported yet, left out: qwen3-moe-30b-a3b (moe)\n"
+        "not ported yet, left out: llava-next-34b (vlm)\n"
 
 
 def test_new_subcommands_default_to_the_h100():

@@ -808,6 +808,78 @@ def test_xlstm_decode_step_in_a_cuda_graph_matches_eager(cuda, arch):
     torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
 
 
+def _qwen_moe_layer(cuda, dtype, seed=0):
+    """A MoE layer at qwen3-moe-30b-a3b's widths (d 2048, 128 experts of
+    768, top-8) with weights drawn at the reference's scales."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as moe_lib
+
+    cfg = get_config("qwen3-moe-30b-a3b").replace(dtype=dtype, param_dtype=dtype)
+    layer = moe_lib.MoE(cfg, getattr(torch, dtype), cuda)
+    layer.init_(torch.Generator(device=cuda).manual_seed(seed))
+    return cfg, layer
+
+
+@pytest.mark.parametrize("T", [8, 2048])
+def test_moe_layer_in_a_cuda_graph_matches_eager(cuda, T):
+    """The routing, the stable sort, the capacity dispatch, the expert
+    products and the combine captured once in a CUDA graph (which fails
+    on any host sync) and replayed on new inputs: the eager results (fp32,
+    so the products are exact to the order of their sums)."""
+    from repro_torch.models import moe as moe_lib
+
+    cfg, layer = _qwen_moe_layer(cuda, "float32")
+    rng = _rng("moe-graph", T)
+    xs = [_on(cuda, "float32", rng.standard_normal((1, T, cfg.d_model), np.float32))[0]
+          for _ in range(3)]
+    static = xs[0].clone()
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            moe_lib.apply_moe(layer, static, cfg)
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = moe_lib.apply_moe(layer, static, cfg)
+    for x in xs[1:] + xs[:1]:
+        static.copy_(x)
+        graph.replay()
+        torch.testing.assert_close(out, moe_lib.apply_moe(layer, x, cfg), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("T", [8, 2048])
+def test_moe_layer_bf16_matches_fp32(cuda, T):
+    """The bf16 layer against the same weights and inputs in fp32, within
+    the bf16 tolerance relative to the output's scale, on the tokens whose
+    top-k experts and kept pairs agree (the router runs in fp32 on the
+    same bf16 inputs, so all of them should)."""
+    from repro_torch.models import moe as moe_lib
+
+    cfg, layer = _qwen_moe_layer(cuda, "bfloat16")
+    cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
+    layer32 = moe_lib.MoE(cfg32, torch.float32, cuda)
+    with torch.no_grad():
+        for p32, p in zip(layer32.parameters(), layer.parameters()):
+            p32.copy_(p)
+    rng = _rng("moe-bf16", T)
+    x = _on(cuda, "bfloat16", rng.standard_normal((1, T, cfg.d_model), np.float32))[0]
+    got = moe_lib.apply_moe(layer, x, cfg)[0].float()
+    want = moe_lib.apply_moe(layer32, x.float(), cfg32)[0]
+    C = moe_lib.capacity(T, cfg.num_experts, cfg.num_experts_per_tok, cfg.moe_capacity_factor)
+
+    def kept(lyr, xf):
+        _, idx = moe_lib.route(moe_lib.router_logits(lyr, xf), cfg.num_experts_per_tok)
+        pos = moe_lib.positions_in_expert(idx.reshape(-1), cfg.num_experts)
+        return idx, (pos < C).reshape(idx.shape)
+
+    (i16, k16), (i32, k32) = kept(layer, x[0]), kept(layer32, x[0].float())
+    rows = (i16 == i32).all(-1) & (k16 == k32).all(-1)
+    assert int(rows.sum()) == T
+    err = (got - want)[rows].abs().max().item() / want[rows].abs().max().item()
+    assert torch.isfinite(got).all() and err <= 2e-2, err
+
+
 def test_hybrid_engine_cuda_graph_matches_eager(cuda):
     """A small recurrentgemma engine (bf16) in both layouts: greedy streams
     through the captured decode step equal those of the eager step, and
@@ -840,7 +912,7 @@ def test_hybrid_engine_cuda_graph_matches_eager(cuda):
 
 
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "recurrentgemma-2b", "nemotron-h-8b",
-                                  "xlstm-1.3b"])
+                                  "xlstm-1.3b", "qwen3-moe-30b-a3b", "moonshot-v1-16b-a3b"])
 def test_latency_profiler_graph_matches_eager(cuda, arch):
     """The measured decode loop replayed from its CUDA graph and run
     eagerly (bf16 smoke models): identical greedy tokens, the replays
@@ -929,7 +1001,10 @@ def test_flash_at_the_unified_step_shapes_in_a_cuda_graph(cuda, layout):
 
 @pytest.mark.parametrize("arch,layout,prefix_cache", [("llama3.2-1b", "paged", True),
                                                       ("recurrentgemma-2b", "contiguous", False),
-                                                      ("nemotron-h-8b", "paged", False)])
+                                                      ("nemotron-h-8b", "paged", False),
+                                                      ("qwen3-moe-30b-a3b", "paged", False),
+                                                      ("moonshot-v1-16b-a3b", "contiguous",
+                                                       False)])
 def test_unified_engine_cuda_graph_matches_eager(cuda, arch, layout, prefix_cache):
     """A small bf16 engine with chunked prefill (chunk 8, budget 16) and the
     unified step, replayed from its CUDA graphs and run eagerly: identical

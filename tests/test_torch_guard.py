@@ -15,7 +15,8 @@ torch = pytest.importorskip("torch")
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-              + sorted((ROOT / "tools").glob("*.py")))
+              + sorted((ROOT / "tools").glob("*.py"))
+              + sorted((ROOT / "examples").glob("torch_*.py")))
 FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro|aiohttp)(\.|\s|$)", re.M)
 
 

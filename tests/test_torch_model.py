@@ -193,7 +193,7 @@ def test_unported_blocks_raise():
     from repro_torch.configs import get_config as port_config
 
     with pytest.raises(KeyError, match="not ported"):
-        port_config("qwen3-moe-30b-a3b")
-    cfg = get_config("llama3.2-1b", smoke=True).replace(num_experts=4, num_experts_per_tok=2)
+        port_config("seamless-m4t-large-v2")
+    cfg = get_config("llama3.2-1b", smoke=True).replace(family="encdec", num_encoder_layers=1)
     with pytest.raises(NotImplementedError):
         model_lib.Model(cfg, device="meta")
