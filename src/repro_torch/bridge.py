@@ -6,7 +6,9 @@ extension type and are moved through a ``uint16`` view, so no numpy
 bfloat16 support is needed here).  The reference stacks each repetition of
 ``cfg.block_pattern`` on a leading layer axis under ``decoder.groups.<i>``
 and keeps a remainder under ``decoder.rest.<i>``; both are unstacked into
-the per-layer modules, layer ``g * len(pattern) + i`` for group ``g``.
+the per-layer modules, layer ``g * len(pattern) + i`` for group ``g``.  An
+encoder-decoder model's ``encoder`` stack (pattern ``("attn",)``) is
+unstacked the same way into ``encoder.layers``.
 """
 
 from __future__ import annotations
@@ -43,22 +45,28 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
 def params_from_jax(cfg: ModelConfig, tree: Mapping, device="cuda") -> Model:
     """A ``Model`` on ``device`` holding the reference parameters ``tree``."""
     model = Model(cfg, device=device)
-    plen = len(cfg.block_pattern)
-    n_groups, _ = cfg.layer_groups()
+    # each stack: (its config, the port's prefix of its modules)
+    stacks = {"decoder": (cfg, "")}
+    if cfg.is_encdec:
+        stacks["encoder"] = (model.encoder.cfg, "encoder.")
     flat: Dict[str, np.ndarray] = {}
     for name, arr in _flatten(tree).items():
         parts = name.split(".")
-        if parts[:2] == ["decoder", "groups"]:
+        if parts[0] not in stacks:
+            flat[name] = arr
+            continue
+        scfg, prefix = stacks[parts[0]]
+        plen = len(scfg.block_pattern)
+        n_groups, _ = scfg.layer_groups()
+        if parts[1] == "groups":
             i, leaf = int(parts[2]), ".".join(parts[3:])
             for g in range(arr.shape[0]):
-                flat[f"layers.{g * plen + i}.{leaf}"] = arr[g]
-        elif parts[:2] == ["decoder", "rest"]:
+                flat[f"{prefix}layers.{g * plen + i}.{leaf}"] = arr[g]
+        elif parts[1] == "rest":
             i, leaf = int(parts[2]), ".".join(parts[3:])
-            flat[f"layers.{n_groups * plen + i}.{leaf}"] = arr
-        elif parts[0] == "decoder":
-            flat[".".join(parts[1:])] = arr
+            flat[f"{prefix}layers.{n_groups * plen + i}.{leaf}"] = arr
         else:
-            flat[name] = arr
+            flat[prefix + ".".join(parts[1:])] = arr
     params = dict(model.named_parameters())
     if set(flat) != set(params):
         raise ValueError(f"parameter names differ: only in the reference "

@@ -43,14 +43,11 @@ def _elana(args):
 
 
 def cmd_archs(args) -> int:
-    from repro_torch.configs import NOT_PORTED, list_archs
+    from repro_torch.configs import list_archs
 
     print("ported:")
     for a in list_archs():
         print(f"  {a}")
-    print("not ported yet:")
-    for a, family in NOT_PORTED.items():
-        print(f"  {a} ({family})")
     return 0
 
 
@@ -127,15 +124,13 @@ def cmd_trace(args) -> int:
 
 
 def cmd_report(args) -> int:
-    from repro_torch.configs import NOT_PORTED, PAPER
+    from repro_torch.configs import PAPER
     from repro_torch.core import report
     from repro_torch.core.profiler import Elana
 
     archs = args.archs.split(",") if args.archs else PAPER
     sizes, caches, ests = [], {}, []
     for a in archs:
-        if a in NOT_PORTED:
-            continue
         e = Elana(a, device=args.device)
         sizes.append(e.size_report())
         caches[e.cfg.name] = {
@@ -150,9 +145,6 @@ def cmd_report(args) -> int:
     print()
     print(f"## Table 3-style: latency/energy on {args.hardware} (estimator)")
     print(report.to_markdown(report.table3_rows(ests)))
-    skipped = [f"{a} ({NOT_PORTED[a]})" for a in archs if a in NOT_PORTED]
-    if skipped:
-        print(f"not ported yet, left out: {', '.join(skipped)}")
     return 0
 
 

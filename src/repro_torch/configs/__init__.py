@@ -1,10 +1,10 @@
 """Architecture registry of the port: ``--arch <id>`` lookup.
 
-The port runs the dense decoders, the RG-LRU hybrid (recurrentgemma), the
-xLSTM family (nemotron-h-8b's mLSTM hybrid, xlstm-1.3b) and the MoE family
-(qwen3-moe-30b-a3b, moonshot-v1-16b-a3b with its shared experts).
-The other architectures of the reference registry are known by name and
-raise ``KeyError`` until their families are ported.
+The port runs every architecture of the reference registry: the dense
+decoders, the RG-LRU hybrid (recurrentgemma), the xLSTM family
+(nemotron-h-8b's mLSTM hybrid, xlstm-1.3b), the MoE family
+(qwen3-moe-30b-a3b, moonshot-v1-16b-a3b with its shared experts), the
+encoder-decoder seamless-m4t-large-v2 and the vision-prefix llava-next-34b.
 """
 from __future__ import annotations
 
@@ -27,11 +27,8 @@ _MODULES: Dict[str, str] = {
     "nemotron-h-8b": "nemotron_h_8b",
     "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
     "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
-}
-
-NOT_PORTED: Dict[str, str] = {
-    "llava-next-34b": "vlm",
-    "seamless-m4t-large-v2": "encdec",
+    "llava-next-34b": "llava_next_34b",
+    "seamless-m4t-large-v2": "seamless_m4t_large_v2",
 }
 
 # the models profiled in the ELANA paper itself (Tables 2-4), as the
@@ -41,9 +38,6 @@ PAPER: List[str] = ["llama3.1-8b", "qwen2.5-7b", "nemotron-h-8b", "llama3.2-1b",
 
 
 def get_config(name: str, smoke: bool = False) -> ModelConfig:
-    if name in NOT_PORTED:
-        raise KeyError(f"arch {name!r} ({NOT_PORTED[name]} family) is not "
-                       f"ported yet; ported: {sorted(_MODULES)}")
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_MODULES)}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")

@@ -4,8 +4,12 @@
 The report counts the cache that ``Model.init_cache`` would allocate for a
 (batch, seq_len) workload, built on the ``meta`` device, leaf by leaf as
 the reference's ``_classify`` files them: K/V (``k``, ``v``, ``kp``,
-``vp``) is ``kv``, position bookkeeping (``pos``, ``ring``) is ``meta``,
-recurrent states (RG-LRU, mLSTM and sLSTM leaves) are ``state``.
+``vp``) is ``kv``, the encoder memory's K/V (``cross_k``, ``cross_v``) is
+``cross``, position bookkeeping (``pos``, ``ring``) is ``meta``, recurrent
+states (RG-LRU, mLSTM and sLSTM leaves) are ``state``.  ``cross_pos``, the
+port's mask over the memory rows, has no counterpart in the reference,
+whose memory is as long as it is filled; it is left out, so the two
+reports agree byte for byte.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ class CacheReport:
     total_bytes: int
     kv_bytes: int           # self-attention KV
     state_bytes: int        # recurrent states (RG-LRU, mLSTM, sLSTM)
-    cross_bytes: int        # encoder-decoder memory (none in the ported families)
+    cross_bytes: int        # encoder-decoder cross-attention memory
     meta_bytes: int         # position bookkeeping
     by_kind: Dict[str, int]
 
@@ -43,6 +47,8 @@ class CacheReport:
 
 
 def _classify(leaf: str) -> str:
+    if leaf in ("cross_k", "cross_v"):
+        return "cross"
     if leaf in ("pos", "ring"):
         return "meta"
     if leaf in ("k", "v", "kp", "vp"):
@@ -56,7 +62,8 @@ def profile_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype=None) -> Cac
     for kind in cfg.blocks():
         entry = cache_lib.init_block_cache(cfg, kind, batch, seq_len, dtype, "meta")
         for leaf, t in entry.items():
-            by_kind[_classify(leaf)] += t.numel() * t.element_size()
+            if leaf != "cross_pos":
+                by_kind[_classify(leaf)] += t.numel() * t.element_size()
     return CacheReport(
         name=cfg.name, batch=batch, seq_len=seq_len,
         total_bytes=sum(by_kind.values()),

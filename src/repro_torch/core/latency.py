@@ -76,6 +76,13 @@ class LatencyStats:
         }
 
 
+def prompt_positions(batch: Dict[str, torch.Tensor]) -> int:
+    """The positions a prompt ``batch`` fills: its tokens, after its patch
+    embeddings in a vision model."""
+    n = batch["tokens"].shape[1]
+    return n + (batch["vision_embeds"].shape[1] if "vision_embeds" in batch else 0)
+
+
 class DecodeRunner:
     """``model.decode_step`` over one cache of (batch, max_len), with the
     token and position kept on the device.
@@ -102,10 +109,11 @@ class DecodeRunner:
 
     def prefill(self, batch: Dict[str, torch.Tensor]) -> None:
         """Prefill ``batch`` into the reset cache; the greedy pick becomes
-        the first decode step's token."""
+        the first decode step's token, at the position after the prompt's
+        last (its patch embeddings counted, in a vision model)."""
         logits, _ = self.model.prefill(batch, self.cache)
         self.tok.copy_(logits.argmax(-1, keepdim=True))
-        self.pos.fill_(batch["tokens"].shape[1])
+        self.pos.fill_(prompt_positions(batch))
 
     def step(self) -> torch.Tensor:
         """One decode step at ``pos``; returns its fp32 logits (B, vocab)."""
@@ -122,6 +130,32 @@ class DecodeRunner:
         device."""
         self.tok.copy_(self.logits.argmax(-1, keepdim=True))
         self.pos.add_(1)
+
+
+def random_batch(cfg: ModelConfig, batch: int, prompt_len: int,
+                 gen: torch.Generator) -> Dict[str, torch.Tensor]:
+    """A random prompt of ``prompt_len`` positions drawn from ``gen`` on its
+    device, as the reference's: in a vision model ``num_vision_tokens``
+    patch embeddings and the rest tokens; in an encoder-decoder model also
+    ``prompt_len // 2`` frame embeddings; embeddings 0.1 N(0, 1).  A
+    vision prompt no longer than its patches raises: the reference keeps
+    one token then and overruns the cache."""
+    nv = cfg.num_vision_tokens
+    if nv and prompt_len <= nv:
+        raise ValueError(f"{cfg.name}: a prompt of {prompt_len} positions leaves no token "
+                         f"after its {nv} patch embeddings; measure at more than {nv}")
+    out = {"tokens": torch.randint(0, cfg.vocab_size, (batch, prompt_len - nv),
+                                   generator=gen, device=gen.device)}
+
+    def embeds(n):
+        x = torch.randn((batch, n, cfg.d_model), generator=gen, device=gen.device)
+        return (0.1 * x).to(getattr(torch, cfg.dtype))
+
+    if nv:
+        out["vision_embeds"] = embeds(nv)
+    if cfg.is_encdec:
+        out["enc_embeds"] = embeds(max(prompt_len // 2, 1))
+    return out
 
 
 class LatencyProfiler:
@@ -146,8 +180,7 @@ class LatencyProfiler:
             torch.cuda.synchronize(self.device)
 
     def _random_batch(self, batch: int, prompt_len: int) -> Dict[str, torch.Tensor]:
-        return {"tokens": torch.randint(0, self.cfg.vocab_size, (batch, prompt_len),
-                                        generator=self.gen, device=self.device)}
+        return random_batch(self.cfg, batch, prompt_len, self.gen)
 
     def runner(self, batch: int, max_len: int) -> DecodeRunner:
         """The decode runner of (batch, max_len), made (and captured) on
@@ -232,14 +265,16 @@ class LatencyProfiler:
         return LatencyStats(name="ttlt", samples_s=samples, compile_s=compile_s,
                             window=(t_first, t1))
 
-    def greedy(self, tokens: torch.Tensor, gen_len: int) -> torch.Tensor:
+    def greedy(self, tokens: torch.Tensor, gen_len: int,
+               **embeds: torch.Tensor) -> torch.Tensor:
         """The greedy continuation of ``tokens`` (B, S) through TTLT's loop:
         (B, gen_len + 1) tokens, the prefill's pick and then each decode
-        step's."""
-        B, S = tokens.shape
-        run = self.runner(B, S + gen_len + 1)
+        step's.  ``embeds``: the prompt's ``vision_embeds`` or
+        ``enc_embeds``, as the model takes them."""
+        batch = {"tokens": tokens, **embeds}
+        run = self.runner(tokens.shape[0], prompt_positions(batch) + gen_len + 1)
         reset_cache(run.cache)
-        run.prefill({"tokens": tokens})
+        run.prefill(batch)
         out = [run.tok.clone()]
         for _ in range(gen_len):
             run.step()

@@ -46,12 +46,15 @@ class SizeReport:
 
 def _component(name: str) -> str:
     """The reference's component names: ``embed``, ``lm_head`` and
-    ``decoder.<attn|rec|mlp|norms>``."""
+    ``<decoder|encoder>.<attn|cross|rec|cell|mlp|norms>``."""
     parts = name.split(".")
     if parts[0] in ("embed", "lm_head"):
         return parts[0]
+    stack = "decoder"
+    if parts[0] == "encoder":
+        stack, parts = "encoder", parts[1:]
     part = parts[2] if parts[0] == "layers" else parts[0]
-    return "decoder." + ("norms" if "norm" in part else part)
+    return f"{stack}." + ("norms" if "norm" in part else part)
 
 
 def moe_active_fraction(cfg: ModelConfig) -> float:

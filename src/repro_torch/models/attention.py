@@ -23,16 +23,17 @@ from repro_torch.models.layers import apply_rope, init_normal_, new_param
 
 class Attention(nn.Module):
     """Attention parameters, the counterpart of the reference's
-    ``make_attention`` (QKV biases when ``cfg.qkv_bias``)."""
+    ``make_attention`` (QKV biases when ``cfg.qkv_bias``, never on an
+    encoder-decoder block's ``cross`` attention)."""
 
-    def __init__(self, cfg: ModelConfig, dtype, device):
+    def __init__(self, cfg: ModelConfig, dtype, device, cross: bool = False):
         super().__init__()
         d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
         self.wq = new_param((d, h, hd), dtype, device)
         self.wk = new_param((d, kv, hd), dtype, device)
         self.wv = new_param((d, kv, hd), dtype, device)
         self.wo = new_param((h, hd, d), dtype, device)
-        if cfg.qkv_bias:
+        if cfg.qkv_bias and not cross:
             self.bq = new_param((h, hd), dtype, device)
             self.bk = new_param((kv, hd), dtype, device)
             self.bv = new_param((kv, hd), dtype, device)
@@ -66,6 +67,26 @@ def _out_proj(p: Attention, o: torch.Tensor) -> torch.Tensor:
     """"bshk,hkd->bsd"."""
     B, S = o.shape[:2]
     return torch.matmul(o.reshape(B, S, -1), p.wo.reshape(-1, p.wo.shape[-1]))
+
+
+def apply_attention_full(
+    p: Attention,
+    x: torch.Tensor,           # (B, S, d)
+    cfg: ModelConfig,
+    positions: torch.Tensor,   # (B, S) int32, contiguous
+    *,
+    rope,                      # layers.rope_tables(positions, ...)
+) -> torch.Tensor:
+    """Attention over the whole sequence with no mask and no cache: the
+    encoder's self-attention (the reference's ``apply_attention_train``
+    with ``causal=False``), through K2."""
+    q, k, v = _project_qkv(p, x)
+    o = dispatch.flash_attention(
+        apply_rope(q, rope).contiguous(), apply_rope(k, rope).contiguous(), v.contiguous(),
+        q_positions=positions, k_positions=positions, causal=False,
+        softcap=cfg.logit_softcap,
+    )
+    return _out_proj(p, o)
 
 
 def apply_attention_prefill(
@@ -190,3 +211,50 @@ def apply_attention_decode(
         window=window, softcap=cfg.logit_softcap,
     )
     return _out_proj(p, o), kv_cache
+
+
+# -- cross attention (encoder-decoder) ---------------------------------------
+#
+# The reference attends over every row of the encoder memory with an
+# unmasked softmax (``attention.sdpa`` with every key at position 0).  Here
+# a prompt or chunk goes through K2 without the causal mask and a decode
+# step through K3: no key of the memory is masked by position, so any
+# non-negative positions serve, the queries' own and the memory's frame
+# indices.  The memory's K/V stay in the entry's first T rows of
+# ``cross_k``/``cross_v`` (``cache.fill_cross_cache``), whose ``cross_pos``
+# marks them 0 and the rows past T -1, so a decode step attends over the
+# T rows the reference attends over whatever the entry's length.
+
+def apply_cross_attention_seq(
+    p: Attention,
+    x: torch.Tensor,           # (B, S, d) decoder states
+    positions: torch.Tensor,   # (B, S) int32, the states' positions
+    memory: torch.Tensor,      # (B, T, d) encoder output
+    mem_positions: torch.Tensor,  # (B, T) int32 frame indices
+    kv_cache: Dict,
+) -> torch.Tensor:
+    """A prompt or chunk's cross attention over the encoder ``memory``:
+    its K/V projected once, written into the entry for the decode steps
+    (the reference's ``precompute_cross_kv``), and attended by K2."""
+    q = _project(x, p.wq, None)
+    k, v = _project(memory, p.wk, None), _project(memory, p.wv, None)
+    cache_lib.fill_cross_cache(kv_cache, k, v)
+    o = dispatch.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                 q_positions=positions, k_positions=mem_positions,
+                                 causal=False)
+    return _out_proj(p, o)
+
+
+def apply_cross_attention_decode(
+    p: Attention,
+    x: torch.Tensor,           # (B, 1, d)
+    positions: torch.Tensor,   # (B,) int32, the new token's positions
+    kv_cache: Dict,
+) -> torch.Tensor:
+    """One decode step's cross attention over the memory in the entry,
+    through K3."""
+    q = _project(x, p.wq, None)
+    o = dispatch.decode_attention(q.contiguous(), kv_cache["cross_k"], kv_cache["cross_v"],
+                                  q_positions=positions[:, None].contiguous(),
+                                  k_positions=kv_cache["cross_pos"])
+    return _out_proj(p, o)

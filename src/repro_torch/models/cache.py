@@ -29,6 +29,16 @@ sLSTM layers ``c``, ``n``, ``m``, ``h`` (fp32) and ``conv``.  All of them
 belong to their slot, never to the pool.  A stabilizer ``m`` starts at
 -1e30 (``M_INIT``), every other state leaf at 0.
 
+In an encoder-decoder model each attention entry, in both layouts, also
+holds the encoder memory's K/V, ``cross_k``/``cross_v`` ``(batch,
+max_len // 2, H, D)`` as the reference sizes them, and ``cross_pos``
+``(batch, max_len // 2)`` int32: 0 for the rows a prefill filled, -1
+past them.  The reference replaces its memory by the prompt's own ``T``
+rows; a CUDA graph captured before the prefill cannot follow a change of
+shape, so the port writes the first ``T`` rows and masks the rest through
+``cross_pos``.  The reference has no such leaf, so the size reports leave
+it out (``core/cache.py``).
+
 ``BlockPool`` is the host-side bookkeeping of the paged layout: the LIFO
 free stack and, for block-level prefix caching, refcounts, a ``hash ->
 block`` registry over ``hash_token_blocks`` and an evictable LRU.
@@ -52,7 +62,7 @@ from repro_torch.models.config import ModelConfig
 GARBAGE_BLOCK = 0  # pool block reserved for idle-slot writes; never allocated
 M_INIT = -1e30     # an xLSTM stabilizer's initial value: below every log gate
 # the initial value of each leaf that does not start at 0
-INIT_FILL = {"pos": -1, "m": M_INIT}
+INIT_FILL = {"pos": -1, "cross_pos": -1, "m": M_INIT}
 
 
 def blocks_per_slot(max_len: int, block_size: int) -> int:
@@ -444,6 +454,34 @@ def gather_paged_kv(cache: Dict, block_tables: torch.Tensor):
     return k, v, pos.contiguous()
 
 
+def init_cross_cache(batch: int, max_len: int, n_kv: int, head_dim: int, dtype,
+                     device) -> Dict[str, torch.Tensor]:
+    """An encoder-decoder attention entry's memory leaves: ``max_len // 2``
+    rows (1 at ``max_len`` 1), as the reference's ``init_cache`` sizes
+    them, none filled."""
+    t_mem = max_len // 2 if max_len > 1 else 1
+    return {
+        "cross_k": torch.zeros((batch, t_mem, n_kv, head_dim), dtype=dtype, device=device),
+        "cross_v": torch.zeros((batch, t_mem, n_kv, head_dim), dtype=dtype, device=device),
+        "cross_pos": torch.full((batch, t_mem), -1, dtype=torch.int32, device=device),
+    }
+
+
+def fill_cross_cache(cache: Dict, k: torch.Tensor, v: torch.Tensor) -> Dict:
+    """Write the encoder memory's K/V (B, T, H, D) into the first T rows
+    of the entry's ``cross_k``/``cross_v`` and mark them valid, the rows
+    past T invalid, in place."""
+    T, rows = k.shape[1], cache["cross_pos"].shape[1]
+    if T > rows:
+        raise ValueError(f"an encoder memory of {T} rows does not fit the cache's {rows} "
+                         f"(max_len // 2 of the cache)")
+    cache["cross_k"][:, :T] = k.to(cache["cross_k"].dtype)
+    cache["cross_v"][:, :T] = v.to(cache["cross_v"].dtype)
+    cache["cross_pos"][:, :T] = 0
+    cache["cross_pos"][:, T:] = -1
+    return cache
+
+
 def init_rglru_state(batch: int, width: int, conv_width: int, dtype,
                      device) -> Dict[str, torch.Tensor]:
     return {
@@ -487,14 +525,17 @@ def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
     hd = cfg.resolved_head_dim
     if kind == "ffn":
         return {}
-    if kind == "attn":
-        if layout == "paged":
+    if kind in ("attn", "local_attn"):
+        if kind == "attn" and layout == "paged":
             n = num_blocks or default_num_blocks(batch, max_len, block_size)
-            return init_paged_attn_cache(n, block_size, cfg.num_kv_heads, hd, dtype, device)
-        return init_attn_cache(batch, max_len, cfg.num_kv_heads, hd, dtype, device)
-    if kind == "local_attn":
-        return init_attn_cache(batch, max_len, cfg.num_kv_heads, hd, dtype, device,
-                               window=cfg.sliding_window)
+            entry = init_paged_attn_cache(n, block_size, cfg.num_kv_heads, hd, dtype, device)
+        else:
+            entry = init_attn_cache(batch, max_len, cfg.num_kv_heads, hd, dtype, device,
+                                    window=cfg.sliding_window if kind == "local_attn" else 0)
+        if cfg.is_encdec:
+            entry.update(init_cross_cache(batch, max_len, cfg.num_kv_heads, hd, dtype,
+                                          device))
+        return entry
     if kind == "rglru":
         return init_rglru_state(batch, cfg.resolved_lru_width, cfg.rglru_conv_width,
                                 dtype, device)

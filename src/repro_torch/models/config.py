@@ -2,9 +2,8 @@
 
 The fields and their defaults are those of ``repro/models/config.py``, so a
 configuration file reads the same in both packages and tests can compare
-them field by field.  The port runs every block kind and MoE; enc-dec and
-vision configurations stay declared so that every field keeps its meaning,
-and ``models.model`` rejects them.
+them field by field.  The port runs every configuration the reference
+does: every block kind, MoE, encoder-decoder and the vision prefix.
 """
 
 from __future__ import annotations

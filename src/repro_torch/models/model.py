@@ -5,6 +5,15 @@ kinds ``attn``, ``local_attn`` (sliding window over a ring cache), ``ffn``,
 blocks' MLP is the mixture of experts (``models/moe.py``); ``ffn`` and
 ``rglru`` blocks keep the dense MLP, as in the reference.
 
+An encoder-decoder config (``num_encoder_layers`` > 0) adds the encoder
+stack (``Encoder``: unmasked attention blocks over frame embeddings, a
+dense MLP of its own width, its own final norm), and each decoder
+attention block a cross attention over the encoder's output after its
+self-attention (``norm_c``, ``cross``).  A vision config
+(``num_vision_tokens`` > 0) prepends the caller's patch embeddings to the
+token embeddings; its text tokens then start at position
+``num_vision_tokens``.
+
 The reference stacks each repetition of ``cfg.block_pattern`` on a leading
 axis and scans over it; here the layers are a plain ``nn.ModuleList`` run
 in order (``bridge.params_from_jax`` unstacks the reference's groups).
@@ -13,8 +22,9 @@ Entry points:
   * ``init(cfg, generator, device)`` — a model with random weights at the
     reference initializer's scales.
   * ``Model.init_cache``  — one cache entry per layer.
-  * ``Model.prefill``     — the prompt; fills the cache, returns the last
-    position's logits.
+  * ``Model.prefill``     — the prompt (with the batch's ``enc_embeds`` or
+    ``vision_embeds``, as the config needs); fills the cache, returns the
+    last position's logits.
   * ``Model.prefill_chunk`` — one chunk of a prompt against the cache
     (chunked prefill; ragged rows for the serving engine's unified step;
     the speculative verify window, with every column's logits).
@@ -23,7 +33,7 @@ Entry points:
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -57,8 +67,6 @@ class Block(nn.Module):
             raise NotImplementedError(
                 f"{cfg.name}: block kind {kind!r} is not ported yet "
                 f"(the port runs {SUPPORTED_BLOCKS})")
-        if cfg.is_encdec:
-            raise NotImplementedError(f"{cfg.name}: enc-dec is not ported yet")
         self.kind = kind
         d = cfg.d_model
         if kind in ATTN_BLOCKS:
@@ -79,6 +87,29 @@ class Block(nn.Module):
             self.mlp = moe_lib.MoE(cfg, dtype, device)
         else:
             self.mlp = MLP(d, cfg.d_ff, cfg.mlp_gated, dtype, device)
+        if cfg.is_encdec and kind in ATTN_BLOCKS:  # a decoder block of an enc-dec model
+            self.norm_c = Norm(d, dtype, device)
+            self.cross = attn_lib.Attention(cfg, dtype, device, cross=True)
+
+
+def _enc_cfg(cfg: ModelConfig) -> ModelConfig:
+    """The encoder stack's config: attention blocks with a dense MLP of
+    the encoder's own width, as the reference's ``_enc_cfg``."""
+    return cfg.replace(block_pattern=("attn",), num_layers=cfg.num_encoder_layers,
+                       d_ff=cfg.encoder_d_ff or cfg.d_ff, num_experts=0,
+                       num_experts_per_tok=0, num_encoder_layers=0)
+
+
+class Encoder(nn.Module):
+    """The encoder of an encoder-decoder model: ``layers`` of attention
+    blocks and a ``final_norm`` of its own, over ``_enc_cfg``."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        self.cfg = _enc_cfg(cfg)
+        self.layers = nn.ModuleList(Block(self.cfg, "attn", dtype, device)
+                                    for _ in range(self.cfg.num_layers))
+        self.final_norm = Norm(cfg.d_model, dtype, device)
 
 
 def _window(cfg: ModelConfig, kind: str) -> int:
@@ -101,8 +132,12 @@ def _write_state(entry: Dict, new: Dict, update_mask: Optional[torch.Tensor] = N
 # yet added to it (None before the first block), and returns the new pair.
 # The add is folded into the next norm (``add_norm``, K1's fused mode), so
 # every norm but the first block's is one launch for the add and the norm.
-# A cross-attention block would fold its ``a`` into ``norm_c`` the same way.
+# A cross-attention block folds its self-attention output into ``norm_c``
+# the same way.
 Residual = Tuple[torch.Tensor, Optional[torch.Tensor]]
+# An encoder-decoder model's encoder output and its frame indices, (B, T, d)
+# and (B, T) int32, for the decoder blocks' cross attention
+Memory = Optional[Tuple[torch.Tensor, torch.Tensor]]
 
 
 def _apply_rglru_block(p: Block, cfg: ModelConfig, x: torch.Tensor,
@@ -138,6 +173,16 @@ def _apply_xlstm_block(p: Block, cfg: ModelConfig, x: torch.Tensor,
     return x, y
 
 
+def _cross(p: Block, cfg: ModelConfig, x: torch.Tensor, a: torch.Tensor,
+           attend: Callable[[torch.Tensor], torch.Tensor]) -> Residual:
+    """A decoder block's cross attention after its self-attention output
+    ``a``: ``a`` added in ``norm_c`` (K1's fused mode), ``attend`` on the
+    norm, its output left pending, as the reference's ``x = x + a; x = x +
+    cross(norm_c(x))``."""
+    x, hc = add_norm(p.norm_c, x, a, cfg.norm_eps)
+    return x, attend(hc)
+
+
 def _mlp_branch(p: Block, cfg: ModelConfig, x: torch.Tensor, h: torch.Tensor,
                 a: torch.Tensor) -> Residual:
     """An attention block after its attention output ``a``: the MLP branch
@@ -155,7 +200,7 @@ def _mlp_branch(p: Block, cfg: ModelConfig, x: torch.Tensor, h: torch.Tensor,
 
 def _apply_block_seq(p: Block, cfg: ModelConfig, x: torch.Tensor,
                      r: Optional[torch.Tensor], positions: torch.Tensor, rope, entry: Dict,
-                     block_tables: Optional[torch.Tensor]) -> Residual:
+                     block_tables: Optional[torch.Tensor], memory: Memory = None) -> Residual:
     if p.kind == "rglru":
         return _apply_rglru_block(p, cfg, x, r, entry)
     if p.kind in XLSTM_BLOCKS:
@@ -167,6 +212,9 @@ def _apply_block_seq(p: Block, cfg: ModelConfig, x: torch.Tensor,
     a, _ = attn_lib.apply_attention_prefill(p.attn, h, cfg, positions, entry, rope=rope,
                                             window=_window(cfg, p.kind),
                                             block_tables=block_tables)
+    if hasattr(p, "cross"):
+        x, a = _cross(p, cfg, x, a, lambda hc: attn_lib.apply_cross_attention_seq(
+            p.cross, hc, positions, *memory, entry))
     return _mlp_branch(p, cfg, x, h, a)
 
 
@@ -174,7 +222,8 @@ def _apply_block_chunk(p: Block, cfg: ModelConfig, x: torch.Tensor,
                        r: Optional[torch.Tensor], positions: torch.Tensor, rope, entry: Dict,
                        block_tables: Optional[torch.Tensor],
                        valid: Optional[torch.Tensor],
-                       overwrite_from: Optional[torch.Tensor] = None) -> Residual:
+                       overwrite_from: Optional[torch.Tensor] = None,
+                       memory: Memory = None) -> Residual:
     """A prompt chunk against the cache: attention over the earlier
     chunks plus this one, a recurrent cell resumed from the carried state
     with identity steps at pad columns (so its state is written unmasked:
@@ -195,6 +244,9 @@ def _apply_block_chunk(p: Block, cfg: ModelConfig, x: torch.Tensor,
                                                   rope=rope, window=_window(cfg, p.kind),
                                                   block_tables=block_tables, valid=valid,
                                                   overwrite_from=overwrite_from)
+    if hasattr(p, "cross"):
+        x, a = _cross(p, cfg, x, a, lambda hc: attn_lib.apply_cross_attention_seq(
+            p.cross, hc, positions, *memory, entry))
     return _mlp_branch(p, cfg, x, h, a)
 
 
@@ -214,13 +266,18 @@ def _apply_block_decode(p: Block, cfg: ModelConfig, x: torch.Tensor,
                                            window=_window(cfg, p.kind),
                                            block_tables=block_tables,
                                            update_mask=update_mask)
+    if hasattr(p, "cross"):
+        x, a = _cross(p, cfg, x, a, lambda hc: attn_lib.apply_cross_attention_decode(
+            p.cross, hc, positions, entry))
     return _mlp_branch(p, cfg, x, h, a)
 
 
 class Model(nn.Module):
     """Parameters of a decoder, named like the reference's tree:
     ``embed.table``, ``lm_head.table`` (untied only), ``layers.<i>.<part>``
-    for ``decoder`` layer i, ``final_norm.scale``."""
+    for ``decoder`` layer i, ``final_norm.scale``; an encoder-decoder
+    model's encoder under ``encoder.layers.<i>.<part>`` and
+    ``encoder.final_norm.scale``."""
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
         super().__init__()
@@ -233,6 +290,8 @@ class Model(nn.Module):
             self.lm_head = Embedding(cfg.vocab_size, cfg.d_model, dtype, device)
         self.layers = nn.ModuleList(Block(cfg, kind, dtype, device) for kind in cfg.blocks())
         self.final_norm = Norm(cfg.d_model, dtype, device)
+        if cfg.is_encdec:
+            self.encoder = Encoder(cfg, dtype, device)
 
     @property
     def device(self) -> torch.device:
@@ -240,6 +299,38 @@ class Model(nn.Module):
 
     def _head(self) -> Embedding:
         return self.lm_head if hasattr(self, "lm_head") else self.embed
+
+    def _embed_inputs(self, tokens: torch.Tensor,
+                      vision_embeds: Optional[torch.Tensor]) -> torch.Tensor:
+        """The token embeddings, after the patch embeddings (B, nv, d) of a
+        vision config where the caller passes them."""
+        cfg = self.cfg
+        x = embed_tokens(self.embed, tokens, cfg.emb_scale, cfg.d_model)
+        if cfg.num_vision_tokens > 0 and vision_embeds is not None:
+            x = torch.cat([vision_embeds.to(x.dtype), x], dim=1)
+        return x
+
+    def _encode(self, enc_embeds: Optional[torch.Tensor]) -> Memory:
+        """The encoder over the frame embeddings (B, T, d), none without an
+        encoder: its output and the frames' indices, which its attention
+        rotates by and the decoder's cross attention takes as key
+        positions."""
+        if not self.cfg.is_encdec:
+            return None
+        if enc_embeds is None:
+            raise ValueError(f"{self.cfg.name}: an encoder-decoder model needs enc_embeds")
+        enc, cfg = self.encoder, self.encoder.cfg
+        x = enc_embeds.to(self.embed.table.dtype)
+        B, T = x.shape[:2]
+        positions = torch.arange(T, dtype=torch.int32, device=x.device).expand(B, T).contiguous()
+        rope = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
+        r = None
+        for blk in enc.layers:
+            x, h = add_norm(blk.norm1, x, r, cfg.norm_eps)
+            a = attn_lib.apply_attention_full(blk.attn, h, cfg, positions, rope=rope)
+            x, r = _mlp_branch(blk, cfg, x, h, a)
+        _, memory = add_norm(enc.final_norm, x, r, cfg.norm_eps)
+        return memory, positions
 
     def init_cache(self, batch: int, max_len: int, dtype=None, *,
                    layout: str = "contiguous", block_size: int = 16,
@@ -265,16 +356,21 @@ class Model(nn.Module):
         place; returns the last position's fp32 logits (B, vocab).
         Recurrent layers start from the state in ``cache`` (its initial
         values in a fresh one).  A paged cache takes ``block_tables`` (B,
-        blocks_per_slot) int32: the pool blocks each row's prompt fills."""
+        blocks_per_slot) int32: the pool blocks each row's prompt fills.
+        An encoder-decoder model takes ``batch["enc_embeds"]`` (B, T, d),
+        T at most the cache's ``max_len // 2``; a vision model
+        ``batch["vision_embeds"]`` (B, nv, d) at positions 0..nv-1, the
+        tokens after them (the first decode position is then nv + S)."""
         cfg = self.cfg
-        tokens = batch["tokens"]
-        B, S = tokens.shape
-        x = embed_tokens(self.embed, tokens, cfg.emb_scale, cfg.d_model)
+        x = self._embed_inputs(batch["tokens"], batch.get("vision_embeds"))
+        memory = self._encode(batch.get("enc_embeds"))
+        B, S = x.shape[:2]
         positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S).contiguous()
         rope = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
         r = None
         for blk, entry in zip(self.layers, cache):
-            x, r = _apply_block_seq(blk, cfg, x, r, positions, rope, entry, block_tables)
+            x, r = _apply_block_seq(blk, cfg, x, r, positions, rope, entry, block_tables,
+                                    memory)
         _, h = add_norm(self.final_norm, x, r, cfg.norm_eps)
         logits = unembed(self._head(), h[:, -1:], cfg.logit_softcap)[:, 0]
         return logits, cache
@@ -284,7 +380,10 @@ class Model(nn.Module):
                       block_tables: Optional[torch.Tensor] = None,
                       lengths: Optional[torch.Tensor] = None,
                       overwrite_from: Optional[torch.Tensor] = None,
-                      all_logits: bool = False) -> Tuple[torch.Tensor, Cache]:
+                      all_logits: bool = False,
+                      vision_embeds: Optional[torch.Tensor] = None,
+                      enc_embeds: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, Cache]:
         """One prompt chunk ``tokens`` (B, C) at positions ``start ..
         start + C - 1`` against a cache that holds positions ``0 ..
         start - 1``; updates ``cache`` in place.  ``start`` is an int or a
@@ -301,24 +400,33 @@ class Model(nn.Module):
         path: ``overwrite_from`` (B,) int32 hides stale contiguous cache
         entries at positions >= the row's value
         (``attention.apply_attention_prefill_chunk``), and ``all_logits``
-        returns the fp32 logits of every column, (B, C, vocab)."""
+        returns the fp32 logits of every column, (B, C, vocab).
+
+        An encoder-decoder model takes ``enc_embeds`` with every chunk and
+        runs its encoder again, as the reference does.  A vision model
+        takes ``vision_embeds`` with the chunk at ``start`` 0 only (its
+        columns then come first); a later chunk's ``start`` counts them.
+        ``lengths`` does not go with ``vision_embeds``."""
         cfg = self.cfg
-        B, C = tokens.shape
+        if lengths is not None and vision_embeds is not None:
+            raise ValueError("lengths does not go with vision_embeds")
+        x = self._embed_inputs(tokens, vision_embeds)
+        memory = self._encode(enc_embeds)
+        B, C = x.shape[:2]
         cols = torch.arange(C, dtype=torch.int32, device=tokens.device)
         start = torch.as_tensor(start, dtype=torch.int32, device=tokens.device)
         positions = (start.reshape(-1, 1) + cols[None]).expand(B, C).contiguous()
         valid = None if lengths is None else cols[None] < lengths[:, None]
-        x = embed_tokens(self.embed, tokens, cfg.emb_scale, cfg.d_model)
         rope = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
         r = None
         for blk, entry in zip(self.layers, cache):
             x, r = _apply_block_chunk(blk, cfg, x, r, positions, rope, entry, block_tables,
-                                      valid, overwrite_from)
+                                      valid, overwrite_from, memory)
         if all_logits:
             _, h = add_norm(self.final_norm, x, r, cfg.norm_eps)
             return unembed(self._head(), h, cfg.logit_softcap), cache
-        if lengths is None:
-            x, r = x[:, -1:], r[:, -1:]
+        if lengths is None:  # the last column, contiguous for K1 at any batch
+            x, r = x[:, -1:].contiguous(), r[:, -1:].contiguous()
         else:  # each row's last valid column, before the final norm (rowwise)
             idx = (lengths.long() - 1).clamp(0, C - 1)[:, None, None].expand(-1, 1, x.shape[2])
             x, r = torch.gather(x, 1, idx), torch.gather(r, 1, idx)

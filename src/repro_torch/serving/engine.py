@@ -58,6 +58,18 @@ launches: a whole-prompt prefill, a row reset, a chunk, a decode, verify
 or unified step and a resumed request's draw index each count one.
 Finished requests give back their slot and blocks at once.
 
+A vision model (llava-next-34b) is served with zero patch embeddings, as
+the reference serves it, before each prompt: whole-prompt or chunked
+admission (the per-chunk path, never the unified step; the patches ride
+with the first chunk), either layout.  Its decode starts at position
+``num_vision_tokens`` + prompt, and the blocks, the bucket cap and the
+``max_len`` check count the patches: the reference starts it at the
+prompt's length, where it overwrites the prompt's own keys.  Speculation,
+right padding, preemption and the prefix cache are refused for it, as the
+reference refuses them.  An encoder-decoder model is refused: the
+reference's engine sizes the cross memory at ``max_len // 2`` and fails
+to merge an admitted prompt's shorter one, so it serves none.
+
 Per request the engine records TTFT, TPOT and TTLT, and with a
 ``PowerMonitor`` attached it splits the energy of each window between
 requests by the tokens each emitted in it (``latency_summary``).
@@ -212,8 +224,27 @@ class ServingEngine:
         speculative: str = "off",
         spec_tokens: int = 4,
     ):
+        if model.cfg.is_encdec:
+            raise ValueError(
+                f"{model.cfg.name!r} is an encoder-decoder model, which the reference's "
+                f"ServingEngine cannot serve: it sizes the cross memory at max_len // 2, "
+                f"the prefill replaces it with the prompt's own plen // 2 rows, and the "
+                f"admitted rows then fail to merge into the slots; measure it through "
+                f"Elana.measure instead")
+        nv = model.cfg.num_vision_tokens
         if cache_layout not in ("contiguous", "paged"):
             raise ValueError(f"cache_layout {cache_layout!r} is not 'contiguous' or 'paged'")
+        if nv and max_len <= nv + 1:
+            raise ValueError(
+                f"max_len={max_len} leaves no prompt token and decode position after "
+                f"{model.cfg.name!r}'s vision prefix of {nv} patch embeddings; "
+                f"give max_len > {nv + 1}")
+        if pad_side == "right" and nv:
+            raise ValueError(
+                f"pad_side='right' realigns the bucketed prompt row so variable-length "
+                f"suffixes of a shared prefix land on the same block boundaries; "
+                f"{model.cfg.name!r} carries a vision prefix whose position bookkeeping "
+                f"assumes the whole padded row is computed")
         if pad_side not in ("left", "right"):
             raise ValueError(f"pad_side {pad_side!r} is not 'left' or 'right'")
         if speculative not in ("off", "lookup"):
@@ -224,33 +255,39 @@ class ServingEngine:
                 raise ValueError(f"--spec-tokens={spec_tokens} must be >= 1 when "
                                  f"--speculative is on")
             bad = sorted({k for k in model.cfg.blocks() if k not in ("attn", "ffn")})
-            if bad:
+            if bad or nv:
                 raise ValueError(
                     f"speculative='lookup' relies on rejected draft suffixes being "
                     f"re-writable cache positions, which only full-attention KV supports; "
                     f"{model.cfg.name!r} carries per-slot state that cannot rewind "
-                    f"({', '.join(bad)})")
+                    f"({', '.join(bad) or 'vision prefix'})")
         if preemption not in ("off", "recompute"):
             raise ValueError(f"preemption must be 'off' or 'recompute', got {preemption!r}")
         if preemption != "off" and cache_layout != "paged":
             raise ValueError("preemption requires cache_layout='paged': only a block pool "
                              "can run dry mid-decode and reclaim a victim's blocks")
+        if preemption != "off" and nv:
+            raise ValueError(
+                f"preemption='recompute' replays a request's prompt + generated tokens "
+                f"through the chunked-prefill path; {model.cfg.name!r} carries a vision "
+                f"prefix whose replay length would differ from the original admission")
         self.preemption = preemption
         if prefix_cache:
             if cache_layout != "paged":
                 raise ValueError("prefix_cache requires cache_layout='paged': only pool blocks "
                                  "can be shared read-only across requests")
             bad = sorted({k for k in model.cfg.blocks() if k not in ("attn", "ffn")})
-            if bad:
+            if bad or nv:
                 raise ValueError(
                     f"prefix_cache shares paged full-attention KV blocks only; "
                     f"{model.cfg.name!r} carries per-slot state that a skipped prefill "
-                    f"would leave stale ({', '.join(bad)})")
+                    f"would leave stale ({', '.join(bad) or 'vision prefix'})")
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"the model is on {model.device}, the engine on {self.device}")
         cfg = model.cfg
         self.model, self.cfg = model, cfg
+        self.nv = nv  # positions of the vision prefix before each prompt
         self.max_batch = max_batch
         self.max_len = max_len
         self.prompt_bucket = prompt_bucket
@@ -263,7 +300,8 @@ class ServingEngine:
         # would never fit the head cursor's next chunk)
         self.chunk = max(int(prefill_chunk), 0)
         self.chunk_budget = max(int(prefill_budget) or self.chunk, self.chunk)
-        self.unified = bool(unified_step) and self.chunk > 0
+        # a vision prefix rides with a slot's first chunk: the per-chunk path
+        self.unified = bool(unified_step) and self.chunk > 0 and not nv
         # static bound on per-request top-k inside the step; requests asking
         # for more are clamped, first token included
         self.top_k_max = min(top_k_max, cfg.vocab_size)
@@ -471,16 +509,19 @@ class ServingEngine:
             self._dispatches += 1
 
     def _bucketed(self, n: int) -> int:
+        """The prompt bucket of an ``n``-token prompt, capped so that the
+        vision prefix and the bucket leave a position to decode."""
         b = self.prompt_bucket
-        return min(self.max_len - 1, ((n + b - 1) // b) * b)
+        return min(self.max_len - 1 - self.nv, ((n + b - 1) // b) * b)
 
     def _blocks_for(self, plen: int, max_new: int) -> int:
-        """Pool blocks reserved at admission: the prompt plus the whole
-        decode budget, so the decode step never has to allocate; under
-        ``preemption="recompute"`` only the prompt and the first decode
-        write, the rest grown on demand (``_grow_decode_blocks``)."""
+        """Pool blocks reserved at admission: the vision prefix, the prompt
+        and the whole decode budget, so the decode step never has to
+        allocate; under ``preemption="recompute"`` only the prompt and the
+        first decode write, the rest grown on demand
+        (``_grow_decode_blocks``)."""
         budget = 1 if self.preemption != "off" else max_new
-        tokens = min(plen + budget, self.max_len)
+        tokens = min(self.nv + plen + budget, self.max_len)
         return min(cache_lib.blocks_per_slot(tokens, self.block_size),
                    self.max_blocks_per_slot)
 
@@ -636,6 +677,8 @@ class ServingEngine:
                                                for xs in (reqs, slots_for, padded, hashes))
         n = len(reqs)
         batch = {"tokens": torch.from_numpy(np.stack(padded)).to(self.device)}
+        if self.nv:
+            batch["vision_embeds"] = self._vision_embeds(n)
         tables_np, tables = None, None
         if self.layout == "paged":
             tables_np = np.zeros((n, self.max_blocks_per_slot), np.int32)
@@ -787,11 +830,19 @@ class ServingEngine:
                 self._start_decoding(cur.req, slot, cur.plen, logits, cur.tables_np,
                                      first=first)
 
+    def _vision_embeds(self, n: int) -> torch.Tensor:
+        """The patch embeddings of ``n`` admitted prompts: zeros, as the
+        reference serves a vision model."""
+        return torch.zeros((n, self.nv, self.cfg.d_model), dtype=getattr(torch, self.cfg.dtype),
+                           device=self.device)
+
     def _run_chunk(self, slot: int, cur: _PrefillCursor, c: int, pad_to: int = 0):
         """The next ``c`` tokens of one slot's prompt through
         ``model.prefill_chunk`` on the slot's view of the live cache;
         ``pad_to > c`` pads the row to that width and passes the true
-        length.  Returns the logits of the last valid position."""
+        length.  A vision prefix rides with the first chunk, and later
+        chunks start past it.  Returns the logits of the last valid
+        position."""
         toks = cur.tokens[cur.next:cur.next + c]
         lengths = None
         if pad_to > c:
@@ -799,9 +850,15 @@ class ServingEngine:
             lengths = torch.tensor([c], dtype=torch.int32, device=self.device)
         tables = (None if cur.tables_np is None
                   else torch.from_numpy(cur.tables_np[None]).to(self.device))
+        start, vision = cur.next, None
+        if self.nv:
+            if start == 0:
+                vision = self._vision_embeds(1)
+            else:
+                start += self.nv
         logits, _ = self.model.prefill_chunk(
-            torch.from_numpy(toks[None]).to(self.device), self._slot_view(slot), cur.next,
-            block_tables=tables, lengths=lengths)
+            torch.from_numpy(toks[None]).to(self.device), self._slot_view(slot), start,
+            block_tables=tables, lengths=lengths, vision_embeds=vision)
         self._dispatches += 1
         self.chunk_forwards += 1
         return logits
@@ -880,13 +937,14 @@ class ServingEngine:
         self._count_token(req)
         self._notify_stream(req, [first])
 
+        position = self.nv + plen  # the vision prefix comes before the prompt
         done = (req.params.max_new_tokens <= 1
                 or (req.params.eos_token >= 0 and first == req.params.eos_token)
-                or plen >= self.max_len - 1)
-        write_slot(self._state, slot, token=first, position=plen,
+                or position >= self.max_len - 1)
+        write_slot(self._state, slot, token=first, position=position,
                    remaining=req.params.max_new_tokens - 1, params=req.params,
                    active=not done, key=key, count=1)
-        self._next_pos[slot] = plen
+        self._next_pos[slot] = position
         if table_row is not None:
             self._state["block_tables"][slot].copy_(torch.from_numpy(table_row))
         if done:

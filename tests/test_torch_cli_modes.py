@@ -12,7 +12,7 @@ pytest.importorskip("jax")
 from repro import cli as jax_cli  # noqa: E402
 from repro.configs import PAPER as JAX_PAPER  # noqa: E402
 from repro_torch import cli  # noqa: E402
-from repro_torch.configs import NOT_PORTED, PAPER  # noqa: E402
+from repro_torch.configs import PAPER  # noqa: E402
 from repro_torch.core import energy  # noqa: E402
 
 
@@ -51,18 +51,19 @@ def test_trace_prints_and_writes_the_reference_timeline(capsys, tmp_path, arch, 
 
 def test_report_prints_the_reference_tables_for_the_ported_paper_models(capsys):
     """Default: the paper's models, every one ported, so the tables equal
-    the reference's over all of them; an arch not ported yet is named
-    after the tables and left out of them."""
+    the reference's over all of them; so do the tables over the last two
+    families ported, with nothing left out."""
     assert PAPER == JAX_PAPER
-    assert not set(PAPER) & set(NOT_PORTED)
     ours = _run(capsys, cli.main, ["report", "--hardware", "a6000", "--device", "cpu"])
     ref = _run(capsys, jax_cli.main, ["report", "--hardware", "a6000"])
     assert ours == ref and "nemotron-h-8b" in ours and "left out" not in ours
+    archs = "llava-next-34b,seamless-m4t-large-v2,llama3.2-1b"
     few = _run(capsys, cli.main, ["report", "--hardware", "a6000", "--device", "cpu",
-                                  "--archs", "llava-next-34b,llama3.2-1b"])
+                                  "--archs", archs])
     assert few == _run(capsys, jax_cli.main, ["report", "--hardware", "a6000",
-                                              "--archs", "llama3.2-1b"]) + \
-        "not ported yet, left out: llava-next-34b (vlm)\n"
+                                              "--archs", archs])
+    assert "llava-next-34b" in few and "seamless-m4t-large-v2" in few
+    assert "left out" not in few
 
 
 def test_new_subcommands_default_to_the_h100():

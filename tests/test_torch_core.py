@@ -149,4 +149,4 @@ def test_cli_size_cache_archs(capsys):
     assert "kv 34.36 GB" in capsys.readouterr().out
     assert main(["archs"]) == 0
     out = capsys.readouterr().out
-    assert "llama3.1-8b" in out and "llava-next-34b (vlm)" in out
+    assert "llama3.1-8b" in out and "  llava-next-34b\n" in out and "not ported" not in out

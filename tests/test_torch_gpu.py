@@ -29,13 +29,14 @@ from repro_torch.kernels.rmsnorm import ref as rn_ref  # noqa: E402
 pytestmark = pytest.mark.gpu
 
 DTYPES = ["float32", "bfloat16"]
+# llava-next-34b's heads: G = 56 / 8 = 7
 FLASH_SHAPES = [(128, 4, 4, 64), (128, 8, 2, 64), (256, 4, 1, 128), (96, 4, 2, 80),
-                (100, 8, 2, 8), (512, 32, 8, 128), (70, 2, 1, 256)]
+                (100, 8, 2, 8), (512, 32, 8, 128), (70, 2, 1, 256), (200, 56, 8, 128)]
 FLASH_MASKS = [(True, 0), (True, 32), (False, 0)]
 DECODE_SHAPES = [(256, 8, 2, 64), (512, 4, 4, 128), (128, 16, 1, 64), (96, 4, 2, 80),
-                 (545, 32, 8, 128), (300, 12, 1, 256)]
+                 (545, 32, 8, 128), (300, 12, 1, 256), (1057, 56, 8, 128)]
 # (G, D, bs) of the paged sweep; Hkv = 2
-PAGED_SHAPES = [(g, d, bs) for g in (1, 4, 12) for d in (64, 128) for bs in (16, 32)]
+PAGED_SHAPES = [(g, d, bs) for g in (1, 4, 7, 12) for d in (64, 128) for bs in (16, 32)]
 # (B, S, W) of K5: the measure prefill, a prompt past the 2048 window, the
 # serving decode step, ragged shapes; serving admission of 8 prompts of 512
 # (3 chunks), and 2 chunks of 32 steps
@@ -96,6 +97,21 @@ def test_flash_kernel_matches_plain(cuda, S, Hq, Hkv, D, dtype, causal, window):
     got = fa_ops.flash_attention(q, k, v, **kw)
     assert fa_ops.flash_attention.launches == n + 1
     _assert(got, fa_ref.attention(q, k, v, **kw), dtype)
+
+
+@pytest.mark.parametrize("S,T", [(96, 136), (512, 272), (1, 40)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_kernel_unmasked_cross_attention(cuda, S, T, dtype):
+    """An encoder-decoder's cross attention: no causal mask, S queries at
+    their own positions over T memory rows at 0, the last 16 (or 0) of
+    them unfilled (-1), MHA at D = 64 (seamless-m4t-large-v2's heads)."""
+    q, k, v, qp, _ = _flash_inputs(2, S, T, 16, 16, 64)
+    kp = np.zeros((2, T), np.int64)
+    kp[:, T - 16 if T > 40 else T:] = -1
+    q, k, v = _on(cuda, dtype, q, k, v)
+    qp, kp = _ints(cuda, qp, kp)
+    kw = dict(q_positions=qp, k_positions=kp, causal=False, window=0, softcap=0.0)
+    _assert(fa_ops.flash_attention(q, k, v, **kw), fa_ref.attention(q, k, v, **kw), dtype)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -912,12 +928,16 @@ def test_hybrid_engine_cuda_graph_matches_eager(cuda):
 
 
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "recurrentgemma-2b", "nemotron-h-8b",
-                                  "xlstm-1.3b", "qwen3-moe-30b-a3b", "moonshot-v1-16b-a3b"])
+                                  "xlstm-1.3b", "qwen3-moe-30b-a3b", "moonshot-v1-16b-a3b",
+                                  "llava-next-34b", "seamless-m4t-large-v2"])
 def test_latency_profiler_graph_matches_eager(cuda, arch):
     """The measured decode loop replayed from its CUDA graph and run
     eagerly (bf16 smoke models): identical greedy tokens, the replays
     credited to every kernel's launch count as the eager calls count, and
-    TPOT's samples taken through the same captured runner."""
+    TPOT's samples taken through the same captured runner.  A vision
+    prompt's patches count in its 40 positions; an encoder-decoder
+    prompt's 20 frames feed its encoder (K2) and every decoder layer's
+    cross attention (K2, then K3 each step)."""
     from repro_torch.configs import get_config
     from repro_torch.core.latency import LatencyProfiler
     from repro_torch.models import model as model_lib
@@ -926,10 +946,14 @@ def test_latency_profiler_graph_matches_eager(cuda, arch):
     model = model_lib.init(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
     with torch.no_grad():
         model.embed.table.mul_(0.05)  # streams that depend on the context
-    S, gen = 40, 12
-    tokens = torch.from_numpy(_rng("profiler", arch).integers(0, cfg.vocab_size, (2, S)))
-    tokens = tokens.to(cuda)
+    S, gen, nv = 40, 12, cfg.num_vision_tokens
+    rng = _rng("profiler", arch)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, S - nv))).to(cuda)
+    embeds = {name: torch.from_numpy(0.1 * rng.standard_normal((2, n, cfg.d_model))).to(
+        cuda, torch.bfloat16) for name, n in (("vision_embeds", nv),
+                                              ("enc_embeds", S // 2 if cfg.is_encdec else 0)) if n}
     n_attn = sum(k in ("attn", "local_attn") for k in cfg.blocks())
+    n_cross = n_attn if cfg.is_encdec else 0
     n_rec = sum(k == "rglru" for k in cfg.blocks())
     out, counts = {}, {}
     for graph in (True, False):
@@ -937,7 +961,7 @@ def test_latency_profiler_graph_matches_eager(cuda, arch):
         run = lp.runner(2, S + gen + 1)
         assert (run.graph is not None) == graph
         before = {k: fn.launches for k, fn in dispatch.KERNELS.items()}
-        out[graph] = lp.greedy(tokens, gen)
+        out[graph] = lp.greedy(tokens, gen, **embeds)
         torch.cuda.synchronize()
         counts[graph] = {k: fn.launches - before[k] for k, fn in dispatch.KERNELS.items()}
         assert run.replays == (gen if graph else 0)
@@ -946,8 +970,8 @@ def test_latency_profiler_graph_matches_eager(cuda, arch):
         assert run.replays == (2 * gen + 1 if graph else 0)
     assert torch.equal(out[True], out[False])
     assert counts[True] == counts[False]
-    assert counts[True]["decode_attention"] == n_attn * gen
-    assert counts[True]["flash_attention"] == n_attn
+    assert counts[True]["decode_attention"] == (n_attn + n_cross) * gen
+    assert counts[True]["flash_attention"] == n_attn + n_cross + cfg.num_encoder_layers
     assert counts[True]["linear_recurrence"] == n_rec * (gen + 1)
 
 

@@ -190,10 +190,19 @@ def test_norms_fold_the_residual_add(arch, fused_per_layer, monkeypatch):
 
 
 def test_unported_blocks_raise():
+    """No architecture of the reference is left unported: the registry
+    reads both configs of the last two families as the reference has them
+    and knows no other name; an enc-dec config builds its encoder."""
+    from repro.configs import list_archs as jax_archs
+    from repro_torch.configs import list_archs
     from repro_torch.configs import get_config as port_config
 
-    with pytest.raises(KeyError, match="not ported"):
-        port_config("seamless-m4t-large-v2")
+    assert sorted(list_archs()) == sorted(jax_archs())
+    for arch in ("seamless-m4t-large-v2", "llava-next-34b"):
+        for smoke in (False, True):
+            assert port_config(arch, smoke).__dict__ == get_config(arch, smoke).__dict__
+    with pytest.raises(KeyError, match="unknown arch"):
+        port_config("llava-next-72b")
     cfg = get_config("llama3.2-1b", smoke=True).replace(family="encdec", num_encoder_layers=1)
-    with pytest.raises(NotImplementedError):
-        model_lib.Model(cfg, device="meta")
+    model = model_lib.Model(cfg, device="meta")
+    assert len(model.encoder.layers) == 1 and hasattr(model.layers[0], "cross")

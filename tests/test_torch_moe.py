@@ -283,15 +283,17 @@ def test_init_draws_the_reference_scales():
 
 def test_only_attention_blocks_take_experts():
     """ffn blocks keep the dense MLP in a MoE config, as the reference's
-    ``_make_block``; enc-dec still raises."""
+    ``_make_block``; so do an enc-dec model's encoder blocks (the
+    reference's ``_enc_cfg``), while its decoder blocks take experts."""
     cfg = get_config(QWEN, smoke=True).replace(block_pattern=("attn", "ffn"))
     model = model_lib.Model(cfg, device="meta")
     assert isinstance(model.layers[0].mlp, moe_lib.MoE)
     assert not isinstance(model.layers[1].mlp, moe_lib.MoE)
-    with pytest.raises(NotImplementedError, match="enc-dec"):
-        model_lib.Model(get_config(QWEN, smoke=True).replace(family="encdec",
-                                                             num_encoder_layers=1),
-                        device="meta")
+    model = model_lib.Model(get_config(QWEN, smoke=True).replace(family="encdec",
+                                                                 num_encoder_layers=1),
+                            device="meta")
+    assert isinstance(model.layers[0].mlp, moe_lib.MoE)
+    assert not isinstance(model.encoder.layers[0].mlp, moe_lib.MoE)
 
 
 # ---------------------------------------------------------------------------
