@@ -135,7 +135,28 @@ or of the ``repro`` package.  Phases:
    attention, K2 then K3, in the exact counts), the serving engine's
    refusal, and parity at full depth over a contiguous cache, whole and
    in chunks of 256.
-11. The last line: ``{"ok": true, "device": {...}}``.
+11. Tensor-parallel serving on this one card (``tp_phase``; ranks spawned
+   by ``launch.mesh.spawn_tp`` run ``sharding.runs.run_plan``): llama3.1-8b
+   at full width and depth over 2 gloo ranks and command-r-plus-104b at
+   full width (d 12288, 96/8 heads, d_ff 33792, 256000 tied, parallel
+   block) on 4 of its 64 layers over 4, each rank drawing its shard of
+   seed 0's weights, collectives staged through the host, steps eager.
+   Each is held to the tp = 1 model run first and freed before the ranks
+   start: prefill 512 + 4 greedy steps over a contiguous cache, a paged
+   one and the paged one in chunks of 256 (logits within ``parity_phase``'s
+   tolerance, top-1 equal where tp = 1's margin exceeds it; every rank's
+   logits bit for bit rank 0's), 8 greedy requests of at most 16 tokens
+   served (llama: paged and contiguous, whole and in chunks of 256 through
+   the per-chunk path; command-r: paged), every rank's streams exactly
+   rank 0's and rank 0's held to tp =
+   1's by the margin rule, the per-device KV bytes summing to tp = 1's
+   aggregate and every rank's pool accounting tiling.  command-r-plus-104b
+   also runs ``parity_phase`` (K1 at d = 12288, K2-K4 at G = 12).  With 2
+   GPUs or more, llama3.1-8b also over 2 NCCL ranks with captured steps;
+   else a line says it was not run.  The phase's times check correctness
+   only ("gloo over one card, host-staged: not a TP latency").  K1-K4 at
+   one rank's shapes are timed in phase 2 (``tp`` under each entry).
+12. The last line: ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line is printed; so does a
 machine without a CUDA device.
@@ -161,6 +182,18 @@ QWEN_MOE = "qwen3-moe-30b-a3b"   # 128 routed experts, top-8
 MOONSHOT = "moonshot-v1-16b-a3b"  # 64 routed experts, top-6, 2 shared
 LLAVA = "llava-next-34b"          # 576 patch embeddings before the tokens, GQA 56/8
 SEAMLESS = "seamless-m4t-large-v2"  # 24 encoder + 24 decoder layers, cross attention
+COMMAND_R = "command-r-plus-104b"   # d 12288, GQA 96/8, parallel block, tied; 208 GB
+# tensor parallelism on one card: (arch, tp, one rank's q heads, KV heads)
+TP_HEADS = [(ARCH, 2, 16, 4), (COMMAND_R, 4, 24, 2)]
+# command-r-plus-104b at full width on 4 of its 64 layers: all of it would
+# not fit one 80 GB card
+TP_LAYERS = 4
+# 8 greedy requests of ``serve_arrivals``, each cut to 16 new tokens, and
+# chunked prefill through the per-chunk path: an eager step of gloo ranks
+# sharing the card takes ~250 ms (66 host-staged collectives a forward of
+# llama3.1-8b), a unified step's B x W = 2048 rows ~7 s (the CPU tests hold
+# the unified step at tp = 2 and 4)
+TP_REQUESTS, TP_MAX_NEW = 8, 16
 SIZE_GB = {ARCH: "16.06", HYBRID: "5.36", NEMOTRON: "16.38",   # the reference's
            XLSTM: "3.77", QWEN_MOE: "61.06", MOONSHOT: "57.11",  # size reports
            LLAVA: "68.78", SEAMLESS: "2.74"}
@@ -183,6 +216,7 @@ SERVE_ARCH = {LLAVA: dict(max_len=2048, kv_num_blocks=8 * 128 + 1)}
 # chunked prefill through the unified step, and the shared-prefix trace's
 # system prompt (28 blocks of 16)
 CHUNKED = dict(prefill_chunk=256, prefill_budget=256)
+TP_CHUNKED = dict(CHUNKED, unified_step=False)
 SHARED_PREFIX = 448
 GRAPH_REQUESTS = {ARCH: 24, HYBRID: 8, NEMOTRON: 8, QWEN_MOE: 8, MOONSHOT: 8, LLAVA: 8}
 # preemption: the pool cut to two worst-case requests and the garbage block
@@ -299,9 +333,10 @@ def kernel_phase(dev):
                  for arch in (QWEN_MOE, MOONSHOT)]
 
     def moe_rows(entry, rows, key="moe"):
-        """Another family's paths' rows under ``entry[key]`` (``moe``, or
-        ``families`` for llava-next-34b and seamless-m4t-large-v2); their
-        errors count in the entry's ``max_abs_err``."""
+        """Another family's paths' rows under ``entry[key]`` (``moe``,
+        ``families`` for llava-next-34b and seamless-m4t-large-v2, ``tp``
+        for one tensor-parallel rank's heads); their errors count in the
+        entry's ``max_abs_err``."""
         for row in rows:
             log(f"time {entry['name']} {row['arch']} {row['path']}: " + json.dumps(row))
         entry[key] = rows
@@ -446,6 +481,25 @@ def kernel_phase(dev):
                         PROMPT, 256, 16, 16, 64, bf16, causal=False, memory=True)
     fams.append(dict(arch=SEAMLESS, path="cross prefill", max_abs_err=err, **fa_row(case)))
     moe_rows(entries[-1], fams, "families")
+    # tensor parallelism: one rank's heads at the prefill (llama3.1-8b at
+    # tp = 2, 16/4; command-r-plus-104b at tp = 4, 24/2, G = 12) and the
+    # unified step's frontier at 16/4
+    tps = []
+    for arch, tp, Hq, Hkv in TP_HEADS:
+        case, err = fa_case(f"{arch} tp={tp} B=1 S={PROMPT} Hq={Hq} Hkv={Hkv} D=128 causal",
+                            BATCH, PROMPT, PROMPT, Hq, Hkv, 128, bf16)
+        tps.append(dict(arch=arch, path=f"tp={tp} prefill", max_abs_err=err, **fa_row(case)))
+    starts = [256] + [0] * 7
+    q, k, v, kw = unified_flash_case(dev, randn, "paged", starts, starts, heads=(16, 4))
+    got, ref = fa_ops.flash_attention(q, k, v, **kw), fa_ref.attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    err = max_err(got, ref)
+    close(got, ref, tol[bf16])
+    log(f"check flash_attention {ARCH} tp=2 unified step q {tuple(q.shape)} k {tuple(k.shape)}: "
+        f"max_abs_err={err:.3e} tol={tol[bf16]}")
+    tps.append(dict(arch=ARCH, path="tp=2 unified step", max_abs_err=err,
+                    **fa_row((q, k, v, kw), prefill=False)))
+    moe_rows(entries[-1], tps, "tp")
 
     # -- K3 decode attention --------------------------------------------------
     L = PROMPT + GEN + 1
@@ -606,6 +660,14 @@ def kernel_phase(dev):
                         16, 64, bf16, q_at=fill - 1, filled=PROMPT // 2, memory=True)
     fams.append(dict(arch=SEAMLESS, path="cross decode", max_abs_err=err, **da_row(case)))
     moe_rows(entries[-1], fams, "families")
+    # tensor parallelism: the measure path's (1, 545) cache at one rank's heads
+    tps = []
+    for arch, tp, Hq, Hkv in TP_HEADS:
+        case, err = da_case(f"{arch} tp={tp} B=1 L={L} Hq={Hq} Hkv={Hkv} D=128", 1, L, Hq, Hkv,
+                            128, bf16, q_at=fill - 1, filled=fill)
+        tps.append(dict(arch=arch, path=f"tp={tp} measure decode", max_abs_err=err,
+                        **da_row(case)))
+    moe_rows(entries[-1], tps, "tp")
 
     # -- K4 paged decode attention ---------------------------------------------
     def pda_case(name, B, Hq, Hkv, D, dtype, q_pos, bs=16, nb=64, N=513, window=0,
@@ -718,6 +780,15 @@ def kernel_phase(dev):
     paged_graph_check(dev, randn, nvh, nvk)
     moe_rows(entries[-1], [dict(arch=LLAVA, path="serving decode", max_abs_err=err,
                                 **pda_row(case))], "families")
+    # tensor parallelism: the serving decode over the 513-block pool at one
+    # rank's heads
+    tps = []
+    for arch, tp, Hq, Hkv in TP_HEADS:
+        case, err = pda_case(f"{arch} tp={tp} B=8 Hq={Hq} Hkv={Hkv} D=128 bs=16 q_pos={q_pos}",
+                             8, Hq, Hkv, 128, bf16, q_pos)
+        tps.append(dict(arch=arch, path=f"tp={tp} serving decode", max_abs_err=err,
+                        **pda_row(case)))
+    moe_rows(entries[-1], tps, "tp")
 
     # -- K1 rmsnorm, plain and with the residual add fused in front ------------
     def rn_case(rows, d, dtype, fused):
@@ -759,6 +830,8 @@ def kernel_phase(dev):
     # encoder's 256 frames and the decoder's 512 tokens)
     shapes += [(rows, 7168, fused) for rows in (1, 8, lv) for fused in (False, True)]
     shapes += [(rows, 1024, fused) for rows in (1, 256, PROMPT) for fused in (False, True)]
+    # command-r-plus-104b at d = 12288: its decode and prefill rows
+    shapes += [(rows, 12288, fused) for rows in (1, PROMPT) for fused in (False, True)]
     for rows, d, fused in shapes:
         (x, r, s), err = rn_case(rows, d, bf16, fused)
         errs.append(err)
@@ -2617,6 +2690,230 @@ def model_phases(arch, dev, counters, paths, serve=True, parity_layers=0, **pari
     log(f"{arch} phases took {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 11: tensor-parallel serving
+# ---------------------------------------------------------------------------
+
+TP_NOTE = "gloo over one card, host-staged: not a TP latency"
+
+
+def tp_parity_jobs(cfg, dev):
+    """``parity_phase``'s inputs as ``sharding.runs.Logits`` jobs: a prompt
+    of 512 over a contiguous cache (B = 1), a paged one (B = 4, each row's
+    blocks shuffled through the pool) and the paged one in chunks of 256,
+    then 4 greedy decode steps."""
+    import numpy as np
+
+    from repro_torch.models.cache import blocks_per_slot
+    from repro_torch.sharding import runs
+
+    rng = np.random.default_rng(1)
+    steps, bs, paged_batch = 4, 16, 4
+    max_len = PROMPT + steps + 1
+    nb = blocks_per_slot(max_len, bs)
+    pool = paged_batch * nb + 9
+    tables = (rng.permutation(pool - 1)[:paged_batch * nb] + 1).reshape(paged_batch, nb)
+    paged = dict(layout="paged", block_size=bs, num_blocks=pool)
+    tokens = {b: rng.integers(0, cfg.vocab_size, (b, PROMPT)) for b in (BATCH, paged_batch)}
+    return {"contiguous": runs.Logits(tokens[BATCH], None, max_len, greedy=steps),
+            "paged": runs.Logits(tokens[paged_batch], None, max_len, paged,
+                                 tables.astype(np.int32), greedy=steps),
+            "chunked": runs.Logits(tokens[paged_batch], None, max_len, paged,
+                                   tables.astype(np.int32), chunk=CHUNKED["prefill_chunk"],
+                                   greedy=steps)}
+
+
+def tp_serve_jobs(cfg, configs, cuda_graph=False):
+    """``TP_REQUESTS`` greedy requests of ``serve_arrivals``, at most
+    ``TP_MAX_NEW`` new tokens each, served at the serving shape, one
+    ``sharding.runs.Serve`` job per named config."""
+    import dataclasses
+
+    from repro_torch.sharding import runs
+
+    arrivals = serve_arrivals(cfg, TP_REQUESTS, greedy_only=True)
+    for a in arrivals:
+        a.params = dataclasses.replace(
+            a.params, max_new_tokens=min(a.params.max_new_tokens, TP_MAX_NEW))
+    return arrivals, [runs.Serve(name, {**SERVE, **kw, "cuda_graph": cuda_graph},
+                                 [(a.prompt, a.params) for a in arrivals])
+                      for name, kw in configs.items()]
+
+
+def tp_reference(e, dev, parity, serves, arrivals):
+    """The tp = 1 model's side, on the host: each parity job's logits (its
+    greedy steps then forced on the ranks), each serving run's streams,
+    ledgers and summary, and the margins of every decision of every stream
+    (``decision_margins``), so the model can be freed before the ranks
+    start."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    ref = {}
+    for name, job in parity.items():
+        logits = job.run(e.model, None, dev)
+        ref[name] = logits
+        parity[name] = dataclasses.replace(job, steps=logits[:-1].argmax(-1), greedy=0)
+    tp1_runs = {job.name: job.run(e.model, None, dev) for job in serves}
+    margins = {}
+    for out in tp1_runs.values():
+        for uid, stream in out["streams"].items():
+            key = (uid, tuple(stream))
+            if key not in margins:
+                margins[key] = decision_margins(e, arrivals[uid], uid, stream)
+    torch.cuda.synchronize()
+    check(all(np.isfinite(v).all() for v in ref.values()), "tp=1 logits not finite")
+    return ref, tp1_runs, margins
+
+
+def tp_compare(arch, tp, ranks, ref, tp1_runs, margins, tol, label):
+    """The ranks' results against tp = 1's: each rank's parity logits bit
+    for bit rank 0's and within ``tol`` of tp = 1's; each rank's streams
+    exactly rank 0's, and rank 0's held to tp = 1's by the margin rule of
+    ``gate_streams`` (a first difference only where tp = 1's decision had a
+    margin below ``tol``); the per-device KV bytes summing to tp = 1's
+    aggregate, and every rank's pool partition tiling its blocks."""
+    import numpy as np
+
+    n_par = len(ref)
+    lead = ranks[0][0]
+    for i, name in enumerate(ref):
+        want = ref[name]
+        got = lead[1 + i]
+        check(got.shape == want.shape, f"{label} {name}: logits {got.shape}, tp=1 {want.shape}")
+        for r in range(1, tp):
+            check(np.array_equal(ranks[r][0][1 + i], got),
+                  f"{label} {name}: rank {r}'s logits differ from rank 0's")
+        diff = float(np.abs(got - want).max())
+        agree = got.argmax(-1) == want.argmax(-1)
+        top2 = np.sort(want, axis=-1)[..., -2:]
+        decided = (top2[..., 1] - top2[..., 0]) > tol
+        log(f"{label} parity {name}: " + json.dumps({
+            "max_abs_diff_vs_tp1": diff, "tol": tol, "max_abs_logit": float(np.abs(want).max()),
+            "top1_agree": f"{int(agree.sum())}/{agree.size}", "decided_rows": int(decided.sum())}))
+        check(diff <= tol, f"{label} {name}: logits {diff} from tp=1's, tol {tol}")
+        check(bool(agree[decided].all()), f"{label} {name}: top-1 differs from tp=1's on a "
+                                          f"row with a clear margin")
+    for j, (name, base) in enumerate(tp1_runs.items()):
+        out = lead[1 + n_par + j]
+        for r in range(1, tp):
+            other = ranks[r][0][1 + n_par + j]
+            check(other["streams"] == out["streams"], f"{label} {name}: rank {r}'s streams "
+                                                      f"differ from rank 0's")
+            view = other["pool_accounting"]
+            check(view["free"] + view["in_use"] + view["evictable"] == view["allocatable"],
+                  f"{label} {name}: rank {r}'s pool does not tile its blocks")
+        check(set(out["streams"]) == set(base["streams"]), f"{label} {name}: other requests")
+        flips = {}
+        for uid, want in base["streams"].items():
+            got = out["streams"][uid]
+            check(len(got) == len(want), f"{label} {name}: request {uid} length")
+            diff = [k for k, (x, y) in enumerate(zip(got, want)) if x != y]
+            if diff:
+                m = margins[(uid, tuple(want))][diff[0]].item()
+                flips[uid] = (diff[0], round(m, 4))
+                check(m < tol, f"{label} {name}: request {uid} differs at token {diff[0]}, "
+                               f"margin {m} above tol {tol}")
+        s = out["summary"]
+        per = s["kv_bytes_peak_per_device"]
+        check(s["tp_devices"] == tp and sum(per) == base["kv_bytes_peak"],
+              f"{label} {name}: per-device KV {per} vs tp=1's {base['kv_bytes_peak']}")
+        for view in out["pool_accounting_by_device"]:
+            check(view["free"] + view["in_use"] + view["evictable"] == view["allocatable"]
+                  and view["in_use"] == 0, f"{label} {name}: pool accounting {view}")
+        step_ms = 1e3 / s["steps_per_sec"]
+        log(f"{label} serve {name}: " + json.dumps({
+            "identical_streams": f"{len(base['streams']) - len(flips)}/{len(base['streams'])}",
+            "first_differences (uid: token, margin)": flips, "tol": tol,
+            "kv_bytes_peak_per_device": per, "kv_bytes_peak_tp1": base["kv_bytes_peak"],
+            "dispatches_per_step_p95": s["dispatches_per_step_p95"],
+            "step_ms": step_ms, "tp_broadcast_us_p50": s["tp_broadcast_us_p50"],
+            "tp_broadcast_us_p95": s["tp_broadcast_us_p95"], "wall_s": out["wall_s"],
+            "tp1_eager_step_ms": 1e3 / base["summary"]["steps_per_sec"],
+            "timing": TP_NOTE}))
+
+
+def tp_run(arch, cfg, tp, dev, paths, parity, serves, ref, tp1_runs, margins, tol, backend):
+    """Spawn ``tp`` ranks of ``backend`` (gloo: sharing this card; None:
+    NCCL, one card each), each drawing its shard of seed 0's weights and
+    running the parity and serving jobs, and hold them to tp = 1's."""
+    from repro_torch.launch.mesh import spawn_tp
+    from repro_torch.sharding import runs
+
+    label = f"tp {arch} tp={tp} {backend or 'nccl'}"
+    jobs = [runs.Launches(), *parity.values(), *serves, runs.Launches()]
+    t0 = time.perf_counter()
+    ranks = spawn_tp(runs.run_plan, tp, "cuda", [(runs.Weights(cfg, seed=0), jobs)],
+                     backend=backend)
+    wall = time.perf_counter() - t0
+    for r in range(tp):
+        paths[f"{arch} tp={tp} {backend or 'nccl'} rank {r}"] = ranks[r][0][-1]
+        check(all(ranks[r][0][-1][k] > 0 for k in ("rmsnorm", "flash_attention",
+                                                     "decode_attention",
+                                                     "paged_decode_attention")),
+              f"{label}: rank {r} did not launch K1-K4: {ranks[r][0][-1]}")
+    tp_compare(arch, tp, ranks, ref, tp1_runs, margins, tol, label)
+    log(f"{label}: ranks ran {wall:.1f} s ({TP_NOTE if backend == 'gloo' else 'NCCL'})")
+
+
+def tp_phase(dev, paths, tol_llama):
+    """Tensor-parallel serving on this card: llama3.1-8b at full width and
+    depth over 2 gloo ranks and command-r-plus-104b at full width on
+    ``TP_LAYERS`` of its layers over 4, every rank sharing this card, its
+    collectives staged through the host, its steps eager; each held to the
+    tp = 1 model run here first (parity logits within the bf16 tolerance
+    of ``parity_phase``, streams by the margin rule, ledgers).  With 2 or
+    more GPUs llama3.1-8b also runs over 2 NCCL ranks with captured steps.
+    The times printed check correctness: they are not TP latencies."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.profiler import Elana
+
+    t_all = time.perf_counter()
+    llama = get_config(ARCH)
+    parity = tp_parity_jobs(llama, dev)
+    configs = {"paged whole": {}, "paged chunked": TP_CHUNKED,
+               "contiguous whole": dict(cache_layout="contiguous"),
+               "contiguous chunked": dict(TP_CHUNKED, cache_layout="contiguous")}
+    arrivals, serves = tp_serve_jobs(llama, configs)
+    t0 = time.perf_counter()
+    e = Elana(ARCH, device="cuda", seed=0)
+    ref, tp1_runs, margins = tp_reference(e, dev, parity, serves, arrivals)
+    del e
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"tp {ARCH}: tp=1 reference (eager) took {time.perf_counter() - t0:.1f} s")
+    tp_run(ARCH, llama, 2, dev, paths, parity, serves, ref, tp1_runs, margins, tol_llama, "gloo")
+    if torch.cuda.device_count() >= 2:
+        _, graphed = tp_serve_jobs(llama, configs, cuda_graph=True)
+        tp_run(ARCH, llama, 2, dev, paths, parity, graphed, ref, tp1_runs, margins, tol_llama,
+               None)
+    else:
+        log(f"tp {ARCH} nccl: not run: {torch.cuda.device_count()} GPU visible, and NCCL "
+            f"takes one GPU per rank; the captured NCCL steps stay unverified here")
+    log(f"tp {ARCH} phases took {time.perf_counter() - t_all:.1f} s")
+
+    t_all = time.perf_counter()
+    cfg = get_config(COMMAND_R).replace(num_layers=TP_LAYERS)
+    log(f"tp {COMMAND_R}: full width on {TP_LAYERS} of its 64 layers: the whole model "
+        f"(208 GB) does not fit one 80 GB card")
+    parity = tp_parity_jobs(cfg, dev)
+    arrivals, serves = tp_serve_jobs(cfg, {"paged whole": {}})
+    e = Elana(config=cfg, device="cuda", seed=0)
+    tol = parity_phase(e, dev)  # the kernels held to plain and fp32 at d 12288, G 12
+    ref, tp1_runs, margins = tp_reference(e, dev, parity, serves, arrivals)
+    del e
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp_run(COMMAND_R, cfg, 4, dev, paths, parity, serves, ref, tp1_runs, margins, tol, "gloo")
+    log(f"tp {COMMAND_R} phases took {time.perf_counter() - t_all:.1f} s")
+
+
 def engine_refusal_check(e):
     """The serving engine refuses an encoder-decoder model, which the
     reference's engine cannot serve."""
@@ -2729,6 +3026,7 @@ def main():
     check(all(paths[f"{SEAMLESS} measure"][k] > 0
               for k in ("rmsnorm", "flash_attention", "decode_attention")),
           f"K1, K2 or K3 never launched on the {SEAMLESS} measure path")
+    tp_phase(dev, paths, tol)
     for entry in entries:
         k = entry["name"]
         entry["launches_by_path"] = {path: counts[k] for path, counts in paths.items()}

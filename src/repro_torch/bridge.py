@@ -8,7 +8,11 @@ bfloat16 support is needed here).  The reference stacks each repetition of
 and keeps a remainder under ``decoder.rest.<i>``; both are unstacked into
 the per-layer modules, layer ``g * len(pattern) + i`` for group ``g``.  An
 encoder-decoder model's ``encoder`` stack (pattern ``("attn",)``) is
-unstacked the same way into ``encoder.layers``.
+unstacked the same way into ``encoder.layers``.  With ``mesh=`` (a
+``launch.mesh.TPMesh``) the model is the rank's tensor-parallel shard, and
+each parameter takes the rank's slice of the reference's
+(``sharding.rules.local_slice``), as ``sharding.partition.shard_model``
+slices the port's own draws.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import torch
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import Model
+from repro_torch.sharding.rules import local_slice
 
 
 def _tensor(arr: np.ndarray) -> torch.Tensor:
@@ -42,9 +47,11 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
-def params_from_jax(cfg: ModelConfig, tree: Mapping, device="cuda") -> Model:
-    """A ``Model`` on ``device`` holding the reference parameters ``tree``."""
-    model = Model(cfg, device=device)
+def params_from_jax(cfg: ModelConfig, tree: Mapping, device="cuda", mesh=None) -> Model:
+    """A ``Model`` on ``device`` holding the reference parameters ``tree``
+    (with ``mesh``, the rank's shard of them)."""
+    model = Model(cfg, device=device, mesh=mesh)
+    rank, tp = (mesh.rank, mesh.size) if mesh is not None else (0, 1)
     # each stack: (its config, the port's prefix of its modules)
     stacks = {"decoder": (cfg, "")}
     if cfg.is_encdec:
@@ -74,7 +81,7 @@ def params_from_jax(cfg: ModelConfig, tree: Mapping, device="cuda") -> Model:
                          f"{sorted(set(params) - set(flat))}")
     with torch.no_grad():
         for name, p in params.items():
-            src = _tensor(flat[name])
+            src = _tensor(local_slice(name, flat[name], rank, tp))
             if tuple(src.shape) != tuple(p.shape) or src.dtype != p.dtype:
                 raise ValueError(f"{name}: reference {tuple(src.shape)} {src.dtype}, "
                                  f"port {tuple(p.shape)} {p.dtype}")

@@ -157,6 +157,31 @@ def make_reader(kind: str, synthetic: Callable[[float], float] = lambda t: 42.0)
     raise ValueError(f"unknown power reader {kind!r}")
 
 
+def make_monitor(kind: str, n_devices: int = 1, shared: bool = False, interval_s: float = 0.1,
+                 synthetic: Callable[[float], float] = lambda t: 42.0):
+    """The monitor a CLI's ``--power-reader`` gives (None for ``none``):
+    one ``PowerMonitor``; or, over ``n_devices`` > 1 devices that do not
+    share a board, a ``DeviceMonitorGroup`` of one reader per device (NVML:
+    device r; the other kinds are one proxy each, as the reference's).
+    Ranks that share one board (``shared``) get one monitor: a group would
+    count the board once per rank."""
+    if kind == "none":
+        return None
+    if n_devices > 1 and not shared:
+        readers = [NvmlReader([r]) if kind == "nvml" else make_reader(kind, synthetic)
+                   for r in range(n_devices)]
+        return DeviceMonitorGroup(readers, interval_s=interval_s)
+    return PowerMonitor(make_reader(kind, synthetic), interval_s=interval_s)
+
+
+def close_monitor(monitor) -> None:
+    """Close a monitor's reader, or each reader of a group."""
+    if isinstance(monitor, DeviceMonitorGroup):
+        monitor.close()
+    elif monitor is not None:
+        monitor.reader.close()
+
+
 @dataclasses.dataclass
 class EnergyResult:
     duration_s: float
@@ -300,6 +325,100 @@ class PowerMonitor:
             samples_per_sec=len(self._samples) / duration,
             dropped_reads=self.dropped_reads,
         )
+
+
+class DeviceMonitorGroup:
+    """One ``PowerMonitor`` per device under one measurement window, the
+    counterpart of the reference's group.
+
+    The paper sums the powers of several GPUs; the group keeps each
+    device's ledger instead.  It serves the engine as a ``PowerMonitor``
+    does (``window``, ``joules_between``, ``result``, ``dropped_reads``)
+    and adds the per-device split: ``joules_between_by_device`` for
+    request windows and ``result_by_device`` for the run.  Every integral
+    is the same step function, so the devices' joules sum exactly to the
+    group's, over any window, and request windows that tile the run sum to
+    its total.  A device whose reader drops every read gives 0 J and counts
+    its drops; the other devices' ledgers are untouched."""
+
+    def __init__(self, readers: Sequence[PowerReader], interval_s: float = 0.1):
+        if not readers:
+            raise ValueError("DeviceMonitorGroup needs at least one reader")
+        self.monitors = [PowerMonitor(r, interval_s) for r in readers]
+        self.interval_s = interval_s
+        self._t0 = 0.0
+        self._t1 = 0.0
+
+    @property
+    def n_devices(self) -> int:
+        return len(self.monitors)
+
+    @property
+    def dropped_reads(self) -> int:
+        return sum(m.dropped_reads for m in self.monitors)
+
+    def close(self) -> None:
+        """Close every device's reader."""
+        for m in self.monitors:
+            m.reader.close()
+
+    def __enter__(self) -> "DeviceMonitorGroup":
+        # one clock for the group's window; each monitor's first sample,
+        # taken microseconds later, extends back over the gap (step function)
+        self._t0 = time.perf_counter()
+        self._t1 = 0.0
+        for m in self.monitors:
+            m.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._t1 = time.perf_counter()
+        for m in self.monitors:
+            m.__exit__(*exc)
+
+    @property
+    def window(self) -> Tuple[float, float]:
+        """(enter, exit) perf_counter stamps (exit == now while running)."""
+        t1 = self._t1 if self._t1 > self._t0 else time.perf_counter()
+        return self._t0, t1
+
+    def joules_between(self, t0: float, t1: float) -> float:
+        """The devices' step-function energy over [t0, t1], summed."""
+        return sum(self.joules_between_by_device(t0, t1))
+
+    def joules_between_by_device(self, t0: float, t1: float) -> List[float]:
+        return [m.joules_between(t0, t1) for m in self.monitors]
+
+    def result_by_device(self) -> List[EnergyResult]:
+        """Each device's result over the group's window, so their joules
+        sum exactly to ``result().joules``."""
+        t0, t1 = self.window
+        duration = max(t1 - t0, 1e-9)
+        out = []
+        for m in self.monitors:
+            window = [(t, w) for t, w in m._samples if t0 <= t <= t1 + 1e-3]
+            if not window:
+                window = m._samples[-1:] or [(t0, [0.0])]
+            joules = integrate_joules(m._samples, t0, t1)
+            out.append(EnergyResult(
+                duration_s=duration, avg_watts=joules / duration, joules=joules,
+                samples=window, n_devices=max(len(w) for _, w in window),
+                samples_per_sec=len(m._samples) / duration, dropped_reads=m.dropped_reads))
+        return out
+
+    def result(self) -> EnergyResult:
+        per = self.result_by_device()
+        duration = per[0].duration_s
+        joules = sum(r.joules for r in per)
+        # every device's samples by time, to read; the ledgers that
+        # integrate are the monitors' own
+        samples = sorted((s for m in self.monitors for s in m._samples), key=lambda tw: tw[0])
+        return EnergyResult(
+            duration_s=duration, avg_watts=joules / duration, joules=joules,
+            samples=samples, n_devices=len(self.monitors),
+            # the mean device's rate: a dead device lowers it, never zeroes it
+            samples_per_sec=len(samples) / duration / len(self.monitors),
+            dropped_reads=self.dropped_reads)
 
 
 def measure_energy(

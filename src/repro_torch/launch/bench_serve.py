@@ -15,6 +15,11 @@ to ``PowerMonitor.result().joules`` exactly.
         --power-reader synthetic --mode closed --concurrency 2 --warmup-s 1 \
         --duration-s 3 --max-new 8 --check
 
+``--tp N`` shards the model over N rank processes as ``launch.serve``
+does: rank 0 runs the server, the load and the report, the other ranks
+follow its steps; one monitor per GPU under NCCL, one in all where the
+ranks share a board.
+
 ``--check`` turns the protocol's criteria into a non-zero exit where one
 fails: requests were measured in the steady state, the client's TTFT and
 TPOT agree with the engine's within ``--ttft-tolerance-ms`` (TPOT within a
@@ -70,6 +75,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "an exact energy ledger, the sampler's rate")
     ap.add_argument("--ttft-tolerance-ms", type=float, default=250.0,
                     help="--check bound on the mean client-minus-engine TTFT")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel ranks: shard the served model over N processes, "
+                         "one power monitor per GPU (NCCL, one GPU per rank; with fewer "
+                         "GPUs, or on the CPU, gloo ranks with eager steps)")
     return ap
 
 
@@ -114,29 +123,41 @@ class Bench:
     server: object          # the EngineServer, closed: its engine and stamps
 
 
-def run(args) -> Bench:
-    """Draw the model, prewarm the engine, serve it and drive the load."""
+def run(args, mesh=None) -> Bench:
+    """Draw the model (the rank's shard on ``mesh``, whose rank 0 calls
+    this), prewarm the engine, serve it and drive the load.  The other
+    ranks follow until the caller closes the engine (``bench.server.engine
+    .close()``)."""
     import torch
 
     from repro_torch import resolve_device
     from repro_torch.configs import get_config
-    from repro_torch.core.energy import PowerMonitor, make_reader
+    from repro_torch.core.energy import close_monitor, make_monitor
     from repro_torch.models import model as model_lib
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.loadgen import LoadSpec, prewarm_engine, run_load
     from repro_torch.serving.server import start_http_server
+    from repro_torch.sharding.partition import shard_model
 
-    device = resolve_device(args.device)
+    device = mesh.device if mesh is not None else resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
     kind = args.power_reader or ("nvml" if device.type == "cuda" else "synthetic")
-    monitor = (None if kind == "none"
-               else PowerMonitor(make_reader(kind, _synthetic_watts),
-                                 interval_s=args.power_interval))
+    shared = mesh is not None and mesh.backend != "nccl"
+    monitor = make_monitor(kind, getattr(args, "tp", 1), shared, args.power_interval,
+                           _synthetic_watts)
+    if mesh is not None:
+        print(f"# --tp {mesh.size}: {mesh.describe()}"
+              + ("; per-device energy is not split: the ranks share one board or host"
+                 if shared and monitor is not None else ""), flush=True)
     try:
-        model = model_lib.init(cfg, torch.Generator(device=device).manual_seed(args.seed),
-                               device)
+        if mesh is None:
+            model = model_lib.init(cfg, torch.Generator(device=device).manual_seed(args.seed),
+                                   device)
+        else:
+            model = shard_model(cfg, mesh, args.seed)
         engine = ServingEngine(model, max_batch=args.max_batch, max_len=args.max_len,
-                               seed=args.seed, prefill_chunk=args.prefill_chunk, device=device)
+                               seed=args.seed, prefill_chunk=args.prefill_chunk, device=device,
+                               mesh=mesh, cuda_graph=mesh is None or mesh.capturable)
         if monitor is not None:
             engine.attach_monitor(monitor)
         prewarm_engine(engine, prompt_len=args.prompt_len,
@@ -156,8 +177,7 @@ def run(args) -> Bench:
         finally:
             handle.close()
     finally:
-        if monitor is not None:
-            monitor.reader.close()
+        close_monitor(monitor)
     return Bench(result, engine_summary, handle.server)
 
 
@@ -176,8 +196,36 @@ def report(bench: Bench, args) -> None:
         _check(summary, args)
 
 
+def _bench(mesh, args, front_end=False) -> int:
+    """One rank of ``--tp``: rank 0 runs the benchmark and reports; the
+    other ranks follow its engine's steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.sharding.partition import shard_model
+
+    if mesh.rank == 0:
+        bench = run(args, mesh)
+        try:
+            report(bench, args)
+        finally:
+            bench.server.engine.close()
+        return 0
+    model = shard_model(get_config(args.arch, smoke=args.smoke), mesh, args.seed)
+    ServingEngine(model, max_batch=args.max_batch, max_len=args.max_len, seed=args.seed,
+                  prefill_chunk=args.prefill_chunk, device=mesh.device, mesh=mesh,
+                  cuda_graph=mesh.capturable).follow()
+    return 0
+
+
 def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    if args.tp < 1:
+        ap.error("--tp takes an integer >= 1")
+    if args.tp > 1:
+        from repro_torch.launch.serve import run_ranks, tp_backend
+
+        return run_ranks(_bench, args, tp_backend(ap, args))
     report(run(args), args)
     return 0
 

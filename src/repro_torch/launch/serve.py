@@ -1,6 +1,6 @@
 """Serving driver of the port: open-loop traffic against the
 continuous-batching engine, with per-request energy attribution.  The
-counterpart of ``repro/launch/serve.py`` (all its flags but ``--tp``).
+counterpart of ``repro/launch/serve.py``.
 
     python -m repro_torch.launch.serve --arch llama3.1-8b --cache-layout paged
     python -m repro_torch.launch.serve --arch tinyllama-1.1b --smoke --device cpu \
@@ -14,6 +14,8 @@ counterpart of ``repro/launch/serve.py`` (all its flags but ``--tp``).
     python -m repro_torch.launch.serve --arch llama3.1-8b --cache-layout paged \
         --preemption recompute --kv-num-blocks auto --speculative lookup \
         --spec-tokens 4 --lookup-friendly
+    python -m repro_torch.launch.serve --arch llama3.1-8b --cache-layout paged --tp 2
+    python -m repro_torch.launch.serve --arch tinyllama-1.1b --smoke --device cpu --tp 2
 
 ``--arrival-rate 0`` (the default) submits every request at the start;
 otherwise arrivals are Poisson at that rate, replayed against the wall
@@ -26,6 +28,14 @@ weights are random, drawn from ``--seed``.  Energy is read by
 split between requests by the tokens each emitted in every window.
 Prints ``latency_summary()`` as JSON, then markdown tables of the latency
 percentiles, the step economics and the requests.
+
+``--tp N`` shards the model over N rank processes (``launch.mesh``):
+NCCL with one GPU per rank and CUDA-graph steps where N GPUs are visible;
+on fewer GPUs gloo ranks that share them, whose steps run eagerly (pass
+``--cuda-graph off``); on the CPU gloo ranks.  Rank 0 prints, serves HTTP
+and reads the power; the other ranks follow its steps.  Ranks that share
+one board or host are read by one monitor, so their energy is not split
+per device.  Under ``--http-port`` only rank 0 answers Ctrl-C.
 """
 
 from __future__ import annotations
@@ -139,13 +149,54 @@ def build_parser() -> argparse.ArgumentParser:
                     help="motif tokens per --lookup-friendly prompt")
     ap.add_argument("--motif-repeats", type=int, default=4,
                     help="times each --lookup-friendly motif is tiled")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel ranks: shard heads, FFN hidden and vocabulary over "
+                         "N processes, with per-device KV and power ledgers (NCCL, one GPU "
+                         "per rank; with fewer GPUs, or on the CPU, gloo ranks, eager "
+                         "steps)")
     return ap
 
 
-def _make_monitor(kind: str):
-    from repro_torch.core.energy import PowerMonitor, make_reader
+def tp_backend(ap, args):
+    """The backend of ``--tp`` ranks on ``args.device`` (None: the mesh's
+    default), refusing a CUDA graph that gloo ranks cannot capture."""
+    import torch
 
-    return None if kind == "none" else PowerMonitor(make_reader(kind))
+    from repro_torch import resolve_device
+
+    if torch.device(args.device).type != "cuda":
+        return None
+    resolve_device(args.device)  # raises where there is no GPU
+    if torch.cuda.device_count() >= args.tp:
+        return None
+    if getattr(args, "cuda_graph", "off") == "on":
+        ap.error(f"--tp {args.tp} on {torch.cuda.device_count()} GPU(s) runs gloo ranks that "
+                 f"share them, whose collectives a CUDA graph cannot capture: pass "
+                 f"--cuda-graph off")
+    return "gloo"
+
+
+def run_ranks(fn, args, backend, front_end=False):
+    """``fn(mesh, args)`` on ``args.tp`` ranks; rank 0's result.  With a
+    front end (``--http-port``) Ctrl-C reaches rank 0 only: this process
+    and the other ranks ignore it while the ranks run."""
+    import os
+    import signal
+
+    import torch
+
+    from repro_torch.launch.mesh import spawn_tp
+
+    # CPU ranks split the cores between them
+    threads = (max(1, (os.cpu_count() or 1) // args.tp)
+               if torch.device(args.device).type == "cpu" else 0)
+    old = signal.signal(signal.SIGINT, signal.SIG_IGN) if front_end else None
+    try:
+        return spawn_tp(fn, args.tp, args.device, args, front_end, backend=backend,
+                        threads=threads)[0]
+    finally:
+        if old is not None:
+            signal.signal(signal.SIGINT, old)
 
 
 def _parse_replay(text: str):
@@ -175,20 +226,42 @@ def main(argv=None) -> int:
             ap.error("--kv-num-blocks takes an integer >= 0 or 'auto'")
     elif args.cache_layout != "paged":
         ap.error("--kv-num-blocks auto requires --cache-layout paged")
+    if args.replay:
+        try:
+            _parse_replay(args.replay)
+        except ValueError as e:
+            ap.error(str(e))
+    if args.tp < 1:
+        ap.error("--tp takes an integer >= 1")
+    if args.tp > 1:
+        return run_ranks(_serve, args, tp_backend(ap, args), front_end=bool(args.http_port))
+    return _serve(None, args)
+
+
+def _serve(mesh, args, front_end=False) -> int:
+    """The serving run on one rank (``mesh`` None without tensor parallelism):
+    rank 0 makes the trace, the monitor and the output and drives the
+    engine; the other ranks follow its steps."""
+    import signal
+
     import torch
 
     from repro_torch import resolve_device
     from repro_torch.configs import get_config
-    from repro_torch.core import report
+    from repro_torch.core.energy import close_monitor, make_monitor
     from repro_torch.models import cache as cache_lib
     from repro_torch.models import model as model_lib
     from repro_torch.serving.engine import ServingEngine
-    from repro_torch.serving.workload import (LengthDist, OpenLoopDriver, WorkloadSpec,
-                                              bursty_trace, estimate_concurrency,
-                                              lookup_friendly_trace, poisson_trace,
-                                              replay_trace, shared_prefix_trace)
+    from repro_torch.serving.workload import (LengthDist, WorkloadSpec, bursty_trace,
+                                              estimate_concurrency, lookup_friendly_trace,
+                                              poisson_trace, replay_trace,
+                                              shared_prefix_trace)
+    from repro_torch.sharding.partition import shard_model
 
-    device = resolve_device(args.device)
+    lead = mesh is None or mesh.rank == 0
+    if front_end and lead:  # Ctrl-C stops the server on rank 0
+        signal.signal(signal.SIGINT, signal.default_int_handler)
+    device = mesh.device if mesh is not None else resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
     plo = max(int(args.prompt_len_mean // 4), 1)
     phi = max(int(args.prompt_len_mean * 2), plo + 1)
@@ -200,11 +273,7 @@ def main(argv=None) -> int:
                               high=max(args.max_new, 1)),
         temperature=args.temperature, seed=args.seed)
     if args.replay:
-        try:
-            schedule = _parse_replay(args.replay)
-        except ValueError as e:
-            ap.error(str(e))
-        arrivals = replay_trace(schedule, cfg.vocab_size, seed=args.seed,
+        arrivals = replay_trace(_parse_replay(args.replay), cfg.vocab_size, seed=args.seed,
                                 temperature=args.temperature, top_k=20)
     elif args.bursty:
         bursts = max(-(-args.requests // max(args.burst_size, 1)), 1)
@@ -233,12 +302,24 @@ def main(argv=None) -> int:
             seq_lens, args.kv_block_size, args.max_len, args.max_batch,
             concurrency=estimate_concurrency(arrivals, args.max_batch))
         worst = cache_lib.default_num_blocks(args.max_batch, args.max_len, args.kv_block_size)
-        print(f"# --kv-num-blocks auto -> {kv_num_blocks} blocks (worst case {worst}); pair "
-              f"with --preemption recompute to survive a bursty tail")
+        if lead:
+            print(f"# --kv-num-blocks auto -> {kv_num_blocks} blocks (worst case {worst}); "
+                  f"pair with --preemption recompute to survive a bursty tail")
 
-    reader = args.power_reader or ("nvml" if device.type == "cuda" else "none")
-    monitor = _make_monitor(reader)
-    model = model_lib.init(cfg, torch.Generator(device=device).manual_seed(args.seed), device)
+    monitor = None
+    if lead:
+        reader = args.power_reader or ("nvml" if device.type == "cuda" else "none")
+        shared = mesh is not None and mesh.backend != "nccl"
+        monitor = make_monitor(reader, args.tp, shared)
+        if mesh is not None:
+            print(f"# --tp {args.tp}: {mesh.describe()}"
+                  + ("; per-device energy is not split: the ranks share one board or host"
+                     if shared and monitor is not None else ""), flush=True)
+    if mesh is None:
+        model = model_lib.init(cfg, torch.Generator(device=device).manual_seed(args.seed),
+                               device)
+    else:
+        model = shard_model(cfg, mesh, args.seed)
     engine = ServingEngine(model, max_batch=args.max_batch, max_len=args.max_len,
                            seed=args.seed, cache_layout=args.cache_layout,
                            kv_block_size=args.kv_block_size,
@@ -248,18 +329,33 @@ def main(argv=None) -> int:
                            prefill_budget=args.prefill_budget,
                            unified_step=args.unified_step == "on", pad_side=args.pad_side,
                            prefix_cache=args.prefix_cache, preemption=args.preemption,
-                           speculative=args.speculative, spec_tokens=args.spec_tokens)
+                           speculative=args.speculative, spec_tokens=args.spec_tokens,
+                           mesh=mesh)
+    if not lead:
+        engine.follow()
+        return 0
+    try:
+        return _lead(args, cfg, engine, monitor, arrivals)
+    finally:
+        close_monitor(monitor)
+        engine.close()
+
+
+def _lead(args, cfg, engine, monitor, arrivals) -> int:
+    """Rank 0: drive the engine (the trace, or the HTTP server) and print."""
+    import torch
+
+    from repro_torch.core import report
+    from repro_torch.serving.workload import OpenLoopDriver
+
+    device = engine.device
     device_name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     if args.http_port:
         return _serve_http(args, cfg, engine, monitor, device_name)
     if monitor is not None:
         engine.attach_monitor(monitor)
-    try:
-        with monitor or contextlib.nullcontext():
-            finished = OpenLoopDriver(engine, arrivals).run()
-    finally:
-        if monitor is not None:
-            monitor.reader.close()
+    with monitor or contextlib.nullcontext():
+        finished = OpenLoopDriver(engine, arrivals).run()
     summary = engine.latency_summary()
     summary["device"] = device_name
     print(json.dumps(summary, indent=2))
@@ -281,23 +377,19 @@ def _serve_http(args, cfg, engine, monitor, device_name) -> int:
 
     if monitor is not None:
         engine.attach_monitor(monitor)
-    try:
-        with monitor or contextlib.nullcontext():
-            handle = start_http_server(engine, host=args.http_host, port=args.http_port,
-                                       model_name=cfg.name)
-            print(f"# serving {cfg.name} at {handle.url} (POST /v1/completions; Ctrl-C to "
-                  f"stop)", flush=True)
-            try:
-                while True:
-                    time.sleep(1.0)
-            except KeyboardInterrupt:
-                pass
-            finally:
-                handle.close()
-        summary = handle.server.summary()
-    finally:
-        if monitor is not None:
-            monitor.reader.close()
+    with monitor or contextlib.nullcontext():
+        handle = start_http_server(engine, host=args.http_host, port=args.http_port,
+                                   model_name=cfg.name)
+        print(f"# serving {cfg.name} at {handle.url} (POST /v1/completions; Ctrl-C to "
+              f"stop)", flush=True)
+        try:
+            while True:
+                time.sleep(1.0)
+        except KeyboardInterrupt:
+            pass
+        finally:
+            handle.close()
+    summary = handle.server.summary()
     summary["device"] = device_name
     print(json.dumps(summary, indent=2, default=float))
     print("\n## Latency percentiles\n")

@@ -18,7 +18,7 @@ from torch import nn
 from repro_torch.kernels import dispatch
 from repro_torch.models import cache as cache_lib
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import apply_rope, init_normal_, new_param
+from repro_torch.models.layers import apply_rope, init_normal_, matmul_fp32, new_param
 
 
 class Attention(nn.Module):
@@ -33,6 +33,9 @@ class Attention(nn.Module):
         self.wk = new_param((d, kv, hd), dtype, device)
         self.wv = new_param((d, kv, hd), dtype, device)
         self.wo = new_param((h, hd, d), dtype, device)
+        # a tensor-parallel shard's output is one rank's partial sum, kept
+        # in fp32 for the sum over the ranks (set by ``Model``)
+        self.partial = False
         if cfg.qkv_bias and not cross:
             self.bq = new_param((h, hd), dtype, device)
             self.bk = new_param((kv, hd), dtype, device)
@@ -64,9 +67,10 @@ def _project_qkv(p: Attention, x: torch.Tensor):
 
 
 def _out_proj(p: Attention, o: torch.Tensor) -> torch.Tensor:
-    """"bshk,hkd->bsd"."""
+    """"bshk,hkd->bsd"; a shard's partial sum in fp32."""
     B, S = o.shape[:2]
-    return torch.matmul(o.reshape(B, S, -1), p.wo.reshape(-1, p.wo.shape[-1]))
+    mm = matmul_fp32 if p.partial else torch.matmul
+    return mm(o.reshape(B, S, -1), p.wo.reshape(-1, p.wo.shape[-1]))
 
 
 def apply_attention_full(

@@ -164,6 +164,21 @@ class BlockPool:
         """Blocks owned by live requests."""
         return max(self.num_blocks - 1, 0) - self.available
 
+    def shard_accounting(self, n_devices: int) -> List[Dict[str, int]]:
+        """Per-device block accounting of a tensor-parallel pool: the pool
+        shards the KV heads, never the block axis, so every device holds its
+        heads of every block and the host-managed tables index each
+        device's pool alike.  Each device's view is this pool's partition:
+        ``free + in_use + evictable`` tiles the allocatable blocks
+        ``1..num_blocks-1`` on each shard."""
+        if n_devices < 1:
+            raise ValueError(f"n_devices must be >= 1, got {n_devices}")
+        allocatable = max(self.num_blocks - 1, 0)
+        free, evictable = len(self.free_stack), len(self.evictable)
+        view = {"free": free, "in_use": allocatable - free - evictable,
+                "evictable": evictable, "allocatable": allocatable}
+        return [dict(view) for _ in range(n_devices)]
+
     def allocate(self, n: int) -> List[int]:
         """Pop ``n`` blocks, evicting the LRU cached ones when the free
         stack runs dry."""

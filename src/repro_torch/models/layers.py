@@ -33,7 +33,7 @@ def init_normal_(p: torch.Tensor, gen: torch.Generator,
     if scale is None:
         scale = 1.0 / math.sqrt(max(1, p.shape[0]))
     p.copy_(torch.randn(p.shape, generator=gen, device=p.device,
-                        dtype=torch.float32) * scale)
+                        dtype=torch.float32).mul_(scale))
 
 
 # --------------------------------------------------------------------------
@@ -119,9 +119,14 @@ def act_fn(name: str):
 # --------------------------------------------------------------------------
 
 class Embedding(nn.Module):
-    def __init__(self, vocab: int, d: int, dtype, device):
+    """A (vocab, d) table.  Under tensor parallelism (``tp``, a
+    ``launch.mesh.TPMesh``) it holds the rows ``vocab_start ..
+    vocab_start + vocab - 1`` of the full table."""
+
+    def __init__(self, vocab: int, d: int, dtype, device, tp=None, vocab_start: int = 0):
         super().__init__()
         self.table = new_param((vocab, d), dtype, device)
+        self.tp, self.vocab_start = tp, vocab_start
 
     def init_(self, gen: torch.Generator) -> None:
         init_normal_(self.table, gen, scale=1.0)
@@ -129,22 +134,41 @@ class Embedding(nn.Module):
 
 def embed_tokens(p: Embedding, tokens: torch.Tensor, scale: bool,
                  d_model: int) -> torch.Tensor:
-    x = F.embedding(tokens, p.table)
+    """The table's rows for ``tokens``.  A vocabulary-sharded table looks
+    up the tokens in its own rows, zeros the others, and sums over the
+    ranks: each row is one rank's and zeros, so the sum is exact."""
+    if p.tp is None:
+        x = F.embedding(tokens, p.table)
+    else:
+        local = tokens - p.vocab_start
+        mine = (local >= 0) & (local < p.table.shape[0])
+        x = F.embedding(torch.where(mine, local, 0), p.table)
+        x = p.tp.all_reduce(x.masked_fill(~mine[..., None], 0))
     if scale:  # the factor is rounded to the activation dtype first, on the
         # host: a host-to-device copy could not be captured in a CUDA graph
         x = x * torch.tensor(math.sqrt(d_model), dtype=x.dtype).item()
     return x
 
 
+def matmul_fp32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` (x (..., k), w (k, n)) summed and returned in fp32, never
+    rounded to bf16 on the way."""
+    if x.is_cuda and x.dtype != torch.float32:
+        return torch.mm(x.reshape(-1, x.shape[-1]), w,
+                        out_dtype=torch.float32).reshape(*x.shape[:-1], -1)
+    return torch.matmul(x.float(), w.float())
+
+
 def unembed(p: Embedding, x: torch.Tensor, softcap: float = 0.0) -> torch.Tensor:
     """fp32 logits (..., vocab).  As with the reference's
     ``preferred_element_type=float32``, bf16 products are summed and
-    returned in fp32, never rounded to bf16 on the way."""
-    if x.is_cuda and x.dtype != torch.float32:
-        logits = torch.mm(x.reshape(-1, x.shape[-1]), p.table.t(),
-                          out_dtype=torch.float32).reshape(*x.shape[:-1], -1)
-    else:
-        logits = torch.matmul(x.float(), p.table.float().t())
+    returned in fp32, never rounded to bf16 on the way.  A
+    vocabulary-sharded table gives its own columns, gathered from every
+    rank into the full row the sampler reads (the same bytes on every
+    rank); the softcap, elementwise, follows."""
+    logits = matmul_fp32(x, p.table.t())
+    if p.tp is not None:
+        logits = p.tp.gather_last(logits)
     if softcap > 0.0:
         logits = torch.tanh(logits / softcap) * softcap
     return logits

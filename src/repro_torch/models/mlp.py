@@ -8,7 +8,7 @@ import math
 import torch
 from torch import nn
 
-from repro_torch.models.layers import act_fn, init_normal_, new_param
+from repro_torch.models.layers import act_fn, init_normal_, matmul_fp32, new_param
 
 
 class MLP(nn.Module):
@@ -18,6 +18,9 @@ class MLP(nn.Module):
         if gated:
             self.wu = new_param((d, d_ff), dtype, device)
         self.wd = new_param((d_ff, d), dtype, device)
+        # a tensor-parallel shard's output is one rank's partial sum, kept
+        # in fp32 for the sum over the ranks (set by ``Model``)
+        self.partial = False
 
     def init_(self, gen: torch.Generator) -> None:
         init_normal_(self.wg, gen)
@@ -27,7 +30,8 @@ class MLP(nn.Module):
 
 
 def apply_mlp(p: MLP, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+    """The FFN; a shard's partial sum in fp32."""
     h = act_fn(act)(torch.matmul(x, p.wg))
     if hasattr(p, "wu"):
         h = h * torch.matmul(x, p.wu)
-    return torch.matmul(h, p.wd)
+    return (matmul_fp32 if p.partial else torch.matmul)(h, p.wd)

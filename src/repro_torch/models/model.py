@@ -18,6 +18,18 @@ The reference stacks each repetition of ``cfg.block_pattern`` on a leading
 axis and scans over it; here the layers are a plain ``nn.ModuleList`` run
 in order (``bridge.params_from_jax`` unstacks the reference's groups).
 
+Tensor parallelism: a model built with ``mesh=`` (a ``launch.mesh.TPMesh``
+of more than one rank) is one rank's shard, Megatron-style, with the
+reference's serving rules (``sharding/rules.py``): the q/k/v heads, the FFN
+hidden and the vocabulary split over the ranks, norms replicated.  Each
+block's attention output and MLP output are partial sums, reduced over the
+ranks before they join the residual stream (a parallel block sums the two
+first and reduces once), each partial kept in fp32 and the sum rounded
+once to the stream's dtype; the embedding and the logits are vocabulary
+parallel (``layers.embed_tokens``, ``layers.unembed``).  The residual
+stream, the logits and so every sampled token are the same on every
+rank.  ``sharding.partition.shard_model`` draws a shard's weights.
+
 Entry points:
   * ``init(cfg, generator, device)`` — a model with random weights at the
     reference initializer's scales.
@@ -48,6 +60,7 @@ from repro_torch.models.layers import (
     Embedding, Norm, add_norm, embed_tokens, rope_tables, unembed,
 )
 from repro_torch.models.mlp import MLP, apply_mlp
+from repro_torch.sharding import rules as rules_lib
 
 SUPPORTED_BLOCKS = ("attn", "local_attn", "ffn", "rglru", "mlstm", "slstm")
 ATTN_BLOCKS = ("attn", "local_attn")
@@ -68,6 +81,7 @@ class Block(nn.Module):
                 f"{cfg.name}: block kind {kind!r} is not ported yet "
                 f"(the port runs {SUPPORTED_BLOCKS})")
         self.kind = kind
+        self.tp = None  # the mesh of a tensor-parallel shard (set by Model)
         d = cfg.d_model
         if kind in ATTN_BLOCKS:
             self.norm1 = Norm(d, dtype, device)
@@ -183,19 +197,36 @@ def _cross(p: Block, cfg: ModelConfig, x: torch.Tensor, a: torch.Tensor,
     return x, attend(hc)
 
 
+def _reduce(p: Block, t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A row-parallel product's fp32 partial output summed over a
+    tensor-parallel shard's ranks and rounded once to the residual
+    stream's dtype (the reference's constraint back to a replicated
+    residual); ``t`` itself without tensor parallelism."""
+    return t if p.tp is None else p.tp.all_reduce(t).to(x.dtype)
+
+
+def _ffn_block(p: Block, cfg: ModelConfig, x: torch.Tensor,
+               r: Optional[torch.Tensor]) -> Residual:
+    x, h = add_norm(p.norm, x, r, cfg.norm_eps)
+    return x, _reduce(p, apply_mlp(p.mlp, h, cfg.mlp_act), x)
+
+
 def _mlp_branch(p: Block, cfg: ModelConfig, x: torch.Tensor, h: torch.Tensor,
                 a: torch.Tensor) -> Residual:
     """An attention block after its attention output ``a``: the MLP branch
     (the mixture of experts in a MoE config), left pending.  A parallel
     block's MLP reads the shared pre-norm ``h`` and adds ``a`` first, as
-    the reference adds ``(x + a) + m``."""
+    the reference adds ``(x + a) + m``; on a tensor-parallel shard its two
+    partial outputs are summed and reduced once, ``x + (a + m)``."""
     if cfg.parallel_block:
+        if p.tp is not None:
+            return x, _reduce(p, a + apply_mlp(p.mlp, h, cfg.mlp_act), x)
         x = x + a
     else:
-        x, h = add_norm(p.norm2, x, a, cfg.norm_eps)
+        x, h = add_norm(p.norm2, x, _reduce(p, a, x), cfg.norm_eps)
     if cfg.is_moe:
         return x, moe_lib.apply_moe(p.mlp, h, cfg)
-    return x, apply_mlp(p.mlp, h, cfg.mlp_act)
+    return x, _reduce(p, apply_mlp(p.mlp, h, cfg.mlp_act), x)
 
 
 def _apply_block_seq(p: Block, cfg: ModelConfig, x: torch.Tensor,
@@ -206,8 +237,7 @@ def _apply_block_seq(p: Block, cfg: ModelConfig, x: torch.Tensor,
     if p.kind in XLSTM_BLOCKS:
         return _apply_xlstm_block(p, cfg, x, r, entry)
     if p.kind == "ffn":
-        x, h = add_norm(p.norm, x, r, cfg.norm_eps)
-        return x, apply_mlp(p.mlp, h, cfg.mlp_act)
+        return _ffn_block(p, cfg, x, r)
     x, h = add_norm(p.norm1, x, r, cfg.norm_eps)
     a, _ = attn_lib.apply_attention_prefill(p.attn, h, cfg, positions, entry, rope=rope,
                                             window=_window(cfg, p.kind),
@@ -237,8 +267,7 @@ def _apply_block_chunk(p: Block, cfg: ModelConfig, x: torch.Tensor,
     if p.kind in XLSTM_BLOCKS:
         return _apply_xlstm_block(p, cfg, x, r, entry, valid)
     if p.kind == "ffn":
-        x, h = add_norm(p.norm, x, r, cfg.norm_eps)
-        return x, apply_mlp(p.mlp, h, cfg.mlp_act)
+        return _ffn_block(p, cfg, x, r)
     x, h = add_norm(p.norm1, x, r, cfg.norm_eps)
     a, _ = attn_lib.apply_attention_prefill_chunk(p.attn, h, cfg, positions, entry,
                                                   rope=rope, window=_window(cfg, p.kind),
@@ -259,8 +288,7 @@ def _apply_block_decode(p: Block, cfg: ModelConfig, x: torch.Tensor,
     if p.kind in XLSTM_BLOCKS:
         return _apply_xlstm_block(p, cfg, x, r, entry, update_mask=update_mask, step=True)
     if p.kind == "ffn":
-        x, h = add_norm(p.norm, x, r, cfg.norm_eps)
-        return x, apply_mlp(p.mlp, h, cfg.mlp_act)
+        return _ffn_block(p, cfg, x, r)
     x, h = add_norm(p.norm1, x, r, cfg.norm_eps)
     a, _ = attn_lib.apply_attention_decode(p.attn, h, cfg, positions, entry, rope=rope,
                                            window=_window(cfg, p.kind),
@@ -279,16 +307,30 @@ class Model(nn.Module):
     model's encoder under ``encoder.layers.<i>.<part>`` and
     ``encoder.final_norm.scale``."""
 
-    def __init__(self, cfg: ModelConfig, device="cuda"):
+    def __init__(self, cfg: ModelConfig, device="cuda", mesh=None):
         super().__init__()
         cfg.validate()
         self.cfg = cfg
+        # a tensor-parallel shard: its modules at the shard's shapes
+        # (``local_cfg``), its collectives on ``mesh``
+        self.mesh = mesh
+        tp, rank = (mesh.size, mesh.rank) if mesh is not None else (1, 0)
+        local = self.local_cfg = rules_lib.local_config(cfg, tp)
         device = resolve_device(device)
+        if mesh is not None and device != mesh.device:
+            raise ValueError(f"a shard of the mesh on {mesh.device} cannot be built on {device}")
+        shard = mesh if tp > 1 else None
         dtype = _dtype(cfg.param_dtype)
-        self.embed = Embedding(cfg.vocab_size, cfg.d_model, dtype, device)
+        v = local.vocab_size
+        self.embed = Embedding(v, cfg.d_model, dtype, device, shard, rank * v)
         if not cfg.tie_embeddings:
-            self.lm_head = Embedding(cfg.vocab_size, cfg.d_model, dtype, device)
-        self.layers = nn.ModuleList(Block(cfg, kind, dtype, device) for kind in cfg.blocks())
+            self.lm_head = Embedding(v, cfg.d_model, dtype, device, shard, rank * v)
+        self.layers = nn.ModuleList(Block(local, kind, dtype, device) for kind in cfg.blocks())
+        for blk in self.layers:
+            blk.tp = shard
+            for part in ("attn", "mlp"):
+                if shard is not None and hasattr(blk, part):
+                    getattr(blk, part).partial = True
         self.final_norm = Norm(cfg.d_model, dtype, device)
         if cfg.is_encdec:
             self.encoder = Encoder(cfg, dtype, device)
@@ -339,11 +381,11 @@ class Model(nn.Module):
         attention layers a global block pool (``num_blocks`` x
         ``block_size``; 0: the worst case) that the caller addresses through
         block tables; sliding-window rings and recurrent states stay per
-        row."""
+        row.  A tensor-parallel shard's entries hold its own KV heads."""
         if layout not in ("contiguous", "paged"):
             raise ValueError(f"layout {layout!r} is not 'contiguous' or 'paged'")
         dtype = dtype or _dtype(self.cfg.dtype)
-        return [cache_lib.init_block_cache(self.cfg, blk.kind, batch, max_len,
+        return [cache_lib.init_block_cache(self.local_cfg, blk.kind, batch, max_len,
                                            dtype, self.device, layout=layout,
                                            block_size=block_size, num_blocks=num_blocks)
                 for blk in self.layers]

@@ -74,7 +74,29 @@ Per request the engine records TTFT, TPOT and TTLT, and with a
 ``PowerMonitor`` attached it splits the energy of each window between
 requests by the tokens each emitted in it (``latency_summary``).
 
-Tensor parallelism is not ported yet (ROADMAP.md).
+Tensor parallelism (``mesh=``, a ``launch.mesh.TPMesh``) runs SPMD: one
+engine per rank, each over its rank's shard of the model
+(``sharding.partition.shard_model``) and a cache of its own KV heads, all
+in lockstep, forced by the collectives inside every forward pass.  Two
+rules keep the ranks' host decisions equal, so admission, chunking,
+preemption, the prefix cache and the drafts follow on every rank from the
+same inputs, as in the reference's single controller:
+
+* requests are submitted on rank 0 only: each ``step()`` on rank 0 opens
+  with one host broadcast (gloo) of the requests submitted since the last
+  step, with their submit stamps; ranks > 0 run ``follow()``, which
+  receives each step's requests and runs the step, until rank 0's
+  ``close()``; they never read the clock to decide anything;
+* tokens are picked from replicated logits: the vocabulary-parallel head
+  gathers the full row on every rank, so greedy picks and the
+  counter-based draws agree.
+
+The broadcast is host work, not a device dispatch; its time per step is
+in the summary (``tp_broadcast_us_p50``/``_p95``).  The per-device ledgers
+(``kv_bytes_by_device``, ``pool_accounting_by_device``) come from every
+rank's own cache leaves and pool, gathered to rank 0 on demand.  A gloo
+mesh cannot be captured in a CUDA graph, so ``cuda_graph=True`` on one
+raises; on NCCL the steps are captured as on one device.
 """
 
 from __future__ import annotations
@@ -223,7 +245,24 @@ class ServingEngine:
         preemption: str = "off",
         speculative: str = "off",
         spec_tokens: int = 4,
+        mesh=None,
+        shard_rules=None,
+        param_axes=None,
     ):
+        if shard_rules is not None or param_axes is not None:
+            raise TypeError(
+                "shard_rules= and param_axes= place a JAX parameter tree by its logical axes; "
+                "the port shards by hand: pass the rank's shard "
+                "(sharding.partition.shard_model) and its mesh=")
+        if mesh is not None:
+            if getattr(model, "mesh", None) is not mesh:
+                raise ValueError("mesh= needs the rank's shard of the model over that mesh "
+                                 "(sharding.partition.shard_model(cfg, mesh))")
+            if cuda_graph and torch.device(device).type == "cuda" and not mesh.capturable:
+                raise ValueError(
+                    f"cuda_graph=True cannot capture the collectives of a {mesh.backend} mesh; "
+                    f"pass cuda_graph=False to run its steps eagerly, or use NCCL")
+        self.mesh = mesh
         if model.cfg.is_encdec:
             raise ValueError(
                 f"{model.cfg.name!r} is an encoder-decoder model, which the reference's "
@@ -395,7 +434,16 @@ class ServingEngine:
             self._chunk_buf = torch.zeros((max_batch, width + len(CHUNK_FIELDS)),
                                           dtype=torch.int32, device=self.device)
         if cuda_graph and self.device.type == "cuda":
+            if mesh is not None:
+                mesh.warm()  # the communicator exists before the capture
             self._capture()
+
+        # tensor parallelism: requests submitted on rank 0 since its last
+        # step (broadcast by the next), each step's broadcast time there,
+        # and whether a rank > 0 was released from ``follow``
+        self._outbox: List[Request] = []
+        self._bcast_s: List[float] = []
+        self._closed = False
 
         # host-side token ring buffer: (max_batch, _RING) plus fill counts
         self._ring = np.zeros((max_batch, _RING), np.int32)
@@ -427,6 +475,9 @@ class ServingEngine:
 
     # -- public API -----------------------------------------------------------
     def submit(self, prompt: np.ndarray, params: Optional[SamplingParams] = None) -> int:
+        if not self.leader:
+            raise RuntimeError(f"requests are submitted on rank 0 only; rank "
+                               f"{self.mesh.rank} runs follow()")
         params = params or SamplingParams()
         if params.top_k > self.top_k_max:
             params = dataclasses.replace(params, top_k=self.top_k_max)
@@ -434,7 +485,53 @@ class ServingEngine:
         req.submit_time = time.perf_counter()
         self._uid += 1
         self.queue.append(req)
+        if self.mesh is not None:
+            self._outbox.append(req)
         return req.uid
+
+    # -- tensor parallelism: rank 0 leads, the other ranks follow --------------
+    @property
+    def leader(self) -> bool:
+        """Rank 0 of the mesh, or an engine without one."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    @property
+    def n_devices(self) -> int:
+        """Devices the engine shards over (1 without a mesh)."""
+        return 1 if self.mesh is None else self.mesh.size
+
+    def _command(self, cmd: str, arg=None) -> None:
+        """Rank 0: send the other ranks their next command."""
+        self.mesh.broadcast_object((cmd, arg))
+
+    def follow(self) -> None:
+        """Ranks > 0: run what rank 0 runs, step for step (each with the
+        requests rank 0 was given since its last step, stamped as it
+        stamped them), and answer its ledger requests, until its
+        ``close()``."""
+        if self.leader:
+            raise RuntimeError("follow() runs on ranks > 0 of a mesh")
+        while True:
+            cmd, arg = self.mesh.broadcast_object()
+            if cmd == "close":
+                self._closed = True
+                return
+            if cmd == "step":
+                for uid, prompt, params, stamp in arg:
+                    self.queue.append(Request(uid=uid, prompt=prompt, params=params,
+                                              submit_time=stamp))
+                self._round()
+            elif cmd == "ledger":
+                self.mesh.gather_objects(self._local_ledger(arg))
+            else:
+                raise RuntimeError(f"unknown command {cmd!r} from rank 0")
+
+    def close(self) -> None:
+        """Rank 0: release the other ranks from ``follow``.  A no-op
+        without a mesh, elsewhere than on rank 0, or when done already."""
+        if self.mesh is not None and self.leader and not self._closed:
+            self._closed = True
+            self._command("close")
 
     @property
     def busy(self) -> bool:
@@ -447,7 +544,21 @@ class ServingEngine:
         first and then advanced with the decode in one dispatch; without
         it each chunk is a dispatch of its own before the decode step.
         Drafts are armed and blocks grown (preempting if the pool is dry)
-        right before the dispatch."""
+        right before the dispatch.  On rank 0 of a mesh the step opens with
+        the host broadcast that starts the same step on every rank."""
+        if self.mesh is not None:
+            if not self.leader:
+                raise RuntimeError("ranks > 0 of a mesh step in follow()")
+            if self._closed:
+                raise RuntimeError("the engine's mesh was released by close()")
+            t0 = time.perf_counter()
+            self._command("step", [(r.uid, r.prompt, r.params, r.submit_time)
+                                   for r in self._outbox])
+            self._outbox = []
+            self._bcast_s.append(time.perf_counter() - t0)
+        return self._round()
+
+    def _round(self) -> bool:
         if not self.busy:
             return False
         t0 = time.perf_counter()
@@ -627,8 +738,8 @@ class ServingEngine:
         states), so each admitted row starts from its initial values."""
         dtype = getattr(torch, self.cfg.dtype)
         return [entry if "kp" in entry else
-                cache_lib.init_block_cache(self.cfg, blk.kind, n, self.max_len, dtype,
-                                           self.device)
+                cache_lib.init_block_cache(self.model.local_cfg, blk.kind, n, self.max_len,
+                                           dtype, self.device)
                 for blk, entry in zip(self.model.layers, self.cache)]
 
     def _merge_admitted(self, part, slots_for: List[int]) -> None:
@@ -1272,6 +1383,47 @@ class ServingEngine:
     def kv_bytes_worst_case(self) -> int:
         return self._n_attn_layers * self.max_batch * self.max_len * self._kv_tok_bytes
 
+    def _local_ledger(self, peak: bool) -> Dict:
+        """This rank's attention KV bytes, from its own cache leaves (the
+        scope of ``kv_bytes_in_use``: paged, each pool leaf's bytes per
+        block times the blocks in use or their peak; contiguous, the
+        ``k``/``v`` stripes whole), and its pool's block accounting."""
+        blocks = self.peak_blocks_in_use if peak else self.blocks_in_use
+        nbytes = 0
+        for entry in self.cache:
+            for leaf, t in entry.items():
+                if self.layout == "paged" and leaf in ("kp", "vp"):
+                    nbytes += t.numel() // self.num_blocks * blocks * t.element_size()
+                elif self.layout != "paged" and leaf in ("k", "v"):
+                    nbytes += t.numel() * t.element_size()
+        return {"kv_bytes": nbytes, "pool": self._pool.shard_accounting(1)[0]}
+
+    def _ledgers(self, peak: bool = False) -> List[Dict]:
+        """Every rank's ``_local_ledger``, in rank order (on rank 0)."""
+        if self.mesh is None:
+            return [self._local_ledger(peak)]
+        if not self.leader:
+            raise RuntimeError("rank 0 gathers the per-device ledgers")
+        self._command("ledger", peak)
+        return self.mesh.gather_objects(self._local_ledger(peak))
+
+    def kv_bytes_by_device(self, peak: bool = False) -> List[int]:
+        """Attention KV bytes resident on each device, from each rank's own
+        cache leaves: with the KV heads split over the ranks they sum to
+        ``kv_bytes_in_use`` (the reference's ``kv_bytes_by_device``)."""
+        if self.mesh is None:
+            return [self.kv_bytes_in_use(peak)]
+        return [ledger["kv_bytes"] for ledger in self._ledgers(peak)]
+
+    def pool_accounting_by_device(self) -> List[Dict[str, int]]:
+        """Each device's block accounting (``BlockPool.shard_accounting``),
+        read from each rank's own pool: the host-managed tables are the
+        same on every rank, so each holds the same free / in-use /
+        evictable partition of its KV shard."""
+        if self.mesh is None:
+            return self._pool.shard_accounting(1)
+        return [ledger["pool"] for ledger in self._ledgers()]
+
     @property
     def _n_attn_layers(self) -> int:
         return sum(1 for kind in self.cfg.blocks() if kind == "attn")
@@ -1342,6 +1494,16 @@ class ServingEngine:
                 summary[f"{name}_p{q}_ms"] = _percentile(xs, q) * 1e3
         summary["kv_bytes_peak"] = self.kv_bytes_in_use(peak=True)
         summary["kv_bytes_worst_case"] = self.kv_bytes_worst_case
+        if self.mesh is not None:
+            ledgers = self._ledgers(peak=True)
+            summary["tp_devices"] = self.n_devices
+            summary["kv_bytes_peak_per_device"] = [ledger["kv_bytes"] for ledger in ledgers]
+            if self.layout == "paged":
+                summary["pool_blocks_in_use_per_device"] = [ledger["pool"]["in_use"]
+                                                            for ledger in ledgers]
+            if self._bcast_s:
+                summary["tp_broadcast_us_p50"] = _percentile(self._bcast_s, 50) * 1e6
+                summary["tp_broadcast_us_p95"] = _percentile(self._bcast_s, 95) * 1e6
         if self._steps_done:
             wall = max(self._steps_t1 - (self._steps_t0 or 0.0), 1e-9)
             summary["steps_per_sec"] = self._steps_done / wall
@@ -1376,4 +1538,14 @@ class ServingEngine:
             res = self.monitor.result()
             summary["power_samples_per_sec"] = res.samples_per_sec
             summary["power_reads_dropped"] = res.dropped_reads
+            # a DeviceMonitorGroup's per-device ledgers over its window: they
+            # sum to result().joules; a device that dropped every read gives
+            # 0 J and its drop count
+            by_device = getattr(self.monitor, "result_by_device", None)
+            if callable(by_device):
+                devices = by_device()
+                summary["joules_per_device"] = [r.joules for r in devices]
+                summary["power_samples_per_sec_per_device"] = [r.samples_per_sec
+                                                                for r in devices]
+                summary["power_reads_dropped_per_device"] = [r.dropped_reads for r in devices]
         return summary

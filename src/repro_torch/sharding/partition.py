@@ -1,0 +1,58 @@
+"""Placing a tensor-parallel model, the counterpart of
+``repro/sharding/partition.py`` (``param_shardings``, ``cache_shardings``).
+
+``shard_model(cfg, mesh, seed)`` gives one rank its shard with random
+weights: every parameter is drawn at its full shape, in the order
+``models.model.init`` draws them, from the same seeded generator, one
+module at a time; the rank keeps its slice (``rules.local_slice``) and
+drops the rest.  So the shards of tp = N are exactly the weights of tp =
+1, and a rank holds at most one module's full parameters beyond its shard.
+Where ranks share a device (``TPMesh.shared``) they draw in turn, so only
+one full module is on the device at a time.
+
+The KV cache needs no placement: the rank's model makes it
+(``Model.init_cache``) with its own ``num_kv_heads / tp`` heads, the pool's
+block axis whole, so the host-managed block tables index every rank's pool
+alike (the reference's ``cache_shardings`` on a ``tp`` mesh).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.model import Model
+from repro_torch.sharding.rules import local_slice
+
+
+@torch.no_grad()
+def _draw(model: Model, cfg: ModelConfig, mesh, seed: int) -> None:
+    full = Model(cfg, device="meta")  # the full shapes, no memory
+    gen = torch.Generator(device=mesh.device).manual_seed(seed)
+    for whole, part in zip(full.modules(), model.modules()):
+        if not hasattr(whole, "init_"):
+            continue
+        whole.to_empty(device=mesh.device, recurse=False)
+        whole.init_(gen)
+        for (name, p_full), p in zip(whole.named_parameters(recurse=False),
+                                     part.parameters(recurse=False)):
+            p.copy_(local_slice(name, p_full, mesh.rank, mesh.size))
+        whole.to_empty(device="meta", recurse=False)
+
+
+def shard_model(cfg: ModelConfig, mesh, seed: int = 0) -> Model:
+    """Rank ``mesh.rank``'s shard of ``cfg`` on ``mesh.device``, the slices
+    of ``models.model.init(cfg, torch.Generator(device).manual_seed(seed),
+    device)``.  Refuses (``ValueError``) what ``rules.check_tp`` refuses."""
+    model = Model(cfg, device=mesh.device, mesh=mesh)
+    if not mesh.shared:
+        _draw(model, cfg, mesh, seed)
+        return model
+    for turn in range(mesh.size):
+        if turn == mesh.rank:
+            _draw(model, cfg, mesh, seed)
+            if mesh.device.type == "cuda":
+                torch.cuda.synchronize(mesh.device)
+                torch.cuda.empty_cache()
+        mesh.barrier()
+    return model

@@ -312,11 +312,15 @@ def test_budget_bounds_prompt_work_per_step(models):
 
 
 def test_engine_refuses_what_is_not_ported(models):
-    """Tensor parallelism (the reference's ``mesh``) is not ported; nor are
+    """The reference's ``shard_rules``/``param_axes`` place a JAX tree by
+    logical axes, which the port's hand-made shards have no use for
+    (tensor parallelism takes ``mesh=`` and the rank's shard); nor are
     padding sides, preemption policies or drafters the reference lacks."""
     _, _, model = models
-    with pytest.raises(TypeError, match="mesh"):
-        ServingEngine(model, **ENGINE, mesh=None, device="cpu")
+    with pytest.raises(TypeError, match="param_axes"):
+        ServingEngine(model, **ENGINE, param_axes={}, device="cpu")
+    with pytest.raises(TypeError, match="shard_rules"):
+        ServingEngine(model, **ENGINE, shard_rules={}, device="cpu")
     with pytest.raises(ValueError, match="preemption"):
         ServingEngine(model, **ENGINE, cache_layout="paged", preemption="swap", device="cpu")
     with pytest.raises(ValueError, match="speculative"):

@@ -1128,3 +1128,93 @@ def test_speculative_preempting_engine_cuda_graph_matches_eager(cuda):
         assert eng.blocks_in_use == 0 and not eng._state["block_tables"].any()
     assert outs[True] == outs[False]
     assert all(len(outs[True][i]) == 40 for i in range(6))
+
+
+# -- tensor parallelism: the kernels at a shard's local heads, and ranks on one card
+
+# (Hq, Hkv) of one rank: llama3.1-8b at tp = 2, command-r-plus-104b at tp = 4 (G = 12)
+TP_LOCAL_HEADS = [(16, 4), (24, 2)]
+
+
+@pytest.mark.parametrize("Hq,Hkv", TP_LOCAL_HEADS)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_kernels_at_tensor_parallel_local_heads(cuda, Hq, Hkv, dtype):
+    """K2 over a 512-token prefill, K3 over the measure path's (1, 545)
+    cache and K4 over the serving pool (513 blocks of 16), each at one
+    rank's heads, against their plain versions."""
+    q, k, v, qp, kp = _flash_inputs(1, 512, 512, Hq, Hkv, 128)
+    q, k, v = _on(cuda, dtype, q, k, v)
+    qp, kp = _ints(cuda, qp, kp)
+    kw = dict(q_positions=qp, k_positions=kp, causal=True, window=0, softcap=0.0)
+    _assert(fa_ops.flash_attention(q, k, v, **kw), fa_ref.attention(q, k, v, **kw), dtype)
+    q, kc, vc = _on(cuda, dtype, *_decode_inputs(1, 545, Hq, Hkv, 128))
+    qp = np.asarray([[519]])
+    kp = np.broadcast_to(np.arange(545), (1, 545))
+    qp, kp = _ints(cuda, qp, np.where(kp <= qp, kp, -1))
+    kw = dict(q_positions=qp, k_positions=kp, window=0, softcap=0.0)
+    _assert(da_ops.decode_attention(q, kc, vc, **kw), da_ref.decode_attention(q, kc, vc, **kw),
+            dtype)
+    rng = _rng("tp paged", Hq, Hkv)
+    q_pos = [447, 768, 758, 604, 388, 823, 517, 953]
+    perm = rng.permutation(np.arange(1, 513))
+    tables, ptr = np.zeros((8, 64), np.int32), 0
+    for b, p in enumerate(q_pos):
+        tables[b, :p // 16 + 1] = perm[ptr:ptr + p // 16 + 1]
+        ptr += p // 16 + 1
+    q, kp, vp = _on(cuda, dtype, rng.standard_normal((8, 1, Hq, 128), np.float32),
+                    rng.standard_normal((513, 16, Hkv, 128), np.float32),
+                    rng.standard_normal((513, 16, Hkv, 128), np.float32))
+    tables, qp = _ints(cuda, tables, np.asarray(q_pos)[:, None])
+    kw = dict(block_tables=tables, q_positions=qp, window=0, softcap=0.0)
+    _assert(da_ops.paged_decode_attention(q, kp, vp, **kw),
+            da_ref.paged_decode_attention(q, kp, vp, **kw), dtype)
+
+
+def test_tp_ranks_sharing_the_card_match_tp1(cuda):
+    """Two gloo ranks on one card (host-staged collectives, eager steps):
+    bf16 logits of a prefill and decode steps within the bf16 kernel
+    tolerance times the largest logit of tp = 1's on the same card, and
+    greedy streams through the paged engine equal on both ranks.  NCCL,
+    one GPU per rank, refuses two ranks on fewer cards."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_tp_mesh, spawn_tp
+    from repro_torch.serving.sampling import SamplingParams
+    from repro_torch.sharding import runs
+
+    if torch.cuda.device_count() < 2:
+        with pytest.raises(ValueError, match="exceeds"):
+            make_tp_mesh(2, "cuda", backend="nccl")
+    cfg = get_config("llama3.2-1b", smoke=True).replace(dtype="bfloat16",
+                                                          param_dtype="bfloat16")
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, cfg.vocab_size, (2, 40))
+    steps = rng.integers(0, cfg.vocab_size, (3, 2))
+    arrivals = [(rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32),
+                 SamplingParams(max_new_tokens=6)) for n in (9, 30, 17)]
+    plan = [(runs.Weights(cfg), [
+        runs.Logits(tokens, steps, 48),
+        runs.Serve("paged", dict(max_batch=2, max_len=64, prompt_bucket=8,
+                                 cache_layout="paged", prefill_chunk=8, cuda_graph=False),
+                   arrivals)])]
+    base = runs.run_plan(None, plan, cuda)[0]
+    ranks = spawn_tp(runs.run_plan, 2, "cuda", plan, backend="gloo")
+    want = base[0]
+    for rank in range(2):
+        got = ranks[rank][0]
+        assert np.abs(got[0] - want).max() <= 2e-2 * np.abs(want).max()
+        assert got[1]["streams"] == ranks[0][0][1]["streams"]
+    assert ranks[0][0][1]["summary"]["tp_devices"] == 2
+
+
+def test_nccl_collectives_replay_from_a_cuda_graph(cuda):
+    """NCCL ranks, one GPU each (as many as there are, at most 2): the
+    mesh's sum and gather are exact eagerly and when replayed from a CUDA
+    graph captured after the group was warmed, the steps' arrangement."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import spawn_tp
+    from repro_torch.sharding import runs
+
+    tp = min(torch.cuda.device_count(), 2)
+    plan = [(runs.Weights(get_config("llama3.2-1b", smoke=True)), [runs.Collectives()])]
+    for rank, out in enumerate(spawn_tp(runs.run_plan, tp, "cuda", plan)):
+        assert out[0][0] == {"eager": [0.0, 0.0], "replayed": [0.0, 0.0]}, rank

@@ -84,6 +84,21 @@ def test_entry_points_default_to_the_gpu():
             start_http_server(ServingEngine(model))
 
 
+def test_tp_mesh_defaults_to_the_gpu():
+    """``make_tp_mesh`` takes ``cuda`` (NCCL, one GPU per rank) unless told
+    otherwise: without a GPU it raises, and with fewer GPUs than ranks too."""
+    from repro_torch.launch.mesh import make_tp_mesh
+
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no GPU"):
+            make_tp_mesh(2)
+    else:
+        with pytest.raises(ValueError, match="exceeds"):
+            make_tp_mesh(torch.cuda.device_count() + 1)
+    with pytest.raises(ValueError, match="must be >= 1"):
+        make_tp_mesh(0, "cpu")
+
+
 def test_serving_entry_points_default_to_the_gpu():
     """``ServingEngine`` and ``launch.serve`` take ``cuda`` unless told
     otherwise, and raise where there is no GPU."""

@@ -290,7 +290,7 @@ def test_cli_power_readers(kind):
     if kind == "synthetic":
         assert watts[0] == 42.0
         assert energy.make_reader(kind, bench_serve._synthetic_watts).read_watts()[0] != 42.0
-    assert isinstance(serve_cli._make_monitor(kind).reader, type(reader))
+    assert isinstance(energy.make_monitor(kind).reader, type(reader))
     with pytest.raises(ValueError, match="unknown power reader"):
         energy.make_reader("tpu")
 
