@@ -156,7 +156,25 @@ or of the ``repro`` package.  Phases:
    else a line says it was not run.  The phase's times check correctness
    only ("gloo over one card, host-staged: not a TP latency").  K1-K4 at
    one rank's shapes are timed in phase 2 (``tp`` under each entry).
-12. The last line: ``{"ok": true, "device": {...}}``.
+12. Training through ``launch.train`` (``train_phase``): tinyllama-1.1b at
+   full width and depth, bf16 weights and fp32 moments, 20 steps of 8 x
+   1024 synthetic tokens with NVML energy (the loss must fall); the same
+   run preempted before step 10, which checkpoints, and resumed from that
+   checkpoint to step 20 (its losses held to the uninterrupted run's);
+   3 steps with ``--remat``; one step timed by part (forward, backward,
+   clip + AdamW) and traced; recurrentgemma-2b at full width and depth, 4
+   steps of 2 x 2304 (past its window, so K2's window and K5 are in the
+   gradients).  Launch counts exact for the forwards each run made (K1
+   and K2 again in remat's recompute); step ms, tokens/s, J/step and
+   J/token, the share of the step's bound and the peak memory printed.
+   Then one step's gradients through the kernels and through the plain
+   versions, each against an fp32 copy (tinyllama-1.1b at full depth,
+   recurrentgemma-2b on 4 layers at full width): the kernels' worst
+   relative error at most twice the plain path's.  K1, K2 and K5 at the
+   training shapes are held and timed in phase 2, each with its autograd
+   Function's gradients held to the plain version's (``train`` under
+   K2 and K5, K1's rows under ``modes``).
+13. The last line: ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line is printed; so does a
 machine without a CUDA device.
@@ -227,6 +245,19 @@ PREEMPT = dict(kv_num_blocks=129, preemption="recompute")
 SPEC = dict(speculative="lookup", spec_tokens=4)
 LOOKUP = dict(num_requests=16, motif_len=8, repeats=8, max_new=64)
 VERIFY_W = SPEC["spec_tokens"] + 1   # the verify window: last token + draft
+# training (``train_phase``): tinyllama-1.1b at full width and depth, batch
+# 8 x 1024 of synthetic data, 20 steps (checkpointed at 10 by a preempted
+# run, then resumed), one more step with remat; recurrentgemma-2b at full
+# width and depth, 4 steps of 2 x 2304 (past its window); gradient parity
+# on tinyllama at full depth (2 x 1024) and recurrentgemma on 4 layers
+TRAIN_ARCH = "tinyllama-1.1b"
+TRAIN_STEPS, TRAIN_CKPT_AT = 20, 10
+TRAIN = ["--batch", "8", "--seq-len", "1024", "--lr", "1e-3", "--warmup", "4",
+         "--log-every", "5"]
+HYBRID_TRAIN_STEPS = 4
+HYBRID_TRAIN = ["--batch", "2", "--seq-len", str(HYBRID_PARITY_PROMPT), "--lr", "1e-3",
+                "--warmup", "2", "--log-every", "1"]
+TRAIN_PARITY = {TRAIN_ARCH: (2, 1024, 0), HYBRID: (2, HYBRID_PARITY_PROMPT, 4)}
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, published
 BF16_FLOPS = 989e12             # dense tensor-core bf16, published
 FP32_FLOPS = 67e12              # fp32 outside the tensor cores, published
@@ -309,6 +340,36 @@ def close(a, b, tol):
         torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)
     except AssertionError as e:
         raise CheckFailed(str(e)) from None
+
+
+def grad_check(name, counter, call, plain, inputs, tol):
+    """``call`` (a kernel wrapper) with grad on: one launch (on
+    ``counter``) inside its autograd Function, and every input's gradient
+    held to autograd through ``plain`` on the same inputs and cotangents
+    (within ``tol``: the Function's backward is that VJP).  Returns the
+    largest gradient difference."""
+    import torch
+
+    leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+    before = counter.launches
+    outs = call(*leaves)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    check(counter.launches == before + 1 and all(o.grad_fn is not None for o in outs),
+          f"{name}: the kernel did not launch inside its autograd Function")
+    g = torch.Generator(device=outs[0].device).manual_seed(2)
+    cots = [torch.randn(o.shape, generator=g, device=o.device).to(o.dtype) for o in outs]
+    got = torch.autograd.grad(outs, leaves, cots)
+    ref_leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+    ref_outs = plain(*ref_leaves)
+    ref_outs = ref_outs if isinstance(ref_outs, tuple) else (ref_outs,)
+    want = torch.autograd.grad(ref_outs, ref_leaves, cots)
+    torch.cuda.synchronize()
+    check(counter.launches == before + 1, f"{name}: the backward launched the kernel")
+    err = max(max_err(a, b) for a, b in zip(got, want))
+    for a, b in zip(got, want):
+        close(a, b, tol)
+    log(f"check {name} gradients: max_abs_err={err:.3e} tol={tol} (the plain version's VJP)")
+    return err
 
 
 # ---------------------------------------------------------------------------
@@ -421,24 +482,34 @@ def kernel_phase(dev):
         if not kw["causal"]:
             check(bool((kp >= 0).all()), "an unmasked K2 row is timed with every key filled")
             qp = torch.full_like(qp, int(kp.max()))  # every key visible to every query
-        pairs = ((kp[:, None, :] >= 0) & (qp[:, :, None] >= kp[:, None, :])).sum().item()
-        seen = ((kp >= 0) & (kp <= qp.max(dim=1, keepdim=True).values)).sum().item()
+        window, softcap = kw.get("window", 0), kw.get("softcap", 0.0)
+        visible = (kp[:, None, :] >= 0) & (qp[:, :, None] >= kp[:, None, :])
+        if window:
+            visible &= qp[:, :, None] - kp[:, None, :] < window
+            prefill = False  # SDPA takes the window as a boolean mask
+        pairs = visible.sum().item()
+        seen = visible.any(dim=1).sum().item()
         nbytes = 2 * 2 * q.numel() + 2 * 2 * seen * k.shape[2] * D + 4 * (qp.numel() + kp.numel())
         n = copies(2 * (2 * q.numel() + k.numel() + v.numel()))
         sets = [(q.clone(), k.clone(), v.clone()) for _ in range(n)]
         tq = [(a.transpose(1, 2).contiguous(), b.transpose(1, 2).contiguous(),
                c.transpose(1, 2).contiguous()) for a, b, c in sets]
-        mask = None if prefill else ((kp[:, None, :] >= 0)
-                                     & (qp[:, :, None] >= kp[:, None, :]))[:, None]
+        mask = None if prefill else visible[:, None]
         if not kw["causal"]:
             mask, prefill = None, False
+        library = None  # SDPA has no softcap: no one PyTorch call computes it
+        if not softcap:
+            library = cuda_ms(lambda i: F.scaled_dot_product_attention(
+                *tq[i], attn_mask=mask, is_causal=prefill, enable_gqa=True), n)
         return dict(
-            shape=f"q {tuple(q.shape)} k/v {tuple(k.shape)} bf16 "
-                  f"{'causal' if kw['causal'] else 'unmasked'}",
+            shape=f"q {tuple(q.shape)} k/v {tuple(k.shape)} "
+                  f"{'bf16' if q.dtype == torch.bfloat16 else 'fp32'} "
+                  f"{'causal' if kw['causal'] else 'unmasked'}"
+                  + (f" window={window}" if window else "")
+                  + (f" softcap={softcap:g}" if softcap else ""),
             ms=cuda_ms(lambda i: fa_ops.flash_attention(*sets[i], **kw), n),
-            plain_ms=cuda_ms(lambda i: fa_ref.attention(*sets[i], **kw), n, iters=20),
-            library_ms=cuda_ms(lambda i: F.scaled_dot_product_attention(
-                *tq[i], attn_mask=mask, is_causal=prefill, enable_gqa=True), n),
+            plain_ms=cuda_ms(lambda i: fa_ref.plain_attention(*sets[i], **kw), n, iters=20),
+            library_ms=library,
             **bound(nbytes, 4 * D * pairs * Hq, BF16_FLOPS))
 
     entries.append(dict(
@@ -500,6 +571,25 @@ def kernel_phase(dev):
     tps.append(dict(arch=ARCH, path="tp=2 unified step", max_abs_err=err,
                     **fa_row((q, k, v, kw), prefill=False)))
     moe_rows(entries[-1], tps, "tp")
+    # training (``train_phase``): tinyllama-1.1b's batch 8 x 1024 at its
+    # heads 32/4 of 64, recurrentgemma-2b's 2 x 2304 past its window; the
+    # forward held to the plain version, the autograd Function's gradients
+    # to the plain version's
+    trains = []
+    for arch, shape, mask in ((TRAIN_ARCH, (8, 1024, 1024, 32, 4, 64), {}),
+                              (HYBRID, (2, HYBRID_PARITY_PROMPT, HYBRID_PARITY_PROMPT, 10, 1,
+                                        256), dict(window=2048, softcap=30.0))):
+        case, err = fa_case(f"{arch} train B={shape[0]} S={shape[1]} Hq={shape[3]} "
+                            f"Hkv={shape[4]} D={shape[5]} {mask or 'causal'}", *shape, bf16,
+                            **mask)
+        q, k, v, kw = case
+        gerr = grad_check(f"flash_attention {arch} train", fa_ops.flash_attention,
+                          lambda q, k, v: fa_ops.flash_attention(q, k, v, **kw),
+                          lambda q, k, v: fa_ref.plain_attention(q, k, v, **kw), (q, k, v),
+                          tol[bf16])
+        trains.append(dict(arch=arch, path="train", max_abs_err=err, grad_max_abs_err=gerr,
+                           **fa_row(case)))
+    moe_rows(entries[-1], trains, "train")
 
     # -- K3 decode attention --------------------------------------------------
     L = PROMPT + GEN + 1
@@ -832,6 +922,10 @@ def kernel_phase(dev):
     shapes += [(rows, 1024, fused) for rows in (1, 256, PROMPT) for fused in (False, True)]
     # command-r-plus-104b at d = 12288: its decode and prefill rows
     shapes += [(rows, 12288, fused) for rows in (1, PROMPT) for fused in (False, True)]
+    # training: tinyllama-1.1b's 8 x 1024 rows at d = 2048, recurrentgemma-2b's
+    # 2 x 2304 at d = 2560, each also through its autograd Function
+    train_norms = [(8 * 1024, 2048), (2 * HYBRID_PARITY_PROMPT, 2560)]
+    shapes += [(rows, d, fused) for rows, d in train_norms for fused in (False, True)]
     for rows, d, fused in shapes:
         (x, r, s), err = rn_case(rows, d, bf16, fused)
         errs.append(err)
@@ -860,6 +954,15 @@ def kernel_phase(dev):
                     separate_add_then_kernel_ms=None if sep is None else cuda_ms(sep, n),
                     host_us=host_us(lambda: kern(0)),
                     **bound(nbytes, flops, FP32_FLOPS))
+        if (rows, d) in train_norms:
+            inputs, eps = (x, r, s) if fused else (x, s), 1e-6
+            call = (lambda x, r, s: rn_ops.add_rmsnorm(x, r, s, eps)) if fused else \
+                (lambda x, s: rn_ops.rmsnorm(x, s, eps))
+            plain_fn = (lambda x, r, s: rn_ref.add_rmsnorm(x, r, s, eps)) if fused else \
+                (lambda x, s: rn_ref.rmsnorm(x, s, eps))
+            mode["grad_max_abs_err"] = grad_check(
+                f"{mode['mode']} ({rows},{d}) train", rn_ops.rmsnorm, call, plain_fn, inputs,
+                tol[bf16])
         log("time " + json.dumps(mode))
         modes.append(mode)
     table = next(m for m in modes
@@ -930,21 +1033,37 @@ def kernel_phase(dev):
             log_time("linear_recurrence", f"{tuple(shape)} in one chunk", lr_call, case)
     n = copies(3 * 4 * a.numel())
     sets = [(a.clone(), b.clone(), h0.clone()) for _ in range(n)]
+
+    def lr_row(sets, n):
+        a, h0 = sets[0][0], sets[0][2]
+        return dict(
+            ms=cuda_ms(lambda i: lr_ops.linear_recurrence(*sets[i]), n),
+            plain_ms=cuda_ms(lambda i: lr_ref.linear_recurrence(*sets[i]), n),
+            # no one PyTorch call computes a first-order linear recurrence
+            # (the cumprod/cumsum closed form divides by the decay product,
+            # which underflows)
+            library_ms=None,
+            # one pass's bytes (a, b read once, h written once), though the
+            # split kernel reads a and b twice
+            **bound(4 * (3 * a.numel() + h0.numel()), 2 * a.numel(), FP32_FLOPS))
+
     entries.append(dict(
         name="linear_recurrence", route="cuda",
         source="src/repro_torch/kernels/csrc/linear_recurrence.cu",
         replaces="src/repro/kernels/linear_recurrence/linear_recurrence.py:55",
         shape=f"a/b ({Bn},{S},{W}) h0 ({Bn},{W}) fp32",
-        max_abs_err=max(errs),
-        ms=cuda_ms(lambda i: lr_ops.linear_recurrence(*sets[i]), n),
-        plain_ms=cuda_ms(lambda i: lr_ref.linear_recurrence(*sets[i]), n),
-        # no one PyTorch call computes a first-order linear recurrence (the
-        # cumprod/cumsum closed form divides by the decay product, which
-        # underflows)
-        library_ms=None,
-        # one pass's bytes (a, b read once, h written once), though the
-        # split kernel reads a and b twice
-        **bound(4 * (3 * a.numel() + h0.numel()), 2 * a.numel(), FP32_FLOPS)))
+        max_abs_err=max(errs), **lr_row(sets, n)))
+    # training: recurrentgemma-2b's 2 x 2304 rows, forward and the autograd
+    # Function's gradients (the doubling scan's VJP)
+    (a, b, h0), err = lr_case(f"train B=2 S={HYBRID_PARITY_PROMPT} W={W}", 2,
+                              HYBRID_PARITY_PROMPT, W)
+    gerr = grad_check("linear_recurrence train", lr_ops.linear_recurrence,
+                      lr_ops.linear_recurrence, lr_ref.linear_recurrence, (a, b, h0), 1e-4)
+    n = copies(3 * 4 * a.numel())
+    moe_rows(entries[-1], [dict(
+        arch=HYBRID, path="train", shape=f"a/b {tuple(a.shape)} h0 {tuple(h0.shape)} fp32",
+        max_abs_err=err, grad_max_abs_err=gerr,
+        **lr_row([(a.clone(), b.clone(), h0.clone()) for _ in range(n)], n))], "train")
     for e in entries:
         e["kernel_ms"] = e["ms"]
     return entries
@@ -2928,6 +3047,301 @@ def engine_refusal_check(e):
     raise CheckFailed(f"the serving engine took the encoder-decoder {e.cfg.name}")
 
 
+# ---------------------------------------------------------------------------
+# phase 12: training
+# ---------------------------------------------------------------------------
+
+def train_launches(cfg, forwards, recomputed=0):
+    """Launches of every kernel over ``forwards`` training forwards,
+    ``recomputed`` of them under remat, whose backward runs each group's
+    forward again (not the remainder layers' or the final norm): K1 per
+    norm (two a block, one an ``ffn`` or parallel block, one final), K2
+    per attention layer, K5 per RG-LRU layer; no decode kernel."""
+    attn = ("attn", "local_attn")
+
+    def count(kinds):
+        return {"rmsnorm": sum(1 if (k == "ffn" or (k in attn and cfg.parallel_block)) else 2
+                               for k in kinds),
+                "flash_attention": sum(k in attn for k in kinds),
+                "linear_recurrence": sum(k == "rglru" for k in kinds)}
+
+    kinds = cfg.blocks()
+    plen, (groups, _) = len(cfg.block_pattern), cfg.layer_groups()
+    once, again = count(kinds), count(kinds[:groups * plen])
+    once["rmsnorm"] += 1
+    want = {"decode_attention": 0, "paged_decode_attention": 0}
+    want.update({k: once[k] * forwards + again[k] * recomputed for k in once})
+    return want
+
+
+def train_bound_ms(cfg, model, batch, seq):
+    """The least time of one train step: its products at 989 TFLOP/s (6
+    FLOPs per product weight per token, forward and backward; every
+    parameter but an untied input table, which is gathered), causal or
+    windowed attention (4 D FLOPs per visible pair and head forward, twice
+    that backward), and AdamW's bytes at 3.35 TB/s (a parameter and its
+    gradient read, the parameter written, two fp32 moments read and
+    written)."""
+    tokens = batch * seq
+    total = sum(p.numel() for p in model.parameters())
+    products = total - (0 if cfg.tie_embeddings else model.embed.table.numel())
+    pairs = 0
+    for kind in cfg.blocks():
+        if kind in ("attn", "local_attn"):
+            w = cfg.sliding_window if kind == "local_attn" and cfg.sliding_window else seq
+            pairs += sum(min(i + 1, w) for i in range(seq)) * batch
+    flops = 6 * products * tokens + 12 * cfg.resolved_head_dim * cfg.num_heads * pairs
+    adam = sum(p.numel() * (3 * p.element_size() + 16) for p in model.parameters())
+    return (flops / BF16_FLOPS + adam / HBM_BYTES_PER_S) * 1e3
+
+
+def train_stats(arch, label, out, rec, tokens, bound_ms, peak_gib):
+    """Step ms (the median past the first step, which builds and tunes),
+    tokens/s, NVML J/step and J/token (the whole run, and the steps past
+    the first), the share of the step's bound."""
+    import statistics
+
+    ms = statistics.median(rec.seconds[1:]) * 1e3
+    row = dict(arch=arch, run=label, card=", ".join(card()), steps=len(rec.losses),
+               step_ms=ms, first_step_ms=rec.seconds[0] * 1e3, tokens_per_s=tokens / ms * 1e3,
+               bound_ms=bound_ms, bound_share=bound_ms / ms, peak_memory_gib=peak_gib,
+               loss_first=rec.losses[0], loss_last=rec.losses[-1])
+    if rec.monitor is not None:
+        steady = rec.monitor.joules_between(rec.ends[0], rec.ends[-1]) / (len(rec.ends) - 1)
+        row.update(j_per_step=out["j_per_step"], j_per_token=out["j_per_step"] / tokens,
+                   steady_j_per_step=steady, steady_j_per_token=steady / tokens,
+                   avg_watts=out["avg_watts"])
+    log(f"train {arch} {label}: " + json.dumps(row))
+    return row
+
+
+def train_parity(arch, dev, batch, seq, layers=0):
+    """One step's gradients of ``arch`` (cut to ``layers`` at full width
+    where given) through the kernels and through the plain versions
+    (``use_backend("torch")``), both in bf16, each against the plain
+    versions on an fp32 copy of the same weights on the same batch: for
+    each parameter ||g - g32|| / ||g32||.  The kernels' worst may be at
+    most twice the plain bf16 path's worst (the rule of ``parity_phase``:
+    bf16 itself is the floor)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import SyntheticConfig, SyntheticDataset
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import model as model_lib
+    from repro_torch.training import step as step_lib
+
+    cfg = get_config(arch)
+    if layers:
+        cfg = cfg.replace(num_layers=layers)
+    data = SyntheticDataset(SyntheticConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                            batch_size=batch, seed=1)).batch_at(0)
+    data = {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
+    loss_fn = step_lib.make_loss_fn(cfg, remat=False)
+
+    def grads(m):
+        named = dict(m.named_parameters())
+        for p in named.values():
+            p.requires_grad_(True)
+        loss, _ = loss_fn(m, data)
+        return loss.item(), dict(zip(named, torch.autograd.grad(loss, list(named.values()))))
+
+    model = model_lib.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    kern = grads(model)
+    with dispatch.use_backend("torch"):
+        plain = grads(model)
+        ref32 = model_lib.Model(cfg.replace(dtype="float32", param_dtype="float32"), device=dev)
+        with torch.no_grad():
+            for (_, a), (_, b) in zip(ref32.named_parameters(), model.named_parameters()):
+                a.copy_(b.float())
+        del model
+        ref = grads(ref32)
+    del ref32
+
+    def rel(g):
+        return {k: ((g[k].float() - g32).norm() / g32.norm().clamp_min(1e-30)).item()
+                for k, g32 in ref[1].items()}
+
+    rk, rp = rel(kern[1]), rel(plain[1])
+    worst_k, worst_p = max((v, k) for k, v in rk.items()), max((v, k) for k, v in rp.items())
+    row = dict(arch=arch, layers=cfg.num_layers, batch=batch, seq=seq, loss_kernels=kern[0],
+               loss_plain=plain[0], loss_fp32=ref[0], worst_kernels=worst_k,
+               worst_plain=worst_p, median_kernels=sorted(rk.values())[len(rk) // 2],
+               median_plain=sorted(rp.values())[len(rp) // 2])
+    log("train gradient parity: " + json.dumps(row))
+    check(worst_k[0] <= 2 * worst_p[0],
+          f"{arch}: the kernels' gradients are {worst_k} from fp32, more than twice the "
+          f"plain bf16 path's {worst_p}")
+    return row
+
+
+def train_breakdown(dev):
+    """Where a tinyllama-1.1b train step's time goes: after two warm
+    steps, CUDA events around its forward (with the loss), its backward,
+    and clipping with the AdamW update; then one step traced with
+    ``capture_torch_trace`` and split by kernel family."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.trace import capture_torch_trace
+    from repro_torch.data.synthetic import SyntheticConfig, SyntheticDataset
+    from repro_torch.training import optimizer as opt_lib
+    from repro_torch.training import step as step_lib
+
+    cfg = get_config(TRAIN_ARCH)
+    opt = opt_lib.AdamW(schedule=opt_lib.constant_schedule(1e-4))
+    state = step_lib.init_state(cfg, opt, torch.Generator(device=dev).manual_seed(0), dev)
+    data = SyntheticDataset(SyntheticConfig(vocab_size=cfg.vocab_size, seq_len=1024,
+                                            batch_size=8)).batch_at(0)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
+    loss_fn = step_lib.make_loss_fn(cfg, remat=False)
+    params = state.params()
+    ndims = opt_lib.reference_ndims(cfg, params)
+
+    def step():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        loss, _ = loss_fn(state.model, batch)
+        ev[1].record()
+        grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+        ev[2].record()
+        grads, _ = opt_lib.clip_by_global_norm(grads, 1.0)
+        opt.update(grads, state.opt, params, ndims)
+        ev[3].record()
+        torch.cuda.synchronize()
+        return [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+
+    step()
+    step()
+    fwd, bwd, upd = step()
+    path = ROOT / "build" / f"trace_{TRAIN_ARCH}_train_step.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    capture_torch_trace(str(path), step)
+    row = dict(forward_ms=fwd, backward_ms=bwd, clip_adamw_ms=upd, trace=trace_split(path))
+    log(f"train step breakdown {TRAIN_ARCH} 8 x 1024: " + json.dumps(row))
+    return row
+
+
+def train_phase(dev, counters, paths):
+    """``launch.train`` at full width on the card: tinyllama-1.1b for
+    ``TRAIN_STEPS`` steps of 8 x 1024 with NVML energy (the loss must
+    fall); the same run preempted before step ``TRAIN_CKPT_AT``, which
+    checkpoints, and resumed from that checkpoint to the end (its losses
+    held to the uninterrupted run's within the bf16 tolerance); steps
+    with ``--remat``; recurrentgemma-2b for ``HYBRID_TRAIN_STEPS`` steps
+    of 2 x 2304.  Every run's launches are exact for the forwards it ran
+    (remat's recompute counted), read into ``paths``.  Then the gradient
+    parity of both models (``train_parity``)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as train_lib
+    from repro_torch.training import checkpoint as ckpt_lib
+
+    t0 = time.perf_counter()
+    rows = []
+
+    def run(arch, label, argv, forwards, recomputed=0):
+        args = train_lib.build_argparser().parse_args(["--arch", arch] + argv)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts(counters)
+        out, rec = train_lib.run(args)
+        launched = read_counts(counters)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        want = train_launches(get_config(arch), forwards, recomputed)
+        log(f"{arch} {label}: {json.dumps(out)}; launches {launched}, expected {want}; "
+            f"losses {rec.losses}")
+        check(launched == want, f"{arch} {label}: launch counts {launched} != {want}")
+        check(all(math.isfinite(x) for x in rec.losses), f"{arch} {label}: a loss is not finite")
+        paths[f"{arch} {label}"] = launched
+        bound = train_bound_ms(get_config(arch), rec.state.model, args.batch, args.seq_len)
+        rec.state = None  # free the model and the moments
+        return out, rec, peak, bound
+
+    B, S = 8, 1024
+    out, whole, peak, bound = run(TRAIN_ARCH, "train", TRAIN + [
+        "--steps", str(TRAIN_STEPS), "--energy"], TRAIN_STEPS)
+    check(whole.losses[-1] < whole.losses[0], f"{TRAIN_ARCH}: the loss did not fall")
+    rows.append(train_stats(TRAIN_ARCH, "train", out, whole, B * S, bound, peak))
+
+    class Preempted(train_lib.PreemptionHandler):
+        """Asks to stop before step ``TRAIN_CKPT_AT`` (polled once before
+        each step)."""
+        polls = 0
+
+        @property
+        def preemption_requested(self):
+            Preempted.polls += 1
+            return Preempted.polls > TRAIN_CKPT_AT
+
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        ckpt_args = TRAIN + ["--steps", str(TRAIN_STEPS), "--ckpt-dir", ckpt,
+                             "--ckpt-every", str(10 * TRAIN_STEPS)]
+        t = time.perf_counter()
+        with patched(train_lib, "PreemptionHandler", Preempted):
+            first, pre = run(TRAIN_ARCH, "train preempted", ckpt_args, TRAIN_CKPT_AT)[:2]
+        check(first["preempted"] and first["final_step"] == TRAIN_CKPT_AT
+              and ckpt_lib.latest_step(ckpt) == TRAIN_CKPT_AT,
+              f"the preempted run did not checkpoint step {TRAIN_CKPT_AT}")
+        log(f"preempted run and its checkpoint: {time.perf_counter() - t:.1f} s; "
+            f"{sum(f.stat().st_size for f in Path(ckpt).rglob('*') if f.is_file()) / 2**30:.2f}"
+            f" GiB on disk")
+        t = time.perf_counter()
+        second, resumed = run(TRAIN_ARCH, "train resumed", ckpt_args,
+                              TRAIN_STEPS - TRAIN_CKPT_AT)[:2]
+        log(f"resumed run with its restore and checkpoint: {time.perf_counter() - t:.1f} s")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    check(second["final_step"] == TRAIN_STEPS and resumed.steps[0] == TRAIN_CKPT_AT,
+          "the resumed run did not continue from its checkpoint")
+    want = whole.losses[TRAIN_CKPT_AT:]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(resumed.losses, want))
+    log(f"resumed losses {resumed.losses} against the uninterrupted {want}: max relative "
+        f"difference {rel:.3e} (bitwise: {resumed.losses == want}); steps before the "
+        f"checkpoint bitwise: {pre.losses == whole.losses[:TRAIN_CKPT_AT]}")
+    # Exact: the checkpoint holds the bf16 parameters and fp32 moments bit for
+    # bit, the data resumes at its offset, and nothing on this path sums in an
+    # order that varies from run to run in one process (the embedding's
+    # backward sorts its indices; cross entropy's gather scatters to distinct
+    # places).  Any slack would pass a resume that lost the moments or read
+    # the data a step off.
+    check(resumed.losses == want,
+          f"the resumed losses differ from the uninterrupted run's by {rel:.3e} relative")
+    out, remat, peak, bound = run(TRAIN_ARCH, "train remat", TRAIN + ["--steps", "3", "--remat"],
+                                  3, recomputed=3)
+    rows.append(train_stats(TRAIN_ARCH, "train remat", out, remat, B * S, bound, peak))
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows.append(train_breakdown(dev))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    out, hyb, peak, bound = run(HYBRID, "train", HYBRID_TRAIN + [
+        "--steps", str(HYBRID_TRAIN_STEPS), "--energy"], HYBRID_TRAIN_STEPS)
+    rows.append(train_stats(HYBRID, "train", out, hyb, 2 * HYBRID_PARITY_PROMPT, bound, peak))
+    gc.collect()
+    torch.cuda.empty_cache()
+    for arch, (b, seq, layers) in TRAIN_PARITY.items():
+        rows.append(train_parity(arch, dev, b, seq, layers))
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"train phase took {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def card():
+    """``nvidia-smi``'s name and power limit of each card, one line each."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          timeout=60).stdout.strip().splitlines()
+
+
 def idle_power(samples=20, interval_s=0.1):
     """The board's power from NVML before any model is drawn (the ``h100``
     spec's ``idle_watts``)."""
@@ -2960,9 +3374,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60).stdout.strip().splitlines()
+    smi = card()
     log(f"device: {name} x{count}; torch {torch.__version__} cuda {torch.version.cuda}")
     idle_power()
     t0 = time.perf_counter()
@@ -3027,6 +3439,12 @@ def main():
               for k in ("rmsnorm", "flash_attention", "decode_attention")),
           f"K1, K2 or K3 never launched on the {SEAMLESS} measure path")
     tp_phase(dev, paths, tol)
+    train_phase(dev, counters, paths)
+    for path in ("train", "train preempted", "train resumed", "train remat"):
+        check(all(paths[f"{TRAIN_ARCH} {path}"][k] > 0 for k in ("rmsnorm", "flash_attention")),
+              f"K1 or K2 never launched on the {TRAIN_ARCH} {path} path")
+    check(paths[f"{HYBRID} train"]["linear_recurrence"] > 0,
+          f"K5 never launched on the {HYBRID} train path")
     for entry in entries:
         k = entry["name"]
         entry["launches_by_path"] = {path: counts[k] for path, counts in paths.items()}

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import Model
+from repro_torch.models.model import Model, _enc_cfg
 from repro_torch.sharding.rules import local_slice
 
 
@@ -47,15 +47,14 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
-def params_from_jax(cfg: ModelConfig, tree: Mapping, device="cuda", mesh=None) -> Model:
-    """A ``Model`` on ``device`` holding the reference parameters ``tree``
-    (with ``mesh``, the rank's shard of them)."""
-    model = Model(cfg, device=device, mesh=mesh)
-    rank, tp = (mesh.rank, mesh.size) if mesh is not None else (0, 1)
+def reference_by_port_name(cfg: ModelConfig, tree: Mapping) -> Dict[str, np.ndarray]:
+    """The leaves of a tree shaped like the reference's params (its
+    parameters, or their gradients or moments) by the port's parameter
+    names: each stacked group leaf split into its layers."""
     # each stack: (its config, the port's prefix of its modules)
     stacks = {"decoder": (cfg, "")}
     if cfg.is_encdec:
-        stacks["encoder"] = (model.encoder.cfg, "encoder.")
+        stacks["encoder"] = (_enc_cfg(cfg), "encoder.")
     flat: Dict[str, np.ndarray] = {}
     for name, arr in _flatten(tree).items():
         parts = name.split(".")
@@ -74,6 +73,15 @@ def params_from_jax(cfg: ModelConfig, tree: Mapping, device="cuda", mesh=None) -
             flat[f"{prefix}layers.{n_groups * plen + i}.{leaf}"] = arr
         else:
             flat[prefix + ".".join(parts[1:])] = arr
+    return flat
+
+
+def params_from_jax(cfg: ModelConfig, tree: Mapping, device="cuda", mesh=None) -> Model:
+    """A ``Model`` on ``device`` holding the reference parameters ``tree``
+    (with ``mesh``, the rank's shard of them)."""
+    model = Model(cfg, device=device, mesh=mesh)
+    rank, tp = (mesh.rank, mesh.size) if mesh is not None else (0, 1)
+    flat = reference_by_port_name(cfg, tree)
     params = dict(model.named_parameters())
     if set(flat) != set(params):
         raise ValueError(f"parameter names differ: only in the reference "

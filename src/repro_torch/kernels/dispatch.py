@@ -58,10 +58,7 @@ def flash_attention(q, k, v, *, q_positions, k_positions, causal, window=0,
               window=window, softcap=softcap)
     if _kernel(q):
         return flash_ops.flash_attention(q, k, v, **kw)
-    # bound the S x T fp32 scores of the plain version, as the reference does
-    if q.shape[1] * k.shape[1] > 2048 * 2048:
-        return flash_ref.attention_chunked(q, k, v, **kw)
-    return flash_ref.attention(q, k, v, **kw)
+    return flash_ref.plain_attention(q, k, v, **kw)
 
 
 def decode_attention(q, k_cache, v_cache, *, q_positions, k_positions,

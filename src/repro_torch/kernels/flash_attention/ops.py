@@ -3,7 +3,13 @@
 A CUDA tensor launches a kernel or raises; a CPU tensor takes the plain
 version in ``ref.py``.  The dtype picks the kernel: bf16 runs on the
 tensor cores, fp32 on FMAs (tensor-core products cannot hold fp32 to its
-tolerance).  Forward only, as on the reference's prefill path.
+tolerance).
+
+The kernel is forward only.  With grad on and q, k or v requiring grad it
+runs inside a ``torch.autograd.Function`` whose backward is the VJP of
+the plain version the dispatch would run (``ref.plain_attention``),
+recomputed from the saved inputs, as the reference's ``custom_vjp``
+(``repro/kernels/flash_attention/ops.py``).
 """
 
 from __future__ import annotations
@@ -12,7 +18,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _vjp
 from repro_torch.kernels.flash_attention import ref
 
 HEAD_DIMS = (8, 16, 32, 64, 80, 128, 256)
@@ -48,12 +54,7 @@ def _check(q, k, v, q_positions, k_positions):
         raise ValueError("q, k and v must start on a 16-byte boundary (16-byte loads)")
 
 
-def flash_attention(q, k, v, *, q_positions, k_positions, causal, window=0,
-                    softcap=0.0):
-    if not q.is_cuda:
-        return ref.attention(q, k, v, q_positions=q_positions,
-                             k_positions=k_positions, causal=causal,
-                             window=window, softcap=softcap)
+def _flash_kernel(q, k, v, q_positions, k_positions, causal, window, softcap):
     _check(q, k, v, q_positions, k_positions)
     B, S, Hq, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
@@ -68,6 +69,36 @@ def flash_attention(q, k, v, *, q_positions, k_positions, causal, window=0,
         raise RuntimeError(f"flash_attention launch failed: CUDA error {status}")
     flash_attention.launches += 1
     return out
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, q_positions, k_positions, causal, window, softcap):
+        ctx.save_for_backward(q, k, v, q_positions, k_positions)
+        ctx.mask = dict(causal=causal, window=window, softcap=softcap)
+        return _flash_kernel(q, k, v, q_positions, k_positions, causal, window, softcap)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, qp, kp = ctx.saved_tensors
+        mask = ctx.mask
+        grads = _vjp.plain_vjp(
+            lambda q, k, v: ref.plain_attention(q, k, v, q_positions=qp, k_positions=kp,
+                                                **mask),
+            (q, k, v), (g,), ctx.needs_input_grad[:3])
+        return (*grads, None, None, None, None, None)
+
+
+def flash_attention(q, k, v, *, q_positions, k_positions, causal, window=0,
+                    softcap=0.0):
+    if not q.is_cuda:
+        return ref.attention(q, k, v, q_positions=q_positions,
+                             k_positions=k_positions, causal=causal,
+                             window=window, softcap=softcap)
+    args = (q, k, v, q_positions, k_positions, causal, window, softcap)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashAttention.apply(*args)
+    return _flash_kernel(*args)
 
 
 flash_attention.launches = 0

@@ -70,3 +70,12 @@ def attention_chunked(
         for i in range(0, q.shape[1], block_q)
     ]
     return torch.cat(outs, dim=1)
+
+
+def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, **kw) -> torch.Tensor:
+    """The plain version the dispatch runs: ``attention``, or
+    ``attention_chunked`` past 2048 x 2048 scores (the reference's bound
+    on the S x T fp32 scores).  The kernel's backward differentiates it."""
+    if q.shape[1] * k.shape[1] > 2048 * 2048:
+        return attention_chunked(q, k, v, **kw)
+    return attention(q, k, v, **kw)

@@ -3,7 +3,11 @@
 
 A CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
 version in ``ref.py``.  The wrapper launches on the current stream and
-never synchronises, so a CUDA graph can capture it.  Inference only.
+never synchronises, so a CUDA graph can capture it.  With grad on and an
+input that requires grad it runs inside a ``torch.autograd.Function``
+whose backward is the VJP of the plain doubling scan (``ref.py``),
+recomputed from the saved inputs, as the reference's ``custom_vjp``
+(``repro/kernels/linear_recurrence/ops.py``).
 
 The kernel cuts the sequence into chunks across blocks (split-S): pass 1
 writes each chunk's aggregate, pass 2 carries h across them and rescans
@@ -18,7 +22,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _vjp
 from repro_torch.kernels.linear_recurrence import ref
 
 CHANNELS = 128      # channels (w) per block
@@ -69,11 +73,8 @@ def _check(a, b, h0):
         raise ValueError(f"empty recurrence {tuple(a.shape)}")
 
 
-def linear_recurrence(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> torch.Tensor:
-    """h_t = a_t * h_{t-1} + b_t over axis 1 from ``h0``.  a, b: (B, S, W)
-    float32; h0: (B, W) float32.  Returns h: (B, S, W) float32."""
-    if not a.is_cuda:
-        return ref.linear_recurrence(a, b, h0)
+def _linear_recurrence_kernel(a: torch.Tensor, b: torch.Tensor,
+                              h0: torch.Tensor) -> torch.Tensor:
     _check(a, b, h0)
     B, S, W = a.shape
     n_chunks, chunk = scan_plan(B, S, W, _sm_count(a.device.index or 0))
@@ -90,6 +91,28 @@ def linear_recurrence(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> tor
         raise RuntimeError(f"linear_recurrence launch failed: CUDA error {status}")
     linear_recurrence.launches += 1
     return out
+
+
+class _LinearRecurrence(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, b, h0):
+        ctx.save_for_backward(a, b, h0)
+        return _linear_recurrence_kernel(a, b, h0)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _vjp.plain_vjp(ref.linear_recurrence, ctx.saved_tensors, (g,),
+                              ctx.needs_input_grad)
+
+
+def linear_recurrence(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t * h_{t-1} + b_t over axis 1 from ``h0``.  a, b: (B, S, W)
+    float32; h0: (B, W) float32.  Returns h: (B, S, W) float32."""
+    if not a.is_cuda:
+        return ref.linear_recurrence(a, b, h0)
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad or h0.requires_grad):
+        return _LinearRecurrence.apply(a, b, h0)
+    return _linear_recurrence_kernel(a, b, h0)
 
 
 linear_recurrence.launches = 0

@@ -5,13 +5,19 @@ A CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
 version in ``ref.py``.  The wrapper launches on the current stream and
 never synchronises, so a CUDA graph can capture it.  ``rmsnorm`` and
 ``add_rmsnorm`` both count on ``rmsnorm.launches``: one launch per norm.
+
+Both are differentiable: with grad on and an input that requires grad,
+the kernel runs inside a ``torch.autograd.Function`` whose backward is
+the VJP of the plain version (``_vjp.plain_vjp``), as the reference's
+``custom_vjp`` (``repro/kernels/rmsnorm/ops.py``).  ``add_rmsnorm``'s two
+outputs both carry gradient; its backward sums their cotangents.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _vjp
 from repro_torch.kernels.rmsnorm import ref
 
 MAX_D = 16384
@@ -43,14 +49,61 @@ def _launch(x, r, scale, s, y, eps: float) -> None:
     rmsnorm.launches += 1
 
 
-def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """``x * rsqrt(mean(x^2) + eps) * (1 + scale)`` over the last dim."""
-    if not x.is_cuda:
-        return ref.rmsnorm(x, scale, eps)
+def _rmsnorm_kernel(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     _check(x, scale)
     y = torch.empty_like(x)
     _launch(x, None, scale, None, y, eps)
     return y
+
+
+def _add_rmsnorm_kernel(x: torch.Tensor, r: torch.Tensor, scale: torch.Tensor,
+                        eps: float) -> tuple[torch.Tensor, torch.Tensor]:
+    ref.check_residual(x, r)
+    if not r.is_contiguous():
+        raise ValueError("r must be contiguous")
+    _check(x, scale)
+    s, y = torch.empty_like(x), torch.empty_like(x)
+    _launch(x, r, scale, s, y, eps)
+    return s, y
+
+
+class _RMSNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return _rmsnorm_kernel(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        eps = ctx.eps
+        grads = _vjp.plain_vjp(lambda x, s: ref.rmsnorm(x, s, eps), ctx.saved_tensors, (g,),
+                               ctx.needs_input_grad[:2])
+        return (*grads, None)
+
+
+class _AddRMSNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, r, scale, eps):
+        ctx.save_for_backward(x, r, scale)
+        ctx.eps = eps
+        return _add_rmsnorm_kernel(x, r, scale, eps)
+
+    @staticmethod
+    def backward(ctx, g_s, g_y):
+        eps = ctx.eps
+        grads = _vjp.plain_vjp(lambda x, r, s: ref.add_rmsnorm(x, r, s, eps),
+                               ctx.saved_tensors, (g_s, g_y), ctx.needs_input_grad[:3])
+        return (*grads, None)
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """``x * rsqrt(mean(x^2) + eps) * (1 + scale)`` over the last dim."""
+    if not x.is_cuda:
+        return ref.rmsnorm(x, scale, eps)
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        return _RMSNorm.apply(x, scale, eps)
+    return _rmsnorm_kernel(x, scale, eps)
 
 
 def add_rmsnorm(x: torch.Tensor, r: torch.Tensor, scale: torch.Tensor,
@@ -59,13 +112,10 @@ def add_rmsnorm(x: torch.Tensor, r: torch.Tensor, scale: torch.Tensor,
     launch; x and r of one shape, dtype and device, both contiguous."""
     if not x.is_cuda:
         return ref.add_rmsnorm(x, r, scale, eps)
-    ref.check_residual(x, r)
-    if not r.is_contiguous():
-        raise ValueError("r must be contiguous")
-    _check(x, scale)
-    s, y = torch.empty_like(x), torch.empty_like(x)
-    _launch(x, r, scale, s, y, eps)
-    return s, y
+    if torch.is_grad_enabled() and (x.requires_grad or r.requires_grad
+                                    or scale.requires_grad):
+        return _AddRMSNorm.apply(x, r, scale, eps)
+    return _add_rmsnorm_kernel(x, r, scale, eps)
 
 
 rmsnorm.launches = 0

@@ -73,24 +73,37 @@ def _out_proj(p: Attention, o: torch.Tensor) -> torch.Tensor:
     return mm(o.reshape(B, S, -1), p.wo.reshape(-1, p.wo.shape[-1]))
 
 
-def apply_attention_full(
+def _self_attention(p: Attention, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
+                    rope, causal: bool, window: int):
+    """q/k/v of ``x``, rotated, and K2 over the sequence itself: returns
+    (the attention's output before the out projection, k, v)."""
+    q, k, v = _project_qkv(p, x)
+    q = apply_rope(q, rope)
+    k = apply_rope(k, rope)
+    o = dispatch.flash_attention(
+        q.contiguous(), k.contiguous(), v.contiguous(),
+        q_positions=positions, k_positions=positions,
+        causal=causal, window=window, softcap=cfg.logit_softcap,
+    )
+    return o, k, v
+
+
+def apply_attention_train(
     p: Attention,
     x: torch.Tensor,           # (B, S, d)
     cfg: ModelConfig,
     positions: torch.Tensor,   # (B, S) int32, contiguous
     *,
     rope,                      # layers.rope_tables(positions, ...)
+    causal: bool = True,
+    window: int = 0,
 ) -> torch.Tensor:
-    """Attention over the whole sequence with no mask and no cache: the
-    encoder's self-attention (the reference's ``apply_attention_train``
-    with ``causal=False``), through K2."""
-    q, k, v = _project_qkv(p, x)
-    o = dispatch.flash_attention(
-        apply_rope(q, rope).contiguous(), apply_rope(k, rope).contiguous(), v.contiguous(),
-        q_positions=positions, k_positions=positions, causal=False,
-        softcap=cfg.logit_softcap,
-    )
-    return _out_proj(p, o)
+    """Attention over the whole sequence with no cache, through K2: the
+    training forward (causal, with the layer's window) and, with
+    ``causal=False``, the encoder's unmasked self-attention, as the
+    reference's ``apply_attention_train``.  Differentiable: K2's backward
+    is its plain version's."""
+    return _out_proj(p, _self_attention(p, x, cfg, positions, rope, causal, window)[0])
 
 
 def apply_attention_prefill(
@@ -108,14 +121,7 @@ def apply_attention_prefill(
     The attention does not depend on the layout; only the cache write does:
     a paged entry (``kp`` in the dict) takes the prompt's K/V into the pool
     blocks that ``block_tables`` names."""
-    q, k, v = _project_qkv(p, x)
-    q = apply_rope(q, rope)
-    k = apply_rope(k, rope)
-    o = dispatch.flash_attention(
-        q.contiguous(), k.contiguous(), v.contiguous(),
-        q_positions=positions, k_positions=positions,
-        causal=True, window=window, softcap=cfg.logit_softcap,
-    )
+    o, k, v = _self_attention(p, x, cfg, positions, rope, True, window)
     if "kp" in kv_cache:
         kv_cache = cache_lib.fill_paged_cache(kv_cache, k, v, block_tables)
     else:

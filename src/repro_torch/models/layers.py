@@ -150,13 +150,44 @@ def embed_tokens(p: Embedding, tokens: torch.Tensor, scale: bool,
     return x
 
 
-def matmul_fp32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` (x (..., k), w (k, n)) summed and returned in fp32, never
-    rounded to bf16 on the way."""
+def _matmul_fp32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.is_cuda and x.dtype != torch.float32:
         return torch.mm(x.reshape(-1, x.shape[-1]), w,
                         out_dtype=torch.float32).reshape(*x.shape[:-1], -1)
     return torch.matmul(x.float(), w.float())
+
+
+class _MatmulFP32(torch.autograd.Function):
+    """``_matmul_fp32`` with its gradients (``torch.mm(out_dtype=)`` has no
+    derivative): dX = g @ w^T rounded to x's dtype, dW = x^T @ g rounded
+    to w's, as the reference's VJP of its ``preferred_element_type=float32``
+    einsum.  The fp32 cotangent is not rounded: both products take fp32
+    copies of their inputs and run in fp32 (no TF32), the one rounding being
+    the result's."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _matmul_fp32(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1]).float()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.mm(g2, w.float().t()).to(x.dtype).reshape(x.shape)
+        if ctx.needs_input_grad[1]:
+            dw = torch.mm(x.reshape(-1, x.shape[-1]).float().t(), g2).to(w.dtype)
+        return dx, dw
+
+
+def matmul_fp32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` (x (..., k), w (k, n)) summed and returned in fp32, never
+    rounded to bf16 on the way; differentiable in grad mode."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _MatmulFP32.apply(x, w)
+    return _matmul_fp32(x, w)
 
 
 def unembed(p: Embedding, x: torch.Tensor, softcap: float = 0.0) -> torch.Tensor:

@@ -41,6 +41,9 @@ Entry points:
     (chunked prefill; ragged rows for the serving engine's unified step;
     the speculative verify window, with every column's logits).
   * ``Model.decode_step`` — one token against the cache (the TPOT step).
+  * ``Model.forward_train`` — teacher-forced fp32 logits of a whole
+    sequence with no cache, differentiable (K1, K2 and K5 through their
+    ``autograd.Function``s), optionally rematerialised per group.
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.models import attention as attn_lib
@@ -300,6 +304,36 @@ def _apply_block_decode(p: Block, cfg: ModelConfig, x: torch.Tensor,
     return _mlp_branch(p, cfg, x, h, a)
 
 
+def train_refusal(cfg: ModelConfig) -> Optional[str]:
+    """Why the training forward does not run ``cfg`` yet, or None: it runs
+    the dense decoders and the RG-LRU hybrid."""
+    if cfg.is_moe or cfg.is_encdec or cfg.num_vision_tokens or any(
+            k in XLSTM_BLOCKS for k in cfg.block_pattern):
+        return (f"{cfg.name}: training runs the dense and RG-LRU decoders only; MoE, "
+                f"xLSTM, encoder-decoder and vision training is ROADMAP queue 1 item 6b")
+    return None
+
+
+def _apply_block_train(p: Block, cfg: ModelConfig, x: torch.Tensor,
+                       r: Optional[torch.Tensor], positions: torch.Tensor, rope) -> Residual:
+    """A block of the training forward: the prefill's arithmetic with no
+    cache, an RG-LRU from a fresh zero state (the reference passes
+    ``cache=None``), nothing written in place."""
+    if p.kind == "rglru":
+        x, h = add_norm(p.norm1, x, r, cfg.norm_eps)
+        state = cache_lib.init_rglru_state(x.shape[0], cfg.resolved_lru_width,
+                                           cfg.rglru_conv_width, x.dtype, x.device)
+        y, _ = rec_lib.apply_rglru_seq(p.rec, h, cfg, state)
+        x, h = add_norm(p.norm2, x, y, cfg.norm_eps)
+        return x, apply_mlp(p.mlp, h, cfg.mlp_act)
+    if p.kind == "ffn":
+        return _ffn_block(p, cfg, x, r)
+    x, h = add_norm(p.norm1, x, r, cfg.norm_eps)
+    a = attn_lib.apply_attention_train(p.attn, h, cfg, positions, rope=rope,
+                                       window=_window(cfg, p.kind))
+    return _mlp_branch(p, cfg, x, h, a)
+
+
 class Model(nn.Module):
     """Parameters of a decoder, named like the reference's tree:
     ``embed.table``, ``lm_head.table`` (untied only), ``layers.<i>.<part>``
@@ -369,10 +403,47 @@ class Model(nn.Module):
         r = None
         for blk in enc.layers:
             x, h = add_norm(blk.norm1, x, r, cfg.norm_eps)
-            a = attn_lib.apply_attention_full(blk.attn, h, cfg, positions, rope=rope)
+            a = attn_lib.apply_attention_train(blk.attn, h, cfg, positions, rope=rope,
+                                                causal=False)
             x, r = _mlp_branch(blk, cfg, x, h, a)
         _, memory = add_norm(enc.final_norm, x, r, cfg.norm_eps)
         return memory, positions
+
+    def forward_train(self, batch: Dict[str, torch.Tensor], remat: bool = True) -> torch.Tensor:
+        """Teacher-forced fp32 logits (B, S, vocab) of ``batch["tokens"]``
+        (B, S), the reference's ``forward_train``: no cache and no
+        ``no_grad``, the prefill's fused residual pattern.  ``remat``
+        recomputes each group (one repetition of ``block_pattern``) in the
+        backward instead of keeping its activations, as the reference's
+        ``jax.checkpoint(nothing_saveable)`` over its scanned groups; the
+        remainder layers are not wrapped.  The kernels' forwards launch
+        again in a recompute."""
+        cfg = self.cfg
+        refusal = train_refusal(cfg)
+        if refusal:
+            raise ValueError(refusal)
+        x = embed_tokens(self.embed, batch["tokens"], cfg.emb_scale, cfg.d_model)
+        B, S = x.shape[:2]
+        positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S).contiguous()
+        rope = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
+
+        def run(x, r, blocks):
+            for blk in blocks:
+                x, r = _apply_block_train(blk, cfg, x, r, positions, rope)
+            return x, r
+
+        plen, (n_groups, _) = len(cfg.block_pattern), cfg.layer_groups()
+        layers = list(self.layers)
+        r = None
+        for g in range(n_groups):
+            group = layers[g * plen:(g + 1) * plen]
+            if remat:
+                x, r = checkpoint(run, x, r, group, use_reentrant=False)
+            else:
+                x, r = run(x, r, group)
+        x, r = run(x, r, layers[n_groups * plen:])
+        _, h = add_norm(self.final_norm, x, r, cfg.norm_eps)
+        return unembed(self._head(), h, cfg.logit_softcap)
 
     def init_cache(self, batch: int, max_len: int, dtype=None, *,
                    layout: str = "contiguous", block_size: int = 16,

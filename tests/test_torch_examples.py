@@ -86,8 +86,43 @@ def test_serve_batch_serves_the_reference_requests(capsys):
     assert summary["dispatches_per_step_p50"] == 1
 
 
+def _reference_train_keys():
+    """The keys the reference's ``launch.train.train`` returns, read from
+    its source (the reference driver fails under JAX 0.9.0: ROADMAP
+    "Reference caveat")."""
+    import inspect
+    import re
+
+    from repro.launch import train as jax_train
+
+    src = inspect.getsource(jax_train.train)
+    return (set(re.findall(r'"(\w+)": ', src[src.index("out = {"):]))
+            | set(re.findall(r'out\["(\w+)"\] =', src)))
+
+
+def test_train_100m_tiny_trains_and_checkpoints(capsys, tmp_path):
+    """``--tiny --device cpu``: 30 steps of the reduced llama-100m through
+    the port's driver; the loss falls, the printed keys are the reference
+    driver's (``--energy`` on), the last step is checkpointed."""
+    ck = tmp_path / "ck"
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # small ops: workers would oversubscribe the cores
+    try:
+        out = _example("torch_train_100m").main(["--tiny", "--device", "cpu",
+                                                 "--ckpt-dir", str(ck)])
+    finally:
+        torch.set_num_threads(threads)
+    printed = capsys.readouterr().out
+    assert set(out) == _reference_train_keys() == set(
+        json.loads(printed[printed.index("{"):printed.index("}") + 1]))
+    assert out["steps"] == 30 and out["loss_last"] < out["loss_first"]
+    assert (ck / "LATEST").read_text() == "step_00000030"
+    assert (ck / "step_00000030" / "arrays.npz").exists()
+
+
 def test_examples_default_to_the_gpu():
-    for name in ("torch_quickstart", "torch_profile_model", "torch_serve_batch"):
+    for name in ("torch_quickstart", "torch_profile_model", "torch_serve_batch",
+                 "torch_train_100m"):
         mod = _example(name)
         if not torch.cuda.is_available():
             with pytest.raises(RuntimeError, match="no GPU"):

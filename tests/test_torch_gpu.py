@@ -1218,3 +1218,146 @@ def test_nccl_collectives_replay_from_a_cuda_graph(cuda):
     plan = [(runs.Weights(get_config("llama3.2-1b", smoke=True)), [runs.Collectives()])]
     for rank, out in enumerate(spawn_tp(runs.run_plan, tp, "cuda", plan)):
         assert out[0][0] == {"eager": [0.0, 0.0], "replayed": [0.0, 0.0]}, rank
+
+
+# -- training: the kernels' autograd Functions ------------------------------------
+
+def _grad_case(name, dtype, dev):
+    """(inputs requiring grad, the wrapper call, the plain call, the
+    wrapper whose ``launches`` counts the kernel)."""
+    rng = _rng("grad", name, dtype)
+    if name in ("rmsnorm", "add_rmsnorm"):
+        x, r = _on(dev, dtype, rng.standard_normal((33, 4096)), rng.standard_normal((33, 4096)))
+        (s,) = _on(dev, dtype, 0.1 * rng.standard_normal(4096))
+        if name == "rmsnorm":
+            return [x, s], lambda x, s: rn_ops.rmsnorm(x, s), rn_ref.rmsnorm, rn_ops.rmsnorm
+        return ([x, r, s], lambda x, r, s: rn_ops.add_rmsnorm(x, r, s), rn_ref.add_rmsnorm,
+                rn_ops.rmsnorm)
+    if name == "flash_attention":
+        q, k, v, qp, kp = _flash_inputs(2, 160, 160, 8, 2, 64)
+        q, k, v = _on(dev, dtype, q, k, v)
+        qp, kp = _ints(dev, qp, kp)
+        kw = dict(q_positions=qp, k_positions=kp, causal=True, window=48, softcap=30.0)
+        return ([q, k, v], lambda q, k, v: fa_ops.flash_attention(q, k, v, **kw),
+                lambda q, k, v: fa_ref.plain_attention(q, k, v, **kw), fa_ops.flash_attention)
+    a = rng.uniform(0.8, 1.0, (2, 300, 256))
+    a, b, h0 = _on(dev, "float32", a, 0.1 * rng.standard_normal(a.shape),
+                   rng.standard_normal((2, 256)))
+    return [a, b, h0], lr_ops.linear_recurrence, lr_ref.linear_recurrence, \
+        lr_ops.linear_recurrence
+
+
+GRAD_CASES = [("rmsnorm", "float32"), ("rmsnorm", "bfloat16"), ("add_rmsnorm", "bfloat16"),
+              ("flash_attention", "float32"), ("flash_attention", "bfloat16"),
+              ("linear_recurrence", "float32")]
+
+
+@pytest.mark.parametrize("name,dtype", GRAD_CASES)
+def test_kernel_function_launches_and_takes_the_plain_gradients(cuda, name, dtype):
+    """With grad on, each wrapper launches its kernel inside its autograd
+    Function (one launch), its output within the kernel tolerance of the
+    plain version's, and every input's gradient equal to autograd through
+    the plain version (the backward is that VJP)."""
+    inputs, call, plain, counter = _grad_case(name, dtype, cuda)
+    leaves = [t.clone().requires_grad_(True) for t in inputs]
+    before = counter.launches
+    outs = call(*leaves)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    assert counter.launches == before + 1
+    assert all("Backward" in type(o.grad_fn).__name__ for o in outs)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    cots = [torch.randn(o.shape, generator=g, device=cuda, dtype=torch.float32).to(o.dtype)
+            for o in outs]
+    got = torch.autograd.grad(outs, leaves, cots)
+    ref_leaves = [t.clone().requires_grad_(True) for t in inputs]
+    ref_outs = plain(*ref_leaves)
+    ref_outs = ref_outs if isinstance(ref_outs, tuple) else (ref_outs,)
+    want = torch.autograd.grad(ref_outs, ref_leaves, cots)
+    assert counter.launches == before + 1  # the backward launches nothing
+    for o, ro in zip(outs, ref_outs):
+        _assert(o, ro, dtype)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        _assert(a, b, dtype)
+
+
+@pytest.mark.parametrize("name,dtype", GRAD_CASES)
+def test_no_function_on_the_path_without_grad(cuda, name, dtype):
+    """Under ``no_grad``, or with no input requiring grad, the wrapper makes
+    its direct call: one launch, no graph."""
+    inputs, call, _, counter = _grad_case(name, dtype, cuda)
+    leaves = [t.clone().requires_grad_(True) for t in inputs]
+    for run in (lambda: torch.no_grad()(call)(*leaves), lambda: call(*inputs)):
+        before = counter.launches
+        outs = run()
+        assert counter.launches == before + 1
+        assert all(o.grad_fn is None for o in (outs if isinstance(outs, tuple) else (outs,)))
+
+
+def test_head_product_backward_runs_on_cuda(cuda):
+    """``unembed``'s bf16 product on the card has gradients (``mm`` with
+    ``out_dtype`` has none): dX and dW are the fp32 products of the fp32
+    cotangent, rounded once to bf16 (rtol 4e-3 > 2^-8, half a bf16 ulp;
+    atol 1e-3 for fp32 summation order)."""
+    from repro_torch.models import layers
+
+    rng = _rng("head")
+    x, table = _on(cuda, "bfloat16", rng.standard_normal((2, 64, 256)),
+                   rng.standard_normal((1000, 256)))
+    emb = layers.Embedding(1000, 256, torch.bfloat16, cuda)
+    with torch.no_grad():
+        emb.table.copy_(table)
+    emb.table.requires_grad_(True)
+    x.requires_grad_(True)
+    cot = torch.from_numpy(rng.standard_normal((2, 64, 1000)).astype(np.float32)).to(cuda)
+    out = layers.unembed(emb, x)
+    dx, dw = torch.autograd.grad(out, (x, emb.table), cot)
+    xf, wf = x.detach().float(), table.float()
+    assert out.dtype == torch.float32 and dx.dtype == dw.dtype == torch.bfloat16
+    torch.testing.assert_close(out, xf @ wf.t(), rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(dx.float(), cot @ wf, rtol=4e-3, atol=1e-3)
+    torch.testing.assert_close(dw.float(), cot.reshape(-1, 1000).t() @ xf.reshape(-1, 256),
+                               rtol=4e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "recurrentgemma-2b"])
+def test_forward_train_through_the_kernels(cuda, arch):
+    """A smoke model's training forward on the card: K1 (every norm), K2
+    (every attention layer) and K5 (every RG-LRU layer) launch once per
+    forward, again per group under remat; its loss and gradients agree
+    with the plain versions' (``use_backend("torch")``) in fp32."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as model_lib
+    from repro_torch.training import step as step_lib
+
+    cfg = get_config(arch, smoke=True)
+    model = model_lib.init(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    for p in model.parameters():
+        p.requires_grad_(True)
+    tok = torch.from_numpy(_rng("train", arch).integers(0, cfg.vocab_size, (2, 41))).to(cuda)
+    batch = {"tokens": tok[:, :-1].int(), "labels": tok[:, 1:].int()}
+    kinds = cfg.blocks()
+    attn = sum(k in ("attn", "local_attn") for k in kinds)
+    want = {"rmsnorm": 2 * len(kinds) + 1, "flash_attention": attn,
+            "linear_recurrence": sum(k == "rglru" for k in kinds)}
+    plen, (n_groups, _) = len(cfg.block_pattern), cfg.layer_groups()
+    grouped = kinds[:n_groups * plen]
+    again = {"rmsnorm": 2 * len(grouped),
+             "flash_attention": sum(k in ("attn", "local_attn") for k in grouped),
+             "linear_recurrence": sum(k == "rglru" for k in grouped)}
+    params = dict(model.named_parameters())
+    grads = {}
+    for backend, remat in (("auto", False), ("auto", True), ("torch", False)):
+        before = {k: dispatch.KERNELS[k].launches for k in want}
+        with dispatch.use_backend(backend):
+            loss, _ = step_lib.make_loss_fn(cfg, remat=remat)(model, batch)
+            grads[backend, remat] = torch.autograd.grad(loss, list(params.values()))
+        launched = {k: dispatch.KERNELS[k].launches - before[k] for k in want}
+        if backend == "auto":
+            assert launched == {k: want[k] + (again[k] if remat else 0) for k in want}
+        else:
+            assert launched == {k: 0 for k in want}
+    for name, a, b, c in zip(params, *grads.values()):
+        scale = c.abs().max().item() + 1e-30
+        assert (a - b).abs().max().item() <= 1e-6 * scale, name  # remat: the same math
+        assert (a - c).abs().max().item() <= 1e-4 * scale, name

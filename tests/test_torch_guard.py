@@ -99,6 +99,22 @@ def test_tp_mesh_defaults_to_the_gpu():
         make_tp_mesh(0, "cpu")
 
 
+def test_train_entry_points_default_to_the_gpu():
+    """``launch.train`` and ``training.step.init_state`` take ``cuda``
+    unless told otherwise, and raise where there is no GPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.training import optimizer, step
+
+    assert train.build_argparser().parse_args([]).device == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no GPU"):
+            train.main(["--smoke", "--steps", "1"])
+        opt = optimizer.AdamW(schedule=optimizer.constant_schedule(1e-3))
+        with pytest.raises(RuntimeError, match="no GPU"):
+            step.init_state(get_config("tinyllama-1.1b", smoke=True), opt, torch.Generator())
+
+
 def test_serving_entry_points_default_to_the_gpu():
     """``ServingEngine`` and ``launch.serve`` take ``cuda`` unless told
     otherwise, and raise where there is no GPU."""
