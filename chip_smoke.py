@@ -170,10 +170,20 @@ or of the ``repro`` package.  Phases:
    Then one step's gradients through the kernels and through the plain
    versions, each against an fp32 copy (tinyllama-1.1b at full depth,
    recurrentgemma-2b on 4 layers at full width): the kernels' worst
-   relative error at most twice the plain path's.  K1, K2 and K5 at the
-   training shapes are held and timed in phase 2, each with its autograd
-   Function's gradients held to the plain version's (``train`` under
-   K2 and K5, K1's rows under ``modes``).
+   relative error at most twice the plain path's.  Then one model of each
+   other family at full width, 4 steps with NVML energy, the loss falling
+   and launches exact, and its gradient parity: xlstm-1.3b at full depth
+   (48 layers, 2 x 512; K1 for each block norm and cell norm; parity on 8
+   layers), seamless-m4t-large-v2 at full depth (24 + 24 layers, 4 x 1024
+   tokens over 512 frames a row; K1 for ``norm_c`` and the encoder's
+   norms, K2 per encoder layer and per cross attention; also 2 steps with
+   ``--remat``, the encoder's layers recomputed), moonshot-v1-16b-a3b on
+   4 of its 48 layers (4 x 1024; parity with the bf16 paths' routes
+   forced to the fp32 run's) and llava-next-34b on 4 of its 60 layers
+   (2 x 448 tokens after its 576 patches).  K1, K2 and K5 at the training
+   shapes are held and timed in phase 2, each with its autograd
+   Function's gradients held to the plain version's (``train`` under K2
+   and K5, K1's rows under ``modes``).
 13. The last line: ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line is printed; so does a
@@ -258,6 +268,25 @@ HYBRID_TRAIN_STEPS = 4
 HYBRID_TRAIN = ["--batch", "2", "--seq-len", str(HYBRID_PARITY_PROMPT), "--lr", "1e-3",
                 "--warmup", "2", "--log-every", "1"]
 TRAIN_PARITY = {TRAIN_ARCH: (2, 1024, 0), HYBRID: (2, HYBRID_PARITY_PROMPT, 4)}
+# the other families, each at full width through ``launch.train`` for
+# FAMILY_TRAIN_STEPS steps with NVML energy: (layers, 0 for all; batch;
+# text tokens a row; peak learning rate).  xlstm-1.3b and
+# seamless-m4t-large-v2 (512 frames a row) at full depth;
+# moonshot-v1-16b-a3b and llava-next-34b (its 576 patches before the
+# tokens: 1024 positions) on 4 of their 48 and 60 layers, whose whole would
+# need ~319 and ~384 GiB of state at 12 bytes a parameter.  From the
+# random init (N(0, 1) tables: first losses 145-480) Adam's first steps
+# move every weight by about the learning rate, so the rate at which the
+# loss falls shrinks with the width: at 1e-4 over 4 steps seamless's and
+# llava's rise, at 1e-5 moonshot's stays flat
+FAMILY_TRAIN = {XLSTM: (0, 2, 512, "3e-5"), SEAMLESS: (0, 4, 1024, "3e-5"),
+                MOONSHOT: (4, 4, 1024, "1e-4"), LLAVA: (4, 2, 448, "1e-5")}
+FAMILY_TRAIN_STEPS = 4
+FAMILY_ARGS = ["--warmup", "2", "--log-every", "1"]
+# their gradient parity: (batch, text tokens, layers); xlstm-1.3b on one
+# group of its pattern (7 mLSTM + 1 sLSTM)
+FAMILY_PARITY = {XLSTM: (2, 512, 8), SEAMLESS: (2, 1024, 0), MOONSHOT: (2, 1024, 4),
+                 LLAVA: (2, 448, 4)}
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, published
 BF16_FLOPS = 989e12             # dense tensor-core bf16, published
 FP32_FLOPS = 67e12              # fp32 outside the tensor cores, published
@@ -575,19 +604,31 @@ def kernel_phase(dev):
     # heads 32/4 of 64, recurrentgemma-2b's 2 x 2304 past its window; the
     # forward held to the plain version, the autograd Function's gradients
     # to the plain version's
+    # and the other families' training runs: seamless-m4t-large-v2's
+    # encoder (4 x 512 frames, unmasked), decoder (4 x 1024) and cross
+    # attention (1024 queries over the 512 frames), MHA 16 of 64;
+    # moonshot-v1-16b-a3b's 4 x 1024 at 16/16 of 128; llava-next-34b's 2 x
+    # 1024 positions (576 patches, 448 tokens) at 56/8 of 128
+    unmasked = dict(causal=False)
     trains = []
-    for arch, shape, mask in ((TRAIN_ARCH, (8, 1024, 1024, 32, 4, 64), {}),
-                              (HYBRID, (2, HYBRID_PARITY_PROMPT, HYBRID_PARITY_PROMPT, 10, 1,
-                                        256), dict(window=2048, softcap=30.0))):
-        case, err = fa_case(f"{arch} train B={shape[0]} S={shape[1]} Hq={shape[3]} "
-                            f"Hkv={shape[4]} D={shape[5]} {mask or 'causal'}", *shape, bf16,
-                            **mask)
+    for arch, path, shape, mask in (
+            (TRAIN_ARCH, "train", (8, 1024, 1024, 32, 4, 64), {}),
+            (HYBRID, "train", (2, HYBRID_PARITY_PROMPT, HYBRID_PARITY_PROMPT, 10, 1, 256),
+             dict(window=2048, softcap=30.0)),
+            (SEAMLESS, "train encoder", (4, 512, 512, 16, 16, 64), unmasked),
+            (SEAMLESS, "train", (4, 1024, 1024, 16, 16, 64), {}),
+            (SEAMLESS, "train cross", (4, 1024, 512, 16, 16, 64), dict(unmasked, memory=True)),
+            (MOONSHOT, "train", (4, 1024, 1024, 16, 16, 128), {}),
+            (LLAVA, "train", (2, PROMPTS[LLAVA], PROMPTS[LLAVA], 56, 8, 128), {})):
+        case, err = fa_case(f"{arch} {path} B={shape[0]} S={shape[1]} T={shape[2]} "
+                            f"Hq={shape[3]} Hkv={shape[4]} D={shape[5]} {mask or 'causal'}",
+                            *shape, bf16, **mask)
         q, k, v, kw = case
-        gerr = grad_check(f"flash_attention {arch} train", fa_ops.flash_attention,
+        gerr = grad_check(f"flash_attention {arch} {path}", fa_ops.flash_attention,
                           lambda q, k, v: fa_ops.flash_attention(q, k, v, **kw),
                           lambda q, k, v: fa_ref.plain_attention(q, k, v, **kw), (q, k, v),
                           tol[bf16])
-        trains.append(dict(arch=arch, path="train", max_abs_err=err, grad_max_abs_err=gerr,
+        trains.append(dict(arch=arch, path=path, max_abs_err=err, grad_max_abs_err=gerr,
                            **fa_row(case)))
     moe_rows(entries[-1], trains, "train")
 
@@ -923,8 +964,14 @@ def kernel_phase(dev):
     # command-r-plus-104b at d = 12288: its decode and prefill rows
     shapes += [(rows, 12288, fused) for rows in (1, PROMPT) for fused in (False, True)]
     # training: tinyllama-1.1b's 8 x 1024 rows at d = 2048, recurrentgemma-2b's
-    # 2 x 2304 at d = 2560, each also through its autograd Function
-    train_norms = [(8 * 1024, 2048), (2 * HYBRID_PARITY_PROMPT, 2560)]
+    # 2 x 2304 at d = 2560; xlstm-1.3b's 2 x 512 at d = 2048 (block and sLSTM
+    # cell norms) and W = 4096 (mLSTM cell norms); seamless-m4t-large-v2's
+    # 4 x 1024 decoder and 4 x 512 encoder rows at d = 1024;
+    # moonshot-v1-16b-a3b's 4 x 1024 at d = 2048; llava-next-34b's 2 x 1024
+    # positions at d = 7168; each also through its autograd Function
+    train_norms = [(8 * 1024, 2048), (2 * HYBRID_PARITY_PROMPT, 2560), (2 * 512, 2048),
+                   (2 * 512, 4096), (4 * 1024, 1024), (4 * 512, 1024), (4 * 1024, 2048),
+                   (2 * PROMPTS[LLAVA], 7168)]
     shapes += [(rows, d, fused) for rows, d in train_norms for fused in (False, True)]
     for rows, d, fused in shapes:
         (x, r, s), err = rn_case(rows, d, bf16, fused)
@@ -3054,43 +3101,81 @@ def engine_refusal_check(e):
 def train_launches(cfg, forwards, recomputed=0):
     """Launches of every kernel over ``forwards`` training forwards,
     ``recomputed`` of them under remat, whose backward runs each group's
-    forward again (not the remainder layers' or the final norm): K1 per
-    norm (two a block, one an ``ffn`` or parallel block, one final), K2
-    per attention layer, K5 per RG-LRU layer; no decode kernel."""
+    forward again (the decoder's grouped layers and every encoder layer;
+    not the remainder layers or the final norms): K1 per norm (an
+    attention block's two, one more for an enc-dec block's ``norm_c``, one
+    for an ``ffn`` or parallel block, an RG-LRU block's two, an xLSTM
+    block's norm and its cell's, each final norm), K2 per self- and cross
+    attention layer, K5 per RG-LRU layer; an encoder layer two K1 and one
+    K2; no decode kernel."""
     attn = ("attn", "local_attn")
+    cross = 1 if cfg.is_encdec else 0
 
-    def count(kinds):
-        return {"rmsnorm": sum(1 if (k == "ffn" or (k in attn and cfg.parallel_block)) else 2
-                               for k in kinds),
-                "flash_attention": sum(k in attn for k in kinds),
+    def count(kinds, enc):
+        return {"rmsnorm": sum((1 if cfg.parallel_block else 2) + cross if k in attn
+                               else 1 if k == "ffn" else 2 for k in kinds) + 2 * enc,
+                "flash_attention": sum(1 + cross for k in kinds if k in attn) + enc,
                 "linear_recurrence": sum(k == "rglru" for k in kinds)}
 
-    kinds = cfg.blocks()
+    kinds, enc = cfg.blocks(), cfg.num_encoder_layers
     plen, (groups, _) = len(cfg.block_pattern), cfg.layer_groups()
-    once, again = count(kinds), count(kinds[:groups * plen])
-    once["rmsnorm"] += 1
+    once, again = count(kinds, enc), count(kinds[:groups * plen], enc)
+    once["rmsnorm"] += 1 + (1 if enc else 0)
     want = {"decode_attention": 0, "paged_decode_attention": 0}
     want.update({k: once[k] * forwards + again[k] * recomputed for k in once})
     return want
 
 
 def train_bound_ms(cfg, model, batch, seq):
-    """The least time of one train step: its products at 989 TFLOP/s (6
-    FLOPs per product weight per token, forward and backward; every
-    parameter but an untied input table, which is gathered), causal or
-    windowed attention (4 D FLOPs per visible pair and head forward, twice
-    that backward), and AdamW's bytes at 3.35 TB/s (a parameter and its
-    gradient read, the parameter written, two fp32 moments read and
-    written)."""
-    tokens = batch * seq
-    total = sum(p.numel() for p in model.parameters())
-    products = total - (0 if cfg.tie_embeddings else model.embed.table.numel())
+    """The least time of one train step: its products at 989 TFLOP/s and
+    AdamW's bytes at 3.35 TB/s (a parameter and its gradient read, the
+    parameter written, two fp32 moments read and written).  A product
+    costs 6 FLOPs per weight per row it takes, forward and backward: the
+    decoder's rows are its positions, a vision config's patches included
+    (its logits too); an encoder's and a cross attention's K/V
+    projections' rows are the frames (``seq // 2`` a row, as
+    ``batch_for_model`` draws them); a MoE layer's experts each take their
+    capacity's C rows, the router and shared experts every position; an
+    untied input table is gathered, not multiplied.  Attention: 4 D FLOPs
+    per visible pair and head forward, twice that backward: causal or
+    windowed in the decoder, every pair in the encoder (frames x frames)
+    and in cross attention (positions x frames).  The mLSTM's chunk scan:
+    per chunk of L positions and head of D, the three (L, L) products and
+    the two (D, D) ones, 6 L D + 4 D^2 FLOPs per position forward, three
+    times that in all."""
+    from repro_torch.models import moe as moe_lib
+
+    rows = batch * (cfg.num_vision_tokens + seq)
+    frames = batch * max(seq // 2, 1)
+    cap = (moe_lib.capacity(rows, cfg.num_experts, cfg.num_experts_per_tok,
+                            cfg.moe_capacity_factor) if cfg.is_moe else 0)
+    flops = 0
+    for name, p in model.named_parameters():
+        if name == "embed.table" and not cfg.tie_embeddings:
+            continue
+        n = rows
+        if name.startswith("encoder.") or ".cross.wk" in name or ".cross.wv" in name:
+            n = frames
+        elif (cfg.is_moe and name.rsplit(".", 1)[-1] in ("wg", "wu", "wd")
+              and ".shared." not in name):
+            n = cap  # each expert's weights over its C rows: numel / E * E * C
+        flops += 6 * p.numel() * n
+    L = cfg.num_vision_tokens + seq
     pairs = 0
     for kind in cfg.blocks():
         if kind in ("attn", "local_attn"):
-            w = cfg.sliding_window if kind == "local_attn" and cfg.sliding_window else seq
-            pairs += sum(min(i + 1, w) for i in range(seq)) * batch
-    flops = 6 * products * tokens + 12 * cfg.resolved_head_dim * cfg.num_heads * pairs
+            w = cfg.sliding_window if kind == "local_attn" and cfg.sliding_window else L
+            pairs += sum(min(i + 1, w) for i in range(L)) * batch
+            if cfg.is_encdec:
+                pairs += L * (frames // batch) * batch
+    pairs += cfg.num_encoder_layers * (frames // batch) ** 2 * batch
+    flops += 12 * cfg.resolved_head_dim * cfg.num_heads * pairs
+    n_mlstm = sum(k == "mlstm" for k in cfg.blocks())
+    if n_mlstm:
+        H = cfg.resolved_rec_heads
+        D = int(cfg.d_model * cfg.mlstm_proj_factor) // H
+        chunk = min(cfg.recurrent_chunk, L)
+        flops += 3 * n_mlstm * rows * H * (6 * chunk * D + 4 * D * D)
     adam = sum(p.numel() * (3 * p.element_size() + 16) for p in model.parameters())
     return (flops / BF16_FLOPS + adam / HBM_BYTES_PER_S) * 1e3
 
@@ -3119,14 +3204,18 @@ def train_parity(arch, dev, batch, seq, layers=0):
     """One step's gradients of ``arch`` (cut to ``layers`` at full width
     where given) through the kernels and through the plain versions
     (``use_backend("torch")``), both in bf16, each against the plain
-    versions on an fp32 copy of the same weights on the same batch: for
-    each parameter ||g - g32|| / ||g32||.  The kernels' worst may be at
-    most twice the plain bf16 path's worst (the rule of ``parity_phase``:
-    bf16 itself is the floor)."""
+    versions on an fp32 copy of the same weights on the same batch (with
+    the patch or frame embeddings the config needs): for each parameter
+    ||g - g32|| / ||g32||.  The kernels' worst may be at most twice the
+    plain bf16 path's worst (the rule of ``parity_phase``: bf16 itself is
+    the floor).  A MoE model's bf16 paths take the fp32 run's routes
+    (``moe_routes``), as in ``parity_phase``: bf16 flips 7-16 % of the
+    top-k sets, and a flipped token measures the flip, not the kernels."""
+    import numpy as np
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.data.synthetic import SyntheticConfig, SyntheticDataset
+    from repro_torch.data.synthetic import SyntheticConfig, SyntheticDataset, batch_for_model
     from repro_torch.kernels import dispatch
     from repro_torch.models import model as model_lib
     from repro_torch.training import step as step_lib
@@ -3136,38 +3225,56 @@ def train_parity(arch, dev, batch, seq, layers=0):
         cfg = cfg.replace(num_layers=layers)
     data = SyntheticDataset(SyntheticConfig(vocab_size=cfg.vocab_size, seq_len=seq,
                                             batch_size=batch, seed=1)).batch_at(0)
-    data = {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
+    data = {k: torch.from_numpy(v).to(dev) for k, v in batch_for_model(
+        cfg, data, np.random.default_rng(1)).items()}
     loss_fn = step_lib.make_loss_fn(cfg, remat=False)
+    routes = [] if cfg.is_moe else None
 
-    def grads(m):
+    def grads(m, log=None, forced=None):
         named = dict(m.named_parameters())
         for p in named.values():
             p.requires_grad_(True)
-        loss, _ = loss_fn(m, data)
-        return loss.item(), dict(zip(named, torch.autograd.grad(loss, list(named.values()))))
+        with moe_routes(log, forced) if cfg.is_moe else contextlib.nullcontext():
+            loss, _ = loss_fn(m, data)
+            return loss.item(), dict(zip(named, torch.autograd.grad(loss, list(named.values()))))
 
     model = model_lib.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
-    kern = grads(model)
     with dispatch.use_backend("torch"):
-        plain = grads(model)
         ref32 = model_lib.Model(cfg.replace(dtype="float32", param_dtype="float32"), device=dev)
         with torch.no_grad():
             for (_, a), (_, b) in zip(ref32.named_parameters(), model.named_parameters()):
                 a.copy_(b.float())
-        del model
-        ref = grads(ref32)
-    del ref32
+        ref = grads(ref32, log=routes)
+        del ref32
+        plain = grads(model, forced=routes)
+    kern = grads(model, forced=routes)
+    del model
+
+    # an sLSTM cell's input-gate bias from a fresh state has a gradient of
+    # zero in exact arithmetic (a shift of a unit's log_i at every step
+    # shifts its stabilizer, which starts at -1e30, by as much): each path
+    # gives rounding noise there, whose ratio to fp32's noise measures
+    # nothing, so those leaves are printed beside the rest, not held
+    zero = {f"layers.{i}.cell.b_i" for i, k in enumerate(cfg.blocks()) if k == "slstm"}
 
     def rel(g):
         return {k: ((g[k].float() - g32).norm() / g32.norm().clamp_min(1e-30)).item()
                 for k, g32 in ref[1].items()}
 
     rk, rp = rel(kern[1]), rel(plain[1])
-    worst_k, worst_p = max((v, k) for k, v in rk.items()), max((v, k) for k, v in rp.items())
+    held_k = {k: v for k, v in rk.items() if k not in zero}
+    held_p = {k: v for k, v in rp.items() if k not in zero}
+    worst_k = max((v, k) for k, v in held_k.items())
+    worst_p = max((v, k) for k, v in held_p.items())
+    top = max(g.norm().item() for g in ref[1].values())
     row = dict(arch=arch, layers=cfg.num_layers, batch=batch, seq=seq, loss_kernels=kern[0],
                loss_plain=plain[0], loss_fp32=ref[0], worst_kernels=worst_k,
-               worst_plain=worst_p, median_kernels=sorted(rk.values())[len(rk) // 2],
-               median_plain=sorted(rp.values())[len(rp) // 2])
+               worst_plain=worst_p, median_kernels=sorted(held_k.values())[len(held_k) // 2],
+               median_plain=sorted(held_p.values())[len(held_p) // 2],
+               routes_forced_to_fp32=cfg.is_moe,
+               zero_gradient_leaves={k: dict(kernels=rk[k], plain=rp[k],
+                                             fp32_norm=ref[1][k].norm().item(),
+                                             largest_fp32_norm=top) for k in sorted(zero)})
     log("train gradient parity: " + json.dumps(row))
     check(worst_k[0] <= 2 * worst_p[0],
           f"{arch}: the kernels' gradients are {worst_k} from fp32, more than twice the "
@@ -3222,6 +3329,77 @@ def train_breakdown(dev):
     return row
 
 
+def train_run(dev, counters, paths, arch, label, argv, forwards, recomputed=0, layers=0):
+    """``launch.train.run`` on ``argv``, its launches held to
+    ``train_launches`` and read into ``paths``; ``layers``: the config cut
+    to that many layers at full width (the driver has no depth flag).
+    Returns (the printed keys, the run's record with its state freed, the
+    peak GiB, the step's bound in ms)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as train_lib
+
+    args = train_lib.build_argparser().parse_args(["--arch", arch] + argv)
+    cfg = get_config(arch)
+    if layers:
+        cfg = cfg.replace(num_layers=layers)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts(counters)
+    with patched(train_lib, "get_config", lambda name, smoke=False: cfg):
+        out, rec = train_lib.run(args)
+    launched = read_counts(counters)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    want = train_launches(cfg, forwards, recomputed)
+    log(f"{arch} {label} ({cfg.num_layers} layers): {json.dumps(out)}; launches {launched}, "
+        f"expected {want}; losses {rec.losses}")
+    check(launched == want, f"{arch} {label}: launch counts {launched} != {want}")
+    check(all(math.isfinite(x) for x in rec.losses), f"{arch} {label}: a loss is not finite")
+    paths[f"{arch} {label}"] = launched
+    bound = train_bound_ms(cfg, rec.state.model, args.batch, args.seq_len)
+    rec.state = None  # free the model and the moments
+    return out, rec, peak, bound
+
+
+def family_train_phase(dev, counters, paths):
+    """One model of each other family at full width through
+    ``launch.train`` (``FAMILY_TRAIN``: the depth cut through the config,
+    ``train_run``), ``FAMILY_TRAIN_STEPS`` steps with NVML energy: finite
+    losses that fall, exact launches; seamless-m4t-large-v2 also 2 steps
+    with ``--remat`` (the encoder's layers recomputed); then each model's
+    gradient parity (``FAMILY_PARITY``)."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    rows = []
+    for arch, (layers, b, seq, lr) in FAMILY_TRAIN.items():
+        t = time.perf_counter()
+        shape = ["--batch", str(b), "--seq-len", str(seq), "--lr", lr] + FAMILY_ARGS
+        out, rec, peak, bound = train_run(
+            dev, counters, paths, arch, "train",
+            shape + ["--steps", str(FAMILY_TRAIN_STEPS), "--energy"], FAMILY_TRAIN_STEPS,
+            layers=layers)
+        check(rec.losses[-1] < rec.losses[0], f"{arch}: the loss did not fall")
+        row = train_stats(arch, "train", out, rec, b * seq, bound, peak)
+        row.update(layers=layers or get_config(arch).num_layers, batch=b, text_tokens=seq, lr=lr)
+        rows.append(row)
+        if arch == SEAMLESS:  # the encoder's layers recomputed too
+            out, rec, peak, bound = train_run(dev, counters, paths, arch, "train remat",
+                                              shape + ["--steps", "2", "--remat"], 2,
+                                              recomputed=2)
+            rows.append(train_stats(arch, "train remat", out, rec, b * seq, bound, peak))
+        gc.collect()
+        torch.cuda.empty_cache()
+        rows.append(train_parity(arch, dev, *FAMILY_PARITY[arch]))
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"{arch} train and parity took {time.perf_counter() - t:.1f} s")
+    return rows
+
+
 def train_phase(dev, counters, paths):
     """``launch.train`` at full width on the card: tinyllama-1.1b for
     ``TRAIN_STEPS`` steps of 8 x 1024 with NVML energy (the loss must
@@ -3231,37 +3409,25 @@ def train_phase(dev, counters, paths):
     with ``--remat``; recurrentgemma-2b for ``HYBRID_TRAIN_STEPS`` steps
     of 2 x 2304.  Every run's launches are exact for the forwards it ran
     (remat's recompute counted), read into ``paths``.  Then the gradient
-    parity of both models (``train_parity``)."""
+    parity of both models (``train_parity``).  Then one model per other
+    family (``FAMILY_TRAIN``: xlstm-1.3b, seamless-m4t-large-v2, also 2
+    steps with ``--remat``, and moonshot-v1-16b-a3b and llava-next-34b cut
+    to 4 layers), each for ``FAMILY_TRAIN_STEPS`` steps with NVML energy
+    (finite losses that fall, exact launches) and its gradient parity
+    (``FAMILY_PARITY``)."""
     import shutil
     import tempfile
 
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.launch import train as train_lib
     from repro_torch.training import checkpoint as ckpt_lib
 
     t0 = time.perf_counter()
     rows = []
 
-    def run(arch, label, argv, forwards, recomputed=0):
-        args = train_lib.build_argparser().parse_args(["--arch", arch] + argv)
-        gc.collect()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats(dev)
-        reset_counts(counters)
-        out, rec = train_lib.run(args)
-        launched = read_counts(counters)
-        peak = torch.cuda.max_memory_allocated(dev) / 2**30
-        want = train_launches(get_config(arch), forwards, recomputed)
-        log(f"{arch} {label}: {json.dumps(out)}; launches {launched}, expected {want}; "
-            f"losses {rec.losses}")
-        check(launched == want, f"{arch} {label}: launch counts {launched} != {want}")
-        check(all(math.isfinite(x) for x in rec.losses), f"{arch} {label}: a loss is not finite")
-        paths[f"{arch} {label}"] = launched
-        bound = train_bound_ms(get_config(arch), rec.state.model, args.batch, args.seq_len)
-        rec.state = None  # free the model and the moments
-        return out, rec, peak, bound
+    def run(*args, **kwargs):
+        return train_run(dev, counters, paths, *args, **kwargs)
 
     B, S = 8, 1024
     out, whole, peak, bound = run(TRAIN_ARCH, "train", TRAIN + [
@@ -3331,6 +3497,7 @@ def train_phase(dev, counters, paths):
         rows.append(train_parity(arch, dev, b, seq, layers))
         gc.collect()
         torch.cuda.empty_cache()
+    rows += family_train_phase(dev, counters, paths)
     log(f"train phase took {time.perf_counter() - t0:.1f} s")
     return rows
 
@@ -3445,6 +3612,10 @@ def main():
               f"K1 or K2 never launched on the {TRAIN_ARCH} {path} path")
     check(paths[f"{HYBRID} train"]["linear_recurrence"] > 0,
           f"K5 never launched on the {HYBRID} train path")
+    check(paths[f"{XLSTM} train"]["rmsnorm"] > 0, f"K1 never launched on the {XLSTM} train path")
+    for arch in (SEAMLESS, MOONSHOT, LLAVA):
+        check(all(paths[f"{arch} train"][k] > 0 for k in ("rmsnorm", "flash_attention")),
+              f"K1 or K2 never launched on the {arch} train path")
     for entry in entries:
         k = entry["name"]
         entry["launches_by_path"] = {path: counts[k] for path, counts in paths.items()}

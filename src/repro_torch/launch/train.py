@@ -9,11 +9,15 @@ with ``--energy``, the energy of the whole run.
     python -m repro_torch.launch.train --arch tinyllama-1.1b --smoke --device cpu \
         --steps 10 --batch 4 --seq-len 32 --ckpt-dir /tmp/run1
 
-One device (``--mesh host``): the dense decoders and the RG-LRU hybrid.
-The weights are drawn from ``--seed`` on the device; parameters keep the
-config's dtype (bf16 at full size) and the moments are fp32.  ``--energy``
-reads NVML on the GPU and /proc/stat on the CPU over the steps (the final
-checkpoint's write left out).  Prints the reference's output keys as JSON.
+One device (``--mesh host``), every architecture of the registry: the
+dense decoders, RG-LRU, xLSTM, MoE, encoder-decoder (frame embeddings
+drawn beside the tokens) and vision-prefix (patch embeddings drawn beside
+the tokens, the loss over the text positions).  The weights are drawn
+from ``--seed`` on the device; parameters keep the config's dtype (bf16
+at full size) and the moments are fp32.  ``--energy`` reads NVML on the
+GPU and /proc/stat on the CPU over the steps and the end-of-run
+checkpoint's write, as the reference's window does.  Prints the
+reference's output keys as JSON.
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ from repro_torch.training.fault import PreemptionHandler, RunPosition, Straggler
 from repro_torch.training.optimizer import AdamW, warmup_cosine_schedule
 
 SHARDED = ("--mesh production (sharded training) is not ported: it is ROADMAP queue 1 "
-           "item 6b, after item 5")
+           "item 2b, after item 3")
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -155,15 +159,14 @@ def run(args) -> Tuple[Dict[str, float], TrainRun]:
                       f"lr {float(metrics['lr']):.2e} {timing.seconds * 1e3:.0f}ms", flush=True)
             if args.ckpt_dir and (i + 1) % args.ckpt_every == 0:
                 _save(args, state, i + 1)
+        # preemption / end-of-run checkpoint, inside the energy window
+        if args.ckpt_dir:
+            _save(args, state, final_step)
     finally:
         it.close()
         handler.uninstall()
         if monitor is not None:
             monitor.__exit__(None, None, None)
-
-    # preemption / end-of-run checkpoint
-    if args.ckpt_dir:
-        _save(args, state, final_step)
     wall = time.perf_counter() - t_start
     losses = record.losses
     out = {

@@ -241,14 +241,16 @@ def apply_cross_attention_seq(
     positions: torch.Tensor,   # (B, S) int32, the states' positions
     memory: torch.Tensor,      # (B, T, d) encoder output
     mem_positions: torch.Tensor,  # (B, T) int32 frame indices
-    kv_cache: Dict,
+    kv_cache: Optional[Dict] = None,
 ) -> torch.Tensor:
     """A prompt or chunk's cross attention over the encoder ``memory``:
     its K/V projected once, written into the entry for the decode steps
-    (the reference's ``precompute_cross_kv``), and attended by K2."""
+    (the reference's ``precompute_cross_kv``) where one is given (the
+    training forward has none), and attended by K2."""
     q = _project(x, p.wq, None)
     k, v = _project(memory, p.wk, None), _project(memory, p.wv, None)
-    cache_lib.fill_cross_cache(kv_cache, k, v)
+    if kv_cache is not None:
+        cache_lib.fill_cross_cache(kv_cache, k, v)
     o = dispatch.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                  q_positions=positions, k_positions=mem_positions,
                                  causal=False)

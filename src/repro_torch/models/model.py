@@ -42,7 +42,9 @@ Entry points:
     the speculative verify window, with every column's logits).
   * ``Model.decode_step`` — one token against the cache (the TPOT step).
   * ``Model.forward_train`` — teacher-forced fp32 logits of a whole
-    sequence with no cache, differentiable (K1, K2 and K5 through their
+    sequence with no cache (every family: the patches before the tokens,
+    the encoder and cross attention, the recurrent cells from a fresh
+    state), differentiable (K1, K2 and K5 through their
     ``autograd.Function``s), optionally rematerialised per group.
 """
 
@@ -304,34 +306,68 @@ def _apply_block_decode(p: Block, cfg: ModelConfig, x: torch.Tensor,
     return _mlp_branch(p, cfg, x, h, a)
 
 
-def train_refusal(cfg: ModelConfig) -> Optional[str]:
-    """Why the training forward does not run ``cfg`` yet, or None: it runs
-    the dense decoders and the RG-LRU hybrid."""
-    if cfg.is_moe or cfg.is_encdec or cfg.num_vision_tokens or any(
-            k in XLSTM_BLOCKS for k in cfg.block_pattern):
-        return (f"{cfg.name}: training runs the dense and RG-LRU decoders only; MoE, "
-                f"xLSTM, encoder-decoder and vision training is ROADMAP queue 1 item 6b")
-    return None
-
-
 def _apply_block_train(p: Block, cfg: ModelConfig, x: torch.Tensor,
-                       r: Optional[torch.Tensor], positions: torch.Tensor, rope) -> Residual:
+                       r: Optional[torch.Tensor], positions: torch.Tensor, rope,
+                       memory: Memory = None) -> Residual:
     """A block of the training forward: the prefill's arithmetic with no
-    cache, an RG-LRU from a fresh zero state (the reference passes
-    ``cache=None``), nothing written in place."""
-    if p.kind == "rglru":
-        x, h = add_norm(p.norm1, x, r, cfg.norm_eps)
-        state = cache_lib.init_rglru_state(x.shape[0], cfg.resolved_lru_width,
-                                           cfg.rglru_conv_width, x.dtype, x.device)
-        y, _ = rec_lib.apply_rglru_seq(p.rec, h, cfg, state)
-        x, h = add_norm(p.norm2, x, y, cfg.norm_eps)
-        return x, apply_mlp(p.mlp, h, cfg.mlp_act)
+    cache, a recurrent cell from a fresh state (its initial values; the
+    reference passes ``cache=None``), cross attention over ``memory``
+    with its K/V projected and attended, never stored, and nothing
+    written in place."""
     if p.kind == "ffn":
         return _ffn_block(p, cfg, x, r)
+    if p.kind not in ATTN_BLOCKS:
+        norm = p.norm if p.kind in XLSTM_BLOCKS else p.norm1
+        x, h = add_norm(norm, x, r, cfg.norm_eps)
+        state = cache_lib.init_block_cache(cfg, p.kind, x.shape[0], 0, x.dtype, x.device)
+        if p.kind == "rglru":
+            y, _ = rec_lib.apply_rglru_seq(p.rec, h, cfg, state)
+            x, h = add_norm(p.norm2, x, y, cfg.norm_eps)
+            return x, apply_mlp(p.mlp, h, cfg.mlp_act)
+        fn = rec_lib.apply_mlstm_seq if p.kind == "mlstm" else rec_lib.apply_slstm_seq
+        return x, fn(p.cell, h, cfg, state)[0]
     x, h = add_norm(p.norm1, x, r, cfg.norm_eps)
     a = attn_lib.apply_attention_train(p.attn, h, cfg, positions, rope=rope,
                                        window=_window(cfg, p.kind))
+    if hasattr(p, "cross"):
+        x, a = _cross(p, cfg, x, a, lambda hc: attn_lib.apply_cross_attention_seq(
+            p.cross, hc, positions, *memory))
     return _mlp_branch(p, cfg, x, h, a)
+
+
+def _encoder_block(p: Block, cfg: ModelConfig, x: torch.Tensor, r: Optional[torch.Tensor],
+                   positions: torch.Tensor, rope) -> Residual:
+    """An encoder block: unmasked self-attention over the frames, then its
+    dense MLP."""
+    x, h = add_norm(p.norm1, x, r, cfg.norm_eps)
+    a = attn_lib.apply_attention_train(p.attn, h, cfg, positions, rope=rope, causal=False)
+    return _mlp_branch(p, cfg, x, h, a)
+
+
+def _run_stack(layers, cfg: ModelConfig, x: torch.Tensor, remat: bool,
+               apply: Callable[[Block, torch.Tensor, Optional[torch.Tensor]], Residual]
+               ) -> Residual:
+    """``apply`` over ``layers`` in order from the residual pair (x, None).
+    With ``remat`` each group (one repetition of ``cfg.block_pattern``)
+    runs under ``checkpoint``, so the backward recomputes it instead of
+    keeping its activations, as the reference's
+    ``jax.checkpoint(nothing_saveable)`` over its scanned groups; the
+    remainder layers are not wrapped."""
+    def run(x, r, blocks):
+        for blk in blocks:
+            x, r = apply(blk, x, r)
+        return x, r
+
+    plen, (n_groups, _) = len(cfg.block_pattern), cfg.layer_groups()
+    layers = list(layers)
+    r = None
+    for g in range(n_groups):
+        group = layers[g * plen:(g + 1) * plen]
+        if remat:
+            x, r = checkpoint(run, x, r, group, use_reentrant=False)
+        else:
+            x, r = run(x, r, group)
+    return run(x, r, layers[n_groups * plen:])
 
 
 class Model(nn.Module):
@@ -386,11 +422,12 @@ class Model(nn.Module):
             x = torch.cat([vision_embeds.to(x.dtype), x], dim=1)
         return x
 
-    def _encode(self, enc_embeds: Optional[torch.Tensor]) -> Memory:
+    def _encode(self, enc_embeds: Optional[torch.Tensor], remat: bool = False) -> Memory:
         """The encoder over the frame embeddings (B, T, d), none without an
         encoder: its output and the frames' indices, which its attention
         rotates by and the decoder's cross attention takes as key
-        positions."""
+        positions.  ``remat`` recomputes each encoder layer in the
+        backward (``_run_stack``)."""
         if not self.cfg.is_encdec:
             return None
         if enc_embeds is None:
@@ -400,48 +437,29 @@ class Model(nn.Module):
         B, T = x.shape[:2]
         positions = torch.arange(T, dtype=torch.int32, device=x.device).expand(B, T).contiguous()
         rope = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
-        r = None
-        for blk in enc.layers:
-            x, h = add_norm(blk.norm1, x, r, cfg.norm_eps)
-            a = attn_lib.apply_attention_train(blk.attn, h, cfg, positions, rope=rope,
-                                                causal=False)
-            x, r = _mlp_branch(blk, cfg, x, h, a)
+        x, r = _run_stack(enc.layers, cfg, x, remat,
+                          lambda blk, x, r: _encoder_block(blk, cfg, x, r, positions, rope))
         _, memory = add_norm(enc.final_norm, x, r, cfg.norm_eps)
         return memory, positions
 
     def forward_train(self, batch: Dict[str, torch.Tensor], remat: bool = True) -> torch.Tensor:
-        """Teacher-forced fp32 logits (B, S, vocab) of ``batch["tokens"]``
-        (B, S), the reference's ``forward_train``: no cache and no
-        ``no_grad``, the prefill's fused residual pattern.  ``remat``
-        recomputes each group (one repetition of ``block_pattern``) in the
-        backward instead of keeping its activations, as the reference's
-        ``jax.checkpoint(nothing_saveable)`` over its scanned groups; the
-        remainder layers are not wrapped.  The kernels' forwards launch
-        again in a recompute."""
+        """Teacher-forced fp32 logits (B, nv + S, vocab) of
+        ``batch["tokens"]`` (B, S), after a vision config's
+        ``batch["vision_embeds"]`` (nv of them) and over an encoder-decoder
+        config's encoder output of ``batch["enc_embeds"]``, the
+        reference's ``forward_train``: no cache and no ``no_grad``, the
+        prefill's fused residual pattern.  ``remat`` recomputes each group
+        of the decoder and of the encoder in the backward
+        (``_run_stack``); the kernels' forwards launch again in a
+        recompute."""
         cfg = self.cfg
-        refusal = train_refusal(cfg)
-        if refusal:
-            raise ValueError(refusal)
-        x = embed_tokens(self.embed, batch["tokens"], cfg.emb_scale, cfg.d_model)
+        x = self._embed_inputs(batch["tokens"], batch.get("vision_embeds"))
+        memory = self._encode(batch.get("enc_embeds"), remat=remat)
         B, S = x.shape[:2]
         positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S).contiguous()
         rope = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
-
-        def run(x, r, blocks):
-            for blk in blocks:
-                x, r = _apply_block_train(blk, cfg, x, r, positions, rope)
-            return x, r
-
-        plen, (n_groups, _) = len(cfg.block_pattern), cfg.layer_groups()
-        layers = list(self.layers)
-        r = None
-        for g in range(n_groups):
-            group = layers[g * plen:(g + 1) * plen]
-            if remat:
-                x, r = checkpoint(run, x, r, group, use_reentrant=False)
-            else:
-                x, r = run(x, r, group)
-        x, r = run(x, r, layers[n_groups * plen:])
+        x, r = _run_stack(self.layers, cfg, x, remat, lambda blk, x, r: _apply_block_train(
+            blk, cfg, x, r, positions, rope, memory))
         _, h = add_norm(self.final_norm, x, r, cfg.norm_eps)
         return unembed(self._head(), h, cfg.logit_softcap)
 

@@ -67,16 +67,17 @@ def warmup_cosine_schedule(peak_lr: float, warmup_steps: int, total_steps: int,
 def reference_ndims(cfg, params: Dict[str, torch.Tensor]) -> Dict[str, int]:
     """The dimension count of each named parameter's leaf in the
     reference's tree: one more than the port's tensor for a layer inside
-    one of the ``cfg.layer_groups()`` full repetitions of the pattern,
-    which the reference stacks (``layers.<i>.*`` for i below n_groups *
-    len(pattern)); the port's own count elsewhere.  ``params`` maps each
-    parameter's name to its tensor."""
+    one of the full repetitions of a stack's pattern, which the reference
+    stacks (``layers.<i>.*`` for i below ``n_groups * len(pattern)`` of
+    ``cfg.layer_groups()``; every ``encoder.layers.<i>.*``, the encoder's
+    pattern being one attention block); the port's own count elsewhere.
+    ``params`` maps each parameter's name to its tensor."""
     n_groups, _ = cfg.layer_groups()
     grouped = n_groups * len(cfg.block_pattern)
     out = {}
     for name, p in params.items():
-        m = re.match(r"layers\.(\d+)\.", name)
-        out[name] = p.dim() + (1 if m and int(m.group(1)) < grouped else 0)
+        m = re.match(r"(encoder\.)?layers\.(\d+)\.", name)
+        out[name] = p.dim() + (1 if m and (m.group(1) or int(m.group(2)) < grouped) else 0)
     return out
 
 

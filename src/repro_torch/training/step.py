@@ -39,9 +39,6 @@ class TrainState:
 def train_state(model: model_lib.Model, optimizer: AdamW) -> TrainState:
     """A state at step 0 for ``model`` (drawn or bridged), its parameters
     set to require grad."""
-    refusal = model_lib.train_refusal(model.cfg)
-    if refusal:
-        raise ValueError(refusal)
     for p in model.parameters():
         p.requires_grad_(True)
     return TrainState(model=model, opt=optimizer.init(dict(model.named_parameters())))
@@ -51,9 +48,6 @@ def init_state(cfg: ModelConfig, optimizer: AdamW, generator: torch.Generator,
                device="cuda") -> TrainState:
     """A model drawn from ``generator`` (which lives on ``device``) and its
     optimizer state."""
-    refusal = model_lib.train_refusal(cfg)
-    if refusal:  # before any weight is drawn
-        raise ValueError(refusal)
     return train_state(model_lib.init(cfg, generator, device), optimizer)
 
 
@@ -83,7 +77,10 @@ def make_loss_fn(cfg: ModelConfig, remat: bool = True
                  ) -> Callable[[model_lib.Model, Batch], Tuple[torch.Tensor, Dict]]:
     def loss_fn(model: model_lib.Model, batch: Batch):
         logits = model.forward_train(batch, remat=remat)
-        return cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
+        labels = batch["labels"]
+        if cfg.num_vision_tokens and logits.shape[1] != labels.shape[1]:
+            logits = logits[:, cfg.num_vision_tokens:]  # text positions only
+        return cross_entropy(logits, labels, batch.get("loss_mask"))
 
     return loss_fn
 

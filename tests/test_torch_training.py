@@ -9,12 +9,15 @@ recurrentgemma-2b: window, softcap, RG-LRU through K5's plain version);
 the 12-step fp32 trajectory against ``jax.jit(make_train_step(...))``;
 remat; the differentiable head product; the kernels' autograd Functions
 (their forward swapped for the plain version: the kernels run on a GPU only);
-and ``launch.train.main`` end to end with a resume.  The reference's own
-driver is not called (ROADMAP "Reference caveat").
+and ``launch.train.main`` end to end with a resume, its energy window
+holding the end-of-run checkpoint.  The reference's own driver is not
+called (ROADMAP "Reference caveat").  The other families' training is held
+in ``test_torch_train_families.py`` and ``test_torch_train_xlstm.py``.
 """
 
 import functools
 import json
+import time
 
 import pytest
 
@@ -32,6 +35,7 @@ from repro.training import optimizer as jax_opt  # noqa: E402
 from repro.training import step as jax_step  # noqa: E402
 from repro_torch.bridge import params_from_jax, reference_by_port_name  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import energy as energy_lib  # noqa: E402
 from repro_torch.data.synthetic import SyntheticConfig, SyntheticDataset  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
@@ -48,7 +52,6 @@ from repro_torch.training import step as step_lib  # noqa: E402
 from test_torch_unified import shared_jax_compiles  # noqa: E402,F401 (autouse)
 
 GRAD_ARCHS = ["qwen1.5-0.5b", "tinyllama-1.1b", "command-r-plus-104b", "recurrentgemma-2b"]
-REFUSED = ["qwen3-moe-30b-a3b", "xlstm-1.3b", "seamless-m4t-large-v2", "llava-next-34b"]
 # fp32 on both sides, sums in another order: each gradient within this
 # share of its largest entry (~2e-6 measured)
 GRAD_TOL = 2e-5
@@ -82,26 +85,30 @@ def _batch(cfg, B, index=0, seed=3):
 @functools.lru_cache(maxsize=None)
 def _reference_init(arch):
     """Parameters of ``arch``'s smoke config in the reference's tree
-    (groups stacked), drawn by the port's ``init`` at the reference
-    initializer's scales: the shapes come from ``jax.eval_shape``, so
-    no reference init is compiled."""
+    (the decoder's and an encoder's groups stacked), drawn by the port's
+    ``init`` at the reference initializer's scales: the shapes come from
+    ``jax.eval_shape``, so no reference init is compiled."""
     jcfg, cfg = jax_config(arch, smoke=True), get_config(arch, smoke=True)
     shapes = jax.eval_shape(lambda k: jax_model.init(jcfg, k)[0], jax.random.PRNGKey(0))
     port = {k: p.detach().numpy() for k, p in model_lib.init(
         cfg, torch.Generator().manual_seed(0), device="cpu").named_parameters()}
-    plen, (n_groups, _) = len(cfg.block_pattern), cfg.layer_groups()
+    stacks = {"decoder": (cfg, ""), "encoder": (model_lib._enc_cfg(cfg), "encoder.")}
 
     def leaf(path, s):
         keys = [str(getattr(p, "key", p)) for p in path]
-        if keys[0] != "decoder":
+        if keys[0] not in stacks:
             name = ".".join(keys)
-        elif keys[1] == "groups":
-            i, rest = int(keys[2]), ".".join(keys[3:])
-            return np.stack([port[f"layers.{g * plen + i}.{rest}"] for g in range(n_groups)])
-        elif keys[1] == "rest":
-            name = f"layers.{n_groups * plen + int(keys[2])}." + ".".join(keys[3:])
         else:
-            name = ".".join(keys[1:])
+            c, pre = stacks[keys[0]]
+            plen, (n_groups, _) = len(c.block_pattern), c.layer_groups()
+            if keys[1] == "groups":
+                i, rest = int(keys[2]), ".".join(keys[3:])
+                return np.stack([port[f"{pre}layers.{g * plen + i}.{rest}"]
+                                 for g in range(n_groups)])
+            if keys[1] == "rest":
+                name = f"{pre}layers.{n_groups * plen + int(keys[2])}." + ".".join(keys[3:])
+            else:
+                name = pre + ".".join(keys[1:])
         assert port[name].shape == s.shape, name
         return port[name]
 
@@ -125,9 +132,10 @@ def _by_name(cfg, tree):
     return reference_by_port_name(cfg, jax.tree.map(np.asarray, tree))
 
 
-def _assert_tree(cfg, ref_tree, port: dict, rel=None, atol=None):
-    """Each leaf within ``rel`` of its largest reference entry, or ``atol``."""
-    ref = _by_name(cfg, ref_tree)
+def _assert_tree(cfg, ref_tree, port: dict, rel=None, atol=None, flat=False):
+    """Each leaf within ``rel`` of its largest reference entry, or ``atol``;
+    ``flat``: ``ref_tree`` is already by port name."""
+    ref = ref_tree if flat else _by_name(cfg, ref_tree)
     assert set(ref) == set(port)
     for k, t in port.items():
         a, b = ref[k].astype(np.float32), t.detach().float().numpy()
@@ -226,11 +234,14 @@ def _reference_leaf_ndims(jcfg, cfg):
     return {k: int(v) for k, v in reference_by_port_name(cfg, tree).items()}
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "tinyllama-1.1b"])
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "tinyllama-1.1b", "moonshot-v1-16b-a3b",
+                                  "xlstm-1.3b", "seamless-m4t-large-v2", "llava-next-34b"])
 def test_decay_set_is_read_on_the_reference_tree(arch):
     """recurrentgemma's smoke config has a remainder layer (``decoder.rest``):
     its norm scales and ``lambda`` do not decay, the grouped layers' do;
-    the port's own tensors are all 1-D there."""
+    the port's own tensors are all 1-D there.  The reference stacks the
+    encoder's layers too (``encoder.groups``), so seamless's encoder norm
+    scales decay and its encoder's final norm does not."""
     jcfg, cfg = jax_config(arch, smoke=True), get_config(arch, smoke=True)
     model = model_lib.init(cfg, torch.Generator().manual_seed(0), device="cpu")
     params = dict(model.named_parameters())
@@ -241,6 +252,8 @@ def test_decay_set_is_read_on_the_reference_tree(arch):
     assert own < ref and "final_norm.scale" not in ref
     if cfg.layer_groups()[1]:
         assert "layers.3.norm1.scale" not in ref and "layers.0.norm1.scale" in ref
+    if cfg.is_encdec:
+        assert "encoder.layers.1.norm2.scale" in ref and "encoder.final_norm.scale" not in ref
 
 
 # -- (b) the loss ---------------------------------------------------------------
@@ -314,14 +327,6 @@ def test_remat_equals_no_remat(arch, reference_grads):
     assert l0.item() == l1.item()
     for k in g0:
         torch.testing.assert_close(g1[k], g0[k], rtol=0, atol=0, msg=k)
-
-
-@pytest.mark.parametrize("arch", REFUSED)
-def test_other_families_are_refused_by_name(arch):
-    cfg = get_config(arch, smoke=True)
-    opt = opt_lib.AdamW(schedule=opt_lib.constant_schedule(1e-3))
-    with pytest.raises(ValueError, match="queue 1 item 6b"):
-        step_lib.init_state(cfg, opt, torch.Generator().manual_seed(0), "cpu")
 
 
 # -- (d) the 12-step trajectory ------------------------------------------------------
@@ -504,6 +509,39 @@ def test_train_driver_end_to_end_with_a_resume(tmp_path, capsys, monkeypatch):
         "LATEST", "step_00000003", "step_00000006", "step_00000010"]
 
 
+def test_train_driver_energy_window_holds_the_final_checkpoint(tmp_path, monkeypatch):
+    """``--energy`` with ``--ckpt-dir``: the power monitor is still open
+    while the end-of-run checkpoint is written, as the reference's window
+    is, so ``joules`` counts the samples the write took (a stub reader at
+    a constant 100 W, the write slowed by 0.3 s)."""
+    WATTS, PAUSE = 100.0, 0.3
+
+    class Constant(energy_lib.PowerReader):
+        def read_watts(self):
+            return [WATTS]
+
+    saves = []
+    real_save = train_lib.ckpt_lib.save
+
+    def slow_save(*args, **kwargs):
+        t0 = time.perf_counter()
+        time.sleep(PAUSE)
+        real_save(*args, **kwargs)
+        saves.append((t0, time.perf_counter()))
+
+    monkeypatch.setattr(train_lib.energy_lib, "ProcStatReader", Constant)
+    monkeypatch.setattr(train_lib.ckpt_lib, "save", slow_save)
+    out, rec = train_lib.run(train_lib.build_argparser().parse_args(
+        DRIVER + ["--steps", "2", "--energy", "--ckpt-dir", str(tmp_path / "ck")]))
+    (s0, s1), = saves  # the end-of-run checkpoint alone
+    t0, t1 = rec.monitor.window
+    assert t0 < s0 and s1 <= t1
+    assert len([t for t, _ in rec.monitor._samples if s0 <= t <= s1]) >= 2
+    assert rec.monitor.joules_between(s0, s1) == pytest.approx(WATTS * (s1 - s0), rel=1e-6)
+    assert out["joules"] == pytest.approx(WATTS * (t1 - t0), rel=1e-3)
+    assert out["joules"] >= WATTS * (s1 - t0) * (1 - 1e-3)
+
+
 def test_train_driver_refuses_sharded_training():
-    with pytest.raises(ValueError, match="queue 1 item 6b"):
+    with pytest.raises(ValueError, match="queue 1 item 2b"):
         train_lib.main(DRIVER + ["--steps", "1", "--mesh", "production"])
