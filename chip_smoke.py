@@ -88,7 +88,17 @@ or of the ``repro`` package.  Phases:
    a 10 s window, NVML, ``--check``), closed loop at concurrency 8 and
    open loop at 4 requests/s: every request sent finished without an
    error with its budget, launch counts exact, the TTFT split printed.
-7. Phases 3-6 again for the RG-LRU hybrid recurrentgemma-2b (26 layers:
+7. The dry-run (``dryrun_phase``), once llama3.1-8b is freed:
+   ``launch.dryrun.run_cell`` on this machine's host for one cell of each
+   shape (tinyllama-1.1b train_4k, qwen3-moe-30b-a3b prefill_32k,
+   command-r-plus-104b decode_32k, xlstm-1.3b long_500k; llama3.1-8b's
+   long_500k skipped, as ``should_skip`` says), no kernel launched; then
+   the calibration: llama3.1-8b at full width, its prefill of 1 x 8192
+   and its decode step at 32 x 8192 (every key filled) counted at
+   ``chips=1`` and run through K1-K3, timed by ``time_callable``, every
+   sample at least the dry-run's bound, launches exact; the dry-run's
+   FLOPs beside ``prefill_flops`` and ``train_flops``.
+8. Phases 3-6 again for the RG-LRU hybrid recurrentgemma-2b (26 layers:
    18 RG-LRU, 8 local attention over a 2048-token ring), once llama3.1-8b
    is freed: measure with exact launch counts (K5 18 per forward pass),
    graph against eager, the profile, 16 requests served (paged, CUDA-graph
@@ -96,7 +106,7 @@ or of the ``repro`` package.  Phases:
    chunked through the unified step, and the parity over a 2304-token
    prompt, past the window, so the ring wraps (whole and in chunks), with
    the tied embedding table scaled by 0.05 so that rows decide.
-8. The xLSTM family, each model drawn once the one before it is freed:
+9. The xLSTM family, each model drawn once the one before it is freed:
    phases 3-6 for nemotron-h-8b at full width (52 layers: 32 mLSTM cells
    of 128 heads x 64, 14 FFN-only layers, 6 GQA attention layers; K1 twice
    per mLSTM block, K2/K3 on the attention layers, K4 when served paged),
@@ -107,7 +117,7 @@ or of the ``repro`` package.  Phases:
    its 48 layers (its size report at all 48): measure, graph against
    eager, the profile and the parity over a contiguous cache, whole and
    in chunks.  Each model's phases print their time.
-9. The MoE family, each model drawn once the one before it is freed
+10. The MoE family, each model drawn once the one before it is freed
    (capacity dispatch into (E, C, d) and the three expert products over
    every expert, plain ``torch.bmm``; K1-K4 as for a dense decoder, no
    kernel for the experts): phases 3-6 for qwen3-moe-30b-a3b at full width
@@ -123,7 +133,7 @@ or of the ``repro`` package.  Phases:
    with the routes forced), and its chunked-vs-whole check at a capacity
    factor of E / k, where nothing is dropped, with the chunked run's routes
    forced to the whole run's.
-10. The last two families, each drawn once the model before it is freed:
+11. The last two families, each drawn once the model before it is freed:
    phases 3-6 for llava-next-34b at full width and depth (60 layers, GQA
    56/8, 68.78 GB), measured at 1024 positions (its 576 patch embeddings
    and 448 tokens; decode from position 1024), served (paged, B = 8,
@@ -135,7 +145,7 @@ or of the ``repro`` package.  Phases:
    attention, K2 then K3, in the exact counts), the serving engine's
    refusal, and parity at full depth over a contiguous cache, whole and
    in chunks of 256.
-11. Tensor-parallel serving on this one card (``tp_phase``; ranks spawned
+12. Tensor-parallel serving on this one card (``tp_phase``; ranks spawned
    by ``launch.mesh.spawn_tp`` run ``sharding.runs.run_plan``): llama3.1-8b
    at full width and depth over 2 gloo ranks and command-r-plus-104b at
    full width (d 12288, 96/8 heads, d_ff 33792, 256000 tied, parallel
@@ -156,7 +166,7 @@ or of the ``repro`` package.  Phases:
    else a line says it was not run.  The phase's times check correctness
    only ("gloo over one card, host-staged: not a TP latency").  K1-K4 at
    one rank's shapes are timed in phase 2 (``tp`` under each entry).
-12. Training through ``launch.train`` (``train_phase``): tinyllama-1.1b at
+13. Training through ``launch.train`` (``train_phase``): tinyllama-1.1b at
    full width and depth, bf16 weights and fp32 moments, 20 steps of 8 x
    1024 synthetic tokens with NVML energy (the loss must fall); the same
    run preempted before step 10, which checkpoints, and resumed from that
@@ -184,7 +194,7 @@ or of the ``repro`` package.  Phases:
    shapes are held and timed in phase 2, each with its autograd
    Function's gradients held to the plain version's (``train`` under K2
    and K5, K1's rows under ``modes``).
-13. The last line: ``{"ok": true, "device": {...}}``.
+14. The last line: ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line is printed; so does a
 machine without a CUDA device.
@@ -222,6 +232,10 @@ TP_LAYERS = 4
 # llama3.1-8b), a unified step's B x W = 2048 rows ~7 s (the CPU tests hold
 # the unified step at tp = 2 and 4)
 TP_REQUESTS, TP_MAX_NEW = 8, 16
+# xlstm-1.3b's measure and parity paths on 24 of its 48 layers (3 of its 6
+# mLSTM x 7 + sLSTM groups) at full width: its sLSTM prefill is ~128k
+# host launches at 48, and the script must end within its 1200 s
+XLSTM_LAYERS = 24
 SIZE_GB = {ARCH: "16.06", HYBRID: "5.36", NEMOTRON: "16.38",   # the reference's
            XLSTM: "3.77", QWEN_MOE: "61.06", MOONSHOT: "57.11",  # size reports
            LLAVA: "68.78", SEAMLESS: "2.74"}
@@ -1501,17 +1515,24 @@ def prefill_flops(cfg, params, tokens):
     return 2 * (params - layers * E * per_expert) * tokens + 2 * layers * E * C * per_expert
 
 
-def main_path_phase(arch, counters):
+def main_path_phase(arch, counters, layers=0):
     import torch
 
+    from repro_torch.configs import get_config
     from repro_torch.core.energy import NvmlReader, PowerReader
     from repro_torch.core.profiler import Elana
+    from repro_torch.core.size import profile_size
 
-    e = Elana(arch, device="cuda", seed=0)
-    size = e.size_report()
-    log(size.fmt())
-    check(f"{size.param_bytes / 1e9:.2f}" == SIZE_GB[arch],
+    full = profile_size(get_config(arch))
+    log(full.fmt())
+    check(f"{full.param_bytes / 1e9:.2f}" == SIZE_GB[arch],
           f"{arch} must read {SIZE_GB[arch]} GB")
+    if layers:
+        log(f"{arch}: measured on {layers} of its {get_config(arch).num_layers} layers")
+        e = Elana(config=get_config(arch).replace(num_layers=layers), device="cuda", seed=0)
+    else:
+        e = Elana(arch, device="cuda", seed=0)
+    size = e.size_report()
     cfg, prompt = e.cfg, prompt_of(e.cfg)
     log(e.cache_report(BATCH, prompt + GEN + 1).fmt())
     # bounds: the weights' matrix products over the prompt at the bf16 peak
@@ -2816,7 +2837,8 @@ def bench_serve_phase(counters):
     return paths
 
 
-def model_phases(arch, dev, counters, paths, serve=True, parity_layers=0, **parity_kw):
+def model_phases(arch, dev, counters, paths, serve=True, parity_layers=0, layers=0,
+                 **parity_kw):
     """Phases 3-6 for one more model at full width, drawn once the model
     before it is freed: measure with exact launch counts, graph against
     eager, the profile; with ``serve`` the whole-prompt serve (paged,
@@ -2824,14 +2846,15 @@ def model_phases(arch, dev, counters, paths, serve=True, parity_layers=0, **pari
     chunked serve through the unified step; then the parity
     (``parity_phase(**parity_kw)``), with ``parity_layers`` on a model of
     that many layers at full width drawn once the whole one is freed.
-    Adds each path's launches to ``paths``; frees the model and prints the
-    phases' time."""
+    ``layers`` cuts the model to that many layers for every phase (its size
+    report whole).  Adds each path's launches to ``paths``; frees the model
+    and prints the phases' time."""
     import torch
 
     from repro_torch.core.profiler import Elana
 
     t0 = time.perf_counter()
-    e, paths[f"{arch} measure"], measured = main_path_phase(arch, counters)
+    e, paths[f"{arch} measure"], measured = main_path_phase(arch, counters, layers)
     if e.cfg.is_encdec:
         engine_refusal_check(e)
     measure_split = measure_graph_phase(e, dev, measured)
@@ -2857,7 +2880,7 @@ def model_phases(arch, dev, counters, paths, serve=True, parity_layers=0, **pari
 
 
 # ---------------------------------------------------------------------------
-# phase 11: tensor-parallel serving
+# phase 12: tensor-parallel serving
 # ---------------------------------------------------------------------------
 
 TP_NOTE = "gloo over one card, host-staged: not a TP latency"
@@ -3095,7 +3118,7 @@ def engine_refusal_check(e):
 
 
 # ---------------------------------------------------------------------------
-# phase 12: training
+# phase 13: training
 # ---------------------------------------------------------------------------
 
 def train_launches(cfg, forwards, recomputed=0):
@@ -3127,9 +3150,16 @@ def train_launches(cfg, forwards, recomputed=0):
 
 
 def train_bound_ms(cfg, model, batch, seq):
-    """The least time of one train step: its products at 989 TFLOP/s and
-    AdamW's bytes at 3.35 TB/s (a parameter and its gradient read, the
-    parameter written, two fp32 moments read and written).  A product
+    """The least time of one train step: its products (``train_flops``) at
+    989 TFLOP/s and AdamW's bytes at 3.35 TB/s (a parameter and its
+    gradient read, the parameter written, two fp32 moments read and
+    written)."""
+    adam = sum(p.numel() * (3 * p.element_size() + 16) for p in model.parameters())
+    return (train_flops(cfg, model, batch, seq) / BF16_FLOPS + adam / HBM_BYTES_PER_S) * 1e3
+
+
+def train_flops(cfg, model, batch, seq):
+    """The operations one train step's products need.  A product
     costs 6 FLOPs per weight per row it takes, forward and backward: the
     decoder's rows are its positions, a vision config's patches included
     (its logits too); an encoder's and a cross attention's K/V
@@ -3176,8 +3206,7 @@ def train_bound_ms(cfg, model, batch, seq):
         D = int(cfg.d_model * cfg.mlstm_proj_factor) // H
         chunk = min(cfg.recurrent_chunk, L)
         flops += 3 * n_mlstm * rows * H * (6 * chunk * D + 4 * D * D)
-    adam = sum(p.numel() * (3 * p.element_size() + 16) for p in model.parameters())
-    return (flops / BF16_FLOPS + adam / HBM_BYTES_PER_S) * 1e3
+    return flops
 
 
 def train_stats(arch, label, out, rec, tokens, bound_ms, peak_gib):
@@ -3502,6 +3531,149 @@ def train_phase(dev, counters, paths):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the dry-run: a sweep cell of each shape, and the bound it gives
+# held to measured times
+# ---------------------------------------------------------------------------
+
+# one cell of each of the reference's shapes, four families; the last is
+# skipped, as the reference's should_skip says
+DRYRUN_CELLS = [(TRAIN_ARCH, "train_4k"), (QWEN_MOE, "prefill_32k"), (COMMAND_R, "decode_32k"),
+                (XLSTM, "long_500k"), (ARCH, "long_500k")]
+CALIB_PREFILL = (1, 8192)   # rows, positions
+CALIB_DECODE = (32, 8192)   # rows, cache length; the step at the last position
+CALIB_TRAIN = (8, 1024)     # the train phase's rows and positions
+CALIB_ITERS = {"prefill": (2, 5), "decode": (3, 20)}   # warm-up calls, timed calls
+
+
+def calibrate(dev, counters, cfg, prefill, decode):
+    """``cfg``'s prefill and decode step counted by the dry-run at
+    ``chips=1`` and run on ``dev`` through the kernels, each timed by
+    ``time_callable``; every timed sample must take at least the dry-run's
+    bound (the larger of its compute and memory terms).  The decode cache
+    is filled with random K/V at every position, so the step attends to
+    all of them.  Returns (rows, launches, dry-run results)."""
+    import torch
+
+    from repro_torch.core.latency import time_callable
+    from repro_torch.launch import dryrun
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.config import ShapeConfig
+
+    counted = {"prefill": dryrun.run_cell(cfg.name, ShapeConfig("calib_prefill", prefill[1],
+                                                                prefill[0], "prefill"), chips=1),
+               "decode": dryrun.run_cell(cfg.name, ShapeConfig("calib_decode", decode[1],
+                                                               decode[0], "decode"), chips=1)}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = model_lib.init(cfg, gen, dev)
+    reset_counts(counters)
+    B, S = prefill
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=dev)}
+    cache = model.init_cache(B, S)
+    warm, iters = CALIB_ITERS["prefill"]
+    stats = {"prefill": time_callable(lambda: model.prefill(batch, cache)[0], iters=iters,
+                                      warmup=warm, name="prefill")}
+    del cache
+    B, L = decode
+    cache = model.init_cache(B, L)
+    for entry in cache:
+        if "k" in entry:
+            entry["k"].normal_(generator=gen)
+            entry["v"].normal_(generator=gen)
+            entry["pos"].copy_(torch.arange(L, dtype=torch.int32, device=dev).expand(B, L))
+    tok = torch.randint(0, cfg.vocab_size, (B, 1), generator=gen, device=dev)
+    warm, iters = CALIB_ITERS["decode"]
+    stats["decode"] = time_callable(lambda: model.decode_step(tok, L - 1, cache)[0],
+                                    iters=iters, warmup=warm, name="decode")
+    launches = read_counts(counters)
+    del model, cache
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    rows = []
+    for kind, st in stats.items():
+        r = counted[kind]["roofline"]
+        bound_ms = r["bound_s"] * 1e3
+        row = {"arch": cfg.name, "kind": kind, "shape": prefill if kind == "prefill" else decode,
+               "flops": counted[kind]["cost"]["flops_global"],
+               "argument_bytes": counted[kind]["memory"]["argument_bytes_global"],
+               "compute_term_ms": r["compute_term_s"] * 1e3,
+               "memory_term_ms": r["memory_term_s"] * 1e3, "bound_ms": bound_ms,
+               "bound_by": r["dominant"], "ms_min": min(st.samples_s) * 1e3,
+               "ms_p50": st.p50_s * 1e3, "ms_mean": st.mean_ms, "n": len(st.samples_s),
+               "measured_over_bound": st.p50_s * 1e3 / bound_ms,
+               "min_over_bound": min(st.samples_s) * 1e3 / bound_ms}
+        log("dryrun calibration: " + json.dumps(row))
+        check(row["ms_min"] >= bound_ms,
+              f"{cfg.name} {kind} ran in {row['ms_min']:.3f} ms, under the dry-run's bound "
+              f"{bound_ms:.3f} ms: the count or the bytes are wrong")
+        rows.append(row)
+    return rows, launches, counted
+
+
+def dryrun_phase(dev, counters, paths):
+    """``launch.dryrun.run_cell`` on this machine's host for ``DRYRUN_CELLS``
+    (each ``ok``, or ``skipped`` where ``should_skip`` says; no kernel
+    launched), then ``calibrate`` on llama3.1-8b at full width (prefill 1 x
+    8192, decode 32 x 8192; launches exact), then the dry-run's FLOPs
+    beside this script's own: ``prefill_flops`` for the same prefill and
+    ``train_flops`` for tinyllama-1.1b's train step at the train phase's
+    8 x 1024."""
+    import torch
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.core.size import profile_size
+    from repro_torch.launch import dryrun
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.model import Model
+
+    t0 = time.perf_counter()
+    reset_counts(counters)
+    for arch, shape in DRYRUN_CELLS:
+        want = "skipped" if dryrun.should_skip(get_config(arch), SHAPES[shape]) else "ok"
+        res = dryrun.run_cell(arch, shape)
+        check(res["status"] == want, f"dry-run {arch} {shape}: {res['status']}, want {want}")
+        row = {"arch": arch, "shape": shape, "status": res["status"]}
+        if want == "ok":
+            r = res["roofline"]
+            row.update(count_s=res["count_s"], flops=res["cost"]["flops_global"],
+                       microbatches=res["cost"]["microbatches"],
+                       argument_bytes=res["memory"]["argument_bytes_global"],
+                       compute_term_ms=r["compute_term_s"] * 1e3,
+                       memory_term_ms=r["memory_term_s"] * 1e3, dominant=r["dominant"],
+                       model_flops=r["model_flops"], useful_flops_ratio=r["useful_flops_ratio"])
+            check(math.isfinite(row["flops"]) and row["flops"] > 0, f"no count for {arch} {shape}")
+        log("dryrun cell: " + json.dumps(row))
+    check(all(n == 0 for n in read_counts(counters).values()), "the dry-run launched a kernel")
+    log(f"dryrun sweep cells took {time.perf_counter() - t0:.1f} s")
+
+    cfg = get_config(ARCH)
+    rows, launches, counted = calibrate(dev, counters, cfg, CALIB_PREFILL, CALIB_DECODE)
+    paths[f"{ARCH} dryrun calibration"] = launches
+    (wp, ip), (wd, idc) = CALIB_ITERS["prefill"], CALIB_ITERS["decode"]
+    want = expected_launches(cfg, wp + ip, wd + idc)
+    check(launches == want, f"calibration launches {launches} != {want}")
+    size = profile_size(cfg)
+    tables = (sum(size.by_component.get(k, 0) for k in ("embed", "lm_head"))
+              // getattr(torch, cfg.param_dtype).itemsize)
+    B, S = CALIB_PREFILL
+    mine = prefill_flops(cfg, size.param_count - tables, B * S)
+    theirs = counted["prefill"]["cost"]["flops_global"]
+    tcfg = get_config(TRAIN_ARCH)
+    tb, ts = CALIB_TRAIN
+    train = dryrun.run_cell(TRAIN_ARCH, ShapeConfig("calib_train", ts, tb, "train"), chips=1)
+    analytic = train_flops(tcfg, Model(tcfg, device="meta"), tb, ts)
+    log("dryrun flops: " + json.dumps({
+        f"{ARCH} prefill {B}x{S}": {"dryrun": theirs, "prefill_flops": mine,
+                                     "dryrun_over_prefill_flops": theirs / mine},
+        f"{TRAIN_ARCH} train {tb}x{ts}": {"dryrun": train["cost"]["flops_global"],
+                                          "train_flops": analytic,
+                                          "dryrun_over_train_flops":
+                                              train["cost"]["flops_global"] / analytic}}))
+    log(f"dryrun phase took {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
 def card():
     """``nvidia-smi``'s name and power limit of each card, one line each."""
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3570,6 +3742,7 @@ def main():
     paths.update(bench_serve_phase(counters))
     gc.collect()
     torch.cuda.empty_cache()
+    dryrun_phase(dev, counters, paths)
     for path, decode in (("http serve", "paged_decode_attention"),
                          ("open loop", "paged_decode_attention"),
                          ("bench_serve closed", "decode_attention"),
@@ -3584,7 +3757,7 @@ def main():
     model_phases(NEMOTRON, dev, counters, paths)
     check(paths[f"{NEMOTRON} serve"]["paged_decode_attention"] > 0,
           f"K4 never launched on the {NEMOTRON} serve path")
-    model_phases(XLSTM, dev, counters, paths, serve=False, paged=False)
+    model_phases(XLSTM, dev, counters, paths, serve=False, paged=False, layers=XLSTM_LAYERS)
     for arch in (QWEN_MOE, MOONSHOT):
         model_phases(arch, dev, counters, paths, parity_layers=PARITY_LAYERS)
         for path in ("measure", "serve", "chunked serve"):

@@ -9,11 +9,13 @@ terminal without modifying the code"), the counterpart of ``repro/cli.py``.
     python -m repro_torch.cli estimate --arch qwen2.5-7b --hardware h100 --prompt 512 --gen 512
     python -m repro_torch.cli trace   --arch llama3.1-8b --hardware h100 --out trace.json
     python -m repro_torch.cli report  --hardware h100
+    python -m repro_torch.cli dryrun  --arch qwen3-moe-30b-a3b --shape prefill_32k
 
-Every subcommand but ``archs`` runs on ``--device`` (``cuda`` by default,
+Every subcommand but ``archs`` and ``dryrun`` runs on ``--device`` (``cuda`` by default,
 and then it needs a GPU).  ``size``, ``cache``, ``estimate``, ``trace`` and
 ``report`` work from shapes alone (the ``meta`` device), so
-``--device cpu`` runs them anywhere.  ``energy`` reads the GPU's power from
+``--device cpu`` runs them anywhere.  ``dryrun`` takes no device: it counts
+a cell on ``meta`` (``launch/dryrun.py``).  ``energy`` reads the GPU's power from
 NVML; with ``--device cpu`` it reads the host CPU's from /proc/stat.
 ``--hardware <platform>`` reads that platform's power model instead, as the
 reference's ``energy`` does (``cpu``: /proc/stat scaled to the ``cpu``
@@ -148,6 +150,19 @@ def cmd_report(args) -> int:
     return 0
 
 
+def cmd_dryrun(args) -> int:
+    # in process: the reference starts a fresh interpreter only to set
+    # XLA_FLAGS, which the port does not read
+    from repro_torch.launch import dryrun
+
+    argv = ["--arch", args.arch, "--shape", args.shape, "--opt", args.opt]
+    if args.multi_pod:
+        argv.append("--multi-pod")
+    if args.out_dir:
+        argv += ["--out-dir", args.out_dir]
+    return dryrun.main(argv)
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="elana",
@@ -205,6 +220,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--hardware", default="h100")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.set_defaults(fn=cmd_report)
+
+    p = sub.add_parser("dryrun")
+    p.add_argument("--arch", required=True)
+    p.add_argument("--shape", default="train_4k")
+    p.add_argument("--multi-pod", action="store_true")
+    p.add_argument("--opt", default="", help="comma list: moe_block")
+    p.add_argument("--out-dir", default=None)
+    p.set_defaults(fn=cmd_dryrun)
     return ap
 
 

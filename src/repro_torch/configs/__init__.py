@@ -11,7 +11,7 @@ from __future__ import annotations
 import importlib
 from typing import Dict, List
 
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import SHAPES, ModelConfig, ShapeConfig  # noqa: F401
 
 _MODULES: Dict[str, str] = {
     "minitron-4b": "minitron_4b",
@@ -30,6 +30,13 @@ _MODULES: Dict[str, str] = {
     "llava-next-34b": "llava_next_34b",
     "seamless-m4t-large-v2": "seamless_m4t_large_v2",
 }
+
+# the ten-architecture assigned pool, by name in the reference's order (its
+# ``ASSIGNED``, the first ten of its registry; this registry's order differs)
+ASSIGNED: List[str] = ["minitron-4b", "tinyllama-1.1b", "qwen1.5-0.5b",
+                       "command-r-plus-104b", "llava-next-34b", "seamless-m4t-large-v2",
+                       "moonshot-v1-16b-a3b", "qwen3-moe-30b-a3b", "xlstm-1.3b",
+                       "recurrentgemma-2b"]
 
 # the models profiled in the ELANA paper itself (Tables 2-4), as the
 # reference lists them

@@ -9,7 +9,8 @@ the reference's ``_classify`` files them: K/V (``k``, ``v``, ``kp``,
 states (RG-LRU, mLSTM and sLSTM leaves) are ``state``.  ``cross_pos``, the
 port's mask over the memory rows, has no counterpart in the reference,
 whose memory is as long as it is filled; it is left out, so the two
-reports agree byte for byte.
+reports agree byte for byte.  ``analytic_kv_bytes`` and ``paged_kv_bytes``
+are the reference's closed forms of the contiguous and the paged KV.
 """
 
 from __future__ import annotations
@@ -56,11 +57,17 @@ def _classify(leaf: str) -> str:
     return "state"
 
 
-def profile_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype=None) -> CacheReport:
+def profile_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype=None, *,
+                  layout: str = "contiguous", block_size: int = 16,
+                  num_blocks: int = 0) -> CacheReport:
+    """The cache of ``batch`` rows of ``seq_len`` in ``layout``: a paged
+    cache's full-context layers hold a pool of ``num_blocks`` x
+    ``block_size`` (0: the worst case, every row's blocks and the garbage
+    block), its pool leaves ``kp``/``vp`` counted as ``kv``."""
     dtype = dtype or getattr(torch, cfg.dtype)
     by_kind: Dict[str, int] = {"kv": 0, "state": 0, "cross": 0, "meta": 0}
-    for kind in cfg.blocks():
-        entry = cache_lib.init_block_cache(cfg, kind, batch, seq_len, dtype, "meta")
+    for entry in cache_lib.init_cache(cfg, batch, seq_len, dtype, "meta", layout=layout,
+                                      block_size=block_size, num_blocks=num_blocks):
         for leaf, t in entry.items():
             if leaf != "cross_pos":
                 by_kind[_classify(leaf)] += t.numel() * t.element_size()
@@ -71,3 +78,40 @@ def profile_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype=None) -> Cac
         cross_bytes=by_kind["cross"], meta_bytes=by_kind["meta"],
         by_kind=by_kind,
     )
+
+
+def analytic_kv_bytes(cfg: ModelConfig, batch: int, seq_len: int,
+                      itemsize: int = 2) -> int:
+    """Closed-form attention-KV bytes: the cross-check for
+    ``profile_cache`` and the formula of the paper's Table 2."""
+    total = 0
+    for kind in cfg.blocks():
+        if kind == "attn":
+            length = seq_len
+        elif kind == "local_attn":
+            length = min(cfg.sliding_window, seq_len)
+        else:
+            continue
+        total += 2 * batch * length * cfg.num_kv_heads * cfg.resolved_head_dim * itemsize
+    return total
+
+
+def paged_kv_bytes(cfg: ModelConfig, lengths, block_size: int,
+                   itemsize: int = 2, max_len: int = 0) -> int:
+    """Attention-KV bytes a paged cache allocates for per-request token
+    counts ``lengths`` (prompt + generated): a full-context layer takes
+    ``ceil(len / block_size)`` pool blocks per request, a sliding-window
+    layer keeps its ring of ``min(window, max_len)`` per resident request
+    whatever its length (paging does not change rings).  The contiguous
+    worst case to compare with is ``analytic_kv_bytes(cfg, len(lengths),
+    max_len)``."""
+    max_len = max_len or max((int(n) for n in lengths), default=0)
+    per_tok = 2 * cfg.num_kv_heads * cfg.resolved_head_dim * itemsize
+    blocks = sum(-(-int(n) // block_size) for n in lengths)
+    total = 0
+    for kind in cfg.blocks():
+        if kind == "attn":
+            total += blocks * block_size * per_tok
+        elif kind == "local_attn":
+            total += len(lengths) * min(cfg.sliding_window, max_len) * per_tok
+    return total

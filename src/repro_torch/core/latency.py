@@ -20,6 +20,8 @@ each measurement are warm-up and are reported as ``compile_s``: on the
 card they include the CUDA kernels' first launches, cuBLAS's first calls
 and the capture of the decode graph.  ``LatencyStats.window`` is the host
 clock's span of the timed samples, which the energy windows integrate.
+``time_callable`` times any callable the same way, waiting for its
+results' CUDA devices after each call.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from __future__ import annotations
 import dataclasses
 import statistics
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -74,6 +76,45 @@ class LatencyStats:
             "p95_ms": self.p95_s * 1e3, "n": len(self.samples_s),
             "compile_ms": self.compile_s * 1e3,
         }
+
+
+def _cuda_devices(out) -> set:
+    """The CUDA devices of the tensors in ``out`` (a tensor, or lists,
+    tuples and dicts of them, at any depth)."""
+    if isinstance(out, torch.Tensor):
+        return {out.device} if out.is_cuda else set()
+    if isinstance(out, dict):
+        out = list(out.values())
+    if isinstance(out, (list, tuple)):
+        return set().union(*(_cuda_devices(o) for o in out))
+    return set()
+
+
+def _wait(out) -> None:
+    """``torch.cuda.synchronize`` each CUDA device ``out`` lives on: the
+    counterpart of ``jax.block_until_ready``."""
+    for dev in _cuda_devices(out):
+        torch.cuda.synchronize(dev)
+
+
+def time_callable(fn: Callable[[], object], iters: int = 10, warmup: int = 2,
+                  name: str = "fn") -> LatencyStats:
+    """Host time of ``fn()`` over ``iters`` calls after ``warmup`` ones
+    (at least one, reported as ``compile_s``), each call waited for
+    through its results' devices, as the reference's ``time_callable``."""
+    t0 = time.perf_counter()
+    for _ in range(max(warmup, 1)):
+        _wait(fn())
+    compile_s = time.perf_counter() - t0
+    samples, t_first = [], 0.0
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        _wait(fn())
+        t1 = time.perf_counter()
+        t_first = t_first or t0
+        samples.append(t1 - t0)
+    return LatencyStats(name=name, samples_s=samples, compile_s=compile_s,
+                        window=(t_first, t1) if samples else (0.0, 0.0))
 
 
 def prompt_positions(batch: Dict[str, torch.Tensor]) -> int:

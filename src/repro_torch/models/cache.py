@@ -565,6 +565,17 @@ def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
     raise ValueError(f"no cache for block kind {kind!r}")
 
 
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device, *,
+               layout: str = "contiguous", block_size: int = 16,
+               num_blocks: int = 0) -> List[Dict[str, torch.Tensor]]:
+    """One ``init_block_cache`` entry per layer of ``cfg``."""
+    if layout not in ("contiguous", "paged"):
+        raise ValueError(f"layout {layout!r} is not 'contiguous' or 'paged'")
+    return [init_block_cache(cfg, kind, batch, max_len, dtype, device, layout=layout,
+                             block_size=block_size, num_blocks=num_blocks)
+            for kind in cfg.blocks()]
+
+
 def reset_cache(cache: List[Dict[str, torch.Tensor]]) -> List[Dict[str, torch.Tensor]]:
     """Return every entry to what ``init_block_cache`` makes, in place:
     each leaf to its initial value (``INIT_FILL``: positions -1,

@@ -4,6 +4,9 @@ The fields and their defaults are those of ``repro/models/config.py``, so a
 configuration file reads the same in both packages and tests can compare
 them field by field.  The port runs every configuration the reference
 does: every block kind, MoE, encoder-decoder and the vision prefix.
+``ShapeConfig`` and ``SHAPES`` are the reference's four assigned input
+shapes, which the dry-run (``launch/dryrun.py``) counts every
+architecture at.
 """
 
 from __future__ import annotations
@@ -119,3 +122,32 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw).validate()
+
+    @property
+    def subquadratic(self) -> bool:
+        """Does every attention block have a bounded context?"""
+        blocks = set(self.blocks()) - {"ffn"}
+        if "attn" in blocks:
+            return False
+        if "local_attn" in blocks:
+            return self.sliding_window > 0
+        return True  # pure recurrent
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned (workload) input-shape cell, as the reference's."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+    microbatches: int = 1  # gradient-accumulation splits for train
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}

@@ -2,8 +2,9 @@
 kinds ``attn``, ``local_attn`` (sliding window over a ring cache), ``ffn``,
 ``rglru`` (Griffin's recurrent block) and the xLSTM cells ``mlstm`` and
 ``slstm`` (a norm and the cell, no MLP).  In a MoE config the attention
-blocks' MLP is the mixture of experts (``models/moe.py``); ``ffn`` and
-``rglru`` blocks keep the dense MLP, as in the reference.
+blocks' MLP is the mixture of experts (``models/moe.py``; its blocked
+dispatch under ``flags.use_moe_blocked()``); ``ffn`` and ``rglru`` blocks
+keep the dense MLP, as in the reference.
 
 An encoder-decoder config (``num_encoder_layers`` > 0) adds the encoder
 stack (``Encoder``: unmasked attention blocks over frame embeddings, a
@@ -59,6 +60,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import resolve_device
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import cache as cache_lib
+from repro_torch.models import flags
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import recurrent as rec_lib
 from repro_torch.models.config import ModelConfig
@@ -231,7 +233,8 @@ def _mlp_branch(p: Block, cfg: ModelConfig, x: torch.Tensor, h: torch.Tensor,
     else:
         x, h = add_norm(p.norm2, x, _reduce(p, a, x), cfg.norm_eps)
     if cfg.is_moe:
-        return x, moe_lib.apply_moe(p.mlp, h, cfg)
+        moe_fn = moe_lib.apply_moe_blocked if flags.moe_blocked() else moe_lib.apply_moe
+        return x, moe_fn(p.mlp, h, cfg)
     return x, _reduce(p, apply_mlp(p.mlp, h, cfg.mlp_act), x)
 
 
@@ -471,13 +474,10 @@ class Model(nn.Module):
         ``block_size``; 0: the worst case) that the caller addresses through
         block tables; sliding-window rings and recurrent states stay per
         row.  A tensor-parallel shard's entries hold its own KV heads."""
-        if layout not in ("contiguous", "paged"):
-            raise ValueError(f"layout {layout!r} is not 'contiguous' or 'paged'")
-        dtype = dtype or _dtype(self.cfg.dtype)
-        return [cache_lib.init_block_cache(self.local_cfg, blk.kind, batch, max_len,
-                                           dtype, self.device, layout=layout,
-                                           block_size=block_size, num_blocks=num_blocks)
-                for blk in self.layers]
+        return cache_lib.init_cache(self.local_cfg, batch, max_len,
+                                    dtype or _dtype(self.cfg.dtype), self.device,
+                                    layout=layout, block_size=block_size,
+                                    num_blocks=num_blocks)
 
     @torch.no_grad()
     def prefill(self, batch: Dict[str, torch.Tensor], cache: Cache,

@@ -22,7 +22,8 @@ sequence (``_mlstm_chunk_scan``: a Python loop over chunks of static
 shape, so a CUDA graph can capture it) and O(1) per decode step; then
 ``rms_norm`` over W (K1 on the GPU), the SiLU(z) gate and the down
 projection.  The sLSTM cell (scalar memory with recurrent gate weights)
-is a loop over time steps in both cases.  Neither cell has a kernel of
+is a loop over time steps in both cases (folded into one pass for
+counting on ``meta``: ``_slstm_folded``).  Neither cell has a kernel of
 its own: their products are plain ``matmul``/``einsum``, and only their
 norms go through a kernel (K1).
 
@@ -43,6 +44,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels import dispatch
+from repro_torch.models import flags
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import act_fn, init_normal_, new_param, rms_norm
 
@@ -212,6 +214,46 @@ class MLSTM(nn.Module):
         init_normal_(self.down, gen, scale=1.0 / math.sqrt(self.down.shape[0]))
 
 
+def _mlstm_chunk_out(qc, kc, vc, li, lf, C, n, m, causal, scale):
+    """One chunk's output from the state carried into it: h (..., H, L, D)
+    fp32, and the chunk's log-decays and stabilizers its state update
+    takes.  qc, kc, vc (..., H, L, D); li, lf (..., H, L); C (..., H, D, D),
+    n (..., H, D), m (..., H).  Leading axes broadcast."""
+    b = torch.cumsum(lf, dim=-1)            # inclusive log-decay to t
+    a = li - b                              # a_s = log_i_s - b_s
+    mm = torch.maximum(m[..., None], torch.cummax(a, dim=-1).values)   # (..., L)
+    m_t = b + mm
+    # intra-chunk scores
+    s_qk = torch.matmul(qc, kc.transpose(-1, -2)) * scale
+    decay = a[..., None, :] - mm[..., :, None]                          # (..., L(t), L(s))
+    w_intra = torch.where(causal, torch.exp(decay), 0.0)
+    h_intra = torch.matmul(s_qk * w_intra, vc)
+    n_intra = torch.matmul(w_intra, kc)     # normalizer state at t
+    # inter-chunk (carry) contribution
+    w_inter = torch.exp(m[..., None] - mm)                              # (..., L)
+    qs = qc * scale
+    h_inter = torch.matmul(qs, C) * w_inter[..., None]
+    num = h_intra + h_inter
+    # denominator: |q.n_t| with n_t the stabilized normalizer state at t
+    n_at_t = n_intra + n[..., None, :] * w_inter[..., None]
+    denom = torch.abs((qs * n_at_t).sum(-1))
+    denom = torch.maximum(denom, torch.exp(-m_t))
+    return num / denom[..., None], b, a, m_t
+
+
+def _mlstm_chunk_state(kc, vc, b, a, m_t, C, n, m):
+    """The state after a chunk; sum_l w_c k_l v_l^T as one (D,L)@(L,D)
+    product.  Leading axes broadcast."""
+    g = b[..., -1]
+    m_next = m_t[..., -1]
+    w_c = torch.exp(g[..., None] + a - m_next[..., None])              # (..., L)
+    carry = torch.exp(g + m - m_next)
+    wk = w_c[..., None] * kc
+    C = carry[..., None, None] * C + torch.matmul(wk.transpose(-1, -2), vc)
+    n = carry[..., None] * n + wk.sum(dim=-2)
+    return C, n, m_next
+
+
 def _mlstm_chunk_scan(q, k, v, log_i, log_f, state: Dict[str, torch.Tensor], chunk: int):
     """Chunkwise-parallel stabilized mLSTM, the reference's arithmetic step
     for step.  q, k, v (B, S, H, D) fp32; log_i, log_f (B, S, H) fp32;
@@ -231,43 +273,55 @@ def _mlstm_chunk_scan(q, k, v, log_i, log_f, state: Dict[str, torch.Tensor], chu
     C, n, m = state["C"], state["n"], state["m"]
     scale = 1.0 / math.sqrt(D)
     causal = torch.ones((L, L), dtype=torch.bool, device=q.device).tril()
+    if flags.fold_loops():
+        h, C, n, m = _mlstm_folded(q, k, v, log_i, log_f, C, n, m, L, causal, scale)
+        return h[:, :S_orig].contiguous(), {"C": C, "n": n, "m": m}
     hs = []
     for c0 in range(0, S, L):
         qc, kc, vc = (t[:, c0:c0 + L].transpose(1, 2) for t in (q, k, v))  # (B,H,L,D)
         li, lf = (t[:, c0:c0 + L].transpose(1, 2) for t in (log_i, log_f))  # (B,H,L)
-        b = torch.cumsum(lf, dim=-1)            # inclusive log-decay to t
-        a = li - b                              # a_s = log_i_s - b_s
-        mm = torch.maximum(m[..., None], torch.cummax(a, dim=-1).values)   # (B,H,L)
-        m_t = b + mm
-        # intra-chunk scores
-        s_qk = torch.matmul(qc, kc.transpose(-1, -2)) * scale
-        decay = a[:, :, None, :] - mm[:, :, :, None]                       # (B,H,L(t),L(s))
-        w_intra = torch.where(causal, torch.exp(decay), 0.0)
-        h_intra = torch.matmul(s_qk * w_intra, vc)
-        n_intra = torch.matmul(w_intra, kc)     # normalizer state at t
-        # inter-chunk (carry) contribution
-        w_inter = torch.exp(m[..., None] - mm)                             # (B,H,L)
-        qs = qc * scale
-        h_inter = torch.matmul(qs, C) * w_inter[..., None]
-        num = h_intra + h_inter
-        # denominator: |q.n_t| with n_t the stabilized normalizer state at t
-        n_at_t = n_intra + n[:, :, None, :] * w_inter[..., None]
-        denom = torch.abs((qs * n_at_t).sum(-1))
-        denom = torch.maximum(denom, torch.exp(-m_t))
-        hs.append((num / denom[..., None]).transpose(1, 2))                # (B,L,H,D)
-        # end-of-chunk state; sum_l w_c k_l v_l^T as one (D,L)@(L,D) product
-        g = b[..., -1]                                                     # (B,H)
-        m_next = m_t[..., -1]
-        w_c = torch.exp(g[..., None] + a - m_next[..., None])              # (B,H,L)
-        carry = torch.exp(g + m - m_next)
-        wk = w_c[..., None] * kc
-        C = carry[..., None, None] * C + torch.matmul(wk.transpose(-1, -2), vc)
-        n = carry[..., None] * n + wk.sum(dim=-2)
-        m = m_next
+        h, b, a, m_t = _mlstm_chunk_out(qc, kc, vc, li, lf, C, n, m, causal, scale)
+        hs.append(h.transpose(1, 2))                                       # (B,L,H,D)
+        C, n, m = _mlstm_chunk_state(kc, vc, b, a, m_t, C, n, m)
     # contiguous: a padded tail's slice would leave the cell norm (K1,
     # which takes contiguous rows) a strided view in fp32
     h = torch.cat(hs, dim=1)[:, :S_orig].contiguous()
     return h, {"C": C, "n": n, "m": m}
+
+
+def _mlstm_folded(q, k, v, log_i, log_f, C, n, m, L, causal, scale):
+    """The chunk loop for counting (``flags.fold_loops``): chunk 0 from the
+    carried state, as the loop takes it, then chunks 1 .. N - 1 as one
+    batch axis from chunk 0's state broadcast.  Every product keeps its
+    shape in the loop.  So that the backward forms what the loop's does,
+    the outputs also depend, with weight 0, on the state updates of chunks
+    1 .. N - 2 (whose states later chunks read); the last chunk's update,
+    which only the final state reads, is a product of its own.  The values
+    are not the loop's: meta tensors only.  Returns h (B, N L, H, D) and
+    the final state."""
+    if q.device.type != "meta":
+        raise ValueError("folded mLSTM loops count products on the meta device only")
+    B, S, H, D = q.shape
+    N = S // L
+    qs, ks, vs = (t.reshape(B, N, L, H, D).transpose(2, 3) for t in (q, k, v))  # (B,N,H,L,D)
+    lis, lfs = (t.reshape(B, N, L, H).transpose(2, 3) for t in (log_i, log_f))  # (B,N,H,L)
+    h0, b, a, m_t = _mlstm_chunk_out(qs[:, 0], ks[:, 0], vs[:, 0], lis[:, 0], lfs[:, 0],
+                                     C, n, m, causal, scale)
+    C, n, m = _mlstm_chunk_state(ks[:, 0], vs[:, 0], b, a, m_t, C, n, m)
+    h0 = h0.transpose(1, 2)                                                # (B,L,H,D)
+    if N == 1:
+        return h0, C, n, m
+    C, n, m = (t[:, None] for t in (C, n, m))
+    h, b, a, m_t = _mlstm_chunk_out(qs[:, 1:], ks[:, 1:], vs[:, 1:], lis[:, 1:], lfs[:, 1:],
+                                    C, n, m, causal, scale)
+    if N > 2:
+        mid = _mlstm_chunk_state(ks[:, 1:-1], vs[:, 1:-1], b[:, :-1], a[:, :-1],
+                                 m_t[:, :-1], C, n, m)[0]
+        h = h + 0.0 * mid.sum()
+    C, n, m = (t[:, 0] for t in _mlstm_chunk_state(ks[:, -1:], vs[:, -1:], b[:, -1:], a[:, -1:],
+                                                   m_t[:, -1:], C, n, m))
+    h = h.permute(0, 1, 3, 2, 4).reshape(B, (N - 1) * L, H, D)
+    return torch.cat([h0, h], dim=1), C, n, m
 
 
 def _mlstm_qkv_gates(p: MLSTM, u: torch.Tensor, uc: torch.Tensor, H: int, D: int):
@@ -389,13 +443,14 @@ class SLSTM(nn.Module):
 def _slstm_cell(p: SLSTM, carry, xs):
     """One time step.  carry (c, n, m, h), each (B, H, Dh) fp32; xs the
     gates' pre-activations from the input, (B, H, Dh) in the activation
-    dtype, to which ``h`` is cast before the recurrent products."""
+    dtype, to which ``h`` is cast before the recurrent products.  Leading
+    axes broadcast: ``_slstm_folded`` runs it once over (B, S - 1, H, Dh)."""
     c, n, m, h = carry
     zx, ix, fx, ox = xs
     hx = h.to(zx.dtype)
 
     def rec(g):
-        return torch.einsum("bhd,hde->bhe", hx, getattr(p, f"r_{g}")).float()
+        return torch.einsum("...hd,hde->...he", hx, getattr(p, f"r_{g}")).float()
 
     z = torch.tanh(zx.float() + rec("z"))
     log_i = ix.float() + rec("i")
@@ -423,6 +478,10 @@ def apply_slstm_seq(p: SLSTM, x: torch.Tensor, cfg: ModelConfig,
     pre = [torch.matmul(src, getattr(p, f"w_{g}")).reshape(B, S, H, Dh) + getattr(p, f"b_{g}")
            for g, src in zip(SLSTM_GATES, (x, xc, xc, x))]
     carry = (state["c"], state["n"], state["m"], state["h"])
+    if flags.fold_loops():
+        h, carry = _slstm_folded(p, carry, pre, x.device)
+        return _slstm_out(p, h.reshape(B, S, d).to(x.dtype)), {
+            "c": carry[0], "n": carry[1], "m": carry[2], "h": carry[3], "conv": conv_hist}
     hs = []
     for t in range(S):
         new = _slstm_cell(p, carry, [g[:, t] for g in pre])
@@ -432,10 +491,34 @@ def apply_slstm_seq(p: SLSTM, x: torch.Tensor, cfg: ModelConfig,
         carry = new
         hs.append(carry[3])
     h = torch.stack(hs, dim=1).reshape(B, S, d).to(x.dtype)
-    h = rms_norm(h, p.norm_scale, 1e-6)
-    y = torch.matmul(act_fn("gelu")(torch.matmul(h, p.ff_up)), p.ff_down)
     c, n, m, h_fin = carry
-    return y, {"c": c, "n": n, "m": m, "h": h_fin, "conv": conv_hist}
+    return _slstm_out(p, h), {"c": c, "n": n, "m": m, "h": h_fin, "conv": conv_hist}
+
+
+def _slstm_out(p: SLSTM, h: torch.Tensor) -> torch.Tensor:
+    """The cell's output: ``rms_norm`` (K1), then its GeLU FFN."""
+    h = rms_norm(h, p.norm_scale, 1e-6)
+    return torch.matmul(act_fn("gelu")(torch.matmul(h, p.ff_up)), p.ff_down)
+
+
+def _slstm_folded(p: SLSTM, carry, pre, device: torch.device):
+    """The time loop for counting (``flags.fold_loops``): step 0 from the
+    carried state, as the loop takes it, then the cell once over steps 1
+    .. S - 1 as a batch axis, from step 0's carry broadcast.  Each of those
+    steps' products has its shape in the loop, and its carry needs a
+    gradient whenever step 0's output does, so ``FlopCounterMode`` counts
+    the loop's products forward and backward exactly.  The values are not
+    the loop's: meta tensors only.  Returns h (B, S, H, Dh) and the last
+    carry."""
+    if device.type != "meta":
+        raise ValueError("folded sLSTM loops count products on the meta device only")
+    S = pre[0].shape[1]
+    first = _slstm_cell(p, carry, [g[:, 0] for g in pre])
+    if S == 1:
+        return first[3][:, None], first
+    rest = tuple(t[:, None].expand(-1, S - 1, -1, -1) for t in first)
+    last = _slstm_cell(p, rest, [g[:, 1:] for g in pre])
+    return torch.cat([first[3][:, None], last[3]], dim=1), tuple(t[:, -1] for t in last)
 
 
 def apply_slstm_step(p: SLSTM, x: torch.Tensor, cfg: ModelConfig,

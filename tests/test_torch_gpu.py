@@ -1401,3 +1401,52 @@ def test_forward_train_through_the_kernels(cuda, arch):
             assert max(a.abs().max().item(), c.abs().max().item()) <= 1e-6 * top, name
         else:
             assert (a - c).abs().max().item() <= 1e-4 * scale, name
+
+
+# ---------------------------------------------------------------------------
+# the dry-run's timing helper and its bound, on the card
+# ---------------------------------------------------------------------------
+
+def test_time_callable_synchronizes_the_result_device(cuda, monkeypatch):
+    """``time_callable`` waits for each call's CUDA result: one
+    ``torch.cuda.synchronize`` on its device per call, and every sample at
+    least the device time of the work (CUDA events around the same
+    call)."""
+    from repro_torch.core.latency import time_callable
+
+    synced = []
+    real = torch.cuda.synchronize
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda dev=None: synced.append(dev) or real(dev))
+    a = torch.randn(4096, 4096, device=cuda)
+    stats = time_callable(lambda: (a @ a, {"x": [a.sum()]}), iters=5, warmup=2)
+    assert len(synced) == 7 and {torch.device(d).type for d in synced} == {"cuda"}
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    a @ a
+    end.record()
+    real()
+    assert min(stats.samples_s) * 1e3 >= 0.9 * start.elapsed_time(end)
+
+
+def test_prefill_time_is_at_least_the_dry_run_bound(cuda):
+    """tinyllama-1.1b at full width, prefill of 1 x 2048 through the
+    kernels: every sample of ``time_callable`` takes at least the dry-run's
+    bound at ``chips=1`` (a time under it means the count or the bytes are
+    wrong); the dry-run itself launched nothing."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.latency import time_callable
+    from repro_torch.launch import dryrun
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.config import ShapeConfig
+
+    cfg = get_config("tinyllama-1.1b")
+    before = {k: fn.launches for k, fn in dispatch.KERNELS.items()}
+    res = dryrun.run_cell(cfg.name, ShapeConfig("p", 2048, 1, "prefill"), chips=1)
+    assert {k: fn.launches for k, fn in dispatch.KERNELS.items()} == before
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    model = model_lib.init(cfg, gen, cuda)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, 2048), generator=gen, device=cuda)}
+    cache = model.init_cache(1, 2048)
+    stats = time_callable(lambda: model.prefill(batch, cache)[0], iters=5, warmup=2)
+    assert min(stats.samples_s) >= res["roofline"]["bound_s"] > 0
