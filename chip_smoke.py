@@ -146,26 +146,35 @@ or of the ``repro`` package.  Phases:
    refusal, and parity at full depth over a contiguous cache, whole and
    in chunks of 256.
 12. Tensor-parallel serving on this one card (``tp_phase``; ranks spawned
-   by ``launch.mesh.spawn_tp`` run ``sharding.runs.run_plan``): llama3.1-8b
-   at full width and depth over 2 gloo ranks and command-r-plus-104b at
-   full width (d 12288, 96/8 heads, d_ff 33792, 256000 tied, parallel
-   block) on 4 of its 64 layers over 4, each rank drawing its shard of
-   seed 0's weights, collectives staged through the host, steps eager.
-   Each is held to the tp = 1 model run first and freed before the ranks
-   start: prefill 512 + 4 greedy steps over a contiguous cache, a paged
-   one and the paged one in chunks of 256 (logits within ``parity_phase``'s
+   by ``launch.mesh.spawn_tp`` run ``sharding.runs.run_plan``), every model
+   at full width (``TP_RUNS``): llama3.1-8b on 8 of its 32 layers,
+   moonshot-v1-16b-a3b (32 experts a rank, half the shared MLP, 8/8 heads)
+   and llava-next-34b (28/4 heads, 576 patches before the tokens) on 4 of
+   theirs over 2 gloo ranks, one spawn; command-r-plus-104b (d 12288,
+   96/8 heads, d_ff 33792, 256000 tied, parallel block) and
+   qwen3-moe-30b-a3b (32 experts a rank, 8/1 heads) on 4 of theirs over 4,
+   one spawn; each rank drawing its shard of seed 0's weights, model after
+   model, collectives staged through the host, steps eager.  Each model is
+   held to the tp = 1 model run first and freed before the ranks start:
+   its parity prompt (512 tokens, llava 1024 positions with seeded
+   patches) + 4 greedy steps over a contiguous cache, a paged one and the
+   paged one in chunks of 256 (logits within its ``parity_phase``'s
    tolerance, top-1 equal where tp = 1's margin exceeds it; every rank's
    logits bit for bit rank 0's), 8 greedy requests of at most 16 tokens
    served (llama: paged and contiguous, whole and in chunks of 256 through
-   the per-chunk path; command-r: paged), every rank's streams exactly
-   rank 0's and rank 0's held to tp =
-   1's by the margin rule, the per-device KV bytes summing to tp = 1's
-   aggregate and every rank's pool accounting tiling.  command-r-plus-104b
-   also runs ``parity_phase`` (K1 at d = 12288, K2-K4 at G = 12).  With 2
-   GPUs or more, llama3.1-8b also over 2 NCCL ranks with captured steps;
-   else a line says it was not run.  The phase's times check correctness
-   only ("gloo over one card, host-staged: not a TP latency").  K1-K4 at
-   one rank's shapes are timed in phase 2 (``tp`` under each entry).
+   the per-chunk path; the others: paged), every rank's streams exactly
+   rank 0's and rank 0's held to tp = 1's by the margin rule, the
+   per-device KV bytes summing to tp = 1's aggregate and every rank's pool
+   accounting tiling.  A MoE model's parity and serving jobs take tp = 1's
+   recorded routes (bf16 flips top-k sets); one more parity job routes on
+   its own, every rank as rank 0, and its flips against tp = 1 are
+   printed.  llama3.1-8b and command-r-plus-104b run ``parity_phase`` at
+   their tp depth for the tolerance (K1 at d = 12288, K2-K4 at G = 12),
+   the others reuse their 4-layer parity's.  With 2 GPUs or more,
+   llama3.1-8b also over 2 NCCL ranks with captured steps; else a line
+   says it was not run.  The phase's times check correctness only ("gloo
+   over one card, host-staged: not a TP latency").  K1-K4 at one rank's
+   shapes are timed in phase 2 (``tp`` under each entry).
 13. Training through ``launch.train`` (``train_phase``): tinyllama-1.1b at
    full width and depth, bf16 weights and fp32 moments, 20 steps of 8 x
    1024 synthetic tokens with NVML energy (the loss must fall); the same
@@ -222,7 +231,8 @@ LLAVA = "llava-next-34b"          # 576 patch embeddings before the tokens, GQA 
 SEAMLESS = "seamless-m4t-large-v2"  # 24 encoder + 24 decoder layers, cross attention
 COMMAND_R = "command-r-plus-104b"   # d 12288, GQA 96/8, parallel block, tied; 208 GB
 # tensor parallelism on one card: (arch, tp, one rank's q heads, KV heads)
-TP_HEADS = [(ARCH, 2, 16, 4), (COMMAND_R, 4, 24, 2)]
+TP_HEADS = [(ARCH, 2, 16, 4), (COMMAND_R, 4, 24, 2), (QWEN_MOE, 4, 8, 1), (MOONSHOT, 2, 8, 8),
+            (LLAVA, 2, 28, 4)]
 # command-r-plus-104b at full width on 4 of its 64 layers: all of it would
 # not fit one 80 GB card
 TP_LAYERS = 4
@@ -243,6 +253,15 @@ SIZE_GB = {ARCH: "16.06", HYBRID: "5.36", NEMOTRON: "16.38",   # the reference's
 # at full width, drawn once the whole model is freed (an fp32 copy of all
 # 48 or 60 would not fit)
 PARITY_LAYERS = 4
+# the tensor-parallel runs, gloo ranks sharing this card, one spawn of ranks
+# for each tp: (arch, tp, layers at full width, 0 for all).  llama3.1-8b on
+# 8 of its 32 layers (the whole model took 103 s of the script's 1200 in PR
+# 24); the MoE models and llava-next-34b on ``PARITY_LAYERS``: the model of
+# their parity phase (same seed), whose tolerance the run reuses; eager gloo
+# steps of the whole models would not fit the script's 1200 s
+TP_LLAMA_LAYERS = 8
+TP_RUNS = [(ARCH, 2, TP_LLAMA_LAYERS), (MOONSHOT, 2, PARITY_LAYERS), (LLAVA, 2, PARITY_LAYERS),
+           (COMMAND_R, 4, TP_LAYERS), (QWEN_MOE, 4, PARITY_LAYERS)]
 BATCH, PROMPT, GEN, ITERS = 1, 512, 32, 3
 # llava-next-34b's prompt: its 576 patches and 448 tokens (a prompt no
 # longer than the patches leaves no token)
@@ -596,12 +615,14 @@ def kernel_phase(dev):
     fams.append(dict(arch=SEAMLESS, path="cross prefill", max_abs_err=err, **fa_row(case)))
     moe_rows(entries[-1], fams, "families")
     # tensor parallelism: one rank's heads at the prefill (llama3.1-8b at
-    # tp = 2, 16/4; command-r-plus-104b at tp = 4, 24/2, G = 12) and the
-    # unified step's frontier at 16/4
+    # tp = 2, 16/4; command-r-plus-104b at tp = 4, 24/2, G = 12; qwen3-moe
+    # at tp = 4, 8/1; moonshot at tp = 2, 8/8; llava-next-34b at tp = 2,
+    # 28/4 over its 1024 positions) and the unified step's frontier at 16/4
     tps = []
     for arch, tp, Hq, Hkv in TP_HEADS:
-        case, err = fa_case(f"{arch} tp={tp} B=1 S={PROMPT} Hq={Hq} Hkv={Hkv} D=128 causal",
-                            BATCH, PROMPT, PROMPT, Hq, Hkv, 128, bf16)
+        S = PROMPTS.get(arch, PROMPT)
+        case, err = fa_case(f"{arch} tp={tp} B=1 S={S} Hq={Hq} Hkv={Hkv} D=128 causal",
+                            BATCH, S, S, Hq, Hkv, 128, bf16)
         tps.append(dict(arch=arch, path=f"tp={tp} prefill", max_abs_err=err, **fa_row(case)))
     starts = [256] + [0] * 7
     q, k, v, kw = unified_flash_case(dev, randn, "paged", starts, starts, heads=(16, 4))
@@ -2211,31 +2232,18 @@ def parity_phase(e, dev, prompt=None, paged=True, table_scale=1.0):
 @contextlib.contextmanager
 def moe_routes(log=None, forced=None):
     """Inside the block, each MoE routing decision's (T, k) expert ids are
-    appended to ``log``; with ``forced``, each call takes the next of those
-    ids instead of its own top-k (its gates recomputed from its own
-    probabilities at them), so two paths route alike."""
-    import torch
-
+    appended to ``log`` (when the block ends); with ``forced``, each call
+    takes the next of those ids instead of its own top-k (its gates
+    recomputed from its own probabilities at them), so two paths route
+    alike: ``models.moe.routing``, which raises where forced ids are left
+    over."""
     from repro_torch.models import moe as moe_lib
 
-    route = moe_lib.route
-    given = iter(forced) if forced is not None else None
-
-    def routed(logits, k, normalize=True):
-        if given is None:
-            w, idx = route(logits, k, normalize)
-        else:
-            idx = next(given)
-            w = torch.softmax(logits.float(), dim=-1).gather(-1, idx)
-            if normalize:
-                w = w / w.sum(dim=-1, keepdim=True)
-        if log is not None:
-            log.append(idx)
-        return w, idx
-
-    with patched(moe_lib, "route", routed):
+    calls = None if log is None else []
+    with moe_lib.routing(calls, forced):
         yield
-    check(given is None or next(given, None) is None, "a forced route was left over")
+    if log is not None:
+        log.extend(idx for idx, _ in calls)
 
 
 def route_flips(a, b):
@@ -2401,14 +2409,19 @@ def decision_margins(e, a, uid, stream):
     from repro_torch.serving.sampling import _mask_slot_logits, _uniforms, request_key
 
     model, dev, n = e.model, e.model.device, len(stream)
+    nv = e.cfg.num_vision_tokens  # zero patches before the prompt, as the engine serves
     b = SERVE["prompt_bucket"]
-    plen = min(SERVE["max_len"] - 1, -(-len(a.prompt) // b) * b)
-    prompt = np.concatenate([np.zeros(plen - len(a.prompt), np.int64), a.prompt])
-    cache = model.init_cache(1, plen + n)
-    logits = [model.prefill({"tokens": torch.from_numpy(prompt)[None].to(dev)}, cache)[0]]
+    max_len = {**SERVE, **SERVE_ARCH.get(e.cfg.name, {})}["max_len"]
+    plen = min(max_len - 1 - nv, -(-len(a.prompt) // b) * b)
+    prompt = np.concatenate([np.zeros(plen - len(a.prompt), np.int64), a.prompt[-plen:]])
+    cache = model.init_cache(1, nv + plen + n)
+    batch = {"tokens": torch.from_numpy(prompt)[None].to(dev)}
+    if nv:
+        batch["vision_embeds"] = torch.zeros((1, nv, e.cfg.d_model), device=dev)
+    logits = [model.prefill(batch, cache)[0]]
     if n > 1:
         rest = torch.as_tensor(np.asarray(stream[:-1], np.int64))[None].to(dev)
-        logits.append(model.prefill_chunk(rest, cache, plen, all_logits=True)[0][0])
+        logits.append(model.prefill_chunk(rest, cache, nv + plen, all_logits=True)[0][0])
     logits = torch.cat(logits)
     p = a.params
     if p.temperature > 0:
@@ -2872,11 +2885,12 @@ def model_phases(arch, dev, counters, paths, serve=True, parity_layers=0, layers
         gc.collect()
         torch.cuda.empty_cache()
         e = Elana(config=cfg, device="cuda", seed=0)
-    parity_phase(e, dev, **parity_kw)
+    tol = parity_phase(e, dev, **parity_kw)
     del e
     gc.collect()
     torch.cuda.empty_cache()
     log(f"{arch} phases took {time.perf_counter() - t0:.1f} s")
+    return tol
 
 
 # ---------------------------------------------------------------------------
@@ -2888,9 +2902,11 @@ TP_NOTE = "gloo over one card, host-staged: not a TP latency"
 
 def tp_parity_jobs(cfg, dev):
     """``parity_phase``'s inputs as ``sharding.runs.Logits`` jobs: a prompt
-    of 512 over a contiguous cache (B = 1), a paged one (B = 4, each row's
-    blocks shuffled through the pool) and the paged one in chunks of 256,
-    then 4 greedy decode steps."""
+    of ``prompt_of(cfg)`` positions over a contiguous cache (B = 1), a
+    paged one (B = 4, each row's blocks shuffled through the pool) and the
+    paged one in chunks of 256, then 4 greedy decode steps.  A vision
+    model's prompt is its patches, seeded 0.1 N(0, 1) embeddings as
+    ``random_batch`` draws them (the same on every rank), then tokens."""
     import numpy as np
 
     from repro_torch.models.cache import blocks_per_slot
@@ -2898,24 +2914,29 @@ def tp_parity_jobs(cfg, dev):
 
     rng = np.random.default_rng(1)
     steps, bs, paged_batch = 4, 16, 4
-    max_len = PROMPT + steps + 1
+    prompt, nv = prompt_of(cfg), cfg.num_vision_tokens
+    max_len = prompt + steps + 1
     nb = blocks_per_slot(max_len, bs)
     pool = paged_batch * nb + 9
     tables = (rng.permutation(pool - 1)[:paged_batch * nb] + 1).reshape(paged_batch, nb)
     paged = dict(layout="paged", block_size=bs, num_blocks=pool)
-    tokens = {b: rng.integers(0, cfg.vocab_size, (b, PROMPT)) for b in (BATCH, paged_batch)}
-    return {"contiguous": runs.Logits(tokens[BATCH], None, max_len, greedy=steps),
+    tokens = {b: rng.integers(0, cfg.vocab_size, (b, prompt - nv)) for b in (BATCH, paged_batch)}
+    vision = {b: (0.1 * rng.standard_normal((b, nv, cfg.d_model))).astype(np.float32)
+              if nv else None for b in (BATCH, paged_batch)}
+    return {"contiguous": runs.Logits(tokens[BATCH], None, max_len, greedy=steps,
+                                      vision=vision[BATCH]),
             "paged": runs.Logits(tokens[paged_batch], None, max_len, paged,
-                                 tables.astype(np.int32), greedy=steps),
+                                 tables.astype(np.int32), greedy=steps,
+                                 vision=vision[paged_batch]),
             "chunked": runs.Logits(tokens[paged_batch], None, max_len, paged,
                                    tables.astype(np.int32), chunk=CHUNKED["prefill_chunk"],
-                                   greedy=steps)}
+                                   greedy=steps, vision=vision[paged_batch])}
 
 
 def tp_serve_jobs(cfg, configs, cuda_graph=False):
     """``TP_REQUESTS`` greedy requests of ``serve_arrivals``, at most
-    ``TP_MAX_NEW`` new tokens each, served at the serving shape, one
-    ``sharding.runs.Serve`` job per named config."""
+    ``TP_MAX_NEW`` new tokens each, served at the model's serving shape,
+    one ``sharding.runs.Serve`` job per named config."""
     import dataclasses
 
     from repro_torch.sharding import runs
@@ -2924,9 +2945,65 @@ def tp_serve_jobs(cfg, configs, cuda_graph=False):
     for a in arrivals:
         a.params = dataclasses.replace(
             a.params, max_new_tokens=min(a.params.max_new_tokens, TP_MAX_NEW))
-    return arrivals, [runs.Serve(name, {**SERVE, **kw, "cuda_graph": cuda_graph},
+    shape = {**SERVE, **SERVE_ARCH.get(cfg.name, {})}
+    return arrivals, [runs.Serve(name, {**shape, **kw, "cuda_graph": cuda_graph},
                                  [(a.prompt, a.params) for a in arrivals])
                       for name, kw in configs.items()]
+
+
+def served_margins(e, dev, job):
+    """Each request's decision margins in a whole-prompt serving run of
+    greedy requests, read from the logits each token was drawn from:
+    ``job`` (a ``sharding.runs.Serve``, eager steps; a MoE model's routes
+    forced to those it recorded) served again on the tp = 1 model with the
+    model's decode step and the engine's first-token and decode-output
+    hooks wrapped.  A MoE layer's capacity counts the rows a token is
+    batched with, so a request replayed alone (``decision_margins``)
+    would read the margins of another function.  Returns (the streams,
+    {uid: (tokens,) fp32 margins})."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.serving.engine import ServingEngine
+
+    model, margins, last = e.model, {}, {}
+
+    def top2(row):
+        v = row.float().topk(2).values
+        return float(v[0] - v[1])
+
+    decode = model.decode_step
+
+    def decode_step(*a, **kw):
+        last["logits"], cache = decode(*a, **kw)
+        return last["logits"], cache
+
+    eng = ServingEngine(model, device=dev, **job.engine)
+    start, process = eng._start_decoding, eng._process_decode_out
+
+    def start_decoding(req, slot, plen, logits, *a, **kw):
+        margins.setdefault(req.uid, []).append(top2(logits[0]))
+        return start(req, slot, plen, logits, *a, **kw)
+
+    def process_decode_out(out_np):
+        for slot in np.nonzero(out_np[2])[0]:
+            if eng.slots[slot] is not None:
+                margins.setdefault(eng.slots[slot].uid, []).append(top2(last["logits"][slot]))
+        return process(out_np)
+
+    eng._start_decoding, eng._process_decode_out = start_decoding, process_decode_out
+    model.decode_step = decode_step
+    try:
+        for prompt, params in job.arrivals:
+            eng.submit(prompt, params)
+        forced = None if job.routes is None else [torch.from_numpy(r) for r in job.routes]
+        with moe_lib.routing(forced=forced):
+            eng.run()
+    finally:
+        del model.decode_step
+    streams = {r.uid: list(r.output_tokens) for r in eng.finished}
+    return streams, {uid: torch.tensor(m) for uid, m in margins.items()}
 
 
 def tp_reference(e, dev, parity, serves, arrivals):
@@ -2934,19 +3011,45 @@ def tp_reference(e, dev, parity, serves, arrivals):
     greedy steps then forced on the ranks), each serving run's streams,
     ledgers and summary, and the margins of every decision of every stream
     (``decision_margins``), so the model can be freed before the ranks
-    start."""
+    start.  A MoE model's routing is recorded and forced on the ranks'
+    parity and serving jobs (bf16 flips top-k sets, and a flip is not a
+    fault of the sharding), and its margins are read from the serving run
+    itself (``served_margins``: capacity makes a token's logits depend on
+    the rows beside it); one more parity job, the contiguous one with its
+    own routing, records the ranks' routes for the flip count.
+    Returns (ref, tp1_runs, margins, serves, flips), ``serves`` the jobs
+    for the ranks and ``flips`` None or (that job, tp = 1's routes)."""
     import dataclasses
 
     import numpy as np
     import torch
 
-    ref = {}
+    moe = e.cfg.is_moe
+    ref, routes = {}, {}
     for name, job in parity.items():
-        logits = job.run(e.model, None, dev)
+        out = dataclasses.replace(job, record=moe).run(e.model, None, dev)
+        logits = out["logits"] if moe else out
         ref[name] = logits
-        parity[name] = dataclasses.replace(job, steps=logits[:-1].argmax(-1), greedy=0)
-    tp1_runs = {job.name: job.run(e.model, None, dev) for job in serves}
+        routes[name] = out["ids"] if moe else None
+        parity[name] = dataclasses.replace(job, steps=logits[:-1].argmax(-1), greedy=0,
+                                           routes=routes[name])
+    tp1_runs = {job.name: dataclasses.replace(job, record=moe).run(e.model, None, dev)
+                for job in serves}
     margins = {}
+    flips = None
+    if moe:  # the margins of the batched run itself, its routes forced
+        serves = [dataclasses.replace(job, routes=tp1_runs[job.name]["routes"]["ids"])
+                  for job in serves]
+        for job in serves:
+            streams, by_uid = served_margins(e, dev, job)
+            check(streams == tp1_runs[job.name]["streams"],
+                  f"{e.cfg.name} {job.name}: the replay with its own routes forced gave "
+                  f"other streams")
+            check(all(len(by_uid[uid]) == len(s) for uid, s in streams.items()),
+                  f"{e.cfg.name} {job.name}: a margin for every token")
+            margins.update({(uid, tuple(s)): by_uid[uid] for uid, s in streams.items()})
+        flips = (dataclasses.replace(parity["contiguous"], routes=None, record=True),
+                 routes["contiguous"])
     for out in tp1_runs.values():
         for uid, stream in out["streams"].items():
             key = (uid, tuple(stream))
@@ -2954,26 +3057,28 @@ def tp_reference(e, dev, parity, serves, arrivals):
                 margins[key] = decision_margins(e, arrivals[uid], uid, stream)
     torch.cuda.synchronize()
     check(all(np.isfinite(v).all() for v in ref.values()), "tp=1 logits not finite")
-    return ref, tp1_runs, margins
+    return ref, tp1_runs, margins, serves, flips
 
 
 def tp_compare(arch, tp, ranks, ref, tp1_runs, margins, tol, label):
-    """The ranks' results against tp = 1's: each rank's parity logits bit
-    for bit rank 0's and within ``tol`` of tp = 1's; each rank's streams
-    exactly rank 0's, and rank 0's held to tp = 1's by the margin rule of
+    """The ranks' results (each rank's list of job results after the first
+    ``Launches``) against tp = 1's: each rank's parity logits bit for bit
+    rank 0's and within ``tol`` of tp = 1's; each rank's streams exactly
+    rank 0's, and rank 0's held to tp = 1's by the margin rule of
     ``gate_streams`` (a first difference only where tp = 1's decision had a
     margin below ``tol``); the per-device KV bytes summing to tp = 1's
     aggregate, and every rank's pool partition tiling its blocks."""
     import numpy as np
 
     n_par = len(ref)
-    lead = ranks[0][0]
+    lead = ranks[0]
+    forced = any("routes" in base for base in tp1_runs.values())  # a MoE model's
     for i, name in enumerate(ref):
         want = ref[name]
-        got = lead[1 + i]
+        got = lead[i]
         check(got.shape == want.shape, f"{label} {name}: logits {got.shape}, tp=1 {want.shape}")
         for r in range(1, tp):
-            check(np.array_equal(ranks[r][0][1 + i], got),
+            check(np.array_equal(ranks[r][i], got),
                   f"{label} {name}: rank {r}'s logits differ from rank 0's")
         diff = float(np.abs(got - want).max())
         agree = got.argmax(-1) == want.argmax(-1)
@@ -2981,14 +3086,15 @@ def tp_compare(arch, tp, ranks, ref, tp1_runs, margins, tol, label):
         decided = (top2[..., 1] - top2[..., 0]) > tol
         log(f"{label} parity {name}: " + json.dumps({
             "max_abs_diff_vs_tp1": diff, "tol": tol, "max_abs_logit": float(np.abs(want).max()),
-            "top1_agree": f"{int(agree.sum())}/{agree.size}", "decided_rows": int(decided.sum())}))
+            "top1_agree": f"{int(agree.sum())}/{agree.size}", "decided_rows": int(decided.sum()),
+            "tp1_routes_forced": forced}))
         check(diff <= tol, f"{label} {name}: logits {diff} from tp=1's, tol {tol}")
         check(bool(agree[decided].all()), f"{label} {name}: top-1 differs from tp=1's on a "
                                           f"row with a clear margin")
     for j, (name, base) in enumerate(tp1_runs.items()):
-        out = lead[1 + n_par + j]
+        out = lead[n_par + j]
         for r in range(1, tp):
-            other = ranks[r][0][1 + n_par + j]
+            other = ranks[r][n_par + j]
             check(other["streams"] == out["streams"], f"{label} {name}: rank {r}'s streams "
                                                       f"differ from rank 0's")
             view = other["pool_accounting"]
@@ -3016,6 +3122,7 @@ def tp_compare(arch, tp, ranks, ref, tp1_runs, margins, tol, label):
         log(f"{label} serve {name}: " + json.dumps({
             "identical_streams": f"{len(base['streams']) - len(flips)}/{len(base['streams'])}",
             "first_differences (uid: token, margin)": flips, "tol": tol,
+            "tp1_routes_forced": forced,
             "kv_bytes_peak_per_device": per, "kv_bytes_peak_tp1": base["kv_bytes_peak"],
             "dispatches_per_step_p95": s["dispatches_per_step_p95"],
             "step_ms": step_ms, "tp_broadcast_us_p50": s["tp_broadcast_us_p50"],
@@ -3024,38 +3131,82 @@ def tp_compare(arch, tp, ranks, ref, tp1_runs, margins, tol, label):
             "timing": TP_NOTE}))
 
 
-def tp_run(arch, cfg, tp, dev, paths, parity, serves, ref, tp1_runs, margins, tol, backend):
-    """Spawn ``tp`` ranks of ``backend`` (gloo: sharing this card; None:
-    NCCL, one card each), each drawing its shard of seed 0's weights and
-    running the parity and serving jobs, and hold them to tp = 1's."""
+def tp_route_flips(label, tp, ranks, flips, want_logits):
+    """Every rank's own routing of the contiguous parity job (no routes
+    forced) equal to rank 0's, and the token rows whose top-k expert set
+    differs from tp = 1's printed with the rows compared, as information
+    (bf16 flips such sets; the checks force tp = 1's)."""
+    import numpy as np
+
+    lead = ranks[0][-1]
+    for r in range(1, tp):
+        other = ranks[r][-1]
+        check(len(other["ids"]) == len(lead["ids"])
+              and all(np.array_equal(a, b) for a, b in zip(other["ids"], lead["ids"])),
+              f"{label}: rank {r} routed a MoE call otherwise than rank 0")
+    want = flips[1]
+    check(len(want) == len(lead["ids"]), f"{label}: {len(lead['ids'])} MoE calls, tp=1 "
+                                          f"{len(want)}")
+    n = sum(int((np.sort(a, -1) != np.sort(b, -1)).any(-1).sum())
+            for a, b in zip(lead["ids"], want))
+    rows = sum(a.shape[0] for a in want)
+    log(f"{label} route flips vs tp=1, contiguous parity job, routes not forced: "
+        + json.dumps({"rows_with_another_topk_set": n, "rows_compared": rows,
+                      "moe_calls": len(want), "unforced_logits_max_abs_diff_vs_tp1":
+                      float(np.abs(lead["logits"] - want_logits).max())}))
+
+
+def tp_run(tp, dev, paths, cases, backend):
+    """One spawn of ``tp`` ranks of ``backend`` (gloo: sharing this card;
+    None: NCCL, one card each) for every case (``tp_phase``): each rank
+    draws its shard of a case's seed-0 weights in turn, runs its parity
+    and serving jobs (and a MoE model's flip job) between two launch
+    reads, frees it, then the next case's; each case is held to tp = 1's.
+    Every rank must launch K1-K4 on every case."""
     from repro_torch.launch.mesh import spawn_tp
     from repro_torch.sharding import runs
 
-    label = f"tp {arch} tp={tp} {backend or 'nccl'}"
-    jobs = [runs.Launches(), *parity.values(), *serves, runs.Launches()]
+    plan = []
+    for c in cases:
+        extra = [c["flips"][0]] if c["flips"] else []
+        plan.append((runs.Weights(c["cfg"], seed=0),
+                     [runs.Launches(), *c["parity"].values(), *c["serves"], *extra,
+                      runs.Launches()]))
     t0 = time.perf_counter()
-    ranks = spawn_tp(runs.run_plan, tp, "cuda", [(runs.Weights(cfg, seed=0), jobs)],
-                     backend=backend)
+    ranks = spawn_tp(runs.run_plan, tp, "cuda", plan, backend=backend)
     wall = time.perf_counter() - t0
-    for r in range(tp):
-        paths[f"{arch} tp={tp} {backend or 'nccl'} rank {r}"] = ranks[r][0][-1]
-        check(all(ranks[r][0][-1][k] > 0 for k in ("rmsnorm", "flash_attention",
-                                                     "decode_attention",
-                                                     "paged_decode_attention")),
-              f"{label}: rank {r} did not launch K1-K4: {ranks[r][0][-1]}")
-    tp_compare(arch, tp, ranks, ref, tp1_runs, margins, tol, label)
-    log(f"{label}: ranks ran {wall:.1f} s ({TP_NOTE if backend == 'gloo' else 'NCCL'})")
+    for i, c in enumerate(cases):
+        arch = c["arch"]
+        label = f"tp {arch} tp={tp} {backend or 'nccl'}"
+        mine = [ranks[r][i] for r in range(tp)]
+        check(all(isinstance(m, list) for m in mine), f"{label}: a rank could not build: {mine}")
+        for r in range(tp):
+            paths[f"{arch} tp={tp} {backend or 'nccl'} rank {r}"] = mine[r][-1]
+            check(all(mine[r][-1][k] > 0 for k in ("rmsnorm", "flash_attention",
+                                                    "decode_attention",
+                                                    "paged_decode_attention")),
+                  f"{label}: rank {r} did not launch K1-K4: {mine[r][-1]}")
+        results = [m[1:-1] for m in mine]
+        tp_compare(arch, tp, results, c["ref"], c["tp1_runs"], c["margins"], c["tol"], label)
+        if c["flips"]:
+            tp_route_flips(label, tp, results, c["flips"], c["ref"]["contiguous"])
+    log(f"tp={tp} {backend or 'nccl'} ranks ran {', '.join(c['arch'] for c in cases)}: "
+        f"{wall:.1f} s ({TP_NOTE if backend == 'gloo' else 'NCCL'})")
 
 
-def tp_phase(dev, paths, tol_llama):
-    """Tensor-parallel serving on this card: llama3.1-8b at full width and
-    depth over 2 gloo ranks and command-r-plus-104b at full width on
-    ``TP_LAYERS`` of its layers over 4, every rank sharing this card, its
-    collectives staged through the host, its steps eager; each held to the
-    tp = 1 model run here first (parity logits within the bf16 tolerance
-    of ``parity_phase``, streams by the margin rule, ledgers).  With 2 or
-    more GPUs llama3.1-8b also runs over 2 NCCL ranks with captured steps.
-    The times printed check correctness: they are not TP latencies."""
+def tp_phase(dev, paths, tols):
+    """Tensor-parallel serving on this card (``TP_RUNS``): llama3.1-8b on
+    ``TP_LLAMA_LAYERS`` layers, moonshot-v1-16b-a3b and llava-next-34b over
+    2 gloo ranks, command-r-plus-104b and qwen3-moe-30b-a3b over 4, every
+    model at full width, every rank sharing this card, its collectives
+    staged through the host, its steps eager.  Each model is held to its
+    tp = 1 model, run here first (parity logits within the bf16 tolerance
+    of its ``parity_phase`` — ``tols[arch]`` where the model's own parity
+    phase gave it, else run here — streams by the margin rule, ledgers; a
+    MoE model with tp = 1's routes forced, its unforced flips printed).
+    With 2 or more GPUs llama3.1-8b also runs over 2 NCCL ranks with
+    captured steps.  The times printed check correctness: they are not TP
+    latencies."""
     import gc
 
     import torch
@@ -3063,44 +3214,42 @@ def tp_phase(dev, paths, tol_llama):
     from repro_torch.configs import get_config
     from repro_torch.core.profiler import Elana
 
+    llama_configs = {"paged whole": {}, "paged chunked": TP_CHUNKED,
+                     "contiguous whole": dict(cache_layout="contiguous"),
+                     "contiguous chunked": dict(TP_CHUNKED, cache_layout="contiguous")}
     t_all = time.perf_counter()
-    llama = get_config(ARCH)
-    parity = tp_parity_jobs(llama, dev)
-    configs = {"paged whole": {}, "paged chunked": TP_CHUNKED,
-               "contiguous whole": dict(cache_layout="contiguous"),
-               "contiguous chunked": dict(TP_CHUNKED, cache_layout="contiguous")}
-    arrivals, serves = tp_serve_jobs(llama, configs)
-    t0 = time.perf_counter()
-    e = Elana(ARCH, device="cuda", seed=0)
-    ref, tp1_runs, margins = tp_reference(e, dev, parity, serves, arrivals)
-    del e
-    gc.collect()
-    torch.cuda.empty_cache()
-    log(f"tp {ARCH}: tp=1 reference (eager) took {time.perf_counter() - t0:.1f} s")
-    tp_run(ARCH, llama, 2, dev, paths, parity, serves, ref, tp1_runs, margins, tol_llama, "gloo")
+    cases = []
+    for arch, tp, layers in TP_RUNS:
+        t0 = time.perf_counter()
+        full = get_config(arch)
+        cfg = full.replace(num_layers=layers) if layers else full
+        log(f"tp {arch} tp={tp}: full width on {cfg.num_layers} of its {full.num_layers} "
+            f"layers")
+        parity = tp_parity_jobs(cfg, dev)
+        arrivals, serves = tp_serve_jobs(cfg, llama_configs if arch == ARCH
+                                         else {"paged whole": {}})
+        e = Elana(config=cfg, device="cuda", seed=0)
+        tol = tols.get(arch)
+        if tol is None:  # the kernels held to plain and fp32 at this depth
+            tol = parity_phase(e, dev)
+        ref, tp1_runs, margins, serves, flips = tp_reference(e, dev, parity, serves, arrivals)
+        del e
+        gc.collect()
+        torch.cuda.empty_cache()
+        cases.append(dict(arch=arch, tp=tp, cfg=cfg, tol=tol, parity=parity, serves=serves,
+                          ref=ref, tp1_runs=tp1_runs, margins=margins, flips=flips,
+                          configs=llama_configs if arch == ARCH else None))
+        log(f"tp {arch}: tp=1 reference (eager) took {time.perf_counter() - t0:.1f} s")
+    for tp in sorted({c["tp"] for c in cases}):
+        tp_run(tp, dev, paths, [c for c in cases if c["tp"] == tp], "gloo")
     if torch.cuda.device_count() >= 2:
-        _, graphed = tp_serve_jobs(llama, configs, cuda_graph=True)
-        tp_run(ARCH, llama, 2, dev, paths, parity, graphed, ref, tp1_runs, margins, tol_llama,
-               None)
+        c = dict(next(c for c in cases if c["arch"] == ARCH))
+        _, c["serves"] = tp_serve_jobs(c["cfg"], c["configs"], cuda_graph=True)
+        tp_run(2, dev, paths, [c], None)
     else:
         log(f"tp {ARCH} nccl: not run: {torch.cuda.device_count()} GPU visible, and NCCL "
             f"takes one GPU per rank; the captured NCCL steps stay unverified here")
-    log(f"tp {ARCH} phases took {time.perf_counter() - t_all:.1f} s")
-
-    t_all = time.perf_counter()
-    cfg = get_config(COMMAND_R).replace(num_layers=TP_LAYERS)
-    log(f"tp {COMMAND_R}: full width on {TP_LAYERS} of its 64 layers: the whole model "
-        f"(208 GB) does not fit one 80 GB card")
-    parity = tp_parity_jobs(cfg, dev)
-    arrivals, serves = tp_serve_jobs(cfg, {"paged whole": {}})
-    e = Elana(config=cfg, device="cuda", seed=0)
-    tol = parity_phase(e, dev)  # the kernels held to plain and fp32 at d 12288, G 12
-    ref, tp1_runs, margins = tp_reference(e, dev, parity, serves, arrivals)
-    del e
-    gc.collect()
-    torch.cuda.empty_cache()
-    tp_run(COMMAND_R, cfg, 4, dev, paths, parity, serves, ref, tp1_runs, margins, tol, "gloo")
-    log(f"tp {COMMAND_R} phases took {time.perf_counter() - t_all:.1f} s")
+    log(f"tp phases took {time.perf_counter() - t_all:.1f} s")
 
 
 def engine_refusal_check(e):
@@ -3758,15 +3907,16 @@ def main():
     check(paths[f"{NEMOTRON} serve"]["paged_decode_attention"] > 0,
           f"K4 never launched on the {NEMOTRON} serve path")
     model_phases(XLSTM, dev, counters, paths, serve=False, paged=False, layers=XLSTM_LAYERS)
+    tols = {}  # the 4-layer parity models' tolerances, for their tp runs
     for arch in (QWEN_MOE, MOONSHOT):
-        model_phases(arch, dev, counters, paths, parity_layers=PARITY_LAYERS)
+        tols[arch] = model_phases(arch, dev, counters, paths, parity_layers=PARITY_LAYERS)
         for path in ("measure", "serve", "chunked serve"):
             check(all(paths[f"{arch} {path}"][k] > 0 for k in ("rmsnorm", "flash_attention")),
                   f"K1 or K2 never launched on the {arch} {path} path")
         check(paths[f"{arch} measure"]["decode_attention"] > 0
               and paths[f"{arch} serve"]["paged_decode_attention"] > 0,
               f"K3 or K4 never launched on the {arch} paths")
-    model_phases(LLAVA, dev, counters, paths, parity_layers=PARITY_LAYERS)
+    tols[LLAVA] = model_phases(LLAVA, dev, counters, paths, parity_layers=PARITY_LAYERS)
     for path in ("measure", "serve", "chunked serve"):
         check(all(paths[f"{LLAVA} {path}"][k] > 0 for k in ("rmsnorm", "flash_attention")),
               f"K1 or K2 never launched on the {LLAVA} {path} path")
@@ -3778,7 +3928,7 @@ def main():
     check(all(paths[f"{SEAMLESS} measure"][k] > 0
               for k in ("rmsnorm", "flash_attention", "decode_attention")),
           f"K1, K2 or K3 never launched on the {SEAMLESS} measure path")
-    tp_phase(dev, paths, tol)
+    tp_phase(dev, paths, tols)
     train_phase(dev, counters, paths)
     for path in ("train", "train preempted", "train resumed", "train remat"):
         check(all(paths[f"{TRAIN_ARCH} {path}"][k] > 0 for k in ("rmsnorm", "flash_attention")),

@@ -11,7 +11,7 @@ encoder-decoder model's ``encoder`` stack (pattern ``("attn",)``) is
 unstacked the same way into ``encoder.layers``.  With ``mesh=`` (a
 ``launch.mesh.TPMesh``) the model is the rank's tensor-parallel shard, and
 each parameter takes the rank's slice of the reference's
-(``sharding.rules.local_slice``), as ``sharding.partition.shard_model``
+(``sharding.rules.local_slice``, by its owning module's rule), as ``sharding.partition.shard_model``
 slices the port's own draws.
 """
 
@@ -24,7 +24,7 @@ import torch
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import Model, _enc_cfg
-from repro_torch.sharding.rules import local_slice
+from repro_torch.sharding.rules import local_slice, param_rules
 
 
 def _tensor(arr: np.ndarray) -> torch.Tensor:
@@ -83,13 +83,14 @@ def params_from_jax(cfg: ModelConfig, tree: Mapping, device="cuda", mesh=None) -
     rank, tp = (mesh.rank, mesh.size) if mesh is not None else (0, 1)
     flat = reference_by_port_name(cfg, tree)
     params = dict(model.named_parameters())
+    rules = param_rules(model)
     if set(flat) != set(params):
         raise ValueError(f"parameter names differ: only in the reference "
                          f"{sorted(set(flat) - set(params))}, only in the port "
                          f"{sorted(set(params) - set(flat))}")
     with torch.no_grad():
         for name, p in params.items():
-            src = _tensor(local_slice(name, flat[name], rank, tp))
+            src = _tensor(local_slice(rules[name], flat[name], rank, tp))
             if tuple(src.shape) != tuple(p.shape) or src.dtype != p.dtype:
                 raise ValueError(f"{name}: reference {tuple(src.shape)} {src.dtype}, "
                                  f"port {tuple(p.shape)} {p.dtype}")

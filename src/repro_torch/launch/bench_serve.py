@@ -16,7 +16,7 @@ to ``PowerMonitor.result().joules`` exactly.
         --duration-s 3 --max-new 8 --check
 
 ``--tp N`` shards the model over N rank processes as ``launch.serve``
-does: rank 0 runs the server, the load and the report, the other ranks
+does (and refuses what it refuses): rank 0 runs the server, the load and the report, the other ranks
 follow its steps; one monitor per GPU under NCCL, one in all where the
 ranks share a board.
 
@@ -78,7 +78,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--tp", type=int, default=1,
                     help="tensor-parallel ranks: shard the served model over N processes, "
                          "one power monitor per GPU (NCCL, one GPU per rank; with fewer "
-                         "GPUs, or on the CPU, gloo ranks with eager steps)")
+                         "GPUs, or on the CPU, gloo ranks with eager steps); dense, MoE and "
+                         "vision-prefix decoders: RG-LRU, xLSTM and encoder-decoder models "
+                         "are refused")
     return ap
 
 
@@ -223,8 +225,9 @@ def main(argv=None) -> int:
     if args.tp < 1:
         ap.error("--tp takes an integer >= 1")
     if args.tp > 1:
-        from repro_torch.launch.serve import run_ranks, tp_backend
+        from repro_torch.launch.serve import refuse_tp, run_ranks, tp_backend
 
+        refuse_tp(ap, args)
         return run_ranks(_bench, args, tp_backend(ap, args))
     report(run(args), args)
     return 0

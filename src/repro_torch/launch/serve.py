@@ -16,6 +16,7 @@ counterpart of ``repro/launch/serve.py``.
         --spec-tokens 4 --lookup-friendly
     python -m repro_torch.launch.serve --arch llama3.1-8b --cache-layout paged --tp 2
     python -m repro_torch.launch.serve --arch tinyllama-1.1b --smoke --device cpu --tp 2
+    python -m repro_torch.launch.serve --arch moonshot-v1-16b-a3b --smoke --device cpu --tp 2
 
 ``--arrival-rate 0`` (the default) submits every request at the start;
 otherwise arrivals are Poisson at that rate, replayed against the wall
@@ -29,8 +30,11 @@ split between requests by the tokens each emitted in every window.
 Prints ``latency_summary()`` as JSON, then markdown tables of the latency
 percentiles, the step economics and the requests.
 
-``--tp N`` shards the model over N rank processes (``launch.mesh``):
-NCCL with one GPU per rank and CUDA-graph steps where N GPUs are visible;
+``--tp N`` shards the model over N rank processes (``launch.mesh``): the
+dense decoders, the MoE models (E / N experts a rank) and the vision-prefix
+model; RG-LRU and xLSTM blocks, an encoder and a dim N does not divide are
+refused before any rank starts (``sharding.rules.check_tp``).  NCCL with
+one GPU per rank and CUDA-graph steps where N GPUs are visible;
 on fewer GPUs gloo ranks that share them, whose steps run eagerly (pass
 ``--cuda-graph off``); on the CPU gloo ranks.  Rank 0 prints, serves HTTP
 and reads the power; the other ranks follow its steps.  Ranks that share
@@ -150,11 +154,25 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--motif-repeats", type=int, default=4,
                     help="times each --lookup-friendly motif is tiled")
     ap.add_argument("--tp", type=int, default=1,
-                    help="tensor-parallel ranks: shard heads, FFN hidden and vocabulary over "
-                         "N processes, with per-device KV and power ledgers (NCCL, one GPU "
-                         "per rank; with fewer GPUs, or on the CPU, gloo ranks, eager "
-                         "steps)")
+                    help="tensor-parallel ranks: shard heads, FFN hidden, experts and "
+                         "vocabulary over N processes, with per-device KV and power ledgers "
+                         "(NCCL, one GPU per rank; with fewer GPUs, or on the CPU, gloo "
+                         "ranks, eager steps); dense, MoE and vision-prefix decoders: "
+                         "RG-LRU, xLSTM and encoder-decoder models are refused")
     return ap
+
+
+def refuse_tp(ap, args) -> None:
+    """``ap.error`` with ``sharding.rules.check_tp``'s reason where ``--tp``
+    cannot shard ``--arch`` (an unported block kind, an encoder, a dim it
+    does not divide), before any rank starts."""
+    from repro_torch.configs import get_config
+    from repro_torch.sharding.rules import check_tp
+
+    try:
+        check_tp(get_config(args.arch, smoke=args.smoke), args.tp)
+    except ValueError as exc:
+        ap.error(str(exc))
 
 
 def tp_backend(ap, args):
@@ -234,6 +252,7 @@ def main(argv=None) -> int:
     if args.tp < 1:
         ap.error("--tp takes an integer >= 1")
     if args.tp > 1:
+        refuse_tp(ap, args)
         return run_ranks(_serve, args, tp_backend(ap, args), front_end=bool(args.http_port))
     return _serve(None, args)
 

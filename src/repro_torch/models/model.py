@@ -22,12 +22,16 @@ in order (``bridge.params_from_jax`` unstacks the reference's groups).
 Tensor parallelism: a model built with ``mesh=`` (a ``launch.mesh.TPMesh``
 of more than one rank) is one rank's shard, Megatron-style, with the
 reference's serving rules (``sharding/rules.py``): the q/k/v heads, the FFN
-hidden and the vocabulary split over the ranks, norms replicated.  Each
-block's attention output and MLP output are partial sums, reduced over the
-ranks before they join the residual stream (a parallel block sums the two
-first and reduces once), each partial kept in fp32 and the sum rounded
-once to the stream's dtype; the embedding and the logits are vocabulary
-parallel (``layers.embed_tokens``, ``layers.unembed``).  The residual
+hidden, the experts (a MoE layer's E / tp experts and router columns, its
+shared MLP's hidden) and the vocabulary split over the ranks, norms
+replicated, a vision prefix's patch embeddings an input every rank is
+given.  Each block's attention output and MLP output are partial sums,
+reduced over the ranks before they join the residual stream (a parallel
+block sums the two first and reduces once, a MoE layer its routed and
+shared partials), each partial kept in fp32 and the sum rounded once to
+the stream's dtype; the embedding and the logits are vocabulary parallel
+(``layers.embed_tokens``, ``layers.unembed``), a MoE layer's router
+logits gathered whole (``models/moe.py``).  The residual
 stream, the logits and so every sampled token are the same on every
 rank.  ``sharding.partition.shard_model`` draws a shard's weights.
 
@@ -82,7 +86,10 @@ def _dtype(name: str) -> torch.dtype:
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: ModelConfig, kind: str, dtype, device):
+    """One layer at ``cfg``'s shapes (a shard's local config); a MoE
+    layer holds the experts of one of ``shards`` ranks."""
+
+    def __init__(self, cfg: ModelConfig, kind: str, dtype, device, shards: int = 1):
         super().__init__()
         if kind not in SUPPORTED_BLOCKS:
             raise NotImplementedError(
@@ -106,7 +113,7 @@ class Block(nn.Module):
             cell = rec_lib.MLSTM if kind == "mlstm" else rec_lib.SLSTM
             self.cell = cell(cfg, dtype, device)
         elif kind in ATTN_BLOCKS and cfg.is_moe:
-            self.mlp = moe_lib.MoE(cfg, dtype, device)
+            self.mlp = moe_lib.MoE(cfg, dtype, device, shards)
         else:
             self.mlp = MLP(d, cfg.d_ff, cfg.mlp_gated, dtype, device)
         if cfg.is_encdec and kind in ATTN_BLOCKS:  # a decoder block of an enc-dec model
@@ -225,7 +232,9 @@ def _mlp_branch(p: Block, cfg: ModelConfig, x: torch.Tensor, h: torch.Tensor,
     (the mixture of experts in a MoE config), left pending.  A parallel
     block's MLP reads the shared pre-norm ``h`` and adds ``a`` first, as
     the reference adds ``(x + a) + m``; on a tensor-parallel shard its two
-    partial outputs are summed and reduced once, ``x + (a + m)``."""
+    partial outputs are summed and reduced once, ``x + (a + m)``.  A MoE
+    shard's routed and shared partials are summed in the layer and reduced
+    once."""
     if cfg.parallel_block:
         if p.tp is not None:
             return x, _reduce(p, a + apply_mlp(p.mlp, h, cfg.mlp_act), x)
@@ -234,7 +243,7 @@ def _mlp_branch(p: Block, cfg: ModelConfig, x: torch.Tensor, h: torch.Tensor,
         x, h = add_norm(p.norm2, x, _reduce(p, a, x), cfg.norm_eps)
     if cfg.is_moe:
         moe_fn = moe_lib.apply_moe_blocked if flags.moe_blocked() else moe_lib.apply_moe
-        return x, moe_fn(p.mlp, h, cfg)
+        return x, _reduce(p, moe_fn(p.mlp, h, cfg), x)
     return x, _reduce(p, apply_mlp(p.mlp, h, cfg.mlp_act), x)
 
 
@@ -398,12 +407,17 @@ class Model(nn.Module):
         self.embed = Embedding(v, cfg.d_model, dtype, device, shard, rank * v)
         if not cfg.tie_embeddings:
             self.lm_head = Embedding(v, cfg.d_model, dtype, device, shard, rank * v)
-        self.layers = nn.ModuleList(Block(local, kind, dtype, device) for kind in cfg.blocks())
+        self.layers = nn.ModuleList(Block(local, kind, dtype, device, tp)
+                                    for kind in cfg.blocks())
         for blk in self.layers:
             blk.tp = shard
-            for part in ("attn", "mlp"):
-                if shard is not None and hasattr(blk, part):
-                    getattr(blk, part).partial = True
+            if shard is None:
+                continue
+            for module in blk.modules():  # attention, MLP, MoE and its shared MLP
+                if hasattr(module, "partial"):
+                    module.partial = True
+            if isinstance(getattr(blk, "mlp", None), moe_lib.MoE):
+                blk.mlp.tp = shard  # the router's gather
         self.final_norm = Norm(cfg.d_model, dtype, device)
         if cfg.is_encdec:
             self.encoder = Encoder(cfg, dtype, device)

@@ -12,12 +12,28 @@ indexing or ``.item()``; the capacity is a Python int from shapes), so the
 serving engine's decode and unified steps stay capturable in CUDA graphs.
 The capacity counts every row of a call, pad columns and idle slots
 included, so whether a token is dropped depends on the rows beside it.
+
+Tensor parallelism (the reference's ``experts`` rule): a rank of ``tp``
+holds E / tp experts, rank r the experts r·E/tp .. (r+1)·E/tp - 1 and the
+router's matching columns, and half, a quarter, ... of the shared MLP's
+hidden.  Every rank computes its fp32 router logits (T, E/tp) and gathers
+them into the whole (T, E) row (``TPMesh.gather_last``: the same bytes on
+every rank), so every rank routes alike, over all E experts with the
+capacity of tp = 1; the dispatch is tp = 1's.  A rank then runs the
+products of its own experts only and gathers back the pairs they hold;
+a pair whose expert is another rank's, or dropped, adds 0.  Its output is
+a partial sum in fp32, which the model reduces over the ranks once,
+beside the shared MLP's partial (``models/model.py``).
+
+``routing(log, forced)`` records each call's routing or imposes one, to
+hold two runs to the same routes in checks (bf16 flips top-k sets).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Tuple
+from typing import Iterable, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -36,17 +52,23 @@ def capacity(num_tokens: int, num_experts: int, k: int, factor: float) -> int:
 class MoE(nn.Module):
     """``router`` (d, E), ``wg``/``wu`` (E, d, ff), ``wd`` (E, ff, d) and,
     with ``num_shared_experts``, a gated ``shared`` MLP of width
-    ff * num_shared_experts: the reference's leaf names."""
+    ff * num_shared_experts: the reference's leaf names.  A shard of
+    ``shards`` ranks holds E / shards experts, their router columns and
+    1 / shards of the shared MLP's hidden."""
 
-    def __init__(self, cfg: ModelConfig, dtype, device):
+    def __init__(self, cfg: ModelConfig, dtype, device, shards: int = 1):
         super().__init__()
-        d, e, ff = cfg.d_model, cfg.num_experts, cfg.d_ff
+        d, e, ff = cfg.d_model, cfg.num_experts // shards, cfg.d_ff
         self.router = new_param((d, e), dtype, device)
         self.wg = new_param((e, d, ff), dtype, device)
         self.wu = new_param((e, d, ff), dtype, device)
         self.wd = new_param((e, ff, d), dtype, device)
         if cfg.num_shared_experts > 0:
-            self.shared = MLP(d, ff * cfg.num_shared_experts, True, dtype, device)
+            self.shared = MLP(d, ff * cfg.num_shared_experts // shards, True, dtype, device)
+        # a tensor-parallel shard: its mesh (for the router's gather), and
+        # its output one rank's partial sum in fp32 (set by ``Model``)
+        self.tp = None
+        self.partial = False
 
     def init_(self, gen: torch.Generator) -> None:
         # the reference's scales: wg and wu take Maker.normal's default,
@@ -57,12 +79,51 @@ class MoE(nn.Module):
         init_normal_(self.wd, gen, scale=1.0 / math.sqrt(self.wd.shape[1]))
 
 
+class _Routing:
+    """The routing hook of ``routing``: a log of each call's (expert ids,
+    kept) and an iterator of ids to impose, or None for either."""
+    log: Optional[List[Tuple[torch.Tensor, torch.Tensor]]] = None
+    forced: Optional[Iterable[torch.Tensor]] = None
+
+
+@contextlib.contextmanager
+def routing(log: Optional[list] = None, forced: Optional[Iterable[torch.Tensor]] = None):
+    """Inside the block each MoE call appends (its (T, k) expert ids, its
+    (T, k) bool mask of the pairs kept under the capacity) to ``log``;
+    with ``forced`` (an iterable of (T, k) int64 ids, one per call, in
+    call order) each call takes the next ids in place of its own top-k,
+    its gates recomputed from its own probabilities at them.  For checks
+    that hold two runs to the same routes; a forced call reads the host's
+    list, so a CUDA graph must not capture it.  Raises if forced ids are
+    left over."""
+    prev = (_Routing.log, _Routing.forced)
+    _Routing.log = log
+    _Routing.forced = None if forced is None else iter(forced)
+    try:
+        yield
+        if _Routing.forced is not None and next(_Routing.forced, None) is not None:
+            raise ValueError("forced MoE routes were left over: the run made fewer MoE calls")
+    finally:
+        _Routing.log, _Routing.forced = prev
+
+
 def route(logits: torch.Tensor, k: int, normalize: bool = True
           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k of the fp32 softmax probabilities.  logits (T, E) -> weights
-    (T, k) fp32, expert ids (T, k) int64."""
+    (T, k) fp32, expert ids (T, k) int64 (the next forced ids inside
+    ``routing(forced=)``)."""
     probs = torch.softmax(logits.float(), dim=-1)
-    weights, idx = torch.topk(probs, k, dim=-1)
+    if _Routing.forced is None:
+        weights, idx = torch.topk(probs, k, dim=-1)
+    else:
+        idx = next(_Routing.forced, None)
+        if idx is None:
+            raise ValueError("ran out of forced MoE routes: the run made more MoE calls")
+        idx = idx.to(device=probs.device, dtype=torch.int64)
+        if idx.shape != (probs.shape[0], k):
+            raise ValueError(f"forced MoE routes of shape {tuple(idx.shape)} for a call of "
+                             f"{probs.shape[0]} rows, top-{k}")
+        weights = probs.gather(-1, idx)
     if normalize:
         weights = weights / weights.sum(dim=-1, keepdim=True)
     return weights, idx
@@ -70,8 +131,11 @@ def route(logits: torch.Tensor, k: int, normalize: bool = True
 
 def router_logits(p: MoE, xf: torch.Tensor) -> torch.Tensor:
     """(T, d) -> (T, E) fp32: the router product in fp32, as the
-    reference's ``preferred_element_type=float32``."""
-    return torch.matmul(xf.float(), p.router.float())
+    reference's ``preferred_element_type=float32``.  A shard computes its
+    own experts' columns (T, E/tp) and gathers every rank's, in rank
+    order: the whole row, the same bytes on every rank."""
+    logits = torch.matmul(xf.float(), p.router.float())
+    return logits if p.tp is None else p.tp.gather_last(logits)
 
 
 def positions_in_expert(e_flat: torch.Tensor, E: int) -> torch.Tensor:
@@ -88,7 +152,9 @@ def positions_in_expert(e_flat: torch.Tensor, E: int) -> torch.Tensor:
 
 def _moe_tokens(p: MoE, xf: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """The routed experts of tokens ``xf`` (T, d), capacity over these T:
-    route, position in expert, dispatch, expert FFN, combine."""
+    route, position in expert, dispatch, expert FFN, combine.  A shard
+    routes over all E experts, dispatches the pairs of its own experts
+    and returns its fp32 partial sum."""
     T, d = xf.shape
     E, k = cfg.num_experts, cfg.num_experts_per_tok
     weights, idx = route(router_logits(p, xf), k)          # (T, k) each
@@ -96,32 +162,54 @@ def _moe_tokens(p: MoE, xf: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     pos = positions_in_expert(idx.reshape(-1), E).reshape(T, k)
     C = capacity(T, E, k, cfg.moe_capacity_factor)
     keep = pos < C
+    if _Routing.log is not None:
+        _Routing.log.append((idx, keep))
 
-    # dispatch: each pair's token into (E, C + 1, d); positions are unique
-    # per (expert, slot), and row C is the drop bin, never read
-    buf = torch.zeros(E, C + 1, d, dtype=xf.dtype, device=xf.device)
-    buf[idx, torch.where(keep, pos, C)] = xf[:, None, :]
+    # the rank's experts: first .. first + E_local - 1 (all of them
+    # without tensor parallelism); another rank's pair takes the drop bin
+    # of local expert 0 and a zero gate
+    E_local = p.wg.shape[0]
+    first = 0 if p.tp is None else p.tp.rank * E_local
+    local = idx - first
+    if p.tp is not None:
+        mine = (local >= 0) & (local < E_local)
+        keep = keep & mine
+        local = torch.where(mine, local, 0)
+
+    # dispatch: each pair's token into (E_local, C + 1, d); positions are
+    # unique per (expert, slot), and row C is the drop bin, never read
+    buf = torch.zeros(E_local, C + 1, d, dtype=xf.dtype, device=xf.device)
+    buf[local, torch.where(keep, pos, C)] = xf[:, None, :]
     buf = buf[:, :C]
 
-    # the expert FFN over every expert
+    # the expert FFN over every (local) expert
     h = act_fn(cfg.mlp_act)(torch.bmm(buf, p.wg)) * torch.bmm(buf, p.wu)
-    y = torch.bmm(h, p.wd)                                   # (E, C, d)
+    y = torch.bmm(h, p.wd)                                   # (E_local, C, d)
 
-    # combine: gather back, gates cast to the activations' dtype and zero
-    # for a dropped pair (whose gathered row is some other pair's), sum
-    # over k
-    yk = y[idx, pos.clamp(max=C - 1)]                        # (T, k, d)
-    gates = torch.where(keep, weights, 0).to(xf.dtype)
-    return torch.sum(yk * gates[..., None], dim=1)
+    # combine: gather back, gates zero for a dropped or another rank's
+    # pair (whose gathered row is some other pair's), sum over k; in the
+    # activations' dtype, or a shard's fp32 partial
+    yk = y[local, pos.clamp(max=C - 1)]                      # (T, k, d)
+    gates = torch.where(keep, weights, 0)
+    if p.partial:
+        return torch.sum(yk.float() * gates[..., None], dim=1)
+    return torch.sum(yk * gates.to(xf.dtype)[..., None], dim=1)
 
 
-def apply_moe(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """x (B, S, d) -> (B, S, d); the capacity counts all B * S rows."""
-    B, S, d = x.shape
-    out = _moe_tokens(p, x.reshape(B * S, d), cfg).reshape(B, S, d)
+def _with_shared(p: MoE, out: torch.Tensor, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The routed output plus the shared MLP's, where there is one (a
+    shard's two fp32 partials summed, for one reduce over the ranks)."""
     if hasattr(p, "shared"):
         out = out + apply_mlp(p.shared, x, cfg.mlp_act)
     return out
+
+
+def apply_moe(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """x (B, S, d) -> (B, S, d); the capacity counts all B * S rows.  A
+    shard's output is its fp32 partial sum."""
+    B, S, d = x.shape
+    out = _moe_tokens(p, x.reshape(B * S, d), cfg).reshape(B, S, d)
+    return _with_shared(p, out, x, cfg)
 
 
 def apply_moe_blocked(p: MoE, x: torch.Tensor, cfg: ModelConfig,
@@ -130,16 +218,15 @@ def apply_moe_blocked(p: MoE, x: torch.Tensor, cfg: ModelConfig,
     routed with its own capacity, as the reference's ``apply_moe_blocked``
     does with one block per data shard of its mesh.  The port has no mesh,
     so the caller gives the count; an uneven split falls back to one
-    block, as the reference's does."""
+    block, as the reference's does.  A shard's output is its fp32 partial
+    sum."""
     B, S, d = x.shape
     n = shards
     if (B * S) % n or (B % n and n > 1):
         n = 1
     xf = x.reshape(n, B * S // n, d)
     out = torch.cat([_moe_tokens(p, blk, cfg) for blk in xf]).reshape(B, S, d)
-    if hasattr(p, "shared"):
-        out = out + apply_mlp(p.shared, x, cfg.mlp_act)
-    return out
+    return _with_shared(p, out, x, cfg)
 
 
 def aux_load_balance_loss(logits: torch.Tensor, idx: torch.Tensor, E: int) -> torch.Tensor:

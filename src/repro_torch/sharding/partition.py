@@ -4,8 +4,9 @@
 ``shard_model(cfg, mesh, seed)`` gives one rank its shard with random
 weights: every parameter is drawn at its full shape, in the order
 ``models.model.init`` draws them, from the same seeded generator, one
-module at a time; the rank keeps its slice (``rules.local_slice``) and
-drops the rest.  So the shards of tp = N are exactly the weights of tp =
+module at a time; the rank keeps its slice (``rules.local_slice``, by the
+rule of the module that owns the leaf: a MoE layer's experts and router
+columns, its shared MLP's hidden) and drops the rest.  So the shards of tp = N are exactly the weights of tp =
 1, and a rank holds at most one module's full parameters beyond its shard.
 Where ranks share a device (``TPMesh.shared``) they draw in turn, so only
 one full module is on the device at a time.
@@ -22,7 +23,7 @@ import torch
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import Model
-from repro_torch.sharding.rules import local_slice
+from repro_torch.sharding.rules import leaf_rule, local_slice
 
 
 @torch.no_grad()
@@ -36,7 +37,7 @@ def _draw(model: Model, cfg: ModelConfig, mesh, seed: int) -> None:
         whole.init_(gen)
         for (name, p_full), p in zip(whole.named_parameters(recurse=False),
                                      part.parameters(recurse=False)):
-            p.copy_(local_slice(name, p_full, mesh.rank, mesh.size))
+            p.copy_(local_slice(leaf_rule(whole, name), p_full, mesh.rank, mesh.size))
         whole.to_empty(device="meta", recurse=False)
 
 

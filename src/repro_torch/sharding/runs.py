@@ -11,12 +11,19 @@ model.  The jobs:
   arrivals and runs it, the other ranks follow.  Every rank returns its
   streams; rank 0 also the summary, the ledgers and the dispatches per
   step.
-* ``Logits``: a prompt prefilled, whole or in chunks, then decode steps
-  on given tokens; the fp32 logits of each.
+* ``Logits``: a prompt prefilled, whole or in chunks (after a vision
+  model's patch embeddings), then decode steps on given tokens; the fp32
+  logits of each.
 * ``Params``: the rank's parameters.
 * ``Launches``: the rank's kernel launch counts.
 * ``Collectives``: the mesh's collectives, eager and from a CUDA graph.
 * ``Refusal``: what building the shard, or an engine over it, raises.
+
+A MoE model's ``Serve`` and ``Logits`` can record each MoE call's routing
+(``record``) and take given routes in place of their own top-k
+(``routes``, ``models.moe.routing``): bf16 rounding flips top-k sets, so
+a check holds a tensor-parallel run to tp = 1's routes where it compares
+numbers, not routing.
 """
 
 from __future__ import annotations
@@ -28,7 +35,22 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.config import ModelConfig
+
+
+def _routing(routes, record: bool):
+    """``moe.routing`` over ``routes`` (numpy (T, k) ids per MoE call, or
+    None) and a fresh log where ``record``; returns (context, log)."""
+    log = [] if record else None
+    forced = None if routes is None else [torch.from_numpy(np.asarray(r)) for r in routes]
+    return moe_lib.routing(log, forced), log
+
+
+def _routes_out(log) -> Dict[str, List[np.ndarray]]:
+    """A routing log as numpy: each call's expert ids and kept mask."""
+    return {"ids": [i.cpu().numpy() for i, _ in log],
+            "kept": [k.cpu().numpy() for _, k in log]}
 
 
 @dataclasses.dataclass
@@ -56,21 +78,32 @@ class Weights:
 @dataclasses.dataclass
 class Serve:
     """``arrivals`` ((prompt, SamplingParams) pairs, submitted at once)
-    served by an engine of ``engine`` keyword arguments."""
+    served by an engine of ``engine`` keyword arguments; a MoE model's
+    routing recorded (``record``: ``routes`` in the result) or imposed
+    (``routes``, the recorded ``ids`` of a run of the same schedule; eager
+    steps only)."""
     name: str
     engine: Dict[str, Any]
     arrivals: List[Tuple[np.ndarray, Any]]
+    routes: Optional[List[np.ndarray]] = None
+    record: bool = False
 
     def run(self, model, mesh, device):
         from repro_torch.serving.engine import ServingEngine
 
+        if (self.routes is not None and self.engine.get("cuda_graph", True)
+                and torch.device(device).type == "cuda"):
+            raise ValueError("forced routes are read from the host: serve them with "
+                             "cuda_graph=False")
         eng = ServingEngine(model, device=device, mesh=mesh, **self.engine)
         out: Dict[str, Any] = {}
+        ctx, log = _routing(self.routes, self.record)
         t0 = time.perf_counter()
         if eng.leader:
             for prompt, params in self.arrivals:
                 eng.submit(prompt, params)
-            eng.run()
+            with ctx:
+                eng.run()
             out.update(
                 wall_s=time.perf_counter() - t0, summary=eng.latency_summary(),
                 kv_bytes_by_device=eng.kv_bytes_by_device(peak=True),
@@ -81,9 +114,12 @@ class Serve:
                 broadcast_s=list(eng._bcast_s), preemptions=eng.preemptions)
             eng.close()
         else:
-            eng.follow()
+            with ctx:
+                eng.follow()
         out["streams"] = {r.uid: list(r.output_tokens) for r in eng.finished}
         out["pool_accounting"] = eng._pool.shard_accounting(1)[0]
+        if self.record:
+            out["routes"] = _routes_out(log)
         return out
 
 
@@ -94,7 +130,12 @@ class Logits:
     one decode step on each row of ``steps`` (n, B), or with ``steps``
     None ``greedy`` steps on each step's argmax; returns the fp32 logits
     (n + 1, B, vocab) as numpy.  ``cache`` holds ``init_cache``'s layout
-    arguments; a paged cache reads ``tables`` (B, blocks)."""
+    arguments; a paged cache reads ``tables`` (B, blocks).  A vision
+    model takes ``vision`` (B, nv, d) patch embeddings before the tokens
+    (with the first chunk; the tokens and decode steps after them).  A
+    MoE model takes ``routes`` (each call's (T, k) expert ids) in place of
+    its own top-k; with ``record`` the result is a dict of the ``logits``
+    and each call's expert ``ids`` and ``kept`` mask."""
     tokens: np.ndarray
     steps: Optional[np.ndarray]
     max_len: int
@@ -102,20 +143,40 @@ class Logits:
     tables: Optional[np.ndarray] = None
     chunk: int = 0
     greedy: int = 0
+    vision: Optional[np.ndarray] = None
+    routes: Optional[List[np.ndarray]] = None
+    record: bool = False
 
     def run(self, model, mesh, device):
+        ctx, log = _routing(self.routes, self.record)
+        with ctx:
+            logits = self._logits(model, device)
+        if not self.record:
+            return logits
+        return {"logits": logits, **_routes_out(log)}
+
+    def _logits(self, model, device):
         tokens = torch.from_numpy(self.tokens).to(device)
         bt = None if self.tables is None else torch.from_numpy(self.tables).to(device)
+        vision = None if self.vision is None else torch.from_numpy(self.vision).to(device)
+        nv = 0 if vision is None else vision.shape[1]
         B, S = tokens.shape
         cache = model.init_cache(B, self.max_len, **self.cache)
         if not self.chunk:
-            logits = model.prefill({"tokens": tokens}, cache, block_tables=bt)[0]
+            batch = {"tokens": tokens}
+            if vision is not None:
+                batch["vision_embeds"] = vision
+            logits = model.prefill(batch, cache, block_tables=bt)[0]
         else:
             for i in range(0, S, self.chunk):
                 c = min(self.chunk, S - i)
                 full = lambda v: torch.full((B,), v, dtype=torch.int32, device=device)  # noqa: E731
-                logits, _ = model.prefill_chunk(tokens[:, i:i + c], cache, full(i),
-                                                block_tables=bt, lengths=full(c))
+                if vision is not None and i == 0:  # the patches ride with the first chunk
+                    logits, _ = model.prefill_chunk(tokens[:, :c], cache, 0, block_tables=bt,
+                                                    vision_embeds=vision)
+                else:
+                    logits, _ = model.prefill_chunk(tokens[:, i:i + c], cache, full(nv + i),
+                                                    block_tables=bt, lengths=full(c))
         out = [logits]
         n = self.greedy if self.steps is None else len(self.steps)
         for i in range(n):
@@ -123,7 +184,7 @@ class Logits:
                 tok = logits.argmax(-1, keepdim=True)
             else:
                 tok = torch.from_numpy(np.asarray(self.steps[i])).to(device)[:, None]
-            logits, cache = model.decode_step(tok, S + i, cache, block_tables=bt)
+            logits, cache = model.decode_step(tok, nv + S + i, cache, block_tables=bt)
             out.append(logits)
         return torch.stack(out).float().cpu().numpy()
 

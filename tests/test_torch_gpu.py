@@ -1132,8 +1132,10 @@ def test_speculative_preempting_engine_cuda_graph_matches_eager(cuda):
 
 # -- tensor parallelism: the kernels at a shard's local heads, and ranks on one card
 
-# (Hq, Hkv) of one rank: llama3.1-8b at tp = 2, command-r-plus-104b at tp = 4 (G = 12)
-TP_LOCAL_HEADS = [(16, 4), (24, 2)]
+# (Hq, Hkv) of one rank: llama3.1-8b at tp = 2, command-r-plus-104b at tp = 4 (G = 12),
+# qwen3-moe-30b-a3b at tp = 4 (G = 8), moonshot-v1-16b-a3b at tp = 2 (G = 1),
+# llava-next-34b at tp = 2 (G = 7)
+TP_LOCAL_HEADS = [(16, 4), (24, 2), (8, 1), (8, 8), (28, 4)]
 
 
 @pytest.mark.parametrize("Hq,Hkv", TP_LOCAL_HEADS)
@@ -1204,6 +1206,45 @@ def test_tp_ranks_sharing_the_card_match_tp1(cuda):
         assert np.abs(got[0] - want).max() <= 2e-2 * np.abs(want).max()
         assert got[1]["streams"] == ranks[0][0][1]["streams"]
     assert ranks[0][0][1]["summary"]["tp_devices"] == 2
+
+
+def test_tp_moe_ranks_sharing_the_card_match_tp1(cuda):
+    """moonshot-v1-16b-a3b's smoke config (8 experts, 4 on a rank, and a
+    shared MLP) on two gloo ranks sharing the card, fp32: with tp = 1's
+    routes imposed, the logits of a prefill and decode steps within 1e-4
+    of the largest of tp = 1's on the same card; unforced, every rank
+    routes every MoE call as rank 0 does, and the paged engine's streams
+    are equal on both ranks."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import spawn_tp
+    from repro_torch.serving.sampling import SamplingParams
+    from repro_torch.sharding import runs
+
+    cfg = get_config("moonshot-v1-16b-a3b", smoke=True)
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, cfg.vocab_size, (2, 40))
+    steps = rng.integers(0, cfg.vocab_size, (3, 2))
+    arrivals = [(rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32),
+                 SamplingParams(max_new_tokens=6)) for n in (9, 30, 17)]
+    serve = runs.Serve("paged", dict(max_batch=2, max_len=64, prompt_bucket=8,
+                                     cache_layout="paged", prefill_chunk=8, cuda_graph=False),
+                       arrivals, record=True)
+    logits = runs.Logits(tokens, steps, 48, record=True)
+    base = runs.run_plan(None, [(runs.Weights(cfg), [logits])], cuda)[0][0]
+    forced = runs.Logits(tokens, steps, 48, routes=base["ids"])
+    plan = [(runs.Weights(cfg), [forced, logits, serve])]
+    ranks = spawn_tp(runs.run_plan, 2, "cuda", plan, backend="gloo")
+    want = base["logits"]
+    lead = ranks[0][0]
+    for rank in range(2):
+        got = ranks[rank][0]
+        assert np.abs(got[0] - want).max() <= 1e-4 * np.abs(want).max(), rank
+        assert np.array_equal(got[0], lead[0])
+        for a, b in ((got[1], lead[1]), (got[2]["routes"], lead[2]["routes"])):
+            assert len(a["ids"]) == len(b["ids"]) > 0
+            assert all(np.array_equal(x, y) for x, y in zip(a["ids"], b["ids"])), rank
+        assert got[2]["streams"] == lead[2]["streams"]
+    assert lead[2]["summary"]["tp_devices"] == 2
 
 
 def test_nccl_collectives_replay_from_a_cuda_graph(cuda):

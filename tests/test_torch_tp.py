@@ -17,7 +17,9 @@ groups can run on two test workers: each spawns one group of ranks
 (per-device KV bytes and block accounting, the summary keys), fp32 logits
 within 1e-5 of the largest, the shards' weights, the JAX engine's tp = 1
 streams against the port's tp = 2, the refusals, and the per-device
-energy ledger of ``DeviceMonitorGroup`` ride along.
+energy ledger of ``DeviceMonitorGroup`` ride along.  The MoE and
+vision-prefix families have a file of their own
+(``tests/test_torch_tp_families.py``).
 """
 
 import dataclasses
@@ -43,7 +45,7 @@ from repro_torch.serving.engine import ServingEngine  # noqa: E402
 from repro_torch.serving.sampling import SamplingParams  # noqa: E402
 from repro_torch.serving.workload import LengthDist, WorkloadSpec, poisson_trace  # noqa: E402
 from repro_torch.sharding import runs  # noqa: E402
-from repro_torch.sharding.rules import local_slice  # noqa: E402
+from repro_torch.sharding.rules import local_slice, param_rules  # noqa: E402
 
 ENGINE = dict(max_batch=2, max_len=64, prompt_bucket=8, cuda_graph=False)
 QWEN = get_config("qwen1.5-0.5b", smoke=True)
@@ -56,12 +58,11 @@ MATRIX = [(layout, chunk, spec) for layout in ("contiguous", "paged") for chunk 
 SAMPLED = 0.7  # the odd requests' temperature; the even ones are greedy
 # the unported families at tp = 2, and KV heads tp = 4 does not divide
 REFUSED = {
-    "qwen3-moe-30b-a3b": (2, "mixture-of-experts"),
     "recurrentgemma-2b": (2, "rglru"),
     "xlstm-1.3b": (2, "mlstm"),
-    "llava-next-34b": (2, "vision prefix"),
     "seamless-m4t-large-v2": (2, "encoder"),
     "command-r-plus-104b": (4, "kv_heads"),
+    "qwen3-moe-30b-a3b": (4, "kv_heads"),
 }
 
 
@@ -150,16 +151,17 @@ def _plan(tree, tp):
     return plan
 
 
-def _results(tp):
+def _results(tp, extra=()):
     """{1: [the plan's results], tp: [rank 0's, rank 1's, ...]}: tp = 1 in
     this process, tp on one group of spawned gloo ranks; and the
-    reference's tree."""
+    reference's tree.  ``extra`` entries join the end of the plan."""
     jcfg, params, tree = _jax_tree()
     threads = torch.get_num_threads()
     torch.set_num_threads(1)  # as each rank: smoke shapes gain nothing from more
     try:
-        out = {1: [runs.run_plan(None, _plan(tree, 1), "cpu")],
-               tp: spawn_tp(runs.run_plan, tp, "cpu", _plan(tree, tp), threads=1)}
+        out = {1: [runs.run_plan(None, _plan(tree, 1) + list(extra), "cpu")],
+               tp: spawn_tp(runs.run_plan, tp, "cpu", _plan(tree, tp) + list(extra),
+                            threads=1)}
     finally:
         torch.set_num_threads(threads)
     return out, (jcfg, params)
@@ -331,15 +333,17 @@ def test_tp_logits_match_tp1(results, model):
 @pytest.mark.parametrize("model", list(MODELS))
 def test_shard_model_holds_the_tp1_weights(results, model):
     """``shard_model`` draws every parameter at full shape in init's order:
-    each rank's shard is its slice of tp = 1's weights, exactly."""
+    each rank's shard is its slice of tp = 1's weights, exactly, by the
+    rule of the module that owns each leaf."""
     res, _ = results
     tp, cfg = _group(res), MODELS[model]
     full = res[1][0][_index(model)][-1]
+    rules = param_rules(model_lib.Model(cfg, device="meta"))
     for rank in range(tp):
         shard = res[tp][rank][_index(model)][-1]
         assert set(shard) == set(full)
         for name, p in shard.items():
-            assert np.array_equal(p, local_slice(name, full[name], rank, tp)), name
+            assert np.array_equal(p, local_slice(rules[name], full[name], rank, tp)), name
         assert shard["embed.table"].shape[0] == cfg.vocab_size // tp
 
 
@@ -361,9 +365,10 @@ def test_tp2_streams_equal_the_jax_engine(results):
 
 
 def test_tp_refusals(results):
-    """Each unported family at tp > 1, KV heads tp does not divide, and
-    cuda_graph=True on a gloo mesh are refused, naming the reason; so is
-    a mesh larger than the process group."""
+    """Each unported family at tp > 1, KV heads tp does not divide (command-r's
+    and qwen3-moe's smoke configs at tp = 4), and cuda_graph=True on a gloo
+    mesh are refused, naming the reason; so is a mesh larger than the
+    process group."""
     res, _ = results
     group, first = _group(res), len(MODELS) + 1
     for i, (arch, (tp, reason)) in enumerate(REFUSED.items()):
