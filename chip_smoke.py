@@ -36,7 +36,10 @@ or of the ``repro`` package.  Phases:
    the causal mask at the encoder's 256 frames and the cross attention's
    512 queries over 256 memory rows, K3 at its self-attention cache and
    one query over 272 memory rows of which 256 are filled, K1 at d =
-   1024); one ``{"kernels": [...]}`` line.
+   1024); K1's split norm (each slice's sum of squares, their sum, each
+   slice normalised with it) at xlstm-1.3b's cell norm over W = 4096 cut
+   to a tp = 2 and a tp = 4 rank's slice, held to the whole rows' plain
+   norm and timed under ``modes``; one ``{"kernels": [...]}`` line.
 3. The measured path at full width: ``Elana("llama3.1-8b").measure``
    (TTFT eager; TPOT and TTLT from the decode step replayed from a CUDA
    graph), then the same with NVML energy; size and cache reports; launch
@@ -113,7 +116,7 @@ or of the ``repro`` package.  Phases:
    16 requests served and 8 greedy ones with and without the graph, the
    same 16 chunked through the unified step, and the parity at 512 tokens
    (contiguous, paged, paged in chunks of 256); then xlstm-1.3b (mLSTM
-   and sLSTM layers 7:1, no attention: K1 only) at full width on 24 of
+   and sLSTM layers 7:1, no attention: K1 only) at full width on 8 of
    its 48 layers (its size report at all 48): measure, graph against
    eager, the profile and the parity over a contiguous cache, whole and
    in chunks.  Each model's phases print their time.
@@ -153,28 +156,46 @@ or of the ``repro`` package.  Phases:
    theirs over 2 gloo ranks, one spawn; command-r-plus-104b (d 12288,
    96/8 heads, d_ff 33792, 256000 tied, parallel block) and
    qwen3-moe-30b-a3b (32 experts a rank, 8/1 heads) on 4 of theirs over 4,
-   one spawn; each rank drawing its shard of seed 0's weights, model after
+   one spawn; recurrentgemma-2b on 6 of its 26 layers (the LRU width and
+   the gates' input rows split; 5/1 heads at tp = 2, attention whole at
+   tp = 4; its 2048-slot ring L-sharded) and xlstm-1.3b on 8 of its 48
+   (the mLSTM's width and heads split, the sLSTM cell whole, its FFN
+   replicated at tp = 4) in both spawns; qwen2.5-1.5b on 8 of its 28 over
+   4 (3/1 heads: its 2 KV heads on every rank, the pool replicated and
+   read by K4 at the rank's q_head0, the contiguous cache L-sharded); each
+   rank drawing its shard of seed 0's weights, model after
    model, collectives staged through the host, steps eager.  Each model is
    held to the tp = 1 model run first and freed before the ranks start:
    its parity prompt (512 tokens, llava 1024 positions with seeded
-   patches) + 4 greedy steps over a contiguous cache, a paged one and the
-   paged one in chunks of 256 (logits within its ``parity_phase``'s
+   patches, recurrentgemma 2304 tokens with its table x0.05, so the ring
+   wraps) + 4 greedy steps over a contiguous cache, a paged one and the
+   paged one in chunks of 256 (the recurrent models: contiguous, whole and
+   in chunks) (logits within its ``parity_phase``'s
    tolerance, top-1 equal where tp = 1's margin exceeds it; every rank's
    logits bit for bit rank 0's), 8 greedy requests of at most 16 tokens
    served (llama: paged and contiguous, whole and in chunks of 256 through
-   the per-chunk path; the others: paged), every rank's streams exactly
-   rank 0's and rank 0's held to tp = 1's by the margin rule, the
-   per-device KV bytes summing to tp = 1's aggregate and every rank's pool
-   accounting tiling.  A MoE model's parity and serving jobs take tp = 1's
+   the per-chunk path; the others: paged; recurrentgemma, xlstm and
+   qwen2.5 4 of at most 8, recurrentgemma at tp = 4 only, contiguous, and
+   xlstm at tp = 2 only), every rank's streams exactly rank 0's and rank
+   0's held to tp = 1's by the margin rule, the per-device KV bytes those
+   of the reference's layout (``sharding.rules.cache_dim``: a share of tp
+   = 1's pool, the whole replicated pool on every rank, or a contiguous
+   cache's L slice or heads) and every
+   rank's pool accounting tiling; every rank launching the kernels of its
+   model's path.  A MoE model's parity and serving jobs take tp = 1's
    recorded routes (bf16 flips top-k sets); one more parity job routes on
    its own, every rank as rank 0, and its flips against tp = 1 are
-   printed.  llama3.1-8b and command-r-plus-104b run ``parity_phase`` at
-   their tp depth for the tolerance (K1 at d = 12288, K2-K4 at G = 12),
-   the others reuse their 4-layer parity's.  With 2 GPUs or more,
+   printed.  llama3.1-8b, command-r-plus-104b, recurrentgemma and qwen2.5
+   run ``parity_phase`` at their tp depth for the tolerance (once for both
+   tp), the others reuse their parity phase's (xlstm at 8 layers, the
+   others at 4).  Each rank runs one intra-op thread.  With 2 GPUs or more,
    llama3.1-8b also over 2 NCCL ranks with captured steps; else a line
    says it was not run.  The phase's times check correctness only ("gloo
-   over one card, host-staged: not a TP latency").  K1-K4 at one rank's
-   shapes are timed in phase 2 (``tp`` under each entry).
+   over one card, host-staged: not a TP latency"); the tp = 2 and tp = 4
+   spawns run at the same time.  K1-K4 at one rank's
+   shapes are timed in phase 2 (``tp`` under each entry; K4 also over a
+   pool of every KV head at query-head offsets 0, 3, 6 and 9; K5 at the
+   width's halves and quarters).
 13. Training through ``launch.train`` (``train_phase``): tinyllama-1.1b at
    full width and depth, bf16 weights and fp32 moments, 20 steps of 8 x
    1024 synthetic tokens with NVML energy (the loss must fall); the same
@@ -230,22 +251,31 @@ MOONSHOT = "moonshot-v1-16b-a3b"  # 64 routed experts, top-6, 2 shared
 LLAVA = "llava-next-34b"          # 576 patch embeddings before the tokens, GQA 56/8
 SEAMLESS = "seamless-m4t-large-v2"  # 24 encoder + 24 decoder layers, cross attention
 COMMAND_R = "command-r-plus-104b"   # d 12288, GQA 96/8, parallel block, tied; 208 GB
-# tensor parallelism on one card: (arch, tp, one rank's q heads, KV heads)
-TP_HEADS = [(ARCH, 2, 16, 4), (COMMAND_R, 4, 24, 2), (QWEN_MOE, 4, 8, 1), (MOONSHOT, 2, 8, 8),
-            (LLAVA, 2, 28, 4)]
+QWEN15 = "qwen2.5-1.5b"             # GQA 12/2 of 128: tp = 4 replicates its KV heads
+# tensor parallelism on one card: (arch, tp, one rank's q heads, the KV
+# heads they read, head dim, window, softcap); recurrentgemma-2b at tp = 2
+# (5 of its 10 heads over its 1 KV head), qwen2.5-1.5b at tp = 4 (3 of 12
+# over 1 of its 2 KV heads, which every rank holds)
+TP_HEADS = [(ARCH, 2, 16, 4, 128, 0, 0.0), (COMMAND_R, 4, 24, 2, 128, 0, 0.0),
+            (QWEN_MOE, 4, 8, 1, 128, 0, 0.0), (MOONSHOT, 2, 8, 8, 128, 0, 0.0),
+            (LLAVA, 2, 28, 4, 128, 0, 0.0), (HYBRID, 2, 5, 1, 256, 2048, 30.0),
+            (QWEN15, 4, 3, 1, 128, 0, 0.0)]
+# qwen2.5-1.5b's rank at tp = 4 over the replicated pool: K4 reads pool head
+# (q_head0 + h) // 6 for query head h, rank r's q_head0 = 3 r
+TP_POOL = (QWEN15, 8, 3, 2, 6, (0, 3, 6, 9))   # arch, rows, q heads, pool heads, G, offsets
 # command-r-plus-104b at full width on 4 of its 64 layers: all of it would
 # not fit one 80 GB card
 TP_LAYERS = 4
 # 8 greedy requests of ``serve_arrivals``, each cut to 16 new tokens, and
 # chunked prefill through the per-chunk path: an eager step of gloo ranks
-# sharing the card takes ~250 ms (66 host-staged collectives a forward of
-# llama3.1-8b), a unified step's B x W = 2048 rows ~7 s (the CPU tests hold
-# the unified step at tp = 2 and 4)
+# sharing the card takes ~150-970 ms (66 host-staged collectives a forward
+# of llama3.1-8b), a unified step's B x W = 2048 rows ~7 s (the CPU tests
+# hold the unified step at tp = 2 and 4)
 TP_REQUESTS, TP_MAX_NEW = 8, 16
-# xlstm-1.3b's measure and parity paths on 24 of its 48 layers (3 of its 6
+# xlstm-1.3b's measure and parity paths on 8 of its 48 layers (1 of its 6
 # mLSTM x 7 + sLSTM groups) at full width: its sLSTM prefill is ~128k
 # host launches at 48, and the script must end within its 1200 s
-XLSTM_LAYERS = 24
+XLSTM_LAYERS = 8
 SIZE_GB = {ARCH: "16.06", HYBRID: "5.36", NEMOTRON: "16.38",   # the reference's
            XLSTM: "3.77", QWEN_MOE: "61.06", MOONSHOT: "57.11",  # size reports
            LLAVA: "68.78", SEAMLESS: "2.74"}
@@ -260,13 +290,26 @@ PARITY_LAYERS = 4
 # their parity phase (same seed), whose tolerance the run reuses; eager gloo
 # steps of the whole models would not fit the script's 1200 s
 TP_LLAMA_LAYERS = 8
-TP_RUNS = [(ARCH, 2, TP_LLAMA_LAYERS), (MOONSHOT, 2, PARITY_LAYERS), (LLAVA, 2, PARITY_LAYERS),
-           (COMMAND_R, 4, TP_LAYERS), (QWEN_MOE, 4, PARITY_LAYERS)]
+# the recurrent families and the undivided KV heads, each over 2 and / or
+# 4 ranks inside the same two spawns: recurrentgemma-2b on 6 of its 26
+# layers (two groups of RG-LRU, RG-LRU, local attention), xlstm-1.3b on
+# ``XLSTM_LAYERS``, the model of its parity phase, whose tolerance the run
+# reuses (one group of 7 mLSTM + 1 sLSTM; at tp = 4 its sLSTM FFN of 2730
+# is replicated), qwen2.5-1.5b on 8 of its 28 (2 KV heads: at tp = 4 the
+# pool replicated, the contiguous cache L-sharded)
+TP_HYBRID_LAYERS, TP_XLSTM_LAYERS, TP_QWEN15_LAYERS = 6, XLSTM_LAYERS, 8
 BATCH, PROMPT, GEN, ITERS = 1, 512, 32, 3
 # llava-next-34b's prompt: its 576 patches and 448 tokens (a prompt no
 # longer than the patches leaves no token)
 PROMPTS = {LLAVA: 1024}
 HYBRID_PARITY_PROMPT = 2304  # past the 2048-token window: the ring wraps
+# the parity of a tp run's model, run at its depth in ``tp_phase``, as the
+# model's own parity phase runs: recurrentgemma-2b over its 2304-token
+# prompt (the L-sharded ring wraps) with its tied table x0.05, the
+# recurrent models on the contiguous layout (their state is per row); the
+# ranks' jobs take the same prompt and table
+TP_PARITY = {HYBRID: dict(prompt=HYBRID_PARITY_PROMPT, paged=False, table_scale=0.05),
+             XLSTM: dict(paged=False)}
 # the serving path: paged pool of 8 * 64 + 1 blocks of 16 tokens
 SERVE = dict(cache_layout="paged", kv_block_size=16, max_batch=8, max_len=1024,
              prompt_bucket=64, seed=0)
@@ -279,6 +322,25 @@ SERVE_ARCH = {LLAVA: dict(max_len=2048, kv_num_blocks=8 * 128 + 1)}
 CHUNKED = dict(prefill_chunk=256, prefill_budget=256)
 TP_CHUNKED = dict(CHUNKED, unified_step=False)
 SHARED_PREFIX = 448
+# each run's serving jobs, by name: llama3.1-8b paged and contiguous, whole
+# and in chunks; the others paged and whole.  The recurrent models serve at
+# one tp each (their parity runs at both): recurrentgemma-2b at tp = 4 over
+# the contiguous layout (its attention whole and its local attention's
+# cache L-sharded, 256 of 1024 slots a rank, which the ledger check reads;
+# it has no full-context layer, so the paged layout would run the same
+# steps), xlstm-1.3b at tp = 2 (its sLSTM FFN split)
+PAGED, CONTIGUOUS = {"paged whole": {}}, {"contiguous whole": dict(cache_layout="contiguous")}
+TP_LLAMA_SERVES = {"paged whole": {}, "paged chunked": TP_CHUNKED,
+                   "contiguous whole": dict(cache_layout="contiguous"),
+                   "contiguous chunked": dict(TP_CHUNKED, cache_layout="contiguous")}
+TP_RUNS = [(ARCH, 2, TP_LLAMA_LAYERS, TP_LLAMA_SERVES), (MOONSHOT, 2, PARITY_LAYERS, PAGED),
+           (LLAVA, 2, PARITY_LAYERS, PAGED), (HYBRID, 2, TP_HYBRID_LAYERS, {}),
+           (XLSTM, 2, TP_XLSTM_LAYERS, PAGED), (COMMAND_R, 4, TP_LAYERS, PAGED),
+           (QWEN_MOE, 4, PARITY_LAYERS, PAGED), (HYBRID, 4, TP_HYBRID_LAYERS, CONTIGUOUS),
+           (XLSTM, 4, TP_XLSTM_LAYERS, {}), (QWEN15, 4, TP_QWEN15_LAYERS, PAGED)]
+# the recurrent and qwen2.5-1.5b runs' requests: 4 of at most 8 new tokens
+# (their eager gloo steps carry a block's gathers and fp32 partials)
+TP_SMALL = {HYBRID: (4, 8), XLSTM: (4, 8), QWEN15: (4, 8)}
 GRAPH_REQUESTS = {ARCH: 24, HYBRID: 8, NEMOTRON: 8, QWEN_MOE: 8, MOONSHOT: 8, LLAVA: 8}
 # preemption: the pool cut to two worst-case requests and the garbage block
 # (2 * 64 + 1 blocks of 16), overcommit survived by recompute
@@ -619,10 +681,11 @@ def kernel_phase(dev):
     # at tp = 4, 8/1; moonshot at tp = 2, 8/8; llava-next-34b at tp = 2,
     # 28/4 over its 1024 positions) and the unified step's frontier at 16/4
     tps = []
-    for arch, tp, Hq, Hkv in TP_HEADS:
+    for arch, tp, Hq, Hkv, D, window, softcap in TP_HEADS:
         S = PROMPTS.get(arch, PROMPT)
-        case, err = fa_case(f"{arch} tp={tp} B=1 S={S} Hq={Hq} Hkv={Hkv} D=128 causal",
-                            BATCH, S, S, Hq, Hkv, 128, bf16)
+        mask = {k: v for k, v in (("window", window), ("softcap", softcap)) if v}
+        case, err = fa_case(f"{arch} tp={tp} B=1 S={S} Hq={Hq} Hkv={Hkv} D={D} causal {mask}",
+                            BATCH, S, S, Hq, Hkv, D, bf16, **mask)
         tps.append(dict(arch=arch, path=f"tp={tp} prefill", max_abs_err=err, **fa_row(case)))
     starts = [256] + [0] * 7
     q, k, v, kw = unified_flash_case(dev, randn, "paged", starts, starts, heads=(16, 4))
@@ -779,8 +842,10 @@ def kernel_phase(dev):
             shape=f"q ({B},1,{Hq},{D}) cache ({B},{L},{Hkv},{D}) bf16, {valid} valid keys",
             ms=cuda_ms(lambda i: da_ops.decode_attention(*sets[i], **kw), n),
             plain_ms=cuda_ms(lambda i: da_ref.decode_attention(*sets[i], **kw), n),
-            library_ms=cuda_ms(lambda i: F.scaled_dot_product_attention(
-                *tq[i], attn_mask=mask, enable_gqa=True), n),
+            # SDPA has no softcap: no one PyTorch call computes a capped row
+            library_ms=None if kw["softcap"] else cuda_ms(
+                lambda i: F.scaled_dot_product_attention(*tq[i], attn_mask=mask,
+                                                         enable_gqa=True), n),
             **bound(nbytes, 4 * D * valid * Hq, BF16_FLOPS))
 
     entries.append(dict(
@@ -828,21 +893,23 @@ def kernel_phase(dev):
     moe_rows(entries[-1], fams, "families")
     # tensor parallelism: the measure path's (1, 545) cache at one rank's heads
     tps = []
-    for arch, tp, Hq, Hkv in TP_HEADS:
-        case, err = da_case(f"{arch} tp={tp} B=1 L={L} Hq={Hq} Hkv={Hkv} D=128", 1, L, Hq, Hkv,
-                            128, bf16, q_at=fill - 1, filled=fill)
+    for arch, tp, Hq, Hkv, D, window, softcap in TP_HEADS:
+        case, err = da_case(f"{arch} tp={tp} B=1 L={L} Hq={Hq} Hkv={Hkv} D={D} "
+                            f"window={window} softcap={softcap}", 1, L, Hq, Hkv, D, bf16,
+                            q_at=fill - 1, filled=fill, window=window, softcap=softcap)
         tps.append(dict(arch=arch, path=f"tp={tp} measure decode", max_abs_err=err,
                         **da_row(case)))
     moe_rows(entries[-1], tps, "tp")
 
     # -- K4 paged decode attention ---------------------------------------------
     def pda_case(name, B, Hq, Hkv, D, dtype, q_pos, bs=16, nb=64, N=513, window=0,
-                 softcap=0.0, garbage_rows=()):
-        """Rows at ragged ``q_pos`` over a shuffled pool of N blocks; each
-        row's table names the blocks its keys need, unused entries (and
-        every entry of a garbage row, or of a row at -1 with no valid key)
-        point at block 0.  Also held to the split merge algebra at the
-        chunk the kernel splits the positions into."""
+                 softcap=0.0, garbage_rows=(), q_head0=0, group=0):
+        """Rows at ragged ``q_pos`` over a shuffled pool of N blocks of Hkv
+        heads; each row's table names the blocks its keys need, unused
+        entries (and every entry of a garbage row, or of a row at -1 with
+        no valid key) point at block 0.  Query head h reads pool head
+        (q_head0 + h) // group (0: Hq / Hkv).  Also held to the split merge
+        algebra at the chunk the kernel splits the positions into."""
         q = randn(B, 1, Hq, D, dtype=dtype)
         kp, vp = randn(N, bs, Hkv, D, dtype=dtype), randn(N, bs, Hkv, D, dtype=dtype)
         perm = (torch.randperm(N - 1, generator=g, device=dev) + 1).tolist()
@@ -852,10 +919,12 @@ def kernel_phase(dev):
             tables[b, :need] = torch.tensor([perm.pop() for _ in range(need)])
         tables = tables.to(dev)
         qp = torch.tensor(q_pos, dtype=torch.int32, device=dev)[:, None]
-        kw = dict(block_tables=tables, q_positions=qp, window=window, softcap=softcap)
+        kw = dict(block_tables=tables, q_positions=qp, window=window, softcap=softcap,
+                  q_head0=q_head0, group=group)
         out = da_ops.paged_decode_attention(q, kp, vp, **kw)
         ref = da_ref.paged_decode_attention(q, kp, vp, **kw)
-        chunk = da_ops.split_plan(B, Hkv, nb * bs, sms)[1]
+        heads = da_ref.pool_heads(Hq, Hkv, q_head0, group)
+        chunk = da_ops.split_plan(B, heads.stop - heads.start, nb * bs, sms)[1]
         split = da_ref.paged_decode_attention_split(q, kp, vp, chunk=chunk, **kw)
         torch.cuda.synchronize()
         check(out.shape == q.shape and torch.isfinite(out).all().item(), f"{name}: bad output")
@@ -899,7 +968,9 @@ def kernel_phase(dev):
         with the bound of the keys its rows see and their table entries."""
         q, kp, vp, kw = case
         B, _, Hq, D = q.shape
-        N, bs, Hkv = kp.shape[:3]
+        N, bs, pool_heads = kp.shape[:3]
+        heads = da_ref.pool_heads(Hq, pool_heads, kw["q_head0"], kw["group"])
+        Hkv = heads.stop - heads.start  # the pool heads the call reads
         q_pos = kw["q_positions"][:, 0].tolist()
         valid = int(sum(max(p, -1) + 1 for p in q_pos))  # keys the rows attend to
         nbytes = (2 * (2 * valid * Hkv * D + 2 * q.numel())
@@ -907,7 +978,9 @@ def kernel_phase(dev):
         n = copies(2 * 2 * valid * Hkv * D)
         sets = [(q.clone(), kp.clone(), vp.clone()) for _ in range(n)]
         return dict(
-            shape=f"q ({B},1,{Hq},{D}) pool ({N},{bs},{Hkv},{D}) bf16, {valid} valid keys",
+            shape=(f"q ({B},1,{Hq},{D}) pool ({N},{bs},{pool_heads},{D}) bf16, {valid} valid "
+                   f"keys" + (f", q_head0 {kw['q_head0']} G {kw['group']}" if kw["group"]
+                              else "")),
             ms=cuda_ms(lambda i: da_ops.paged_decode_attention(*sets[i], **kw), n),
             plain_ms=cuda_ms(lambda i: da_ref.paged_decode_attention(*sets[i], **kw), n,
                              iters=20),
@@ -949,11 +1022,24 @@ def kernel_phase(dev):
     # tensor parallelism: the serving decode over the 513-block pool at one
     # rank's heads
     tps = []
-    for arch, tp, Hq, Hkv in TP_HEADS:
-        case, err = pda_case(f"{arch} tp={tp} B=8 Hq={Hq} Hkv={Hkv} D=128 bs=16 q_pos={q_pos}",
-                             8, Hq, Hkv, 128, bf16, q_pos)
+    for arch, tp, Hq, Hkv, D, window, softcap in TP_HEADS:
+        if "attn" not in get_config(arch).blocks():
+            continue  # sliding-window rings only: no pool, K3 decodes
+        if arch == TP_POOL[0]:
+            continue  # below: its pool holds every KV head
+        case, err = pda_case(f"{arch} tp={tp} B=8 Hq={Hq} Hkv={Hkv} D={D} bs=16 q_pos={q_pos}",
+                             8, Hq, Hkv, D, bf16, q_pos, window=window, softcap=softcap)
         tps.append(dict(arch=arch, path=f"tp={tp} serving decode", max_abs_err=err,
                         **pda_row(case)))
+    # a rank's query heads over a pool of every KV head, read in place at
+    # the rank's offset (the kernel's q_head0)
+    # (each offset held to the plain version, the last one timed)
+    arch, B, Hq, Hkv, G, offsets = TP_POOL
+    errs = [pda_case(f"{arch} tp=4 B={B} Hq={Hq} over pool heads {Hkv} q_head0={q_head0} "
+                     f"G={G} D=128 bs=16 q_pos={q_pos}", B, Hq, Hkv, 128, bf16, q_pos,
+                     q_head0=q_head0, group=G) for q_head0 in offsets]
+    tps.append(dict(arch=arch, path=f"tp=4 serving decode, q_head0 in {list(offsets)}",
+                    max_abs_err=max(e for _, e in errs), **pda_row(errs[-1][0])))
     moe_rows(entries[-1], tps, "tp")
 
     # -- K1 rmsnorm, plain and with the residual add fused in front ------------
@@ -1047,6 +1133,42 @@ def kernel_phase(dev):
                 tol[bf16])
         log("time " + json.dumps(mode))
         modes.append(mode)
+    # the split norm of a tensor-parallel rank: xlstm-1.3b's mLSTM cell norm
+    # over W = 4096 cut to W / 2 and W / 4 (its decode and prompt rows), K1's
+    # two launches around a sum of every slice's statistic (the ranks'
+    # all-reduce), the slices side by side held to the plain norm of the
+    # whole rows; one rank's two launches timed
+    W = 4096
+    for tp in (2, 4):
+        for rows in (1, PROMPT):
+            x, sc = randn(rows, W, dtype=bf16), (randn(W) * 0.1).to(bf16)
+            parts = [t.contiguous() for t in x.chunk(tp, -1)]
+            scs = [t.contiguous() for t in sc.chunk(tp, -1)]
+            stat = sum(rn_ops.rmsnorm_sumsq(t) for t in parts)
+            out = torch.cat([rn_ops.rmsnorm(t, g, 1e-6, stat=stat, width=W)
+                             for t, g in zip(parts, scs)], -1)
+            ref = rn_ref.rmsnorm(x, sc, 1e-6)
+            torch.cuda.synchronize()
+            err = max_err(out, ref)
+            close(out, ref, tol[bf16])
+            errs.append(err)
+            d = W // tp
+            numel = rows * d
+            log(f"check split rmsnorm {rows}x{W} over tp={tp}: max_abs_err={err:.3e} "
+                f"tol={tol[bf16]}")
+            n = copies(2 * 2 * numel) if rows >= PROMPT else 1
+            sets = [parts[0].clone() for _ in range(n)]
+            kern = lambda i: rn_ops.rmsnorm(  # noqa: E731
+                sets[i], scs[0], 1e-6, stat=rn_ops.rmsnorm_sumsq(sets[i]), width=W)
+            plain = lambda i: rn_ref.rmsnorm(  # noqa: E731
+                sets[i], scs[0], 1e-6, stat=rn_ref.sumsq(sets[i]), width=W)
+            mode = dict(mode="split rmsnorm (sumsq, then stat)",
+                        shape=f"({rows},{d}) bf16, a slice of W = {W} at tp = {tp}",
+                        max_abs_err=err, ms=cuda_ms(kern, n), plain_ms=cuda_ms(plain, n),
+                        library_ms=None, host_us=host_us(lambda: kern(0)),
+                        **bound(2 * (2 * numel + d) + 4 * rows, 4 * numel, FP32_FLOPS))
+            log("time " + json.dumps(mode))
+            modes.append(mode)
     table = next(m for m in modes
                  if m["mode"] == "rmsnorm" and m["shape"].startswith(f"({PROMPT},"))
     entries.append(dict(
@@ -1146,6 +1268,18 @@ def kernel_phase(dev):
         arch=HYBRID, path="train", shape=f"a/b {tuple(a.shape)} h0 {tuple(h0.shape)} fp32",
         max_abs_err=err, grad_max_abs_err=gerr,
         **lr_row([(a.clone(), b.clone(), h0.clone()) for _ in range(n)], n))], "train")
+    # tensor parallelism: a rank's slice of recurrentgemma-2b's width at
+    # tp = 2 and 4, the measure prompt
+    tps = []
+    for tp in (2, 4):
+        (a, b, h0), err = lr_case(f"{HYBRID} tp={tp} B=1 S={PROMPT} W={W // tp}", 1, PROMPT,
+                                  W // tp)
+        n = copies(3 * 4 * a.numel())
+        tps.append(dict(arch=HYBRID, path=f"tp={tp} prefill",
+                        shape=f"a/b {tuple(a.shape)} h0 {tuple(h0.shape)} fp32",
+                        max_abs_err=err,
+                        **lr_row([(a.clone(), b.clone(), h0.clone()) for _ in range(n)], n)))
+    moe_rows(entries[-1], tps, "tp")
     for e in entries:
         e["kernel_ms"] = e["ms"]
     return entries
@@ -2900,13 +3034,16 @@ def model_phases(arch, dev, counters, paths, serve=True, parity_layers=0, layers
 TP_NOTE = "gloo over one card, host-staged: not a TP latency"
 
 
-def tp_parity_jobs(cfg, dev):
+def tp_parity_jobs(cfg, dev, prompt=None, paged=True):
     """``parity_phase``'s inputs as ``sharding.runs.Logits`` jobs: a prompt
-    of ``prompt_of(cfg)`` positions over a contiguous cache (B = 1), a
-    paged one (B = 4, each row's blocks shuffled through the pool) and the
-    paged one in chunks of 256, then 4 greedy decode steps.  A vision
-    model's prompt is its patches, seeded 0.1 N(0, 1) embeddings as
-    ``random_batch`` draws them (the same on every rank), then tokens."""
+    of ``prompt`` positions (``prompt_of(cfg)`` by default) over a
+    contiguous cache (B = 1), a paged one (B = 4, each row's blocks
+    shuffled through the pool) and the paged one in chunks of 256, then 4
+    greedy decode steps; without ``paged`` (a recurrent model, whose state
+    is per row), as ``parity_phase(paged=False)``: the contiguous cache,
+    whole and in chunks.  A vision model's prompt is its patches, seeded
+    0.1 N(0, 1) embeddings as ``random_batch`` draws them (the same on
+    every rank), then tokens."""
     import numpy as np
 
     from repro_torch.models.cache import blocks_per_slot
@@ -2914,37 +3051,45 @@ def tp_parity_jobs(cfg, dev):
 
     rng = np.random.default_rng(1)
     steps, bs, paged_batch = 4, 16, 4
-    prompt, nv = prompt_of(cfg), cfg.num_vision_tokens
+    prompt, nv = prompt or prompt_of(cfg), cfg.num_vision_tokens
     max_len = prompt + steps + 1
     nb = blocks_per_slot(max_len, bs)
     pool = paged_batch * nb + 9
     tables = (rng.permutation(pool - 1)[:paged_batch * nb] + 1).reshape(paged_batch, nb)
-    paged = dict(layout="paged", block_size=bs, num_blocks=pool)
     tokens = {b: rng.integers(0, cfg.vocab_size, (b, prompt - nv)) for b in (BATCH, paged_batch)}
     vision = {b: (0.1 * rng.standard_normal((b, nv, cfg.d_model))).astype(np.float32)
               if nv else None for b in (BATCH, paged_batch)}
-    return {"contiguous": runs.Logits(tokens[BATCH], None, max_len, greedy=steps,
-                                      vision=vision[BATCH]),
-            "paged": runs.Logits(tokens[paged_batch], None, max_len, paged,
-                                 tables.astype(np.int32), greedy=steps,
-                                 vision=vision[paged_batch]),
-            "chunked": runs.Logits(tokens[paged_batch], None, max_len, paged,
-                                   tables.astype(np.int32), chunk=CHUNKED["prefill_chunk"],
-                                   greedy=steps, vision=vision[paged_batch])}
+    jobs = {"contiguous": runs.Logits(tokens[BATCH], None, max_len, greedy=steps,
+                                      vision=vision[BATCH])}
+    if not paged:
+        jobs["chunked"] = runs.Logits(tokens[BATCH], None, max_len,
+                                      chunk=CHUNKED["prefill_chunk"], greedy=steps,
+                                      vision=vision[BATCH])
+        return jobs
+    pool_kw = dict(layout="paged", block_size=bs, num_blocks=pool)
+    tables = tables.astype(np.int32)
+    jobs["paged"] = runs.Logits(tokens[paged_batch], None, max_len, pool_kw, tables,
+                                greedy=steps, vision=vision[paged_batch])
+    jobs["chunked"] = runs.Logits(tokens[paged_batch], None, max_len, pool_kw, tables,
+                                  chunk=CHUNKED["prefill_chunk"], greedy=steps,
+                                  vision=vision[paged_batch])
+    return jobs
 
 
 def tp_serve_jobs(cfg, configs, cuda_graph=False):
     """``TP_REQUESTS`` greedy requests of ``serve_arrivals``, at most
-    ``TP_MAX_NEW`` new tokens each, served at the model's serving shape,
-    one ``sharding.runs.Serve`` job per named config."""
+    ``TP_MAX_NEW`` new tokens each (``TP_SMALL``'s for its models), served
+    at the model's serving shape, one ``sharding.runs.Serve`` job per
+    named config."""
     import dataclasses
 
     from repro_torch.sharding import runs
 
-    arrivals = serve_arrivals(cfg, TP_REQUESTS, greedy_only=True)
+    requests, max_new = TP_SMALL.get(cfg.name, (TP_REQUESTS, TP_MAX_NEW))
+    arrivals = serve_arrivals(cfg, requests, greedy_only=True)
     for a in arrivals:
         a.params = dataclasses.replace(
-            a.params, max_new_tokens=min(a.params.max_new_tokens, TP_MAX_NEW))
+            a.params, max_new_tokens=min(a.params.max_new_tokens, max_new))
     shape = {**SERVE, **SERVE_ARCH.get(cfg.name, {})}
     return arrivals, [runs.Serve(name, {**shape, **kw, "cuda_graph": cuda_graph},
                                  [(a.prompt, a.params) for a in arrivals])
@@ -3060,14 +3205,57 @@ def tp_reference(e, dev, parity, serves, arrivals):
     return ref, tp1_runs, margins, serves, flips
 
 
-def tp_compare(arch, tp, ranks, ref, tp1_runs, margins, tol, label):
+def tp_kv_per_device(cfg, tp, engine, base):
+    """Each rank's KV bytes as the reference's layout holds them
+    (``sharding.rules.cache_dim``, the reference's ``cache_shardings``, to
+    which the CPU tests hold it), in the ledger's scope, from the full
+    cache of the serving shape ``engine`` on meta: paged, the pool's share
+    of tp = 1's aggregate ``base`` (its heads, or the whole pool on every
+    rank: "replication is real memory"); contiguous, every ``k``/``v``
+    leaf, each cut to its KV heads or its L slots where tp divides them."""
+    import torch
+
+    from repro_torch.models.cache import init_cache
+    from repro_torch.sharding.rules import cache_dim
+
+    layout = engine["cache_layout"]
+    full = init_cache(cfg, engine["max_batch"], engine["max_len"], getattr(torch, cfg.dtype),
+                      "meta",
+                      layout=layout, block_size=engine["kv_block_size"],
+                      num_blocks=engine.get("kv_num_blocks", 0))
+    leaves = ("kp", "vp") if layout == "paged" else ("k", "v")
+    cut = [(t, cache_dim(leaf, t.shape, tp)) for entry in full for leaf, t in entry.items()
+           if leaf in leaves]
+    if layout == "paged":
+        return [base // tp if cut and cut[0][1] is not None else base] * tp
+    return [sum(t.numel() * t.element_size() // (1 if dim is None else tp) for t, dim in cut)] * tp
+
+
+def tp_kernels(cfg):
+    """The kernels every rank of a tp run of ``cfg`` launches: K1; K2 and
+    K3 with attention layers (a local one decodes over its ring through
+    K3); K4 with full-context ones (the serving runs are paged); K5 with
+    RG-LRU layers."""
+    kinds = set(cfg.blocks())
+    want = ["rmsnorm"]
+    if kinds & {"attn", "local_attn"}:
+        want += ["flash_attention", "decode_attention"]
+    if "attn" in kinds:
+        want.append("paged_decode_attention")
+    if "rglru" in kinds:
+        want.append("linear_recurrence")
+    return want
+
+
+def tp_compare(arch, tp, ranks, ref, tp1_runs, margins, tol, label, cfg, engines):
     """The ranks' results (each rank's list of job results after the first
     ``Launches``) against tp = 1's: each rank's parity logits bit for bit
     rank 0's and within ``tol`` of tp = 1's; each rank's streams exactly
     rank 0's, and rank 0's held to tp = 1's by the margin rule of
     ``gate_streams`` (a first difference only where tp = 1's decision had a
-    margin below ``tol``); the per-device KV bytes summing to tp = 1's
-    aggregate, and every rank's pool partition tiling its blocks."""
+    margin below ``tol``); the per-device KV bytes those of the reference's
+    layout (``tp_kv_per_device``, each serving job's engine by name in
+    ``engines``), and every rank's pool partition tiling its blocks."""
     import numpy as np
 
     n_par = len(ref)
@@ -3113,8 +3301,10 @@ def tp_compare(arch, tp, ranks, ref, tp1_runs, margins, tol, label):
                                f"margin {m} above tol {tol}")
         s = out["summary"]
         per = s["kv_bytes_peak_per_device"]
-        check(s["tp_devices"] == tp and sum(per) == base["kv_bytes_peak"],
-              f"{label} {name}: per-device KV {per} vs tp=1's {base['kv_bytes_peak']}")
+        want_per = tp_kv_per_device(cfg, tp, engines[name], base["kv_bytes_peak"])
+        check(s["tp_devices"] == tp and per == want_per,
+              f"{label} {name}: per-device KV {per}, the reference's layout {want_per} "
+              f"(tp=1's {base['kv_bytes_peak']})")
         for view in out["pool_accounting_by_device"]:
             check(view["free"] + view["in_use"] + view["evictable"] == view["allocatable"]
                   and view["in_use"] == 0, f"{label} {name}: pool accounting {view}")
@@ -3124,6 +3314,7 @@ def tp_compare(arch, tp, ranks, ref, tp1_runs, margins, tol, label):
             "first_differences (uid: token, margin)": flips, "tol": tol,
             "tp1_routes_forced": forced,
             "kv_bytes_peak_per_device": per, "kv_bytes_peak_tp1": base["kv_bytes_peak"],
+            "kv_bytes_per_device_reference_layout": want_per,
             "dispatches_per_step_p95": s["dispatches_per_step_p95"],
             "step_ms": step_ms, "tp_broadcast_us_p50": s["tp_broadcast_us_p50"],
             "tp_broadcast_us_p95": s["tp_broadcast_us_p95"], "wall_s": out["wall_s"],
@@ -3169,25 +3360,26 @@ def tp_run(tp, dev, paths, cases, backend):
     plan = []
     for c in cases:
         extra = [c["flips"][0]] if c["flips"] else []
-        plan.append((runs.Weights(c["cfg"], seed=0),
+        plan.append((runs.Weights(c["cfg"], seed=0, table_scale=c["table_scale"]),
                      [runs.Launches(), *c["parity"].values(), *c["serves"], *extra,
                       runs.Launches()]))
     t0 = time.perf_counter()
-    ranks = spawn_tp(runs.run_plan, tp, "cuda", plan, backend=backend)
+    # one intra-op thread a rank: the ranks share the host's cores
+    ranks = spawn_tp(runs.run_plan, tp, "cuda", plan, backend=backend, threads=1)
     wall = time.perf_counter() - t0
     for i, c in enumerate(cases):
         arch = c["arch"]
         label = f"tp {arch} tp={tp} {backend or 'nccl'}"
         mine = [ranks[r][i] for r in range(tp)]
         check(all(isinstance(m, list) for m in mine), f"{label}: a rank could not build: {mine}")
+        want = tp_kernels(c["cfg"])
         for r in range(tp):
             paths[f"{arch} tp={tp} {backend or 'nccl'} rank {r}"] = mine[r][-1]
-            check(all(mine[r][-1][k] > 0 for k in ("rmsnorm", "flash_attention",
-                                                    "decode_attention",
-                                                    "paged_decode_attention")),
-                  f"{label}: rank {r} did not launch K1-K4: {mine[r][-1]}")
+            check(all(mine[r][-1][k] > 0 for k in want),
+                  f"{label}: rank {r} did not launch {want}: {mine[r][-1]}")
         results = [m[1:-1] for m in mine]
-        tp_compare(arch, tp, results, c["ref"], c["tp1_runs"], c["margins"], c["tol"], label)
+        tp_compare(arch, tp, results, c["ref"], c["tp1_runs"], c["margins"], c["tol"], label,
+                   c["cfg"], {job.name: job.engine for job in c["serves"]})
         if c["flips"]:
             tp_route_flips(label, tp, results, c["flips"], c["ref"]["contiguous"])
     log(f"tp={tp} {backend or 'nccl'} ranks ran {', '.join(c['arch'] for c in cases)}: "
@@ -3197,51 +3389,69 @@ def tp_run(tp, dev, paths, cases, backend):
 def tp_phase(dev, paths, tols):
     """Tensor-parallel serving on this card (``TP_RUNS``): llama3.1-8b on
     ``TP_LLAMA_LAYERS`` layers, moonshot-v1-16b-a3b and llava-next-34b over
-    2 gloo ranks, command-r-plus-104b and qwen3-moe-30b-a3b over 4, every
+    2 gloo ranks, command-r-plus-104b, qwen3-moe-30b-a3b and qwen2.5-1.5b
+    over 4, recurrentgemma-2b and xlstm-1.3b over 2 and over 4, every
     model at full width, every rank sharing this card, its collectives
     staged through the host, its steps eager.  Each model is held to its
-    tp = 1 model, run here first (parity logits within the bf16 tolerance
-    of its ``parity_phase`` — ``tols[arch]`` where the model's own parity
-    phase gave it, else run here — streams by the margin rule, ledgers; a
-    MoE model with tp = 1's routes forced, its unforced flips printed).
-    With 2 or more GPUs llama3.1-8b also runs over 2 NCCL ranks with
-    captured steps.  The times printed check correctness: they are not TP
-    latencies."""
+    tp = 1 model, run here first and once for both tp (parity logits
+    within the bf16 tolerance of its ``parity_phase`` — ``tols[arch]``
+    where the model's own parity phase gave it at this depth, else run
+    here with ``TP_PARITY``'s prompt and table — streams by the margin
+    rule, ledgers against the reference's layout; a MoE model with tp =
+    1's routes forced, its unforced flips printed).  Each run serves the
+    jobs ``TP_RUNS`` names for it (tp = 1 serves every tp's once); the
+    recurrent models serve at one tp.  With 2 or more GPUs llama3.1-8b
+    also runs over 2 NCCL ranks with captured steps.  The times printed
+    check correctness: they are not TP latencies."""
     import gc
+    from concurrent.futures import ThreadPoolExecutor
 
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.core.profiler import Elana
 
-    llama_configs = {"paged whole": {}, "paged chunked": TP_CHUNKED,
-                     "contiguous whole": dict(cache_layout="contiguous"),
-                     "contiguous chunked": dict(TP_CHUNKED, cache_layout="contiguous")}
     t_all = time.perf_counter()
-    cases = []
-    for arch, tp, layers in TP_RUNS:
+    cases, refs = [], {}
+    for arch, tp, layers, configs in TP_RUNS:
         t0 = time.perf_counter()
         full = get_config(arch)
         cfg = full.replace(num_layers=layers) if layers else full
         log(f"tp {arch} tp={tp}: full width on {cfg.num_layers} of its {full.num_layers} "
             f"layers")
-        parity = tp_parity_jobs(cfg, dev)
-        arrivals, serves = tp_serve_jobs(cfg, llama_configs if arch == ARCH
-                                         else {"paged whole": {}})
-        e = Elana(config=cfg, device="cuda", seed=0)
-        tol = tols.get(arch)
-        if tol is None:  # the kernels held to plain and fp32 at this depth
-            tol = parity_phase(e, dev)
-        ref, tp1_runs, margins, serves, flips = tp_reference(e, dev, parity, serves, arrivals)
-        del e
-        gc.collect()
-        torch.cuda.empty_cache()
-        cases.append(dict(arch=arch, tp=tp, cfg=cfg, tol=tol, parity=parity, serves=serves,
-                          ref=ref, tp1_runs=tp1_runs, margins=margins, flips=flips,
-                          configs=llama_configs if arch == ARCH else None))
-        log(f"tp {arch}: tp=1 reference (eager) took {time.perf_counter() - t0:.1f} s")
-    for tp in sorted({c["tp"] for c in cases}):
-        tp_run(tp, dev, paths, [c for c in cases if c["tp"] == tp], "gloo")
+        if (arch, layers) not in refs:
+            kw = TP_PARITY.get(arch, {})
+            scale = kw.get("table_scale", 1.0)
+            parity = tp_parity_jobs(cfg, dev, kw.get("prompt"), kw.get("paged", True))
+            every = {name: engine for a, _, n, named in TP_RUNS if (a, n) == (arch, layers)
+                     for name, engine in named.items()}  # every tp's, once
+            arrivals, serves = tp_serve_jobs(cfg, every)
+            e = Elana(config=cfg, device="cuda", seed=0)
+            tol = tols.get(arch)
+            if tol is None:  # the kernels held to plain and fp32 at this depth
+                tol = parity_phase(e, dev, **kw)
+            with torch.no_grad():
+                e.model.embed.table.mul_(scale)  # as the ranks' (``runs.Weights``)
+            refs[arch, layers] = dict(
+                tol=tol, parity=parity, table_scale=scale, configs=every,
+                **dict(zip(("ref", "tp1_runs", "margins", "serves", "flips"),
+                           tp_reference(e, dev, parity, serves, arrivals))))
+            del e
+            gc.collect()
+            torch.cuda.empty_cache()
+            log(f"tp {arch}: tp=1 reference (eager) took {time.perf_counter() - t0:.1f} s")
+        ref = dict(refs[arch, layers])
+        ref["serves"] = [job for job in ref["serves"] if job.name in configs]
+        ref["tp1_runs"] = {name: out for name, out in ref["tp1_runs"].items() if name in configs}
+        cases.append(dict(arch=arch, tp=tp, cfg=cfg, **ref))
+    # the two spawns overlap, each waited on from a thread of its own: their
+    # ranks share the card and the host's cores (one intra-op thread each)
+    tps = sorted({c["tp"] for c in cases})
+    with ThreadPoolExecutor(len(tps)) as pool:
+        runs = [pool.submit(tp_run, tp, dev, paths, [c for c in cases if c["tp"] == tp], "gloo")
+                for tp in tps]
+        for run in runs:
+            run.result()
     if torch.cuda.device_count() >= 2:
         c = dict(next(c for c in cases if c["arch"] == ARCH))
         _, c["serves"] = tp_serve_jobs(c["cfg"], c["configs"], cuda_graph=True)
@@ -3906,8 +4116,10 @@ def main():
     model_phases(NEMOTRON, dev, counters, paths)
     check(paths[f"{NEMOTRON} serve"]["paged_decode_attention"] > 0,
           f"K4 never launched on the {NEMOTRON} serve path")
-    model_phases(XLSTM, dev, counters, paths, serve=False, paged=False, layers=XLSTM_LAYERS)
-    tols = {}  # the 4-layer parity models' tolerances, for their tp runs
+    # the parity models' tolerances, for their tp runs: xlstm-1.3b's at its
+    # tp depth, the MoE models' and llava-next-34b's at 4 layers
+    tols = {XLSTM: model_phases(XLSTM, dev, counters, paths, serve=False, paged=False,
+                                layers=XLSTM_LAYERS)}
     for arch in (QWEN_MOE, MOONSHOT):
         tols[arch] = model_phases(arch, dev, counters, paths, parity_layers=PARITY_LAYERS)
         for path in ("measure", "serve", "chunked serve"):

@@ -34,12 +34,16 @@ _FLASH = [_P] * 6 + [_I] * 8 + [_F, _F, _P]
 # n_split, window, softcap, scale, stream
 _DECODE = [_P] * 9 + [_I] * 8 + [_F, _F, _P]
 # q, k_pool, v_pool, tables, q_pos, out, m_ws, l_ws, acc_ws, B, nb, bs, Hkv,
-# G, D, chunk, n_split, window, softcap, scale, stream
-_PAGED = [_P] * 9 + [_I] * 9 + [_F, _F, _P]
+# pool_heads, head0, G, D, chunk, n_split, window, softcap, scale, stream
+_PAGED = [_P] * 9 + [_I] * 11 + [_F, _F, _P]
 # a, b, h0, h, agg_a, agg_b, B, S, W, chunk, n_chunks, stream
 _LINREC = [_P] * 6 + [_I] * 5 + [_P]
 # x, r, scale, s, y, rows, d, scale_f32, eps, stream
 _RMSNORM = [_P] * 5 + [_I] * 3 + [_F, _P]
+# x, out, rows, d, stream
+_SUMSQ = [_P] * 2 + [_I] * 2 + [_P]
+# x, stat, scale, y, rows, d, width, scale_f32, eps, stream
+_STAT = [_P] * 4 + [_I] * 4 + [_F, _P]
 SIGNATURES = {
     "flash_attention": {"flash_attention_bf16": _FLASH, "flash_attention_f32": _FLASH},
     "decode_attention": {"decode_attention_bf16": _DECODE,
@@ -47,7 +51,9 @@ SIGNATURES = {
     "paged_decode_attention": {"paged_decode_attention_bf16": _PAGED,
                                "paged_decode_attention_f32": _PAGED},
     "linear_recurrence": {"linear_recurrence_f32": _LINREC},
-    "rmsnorm": {"rmsnorm_bf16": _RMSNORM, "rmsnorm_f32": _RMSNORM},
+    "rmsnorm": {"rmsnorm_bf16": _RMSNORM, "rmsnorm_f32": _RMSNORM,
+                "rmsnorm_sumsq_bf16": _SUMSQ, "rmsnorm_sumsq_f32": _SUMSQ,
+                "rmsnorm_stat_bf16": _STAT, "rmsnorm_stat_f32": _STAT},
 }
 
 

@@ -51,6 +51,11 @@
 //     directly into shared memory, so the gathered K/V never exists in
 //     device memory (the plain version materialises it);
 //   * any block size works, not only divisors of the tile.
+// A tensor-parallel rank whose query heads are split over a pool that
+// holds every KV head reads its group's head in place: the call's Hkv
+// groups of G heads read pool heads head0 .. head0 + Hkv - 1 of the
+// pool's pool_heads (a pool row is pool_heads * D elements); a plain call
+// has head0 = 0 and pool_heads = Hkv.
 
 #include <climits>
 #include <cstdint>
@@ -80,8 +85,9 @@ paged_decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_p
                               const T* __restrict__ v_pool, const int* __restrict__ tables,
                               const int* __restrict__ q_pos, T* __restrict__ o,
                               float* __restrict__ m_ws, float* __restrict__ l_ws,
-                              float* __restrict__ acc_ws, int nb, int bs, int Hkv, int G,
-                              int chunk, int window, float softcap, float scale) {
+                              float* __restrict__ acc_ws, int nb, int bs, int Hkv,
+                              int pool_heads, int head0, int G, int chunk, int window,
+                              float softcap, float scale) {
     static_assert(D % 4 == 0, "head dim must be a multiple of 4");
     constexpr int DP = D + 4;
     constexpr int SP = BK + 4;
@@ -100,7 +106,7 @@ paged_decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_p
     const int tid = threadIdx.x;
     const int h = blockIdx.x, b = blockIdx.y;
     const int c0 = blockIdx.z * chunk;
-    const size_t kv_stride = size_t(Hkv) * D;      // elements per pool row
+    const size_t kv_stride = size_t(pool_heads) * D;  // elements per pool row
     const int* tb = tables + size_t(b) * nb;
     const int qp = q_pos[b];
     // the keys of this chunk the row sees: [first, last], empty if first > last
@@ -130,7 +136,7 @@ paged_decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_p
         }
         __syncthreads();
         stage_kv_rows<T, D, DP, BK, NTHREADS>(
-            k_s, v_s, k_pool + size_t(h) * D, v_pool + size_t(h) * D,
+            k_s, v_s, k_pool + size_t(head0 + h) * D, v_pool + size_t(head0 + h) * D,
             [&](int r) { return size_t(row_s[r]) * kv_stride; }, last - t0 + 1);
         __syncthreads();
         decode_tile<D, BK, NTHREADS>(q_s, k_s, v_s, s_s, m_s, l_s, a_s, acc, G, scale, softcap,
@@ -207,8 +213,8 @@ paged_decode_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restr
                                  const int* __restrict__ tables, const int* __restrict__ q_pos,
                                  bf16* __restrict__ o, float* __restrict__ m_ws,
                                  float* __restrict__ l_ws, float* __restrict__ acc_ws, int nb,
-                                 int bs, int Hkv, int G, int chunk, int window, float softcap,
-                                 float scale) {
+                                 int bs, int Hkv, int pool_heads, int head0, int G, int chunk,
+                                 int window, float softcap, float scale) {
     using Cfg = PagedTc<D>;
     constexpr int DK = Cfg::DK, RS = Cfg::RS, CH = Cfg::CH, NKQ = Cfg::NKQ, NO = Cfg::NO;
 
@@ -264,9 +270,9 @@ paged_decode_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restr
         const int j = tile_start(k) + lane % TK;
         return k < my_n && j <= last ? __ldg(tb + j / bs) : -1;
     };
-    const size_t kv_stride = size_t(Hkv) * D;
-    const bf16* kh = k_pool + size_t(h) * D;
-    const bf16* vh = v_pool + size_t(h) * D;
+    const size_t kv_stride = size_t(pool_heads) * D;
+    const bf16* kh = k_pool + size_t(head0 + h) * D;
+    const bf16* vh = v_pool + size_t(head0 + h) * D;
     auto issue = [&](int k, int blk, int st) {
         const int t0 = tile_start(k);
         bf16* ks = ring + st * 2 * TK * RS;
@@ -447,8 +453,8 @@ paged_decode_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restr
 template <typename T, int D>
 int launch(const void* q, const void* k_pool, const void* v_pool, const int* tables,
            const int* q_pos, void* o, float* m_ws, float* l_ws, float* acc_ws, int B, int nb,
-           int bs, int Hkv, int G, int chunk, int n_split, int window, float softcap,
-           float scale, cudaStream_t stream) {
+           int bs, int Hkv, int pool_heads, int head0, int G, int chunk, int n_split,
+           int window, float softcap, float scale, cudaStream_t stream) {
     const dim3 grid(Hkv, B, n_split);
     if constexpr (std::is_same<T, bf16>::value) {
         static const cudaError_t attr = cudaFuncSetAttribute(
@@ -458,7 +464,7 @@ int launch(const void* q, const void* k_pool, const void* v_pool, const int* tab
         paged_decode_attention_tc_kernel<D><<<grid, TC_THREADS, PagedTc<D>::smem, stream>>>(
             static_cast<const bf16*>(q), static_cast<const bf16*>(k_pool),
             static_cast<const bf16*>(v_pool), tables, q_pos, static_cast<bf16*>(o), m_ws, l_ws,
-            acc_ws, nb, bs, Hkv, G, chunk, window, softcap, scale);
+            acc_ws, nb, bs, Hkv, pool_heads, head0, G, chunk, window, softcap, scale);
     } else {
         static const cudaError_t attr = cudaFuncSetAttribute(
             paged_decode_attention_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -467,7 +473,7 @@ int launch(const void* q, const void* k_pool, const void* v_pool, const int* tab
         paged_decode_attention_kernel<T, D><<<grid, NTHREADS, pda_smem_bytes<D>(G), stream>>>(
             static_cast<const T*>(q), static_cast<const T*>(k_pool),
             static_cast<const T*>(v_pool), tables, q_pos, static_cast<T*>(o), m_ws, l_ws,
-            acc_ws, nb, bs, Hkv, G, chunk, window, softcap, scale);
+            acc_ws, nb, bs, Hkv, pool_heads, head0, G, chunk, window, softcap, scale);
     }
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess || n_split == 1) return int(err);
@@ -478,9 +484,10 @@ int launch(const void* q, const void* k_pool, const void* v_pool, const int* tab
 template <typename T>
 int dispatch(const void* q, const void* k_pool, const void* v_pool, const void* tables,
              const void* q_pos, void* o, void* m_ws, void* l_ws, void* acc_ws, int B, int nb,
-             int bs, int Hkv, int G, int D, int chunk, int n_split, int window, float softcap,
-             float scale, void* stream) {
+             int bs, int Hkv, int pool_heads, int head0, int G, int D, int chunk, int n_split,
+             int window, float softcap, float scale, void* stream) {
     if (G < 1 || G > kMaxGroup || bs < 1 || nb < 1 || size_t(nb) * bs > size_t(INT_MAX) ||
+        Hkv < 1 || head0 < 0 || head0 + Hkv > pool_heads ||
         !split_plan_ok(nb * bs, chunk, n_split, BK, m_ws, l_ws, acc_ws))
         return int(cudaErrorInvalidValue);
     const int* tp = static_cast<const int*>(tables);
@@ -491,8 +498,9 @@ int dispatch(const void* q, const void* k_pool, const void* v_pool, const void* 
     cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define REPRO_PDA_CASE(DIM)                                                                \
     case DIM:                                                                              \
-        return launch<T, DIM>(q, k_pool, v_pool, tp, qp, o, m, l, acc, B, nb, bs, Hkv, G,  \
-                              chunk, n_split, window, softcap, scale, st);
+        return launch<T, DIM>(q, k_pool, v_pool, tp, qp, o, m, l, acc, B, nb, bs, Hkv,     \
+                              pool_heads, head0, G, chunk, n_split, window, softcap,      \
+                              scale, st);
     switch (D) {
         REPRO_PDA_CASE(8)
         REPRO_PDA_CASE(16)
@@ -514,28 +522,31 @@ int dispatch(const void* q, const void* k_pool, const void* v_pool, const void* 
 // the CUDA status of its launches; 0 is success.  They launch on `stream`
 // and never synchronise, so a CUDA graph can capture them.  m_ws, l_ws:
 // B * Hkv * n_split * G floats; acc_ws: that times D (unused, and may be
-// null, when n_split is 1).  The chunks must cover the table's nb * bs
-// positions and every one of them hold a position: chunk * (n_split - 1)
-// < nb * bs <= chunk * n_split.
+// null, when n_split is 1).  q holds Hkv groups of G heads, which read
+// pool heads head0 .. head0 + Hkv - 1 of the pool's pool_heads.  The
+// chunks must cover the table's nb * bs positions and every one of them
+// hold a position: chunk * (n_split - 1) < nb * bs <= chunk * n_split.
 extern "C" int paged_decode_attention_bf16(const void* q, const void* k_pool,
                                            const void* v_pool, const void* tables,
                                            const void* q_pos, void* o, void* m_ws,
                                            void* l_ws, void* acc_ws, int B, int nb, int bs,
-                                           int Hkv, int G, int D, int chunk, int n_split,
-                                           int window, float softcap, float scale,
-                                           void* stream) {
+                                           int Hkv, int pool_heads, int head0, int G, int D,
+                                           int chunk, int n_split, int window, float softcap,
+                                           float scale, void* stream) {
     return repro_torch::dispatch<__nv_bfloat16>(q, k_pool, v_pool, tables, q_pos, o, m_ws,
-                                                l_ws, acc_ws, B, nb, bs, Hkv, G, D, chunk,
-                                                n_split, window, softcap, scale, stream);
+                                                l_ws, acc_ws, B, nb, bs, Hkv, pool_heads,
+                                                head0, G, D, chunk, n_split, window, softcap,
+                                                scale, stream);
 }
 
 extern "C" int paged_decode_attention_f32(const void* q, const void* k_pool,
                                           const void* v_pool, const void* tables,
                                           const void* q_pos, void* o, void* m_ws, void* l_ws,
-                                          void* acc_ws, int B, int nb, int bs, int Hkv, int G,
-                                          int D, int chunk, int n_split, int window,
-                                          float softcap, float scale, void* stream) {
+                                          void* acc_ws, int B, int nb, int bs, int Hkv,
+                                          int pool_heads, int head0, int G, int D, int chunk,
+                                          int n_split, int window, float softcap, float scale,
+                                          void* stream) {
     return repro_torch::dispatch<float>(q, k_pool, v_pool, tables, q_pos, o, m_ws, l_ws,
-                                        acc_ws, B, nb, bs, Hkv, G, D, chunk, n_split, window,
-                                        softcap, scale, stream);
+                                        acc_ws, B, nb, bs, Hkv, pool_heads, head0, G, D, chunk,
+                                        n_split, window, softcap, scale, stream);
 }

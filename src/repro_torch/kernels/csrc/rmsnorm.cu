@@ -5,6 +5,13 @@
 // over the last dimension d of x, r (rows, d).  Without r, s is x and only
 // y is written.
 //
+// A width split over tensor-parallel ranks (an mLSTM cell's norm) takes two
+// launches around the ranks' all-reduce: rmsnorm_sumsq writes each row's
+// fp32 sum of squares of the rank's slice, and rmsnorm_stat normalises the
+// slice by the reduced sum over the whole width, in place of the block's
+// own reduction:
+//   y = x * rsqrt(stat / width + eps) * (1 + scale)
+//
 // Replaces the TPU kernel repro/kernels/rmsnorm/rmsnorm.py::rmsnorm
 // (_kernel), which normalises a block of rows per grid step in VMEM.  The
 // add is this port's: the model adds every branch output to the residual
@@ -100,12 +107,15 @@ __device__ __forceinline__ float block_sum(float v, float* partial) {
     return v;
 }
 
-// Row blockIdx.x.  r and s may be null together (no residual).
+// Row blockIdx.x.  r and s may be null together (no residual).  With stat
+// given, the row's sum of squares is stat[row] over width columns and the
+// block reduces nothing.
 template <typename T, int VEC, int NV>
 __global__ void __launch_bounds__(kMaxThreads)
 rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ r,
                const void* __restrict__ scale, bool scale_f32, T* __restrict__ s,
-               T* __restrict__ y, int d, float eps) {
+               T* __restrict__ y, int d, float eps, const float* __restrict__ stat,
+               int width) {
     __shared__ float partial[32];
     const size_t row = size_t(blockIdx.x) * d;
     float v[NV][VEC], g[NV][VEC];
@@ -132,7 +142,8 @@ rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ r,
             }
         }
     }
-    const float inv = rsqrtf(block_sum(ss, partial) / float(d) + eps);
+    const float total = stat != nullptr ? stat[blockIdx.x] : block_sum(ss, partial);
+    const float inv = rsqrtf(total / float(width) + eps);
 #pragma unroll
     for (int j = 0; j < NV; ++j) {
         const int c = (j * int(blockDim.x) + int(threadIdx.x)) * VEC;
@@ -147,19 +158,48 @@ rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ r,
 
 template <typename T, int VEC, int NV>
 cudaError_t launch(const void* x, const void* r, const void* scale, bool scale_f32, void* s,
-                   void* y, int rows, int d, int threads, float eps, cudaStream_t st) {
+                   void* y, int rows, int d, int threads, float eps, const float* stat,
+                   int width, cudaStream_t st) {
     rmsnorm_kernel<T, VEC, NV><<<rows, threads, 0, st>>>(
         static_cast<const T*>(x), static_cast<const T*>(r), scale, scale_f32,
-        static_cast<T*>(s), static_cast<T*>(y), d, eps);
+        static_cast<T*>(s), static_cast<T*>(y), d, eps, stat, width);
     return cudaGetLastError();
+}
+
+// Row blockIdx.x's fp32 sum of squares into out[row]: one strided pass of
+// kSumsqThreads threads, element by element, and the block reduction.
+constexpr int kSumsqThreads = 256;
+
+template <typename T>
+__global__ void __launch_bounds__(kSumsqThreads)
+sumsq_kernel(const T* __restrict__ x, float* __restrict__ out, int d) {
+    __shared__ float partial[32];
+    const T* row = x + size_t(blockIdx.x) * d;
+    float ss = 0.f;
+    for (int c = threadIdx.x; c < d; c += kSumsqThreads) {
+        const float v = to_float(row[c]);
+        ss = fmaf(v, v, ss);
+    }
+    ss = block_sum(ss, partial);
+    if (threadIdx.x == 0) out[blockIdx.x] = ss;
+}
+
+template <typename T>
+int sumsq(const void* x, float* out, int rows, int d, void* stream) {
+    if (rows < 1 || d < 1 || !x || !out) return int(cudaErrorInvalidValue);
+    sumsq_kernel<T><<<rows, kSumsqThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(x), out, d);
+    return int(cudaGetLastError());
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 template <typename T>
 int dispatch(const void* x, const void* r, const void* scale, void* s, void* y, int rows,
-             int d, int scale_f32, float eps, void* stream) {
-    if (rows < 1 || d < 1 || d > kMaxD || !x || !scale || !y || (r == nullptr) != (s == nullptr))
+             int d, int scale_f32, float eps, const float* stat, int stat_width,
+             void* stream) {
+    if (rows < 1 || d < 1 || d > kMaxD || !x || !scale || !y || (r == nullptr) != (s == nullptr)
+        || stat_width < d)
         return int(cudaErrorInvalidValue);
     constexpr int kVec = 16 / int(sizeof(T));
     const bool vec = d % kVec == 0 && aligned16(x) && aligned16(y) && aligned16(scale) &&
@@ -173,7 +213,8 @@ int dispatch(const void* x, const void* r, const void* scale, void* s, void* y, 
     const bool f32 = scale_f32 != 0;
 #define REPRO_RMSNORM_CASE(V, N) \
     if (width == V && nv == N)   \
-        return int(launch<T, V, N>(x, r, scale, f32, s, y, rows, d, threads, eps, st));
+        return int(launch<T, V, N>(x, r, scale, f32, s, y, rows, d, threads, eps, stat, \
+                                   stat_width, st));
     if (vec) {
         REPRO_RMSNORM_CASE(kVec, 1)
         REPRO_RMSNORM_CASE(kVec, 2)
@@ -201,10 +242,41 @@ int dispatch(const void* x, const void* r, const void* scale, void* s, void* y, 
 extern "C" int rmsnorm_bf16(const void* x, const void* r, const void* scale, void* s, void* y,
                             int rows, int d, int scale_f32, float eps, void* stream) {
     return repro_torch::dispatch<__nv_bfloat16>(x, r, scale, s, y, rows, d, scale_f32, eps,
-                                                stream);
+                                                nullptr, d, stream);
 }
 
 extern "C" int rmsnorm_f32(const void* x, const void* r, const void* scale, void* s, void* y,
                            int rows, int d, int scale_f32, float eps, void* stream) {
-    return repro_torch::dispatch<float>(x, r, scale, s, y, rows, d, scale_f32, eps, stream);
+    return repro_torch::dispatch<float>(x, r, scale, s, y, rows, d, scale_f32, eps, nullptr, d,
+                                        stream);
+}
+
+// The split norm's two launches.  rmsnorm_sumsq: out (rows fp32) gets each
+// row of x's sum of squares.  rmsnorm_stat: y = the norm of x with stat
+// (rows fp32, the sums over width >= d columns) as the row's statistic;
+// no residual.
+extern "C" int rmsnorm_sumsq_bf16(const void* x, void* out, int rows, int d, void* stream) {
+    return repro_torch::sumsq<__nv_bfloat16>(x, static_cast<float*>(out), rows, d, stream);
+}
+
+extern "C" int rmsnorm_sumsq_f32(const void* x, void* out, int rows, int d, void* stream) {
+    return repro_torch::sumsq<float>(x, static_cast<float*>(out), rows, d, stream);
+}
+
+extern "C" int rmsnorm_stat_bf16(const void* x, const void* stat, const void* scale, void* y,
+                                 int rows, int d, int width, int scale_f32, float eps,
+                                 void* stream) {
+    if (!stat) return int(cudaErrorInvalidValue);
+    return repro_torch::dispatch<__nv_bfloat16>(x, nullptr, scale, nullptr, y, rows, d,
+                                                scale_f32, eps,
+                                                static_cast<const float*>(stat), width,
+                                                stream);
+}
+
+extern "C" int rmsnorm_stat_f32(const void* x, const void* stat, const void* scale, void* y,
+                                int rows, int d, int width, int scale_f32, float eps,
+                                void* stream) {
+    if (!stat) return int(cudaErrorInvalidValue);
+    return repro_torch::dispatch<float>(x, nullptr, scale, nullptr, y, rows, d, scale_f32, eps,
+                                        static_cast<const float*>(stat), width, stream);
 }

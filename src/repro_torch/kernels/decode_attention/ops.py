@@ -70,7 +70,7 @@ def _check_heads(Hq, Hkv, D):
         raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
 
 
-def _check_paged(q, k_pool, v_pool, block_tables, q_positions):
+def _check_paged(q, k_pool, v_pool, block_tables, q_positions, heads):
     tensors = {"q": q, "k_pool": k_pool, "v_pool": v_pool,
                "block_tables": block_tables, "q_positions": q_positions}
     for name, t in tensors.items():
@@ -87,8 +87,9 @@ def _check_paged(q, k_pool, v_pool, block_tables, q_positions):
         raise ValueError(f"want q (B,1,Hq,D), pools (N,bs,Hkv,D); got "
                          f"{tuple(q.shape)}, {tuple(k_pool.shape)}")
     B, _, Hq, D = q.shape
-    N, bs, Hkv = k_pool.shape[:3]
-    if N == 0 or bs == 0 or k_pool.shape[3] != D or Hkv == 0 or Hq % Hkv:
+    N, bs = k_pool.shape[:2]
+    Hkv = heads.stop - heads.start  # the pool heads the call reads
+    if N == 0 or bs == 0 or k_pool.shape[3] != D or Hq % Hkv:
         raise ValueError(f"q {tuple(q.shape)} and pool {tuple(k_pool.shape)} "
                          f"do not form a GQA pair")
     _check_heads(Hq, Hkv, D)
@@ -169,19 +170,24 @@ decode_attention.launches = 0
 
 
 def paged_decode_attention(q, k_pool, v_pool, *, block_tables, q_positions,
-                           window=0, softcap=0.0):
+                           window=0, softcap=0.0, q_head0=0, group=0):
     """Attention of one query token per row over the block pool, key j of
     row b at ``pool[block_tables[b, j // bs], j % bs]``, split-KV over the
     table's nb * bs positions as ``decode_attention`` is over the cache.
-    Table entries must name blocks of the pool: the kernel reads through
-    them unchecked (checking would need the tables on the host)."""
+    Query head h reads pool head ``(q_head0 + h) // group`` (``group`` 0:
+    Hq / Hkv): whole groups of pool heads, or one group holding every
+    query head of the call (``ref.pool_heads``), read in place.  Table
+    entries must name blocks of the pool: the kernel reads through them
+    unchecked (checking would need the tables on the host)."""
+    heads = ref.pool_heads(q.shape[2], k_pool.shape[2], q_head0, group)
     if not q.is_cuda:
         return ref.paged_decode_attention(q, k_pool, v_pool, block_tables=block_tables,
                                           q_positions=q_positions, window=window,
-                                          softcap=softcap)
-    _check_paged(q, k_pool, v_pool, block_tables, q_positions)
+                                          softcap=softcap, q_head0=q_head0, group=group)
+    _check_paged(q, k_pool, v_pool, block_tables, q_positions, heads)
     B, _, Hq, D = q.shape
-    bs, Hkv = k_pool.shape[1], k_pool.shape[2]
+    bs, pool_heads = k_pool.shape[1], k_pool.shape[2]
+    Hkv = heads.stop - heads.start
     nb, G = block_tables.shape[1], Hq // Hkv
     n_split, chunk = split_plan(B, Hkv, nb * bs, _sm_count(q.device.index or 0))
     check_plan(nb * bs, n_split, chunk)
@@ -190,8 +196,8 @@ def paged_decode_attention(q, k_pool, v_pool, *, block_tables, q_positions,
     launcher = _build.load()[_PAGED_FN[q.dtype]]
     status = launcher(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), block_tables.data_ptr(),
-        q_positions.data_ptr(), out.data_ptr(), *scratch, B, nb, bs, Hkv, G, D, chunk,
-        n_split, int(window), float(softcap), 1.0 / math.sqrt(D),
+        q_positions.data_ptr(), out.data_ptr(), *scratch, B, nb, bs, Hkv, pool_heads,
+        heads.start, G, D, chunk, n_split, int(window), float(softcap), 1.0 / math.sqrt(D),
         _build.stream(q))
     if status != 0:
         raise RuntimeError(f"paged_decode_attention launch failed: CUDA error {status}")

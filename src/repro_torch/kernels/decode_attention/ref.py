@@ -7,7 +7,10 @@ are unfilled and masked; window masking uses absolute positions, so ring
 buffers work unchanged.
 
 ``paged_decode_attention``: the same over a block pool, gathered through a
-per-sequence block table; gathered index j is absolute position j.
+per-sequence block table; gathered index j is absolute position j.  Query
+head h reads pool head ``(q_head0 + h) // group`` (``pool_heads``; the
+defaults read every pool head in order): a tensor-parallel rank's query
+heads over a pool that holds every KV head.
 
 ``decode_attention_split`` and ``paged_decode_attention_split``: the two
 computed chunk by chunk and merged as the split-KV kernels do, the plain
@@ -107,6 +110,23 @@ def _gather_pool(k_pool, v_pool, block_tables):
     return k, v, k_positions
 
 
+def pool_heads(Hq: int, Hkv: int, q_head0: int = 0, group: int = 0) -> slice:
+    """The pool heads a call of ``Hq`` query heads reads when query head h
+    reads pool head ``(q_head0 + h) // group`` (``group`` 0: Hq / Hkv):
+    whole groups in order, or one group that holds them all.  Raises
+    ``ValueError`` on heads that straddle two groups unevenly, or past the
+    pool's ``Hkv`` heads."""
+    if not group and (Hkv == 0 or Hq % Hkv):
+        raise ValueError(f"{Hq} query heads and {Hkv} pool heads do not form a GQA pair")
+    G = group or Hq // Hkv
+    first, last = q_head0 // G, (q_head0 + Hq - 1) // G
+    whole = q_head0 % G == 0 and Hq % G == 0
+    if G < 1 or q_head0 < 0 or last >= Hkv or not (whole or first == last):
+        raise ValueError(f"query heads {q_head0}..{q_head0 + Hq - 1} in groups of {G} do not "
+                         f"read whole groups, or one group, of {Hkv} pool heads")
+    return slice(first, last + 1)
+
+
 def paged_decode_attention(
     q: torch.Tensor,             # (B, 1, Hq, D)
     k_pool: torch.Tensor,        # (N, bs, Hkv, D) global block pool
@@ -116,7 +136,12 @@ def paged_decode_attention(
     q_positions: torch.Tensor,   # (B, 1)
     window: int = 0,
     softcap: float = 0.0,
+    q_head0: int = 0,
+    group: int = 0,
 ) -> torch.Tensor:
+    heads = pool_heads(q.shape[2], k_pool.shape[2], q_head0, group)
+    if heads != slice(0, k_pool.shape[2]):
+        k_pool, v_pool = k_pool[:, :, heads], v_pool[:, :, heads]
     k, v, k_positions = _gather_pool(k_pool, v_pool, block_tables)
     return decode_attention(q, k, v, q_positions=q_positions,
                             k_positions=k_positions, window=window,
@@ -133,11 +158,14 @@ def paged_decode_attention_split(
     window: int = 0,
     softcap: float = 0.0,
     chunk: int,
+    q_head0: int = 0,
+    group: int = 0,
 ) -> torch.Tensor:
     """``paged_decode_attention`` with its positions cut into chunks of
     ``chunk`` (position j in chunk j // chunk, whatever pool block holds
     it), each chunk's partial merged as in ``decode_attention_split``."""
-    k, v, k_positions = _gather_pool(k_pool, v_pool, block_tables)
+    heads = pool_heads(q.shape[2], k_pool.shape[2], q_head0, group)
+    k, v, k_positions = _gather_pool(k_pool[:, :, heads], v_pool[:, :, heads], block_tables)
     return decode_attention_split(q, k, v, q_positions=q_positions,
                                   k_positions=k_positions, window=window,
                                   softcap=softcap, chunk=chunk)

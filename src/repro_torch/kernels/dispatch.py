@@ -5,6 +5,14 @@ The device of the inputs decides: a CUDA tensor goes to the kernel (which
 launches or raises), a CPU tensor to the plain version.  The one switch is
 ``use_backend("torch")``, which sends CUDA tensors to the plain versions
 too, so a run can compare the two on the same inputs.
+
+Launch accounting: each wrapper counts one launch per call on its
+``launches``.  On a tensor-parallel rank an mLSTM cell's norm over a width
+tp splits is K1's two split launches (``rmsnorm_sumsq``, the ranks'
+all-reduce, ``rmsnorm`` with the reduced statistic:
+``models.recurrent._cell_norm``), so such a block launches K1 three
+times, not two; every other norm, an sLSTM cell's included, launches K1
+once.
 """
 
 from __future__ import annotations
@@ -71,9 +79,11 @@ def decode_attention(q, k_cache, v_cache, *, q_positions, k_positions,
 
 
 def paged_decode_attention(q, k_pool, v_pool, *, block_tables, q_positions,
-                           window=0, softcap=0.0):
+                           window=0, softcap=0.0, q_head0=0, group=0):
+    """Query head h of ``q`` reads pool head ``(q_head0 + h) // group``
+    (``group`` 0: Hq / Hkv of the call, every pool head in order)."""
     kw = dict(block_tables=block_tables, q_positions=q_positions, window=window,
-              softcap=softcap)
+              softcap=softcap, q_head0=q_head0, group=group)
     if _kernel(q):
         return decode_ops.paged_decode_attention(q, k_pool, v_pool, **kw)
     return decode_ref.paged_decode_attention(q, k_pool, v_pool, **kw)
@@ -86,10 +96,19 @@ def linear_recurrence(a, b, h0):
     return linrec_ref.linear_recurrence(a, b, h0)
 
 
-def rmsnorm(x, scale, eps=1e-6):
+def rmsnorm(x, scale, eps=1e-6, stat=None, width=0):
+    """K1; with ``stat`` (x's rows, fp32), the mean of squares is ``stat /
+    width`` (a width the ranks split, ``rmsnorm_sumsq``'s sums reduced)."""
     if _kernel(x):
-        return rmsnorm_ops.rmsnorm(x, scale, eps=eps)
-    return rmsnorm_ref.rmsnorm(x, scale, eps=eps)
+        return rmsnorm_ops.rmsnorm(x, scale, eps=eps, stat=stat, width=width)
+    return rmsnorm_ref.rmsnorm(x, scale, eps=eps, stat=stat, width=width)
+
+
+def rmsnorm_sumsq(x):
+    """Each row's fp32 sum of squares over the last dim: K1's statistic."""
+    if _kernel(x):
+        return rmsnorm_ops.rmsnorm_sumsq(x)
+    return rmsnorm_ref.sumsq(x)
 
 
 def add_rmsnorm(x, r, scale, eps=1e-6):

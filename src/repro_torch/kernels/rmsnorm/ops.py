@@ -11,9 +11,17 @@ the kernel runs inside a ``torch.autograd.Function`` whose backward is
 the VJP of the plain version (``_vjp.plain_vjp``), as the reference's
 ``custom_vjp`` (``repro/kernels/rmsnorm/ops.py``).  ``add_rmsnorm``'s two
 outputs both carry gradient; its backward sums their cotangents.
+
+A norm over a width that tensor-parallel ranks split is two launches
+around the ranks' all-reduce: ``rmsnorm_sumsq`` (each row's fp32 sum of
+squares of the rank's slice) and ``rmsnorm(..., stat=, width=)`` (the
+slice normalised by the reduced sums); each counts one launch.  Serving
+only: neither has a backward.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -54,6 +62,46 @@ def _rmsnorm_kernel(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.T
     y = torch.empty_like(x)
     _launch(x, None, scale, None, y, eps)
     return y
+
+
+def _no_grad(*ts) -> None:
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise ValueError("the split norm's launches have no backward")
+
+
+def _stat_kernel(x, scale, eps: float, stat: torch.Tensor, width: int) -> torch.Tensor:
+    _check(x, scale)
+    _no_grad(x, scale)
+    d = x.shape[-1]
+    if (stat.dtype != torch.float32 or stat.device != x.device or not stat.is_contiguous()
+            or stat.numel() != x.numel() // d or width < d):
+        raise ValueError(f"stat {stat.dtype} {tuple(stat.shape)} on {stat.device} is not "
+                         f"x's {x.numel() // d} rows in fp32 over a width >= {d}")
+    y = torch.empty_like(x)
+    status = _build.load()[_LAUNCHERS[x.dtype].replace("rmsnorm", "rmsnorm_stat")](
+        x.data_ptr(), stat.data_ptr(), scale.data_ptr(), y.data_ptr(), x.numel() // d, d,
+        width, int(scale.dtype == torch.float32), eps, _build.stream(x))
+    if status != 0:
+        raise RuntimeError(f"rmsnorm_stat launch failed: CUDA error {status}")
+    rmsnorm.launches += 1
+    return y
+
+
+def rmsnorm_sumsq(x: torch.Tensor) -> torch.Tensor:
+    """Each row's fp32 sum of squares over the last dim, (x.shape[:-1]):
+    the split norm's statistic, one launch."""
+    if not x.is_cuda:
+        return ref.sumsq(x)
+    if x.dtype not in _LAUNCHERS or not x.is_contiguous() or x.numel() == 0:
+        raise ValueError(f"x {x.dtype} {tuple(x.shape)}: want contiguous bf16 or fp32 rows")
+    _no_grad(x)
+    out = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
+    status = _build.load()[_LAUNCHERS[x.dtype].replace("rmsnorm", "rmsnorm_sumsq")](
+        x.data_ptr(), out.data_ptr(), x.numel() // x.shape[-1], x.shape[-1], _build.stream(x))
+    if status != 0:
+        raise RuntimeError(f"rmsnorm_sumsq launch failed: CUDA error {status}")
+    rmsnorm.launches += 1
+    return out
 
 
 def _add_rmsnorm_kernel(x: torch.Tensor, r: torch.Tensor, scale: torch.Tensor,
@@ -97,10 +145,14 @@ class _AddRMSNorm(torch.autograd.Function):
         return (*grads, None)
 
 
-def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """``x * rsqrt(mean(x^2) + eps) * (1 + scale)`` over the last dim."""
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
+            stat: Optional[torch.Tensor] = None, width: int = 0) -> torch.Tensor:
+    """``x * rsqrt(mean(x^2) + eps) * (1 + scale)`` over the last dim; with
+    ``stat`` (x's rows, fp32) the mean of squares is ``stat / width``."""
     if not x.is_cuda:
-        return ref.rmsnorm(x, scale, eps)
+        return ref.rmsnorm(x, scale, eps, stat, width)
+    if stat is not None:
+        return _stat_kernel(x, scale, eps, stat, width)
     if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
         return _RMSNorm.apply(x, scale, eps)
     return _rmsnorm_kernel(x, scale, eps)

@@ -8,14 +8,28 @@ statistics, as a separate add and norm compute them.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 
-def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
+            stat: Optional[torch.Tensor] = None, width: int = 0) -> torch.Tensor:
+    """Over the last dim; with ``stat`` (x's rows, fp32) the mean of
+    squares is ``stat / width``: the sums over a width that tensor-parallel
+    ranks split, of which x is one slice."""
     xf = x.float()
-    var = xf.square().mean(dim=-1, keepdim=True)
+    if stat is None:
+        var = xf.square().mean(dim=-1, keepdim=True)
+    else:
+        var = stat.reshape(x.shape[:-1])[..., None] / width
     y = xf * torch.rsqrt(var + eps)
     return (y * (1.0 + scale.float())).to(x.dtype)
+
+
+def sumsq(x: torch.Tensor) -> torch.Tensor:
+    """Each row's fp32 sum of squares over the last dim: (x.shape[:-1])."""
+    return x.float().square().sum(dim=-1)
 
 
 def check_residual(x: torch.Tensor, r: torch.Tensor) -> None:

@@ -78,9 +78,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--tp", type=int, default=1,
                     help="tensor-parallel ranks: shard the served model over N processes, "
                          "one power monitor per GPU (NCCL, one GPU per rank; with fewer "
-                         "GPUs, or on the CPU, gloo ranks with eager steps); dense, MoE and "
-                         "vision-prefix decoders: RG-LRU, xLSTM and encoder-decoder models "
-                         "are refused")
+                         "GPUs, or on the CPU, gloo ranks with eager steps); every decoder: "
+                         "encoder-decoder models, and query heads straddling two KV groups "
+                         "unevenly, are refused")
     return ap
 
 

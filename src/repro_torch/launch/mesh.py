@@ -4,7 +4,8 @@
 The port runs tensor parallelism SPMD: one process per rank, each holding
 its shard of the model as plain tensors (``sharding/partition.py``) and
 calling the collectives itself where the reference places a sharding
-constraint.  ``make_tp_mesh`` joins the calling process to its group and
+constraint: ``all_reduce`` (fp32 partial sums) and ``gather`` along a dim
+(``gather_last`` the last one).  ``make_tp_mesh`` joins the calling process to its group and
 returns a ``TPMesh``: the group of the ``("tp",)`` device mesh, which the
 model's collectives run on, a gloo group for the serving engine's host
 broadcasts, and the collectives themselves.
@@ -83,9 +84,11 @@ class TPMesh:
         dist.all_reduce(t, group=self.group)
         return t
 
-    def gather_last(self, t: torch.Tensor) -> torch.Tensor:
-        """Each rank's ``t`` (..., n) side by side along the last dim, rank
-        order: (..., size * n), the same bytes on every rank."""
+    def gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """Each rank's ``t`` side by side along ``dim``, rank order: the
+        dim grows ``size`` times, the same bytes on every rank (a cache's
+        L slices, a recurrent block's width, a state's heads)."""
+        dim = dim % t.dim()
         if self.backend == "nccl":
             out = torch.empty((self.size,) + tuple(t.shape), dtype=t.dtype, device=t.device)
             dist.all_gather_into_tensor(out, t.contiguous(), group=self.group)
@@ -94,7 +97,14 @@ class TPMesh:
             parts = [torch.empty_like(src) for _ in range(self.size)]
             dist.all_gather(parts, src, group=self.group)
             out = torch.stack(parts).to(t.device)
-        return out.movedim(0, -2).reshape(*t.shape[:-1], self.size * t.shape[-1])
+        shape = list(t.shape)
+        shape[dim] *= self.size
+        return out.movedim(0, dim).reshape(shape)
+
+    def gather_last(self, t: torch.Tensor) -> torch.Tensor:
+        """Each rank's ``t`` (..., n) side by side along the last dim, rank
+        order: (..., size * n), the same bytes on every rank."""
+        return self.gather(t, -1)
 
     def warm(self) -> None:
         """One collective on the device, so a communicator created lazily

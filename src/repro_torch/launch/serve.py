@@ -30,10 +30,11 @@ split between requests by the tokens each emitted in every window.
 Prints ``latency_summary()`` as JSON, then markdown tables of the latency
 percentiles, the step economics and the requests.
 
-``--tp N`` shards the model over N rank processes (``launch.mesh``): the
-dense decoders, the MoE models (E / N experts a rank) and the vision-prefix
-model; RG-LRU and xLSTM blocks, an encoder and a dim N does not divide are
-refused before any rank starts (``sharding.rules.check_tp``).  NCCL with
+``--tp N`` shards the model over N rank processes (``launch.mesh``): every
+decoder (dense, MoE with E / N experts a rank, vision-prefix, RG-LRU and
+xLSTM); a dim N does not divide is replicated.  An encoder-decoder model,
+and query heads that would straddle two KV groups unevenly, are refused
+before any rank starts (``sharding.rules.check_tp``).  NCCL with
 one GPU per rank and CUDA-graph steps where N GPUs are visible;
 on fewer GPUs gloo ranks that share them, whose steps run eagerly (pass
 ``--cuda-graph off``); on the CPU gloo ranks.  Rank 0 prints, serves HTTP
@@ -154,18 +155,19 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--motif-repeats", type=int, default=4,
                     help="times each --lookup-friendly motif is tiled")
     ap.add_argument("--tp", type=int, default=1,
-                    help="tensor-parallel ranks: shard heads, FFN hidden, experts and "
-                         "vocabulary over N processes, with per-device KV and power ledgers "
-                         "(NCCL, one GPU per rank; with fewer GPUs, or on the CPU, gloo "
-                         "ranks, eager steps); dense, MoE and vision-prefix decoders: "
-                         "RG-LRU, xLSTM and encoder-decoder models are refused")
+                    help="tensor-parallel ranks: shard heads, FFN hidden, experts, recurrent "
+                         "widths and vocabulary over N processes (a dim N does not divide "
+                         "replicated), with per-device KV and power ledgers (NCCL, one GPU "
+                         "per rank; with fewer GPUs, or on the CPU, gloo ranks, eager "
+                         "steps); every decoder: encoder-decoder models, and query heads "
+                         "straddling two KV groups unevenly, are refused")
     return ap
 
 
 def refuse_tp(ap, args) -> None:
     """``ap.error`` with ``sharding.rules.check_tp``'s reason where ``--tp``
-    cannot shard ``--arch`` (an unported block kind, an encoder, a dim it
-    does not divide), before any rank starts."""
+    cannot shard ``--arch`` (an encoder, an uneven KV-group straddle),
+    before any rank starts."""
     from repro_torch.configs import get_config
     from repro_torch.sharding.rules import check_tp
 

@@ -5,6 +5,17 @@ Projections are plain matrix products; the attention itself goes through
 ``repro_torch.kernels.dispatch``, which hands CUDA tensors to the Hopper
 kernels.  Layouts are the reference's: q (B, S, Hq, D), k/v (B, S, Hkv, D),
 wq (d, Hq, hd), wo (Hq, hd, d).
+
+A tensor-parallel shard (``shards`` ranks, the mesh in ``p.tp``) holds its
+Hq / tp query heads where tp divides them, else every head (the attention
+replicated whole, its output not a partial sum); and its Hkv / tp KV heads
+where tp divides those, else every KV head.  With the query heads split
+and the KV heads whole, rank r's query heads ``[r·Hq/tp, (r+1)·Hq/tp)``
+read one KV head, ``r·(Hq/tp) // G`` (``sharding.rules.check_tp`` refuses
+a rank whose heads straddle two groups): the prompt's K2 and the decode
+step's K3 read only it, from the fresh K/V or from the contiguous cache's
+L slices gathered over the ranks (``cache.read_kv``), and K4 reads it in
+place from the replicated pool (its ``q_head0``).
 """
 
 from __future__ import annotations
@@ -19,23 +30,30 @@ from repro_torch.kernels import dispatch
 from repro_torch.models import cache as cache_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_rope, init_normal_, matmul_fp32, new_param
+from repro_torch.sharding.rules import divides, local_size
 
 
 class Attention(nn.Module):
     """Attention parameters, the counterpart of the reference's
     ``make_attention`` (QKV biases when ``cfg.qkv_bias``, never on an
-    encoder-decoder block's ``cross`` attention)."""
+    encoder-decoder block's ``cross`` attention); a shard of ``shards``
+    ranks holds its query and KV heads where tp divides them."""
 
-    def __init__(self, cfg: ModelConfig, dtype, device, cross: bool = False):
+    def __init__(self, cfg: ModelConfig, dtype, device, cross: bool = False,
+                 shards: int = 1):
         super().__init__()
         d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+        self.group = h // kv  # the model's G
+        # a shard's output is one rank's partial sum, kept in fp32 for the
+        # sum over the ranks, where its query heads are split
+        self.partial = divides(shards, h)
+        self.kv_split = divides(shards, kv)
+        self.tp = None  # the mesh of a tensor-parallel shard (set by ``Model``)
+        h, kv = local_size(h, shards), local_size(kv, shards)
         self.wq = new_param((d, h, hd), dtype, device)
         self.wk = new_param((d, kv, hd), dtype, device)
         self.wv = new_param((d, kv, hd), dtype, device)
         self.wo = new_param((h, hd, d), dtype, device)
-        # a tensor-parallel shard's output is one rank's partial sum, kept
-        # in fp32 for the sum over the ranks (set by ``Model``)
-        self.partial = False
         if cfg.qkv_bias and not cross:
             self.bq = new_param((h, hd), dtype, device)
             self.bk = new_param((kv, hd), dtype, device)
@@ -50,6 +68,17 @@ class Attention(nn.Module):
         for name in ("bq", "bk", "bv"):
             if hasattr(self, name):
                 getattr(self, name).zero_()
+
+
+def _kv_read(p: Attention) -> Tuple[slice, int]:
+    """The rank's KV heads its query heads read (a slice of the heads it
+    holds) and its first query head: the one KV head of a rank whose query
+    heads are split over whole KV heads, else every KV head it holds."""
+    if p.tp is None or p.kv_split or not p.partial:
+        return slice(None), 0
+    q0 = p.tp.rank * p.wq.shape[1]
+    kv0 = q0 // p.group
+    return slice(kv0, kv0 + 1), q0
 
 
 def _project(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor]):
@@ -75,13 +104,15 @@ def _out_proj(p: Attention, o: torch.Tensor) -> torch.Tensor:
 
 def _self_attention(p: Attention, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
                     rope, causal: bool, window: int):
-    """q/k/v of ``x``, rotated, and K2 over the sequence itself: returns
-    (the attention's output before the out projection, k, v)."""
+    """q/k/v of ``x``, rotated, and K2 over the sequence itself (the KV
+    heads the rank's queries read): returns (the attention's output before
+    the out projection, k, v)."""
     q, k, v = _project_qkv(p, x)
     q = apply_rope(q, rope)
     k = apply_rope(k, rope)
+    heads, _ = _kv_read(p)
     o = dispatch.flash_attention(
-        q.contiguous(), k.contiguous(), v.contiguous(),
+        q.contiguous(), k[:, :, heads].contiguous(), v[:, :, heads].contiguous(),
         q_positions=positions, k_positions=positions,
         causal=causal, window=window, softcap=cfg.logit_softcap,
     )
@@ -125,7 +156,7 @@ def apply_attention_prefill(
     if "kp" in kv_cache:
         kv_cache = cache_lib.fill_paged_cache(kv_cache, k, v, block_tables)
     else:
-        kv_cache = cache_lib.fill_attn_cache(kv_cache, k, v, positions)
+        kv_cache = cache_lib.fill_attn_cache(kv_cache, k, v, positions, p.tp)
     return _out_proj(p, o), kv_cache
 
 
@@ -167,13 +198,16 @@ def apply_attention_prefill_chunk(
     q, k, v = _project_qkv(p, x)
     q = apply_rope(q, rope).contiguous()
     k = apply_rope(k, rope)
+    heads, _ = _kv_read(p)
     if "kp" in kv_cache:
         kv_cache = cache_lib.append_paged_cache(kv_cache, k, v, positions, block_tables,
                                                 valid)
         k_all, v_all, k_pos = cache_lib.gather_paged_kv(kv_cache, block_tables)
+        k_all, v_all = k_all[:, :, heads].contiguous(), v_all[:, :, heads].contiguous()
     else:
-        k_all = torch.cat([kv_cache["k"].to(k.dtype), k], dim=1)
-        v_all = torch.cat([kv_cache["v"].to(v.dtype), v], dim=1)
+        k_c, v_c = cache_lib.read_kv(kv_cache, heads, p.tp)
+        k_all = torch.cat([k_c.to(k.dtype), k[:, :, heads]], dim=1)
+        v_all = torch.cat([v_c.to(v.dtype), v[:, :, heads]], dim=1)
         chunk_pos = positions if valid is None else torch.where(valid, positions, -1)
         cache_pos = kv_cache["pos"]
         if overwrite_from is not None:
@@ -184,7 +218,7 @@ def apply_attention_prefill_chunk(
         causal=True, window=window, softcap=cfg.logit_softcap,
     )
     if "kp" not in kv_cache:
-        kv_cache = cache_lib.append_attn_cache(kv_cache, k, v, positions, valid)
+        kv_cache = cache_lib.append_attn_cache(kv_cache, k, v, positions, valid, p.tp)
     return _out_proj(p, o), kv_cache
 
 
@@ -204,19 +238,21 @@ def apply_attention_decode(
     q, k_new, v_new = _project_qkv(p, x)
     q = apply_rope(q, rope)
     k_new = apply_rope(k_new, rope)
+    heads, q_head0 = _kv_read(p)
     if "kp" in kv_cache:  # paged: append through the table, attend on the pool
         kv_cache = cache_lib.update_paged_cache(kv_cache, k_new, v_new, positions,
                                                 block_tables, update_mask)
         o = dispatch.paged_decode_attention(
             q.contiguous(), kv_cache["kp"], kv_cache["vp"],
             block_tables=block_tables, q_positions=pos_b.contiguous(),
-            window=window, softcap=cfg.logit_softcap,
+            window=window, softcap=cfg.logit_softcap, q_head0=q_head0, group=p.group,
         )
         return _out_proj(p, o), kv_cache
     kv_cache = cache_lib.update_attn_cache(kv_cache, k_new, v_new, positions,
-                                           update_mask)
+                                           update_mask, p.tp)
+    k_c, v_c = cache_lib.read_kv(kv_cache, heads, p.tp)
     o = dispatch.decode_attention(
-        q.contiguous(), kv_cache["k"], kv_cache["v"],
+        q.contiguous(), k_c, v_c,
         q_positions=pos_b.contiguous(), k_positions=kv_cache["pos"],
         window=window, softcap=cfg.logit_softcap,
     )

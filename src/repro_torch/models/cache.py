@@ -47,6 +47,16 @@ Chunked prefill writes a chunk of K/V next to the earlier ones
 (``append_attn_cache``, ``append_paged_cache``) and reads the pool back
 as dense K/V (``gather_paged_kv``); ``reset_rows`` returns a slot's rows
 to their initial values before its first chunk.
+
+A tensor-parallel rank's entries (``init_block_cache(..., shards=)``) hold
+its shard of each leaf as the reference's ``cache_shardings`` lays it out
+(``sharding.rules.cache_dim``): contiguous K/V its KV heads, or, where tp
+does not divide them, its slots ``[r·L/tp, (r+1)·L/tp)`` of every head
+(an L-sharded entry, also a sliding-window ring; ``pos`` whole, so the
+split shows in the shapes); a pool its heads, or all of them; a
+recurrent state its heads or width.  The contiguous writes take the
+rank's mesh (``mesh=``) and write only its own slots; ``read_kv`` gathers
+the slots of every rank.
 """
 
 from __future__ import annotations
@@ -58,6 +68,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding.rules import cache_dim, local_shape
 
 GARBAGE_BLOCK = 0  # pool block reserved for idle-slot writes; never allocated
 M_INIT = -1e30     # an xLSTM stabilizer's initial value: below every log gate
@@ -166,9 +177,10 @@ class BlockPool:
 
     def shard_accounting(self, n_devices: int) -> List[Dict[str, int]]:
         """Per-device block accounting of a tensor-parallel pool: the pool
-        shards the KV heads, never the block axis, so every device holds its
-        heads of every block and the host-managed tables index each
-        device's pool alike.  Each device's view is this pool's partition:
+        shards the KV heads (or holds every head where tp does not divide
+        them), never the block axis, so every device holds its heads of
+        every block and the host-managed tables index each device's pool
+        alike.  Each device's view is this pool's partition:
         ``free + in_use + evictable`` tiles the allocatable blocks
         ``1..num_blocks-1`` on each shard."""
         if n_devices < 1:
@@ -286,17 +298,69 @@ def init_attn_cache(batch: int, max_len: int, n_kv: int, head_dim: int, dtype,
     }
 
 
+def _first_slot(cache: Dict, mesh) -> int:
+    """The first of the L slots (``pos``'s) that this rank's ``k``/``v``
+    hold: 0 unless the entry is L-sharded (its ``k`` shorter than ``pos``),
+    then the rank's ``mesh.rank``-th slice."""
+    n = cache["k"].shape[1]
+    return mesh.rank * n if n < cache["pos"].shape[1] else 0
+
+
+def _put_kv(cache: Dict, slots: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            keep: Optional[torch.Tensor], mesh) -> None:
+    """Write ``k``/``v`` (B, C, H, D) at ``slots`` (B, C) of the entry's L,
+    distinct within a row where kept: the entries ``keep`` (B, C) bool
+    marks (None: all) that land in this rank's slots.  In index form, as
+    one write: a dropped entry writes back the value that the row's first
+    kept entry writes, at its slot (a row with none, its slot 0's own
+    value), so every write to one element carries one value."""
+    B, C = slots.shape
+    n = cache["k"].shape[1]
+    rows = torch.arange(B, device=slots.device)[:, None]
+    local = slots - _first_slot(cache, mesh)
+    if n < cache["pos"].shape[1]:
+        mine = (local >= 0) & (local < n)
+        keep = mine if keep is None else keep & mine
+    if keep is None:
+        cache["k"][rows, local] = k.to(cache["k"].dtype)
+        cache["v"][rows, local] = v.to(cache["v"].dtype)
+        return
+    first = keep.int().argmax(dim=1, keepdim=True)              # (B, 1)
+    some = keep.any(dim=1, keepdim=True)
+    col = torch.where(keep, torch.arange(C, device=slots.device)[None], first)
+    idx = torch.where(keep, local, torch.where(some, local.gather(1, first), 0))
+    take = some[..., None, None]
+    for leaf, new in (("k", k), ("v", v)):
+        t = cache[leaf]
+        val = new.gather(1, col[..., None, None].expand_as(new)).to(t.dtype)
+        t[rows, idx] = torch.where(take, val, t[rows, idx])
+
+
+def read_kv(cache: Dict, heads: slice = slice(None), mesh=None):
+    """A contiguous entry's K/V of ``heads`` over all its L slots: an
+    L-sharded entry's slices gathered over the ranks of ``mesh`` (one
+    collective for both) into a transient buffer.  The ranks' queries read
+    different KV heads, and an all-gather sends each rank's one buffer to
+    every rank, so it carries every KV head the entry holds (their union;
+    one for MQA) and the rank keeps its own."""
+    k, v = cache["k"], cache["v"]
+    if k.shape[1] < cache["pos"].shape[1]:
+        kv = mesh.gather(torch.stack([k, v]), 2)
+        k, v = kv[0], kv[1]
+    return k[:, :, heads].contiguous(), v[:, :, heads].contiguous()
+
+
 def fill_attn_cache(cache: Dict, k: torch.Tensor, v: torch.Tensor,
-                    positions: torch.Tensor) -> Dict:
+                    positions: torch.Tensor, mesh=None) -> Dict:
     """Write a full prefill's K/V (B, S, H, D) into the cache.
 
     A ring keeps only the last ``L`` timesteps.  ``positions`` is (B, S)
     with identical rows; row 0 gives the slot bookkeeping.  Every slot is
     written (unfilled ones with position -1), so the entry holds this
-    prompt only.
+    prompt only.  An L-sharded entry takes the slots of ``mesh``'s rank.
     """
-    S = k.shape[1]
-    L = cache["k"].shape[1]
+    B, S = k.shape[:2]
+    L = cache["pos"].shape[1]
     pos_row = positions[0].to(torch.int32)
     if S >= L:
         k_tail, v_tail, p_tail = k[:, S - L:], v[:, S - L:], pos_row[S - L:]
@@ -307,37 +371,34 @@ def fill_attn_cache(cache: Dict, k: torch.Tensor, v: torch.Tensor,
         p_tail = F.pad(pos_row, (0, pad), value=-1)
     slots = torch.where(p_tail >= 0, p_tail % L,
                         torch.arange(L, device=p_tail.device) % L).long()
-    cache["k"][:, slots] = k_tail.to(cache["k"].dtype)
-    cache["v"][:, slots] = v_tail.to(cache["v"].dtype)
     cache["pos"][:, slots] = p_tail[None, :]
+    _put_kv(cache, slots.expand(B, L), k_tail, v_tail, None, mesh)
     return cache
 
 
 def update_attn_cache(cache: Dict, k_new: torch.Tensor, v_new: torch.Tensor,
                       positions: torch.Tensor,
-                      update_mask: Optional[torch.Tensor] = None) -> Dict:
+                      update_mask: Optional[torch.Tensor] = None, mesh=None) -> Dict:
     """Write one decoded token's K/V (B, 1, H, D) at per-row ``positions``
     (B,).  ``update_mask`` (B,) bool turns masked-off rows into no-op
-    writes (their current cache content is written back)."""
+    writes (their current cache content is written back); so does a slot
+    that is not the rank's in an L-sharded entry."""
     B, L = cache["pos"].shape
     positions = positions.to(torch.int32).expand(B)
     slot = (positions % L).long()
     rows = torch.arange(B, device=slot.device)
-    k_w, v_w, p_w = k_new[:, 0], v_new[:, 0], positions
+    _put_kv(cache, slot[:, None], k_new, v_new,
+            None if update_mask is None else update_mask[:, None], mesh)
+    p_w = positions
     if update_mask is not None:
-        m = update_mask.reshape(B, 1, 1)
-        k_w = torch.where(m, k_w, cache["k"][rows, slot])
-        v_w = torch.where(m, v_w, cache["v"][rows, slot])
         p_w = torch.where(update_mask, p_w, cache["pos"][rows, slot])
-    cache["k"][rows, slot] = k_w.to(cache["k"].dtype)
-    cache["v"][rows, slot] = v_w.to(cache["v"].dtype)
     cache["pos"][rows, slot] = p_w
     return cache
 
 
 def append_attn_cache(cache: Dict, k: torch.Tensor, v: torch.Tensor,
                       positions: torch.Tensor,
-                      valid: Optional[torch.Tensor] = None) -> Dict:
+                      valid: Optional[torch.Tensor] = None, mesh=None) -> Dict:
     """Write a prompt chunk's K/V (B, C, H, D) at absolute ``positions``
     (B, C) into a contiguous or ring cache, next to the entries already
     there.  A chunk longer than a ring keeps its tail.
@@ -346,9 +407,10 @@ def append_attn_cache(cache: Dict, k: torch.Tensor, v: torch.Tensor,
     current content is written back): the unified step packs ragged
     chunks into one static width, and pad columns must not clobber live
     entries.  With ``valid`` and C > L each row keeps its last <= L
-    *valid* entries."""
+    *valid* entries.  An L-sharded entry takes only the slots of
+    ``mesh``'s rank."""
     B, C = k.shape[:2]
-    L = cache["k"].shape[1]
+    L = cache["pos"].shape[1]
     positions = positions.to(torch.int32)
     if C > L and valid is None:
         k, v, positions = k[:, C - L:], v[:, C - L:], positions[:, C - L:]
@@ -366,16 +428,9 @@ def append_attn_cache(cache: Dict, k: torch.Tensor, v: torch.Tensor,
         valid = idx < n[:, None]
     rows = torch.arange(B, device=k.device)[:, None]
     slots = (positions % L).long()
-    k = k.to(cache["k"].dtype)
-    v = v.to(cache["v"].dtype)
-    if valid is not None:
-        # a row's C <= L slots are distinct, so writing back is a no-op
-        m = valid[..., None, None]
-        k = torch.where(m, k, cache["k"][rows, slots])
-        v = torch.where(m, v, cache["v"][rows, slots])
+    _put_kv(cache, slots, k, v, valid, mesh)
+    if valid is not None:  # a row's C <= L slots are distinct: writing back is a no-op
         positions = torch.where(valid, positions, cache["pos"][rows, slots])
-    cache["k"][rows, slots] = k
-    cache["v"][rows, slots] = v
     cache["pos"][rows, slots] = positions
     return cache
 
@@ -532,11 +587,26 @@ def init_slstm_state(batch: int, heads: int, dh: int, conv_width: int, dtype,
 
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                      dtype, device, *, layout: str = "contiguous",
-                     block_size: int = 16, num_blocks: int = 0) -> Dict[str, torch.Tensor]:
+                     block_size: int = 16, num_blocks: int = 0,
+                     shards: int = 1) -> Dict[str, torch.Tensor]:
     """One layer's cache entry.  ``layout="paged"`` gives full-context
     attention a block pool of ``num_blocks`` x ``block_size`` tokens (0:
     the worst case for ``batch`` rows of ``max_len``); rings and recurrent
-    states are the same in both layouts."""
+    states are the same in both layouts.  The entry of one of ``shards``
+    tensor-parallel ranks: each leaf cut along the dim
+    ``sharding.rules.cache_dim`` gives it (whole at one shard), at its
+    initial value (``INIT_FILL``; a ring's length is its window, below
+    ``max_len``)."""
+    full = _block_cache(cfg, kind, batch, max_len, dtype, "meta", layout=layout,
+                        block_size=block_size, num_blocks=num_blocks)
+    fill = dict(INIT_FILL, ring=int("pos" in full and full["pos"].shape[1] < max_len))
+    return {leaf: torch.full(local_shape(t.shape, cache_dim(leaf, t.shape, shards), shards),
+                             fill.get(leaf, 0), dtype=t.dtype, device=device)
+            for leaf, t in full.items()}
+
+
+def _block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int, dtype, device, *,
+                 layout: str, block_size: int, num_blocks: int) -> Dict[str, torch.Tensor]:
     hd = cfg.resolved_head_dim
     if kind == "ffn":
         return {}
@@ -567,12 +637,13 @@ def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device, *,
                layout: str = "contiguous", block_size: int = 16,
-               num_blocks: int = 0) -> List[Dict[str, torch.Tensor]]:
-    """One ``init_block_cache`` entry per layer of ``cfg``."""
+               num_blocks: int = 0, shards: int = 1) -> List[Dict[str, torch.Tensor]]:
+    """One ``init_block_cache`` entry per layer of ``cfg`` (a rank's of
+    ``shards``)."""
     if layout not in ("contiguous", "paged"):
         raise ValueError(f"layout {layout!r} is not 'contiguous' or 'paged'")
     return [init_block_cache(cfg, kind, batch, max_len, dtype, device, layout=layout,
-                             block_size=block_size, num_blocks=num_blocks)
+                             block_size=block_size, num_blocks=num_blocks, shards=shards)
             for kind in cfg.blocks()]
 
 

@@ -1,5 +1,9 @@
 """MLP blocks: gated (SwiGLU/GeGLU) and classic 2-matrix (ReLU²/ReLU) FFNs,
-the counterpart of ``repro/models/mlp.py``."""
+the counterpart of ``repro/models/mlp.py``.
+
+A tensor-parallel shard of ``shards`` ranks holds 1 / shards of the
+hidden where that divides it (column-parallel ``wg``/``wu``, row-parallel
+``wd``: its output a partial sum), else the whole MLP (its output whole)."""
 
 from __future__ import annotations
 
@@ -9,18 +13,20 @@ import torch
 from torch import nn
 
 from repro_torch.models.layers import act_fn, init_normal_, matmul_fp32, new_param
+from repro_torch.sharding.rules import divides, local_size
 
 
 class MLP(nn.Module):
-    def __init__(self, d: int, d_ff: int, gated: bool, dtype, device):
+    def __init__(self, d: int, d_ff: int, gated: bool, dtype, device, shards: int = 1):
         super().__init__()
+        # a shard's output is one rank's partial sum, kept in fp32 for the
+        # sum over the ranks, where its hidden is split
+        self.partial = divides(shards, d_ff)
+        d_ff = local_size(d_ff, shards)
         self.wg = new_param((d, d_ff), dtype, device)
         if gated:
             self.wu = new_param((d, d_ff), dtype, device)
         self.wd = new_param((d_ff, d), dtype, device)
-        # a tensor-parallel shard's output is one rank's partial sum, kept
-        # in fp32 for the sum over the ranks (set by ``Model``)
-        self.partial = False
 
     def init_(self, gen: torch.Generator) -> None:
         init_normal_(self.wg, gen)

@@ -23,17 +23,24 @@ Tensor parallelism: a model built with ``mesh=`` (a ``launch.mesh.TPMesh``
 of more than one rank) is one rank's shard, Megatron-style, with the
 reference's serving rules (``sharding/rules.py``): the q/k/v heads, the FFN
 hidden, the experts (a MoE layer's E / tp experts and router columns, its
-shared MLP's hidden) and the vocabulary split over the ranks, norms
-replicated, a vision prefix's patch embeddings an input every rank is
-given.  Each block's attention output and MLP output are partial sums,
-reduced over the ranks before they join the residual stream (a parallel
-block sums the two first and reduces once, a MoE layer its routed and
-shared partials), each partial kept in fp32 and the sum rounded once to
-the stream's dtype; the embedding and the logits are vocabulary parallel
-(``layers.embed_tokens``, ``layers.unembed``), a MoE layer's router
-logits gathered whole (``models/moe.py``).  The residual
-stream, the logits and so every sampled token are the same on every
-rank.  ``sharding.partition.shard_model`` draws a shard's weights.
+shared MLP's hidden), the RG-LRU and mLSTM widths, the sLSTM's FFN and the
+vocabulary split over the ranks where tp divides them, whole on every rank
+where it does not; norms and the sLSTM cell replicated, a vision prefix's
+patch embeddings an input every rank is given.  Each module takes the
+shard count and decides what it splits (``partial``: its output is a
+partial sum).  A branch's partial outputs are reduced over the ranks
+before they join the residual stream (a parallel block sums its two first
+and reduces once, a MoE layer its routed and shared partials), each kept
+in fp32 and the sum rounded once to the stream's dtype; a whole output is
+added after the reduce, never summed over the ranks (``_reduce``).  The
+embedding and the logits are vocabulary parallel (``layers.embed_tokens``,
+``layers.unembed``), a MoE layer's router logits gathered whole
+(``models/moe.py``), the recurrent cells' collectives in
+``models/recurrent.py`` and the attention's in ``models/attention.py``.
+The residual stream, the logits and so every sampled token are the same
+on every rank.  ``sharding.partition.shard_model`` draws a shard's
+weights; ``init_cache`` makes the rank's cache, each leaf laid out as the
+reference's ``cache_shardings``.
 
 Entry points:
   * ``init(cfg, generator, device)`` — a model with random weights at the
@@ -55,6 +62,7 @@ Entry points:
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -86,8 +94,8 @@ def _dtype(name: str) -> torch.dtype:
 
 
 class Block(nn.Module):
-    """One layer at ``cfg``'s shapes (a shard's local config); a MoE
-    layer holds the experts of one of ``shards`` ranks."""
+    """One layer of ``cfg``, each module of it one of ``shards`` ranks'
+    shard (whole where tp does not divide what it would split)."""
 
     def __init__(self, cfg: ModelConfig, kind: str, dtype, device, shards: int = 1):
         super().__init__()
@@ -96,26 +104,27 @@ class Block(nn.Module):
                 f"{cfg.name}: block kind {kind!r} is not ported yet "
                 f"(the port runs {SUPPORTED_BLOCKS})")
         self.kind = kind
+        self.shards = shards
         self.tp = None  # the mesh of a tensor-parallel shard (set by Model)
         d = cfg.d_model
         if kind in ATTN_BLOCKS:
             self.norm1 = Norm(d, dtype, device)
-            self.attn = attn_lib.Attention(cfg, dtype, device)
+            self.attn = attn_lib.Attention(cfg, dtype, device, shards=shards)
             if not cfg.parallel_block:  # one shared pre-norm (Cohere/GPT-J style)
                 self.norm2 = Norm(d, dtype, device)
         elif kind == "rglru":
             self.norm1 = Norm(d, dtype, device)
-            self.rec = rec_lib.RGLRU(cfg, dtype, device)
+            self.rec = rec_lib.RGLRU(cfg, dtype, device, shards)
             self.norm2 = Norm(d, dtype, device)
         else:
             self.norm = Norm(d, dtype, device)
         if kind in XLSTM_BLOCKS:  # no MLP: the cell holds the block's projections
             cell = rec_lib.MLSTM if kind == "mlstm" else rec_lib.SLSTM
-            self.cell = cell(cfg, dtype, device)
+            self.cell = cell(cfg, dtype, device, shards)
         elif kind in ATTN_BLOCKS and cfg.is_moe:
             self.mlp = moe_lib.MoE(cfg, dtype, device, shards)
         else:
-            self.mlp = MLP(d, cfg.d_ff, cfg.mlp_gated, dtype, device)
+            self.mlp = MLP(d, cfg.d_ff, cfg.mlp_gated, dtype, device, shards)
         if cfg.is_encdec and kind in ATTN_BLOCKS:  # a decoder block of an enc-dec model
             self.norm_c = Norm(d, dtype, device)
             self.cross = attn_lib.Attention(cfg, dtype, device, cross=True)
@@ -178,8 +187,8 @@ def _apply_rglru_block(p: Block, cfg: ModelConfig, x: torch.Tensor,
     x, h = add_norm(p.norm1, x, r, cfg.norm_eps)
     y, state = rec_lib.apply_rglru_seq(p.rec, h, cfg, entry)
     _write_state(entry, state, update_mask)
-    x, h = add_norm(p.norm2, x, y, cfg.norm_eps)
-    return x, apply_mlp(p.mlp, h, cfg.mlp_act)
+    x, h = add_norm(p.norm2, x, _reduce(p, x, (y, p.rec.partial)), cfg.norm_eps)
+    return x, _reduce(p, x, (apply_mlp(p.mlp, h, cfg.mlp_act), p.mlp.partial))
 
 
 def _apply_xlstm_block(p: Block, cfg: ModelConfig, x: torch.Tensor,
@@ -199,7 +208,7 @@ def _apply_xlstm_block(p: Block, cfg: ModelConfig, x: torch.Tensor,
         fn = rec_lib.apply_mlstm_seq if p.kind == "mlstm" else rec_lib.apply_slstm_seq
         y, state = fn(p.cell, h, cfg, entry, valid)
     _write_state(entry, state, update_mask)
-    return x, y
+    return x, _reduce(p, x, (y, p.cell.partial))
 
 
 def _cross(p: Block, cfg: ModelConfig, x: torch.Tensor, a: torch.Tensor,
@@ -212,18 +221,28 @@ def _cross(p: Block, cfg: ModelConfig, x: torch.Tensor, a: torch.Tensor,
     return x, attend(hc)
 
 
-def _reduce(p: Block, t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """A row-parallel product's fp32 partial output summed over a
-    tensor-parallel shard's ranks and rounded once to the residual
-    stream's dtype (the reference's constraint back to a replicated
-    residual); ``t`` itself without tensor parallelism."""
-    return t if p.tp is None else p.tp.all_reduce(t).to(x.dtype)
+def _reduce(p: Block, x: torch.Tensor, *parts: Tuple[torch.Tensor, bool]) -> torch.Tensor:
+    """The sum of a block's branch outputs ``parts``, each (output, whether
+    it is a partial sum): the partial ones, row-parallel products' fp32
+    partials, summed, reduced over the tensor-parallel shard's ranks once
+    and rounded to the residual stream's dtype (the reference's constraint
+    back to a replicated residual); a whole one, which every rank computed
+    alike, added after, never summed over the ranks.  Without tensor
+    parallelism no output is partial."""
+    partial = [t for t, is_partial in parts if is_partial]
+    out = None
+    if partial:
+        out = p.tp.all_reduce(functools.reduce(torch.add, partial)).to(x.dtype)
+    for t, is_partial in parts:
+        if not is_partial:
+            out = t if out is None else out + t
+    return out
 
 
 def _ffn_block(p: Block, cfg: ModelConfig, x: torch.Tensor,
                r: Optional[torch.Tensor]) -> Residual:
     x, h = add_norm(p.norm, x, r, cfg.norm_eps)
-    return x, _reduce(p, apply_mlp(p.mlp, h, cfg.mlp_act), x)
+    return x, _reduce(p, x, (apply_mlp(p.mlp, h, cfg.mlp_act), p.mlp.partial))
 
 
 def _mlp_branch(p: Block, cfg: ModelConfig, x: torch.Tensor, h: torch.Tensor,
@@ -237,14 +256,15 @@ def _mlp_branch(p: Block, cfg: ModelConfig, x: torch.Tensor, h: torch.Tensor,
     once."""
     if cfg.parallel_block:
         if p.tp is not None:
-            return x, _reduce(p, a + apply_mlp(p.mlp, h, cfg.mlp_act), x)
+            return x, _reduce(p, x, (a, p.attn.partial),
+                              (apply_mlp(p.mlp, h, cfg.mlp_act), p.mlp.partial))
         x = x + a
     else:
-        x, h = add_norm(p.norm2, x, _reduce(p, a, x), cfg.norm_eps)
+        x, h = add_norm(p.norm2, x, _reduce(p, x, (a, p.attn.partial)), cfg.norm_eps)
     if cfg.is_moe:
         moe_fn = moe_lib.apply_moe_blocked if flags.moe_blocked() else moe_lib.apply_moe
-        return x, _reduce(p, moe_fn(p.mlp, h, cfg), x)
-    return x, _reduce(p, apply_mlp(p.mlp, h, cfg.mlp_act), x)
+        return x, _reduce(p, x, *moe_fn(p.mlp, h, cfg, parts=True))
+    return x, _reduce(p, x, (apply_mlp(p.mlp, h, cfg.mlp_act), p.mlp.partial))
 
 
 def _apply_block_seq(p: Block, cfg: ModelConfig, x: torch.Tensor,
@@ -280,8 +300,8 @@ def _apply_block_chunk(p: Block, cfg: ModelConfig, x: torch.Tensor,
         x, h = add_norm(p.norm1, x, r, cfg.norm_eps)
         y, state = rec_lib.apply_rglru_seq(p.rec, h, cfg, entry, valid)
         _write_state(entry, state)
-        x, h = add_norm(p.norm2, x, y, cfg.norm_eps)
-        return x, apply_mlp(p.mlp, h, cfg.mlp_act)
+        x, h = add_norm(p.norm2, x, _reduce(p, x, (y, p.rec.partial)), cfg.norm_eps)
+        return x, _reduce(p, x, (apply_mlp(p.mlp, h, cfg.mlp_act), p.mlp.partial))
     if p.kind in XLSTM_BLOCKS:
         return _apply_xlstm_block(p, cfg, x, r, entry, valid)
     if p.kind == "ffn":
@@ -331,13 +351,14 @@ def _apply_block_train(p: Block, cfg: ModelConfig, x: torch.Tensor,
     if p.kind not in ATTN_BLOCKS:
         norm = p.norm if p.kind in XLSTM_BLOCKS else p.norm1
         x, h = add_norm(norm, x, r, cfg.norm_eps)
-        state = cache_lib.init_block_cache(cfg, p.kind, x.shape[0], 0, x.dtype, x.device)
+        state = cache_lib.init_block_cache(cfg, p.kind, x.shape[0], 0, x.dtype, x.device,
+                                           shards=p.shards)
         if p.kind == "rglru":
             y, _ = rec_lib.apply_rglru_seq(p.rec, h, cfg, state)
-            x, h = add_norm(p.norm2, x, y, cfg.norm_eps)
-            return x, apply_mlp(p.mlp, h, cfg.mlp_act)
+            x, h = add_norm(p.norm2, x, _reduce(p, x, (y, p.rec.partial)), cfg.norm_eps)
+            return x, _reduce(p, x, (apply_mlp(p.mlp, h, cfg.mlp_act), p.mlp.partial))
         fn = rec_lib.apply_mlstm_seq if p.kind == "mlstm" else rec_lib.apply_slstm_seq
-        return x, fn(p.cell, h, cfg, state)[0]
+        return x, _reduce(p, x, (fn(p.cell, h, cfg, state)[0], p.cell.partial))
     x, h = add_norm(p.norm1, x, r, cfg.norm_eps)
     a = attn_lib.apply_attention_train(p.attn, h, cfg, positions, rope=rope,
                                        window=_window(cfg, p.kind))
@@ -393,31 +414,30 @@ class Model(nn.Module):
         super().__init__()
         cfg.validate()
         self.cfg = cfg
-        # a tensor-parallel shard: its modules at the shard's shapes
-        # (``local_cfg``), its collectives on ``mesh``
+        # a tensor-parallel shard: its modules at the shard's shapes, its
+        # collectives on ``mesh``
         self.mesh = mesh
         tp, rank = (mesh.size, mesh.rank) if mesh is not None else (1, 0)
-        local = self.local_cfg = rules_lib.local_config(cfg, tp)
+        rules_lib.check_tp(cfg, tp)
+        self.shards = tp
         device = resolve_device(device)
         if mesh is not None and device != mesh.device:
             raise ValueError(f"a shard of the mesh on {mesh.device} cannot be built on {device}")
         shard = mesh if tp > 1 else None
         dtype = _dtype(cfg.param_dtype)
-        v = local.vocab_size
-        self.embed = Embedding(v, cfg.d_model, dtype, device, shard, rank * v)
+        v = rules_lib.local_size(cfg.vocab_size, tp)
+        # a vocabulary tp does not divide is whole: no gather of the logits
+        vocab_tp = shard if v < cfg.vocab_size else None
+        self.embed = Embedding(v, cfg.d_model, dtype, device, vocab_tp, rank * v if vocab_tp else 0)
         if not cfg.tie_embeddings:
-            self.lm_head = Embedding(v, cfg.d_model, dtype, device, shard, rank * v)
-        self.layers = nn.ModuleList(Block(local, kind, dtype, device, tp)
+            self.lm_head = Embedding(v, cfg.d_model, dtype, device, vocab_tp,
+                                     rank * v if vocab_tp else 0)
+        self.layers = nn.ModuleList(Block(cfg, kind, dtype, device, tp)
                                     for kind in cfg.blocks())
         for blk in self.layers:
-            blk.tp = shard
-            if shard is None:
-                continue
-            for module in blk.modules():  # attention, MLP, MoE and its shared MLP
-                if hasattr(module, "partial"):
-                    module.partial = True
-            if isinstance(getattr(blk, "mlp", None), moe_lib.MoE):
-                blk.mlp.tp = shard  # the router's gather
+            for module in blk.modules():  # the block and the modules whose collectives need it
+                if hasattr(module, "tp"):
+                    module.tp = shard
         self.final_norm = Norm(cfg.d_model, dtype, device)
         if cfg.is_encdec:
             self.encoder = Encoder(cfg, dtype, device)
@@ -487,11 +507,12 @@ class Model(nn.Module):
         attention layers a global block pool (``num_blocks`` x
         ``block_size``; 0: the worst case) that the caller addresses through
         block tables; sliding-window rings and recurrent states stay per
-        row.  A tensor-parallel shard's entries hold its own KV heads."""
-        return cache_lib.init_cache(self.local_cfg, batch, max_len,
+        row.  A tensor-parallel shard's entries hold its shard of each leaf
+        (``sharding.rules.cache_dim``)."""
+        return cache_lib.init_cache(self.cfg, batch, max_len,
                                     dtype or _dtype(self.cfg.dtype), self.device,
                                     layout=layout, block_size=block_size,
-                                    num_blocks=num_blocks)
+                                    num_blocks=num_blocks, shards=self.shards)
 
     @torch.no_grad()
     def prefill(self, batch: Dict[str, torch.Tensor], cache: Cache,

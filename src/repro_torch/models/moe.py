@@ -23,7 +23,11 @@ capacity of tp = 1; the dispatch is tp = 1's.  A rank then runs the
 products of its own experts only and gathers back the pairs they hold;
 a pair whose expert is another rank's, or dropped, adds 0.  Its output is
 a partial sum in fp32, which the model reduces over the ranks once,
-beside the shared MLP's partial (``models/model.py``).
+beside the shared MLP's partial (``models/model.py``).  Where tp does not
+divide E, every rank holds every expert and the whole router, and the
+routed output is whole; a shared MLP whose width tp does not divide is
+whole too.  ``moe_parts`` gives the two outputs with their kind, and the
+model adds a whole one after the reduce of the partial ones.
 
 ``routing(log, forced)`` records each call's routing or imposes one, to
 hold two runs to the same routes in checks (bf16 flips top-k sets).
@@ -32,6 +36,7 @@ hold two runs to the same routes in checks (bf16 flips top-k sets).
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 from typing import Iterable, List, Optional, Tuple
 
@@ -41,6 +46,7 @@ from torch import nn
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import act_fn, init_normal_, new_param
 from repro_torch.models.mlp import MLP, apply_mlp
+from repro_torch.sharding.rules import divides, local_size
 
 
 def capacity(num_tokens: int, num_experts: int, k: int, factor: float) -> int:
@@ -53,22 +59,25 @@ class MoE(nn.Module):
     """``router`` (d, E), ``wg``/``wu`` (E, d, ff), ``wd`` (E, ff, d) and,
     with ``num_shared_experts``, a gated ``shared`` MLP of width
     ff * num_shared_experts: the reference's leaf names.  A shard of
-    ``shards`` ranks holds E / shards experts, their router columns and
-    1 / shards of the shared MLP's hidden."""
+    ``shards`` ranks holds E / shards experts and their router columns
+    where that divides E (else all of them), and 1 / shards of the shared
+    MLP's hidden where that divides it."""
 
     def __init__(self, cfg: ModelConfig, dtype, device, shards: int = 1):
         super().__init__()
-        d, e, ff = cfg.d_model, cfg.num_experts // shards, cfg.d_ff
+        # a shard's routed output is one rank's partial sum, kept in fp32
+        # for the sum over the ranks, where the experts are split
+        self.partial = divides(shards, cfg.num_experts)
+        d, e, ff = cfg.d_model, local_size(cfg.num_experts, shards), cfg.d_ff
         self.router = new_param((d, e), dtype, device)
         self.wg = new_param((e, d, ff), dtype, device)
         self.wu = new_param((e, d, ff), dtype, device)
         self.wd = new_param((e, ff, d), dtype, device)
         if cfg.num_shared_experts > 0:
-            self.shared = MLP(d, ff * cfg.num_shared_experts // shards, True, dtype, device)
-        # a tensor-parallel shard: its mesh (for the router's gather), and
-        # its output one rank's partial sum in fp32 (set by ``Model``)
+            self.shared = MLP(d, ff * cfg.num_shared_experts, True, dtype, device, shards)
+        # a tensor-parallel shard's mesh, for the router's gather (set by
+        # ``Model``)
         self.tp = None
-        self.partial = False
 
     def init_(self, gen: torch.Generator) -> None:
         # the reference's scales: wg and wu take Maker.normal's default,
@@ -131,11 +140,11 @@ def route(logits: torch.Tensor, k: int, normalize: bool = True
 
 def router_logits(p: MoE, xf: torch.Tensor) -> torch.Tensor:
     """(T, d) -> (T, E) fp32: the router product in fp32, as the
-    reference's ``preferred_element_type=float32``.  A shard computes its
-    own experts' columns (T, E/tp) and gathers every rank's, in rank
-    order: the whole row, the same bytes on every rank."""
+    reference's ``preferred_element_type=float32``.  A shard of split
+    experts computes its own experts' columns (T, E/tp) and gathers every
+    rank's, in rank order: the whole row, the same bytes on every rank."""
     logits = torch.matmul(xf.float(), p.router.float())
-    return logits if p.tp is None else p.tp.gather_last(logits)
+    return p.tp.gather_last(logits) if p.partial else logits
 
 
 def positions_in_expert(e_flat: torch.Tensor, E: int) -> torch.Tensor:
@@ -169,9 +178,9 @@ def _moe_tokens(p: MoE, xf: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     # without tensor parallelism); another rank's pair takes the drop bin
     # of local expert 0 and a zero gate
     E_local = p.wg.shape[0]
-    first = 0 if p.tp is None else p.tp.rank * E_local
+    first = p.tp.rank * E_local if p.partial else 0
     local = idx - first
-    if p.tp is not None:
+    if p.partial:
         mine = (local >= 0) & (local < E_local)
         keep = keep & mine
         local = torch.where(mine, local, 0)
@@ -196,37 +205,48 @@ def _moe_tokens(p: MoE, xf: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return torch.sum(yk * gates.to(xf.dtype)[..., None], dim=1)
 
 
-def _with_shared(p: MoE, out: torch.Tensor, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """The routed output plus the shared MLP's, where there is one (a
-    shard's two fp32 partials summed, for one reduce over the ranks)."""
-    if hasattr(p, "shared"):
-        out = out + apply_mlp(p.shared, x, cfg.mlp_act)
-    return out
-
-
-def apply_moe(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """x (B, S, d) -> (B, S, d); the capacity counts all B * S rows.  A
-    shard's output is its fp32 partial sum."""
+def moe_parts(p: MoE, x: torch.Tensor, cfg: ModelConfig, blocks: int = 0
+              ) -> List[Tuple[torch.Tensor, bool]]:
+    """The layer's outputs (B, S, d), each with whether it is a partial
+    sum over the ranks (fp32) or whole: the routed experts' (capacity over
+    all B * S rows, or with ``blocks`` > 0 over each of ``apply_moe_blocked``'s
+    blocks) and, where there is one, the shared MLP's."""
     B, S, d = x.shape
-    out = _moe_tokens(p, x.reshape(B * S, d), cfg).reshape(B, S, d)
-    return _with_shared(p, out, x, cfg)
+    if blocks:
+        n = blocks
+        if (B * S) % n or (B % n and n > 1):
+            n = 1
+        xf = x.reshape(n, B * S // n, d)
+        routed = torch.cat([_moe_tokens(p, blk, cfg) for blk in xf]).reshape(B, S, d)
+    else:
+        routed = _moe_tokens(p, x.reshape(B * S, d), cfg).reshape(B, S, d)
+    parts = [(routed, p.partial)]
+    if hasattr(p, "shared"):
+        parts.append((apply_mlp(p.shared, x, cfg.mlp_act), p.shared.partial))
+    return parts
+
+
+def _sum(parts) -> torch.Tensor:
+    return functools.reduce(torch.add, (t for t, _ in parts))
+
+
+def apply_moe(p: MoE, x: torch.Tensor, cfg: ModelConfig, parts: bool = False):
+    """x (B, S, d) -> (B, S, d); the capacity counts all B * S rows.  The
+    routed and shared outputs summed (a shard's fp32 partials where both
+    are split), or with ``parts`` each with its kind (``moe_parts``)."""
+    out = moe_parts(p, x, cfg)
+    return out if parts else _sum(out)
 
 
 def apply_moe_blocked(p: MoE, x: torch.Tensor, cfg: ModelConfig,
-                      shards: int = 1) -> torch.Tensor:
+                      shards: int = 1, parts: bool = False):
     """Block-local dispatch: the tokens in ``shards`` equal blocks, each
     routed with its own capacity, as the reference's ``apply_moe_blocked``
     does with one block per data shard of its mesh.  The port has no mesh,
     so the caller gives the count; an uneven split falls back to one
-    block, as the reference's does.  A shard's output is its fp32 partial
-    sum."""
-    B, S, d = x.shape
-    n = shards
-    if (B * S) % n or (B % n and n > 1):
-        n = 1
-    xf = x.reshape(n, B * S // n, d)
-    out = torch.cat([_moe_tokens(p, blk, cfg) for blk in xf]).reshape(B, S, d)
-    return _with_shared(p, out, x, cfg)
+    block, as the reference's does.  ``parts`` as ``apply_moe``'s."""
+    out = moe_parts(p, x, cfg, blocks=shards)
+    return out if parts else _sum(out)
 
 
 def aux_load_balance_loss(logits: torch.Tensor, idx: torch.Tensor, E: int) -> torch.Tensor:

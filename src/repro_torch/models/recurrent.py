@@ -31,6 +31,37 @@ The state a layer carries is its cache entry (``cache.init_rglru_state``,
 ``init_mlstm_state``, ``init_slstm_state``).  The functions here return
 the new state as fresh tensors; ``models.model`` writes it into the entry
 in place.
+
+Tensor parallelism (a module built with ``shards`` > 1, its mesh in
+``p.tp``), on the reference's serving rules (``sharding/rules.py``):
+
+* RG-LRU: the rank projects and convolves its slice of the LRU width W
+  (the conv is depthwise, so it stays local) and carries its slice of
+  ``h`` and ``conv``.  The block-diagonal gates shard their input rows,
+  every head's, so the rank gathers the conv output over W, forms its
+  partial products over its own rows for every head, all-reduces them
+  (fp32) and keeps its own W columns; K5 then runs on (B, S, W / tp), and
+  ``out`` is row-parallel.  This holds where the heads straddle ranks
+  (10 heads over 4 ranks).
+* mLSTM: the rank's slice of W (up-projections, conv, ``norm_scale``,
+  ``down``); q, k and v come from the gathered branches by the same
+  partial-then-reduce products, the log gates from the row-parallel
+  ``w_i``/``w_f`` (the fp32 partials reduced before the biases), all in
+  one all-reduce; the cell then runs on the rank's H / tp heads, whose
+  ``C``, ``n``, ``m`` it carries.  The cell norm over the whole W is
+  K1's two split launches, the rank's fp32 sums of squares all-reduced
+  between them (K1 over the slice alone would normalise another vector).
+* sLSTM: the gates and recurrent weights replicate, so the cell runs
+  whole on every rank; its state is held as the cache lays it out
+  (``c``, ``n``, ``m``, ``h`` on heads, ``conv`` on d), gathered once at
+  the start of a call and the rank's slice stored at its end.  ``ff_up``
+  and ``ff_down`` are column- and row-parallel where tp divides the FFN
+  width, else whole.
+
+A dim tp does not divide is whole on every rank, and so is the output of
+a block whose width is whole (``p.partial`` False); an mLSTM whose heads
+tp does not divide runs its cell whole from its gathered state, as the
+sLSTM does.
 """
 
 from __future__ import annotations
@@ -46,7 +77,8 @@ from torch import nn
 from repro_torch.kernels import dispatch
 from repro_torch.models import flags
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import act_fn, init_normal_, new_param, rms_norm
+from repro_torch.models.layers import act_fn, init_normal_, matmul_fp32, new_param, rms_norm
+from repro_torch.sharding.rules import cache_dim, divides, local_size
 
 # a pad step's log input gate: below the -1e30 a stabilizer starts at, so
 # an identity step contributes nothing even to a fresh state
@@ -66,23 +98,28 @@ class RGLRU(nn.Module):
     leaves; ``lambda`` is a Python keyword, so it is registered by name
     and read with ``getattr(p, "lambda")``."""
 
-    def __init__(self, cfg: ModelConfig, dtype, device):
+    def __init__(self, cfg: ModelConfig, dtype, device, shards: int = 1):
         super().__init__()
         d, W, H = cfg.d_model, cfg.resolved_lru_width, cfg.resolved_rec_heads
         Dh = W // H
-        self.in_x = new_param((d, W), dtype, device)
-        self.in_g = new_param((d, W), dtype, device)
-        self.conv_w = new_param((cfg.rglru_conv_width, W), dtype, device)
-        self.gate_a = new_param((H, Dh, Dh), dtype, device)
-        self.gate_x = new_param((H, Dh, Dh), dtype, device)
-        self.register_parameter("lambda", new_param((W,), dtype, device))
-        self.out = new_param((W, d), dtype, device)
+        # a shard's output is one rank's partial sum, kept in fp32 for the
+        # sum over the ranks, where the width is split
+        self.partial = divides(shards, W)
+        self.tp = None  # the mesh of a tensor-parallel shard (set by ``Model``)
+        Wl, Dr = local_size(W, shards), local_size(Dh, shards)
+        self.in_x = new_param((d, Wl), dtype, device)
+        self.in_g = new_param((d, Wl), dtype, device)
+        self.conv_w = new_param((cfg.rglru_conv_width, Wl), dtype, device)
+        self.gate_a = new_param((H, Dr, Dh), dtype, device)
+        self.gate_x = new_param((H, Dr, Dh), dtype, device)
+        self.register_parameter("lambda", new_param((Wl,), dtype, device))
+        self.out = new_param((Wl, d), dtype, device)
 
     def init_(self, gen: torch.Generator) -> None:
         init_normal_(self.in_x, gen)
         init_normal_(self.in_g, gen)
         init_normal_(self.conv_w, gen, scale=0.1)
-        dh = self.gate_a.shape[1]
+        dh = self.gate_a.shape[2]
         init_normal_(self.gate_a, gen, scale=1.0 / math.sqrt(dh))
         init_normal_(self.gate_x, gen, scale=1.0 / math.sqrt(dh))
         lam = getattr(self, "lambda")
@@ -128,11 +165,44 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
+def _row_partials(tp, x: torch.Tensor, ws) -> torch.Tensor:
+    """The rank's fp32 partial block-diagonal products of the whole ``x``
+    (..., H * Dh) with weights ``ws`` (each (H, rows, Do)) that hold its
+    ``rows`` of each head's Dh input rows: (..., n, H, Do), n = len(ws).
+    Summed over the ranks and rounded to x's dtype they are the products
+    of the whole weights, rounded once as one product rounds."""
+    H, rows, _ = ws[0].shape
+    xh = x.reshape(*x.shape[:-1], H, -1)[..., tp.rank * rows:(tp.rank + 1) * rows].float()
+    return torch.einsum("...hd,nhde->...nhe", xh, torch.stack(ws).float())
+
+
+def _block_diag_gathered(p, x: torch.Tensor, ws) -> torch.Tensor:
+    """The block-diagonal products ``ws`` of a shard's slice ``x`` (..., W /
+    tp) of the width, whole: x gathered over the ranks, then the products
+    of the whole row (partial over the rank's input rows, and reduced,
+    where the weights split them); (..., n, W)."""
+    full = p.tp.gather(x, -1)
+    if ws[0].shape[1] < ws[0].shape[2]:
+        part = p.tp.all_reduce(_row_partials(p.tp, full, ws))
+        return part.to(x.dtype).reshape(*x.shape[:-1], len(ws), -1)
+    return torch.stack([_block_diag_linear(full, w) for w in ws], dim=-2)
+
+
+def _own_cols(p, t: torch.Tensor, n: int) -> torch.Tensor:
+    """The rank's ``n`` columns of the width ``t`` (..., W)."""
+    return t[..., p.tp.rank * n:(p.tp.rank + 1) * n]
+
+
 def _rglru_gates(p: RGLRU, xc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-timestep decay a and gated, normalised input b (both fp32) from
-    the conv'd branch xc."""
-    r = torch.sigmoid(_block_diag_linear(xc, p.gate_a).float())
-    i = torch.sigmoid(_block_diag_linear(xc, p.gate_x).float())
+    the conv'd branch xc (a shard's slice of the width)."""
+    if p.partial:
+        pre = _own_cols(p, _block_diag_gathered(p, xc, (p.gate_a, p.gate_x)), xc.shape[-1])
+        ra, rx = pre[..., 0, :], pre[..., 1, :]
+    else:
+        ra, rx = _block_diag_linear(xc, p.gate_a), _block_diag_linear(xc, p.gate_x)
+    r = torch.sigmoid(ra.float())
+    i = torch.sigmoid(rx.float())
     log_a = -8.0 * _softplus(getattr(p, "lambda").float()) * r
     a = torch.exp(log_a)
     # sqrt(1 - a^2) input normalization (Griffin eq. 4)
@@ -162,7 +232,7 @@ def apply_rglru_seq(p: RGLRU, x: torch.Tensor, cfg: ModelConfig,
         a = torch.where(m, a, 1.0)
         b = torch.where(m, b, 0.0)
     h = dispatch.linear_recurrence(a, b, state["h"])  # (B, S, W) fp32
-    y = torch.matmul(h.to(x.dtype) * g, p.out)
+    y = (matmul_fp32 if p.partial else torch.matmul)(h.to(x.dtype) * g, p.out)
     return y, {"h": h[:, -1], "conv": conv_hist}
 
 
@@ -181,29 +251,37 @@ class MLSTM(nn.Module):
     """mLSTM parameters, named like the reference's ``make_mlstm_block``
     leaves."""
 
-    def __init__(self, cfg: ModelConfig, dtype, device):
+    def __init__(self, cfg: ModelConfig, dtype, device, shards: int = 1):
         super().__init__()
         d = cfg.d_model
         W = int(d * cfg.mlstm_proj_factor)
         H = cfg.resolved_rec_heads
-        self.up_u = new_param((d, W), dtype, device)
-        self.up_z = new_param((d, W), dtype, device)
-        self.conv_w = new_param((cfg.rglru_conv_width, W), dtype, device)
-        self.wq = new_param((H, W // H, W // H), dtype, device)
-        self.wk = new_param((H, W // H, W // H), dtype, device)
-        self.wv = new_param((H, W // H, W // H), dtype, device)
-        self.w_i = new_param((W, H), dtype, device)
+        D = W // H
+        # a shard's output is one rank's partial sum, kept in fp32 for the
+        # sum over the ranks, where the width is split; its cell runs on
+        # its own heads where those split too
+        self.partial = divides(shards, W)
+        self.heads_split = self.partial and divides(shards, H)
+        self.tp = None  # the mesh of a tensor-parallel shard (set by ``Model``)
+        Wl, Dr = local_size(W, shards), local_size(D, shards)
+        self.up_u = new_param((d, Wl), dtype, device)
+        self.up_z = new_param((d, Wl), dtype, device)
+        self.conv_w = new_param((cfg.rglru_conv_width, Wl), dtype, device)
+        self.wq = new_param((H, Dr, D), dtype, device)
+        self.wk = new_param((H, Dr, D), dtype, device)
+        self.wv = new_param((H, Dr, D), dtype, device)
+        self.w_i = new_param((Wl, H), dtype, device)
         self.b_i = new_param((H,), dtype, device)
-        self.w_f = new_param((W, H), dtype, device)
+        self.w_f = new_param((Wl, H), dtype, device)
         self.b_f = new_param((H,), dtype, device)
-        self.norm_scale = new_param((W,), dtype, device)
-        self.down = new_param((W, d), dtype, device)
+        self.norm_scale = new_param((Wl,), dtype, device)
+        self.down = new_param((Wl, d), dtype, device)
 
     def init_(self, gen: torch.Generator) -> None:
         init_normal_(self.up_u, gen)
         init_normal_(self.up_z, gen)
         init_normal_(self.conv_w, gen, scale=0.1)
-        dh = self.wq.shape[1]
+        dh = self.wq.shape[2]
         for w in (self.wq, self.wk, self.wv):
             init_normal_(w, gen, scale=1.0 / math.sqrt(dh))
         init_normal_(self.w_i, gen, scale=0.01)
@@ -325,22 +403,104 @@ def _mlstm_folded(q, k, v, log_i, log_f, C, n, m, L, causal, scale):
 
 
 def _mlstm_qkv_gates(p: MLSTM, u: torch.Tensor, uc: torch.Tensor, H: int, D: int):
-    """q, k, v (B, S, H, D) and the log gates (B, S, H), all fp32, from the
-    up-projected ``u`` and its conv'd, SiLU'd ``uc``."""
+    """q, k, v (B, S, H, D) and the log gates (B, S, H), all fp32 and over
+    every head, from the up-projected ``u`` and its conv'd, SiLU'd ``uc``
+    (a shard's slices of the width: gathered for the block-diagonal
+    products, whose partials are reduced with the row-parallel gates'
+    in one all-reduce)."""
     B, S = u.shape[:2]
-    q = _block_diag_linear(uc, p.wq).reshape(B, S, H, D).float()
-    k = _block_diag_linear(uc, p.wk).reshape(B, S, H, D).float()
-    v = _block_diag_linear(u, p.wv).reshape(B, S, H, D).float()
-    log_i = (torch.matmul(uc, p.w_i) + p.b_i).float()
-    log_f = F.logsigmoid((torch.matmul(uc, p.w_f) + p.b_f).float())
+    if not p.partial:
+        q = _block_diag_linear(uc, p.wq).reshape(B, S, H, D).float()
+        k = _block_diag_linear(uc, p.wk).reshape(B, S, H, D).float()
+        v = _block_diag_linear(u, p.wv).reshape(B, S, H, D).float()
+        log_i = (torch.matmul(uc, p.w_i) + p.b_i).float()
+        log_f = F.logsigmoid((torch.matmul(uc, p.w_f) + p.b_f).float())
+        return q, k, v, log_i, log_f
+    both = p.tp.gather(torch.stack([uc, u], dim=-2), -1)           # (B, S, 2, W)
+    gates = matmul_fp32(uc, torch.cat([p.w_i, p.w_f], dim=-1))      # (B, S, 2H) partial
+    if p.wq.shape[1] < D:  # the products' input rows split: one reduce with the gates'
+        qk = _row_partials(p.tp, both[:, :, 0], (p.wq, p.wk))
+        v = _row_partials(p.tp, both[:, :, 1], (p.wv,))
+        flat = torch.cat([qk.reshape(B, S, -1), v.reshape(B, S, -1), gates], dim=-1)
+        flat = p.tp.all_reduce(flat)
+        qkv = flat[..., :3 * H * D].to(u.dtype).float().reshape(B, S, 3, H, D)
+        q, k, v = qkv.unbind(2)
+        gates = flat[..., 3 * H * D:]
+    else:
+        q = _block_diag_linear(both[:, :, 0], p.wq).reshape(B, S, H, D).float()
+        k = _block_diag_linear(both[:, :, 0], p.wk).reshape(B, S, H, D).float()
+        v = _block_diag_linear(both[:, :, 1], p.wv).reshape(B, S, H, D).float()
+        gates = p.tp.all_reduce(gates)
+    gates = gates.to(u.dtype)
+    log_i = (gates[..., :H] + p.b_i).float()
+    log_f = F.logsigmoid((gates[..., H:] + p.b_f).float())
     return q, k, v, log_i, log_f
 
 
+def _cell_norm(p, h: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """``rms_norm(h, norm_scale)`` over the whole width of a shard's slice
+    ``h`` (..., W / tp): K1's split launches, the slice's fp32 sums of
+    squares all-reduced between them."""
+    ss = p.tp.all_reduce(dispatch.rmsnorm_sumsq(h))
+    return dispatch.rmsnorm(h, p.norm_scale, eps, stat=ss, width=h.shape[-1] * p.tp.size)
+
+
 def _mlstm_out(p: MLSTM, h: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-    """The cell's output: ``rms_norm`` over W (K1), the SiLU(z) gate, the
-    down projection."""
+    """The cell's output: ``rms_norm`` over W (K1; a shard's from its
+    reduced statistic), the SiLU(z) gate, the down projection (a shard's
+    fp32 partial)."""
+    if p.partial:
+        return matmul_fp32(_cell_norm(p, h) * act_fn("silu")(z), p.down)
     h = rms_norm(h, p.norm_scale, 1e-6)
     return torch.matmul(h * act_fn("silu")(z), p.down)
+
+
+def _gathered_state(p, state: Dict[str, torch.Tensor], full: Dict[str, Tuple[int, ...]]):
+    """The leaves ``full`` names of a shard's ``state``, whole: each
+    gathered over the ranks along the dim its cache entry splits
+    (``sharding.rules.cache_dim`` at its full shape), leaves of one
+    shape and dim in one collective."""
+    out, groups = {}, {}
+    for leaf, shape in full.items():
+        dim = cache_dim(leaf, shape, p.tp.size)
+        if dim is None:
+            out[leaf] = state[leaf]
+        else:
+            groups.setdefault((dim, state[leaf].dtype, tuple(state[leaf].shape)), []).append(leaf)
+    for (dim, _, _), leaves in groups.items():
+        whole = p.tp.gather(torch.stack([state[leaf] for leaf in leaves]), dim + 1)
+        out.update(zip(leaves, whole.unbind(0)))
+    return out
+
+
+def _own_state(p, state: Dict[str, torch.Tensor], full: Dict[str, Tuple[int, ...]]):
+    """The rank's slices of whole state leaves: ``_gathered_state``'s
+    inverse."""
+    out = dict(state)
+    for leaf, shape in full.items():
+        dim = cache_dim(leaf, shape, p.tp.size)
+        if dim is not None:
+            n = shape[dim] // p.tp.size
+            out[leaf] = state[leaf].narrow(dim, p.tp.rank * n, n)
+    return out
+
+
+def _mlstm_cell_state(p: MLSTM, state: Dict[str, torch.Tensor], B: int, H: int, D: int):
+    """The leaves of a shard's mLSTM state that its cell carries whole
+    (heads tp does not divide), with their full shapes; none where the
+    cell runs on the rank's heads or without tensor parallelism."""
+    if p.tp is None or p.heads_split or not p.partial:
+        return {}
+    return {"C": (B, H, D, D), "n": (B, H, D), "m": (B, H)}
+
+
+def _mlstm_heads(p: MLSTM, *ts):
+    """The rank's heads of (B, S, H, ...) tensors where the cell runs on
+    them, else the tensors as they are."""
+    if not p.heads_split:
+        return ts
+    n = ts[0].shape[2] // p.tp.size
+    return tuple(t[:, :, p.tp.rank * n:(p.tp.rank + 1) * n] for t in ts)
 
 
 def apply_mlstm_seq(p: MLSTM, x: torch.Tensor, cfg: ModelConfig,
@@ -360,14 +520,19 @@ def apply_mlstm_seq(p: MLSTM, x: torch.Tensor, cfg: ModelConfig,
     lengths = None if valid is None else valid.sum(dim=1, dtype=torch.int32)
     uc, conv_hist = _causal_conv(u, p.conv_w, state["conv"], lengths)
     uc = act_fn("silu")(uc)
-    q, k, v, log_i, log_f = _mlstm_qkv_gates(p, u, uc, H, D)
+    q, k, v, log_i, log_f = _mlstm_heads(p, *_mlstm_qkv_gates(p, u, uc, H, D))
     if valid is not None:
         m = valid[..., None]
         log_f = torch.where(m, log_f, 0.0)
         log_i = torch.where(m, log_i, _PAD_LOG_I)
+    whole = _mlstm_cell_state(p, state, B, H, D)
+    if whole:
+        state = _gathered_state(p, state, whole)
     h, cell = _mlstm_chunk_scan(q, k, v, log_i, log_f, state, cfg.recurrent_chunk)
-    y = _mlstm_out(p, h.reshape(B, S, W).to(x.dtype), z)
-    return y, {**cell, "conv": conv_hist}
+    h = h.reshape(B, S, -1).to(x.dtype)
+    if whole:
+        h, cell = _own_cols(p, h, u.shape[-1]), _own_state(p, cell, whole)
+    return _mlstm_out(p, h, z), {**cell, "conv": conv_hist}
 
 
 def apply_mlstm_step(p: MLSTM, x: torch.Tensor, cfg: ModelConfig,
@@ -382,7 +547,10 @@ def apply_mlstm_step(p: MLSTM, x: torch.Tensor, cfg: ModelConfig,
     z = torch.matmul(x, p.up_z)
     uc, conv_hist = _causal_conv(u, p.conv_w, state["conv"])
     uc = act_fn("silu")(uc)
-    q, k, v, log_i, log_f = (t[:, 0] for t in _mlstm_qkv_gates(p, u, uc, H, D))
+    q, k, v, log_i, log_f = (t[:, 0] for t in _mlstm_heads(p, *_mlstm_qkv_gates(p, u, uc, H, D)))
+    whole = _mlstm_cell_state(p, state, B, H, D)
+    if whole:
+        state = _gathered_state(p, state, whole)
     scale = 1.0 / math.sqrt(D)
     m_new = torch.maximum(log_f + state["m"], log_i)
     w_old = torch.exp(log_f + state["m"] - m_new)
@@ -393,8 +561,11 @@ def apply_mlstm_step(p: MLSTM, x: torch.Tensor, cfg: ModelConfig,
     qs = q * scale
     num = torch.matmul(qs[..., None, :], C)[..., 0, :]
     denom = torch.maximum(torch.abs((qs * n).sum(-1)), torch.exp(-m_new))
-    h = (num / denom[..., None]).reshape(B, 1, W).to(x.dtype)
-    return _mlstm_out(p, h, z), {"C": C, "n": n, "m": m_new, "conv": conv_hist}
+    h = (num / denom[..., None]).reshape(B, 1, -1).to(x.dtype)
+    cell = {"C": C, "n": n, "m": m_new}
+    if whole:
+        h, cell = _own_cols(p, h, u.shape[-1]), _own_state(p, cell, whole)
+    return _mlstm_out(p, h, z), {**cell, "conv": conv_hist}
 
 
 # ---------------------------------------------------------------------------
@@ -409,12 +580,18 @@ class SLSTM(nn.Module):
     leaves: per gate an input weight ``w_<g>`` (d, d), a block-diagonal
     recurrent weight ``r_<g>`` (H, Dh, Dh) and a bias ``b_<g>`` (H, Dh)."""
 
-    def __init__(self, cfg: ModelConfig, dtype, device):
+    def __init__(self, cfg: ModelConfig, dtype, device, shards: int = 1):
         super().__init__()
         d = cfg.d_model
         H = cfg.resolved_rec_heads
         Dh = d // H
         ff = int(d * cfg.slstm_proj_factor)
+        # a shard's output is one rank's partial sum, kept in fp32 for the
+        # sum over the ranks, where the FFN width is split; the cell itself
+        # runs whole on every rank
+        self.partial = divides(shards, ff)
+        self.tp = None  # the mesh of a tensor-parallel shard (set by ``Model``)
+        ff = local_size(ff, shards)
         for g in SLSTM_GATES:
             setattr(self, f"w_{g}", new_param((d, d), dtype, device))
             setattr(self, f"r_{g}", new_param((H, Dh, Dh), dtype, device))
@@ -472,6 +649,11 @@ def apply_slstm_seq(p: SLSTM, x: torch.Tensor, cfg: ModelConfig,
     B, S, d = x.shape
     H = cfg.resolved_rec_heads
     Dh = d // H
+    whole = {}
+    if p.tp is not None:  # a shard's state, gathered whole for the call
+        whole = {leaf: (B, H, Dh) for leaf in ("c", "n", "m", "h")}
+        whole["conv"] = (B, cfg.rglru_conv_width - 1, d)
+        state = _gathered_state(p, state, whole)
     lengths = None if valid is None else valid.sum(dim=1, dtype=torch.int32)
     xc, conv_hist = _causal_conv(x, p.conv_w, state["conv"], lengths)
     xc = act_fn("silu")(xc)
@@ -492,13 +674,16 @@ def apply_slstm_seq(p: SLSTM, x: torch.Tensor, cfg: ModelConfig,
         hs.append(carry[3])
     h = torch.stack(hs, dim=1).reshape(B, S, d).to(x.dtype)
     c, n, m, h_fin = carry
-    return _slstm_out(p, h), {"c": c, "n": n, "m": m, "h": h_fin, "conv": conv_hist}
+    new = {"c": c, "n": n, "m": m, "h": h_fin, "conv": conv_hist}
+    return _slstm_out(p, h), (_own_state(p, new, whole) if whole else new)
 
 
 def _slstm_out(p: SLSTM, h: torch.Tensor) -> torch.Tensor:
-    """The cell's output: ``rms_norm`` (K1), then its GeLU FFN."""
+    """The cell's output: ``rms_norm`` (K1), then its GeLU FFN (a shard's
+    fp32 partial where its width is split)."""
     h = rms_norm(h, p.norm_scale, 1e-6)
-    return torch.matmul(act_fn("gelu")(torch.matmul(h, p.ff_up)), p.ff_down)
+    mm = matmul_fp32 if p.partial else torch.matmul
+    return mm(act_fn("gelu")(torch.matmul(h, p.ff_up)), p.ff_down)
 
 
 def _slstm_folded(p: SLSTM, carry, pre, device: torch.device):

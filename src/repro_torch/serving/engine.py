@@ -76,8 +76,10 @@ requests by the tokens each emitted in it (``latency_summary``).
 
 Tensor parallelism (``mesh=``, a ``launch.mesh.TPMesh``) runs SPMD: one
 engine per rank, each over its rank's shard of the model
-(``sharding.partition.shard_model``) and a cache of its own KV heads, all
-in lockstep, forced by the collectives inside every forward pass.  Two
+(``sharding.partition.shard_model``) and a cache of its shard of each leaf
+(``Model.init_cache``: its KV heads, or its slots of every head where tp
+does not divide them, or a replicated pool; its recurrent states' heads or
+width), all in lockstep, forced by the collectives inside every forward pass.  Two
 rules keep the ranks' host decisions equal, so admission, chunking,
 preemption, the prefix cache and the drafts follow on every rank from the
 same inputs, as in the reference's single controller:
@@ -94,7 +96,9 @@ same inputs, as in the reference's single controller:
 The broadcast is host work, not a device dispatch; its time per step is
 in the summary (``tp_broadcast_us_p50``/``_p95``).  The per-device ledgers
 (``kv_bytes_by_device``, ``pool_accounting_by_device``) come from every
-rank's own cache leaves and pool, gathered to rank 0 on demand.  A gloo
+rank's own cache leaves and pool, gathered to rank 0 on demand: a
+replicated pool counts whole on every rank, an L-sharded cache its slice
+(replication is real memory, as the reference counts it).  A gloo
 mesh cannot be captured in a CUDA graph, so ``cuda_graph=True`` on one
 raises; on NCCL the steps are captured as on one device.
 """
@@ -738,8 +742,8 @@ class ServingEngine:
         states), so each admitted row starts from its initial values."""
         dtype = getattr(torch, self.cfg.dtype)
         return [entry if "kp" in entry else
-                cache_lib.init_block_cache(self.model.local_cfg, blk.kind, n, self.max_len,
-                                           dtype, self.device)
+                cache_lib.init_block_cache(self.model.cfg, blk.kind, n, self.max_len,
+                                           dtype, self.device, shards=self.model.shards)
                 for blk, entry in zip(self.model.layers, self.cache)]
 
     def _merge_admitted(self, part, slots_for: List[int]) -> None:
@@ -1409,8 +1413,10 @@ class ServingEngine:
 
     def kv_bytes_by_device(self, peak: bool = False) -> List[int]:
         """Attention KV bytes resident on each device, from each rank's own
-        cache leaves: with the KV heads split over the ranks they sum to
-        ``kv_bytes_in_use`` (the reference's ``kv_bytes_by_device``)."""
+        cache leaves (the reference's ``kv_bytes_by_device``): with the KV
+        heads or the contiguous cache's slots split over the ranks they
+        sum to ``kv_bytes_in_use``; a replicated pool or cache counts in
+        full on every rank."""
         if self.mesh is None:
             return [self.kv_bytes_in_use(peak)]
         return [ledger["kv_bytes"] for ledger in self._ledgers(peak)]

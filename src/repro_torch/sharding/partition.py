@@ -6,15 +6,24 @@ weights: every parameter is drawn at its full shape, in the order
 ``models.model.init`` draws them, from the same seeded generator, one
 module at a time; the rank keeps its slice (``rules.local_slice``, by the
 rule of the module that owns the leaf: a MoE layer's experts and router
-columns, its shared MLP's hidden) and drops the rest.  So the shards of tp = N are exactly the weights of tp =
-1, and a rank holds at most one module's full parameters beyond its shard.
-Where ranks share a device (``TPMesh.shared``) they draw in turn, so only
-one full module is on the device at a time.
+columns, its shared MLP's hidden, an RG-LRU's width and gate rows, an
+mLSTM's width and block-diagonal rows, an sLSTM's FFN) and drops the
+rest; a leaf whose sharded dim tp does not divide stays whole.  So the
+shards of tp = N are exactly the weights of tp = 1 (an RG-LRU's fixed
+``lambda`` too, drawn at full width and sliced), and a rank holds at most
+one module's full parameters beyond its shard.  Where ranks share a
+device (``TPMesh.shared``) they draw in turn, so only one full module is
+on the device at a time.
 
-The KV cache needs no placement: the rank's model makes it
-(``Model.init_cache``) with its own ``num_kv_heads / tp`` heads, the pool's
-block axis whole, so the host-managed block tables index every rank's pool
-alike (the reference's ``cache_shardings`` on a ``tp`` mesh).
+The cache needs no placement: the rank's model makes it
+(``Model.init_cache``), each leaf cut as the reference's
+``cache_shardings`` cuts it on a ``tp`` mesh (``rules.cache_dim``).
+Contiguous K/V hold the rank's KV heads, or, where tp does not divide
+them, its slots ``[r·L/tp, (r+1)·L/tp)`` of every head (L-sharded; ``pos``
+whole), or everything where tp divides neither.  A paged pool holds the
+rank's KV heads, else every head (replicated); its block axis is always
+whole, so the host-managed block tables index every rank's pool alike.
+Recurrent states hold their heads or width.
 """
 
 from __future__ import annotations

@@ -1,34 +1,40 @@
 """Tensor-parallel serving rules, the counterpart of
-``repro/sharding/rules.py``: ``TP_SERVE_RULES`` and the divisibility rule
-of ``logical_to_pspec``.
+``repro/sharding/rules.py``: ``TP_SERVE_RULES``, the divisibility rule of
+``logical_to_pspec`` and the cache layout of ``partition.cache_shardings``.
 
 The reference names every parameter dim by a logical axis and maps
-``heads``, ``kv_heads``, ``ffn``, ``experts`` and ``vocab`` onto the
-``tp`` mesh axis; ``expert_ffn``, batch, slot state and sampling state
-replicate.  The port shards by hand (Megatron-style): each parameter leaf
-names the one dim that shards, the rank keeps its contiguous slice of it,
-and the model calls a collective where the reference has a sharding
-constraint (``models/model.py``, ``models/layers.py``, ``models/moe.py``).
-A leaf's rule is found from the module that owns it, since one leaf name
-can mean two layouts: a dense MLP's ``wg`` is (d, ff) and shards ``ffn``
-on dim 1, an expert stack's ``wg`` is (E, d, ff) and shards ``experts`` on
-dim 0, and moonshot's shared MLP inside the MoE layer is a dense MLP.  A
-dim shards only if ``tp`` divides it, as in the reference; where one does
-not, the model is refused with the dim named, since a replicated head or
-a padded shard is a different layout from the one the reference's serving
-rules give.
+``heads``, ``kv_heads``, ``ffn``, ``experts``, ``lru`` and ``vocab`` onto
+the ``tp`` mesh axis; ``expert_ffn``, ``embed``, batch, slot state and
+sampling state replicate.  The port shards by hand (Megatron-style): each
+parameter leaf names the one dim that shards, the rank keeps its
+contiguous slice of it, and the model calls a collective where the
+reference has a sharding constraint (``models/model.py``,
+``models/layers.py``, ``models/moe.py``, ``models/recurrent.py``,
+``models/attention.py``).  A leaf's rule is found from the module that
+owns it, since one leaf name can mean two layouts: a dense MLP's ``wg`` is
+(d, ff) and shards ``ffn`` on dim 1, an expert stack's ``wg`` is (E, d,
+ff) and shards ``experts`` on dim 0, and an RG-LRU's ``conv_w`` shards
+``lru`` where an sLSTM's replicates.
 
-This slice shards the dense decoders (attention and FFN blocks, the
-parallel block, tied or untied tables), the mixture-of-experts layer (the
-router's expert columns and the expert stacks over ``experts``, the
-shared MLP over ``ffn``) and a vision prefix (the patch embeddings are an
-input, replicated on every rank).  RG-LRU and xLSTM blocks, an encoder,
-and a dim ``tp`` does not divide are refused at tp > 1 (ROADMAP queue 1).
+A dim shards only if ``tp`` divides it; where it does not, the leaf is
+whole on every rank, as ``logical_to_pspec`` drops the mapping
+(``shard_dim``).  So each module takes the shard count and decides for
+itself what is sharded and what is whole (``local_size``); a branch whose
+weights are whole gives a whole output, which the model adds after the
+reduce of the partial ones.  The cache follows ``cache_shardings``
+(``cache_dim``): contiguous K/V on the KV heads, else on the cache length
+L, else replicated; a paged pool on the heads, else replicated; recurrent
+states on their heads or width.
+
+``check_tp`` refuses two things, each by name: an encoder (its training
+and dry-run shardings come first, ROADMAP items 2b/4b), and a rank whose
+query heads straddle two KV groups unevenly (tp divides the query heads,
+and neither of tp and the KV heads divides the other).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 from repro_torch.models.config import ModelConfig
 
@@ -36,7 +42,7 @@ from repro_torch.models.config import ModelConfig
 Rule = Tuple[int, str]
 
 # owning module's class -> parameter leaf -> rule; a leaf without one (the
-# norms' ``scale``) replicates
+# norms' ``scale``, an sLSTM's gates) replicates
 TP_SERVE_RULES: Dict[str, Dict[str, Rule]] = {
     "Attention": {"wq": (1, "heads"), "bq": (0, "heads"), "wo": (0, "heads"),
                   "wk": (1, "kv_heads"), "wv": (1, "kv_heads"), "bk": (0, "kv_heads"),
@@ -46,70 +52,48 @@ TP_SERVE_RULES: Dict[str, Dict[str, Rule]] = {
     "MoE": {"router": (1, "experts"), "wg": (0, "experts"), "wu": (0, "experts"),
             "wd": (0, "experts")},
     "Embedding": {"table": (0, "vocab")},  # the input table, and the logits it gives
+    # the block-diagonal gates shard their input rows, every head's
+    "RGLRU": {"in_x": (1, "lru"), "in_g": (1, "lru"), "conv_w": (1, "lru"),
+              "gate_a": (1, "lru"), "gate_x": (1, "lru"), "lambda": (0, "lru"),
+              "out": (0, "lru")},
+    "MLSTM": {"up_u": (1, "ffn"), "up_z": (1, "ffn"), "conv_w": (1, "ffn"),
+              "wq": (1, "ffn"), "wk": (1, "ffn"), "wv": (1, "ffn"), "w_i": (0, "ffn"),
+              "w_f": (0, "ffn"), "norm_scale": (0, "ffn"), "down": (0, "ffn")},
+    "SLSTM": {"ff_up": (1, "ffn"), "ff_down": (0, "ffn")},
 }
 
-# the block kinds a tensor-parallel model may hold
-TP_BLOCKS = ("attn", "ffn")
+
+def divides(tp: int, n: int) -> bool:
+    """Whether a dim of ``n`` shards over ``tp`` > 1 ranks."""
+    return tp > 1 and n % tp == 0
 
 
-def sharded_dims(cfg: ModelConfig) -> Dict[str, Tuple[str, int]]:
-    """Each logical axis that shards in ``cfg`` -> (the config field, or
-    product of fields, that sizes it; its size)."""
-    dims = {"heads": ("num_heads", cfg.num_heads),
-            "kv_heads": ("num_kv_heads", cfg.num_kv_heads),
-            "vocab": ("vocab_size", cfg.vocab_size)}
-    if not cfg.is_moe:  # a dense MLP of d_ff
-        dims["ffn"] = ("d_ff", cfg.d_ff)
-    else:
-        dims["experts"] = ("num_experts", cfg.num_experts)
-        if cfg.num_shared_experts:
-            dims["shared ffn"] = ("d_ff * num_shared_experts",
-                                  cfg.d_ff * cfg.num_shared_experts)
-    return dims
+def local_size(n: int, tp: int) -> int:
+    """A rank's share of a dim of ``n``: n / tp where tp divides it, else
+    all of it (replicated)."""
+    return n // tp if divides(tp, n) else n
 
 
 def check_tp(cfg: ModelConfig, tp: int) -> None:
-    """Raise ``ValueError`` unless ``cfg`` can be served at ``tp``: a
-    decoder of attention (dense MLP or mixture-of-experts) and FFN blocks,
-    with or without a vision prefix, whose sharded dims ``tp`` all
-    divides."""
+    """Raise ``ValueError`` unless ``cfg`` can be served at ``tp``: any
+    decoder (attention, local attention, FFN, mixture-of-experts, RG-LRU,
+    mLSTM and sLSTM blocks, with or without a vision prefix) whose ranks'
+    query heads each read one KV group, or whole ones.  A dim tp does not
+    divide is replicated."""
     if tp < 1:
         raise ValueError(f"tp must be >= 1, got {tp}")
     if tp == 1:
         return
-    unported = []
     if cfg.is_encdec:
-        unported.append("an encoder and cross attention")
-    kinds = sorted({k for k in cfg.blocks() if k not in TP_BLOCKS})
-    if kinds:
-        unported.append(f"{', '.join(kinds)} blocks")
-    elif cfg.is_moe and "ffn" in cfg.blocks():
-        unported.append("ffn blocks beside mixture-of-experts layers")
-    if unported:
         raise ValueError(
-            f"{cfg.name}: tensor parallelism shards attention + FFN decoders (dense or "
-            f"mixture-of-experts MLPs, with or without a vision prefix) only; tp={tp} "
-            f"refuses {' and '.join(unported)} (ROADMAP queue 1)")
-    for axis, (field, n) in sharded_dims(cfg).items():
-        if n % tp:
-            raise ValueError(f"{cfg.name}: tp={tp} does not divide {axis} ({field}={n}), "
-                             f"so it cannot shard over tp")
-
-
-def local_config(cfg: ModelConfig, tp: int) -> ModelConfig:
-    """The config of one rank's shard: heads, KV heads, the dense FFN
-    hidden and vocabulary divided by ``tp``, the head dim kept.  A
-    mixture-of-experts config keeps ``num_experts`` and ``d_ff`` whole:
-    every rank routes over all E experts with the capacity of tp = 1, and
-    the experts' hidden does not shard; its layer takes the shard count
-    itself (``models.moe.MoE``)."""
-    check_tp(cfg, tp)
-    if tp == 1:
-        return cfg
-    return cfg.replace(num_heads=cfg.num_heads // tp, num_kv_heads=cfg.num_kv_heads // tp,
-                       head_dim=cfg.resolved_head_dim,
-                       d_ff=cfg.d_ff if cfg.is_moe else cfg.d_ff // tp,
-                       vocab_size=cfg.vocab_size // tp)
+            f"{cfg.name}: tp={tp} refuses an encoder and cross attention: their shardings "
+            f"come with sharded training and the dry-run's mesh (ROADMAP items 2b/4b)")
+    hq, hkv = cfg.num_heads, cfg.num_kv_heads
+    if divides(tp, hq) and not divides(tp, hkv) and tp % hkv:
+        raise ValueError(
+            f"{cfg.name}: tp={tp} gives each rank {hq // tp} of the {hq} query heads, which "
+            f"straddle two groups of the {hkv} KV heads (G = {hq // hkv}) unevenly: a rank's "
+            f"query heads must read one KV group, or whole ones")
 
 
 def leaf_rule(module, leaf: str) -> Optional[Rule]:
@@ -130,15 +114,52 @@ def param_rules(model) -> Dict[str, Optional[Rule]]:
 
 def shard_dim(rule: Optional[Rule], shape, tp: int) -> Optional[int]:
     """The dim of a parameter of ``shape`` that shards over ``tp`` by its
-    ``rule`` (None: replicated).  A dim ``tp`` does not divide raises, as
-    ``check_tp`` refuses its config: it is never padded or replicated."""
-    if tp == 1 or rule is None:
+    ``rule``; None where it is replicated: no rule, tp = 1, or a dim tp
+    does not divide (the reference's ``logical_to_pspec`` drops that
+    mapping; a dim is never padded)."""
+    if rule is None or not divides(tp, shape[rule[0]]):
         return None
-    dim, axis = rule
-    if shape[dim] % tp:
-        raise ValueError(f"tp={tp} does not divide dim {dim} ({axis}) of a parameter of "
-                         f"shape {tuple(shape)}")
-    return dim
+    return rule[0]
+
+
+def cache_dim(leaf: str, shape: Sequence[int], tp: int) -> Optional[int]:
+    """The dim of a cache entry's ``leaf`` of full ``shape`` that shards
+    over ``tp``, or None (replicated): the reference's ``cache_shardings``
+    on a ``tp`` mesh for an entry with its batch on dim 0.  Contiguous
+    ``k``/``v`` shard the KV heads, else the length L; the paged pool
+    ``kp``/``vp`` its heads only; an RG-LRU's ``h`` (B, W) its width; the
+    xLSTM states ``C``, ``n``, ``m``, ``c``, ``h`` their heads, else the
+    dim after; ``conv`` its width; positions and flags replicate.  A dim
+    shards where tp divides it and is at least tp."""
+    if tp == 1:
+        return None
+    nd = len(shape)
+
+    def first(*dims):
+        for i in dims:
+            if 0 <= i < nd and shape[i] % tp == 0 and shape[i] >= tp:
+                return i
+        return None
+
+    if leaf in ("kp", "vp"):
+        return first(nd - 2)
+    if leaf in ("k", "v", "cross_k", "cross_v"):
+        return first(nd - 2, 1)
+    if leaf == "h" and nd == 2:
+        return first(1)
+    if leaf in ("C", "n", "m", "c", "h"):
+        return first(1, 2)
+    if leaf == "conv" and nd >= 3:
+        return first(nd - 1)
+    return None
+
+
+def local_shape(shape: Sequence[int], dim: Optional[int], tp: int) -> Tuple[int, ...]:
+    """``shape`` with dim ``dim`` cut to one of ``tp`` parts (None: whole)."""
+    out = list(shape)
+    if dim is not None:
+        out[dim] //= tp
+    return tuple(out)
 
 
 def local_slice(rule: Optional[Rule], full, rank: int, tp: int):

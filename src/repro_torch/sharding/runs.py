@@ -14,6 +14,8 @@ model.  The jobs:
 * ``Logits``: a prompt prefilled, whole or in chunks (after a vision
   model's patch embeddings), then decode steps on given tokens; the fp32
   logits of each.
+* ``CacheLeaves``: a prompt prefilled, some rows reset; the rank's
+  cache leaves.
 * ``Params``: the rank's parameters.
 * ``Launches``: the rank's kernel launch counts.
 * ``Collectives``: the mesh's collectives, eager and from a CUDA graph.
@@ -57,10 +59,13 @@ def _routes_out(log) -> Dict[str, List[np.ndarray]]:
 class Weights:
     """A model's weights: drawn from ``seed`` (``models.model.init``, or
     ``sharding.partition.shard_model`` for a rank), or the reference's
-    parameter tree ``tree`` (``bridge.params_from_jax``)."""
+    parameter tree ``tree`` (``bridge.params_from_jax``); the input table
+    (the rank's rows of it) then scaled by ``table_scale`` (a tied random
+    table of N(0, 1) rows can drive every logit into a softcap)."""
     cfg: ModelConfig
     seed: int = 0
     tree: Optional[Mapping] = None
+    table_scale: float = 1.0
 
     def build(self, mesh, device):
         from repro_torch import bridge
@@ -68,11 +73,16 @@ class Weights:
         from repro_torch.sharding.partition import shard_model
 
         if self.tree is not None:
-            return bridge.params_from_jax(self.cfg, self.tree, device=device, mesh=mesh)
-        if mesh is None:
+            model = bridge.params_from_jax(self.cfg, self.tree, device=device, mesh=mesh)
+        elif mesh is None:
             gen = torch.Generator(device=device).manual_seed(self.seed)
-            return model_lib.init(self.cfg, gen, device)
-        return shard_model(self.cfg, mesh, self.seed)
+            model = model_lib.init(self.cfg, gen, device)
+        else:
+            model = shard_model(self.cfg, mesh, self.seed)
+        if self.table_scale != 1.0:
+            with torch.no_grad():
+                model.embed.table.mul_(self.table_scale)
+        return model
 
 
 @dataclasses.dataclass
@@ -187,6 +197,32 @@ class Logits:
             logits, cache = model.decode_step(tok, nv + S + i, cache, block_tables=bt)
             out.append(logits)
         return torch.stack(out).float().cpu().numpy()
+
+
+@dataclasses.dataclass
+class CacheLeaves:
+    """``tokens`` (B, S) prefilled whole into a fresh cache of ``cache``
+    layout arguments (a paged one through ``tables``), then the rows
+    ``reset`` of every per-slot leaf returned to their initial values
+    (``cache.reset_rows``); the rank's cache leaves as numpy (bf16 as
+    fp32), one dict per layer."""
+    tokens: np.ndarray
+    max_len: int
+    cache: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    tables: Optional[np.ndarray] = None
+    reset: Tuple[int, ...] = ()
+
+    def run(self, model, mesh, device):
+        from repro_torch.models import cache as cache_lib
+
+        tokens = torch.from_numpy(self.tokens).to(device)
+        bt = None if self.tables is None else torch.from_numpy(self.tables).to(device)
+        cache = model.init_cache(tokens.shape[0], self.max_len, **self.cache)
+        model.prefill({"tokens": tokens}, cache, block_tables=bt)
+        if self.reset:
+            cache_lib.reset_rows(cache, torch.tensor(self.reset, device=device))
+        return [{leaf: (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+                 for leaf, t in entry.items()} for entry in cache]
 
 
 @dataclasses.dataclass

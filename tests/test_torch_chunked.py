@@ -31,6 +31,7 @@ from repro_torch.models import cache as cache_lib  # noqa: E402
 from repro_torch.serving import workload  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
 from repro_torch.serving.sampling import SamplingParams  # noqa: E402
+from test_torch_unified import one_thread  # noqa: E402,F401 (autouse)
 
 ARCH = "tinyllama-1.1b"
 ENGINE = dict(max_batch=2, max_len=64, prompt_bucket=8)

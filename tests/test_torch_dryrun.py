@@ -56,6 +56,7 @@ from repro_torch.models import cache as model_cache  # noqa: E402
 from repro_torch.models import flags  # noqa: E402
 from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.models.config import ShapeConfig  # noqa: E402
+from test_torch_unified import one_thread  # noqa: E402,F401 (autouse)
 
 ARCHS = list_archs()
 

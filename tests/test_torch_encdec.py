@@ -52,7 +52,7 @@ from repro_torch.models import attention as attn_lib  # noqa: E402
 from repro_torch.models import cache as cache_lib  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
 
-from test_torch_unified import shared_jax_compiles  # noqa: E402,F401 (autouse)
+from test_torch_unified import one_thread, shared_jax_compiles  # noqa: E402,F401 (autouse)
 
 ARCH = "seamless-m4t-large-v2"
 B, PROMPT, STEPS, GEN = 2, 16, 4, 8

@@ -343,6 +343,34 @@ def test_paged_kernel_window_and_softcap(cuda, window, softcap, dtype):
             da_ref.paged_decode_attention(q, kp, vp, **kw), dtype)
 
 
+@pytest.mark.parametrize("q_head0", [0, 3, 6, 9])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_paged_kernel_reads_the_rank_head_in_place(cuda, q_head0, dtype):
+    """qwen2.5-1.5b's tensor-parallel rank at tp = 4: q (8, 1, 3, 128) over
+    a pool (513, 16, 2, 128) that holds both KV heads; query head h reads
+    pool head (q_head0 + h) // 6 in place, as the plain version does, one
+    launch a call; the defaults read every pool head as before."""
+    rng = _rng("paged head offset", q_head0)
+    q_pos = [447, 768, 758, 604, 388, 823, 517, 953]
+    tables = (rng.permutation(512)[:8 * 64] + 1).reshape(8, 64).astype(np.int32)
+    q = rng.standard_normal((8, 1, 3, 128), np.float32)
+    kp, vp = (rng.standard_normal((513, 16, 2, 128), np.float32) for _ in range(2))
+    q, kp, vp = _on(cuda, dtype, q, kp, vp)
+    tables, qp = _ints(cuda, tables, np.asarray(q_pos)[:, None])
+    kw = dict(block_tables=tables, q_positions=qp, q_head0=q_head0, group=6)
+    n = da_ops.paged_decode_attention.launches
+    got = da_ops.paged_decode_attention(q, kp, vp, **kw)
+    assert da_ops.paged_decode_attention.launches == n + 1
+    _assert(got, da_ref.paged_decode_attention(q, kp, vp, **kw), dtype)
+    head = q_head0 // 6
+    _assert(got, da_ref.paged_decode_attention(q, kp[:, :, head:head + 1].contiguous(),
+                                               vp[:, :, head:head + 1].contiguous(),
+                                               block_tables=tables, q_positions=qp), dtype)
+    with pytest.raises(ValueError, match="groups"):
+        da_ops.paged_decode_attention(q, kp, vp, block_tables=tables, q_positions=qp,
+                                      q_head0=4, group=6)
+
+
 def test_paged_kernel_wrapper_raises_on_bad_inputs(cuda):
     q = torch.zeros(2, 1, 8, 64, device=cuda)
     pool = torch.zeros(9, 16, 2, 64, device=cuda)
@@ -461,7 +489,8 @@ def test_split_entry_points_refuse_bad_plans(cuda):
     def paged(chunk, n_split, scratch):
         return fns["paged_decode_attention_f32"](
             q.data_ptr(), pool.data_ptr(), pool.data_ptr(), tables.data_ptr(), qp.data_ptr(),
-            out.data_ptr(), *scratch, 2, 8, 16, 2, 4, 64, chunk, n_split, 0, 0.0, 0.125, s)
+            out.data_ptr(), *scratch, 2, 8, 16, 2, 2, 0, 4, 64, chunk, n_split, 0, 0.0, 0.125,
+            s)
 
     full = [t.data_ptr() for t in stats]
     assert paged(64, 2, full) == 0       # two chunks of one tile: fine
@@ -575,6 +604,34 @@ def test_add_rmsnorm_kernel_matches_plain(cuda, shape, dtype):
     assert rn_ops.rmsnorm.launches == n + 1
     assert torch.equal(got_s, x + r)
     _assert(got_y, rn_ref.add_rmsnorm(x, r, s)[1], dtype)
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("rows", [1, 512])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_split_rmsnorm_kernel_matches_the_whole_norm(cuda, rows, tp, dtype):
+    """A width cut over ``tp`` ranks (xlstm-1.3b's mLSTM cell norm, W =
+    4096): each slice's ``rmsnorm_sumsq``, their sum (the all-reduce),
+    each slice normalised with it, two launches a slice; the slices side
+    by side within tolerance of the plain norm of the whole rows, each
+    launch within tolerance of its plain version."""
+    rng = _rng("split rmsnorm", rows, tp)
+    x, s = _on(cuda, dtype, rng.standard_normal((rows, 4096), np.float32),
+               rng.standard_normal(4096, np.float32) * 0.1)
+    parts = [t.contiguous() for t in x.chunk(tp, -1)]
+    scales = [t.contiguous() for t in s.chunk(tp, -1)]
+    n = rn_ops.rmsnorm.launches
+    sums = [rn_ops.rmsnorm_sumsq(t) for t in parts]
+    for got, t in zip(sums, parts):
+        torch.testing.assert_close(got, rn_ref.sumsq(t), rtol=1e-5, atol=1e-3)
+    stat = sum(sums)
+    out = [rn_ops.rmsnorm(t, g, stat=stat, width=4096) for t, g in zip(parts, scales)]
+    assert rn_ops.rmsnorm.launches == n + 2 * tp
+    for got, t, g in zip(out, parts, scales):
+        _assert(got, rn_ref.rmsnorm(t, g, stat=stat, width=4096), dtype)
+    _assert(torch.cat(out, -1), rn_ref.rmsnorm(x, s), dtype)
+    with pytest.raises(ValueError):
+        rn_ops.rmsnorm(parts[0], scales[0], stat=stat, width=4096 // tp - 1)
 
 
 @pytest.mark.parametrize("d", [4096, 100])

@@ -34,6 +34,7 @@ from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
 from repro_torch.kernels.rmsnorm import ops as rn_ops  # noqa: E402
 from repro_torch.kernels.rmsnorm import ref as rn_ref  # noqa: E402
+from test_torch_unified import one_thread  # noqa: E402,F401 (autouse)
 
 DTYPES = ["float32", "bfloat16"]
 

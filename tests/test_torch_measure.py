@@ -23,6 +23,7 @@ from repro_torch.core.latency import LatencyProfiler  # noqa: E402
 from repro_torch.core.profiler import Elana  # noqa: E402
 from repro_torch.models import model as model_lib  # noqa: E402
 from repro_torch.models.cache import reset_cache  # noqa: E402
+from test_torch_unified import one_thread  # noqa: E402,F401 (autouse)
 
 
 def _model(arch, seed=0):

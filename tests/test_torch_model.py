@@ -25,6 +25,7 @@ from repro.models import model as jax_model  # noqa: E402
 from repro_torch.bridge import params_from_jax  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models import model as model_lib  # noqa: E402
+from test_torch_unified import one_thread  # noqa: E402,F401 (autouse)
 
 # llama (GQA), qwen1.5 (QKV bias, MHA: G=1), minitron (relu2, non-gated
 # MLP), command-r-plus (parallel attention/MLP block)

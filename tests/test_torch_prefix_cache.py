@@ -34,7 +34,7 @@ from repro_torch.models import model as model_lib  # noqa: E402
 from repro_torch.serving import workload  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
 from repro_torch.serving.sampling import SamplingParams  # noqa: E402
-from test_torch_unified import shared_jax_compiles  # noqa: E402,F401 (autouse)
+from test_torch_unified import one_thread, shared_jax_compiles  # noqa: E402,F401 (autouse)
 
 ARCH = "tinyllama-1.1b"
 BS = 8

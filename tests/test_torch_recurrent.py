@@ -49,6 +49,7 @@ from repro_torch.kernels.linear_recurrence import ref as lr_ref  # noqa: E402
 from repro_torch.models import model as model_lib  # noqa: E402
 from repro_torch.models import recurrent as rec_lib  # noqa: E402
 from repro_torch.models.cache import cache_bytes  # noqa: E402
+from test_torch_unified import one_thread  # noqa: E402,F401 (autouse)
 
 ARCH = "recurrentgemma-2b"
 B, PROMPT, GEN = 2, 24, 32

@@ -38,6 +38,7 @@ from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.serving import sampling  # noqa: E402
 from repro_torch.serving import workload  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
+from test_torch_unified import one_thread  # noqa: E402,F401 (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 ARCH = "tinyllama-1.1b"

@@ -29,7 +29,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.serving import workload  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
 
-from test_torch_unified import _trace, shared_jax_compiles  # noqa: E402,F401 (autouse)
+from test_torch_unified import _trace, one_thread, shared_jax_compiles  # noqa: E402,F401 (autouse)
 from test_torch_xlstm import _reference_params  # noqa: E402
 
 ENGINE = dict(max_batch=2, max_len=64, prompt_bucket=8)

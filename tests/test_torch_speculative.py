@@ -34,7 +34,7 @@ from repro_torch.serving import engine as engine_mod  # noqa: E402
 from repro_torch.serving import sampling  # noqa: E402
 from repro_torch.serving import workload  # noqa: E402
 from repro_torch.serving.engine import ServingEngine, prompt_lookup_draft  # noqa: E402
-from test_torch_unified import shared_jax_compiles  # noqa: E402,F401 (autouse)
+from test_torch_unified import one_thread, shared_jax_compiles  # noqa: E402,F401 (autouse)
 
 ARCH = "qwen1.5-0.5b"
 ENGINE = dict(max_batch=2, max_len=64, prompt_bucket=8)

@@ -8,18 +8,21 @@ streams at tp = 2 and tp = 4 must equal tp = 1's for {contiguous, paged} x
 recompute and with the prefix cache, and every rank's streams must equal
 rank 0's.  Two smoke models: qwen1.5-0.5b (the reference suite's; QKV
 biases, tied table, G = 1) and command-r-plus-104b (parallel block, tied
-table) with 16 heads over 4 KV heads, G = 4 as in its smoke config, since
-tp = 4 must divide the KV heads.  This file runs tp = 2 and
+table) with 16 heads over 4 KV heads, G = 4 as in its smoke config, so
+that tp = 4 divides its KV heads too (its own 8 over 2, whose KV heads tp
+= 4 replicates, run in ``tests/test_torch_tp4.py``'s family matrix).  This file runs tp = 2 and
 ``tests/test_torch_tp4.py`` the same checks at tp = 4, so that the two
 groups can run on two test workers: each spawns one group of ranks
 (``launch.mesh.spawn_tp``) that serves every scenario
 (``sharding.runs.run_plan``); tp = 1 runs in the test's process.  The ledgers
 (per-device KV bytes and block accounting, the summary keys), fp32 logits
 within 1e-5 of the largest, the shards' weights, the JAX engine's tp = 1
-streams against the port's tp = 2, the refusals, and the per-device
-energy ledger of ``DeviceMonitorGroup`` ride along.  The MoE and
-vision-prefix families have a file of their own
-(``tests/test_torch_tp_families.py``).
+streams against the port's tp = 2, the refusals (an encoder, an uneven
+KV-group straddle), the families refused before (recurrentgemma-2b and
+xlstm-1.3b at tp = 2) served against tp = 1, and the per-device energy
+ledger of ``DeviceMonitorGroup`` ride along.  The MoE and vision-prefix
+families have a file of their own (``tests/test_torch_tp_families.py``),
+the recurrent ones too (``tests/test_torch_tp_recurrent.py``).
 """
 
 import dataclasses
@@ -56,14 +59,18 @@ MODELS = {"qwen1.5-0.5b": QWEN, "command-r-plus-104b": COMMAND_R}
 MATRIX = [(layout, chunk, spec) for layout in ("contiguous", "paged") for chunk in (0, 8)
           for spec in ("off", "lookup")]
 SAMPLED = 0.7  # the odd requests' temperature; the even ones are greedy
-# the unported families at tp = 2, and KV heads tp = 4 does not divide
+# what tp refuses: an encoder, and query heads that straddle two KV groups
+# unevenly (12 heads over 3 KV heads: 6 a rank at tp = 2)
+STRADDLE = get_config("llama3.2-1b", smoke=True).replace(num_heads=12, num_kv_heads=3)
 REFUSED = {
-    "recurrentgemma-2b": (2, "rglru"),
-    "xlstm-1.3b": (2, "mlstm"),
-    "seamless-m4t-large-v2": (2, "encoder"),
-    "command-r-plus-104b": (4, "kv_heads"),
-    "qwen3-moe-30b-a3b": (4, "kv_heads"),
+    "seamless-m4t-large-v2": (get_config("seamless-m4t-large-v2", smoke=True), 2, "encoder"),
+    "straddle": (STRADDLE, 2, "straddle two groups"),
 }
+# the families refused before tensor parallelism replicated the dims it does
+# not divide, served at their tp against tp = 1 (command-r-plus-104b's and
+# qwen3-moe-30b-a3b's smoke configs, 2 KV heads, at tp = 4 in
+# tests/test_torch_tp4.py's matrix)
+LIFTED = {2: ["recurrentgemma-2b", "xlstm-1.3b"]}
 
 
 def _arrivals(cfg, n=6, seed=2, greedy_only=False):
@@ -137,7 +144,15 @@ JAX_ENGINE = dict(max_batch=2, max_len=64, prompt_bucket=8, cache_layout="paged"
                   prefill_chunk=8)
 
 
-def _plan(tree, tp):
+def _lifted_jobs(cfg):
+    """A greedy and a sampled request, paged, in chunks of 8."""
+    return [runs.Serve("lifted", dict(ENGINE, cache_layout="paged", prefill_chunk=8),
+                       _arrivals(cfg, n=2))]
+
+
+def _plan(tree, tp, group):
+    """The plan of a tp group's ranks (``tp`` = ``group``) or of its tp = 1
+    run (``tp`` = 1)."""
     plan = []
     for cfg in MODELS.values():
         plan.append((runs.Weights(cfg, seed=0),
@@ -147,7 +162,10 @@ def _plan(tree, tp):
                              _arrivals(QWEN, greedy_only=True)),
                   runs.Refusal(dict(device="cuda", cuda_graph=True))]
                  + ([runs.Collectives()] if tp > 1 else [])))
-    plan += [(runs.Weights(get_config(arch, smoke=True)), []) for arch in REFUSED]
+    plan += [(runs.Weights(cfg), []) for cfg, _, _ in REFUSED.values()]
+    plan += [(runs.Weights(get_config(arch, smoke=True)), _lifted_jobs(get_config(arch,
+                                                                              smoke=True)))
+             for arch in LIFTED.get(group, [])]
     return plan
 
 
@@ -159,8 +177,8 @@ def _results(tp, extra=()):
     threads = torch.get_num_threads()
     torch.set_num_threads(1)  # as each rank: smoke shapes gain nothing from more
     try:
-        out = {1: [runs.run_plan(None, _plan(tree, 1) + list(extra), "cpu")],
-               tp: spawn_tp(runs.run_plan, tp, "cpu", _plan(tree, tp) + list(extra),
+        out = {1: [runs.run_plan(None, _plan(tree, 1, tp) + list(extra), "cpu")],
+               tp: spawn_tp(runs.run_plan, tp, "cpu", _plan(tree, tp, tp) + list(extra),
                             threads=1)}
     finally:
         torch.set_num_threads(threads)
@@ -365,17 +383,15 @@ def test_tp2_streams_equal_the_jax_engine(results):
 
 
 def test_tp_refusals(results):
-    """Each unported family at tp > 1, KV heads tp does not divide (command-r's
-    and qwen3-moe's smoke configs at tp = 4), and cuda_graph=True on a gloo
-    mesh are refused, naming the reason; so is a mesh larger than the
-    process group."""
+    """An encoder, and query heads that straddle two KV groups unevenly, at
+    tp > 1, and cuda_graph=True on a gloo mesh are refused, naming the
+    reason; so is a mesh larger than the process group."""
     res, _ = results
     group, first = _group(res), len(MODELS) + 1
-    for i, (arch, (tp, reason)) in enumerate(REFUSED.items()):
-        if tp == group:
-            got = res[tp][0][first + i]
-            assert got[0] == "ValueError" and reason in got[1], (arch, got)
-        assert isinstance(res[1][0][first + i], list), arch  # tp = 1 serves it
+    for i, (name, (_, tp, reason)) in enumerate(REFUSED.items()):
+        got = res[group][0][first + i]
+        assert got[0] == "ValueError" and reason in got[1], (name, got)
+        assert isinstance(res[1][0][first + i], list), name  # tp = 1 serves it
     kind, msg = res[group][1][len(MODELS)][1]
     assert kind == "ValueError" and "cuda_graph" in msg and "gloo" in msg
     no_mesh = res[1][0][len(MODELS)][1]  # nothing to capture: no GPU is the only fault
@@ -384,6 +400,19 @@ def test_tp_refusals(results):
         make_tp_mesh(4, "cpu")
     with pytest.raises(ValueError, match="nccl"):
         make_tp_mesh(2, "cpu", backend="nccl")
+
+
+@pytest.mark.parametrize("arch", LIFTED[2])
+def test_tp_lifted_refusals_serve_as_tp1(results, arch):
+    """recurrentgemma-2b (1 KV head, replicated) and xlstm-1.3b (an sLSTM
+    FFN of 85, replicated), refused at tp = 2 before, serve a greedy and a
+    sampled request at tp = 2 exactly as at tp = 1, on every rank."""
+    res, _ = results
+    i = len(MODELS) + 1 + len(REFUSED) + LIFTED[2].index(arch)
+    want = res[1][0][i][0]["streams"]
+    assert len(want) == 2
+    for rank in range(2):
+        assert res[2][rank][i][0]["streams"] == want, rank
 
 
 def test_tp_collectives_are_exact(results):

@@ -22,9 +22,12 @@ the same tree for the MoE models (same schedule), and for llava, whose
 reference engine decodes a vision request from the prompt's length (ROADMAP
 queue 3), the reference's model-level loop the port's engine is held to
 at tp = 1 (``tests/test_torch_vlm.py``).  ``check_tp`` at full configs,
-accepted and refused, rides along.
+accepted (a dim tp does not divide replicated, each shard's shapes the
+reference's) and refused (an encoder, an uneven KV-group straddle), rides
+along.
 """
 
+import dataclasses
 import re
 
 import numpy as np
@@ -48,8 +51,10 @@ from repro_torch.serving.engine import ServingEngine  # noqa: E402
 from repro_torch.sharding import runs  # noqa: E402
 from repro_torch.sharding.rules import check_tp, local_slice, param_rules  # noqa: E402
 
-from test_torch_tp import _arrivals, _preemption_arrivals, SAMPLED  # noqa: E402
-from test_torch_unified import _drive, _trace, shared_jax_compiles  # noqa: E402,F401 (autouse)
+from test_torch_tp import STRADDLE, _arrivals, _preemption_arrivals, SAMPLED  # noqa: E402
+from test_torch_tp_recurrent import _Mesh, check_shard_layout  # noqa: E402
+from test_torch_unified import (_drive, _trace, one_thread,  # noqa: E402,F401 (autouse)
+                                shared_jax_compiles)
 from test_torch_vlm import _padded, _reference_greedy  # noqa: E402
 from test_torch_xlstm import _reference_params  # noqa: E402
 
@@ -66,16 +71,6 @@ PREEMPT = dict(ENGINE, max_batch=3, seed=3, cache_layout="paged", prefill_chunk=
 # the unified step, the greedy trace of tests/test_torch_serving_moe.py)
 JAX_ENGINE = dict(max_batch=2, max_len=64, prompt_bucket=8, cache_layout="paged",
                   prefill_chunk=8, unified_step=True)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """Hundreds of small ops a step, in this process and on each rank: one
-    intra-op thread for the module, restored after."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _serve_jobs(arch):
@@ -353,43 +348,56 @@ def test_check_tp_accepts_the_full_configs(arch, tp):
     cfg = get_config(arch)
     check_tp(cfg, tp)
     shard = Model(cfg, device="meta", mesh=_Mesh(tp))
-    assert shard.local_cfg.num_heads == cfg.num_heads // tp
+    assert shard.layers[0].attn.wq.shape[1] == cfg.num_heads // tp
     if cfg.is_moe:
-        assert shard.local_cfg.num_experts == cfg.num_experts  # routing's E
         assert shard.layers[0].mlp.wg.shape[0] == cfg.num_experts // tp
         assert shard.layers[0].mlp.router.shape[1] == cfg.num_experts // tp
 
 
-class _Mesh:
-    """A mesh stand-in for building a shard's shapes on meta."""
-
-    def __init__(self, size, rank=0):
-        self.size, self.rank, self.device = size, rank, torch.device("meta")
-
-
-# (id, arch, config change, tp, what the refusal names)
-REFUSALS = [
-    ("rglru", "recurrentgemma-2b", {}, 2, "rglru blocks"),
-    ("xlstm", "xlstm-1.3b", {}, 2, "mlstm, slstm blocks"),
-    ("mlstm-hybrid", "nemotron-h-8b", {}, 2, "mlstm blocks"),
-    ("encoder", "seamless-m4t-large-v2", {}, 2, "an encoder"),
-    ("heads", "llama3.1-8b", {}, 3, "heads (num_heads=32)"),
-    ("kv_heads", "command-r-plus-104b", {}, 16, "kv_heads (num_kv_heads=8)"),
-    ("d_ff", "llama3.1-8b", dict(d_ff=14330), 4, "ffn (d_ff=14330)"),
-    ("vocab", "qwen3-moe-30b-a3b", dict(vocab_size=151937), 2, "vocab (vocab_size=151937)"),
-    ("experts", "qwen3-moe-30b-a3b", dict(num_experts=126), 4, "experts (num_experts=126)"),
+# what tp does not divide, replicated: (id, arch, config change, tp, a
+# parameter that is then whole on every rank)
+UNDIVIDED = [
+    ("rglru", "recurrentgemma-2b", {}, 2, "layers.2.attn.wk"),
+    ("xlstm", "xlstm-1.3b", {}, 2, "layers.7.cell.r_z"),
+    ("mlstm-hybrid", "nemotron-h-8b", {}, 2, "layers.0.cell.b_i"),
+    ("heads", "llama3.1-8b", {}, 3, "layers.0.attn.wq"),
+    ("kv_heads", "command-r-plus-104b", {}, 16, "layers.0.attn.wk"),
+    ("d_ff", "llama3.1-8b", dict(d_ff=14330), 4, "layers.0.mlp.wg"),
+    ("vocab", "qwen3-moe-30b-a3b", dict(vocab_size=151937), 2, "embed.table"),
+    ("experts", "qwen3-moe-30b-a3b", dict(num_experts=126), 4, "layers.0.mlp.wg"),
     ("shared-width", "moonshot-v1-16b-a3b", dict(d_ff=1407, num_shared_experts=1), 2,
-     "shared ffn (d_ff * num_shared_experts=1407)"),
+     "layers.0.mlp.shared.wg"),
 ]
 
 
-@pytest.mark.parametrize("arch,change,tp,reason", [r[1:] for r in REFUSALS],
-                         ids=[r[0] for r in REFUSALS])
-def test_check_tp_refuses_by_name(arch, change, tp, reason):
-    """What tp cannot shard is refused with its name: RG-LRU and xLSTM
-    blocks, an encoder, and any sharded dim tp does not divide (never
-    padded or replicated)."""
+@pytest.mark.parametrize("arch,change,tp,leaf", [r[1:] for r in UNDIVIDED],
+                         ids=[r[0] for r in UNDIVIDED])
+def test_check_tp_replicates_what_tp_does_not_divide(arch, change, tp, leaf):
+    """RG-LRU and xLSTM blocks shard, and a dim tp does not divide (heads,
+    KV heads, FFN hidden, vocabulary, experts, a shared MLP's width) is
+    whole on every rank, as the reference's ``logical_to_pspec`` drops its
+    mapping: ``check_tp`` accepts the config, and each shard's parameter
+    and cache shapes on meta are the reference's shards of the same
+    config."""
     cfg = get_config(arch).replace(**change)
+    check_tp(cfg, tp)
+    shard = check_shard_layout(cfg, dataclasses.replace(jax_config(arch), **change), tp)
+    whole = dict(Model(cfg, device="meta").named_parameters())[leaf]
+    assert dict(shard.named_parameters())[leaf].shape == whole.shape
+
+
+# (id, config, tp, what the refusal names)
+REFUSALS = [
+    ("encoder", get_config("seamless-m4t-large-v2"), 2, "an encoder"),
+    ("straddle", STRADDLE, 2, "straddle two groups of the 3 KV heads"),
+]
+
+
+@pytest.mark.parametrize("cfg,tp,reason", [r[1:] for r in REFUSALS],
+                         ids=[r[0] for r in REFUSALS])
+def test_check_tp_refuses_by_name(cfg, tp, reason):
+    """What tp cannot serve is refused with its name: an encoder, and query
+    heads whose rank straddles two KV groups unevenly."""
     with pytest.raises(ValueError, match=re.escape(reason)):
         check_tp(cfg, tp)
 
@@ -412,9 +420,10 @@ def test_tp_cli_refuses_before_any_rank_starts(module, capsys):
 
     cli = importlib.import_module(f"repro_torch.launch.{module}")
     with pytest.raises(SystemExit) as exc:
-        cli.main(["--arch", "xlstm-1.3b", "--smoke", "--device", "cpu", "--tp", "2"])
+        cli.main(["--arch", "seamless-m4t-large-v2", "--smoke", "--device", "cpu", "--tp",
+                  "2"])
     assert exc.value.code == 2
     err = capsys.readouterr().err
-    assert "tp=2 refuses mlstm, slstm blocks" in err
+    assert "tp=2 refuses an encoder" in err
     help_text = " ".join(cli.build_parser().format_help().split())
-    assert "MoE and vision-prefix decoders" in help_text and "refused" in help_text
+    assert "every decoder" in help_text and "refused" in help_text

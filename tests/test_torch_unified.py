@@ -30,6 +30,18 @@ CHUNKS = (1, 16, 999)  # 999 >= every bucketed prompt: one chunk each
 
 
 @pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """A step of a smoke model is hundreds of small ops: at torch's default
+    intra-op threads the test run's workers (and a file's gloo ranks)
+    oversubscribe the cores.  One thread for the module (this one, and
+    each that imports the fixture), restored after."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture(scope="module", autouse=True)
 def shared_jax_compiles(tmp_path_factory):
     """Each JAX engine jits its own closures, so every instance compiles
     the same executables again: a persistent compilation cache, for the

@@ -54,7 +54,8 @@ from repro_torch.serving.engine import ServingEngine  # noqa: E402
 from repro_torch.serving.sampling import SamplingParams  # noqa: E402
 
 from test_torch_encdec import _close, _embeds, _reference_params, _rng, _run  # noqa: E402
-from test_torch_unified import _drive, _trace, shared_jax_compiles  # noqa: E402,F401 (autouse)
+from test_torch_unified import (_drive, _trace, one_thread,  # noqa: E402,F401 (autouse)
+                                shared_jax_compiles)
 
 ARCH = "llava-next-34b"
 NV = 4  # the smoke config's patches

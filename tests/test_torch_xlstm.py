@@ -45,6 +45,7 @@ from repro_torch.models import cache as cache_lib  # noqa: E402
 from repro_torch.models import model as model_lib  # noqa: E402
 from repro_torch.models import recurrent as rec_lib  # noqa: E402
 from repro_torch.models.config import BLOCK_KINDS  # noqa: E402
+from test_torch_unified import one_thread  # noqa: E402,F401 (autouse)
 
 NEMOTRON, XLSTM = "nemotron-h-8b", "xlstm-1.3b"
 B, PROMPT, GEN = 2, 24, 12
