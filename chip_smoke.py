@@ -88,7 +88,7 @@ or of the ``repro`` package.  Phases:
    gated against the same trace at t = 0); and, once the model is freed,
    ``bench_serve.main``'s two steps twice in this process (llama3.1-8b
    drawn anew, contiguous cache, prompt 256, 32 new tokens, 3 s warm-up,
-   a 10 s window, NVML, ``--check``), closed loop at concurrency 8 and
+   a 5 s window, NVML, ``--check``), closed loop at concurrency 8 and
    open loop at 4 requests/s: every request sent finished without an
    error with its budget, launch counts exact, the TTFT split printed.
 7. The dry-run (``dryrun_phase``), once llama3.1-8b is freed:
@@ -110,9 +110,10 @@ or of the ``repro`` package.  Phases:
    prompt, past the window, so the ring wraps (whole and in chunks), with
    the tied embedding table scaled by 0.05 so that rows decide.
 9. The xLSTM family, each model drawn once the one before it is freed:
-   phases 3-6 for nemotron-h-8b at full width (52 layers: 32 mLSTM cells
-   of 128 heads x 64, 14 FFN-only layers, 6 GQA attention layers; K1 twice
-   per mLSTM block, K2/K3 on the attention layers, K4 when served paged),
+   phases 3-6 for nemotron-h-8b at full width on 26 of its 52 layers (one
+   whole block pattern: 16 mLSTM cells of 128 heads x 64, 7 FFN-only
+   layers, 3 GQA attention layers; K1 twice per mLSTM block, K2/K3 on the
+   attention layers, K4 when served paged; its size report at all 52),
    16 requests served and 8 greedy ones with and without the graph, the
    same 16 chunked through the unified step, and the parity at 512 tokens
    (contiguous, paged, paged in chunks of 256); then xlstm-1.3b (mLSTM
@@ -124,12 +125,12 @@ or of the ``repro`` package.  Phases:
    (capacity dispatch into (E, C, d) and the three expert products over
    every expert, plain ``torch.bmm``; K1-K4 as for a dense decoder, no
    kernel for the experts): phases 3-6 for qwen3-moe-30b-a3b at full width
-   and depth (48 layers, 128 experts top-8, 61.06 GB; the TPOT bound
-   printed with every expert read and with the active ones only), 16
-   requests served and 8 greedy ones with and without the graph, the same
-   16 chunked through the unified step; then the same for
-   moonshot-v1-16b-a3b (48 layers, 64 experts top-6 and 2 shared, 57.11
-   GB).  Each model's parity runs on a model of
+   on 12 of its 48 layers (128 experts top-8; its size report at all 48,
+   61.06 GB; the TPOT bound printed with every expert read and with the
+   active ones only), 16 requests served and 8 greedy ones with and
+   without the graph, the same 16 chunked through the unified step; then
+   the same for moonshot-v1-16b-a3b (12 of 48 layers, 64 experts top-6 and
+   2 shared, 57.11 GB whole).  Each model's parity runs on a model of
    4 layers at full width drawn once the whole one is freed, with every
    routing decision also forced to the fp32 run's (the count of top-k
    sets that flip under bf16 printed; the kernels held to the plain path
@@ -137,8 +138,8 @@ or of the ``repro`` package.  Phases:
    factor of E / k, where nothing is dropped, with the chunked run's routes
    forced to the whole run's.
 11. The last two families, each drawn once the model before it is freed:
-   phases 3-6 for llava-next-34b at full width and depth (60 layers, GQA
-   56/8, 68.78 GB), measured at 1024 positions (its 576 patch embeddings
+   phases 3-6 for llava-next-34b at full width on 15 of its 60 layers (GQA
+   56/8, 68.78 GB whole), measured at 1024 positions (its 576 patch embeddings
    and 448 tokens; decode from position 1024), served (paged, B = 8,
    max_len 2048, 8 * 128 + 1 blocks) and chunked through the per-chunk
    path (its patches with the first chunk), parity on 4 of its layers at
@@ -198,9 +199,10 @@ or of the ``repro`` package.  Phases:
    width's halves and quarters).
 13. Training through ``launch.train`` (``train_phase``): tinyllama-1.1b at
    full width and depth, bf16 weights and fp32 moments, 20 steps of 8 x
-   1024 synthetic tokens with NVML energy (the loss must fall); the same
-   run preempted before step 10, which checkpoints, and resumed from that
-   checkpoint to step 20 (its losses held to the uninterrupted run's);
+   1024 synthetic tokens with NVML energy (the loss must fall); on 4 of
+   its layers at full width the same run uninterrupted, then preempted
+   before step 10, which checkpoints, and resumed from that checkpoint to
+   step 20 (its losses bit for bit the uninterrupted run's);
    3 steps with ``--remat``; one step timed by part (forward, backward,
    clip + AdamW) and traced; recurrentgemma-2b at full width and depth, 4
    steps of 2 x 2304 (past its window, so K2's window and K5 are in the
@@ -212,8 +214,8 @@ or of the ``repro`` package.  Phases:
    recurrentgemma-2b on 4 layers at full width): the kernels' worst
    relative error at most twice the plain path's.  Then one model of each
    other family at full width, 4 steps with NVML energy, the loss falling
-   and launches exact, and its gradient parity: xlstm-1.3b at full depth
-   (48 layers, 2 x 512; K1 for each block norm and cell norm; parity on 8
+   and launches exact, and its gradient parity: xlstm-1.3b on 24 of its
+   48 layers (2 x 512; K1 for each block norm and cell norm; parity on 8
    layers), seamless-m4t-large-v2 at full depth (24 + 24 layers, 4 x 1024
    tokens over 512 frames a row; K1 for ``norm_c`` and the encoder's
    norms, K2 per encoder layer and per cross attention; also 2 steps with
@@ -224,7 +226,24 @@ or of the ``repro`` package.  Phases:
    shapes are held and timed in phase 2, each with its autograd
    Function's gradients held to the plain version's (``train`` under K2
    and K5, K1's rows under ``modes``).
-14. The last line: ``{"ok": true, "device": {...}}``.
+14. Sharded training (``sharded_train_phase``): one spawn of (data 2,
+   model 2) gloo ranks sharing the card, one intra-op thread each, runs
+   the driver (``launch.train.run(args, mesh=)``) with FSDP over data and
+   tensor parallelism over model: tinyllama-1.1b at full width and depth,
+   3 steps of 8 x 1024 ending in a checkpoint, then the trained shards'
+   loss and gradients on step 4's batch, gathered; and
+   seamless-m4t-large-v2 at full width on 2 encoder and 2 decoder layers,
+   2 steps of 4 x 1024 over 512 frames (the sharded encoder and cross
+   attention).  Losses finite, tinyllama's falling, K1/K2 launches exact
+   on every rank.  Then in this process: the unsharded 5 steps from the
+   same seed, whose first 3 losses are within ``SHARDED_LOSS_RTOL`` of
+   the sharded run's; the sharded checkpoint restored on one device (the
+   elastic case), its gradients on step 4's batch held to an fp32 copy's
+   (the sharded ones within 1.5x the bf16 path's distance) and steps 4-5
+   run from it, step 4's loss within ``SHARDED_LOSS_RTOL`` of the sharded
+   step 4's and both within it of the unsharded run's.  Step times are gloo host copies on one card, not
+   FSDP's latency across GPUs.
+15. The last line: ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line is printed; so does a
 machine without a CUDA device.
@@ -234,6 +253,7 @@ import contextlib
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -276,6 +296,12 @@ TP_REQUESTS, TP_MAX_NEW = 8, 16
 # mLSTM x 7 + sLSTM groups) at full width: its sLSTM prefill is ~128k
 # host launches at 48, and the script must end within its 1200 s
 XLSTM_LAYERS = 8
+# nemotron-h-8b on 26 of its 52 layers (one whole block pattern, its
+# attention layers included), the MoE models on 12 of their 48 and
+# llava-next-34b on 15 of its 60, each at full width, for every phase (the
+# size report whole): at full depth the script took 1125 s of its 1200 on
+# an H100 80GB HBM3 (700 W), and another such card ran past 1200 s
+NEMOTRON_LAYERS, MOE_LAYERS, LLAVA_LAYERS = 26, 12, 15
 SIZE_GB = {ARCH: "16.06", HYBRID: "5.36", NEMOTRON: "16.38",   # the reference's
            XLSTM: "3.77", QWEN_MOE: "61.06", MOONSHOT: "57.11",  # size reports
            LLAVA: "68.78", SEAMLESS: "2.74"}
@@ -351,12 +377,17 @@ SPEC = dict(speculative="lookup", spec_tokens=4)
 LOOKUP = dict(num_requests=16, motif_len=8, repeats=8, max_new=64)
 VERIFY_W = SPEC["spec_tokens"] + 1   # the verify window: last token + draft
 # training (``train_phase``): tinyllama-1.1b at full width and depth, batch
-# 8 x 1024 of synthetic data, 20 steps (checkpointed at 10 by a preempted
-# run, then resumed), one more step with remat; recurrentgemma-2b at full
+# 8 x 1024 of synthetic data, 20 steps (and on ``RESUME_LAYERS`` layers
+# checkpointed at 10 by a preempted run, then resumed), 3 steps with
+# remat; recurrentgemma-2b at full
 # width and depth, 4 steps of 2 x 2304 (past its window); gradient parity
 # on tinyllama at full depth (2 x 1024) and recurrentgemma on 4 layers
 TRAIN_ARCH = "tinyllama-1.1b"
 TRAIN_STEPS, TRAIN_CKPT_AT = 20, 10
+# the preempted run and its resume on 4 of tinyllama's 22 layers at full
+# width, held to an uninterrupted run of that depth: at 22 layers each of
+# their checkpoints is 10.25 GiB on disk (two written, one read: 65-73 s)
+RESUME_LAYERS = 4
 TRAIN = ["--batch", "8", "--seq-len", "1024", "--lr", "1e-3", "--warmup", "4",
          "--log-every", "5"]
 HYBRID_TRAIN_STEPS = 4
@@ -365,7 +396,8 @@ HYBRID_TRAIN = ["--batch", "2", "--seq-len", str(HYBRID_PARITY_PROMPT), "--lr", 
 TRAIN_PARITY = {TRAIN_ARCH: (2, 1024, 0), HYBRID: (2, HYBRID_PARITY_PROMPT, 4)}
 # the other families, each at full width through ``launch.train`` for
 # FAMILY_TRAIN_STEPS steps with NVML energy: (layers, 0 for all; batch;
-# text tokens a row; peak learning rate).  xlstm-1.3b and
+# text tokens a row; peak learning rate).  xlstm-1.3b on 24 of its 48
+# layers (3 of its 6 groups: at 48 a step took 14 s of host launches) and
 # seamless-m4t-large-v2 (512 frames a row) at full depth;
 # moonshot-v1-16b-a3b and llava-next-34b (its 576 patches before the
 # tokens: 1024 positions) on 4 of their 48 and 60 layers, whose whole would
@@ -374,7 +406,7 @@ TRAIN_PARITY = {TRAIN_ARCH: (2, 1024, 0), HYBRID: (2, HYBRID_PARITY_PROMPT, 4)}
 # move every weight by about the learning rate, so the rate at which the
 # loss falls shrinks with the width: at 1e-4 over 4 steps seamless's and
 # llava's rise, at 1e-5 moonshot's stays flat
-FAMILY_TRAIN = {XLSTM: (0, 2, 512, "3e-5"), SEAMLESS: (0, 4, 1024, "3e-5"),
+FAMILY_TRAIN = {XLSTM: (24, 2, 512, "3e-5"), SEAMLESS: (0, 4, 1024, "3e-5"),
                 MOONSHOT: (4, 4, 1024, "1e-4"), LLAVA: (4, 2, 448, "1e-5")}
 FAMILY_TRAIN_STEPS = 4
 FAMILY_ARGS = ["--warmup", "2", "--log-every", "1"]
@@ -382,6 +414,31 @@ FAMILY_ARGS = ["--warmup", "2", "--log-every", "1"]
 # group of its pattern (7 mLSTM + 1 sLSTM)
 FAMILY_PARITY = {XLSTM: (2, 512, 8), SEAMLESS: (2, 1024, 0), MOONSHOT: (2, 1024, 4),
                  LLAVA: (2, 448, 4)}
+# sharded training (``sharded_train_phase``): one spawn of (data 2, model
+# 2) gloo ranks on the card; tinyllama-1.1b at full width and depth, 3
+# steps of 8 x 1024 ending in its checkpoint (on an H100 80GB HBM3 a step
+# is 9-15 s of host-staged collectives and each 11 GB checkpoint 31-39 s,
+# so one checkpoint, at the end: the script must stay within its limit),
+# then the loss and gradients of the step after it;
+# at ``TRAIN``'s peak 1e-3 the first steps from the random init raise the
+# loss sharded and unsharded alike (200.8 -> 483.3 -> 358.5 unsharded),
+# so the peak is 3e-5, as the other families' runs take;
+# seamless-m4t-large-v2 at full width on 2 encoder and 2 decoder layers
+# (4 + 4 took 12 s a step), 2 steps of 4 x 1024 tokens over 512 frames a
+# row
+SHARDED_MESH = (2, 2)
+SHARDED_STEPS = 3
+# every tinyllama loss of the phase (sharded, unsharded, resumed on one
+# device from the sharded checkpoint) within this of the others: half a
+# bf16 ulp, relative.  On an H100 80GB HBM3 (700 W) the sharded losses
+# read 6.3e-5 from the unsharded ones over 3 steps, and the one-device
+# resume 2.4e-4 from the unsharded step 4
+SHARDED_LOSS_RTOL = 2.0 ** -8
+PARITY_CHUNKS = 4   # the fp32 copy's row blocks in ``sharded_grad_parity``
+SHARDED_TRAIN = ["--batch", "8", "--seq-len", "1024", "--lr", "3e-5", "--warmup", "4",
+                 "--log-every", "1"]
+SHARDED_SEAMLESS = (2, ["--batch", "4", "--seq-len", "1024", "--lr", "3e-5", "--steps", "2"]
+                    + FAMILY_ARGS)
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, published
 BF16_FLOPS = 989e12             # dense tensor-core bf16, published
 FP32_FLOPS = 67e12              # fp32 outside the tensor cores, published
@@ -706,7 +763,10 @@ def kernel_phase(dev):
     # encoder (4 x 512 frames, unmasked), decoder (4 x 1024) and cross
     # attention (1024 queries over the 512 frames), MHA 16 of 64;
     # moonshot-v1-16b-a3b's 4 x 1024 at 16/16 of 128; llava-next-34b's 2 x
-    # 1024 positions (576 patches, 448 tokens) at 56/8 of 128
+    # 1024 positions (576 patches, 448 tokens) at 56/8 of 128; and one rank
+    # of the (data 2, model 2) sharded runs (``sharded_train_phase``):
+    # tinyllama-1.1b's 4 rows at 16/2 of 64, seamless-m4t-large-v2's 2 rows
+    # at 8 of its 16 heads (encoder, decoder, cross)
     unmasked = dict(causal=False)
     trains = []
     for arch, path, shape, mask in (
@@ -717,7 +777,12 @@ def kernel_phase(dev):
             (SEAMLESS, "train", (4, 1024, 1024, 16, 16, 64), {}),
             (SEAMLESS, "train cross", (4, 1024, 512, 16, 16, 64), dict(unmasked, memory=True)),
             (MOONSHOT, "train", (4, 1024, 1024, 16, 16, 128), {}),
-            (LLAVA, "train", (2, PROMPTS[LLAVA], PROMPTS[LLAVA], 56, 8, 128), {})):
+            (LLAVA, "train", (2, PROMPTS[LLAVA], PROMPTS[LLAVA], 56, 8, 128), {}),
+            (TRAIN_ARCH, "sharded train rank", (4, 1024, 1024, 16, 2, 64), {}),
+            (SEAMLESS, "sharded train rank encoder", (2, 512, 512, 8, 8, 64), unmasked),
+            (SEAMLESS, "sharded train rank", (2, 1024, 1024, 8, 8, 64), {}),
+            (SEAMLESS, "sharded train rank cross", (2, 1024, 512, 8, 8, 64),
+             dict(unmasked, memory=True))):
         case, err = fa_case(f"{arch} {path} B={shape[0]} S={shape[1]} T={shape[2]} "
                             f"Hq={shape[3]} Hkv={shape[4]} D={shape[5]} {mask or 'causal'}",
                             *shape, bf16, **mask)
@@ -1088,11 +1153,14 @@ def kernel_phase(dev):
     # 2 x 2304 at d = 2560; xlstm-1.3b's 2 x 512 at d = 2048 (block and sLSTM
     # cell norms) and W = 4096 (mLSTM cell norms); seamless-m4t-large-v2's
     # 4 x 1024 decoder and 4 x 512 encoder rows at d = 1024;
-    # moonshot-v1-16b-a3b's 4 x 1024 at d = 2048; llava-next-34b's 2 x 1024
-    # positions at d = 7168; each also through its autograd Function
+    # moonshot-v1-16b-a3b's 4 x 1024 at d = 2048 (also a tinyllama-1.1b rank's
+    # rows in ``sharded_train_phase``); llava-next-34b's 2 x 1024 positions at
+    # d = 7168; a seamless-m4t-large-v2 rank's 2 x 512 encoder rows (its 2 x
+    # 1024 decoder rows are the 4 x 512 above); each also through its
+    # autograd Function
     train_norms = [(8 * 1024, 2048), (2 * HYBRID_PARITY_PROMPT, 2560), (2 * 512, 2048),
                    (2 * 512, 4096), (4 * 1024, 1024), (4 * 512, 1024), (4 * 1024, 2048),
-                   (2 * PROMPTS[LLAVA], 7168)]
+                   (2 * PROMPTS[LLAVA], 7168), (2 * 512, 1024)]
     shapes += [(rows, d, fused) for rows, d in train_norms for fused in (False, True)]
     for rows, d, fused in shapes:
         (x, r, s), err = rn_case(rows, d, bf16, fused)
@@ -2914,7 +2982,7 @@ def open_loop_phase(e, counters, tol):
 
 
 BENCH_SERVE = ["--arch", ARCH, "--max-batch", "8", "--max-len", "1024", "--prompt-len", "256",
-               "--max-new", "32", "--warmup-s", "3", "--duration-s", "10",
+               "--max-new", "32", "--warmup-s", "3", "--duration-s", "5",
                "--power-reader", "nvml", "--check"]
 BENCH_MODES = {"closed": ["--mode", "closed", "--concurrency", "8"],
                "open": ["--mode", "open", "--qps", "4"]}
@@ -3736,8 +3804,7 @@ def train_run(dev, counters, paths, arch, label, argv, forwards, recomputed=0, l
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     reset_counts(counters)
-    with patched(train_lib, "get_config", lambda name, smoke=False: cfg):
-        out, rec = train_lib.run(args)
+    out, rec = train_lib.run(args, cfg=cfg)
     launched = read_counts(counters)
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     want = train_launches(cfg, forwards, recomputed)
@@ -3791,10 +3858,10 @@ def family_train_phase(dev, counters, paths):
 def train_phase(dev, counters, paths):
     """``launch.train`` at full width on the card: tinyllama-1.1b for
     ``TRAIN_STEPS`` steps of 8 x 1024 with NVML energy (the loss must
-    fall); the same run preempted before step ``TRAIN_CKPT_AT``, which
+    fall); on ``RESUME_LAYERS`` layers at full width the same run
+    uninterrupted, then preempted before step ``TRAIN_CKPT_AT``, which
     checkpoints, and resumed from that checkpoint to the end (its losses
-    held to the uninterrupted run's within the bf16 tolerance); steps
-    with ``--remat``; recurrentgemma-2b for ``HYBRID_TRAIN_STEPS`` steps
+    bit for bit the uninterrupted run's); steps with ``--remat``; recurrentgemma-2b for ``HYBRID_TRAIN_STEPS`` steps
     of 2 x 2304.  Every run's launches are exact for the forwards it ran
     (remat's recompute counted), read into ``paths``.  Then the gradient
     parity of both models (``train_parity``).  Then one model per other
@@ -3833,13 +3900,16 @@ def train_phase(dev, counters, paths):
             Preempted.polls += 1
             return Preempted.polls > TRAIN_CKPT_AT
 
+    uninterrupted = run(TRAIN_ARCH, "train uninterrupted", TRAIN + [
+        "--steps", str(TRAIN_STEPS)], TRAIN_STEPS, layers=RESUME_LAYERS)[1]
     ckpt = tempfile.mkdtemp(prefix="chip_smoke_train_")
     try:
         ckpt_args = TRAIN + ["--steps", str(TRAIN_STEPS), "--ckpt-dir", ckpt,
                              "--ckpt-every", str(10 * TRAIN_STEPS)]
         t = time.perf_counter()
         with patched(train_lib, "PreemptionHandler", Preempted):
-            first, pre = run(TRAIN_ARCH, "train preempted", ckpt_args, TRAIN_CKPT_AT)[:2]
+            first, pre = run(TRAIN_ARCH, "train preempted", ckpt_args, TRAIN_CKPT_AT,
+                             layers=RESUME_LAYERS)[:2]
         check(first["preempted"] and first["final_step"] == TRAIN_CKPT_AT
               and ckpt_lib.latest_step(ckpt) == TRAIN_CKPT_AT,
               f"the preempted run did not checkpoint step {TRAIN_CKPT_AT}")
@@ -3848,17 +3918,17 @@ def train_phase(dev, counters, paths):
             f" GiB on disk")
         t = time.perf_counter()
         second, resumed = run(TRAIN_ARCH, "train resumed", ckpt_args,
-                              TRAIN_STEPS - TRAIN_CKPT_AT)[:2]
+                              TRAIN_STEPS - TRAIN_CKPT_AT, layers=RESUME_LAYERS)[:2]
         log(f"resumed run with its restore and checkpoint: {time.perf_counter() - t:.1f} s")
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
     check(second["final_step"] == TRAIN_STEPS and resumed.steps[0] == TRAIN_CKPT_AT,
           "the resumed run did not continue from its checkpoint")
-    want = whole.losses[TRAIN_CKPT_AT:]
+    want = uninterrupted.losses[TRAIN_CKPT_AT:]
     rel = max(abs(a - b) / abs(b) for a, b in zip(resumed.losses, want))
     log(f"resumed losses {resumed.losses} against the uninterrupted {want}: max relative "
         f"difference {rel:.3e} (bitwise: {resumed.losses == want}); steps before the "
-        f"checkpoint bitwise: {pre.losses == whole.losses[:TRAIN_CKPT_AT]}")
+        f"checkpoint bitwise: {pre.losses == uninterrupted.losses[:TRAIN_CKPT_AT]}")
     # Exact: the checkpoint holds the bf16 parameters and fp32 moments bit for
     # bit, the data resumes at its offset, and nothing on this path sums in an
     # order that varies from run to run in one process (the embedding's
@@ -3887,6 +3957,227 @@ def train_phase(dev, counters, paths):
         torch.cuda.empty_cache()
     rows += family_train_phase(dev, counters, paths)
     log(f"train phase took {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def _grads(model, loss_fn, data):
+    """``loss_fn``'s loss on ``data`` and every parameter's gradient."""
+    import torch
+
+    named = dict(model.named_parameters())
+    for p in named.values():
+        p.requires_grad_(True)
+    loss, _ = loss_fn(model, data)
+    return loss.item(), dict(zip(named, torch.autograd.grad(loss, list(named.values()))))
+
+
+def sharded_grad_parity(dev, model, data, sharded):
+    """The sharded run's gradients (``sharded``: gathered over both axes)
+    and the unsharded bf16 path's through the kernels, both of ``model``'s
+    weights on the global batch ``data``, each against the plain versions
+    on an fp32 copy of those weights: per parameter ||g - g32|| /
+    ||g32||; the sharded run's worst at most 1.5x the unsharded path's
+    (bf16 is the floor, as in ``train_parity``)."""
+    import torch
+
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import model as model_lib
+    from repro_torch.training import step as step_lib
+
+    cfg = model.cfg
+    # no remat: the backend choice is thread-local, and a recompute in the
+    # backward runs on autograd's device thread, under the kernels
+    loss_fn = step_lib.make_loss_fn(cfg, remat=False)
+    with dispatch.use_backend("torch"):
+        ref32 = model_lib.Model(cfg.replace(dtype="float32", param_dtype="float32"), device=dev)
+        with torch.no_grad():
+            for (_, a), (_, b) in zip(ref32.named_parameters(), model.named_parameters()):
+                a.copy_(b.float())
+        # the plain attention keeps (B, H, S, T) fp32 scores for the
+        # backward: the global batch's mean as the mean of its
+        # ``PARITY_CHUNKS`` equal row blocks' (every row counts its S
+        # positions), one block at a time
+        n = data["tokens"].shape[0] // PARITY_CHUNKS
+        loss32, g32 = 0.0, None
+        for i in range(PARITY_CHUNKS):
+            part, g = _grads(ref32, loss_fn, {k: v[i * n:(i + 1) * n] for k, v in data.items()})
+            loss32 += part / PARITY_CHUNKS
+            g32 = g if g32 is None else {k: g32[k] + g[k] for k in g32}
+            del g
+        g32 = {k: t / PARITY_CHUNKS for k, t in g32.items()}
+        del ref32
+    loss_bf16, unsharded = _grads(model, loss_fn, data)
+
+    def rel(g):
+        return {k: ((g[k].to(dev).float() - want).norm() / want.norm().clamp_min(1e-30)).item()
+                for k, want in g32.items()}
+
+    rs, ru = rel(sharded), rel(unsharded)
+    del unsharded, g32
+    worst_s, worst_u = max((v, k) for k, v in rs.items()), max((v, k) for k, v in ru.items())
+    row = dict(arch=cfg.name, batch=data["tokens"].shape[0], seq=data["tokens"].shape[1],
+               loss_fp32=loss32, loss_unsharded_bf16=loss_bf16, worst_sharded=worst_s,
+               worst_unsharded=worst_u, median_sharded=sorted(rs.values())[len(rs) // 2],
+               median_unsharded=sorted(ru.values())[len(ru) // 2])
+    log("sharded train gradient parity: " + json.dumps(row))
+    check(worst_s[0] <= 1.5 * worst_u[0],
+          f"the sharded run's gradients are {worst_s} from fp32, more than 1.5x the "
+          f"unsharded bf16 path's {worst_u}")
+    return row
+
+
+def sharded_resume(dev, ckpt, args, steps, sharded):
+    """The checkpoint the ranks wrote at their last step, restored on one
+    device (the elastic restore: the one-device tree); the gradients of
+    its weights on the next step's batch held to the sharded run's
+    (``sharded``: the ranks' loss and gathered gradients on that batch,
+    ``sharded_grad_parity``); then the driver's steps after the checkpoint
+    up to ``steps`` (its schedule's length) run from it.  Returns their
+    losses and the parity row."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import SyntheticConfig, SyntheticDataset, batch_for_model
+    from repro_torch.models import model as model_lib
+    from repro_torch.training import checkpoint as ckpt_lib
+    from repro_torch.training import optimizer as opt_lib
+    from repro_torch.training import step as step_lib
+
+    cfg = get_config(TRAIN_ARCH)
+    opt = opt_lib.AdamW(schedule=opt_lib.warmup_cosine_schedule(args.lr, args.warmup, steps))
+    state = step_lib.train_state(model_lib.Model(cfg, device=dev), opt)
+    tree = {"params": state.params(), "opt_mu": state.opt.mu, "opt_nu": state.opt.nu}
+    restored, manifest = ckpt_lib.restore(ckpt, tree, device=dev)
+    with torch.no_grad():
+        for part, leaves in tree.items():
+            for k, t in leaves.items():
+                t.copy_(restored[part][k])
+    del restored
+    state.opt.count = state.step = manifest["step"]
+    check(sharded["step"] == manifest["step"],
+          f"the sharded gradients are of step {sharded['step']}, the checkpoint's {manifest}")
+    ds = SyntheticDataset(SyntheticConfig(vocab_size=cfg.vocab_size, seq_len=args.seq_len,
+                                          batch_size=args.batch, seed=args.seed))
+    rng = np.random.default_rng(args.seed)  # as the driver's resume draws its stubs
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in
+                batch_for_model(cfg, ds.batch_at(i), rng).items()}
+               for i in range(manifest["step"], steps)]
+    row = sharded_grad_parity(dev, state.model, batches[0], sharded["grads"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    step = step_lib.make_train_step(cfg, opt, remat=args.remat, microbatches=args.microbatches)
+    return [float(step(state, batch)["loss"]) for batch in batches], row
+
+
+def sharded_train_phase(dev, counters, paths):
+    """Sharded training on (data 2, model 2) gloo ranks that share the
+    card, through ``launch.train.run(args, mesh=, cfg=)``: tinyllama-1.1b
+    at full width and depth (``SHARDED_STEPS`` steps ending in a
+    checkpoint, then the trained shards' loss and gradients on the next
+    step's batch) and seamless-m4t-large-v2 at full width on 2 + 2 layers
+    (2 steps), in one spawn; each rank's K1/K2 launches exact for the
+    forwards the driver ran, read into ``"<arch> sharded train"`` (summed
+    over the ranks).  Then the unsharded run from the same seed two steps
+    longer, its losses held to the sharded run's; the checkpoint restored
+    on one device (the elastic case), its gradients held to the sharded
+    run's (``sharded_resume``) and the two steps after it run from it,
+    held to the sharded run's next loss and the unsharded run's: every
+    loss within ``SHARDED_LOSS_RTOL``.  The per-step times are those of
+    gloo host copies among 4 ranks on one card."""
+    import shutil
+    import statistics
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as train_lib
+    from repro_torch.launch.mesh import spawn_mesh
+    from repro_torch.sharding import runs
+
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+    rows = []
+    try:
+        ckpt, grads_file = os.path.join(tmp, "ckpt"), os.path.join(tmp, "grads.pt")
+        tiny = ["--arch", TRAIN_ARCH] + SHARDED_TRAIN + [
+            "--steps", str(SHARDED_STEPS), "--ckpt-dir", ckpt, "--energy"]
+        layers, seam_argv = SHARDED_SEAMLESS
+        seam_cfg = get_config(SEAMLESS).replace(num_layers=layers, num_encoder_layers=layers)
+        jobs = [runs.DriverTrain(tiny, shape=SHARDED_MESH, grads_to=grads_file),
+                runs.DriverTrain(["--arch", SEAMLESS] + seam_argv, cfg=seam_cfg,
+                                 shape=SHARDED_MESH)]
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        ranks = spawn_mesh(runs.train_plan, SHARDED_MESH, "cuda", jobs, backend="gloo",
+                           threads=1)
+        log(f"sharded train spawn ({SHARDED_MESH[0]} x {SHARDED_MESH[1]} gloo ranks on one "
+            f"card) took {time.perf_counter() - t:.1f} s")
+        for j, (arch, cfg) in enumerate(((TRAIN_ARCH, get_config(TRAIN_ARCH)),
+                                         (SEAMLESS, seam_cfg))):
+            done = [r[j] for r in ranks]
+            want = train_launches(cfg, len(done[0]["losses"]))
+            for rank, run in enumerate(done):
+                check(run["launches"] == want, f"{arch} sharded train rank {rank}: launch "
+                      f"counts {run['launches']} != {want}")
+                check(all(math.isfinite(x) for x in run["losses"]),
+                      f"{arch} sharded train rank {rank}: a loss is not finite")
+                check(run["losses"] == done[0]["losses"],
+                      f"{arch} sharded train: rank {rank}'s losses differ from rank 0's")
+            paths[f"{arch} sharded train"] = {k: sum(run["launches"][k] for run in done)
+                                              for k in counters}
+            row = dict(arch=arch, run="sharded train", card=", ".join(card()),
+                       mesh=dict(data=SHARDED_MESH[0], model=SHARDED_MESH[1]),
+                       backend="gloo, 4 ranks on one card (host-staged collectives)",
+                       layers=cfg.num_layers, encoder_layers=cfg.num_encoder_layers,
+                       steps=len(done[0]["losses"]), losses=done[0]["losses"],
+                       step_ms=[x * 1e3 for x in done[0]["seconds"]],
+                       median_step_ms=statistics.median(done[0]["seconds"][1:]) * 1e3,
+                       peak_gib_per_rank=[run["peak_gib"] for run in done],
+                       launches_per_rank={k: want[k] for k in ("rmsnorm", "flash_attention")},
+                       printed=done[0]["out"])
+            log("sharded train: " + json.dumps(row))
+            rows.append(row)
+        tiny_losses = rows[0]["losses"]
+        check("joules" in rows[0]["printed"],
+              "the sharded run's --energy window printed no joules")
+        check(tiny_losses[-1] < tiny_losses[0],
+              f"{TRAIN_ARCH}: the sharded loss did not fall: {tiny_losses}")
+        nxt = torch.load(grads_file)
+        next_loss = nxt["loss"]
+        check(math.isfinite(next_loss), f"the sharded run's next loss {next_loss}")
+
+        args = train_lib.build_argparser().parse_args(tiny)
+        total = SHARDED_STEPS + 2  # the one-device resume's two steps after the checkpoint
+        _, whole, _, _ = train_run(dev, counters, paths, TRAIN_ARCH, "train unsharded",
+                                   SHARDED_TRAIN + ["--steps", str(total)], total)
+        gc.collect()
+        torch.cuda.empty_cache()
+        resumed, parity = sharded_resume(dev, ckpt, args, total, nxt)
+        del nxt
+        gc.collect()
+        torch.cuda.empty_cache()
+        gaps = dict(sharded_vs_unsharded=max(rel(a, b) for a, b in zip(tiny_losses,
+                                                                       whole.losses)),
+                    resumed_vs_sharded=rel(resumed[0], next_loss),
+                    resumed_vs_unsharded=max(rel(a, b) for a, b in
+                                             zip(resumed, whole.losses[SHARDED_STEPS:])))
+        row = dict(arch=TRAIN_ARCH, sharded=tiny_losses, sharded_next=next_loss,
+                   unsharded=whole.losses, one_device_resumed=resumed, max_rel=gaps,
+                   tol=SHARDED_LOSS_RTOL)
+        log("sharded train elastic restore on one device: " + json.dumps(row))
+        for name, gap in gaps.items():
+            check(gap <= SHARDED_LOSS_RTOL, f"{TRAIN_ARCH} losses {name}: {gap:.3e} relative, "
+                  f"more than {SHARDED_LOSS_RTOL:.3e} ({row})")
+        rows += [row, parity]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"sharded train phase took {time.perf_counter() - t0:.1f} s")
     return rows
 
 
@@ -4113,7 +4404,7 @@ def main():
 
     model_phases(HYBRID, dev, counters, paths, prompt=HYBRID_PARITY_PROMPT, paged=False,
                  table_scale=0.05)
-    model_phases(NEMOTRON, dev, counters, paths)
+    model_phases(NEMOTRON, dev, counters, paths, layers=NEMOTRON_LAYERS)
     check(paths[f"{NEMOTRON} serve"]["paged_decode_attention"] > 0,
           f"K4 never launched on the {NEMOTRON} serve path")
     # the parity models' tolerances, for their tp runs: xlstm-1.3b's at its
@@ -4121,14 +4412,16 @@ def main():
     tols = {XLSTM: model_phases(XLSTM, dev, counters, paths, serve=False, paged=False,
                                 layers=XLSTM_LAYERS)}
     for arch in (QWEN_MOE, MOONSHOT):
-        tols[arch] = model_phases(arch, dev, counters, paths, parity_layers=PARITY_LAYERS)
+        tols[arch] = model_phases(arch, dev, counters, paths, parity_layers=PARITY_LAYERS,
+                                  layers=MOE_LAYERS)
         for path in ("measure", "serve", "chunked serve"):
             check(all(paths[f"{arch} {path}"][k] > 0 for k in ("rmsnorm", "flash_attention")),
                   f"K1 or K2 never launched on the {arch} {path} path")
         check(paths[f"{arch} measure"]["decode_attention"] > 0
               and paths[f"{arch} serve"]["paged_decode_attention"] > 0,
               f"K3 or K4 never launched on the {arch} paths")
-    tols[LLAVA] = model_phases(LLAVA, dev, counters, paths, parity_layers=PARITY_LAYERS)
+    tols[LLAVA] = model_phases(LLAVA, dev, counters, paths, parity_layers=PARITY_LAYERS,
+                               layers=LLAVA_LAYERS)
     for path in ("measure", "serve", "chunked serve"):
         check(all(paths[f"{LLAVA} {path}"][k] > 0 for k in ("rmsnorm", "flash_attention")),
               f"K1 or K2 never launched on the {LLAVA} {path} path")
@@ -4142,7 +4435,8 @@ def main():
           f"K1, K2 or K3 never launched on the {SEAMLESS} measure path")
     tp_phase(dev, paths, tols)
     train_phase(dev, counters, paths)
-    for path in ("train", "train preempted", "train resumed", "train remat"):
+    for path in ("train", "train uninterrupted", "train preempted", "train resumed",
+                 "train remat"):
         check(all(paths[f"{TRAIN_ARCH} {path}"][k] > 0 for k in ("rmsnorm", "flash_attention")),
               f"K1 or K2 never launched on the {TRAIN_ARCH} {path} path")
     check(paths[f"{HYBRID} train"]["linear_recurrence"] > 0,
@@ -4151,6 +4445,10 @@ def main():
     for arch in (SEAMLESS, MOONSHOT, LLAVA):
         check(all(paths[f"{arch} train"][k] > 0 for k in ("rmsnorm", "flash_attention")),
               f"K1 or K2 never launched on the {arch} train path")
+    sharded_train_phase(dev, counters, paths)
+    for arch in (TRAIN_ARCH, SEAMLESS):
+        check(all(paths[f"{arch} sharded train"][k] > 0 for k in ("rmsnorm", "flash_attention")),
+              f"K1 or K2 never launched on the {arch} sharded train path")
     for entry in entries:
         k = entry["name"]
         entry["launches_by_path"] = {path: counts[k] for path, counts in paths.items()}

@@ -24,10 +24,11 @@ import torch
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import Model, _enc_cfg
-from repro_torch.sharding.rules import local_slice, param_rules
+from repro_torch.sharding.rules import check_tp, local_slice, param_rules
 
 
-def _tensor(arr: np.ndarray) -> torch.Tensor:
+def as_tensor(arr: np.ndarray) -> torch.Tensor:
+    """A numpy array (bf16 through a uint16 view) as a CPU tensor."""
     arr = np.ascontiguousarray(arr)
     if not arr.flags.writeable:  # torch.from_numpy wants writable memory
         arr = arr.copy()
@@ -78,7 +79,10 @@ def reference_by_port_name(cfg: ModelConfig, tree: Mapping) -> Dict[str, np.ndar
 
 def params_from_jax(cfg: ModelConfig, tree: Mapping, device="cuda", mesh=None) -> Model:
     """A ``Model`` on ``device`` holding the reference parameters ``tree``
-    (with ``mesh``, the rank's shard of them)."""
+    (with ``mesh``, the rank's tensor-parallel serving shard of them:
+    ``sharding.rules.check_tp`` refuses what it cannot serve)."""
+    if mesh is not None:
+        check_tp(cfg, mesh.size)
     model = Model(cfg, device=device, mesh=mesh)
     rank, tp = (mesh.rank, mesh.size) if mesh is not None else (0, 1)
     flat = reference_by_port_name(cfg, tree)
@@ -90,7 +94,7 @@ def params_from_jax(cfg: ModelConfig, tree: Mapping, device="cuda", mesh=None) -
                          f"{sorted(set(params) - set(flat))}")
     with torch.no_grad():
         for name, p in params.items():
-            src = _tensor(local_slice(rules[name], flat[name], rank, tp))
+            src = as_tensor(local_slice(rules[name], flat[name], rank, tp))
             if tuple(src.shape) != tuple(p.shape) or src.dtype != p.dtype:
                 raise ValueError(f"{name}: reference {tuple(src.shape)} {src.dtype}, "
                                  f"port {tuple(p.shape)} {p.dtype}")

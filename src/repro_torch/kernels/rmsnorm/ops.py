@@ -15,8 +15,9 @@ outputs both carry gradient; its backward sums their cotangents.
 A norm over a width that tensor-parallel ranks split is two launches
 around the ranks' all-reduce: ``rmsnorm_sumsq`` (each row's fp32 sum of
 squares of the rank's slice) and ``rmsnorm(..., stat=, width=)`` (the
-slice normalised by the reduced sums); each counts one launch.  Serving
-only: neither has a backward.
+slice normalised by the reduced sums); each counts one launch.  Both are
+differentiable the same way (the mLSTM cell norm under tensor-parallel
+training): the statistic's gradient flows back through the all-reduce.
 """
 
 from __future__ import annotations
@@ -64,14 +65,12 @@ def _rmsnorm_kernel(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.T
     return y
 
 
-def _no_grad(*ts) -> None:
-    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
-        raise ValueError("the split norm's launches have no backward")
+def _needs_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
 
 def _stat_kernel(x, scale, eps: float, stat: torch.Tensor, width: int) -> torch.Tensor:
     _check(x, scale)
-    _no_grad(x, scale)
     d = x.shape[-1]
     if (stat.dtype != torch.float32 or stat.device != x.device or not stat.is_contiguous()
             or stat.numel() != x.numel() // d or width < d):
@@ -87,14 +86,9 @@ def _stat_kernel(x, scale, eps: float, stat: torch.Tensor, width: int) -> torch.
     return y
 
 
-def rmsnorm_sumsq(x: torch.Tensor) -> torch.Tensor:
-    """Each row's fp32 sum of squares over the last dim, (x.shape[:-1]):
-    the split norm's statistic, one launch."""
-    if not x.is_cuda:
-        return ref.sumsq(x)
+def _sumsq_kernel(x: torch.Tensor) -> torch.Tensor:
     if x.dtype not in _LAUNCHERS or not x.is_contiguous() or x.numel() == 0:
         raise ValueError(f"x {x.dtype} {tuple(x.shape)}: want contiguous bf16 or fp32 rows")
-    _no_grad(x)
     out = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
     status = _build.load()[_LAUNCHERS[x.dtype].replace("rmsnorm", "rmsnorm_sumsq")](
         x.data_ptr(), out.data_ptr(), x.numel() // x.shape[-1], x.shape[-1], _build.stream(x))
@@ -102,6 +96,42 @@ def rmsnorm_sumsq(x: torch.Tensor) -> torch.Tensor:
         raise RuntimeError(f"rmsnorm_sumsq launch failed: CUDA error {status}")
     rmsnorm.launches += 1
     return out
+
+
+class _SumSq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return _sumsq_kernel(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _vjp.plain_vjp(ref.sumsq, ctx.saved_tensors, (g,), (True,))
+
+
+class _RMSNormStat(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, stat, eps, width):
+        ctx.save_for_backward(x, scale, stat)
+        ctx.eps, ctx.width = eps, width
+        return _stat_kernel(x, scale, eps, stat, width)
+
+    @staticmethod
+    def backward(ctx, g):
+        eps, width = ctx.eps, ctx.width
+        grads = _vjp.plain_vjp(lambda x, s, st: ref.rmsnorm(x, s, eps, st, width),
+                               ctx.saved_tensors, (g,), ctx.needs_input_grad[:3])
+        return (*grads, None, None)
+
+
+def rmsnorm_sumsq(x: torch.Tensor) -> torch.Tensor:
+    """Each row's fp32 sum of squares over the last dim, (x.shape[:-1]):
+    the split norm's statistic, one launch."""
+    if not x.is_cuda:
+        return ref.sumsq(x)
+    if _needs_grad(x):
+        return _SumSq.apply(x)
+    return _sumsq_kernel(x)
 
 
 def _add_rmsnorm_kernel(x: torch.Tensor, r: torch.Tensor, scale: torch.Tensor,
@@ -152,6 +182,8 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
     if not x.is_cuda:
         return ref.rmsnorm(x, scale, eps, stat, width)
     if stat is not None:
+        if _needs_grad(x, scale, stat):
+            return _RMSNormStat.apply(x, scale, stat, eps, width)
         return _stat_kernel(x, scale, eps, stat, width)
     if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
         return _RMSNorm.apply(x, scale, eps)

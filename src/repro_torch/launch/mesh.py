@@ -1,5 +1,6 @@
-"""Tensor-parallel meshes on ``torch.distributed``, the counterpart of
-``repro/launch/mesh.py:make_tp_mesh``, and the launcher of their ranks.
+"""Meshes of ranks on ``torch.distributed``, the counterpart of
+``repro/launch/mesh.py`` (``make_tp_mesh``, ``make_production_mesh``,
+``make_host_mesh``), and the launcher of their ranks.
 
 The port runs tensor parallelism SPMD: one process per rank, each holding
 its shard of the model as plain tensors (``sharding/partition.py``) and
@@ -22,10 +23,21 @@ Two arrangements:
   are those of host copies and loopback sockets, not of tensor
   parallelism.
 
-``spawn_tp(fn, tp, device, *args)`` starts ``tp`` rank processes
-(``torch.multiprocessing``, "spawn"), makes each rank's mesh and returns
-what ``fn(mesh, *args)`` returned on each rank.  ``fn`` is pickled by
-name, so it must live in an importable module.
+Training runs on a two-axis ``("data", "model")`` mesh (``make_mesh``):
+rank ``i·tp + j`` is data index i and model index j.  ``Mesh.model`` is a
+``TPMesh`` over the model axis, which the model's tensor-parallel
+collectives run on as they do for serving; ``Mesh.data`` is one over the
+data axis, which FSDP gathers parameters and reduce-scatters gradients on
+(``sharding/fsdp.py``).  ``make_production_mesh`` is the reference's 16 x
+16 over the world's ranks; ``make_host_mesh`` puts every rank on data (one
+rank: the one-device run).
+
+``spawn_mesh(fn, shape, device, *args)`` starts ``prod(shape)`` rank
+processes (``torch.multiprocessing``, "spawn"), makes each rank's mesh
+(a ``TPMesh`` for ``(tp,)``, a ``Mesh`` for ``(dp, tp)``) and returns what
+``fn(mesh, *args)`` returned on each rank; ``spawn_tp(fn, tp, ...)`` is
+its ``(tp,)`` case.  ``fn`` is pickled by name, so it must live in an
+importable module.
 """
 
 from __future__ import annotations
@@ -34,10 +46,11 @@ import dataclasses
 import datetime
 import os
 import queue as queue_lib
+import math
 import socket
 import time
 import traceback
-from typing import Any, Callable, List, Optional
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -101,6 +114,29 @@ class TPMesh:
         shape[dim] *= self.size
         return out.movedim(0, dim).reshape(shape)
 
+    def gather_root(self, t: torch.Tensor, dim: int) -> Optional[torch.Tensor]:
+        """Each rank's ``t`` side by side along ``dim`` on the axis's rank 0
+        (on the host where the mesh is staged), None on the others: one
+        receiver, for what only one rank keeps (a checkpoint)."""
+        dim = dim % t.dim()
+        src = t.cpu() if self.staged else t.contiguous()
+        parts = [torch.empty_like(src) for _ in range(self.size)] if self.rank == 0 else None
+        dist.gather(src, parts, dst=dist.get_global_rank(self.group, 0), group=self.group)
+        return torch.cat(parts, dim) if self.rank == 0 else None
+
+    def reduce_scatter(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """The sum of ``t`` over the ranks, cut into ``size`` equal parts
+        along ``dim``: the rank's part (``size`` divides the dim).  Gloo
+        all-reduces and keeps the part."""
+        dim = dim % t.dim()
+        n = t.shape[dim] // self.size
+        if self.backend == "nccl":
+            src = t.movedim(dim, 0).contiguous()
+            out = torch.empty((n,) + tuple(src.shape[1:]), dtype=t.dtype, device=t.device)
+            dist.reduce_scatter_tensor(out, src, group=self.group)
+            return out.movedim(0, dim)
+        return self.all_reduce(t if self.staged else t.clone()).narrow(dim, self.rank * n, n)
+
     def gather_last(self, t: torch.Tensor) -> torch.Tensor:
         """Each rank's ``t`` (..., n) side by side along the last dim, rank
         order: (..., size * n), the same bytes on every rank."""
@@ -140,28 +176,7 @@ def make_tp_mesh(tp: int, device="cuda", backend: Optional[str] = None) -> TPMes
     lets ranks share GPUs.  On ``cpu`` the backend is gloo."""
     if tp < 1:
         raise ValueError(f"--tp must be >= 1, got {tp}")
-    dev = resolve_device(device) if torch.device(device).type == "cuda" else torch.device(device)
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"tensor parallelism runs on cuda or cpu, not {dev.type}")
-    backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
-    if backend not in ("nccl", "gloo") or (backend == "nccl" and dev.type != "cuda"):
-        raise ValueError(f"backend {backend!r} does not run on {dev.type}")
-    count = torch.cuda.device_count() if dev.type == "cuda" else tp
-    if backend == "nccl" and tp > count:
-        raise ValueError(
-            f"--tp {tp} exceeds the {count} visible GPU(s): NCCL takes one GPU per rank; "
-            f"ranks that share GPUs run over gloo (backend='gloo')")
-    world = int(os.environ.get("WORLD_SIZE", "1"))
-    if world != tp:
-        raise ValueError(f"--tp {tp} but the process group has {world} rank(s) "
-                         f"(WORLD_SIZE); start the ranks with spawn_tp or torchrun")
-    rank = int(os.environ.get("RANK", "0"))
-    if dev.type == "cuda":  # the rank's GPU on its own host
-        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", rank)) % count)
-        torch.cuda.set_device(dev)
-    if not dist.is_initialized():
-        dist.init_process_group(backend, rank=rank, world_size=tp,
-                                device_id=dev if backend == "nccl" else None)
+    dev, backend, count, rank = _join(tp, device, backend)
     from torch.distributed.device_mesh import init_device_mesh
 
     mesh = init_device_mesh("cuda" if backend == "nccl" else "cpu", (tp,),
@@ -173,19 +188,130 @@ def make_tp_mesh(tp: int, device="cuda", backend: Optional[str] = None) -> TPMes
                   group=mesh.get_group("tp"), host_group=host_group)
 
 
+@dataclasses.dataclass
+class Mesh:
+    """One rank's view of a ``("data", "model")`` mesh of ``dp`` x ``tp``
+    ranks: ``data`` and ``model`` are ``TPMesh`` views of its two axes
+    (each with the axis's group, size and this rank's index on it), so
+    the model's tensor-parallel collectives run on ``model`` unchanged."""
+    shape: Tuple[int, int]
+    rank: int
+    device: torch.device
+    backend: str
+    staged: bool
+    shared: bool
+    data: TPMesh
+    model: TPMesh
+    host_group: Any              # gloo over every rank: preemption votes, turns
+
+    @property
+    def size(self) -> int:
+        return self.shape[0] * self.shape[1]
+
+    def barrier(self) -> None:
+        dist.barrier(group=self.host_group)
+
+    def any(self, flag: bool) -> bool:
+        """Whether ``flag`` is set on any rank (an all-reduce on the host
+        group): every rank gets the same answer."""
+        t = torch.tensor([1 if flag else 0], dtype=torch.int32)
+        dist.all_reduce(t, group=self.host_group)
+        return bool(t.item())
+
+
+def _join(world: int, device, backend: Optional[str]) -> Tuple[torch.device, str, int, int]:
+    """Join this process to the world's process group (once): returns the
+    rank's device, the backend, the visible GPU count and the rank."""
+    dev = resolve_device(device) if torch.device(device).type == "cuda" else torch.device(device)
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"a mesh runs on cuda or cpu, not {dev.type}")
+    backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
+    if backend not in ("nccl", "gloo") or (backend == "nccl" and dev.type != "cuda"):
+        raise ValueError(f"backend {backend!r} does not run on {dev.type}")
+    count = torch.cuda.device_count() if dev.type == "cuda" else world
+    if backend == "nccl" and world > count:
+        raise ValueError(
+            f"a mesh of {world} ranks exceeds the {count} visible GPU(s): NCCL takes one GPU per rank; "
+            f"ranks that share GPUs run over gloo (backend='gloo')")
+    have = int(os.environ.get("WORLD_SIZE", "1"))
+    if have != world:
+        raise ValueError(f"a mesh of {world} rank(s) but the process group has {have} "
+                         f"rank(s) (WORLD_SIZE); start the ranks with spawn_mesh or torchrun")
+    rank = int(os.environ.get("RANK", "0"))
+    if dev.type == "cuda":  # the rank's GPU on its own host
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", rank)) % count)
+        torch.cuda.set_device(dev)
+    if not dist.is_initialized():
+        dist.init_process_group(backend, rank=rank, world_size=world,
+                                device_id=dev if backend == "nccl" else None)
+    return dev, backend, count, rank
+
+
+def make_mesh(shape: Sequence[int], device="cuda", backend: Optional[str] = None) -> Mesh:
+    """Join this process to a ``("data", "model")`` mesh of ``shape`` = (dp,
+    tp) ranks and return its view; the world (``WORLD_SIZE``) must hold dp
+    x tp ranks.  The backend is chosen as ``make_tp_mesh`` chooses it.  A
+    process already in the world's group (another mesh of the same ranks)
+    makes the new mesh's groups only: every rank must call it."""
+    dp, tp = (int(n) for n in shape)
+    if dp < 1 or tp < 1:
+        raise ValueError(f"a mesh's axes must be >= 1, got (data {dp}, model {tp})")
+    dev, backend, count, rank = _join(dp * tp, device, backend)
+    from torch.distributed.device_mesh import init_device_mesh
+
+    mesh = init_device_mesh("cuda" if backend == "nccl" else "cpu", (dp, tp),
+                            mesh_dim_names=("data", "model"))
+    host_group = dist.new_group(backend="gloo", timeout=HOST_TIMEOUT)
+    staged = backend == "gloo" and dev.type == "cuda"
+    shared = dev.type == "cuda" and count < dp * tp
+
+    def axis(name: str, size: int, index: int) -> TPMesh:
+        return TPMesh(size=size, rank=index, device=dev, backend=backend, staged=staged,
+                      shared=shared, group=mesh.get_group(name), host_group=host_group)
+
+    return Mesh(shape=(dp, tp), rank=rank, device=dev, backend=backend, staged=staged,
+                shared=shared, data=axis("data", dp, rank // tp),
+                model=axis("model", tp, rank % tp), host_group=host_group)
+
+
+PRODUCTION_SHAPE = (16, 16)
+
+
+def make_production_mesh(device="cuda", backend: Optional[str] = None) -> Mesh:
+    """The reference's production mesh, 16 x 16 over ``("data", "model")``,
+    over the world's ranks; fewer than 256 raise ``ValueError`` naming the
+    count, as the reference's ``jax.make_mesh`` raises for too few
+    devices."""
+    need = math.prod(PRODUCTION_SHAPE)
+    have = int(os.environ.get("WORLD_SIZE", "1"))
+    if have != need:
+        raise ValueError(f"--mesh production is {PRODUCTION_SHAPE[0]} x {PRODUCTION_SHAPE[1]} "
+                         f"= {need} ranks (data, model), but the world has {have}; "
+                         f"start {need} ranks with torchrun, or use --mesh host")
+    return make_mesh(PRODUCTION_SHAPE, device, backend)
+
+
+def make_host_mesh(device="cuda", backend: Optional[str] = None) -> Mesh:
+    """Every rank of the world on ``data`` (model 1): one rank, as under a
+    plain ``python -m``, is the one-device run."""
+    return make_mesh((int(os.environ.get("WORLD_SIZE", "1")), 1), device, backend)
+
+
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
 
 
-def _rank_main(rank: int, tp: int, port: int, device, backend, threads, fn, args, results):
+def _rank_main(rank: int, shape, port: int, device, backend, threads, fn, args, results):
+    world = math.prod(shape)
     os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK=str(rank),
-                      LOCAL_RANK=str(rank), WORLD_SIZE=str(tp))
+                      LOCAL_RANK=str(rank), WORLD_SIZE=str(world))
     if threads:
         torch.set_num_threads(threads)
     try:
-        mesh = make_tp_mesh(tp, device, backend)
+        mesh = (make_tp_mesh(shape[0], device, backend) if len(shape) == 1
+                else make_mesh(shape, device, backend))
         try:
             results.put((rank, True, fn(mesh, *args)))
         finally:
@@ -194,38 +320,44 @@ def _rank_main(rank: int, tp: int, port: int, device, backend, threads, fn, args
         results.put((rank, False, traceback.format_exc()))
 
 
-def spawn_tp(fn: Callable, tp: int, device="cuda", *args, backend: Optional[str] = None,
-             threads: int = 0) -> List[Any]:
-    """Run ``fn(mesh, *args)`` on ``tp`` new rank processes, rank r's mesh
-    from ``make_tp_mesh(tp, device, backend)``, over a rendezvous on a free
-    loopback port; returns each rank's result in rank order.  ``threads``
-    > 0 sets each rank's intra-op threads.  If a rank fails, the others
-    are stopped and its traceback raised."""
+def spawn_mesh(fn: Callable, shape: Sequence[int], device="cuda", *args,
+               backend: Optional[str] = None, threads: int = 0) -> List[Any]:
+    """Run ``fn(mesh, *args)`` on ``prod(shape)`` new rank processes, rank
+    r's mesh from ``make_tp_mesh(tp, device, backend)`` for ``shape`` =
+    (tp,) or ``make_mesh((dp, tp), device, backend)``, over a rendezvous on
+    a free loopback port; returns each rank's result in rank order.
+    ``threads`` > 0 sets each rank's intra-op threads.  If a rank fails,
+    the others are stopped and its traceback raised."""
+    shape = tuple(int(n) for n in shape)
+    if len(shape) not in (1, 2):
+        raise ValueError(f"a mesh shape is (tp,) or (data, model), got {shape}")
+    world = math.prod(shape)
+    what = f"tp={shape[0]}" if len(shape) == 1 else f"mesh {shape}"
     ctx = torch.multiprocessing.get_context("spawn")
     results = ctx.Queue()
     port = _free_port()
     procs = [ctx.Process(target=_rank_main, daemon=True,
-                         args=(r, tp, port, device, backend, threads, fn, args, results))
-             for r in range(tp)]
+                         args=(r, shape, port, device, backend, threads, fn, args, results))
+             for r in range(world)]
     for p in procs:
         p.start()
-    out: List[Any] = [None] * tp
+    out: List[Any] = [None] * world
     done, deadline = 0, time.monotonic() + SPAWN_TIMEOUT_S
     try:
-        while done < tp:
+        while done < world:
             try:
                 rank, ok, value = results.get(timeout=0.5)
             except queue_lib.Empty:
                 dead = [r for r, p in enumerate(procs)
                         if p.exitcode is not None and out[r] is None]
                 if dead and results.empty():
-                    raise RuntimeError(f"rank(s) {dead} of tp={tp} died without a result "
+                    raise RuntimeError(f"rank(s) {dead} of {what} died without a result "
                                        f"(exit codes {[procs[r].exitcode for r in dead]})")
                 if time.monotonic() > deadline:
-                    raise TimeoutError(f"tp={tp} ranks gave no result in {SPAWN_TIMEOUT_S} s")
+                    raise TimeoutError(f"{what} ranks gave no result in {SPAWN_TIMEOUT_S} s")
                 continue
             if not ok:
-                raise RuntimeError(f"rank {rank} of tp={tp} failed:\n{value}")
+                raise RuntimeError(f"rank {rank} of {what} failed:\n{value}")
             out[rank] = value
             done += 1
         for p in procs:
@@ -236,3 +368,10 @@ def spawn_tp(fn: Callable, tp: int, device="cuda", *args, backend: Optional[str]
                 p.terminate()
                 p.join(timeout=10)
     return out
+
+
+def spawn_tp(fn: Callable, tp: int, device="cuda", *args, backend: Optional[str] = None,
+             threads: int = 0) -> List[Any]:
+    """``spawn_mesh`` of a ``(tp,)`` mesh: ``fn(mesh, *args)`` on ``tp``
+    ranks, each with ``make_tp_mesh(tp, device, backend)``'s ``TPMesh``."""
+    return spawn_mesh(fn, (tp,), device, *args, backend=backend, threads=threads)

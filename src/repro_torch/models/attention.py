@@ -15,7 +15,11 @@ read one KV head, ``r·(Hq/tp) // G`` (``sharding.rules.check_tp`` refuses
 a rank whose heads straddle two groups): the prompt's K2 and the decode
 step's K3 read only it, from the fresh K/V or from the contiguous cache's
 L slices gathered over the ranks (``cache.read_kv``), and K4 reads it in
-place from the replicated pool (its ``q_head0``).
+place from the replicated pool (its ``q_head0``).  Under grad a split
+attention's input and any whole K/V weights its ranks read in part are
+``collectives.copy``'d, so their gradients sum over the ranks; the
+encoder's attention and a decoder's cross attention shard alike
+(training).
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from repro_torch.kernels import dispatch
 from repro_torch.models import cache as cache_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_rope, init_normal_, matmul_fp32, new_param
+from repro_torch.sharding import collectives
 from repro_torch.sharding.rules import divides, local_size
 
 
@@ -88,11 +93,25 @@ def _project(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor]):
     return y if b is None else y + b
 
 
+def _local_in(p: Attention, x: torch.Tensor) -> torch.Tensor:
+    """A replicated input of the rank's heads (``collectives.copy`` where
+    the query heads are split)."""
+    return collectives.copy(x, p.tp) if p.partial else x
+
+
+def _kv_leaf(p: Attention, w: torch.Tensor) -> torch.Tensor:
+    """A K/V weight or bias: whole on every rank where tp splits the query
+    heads but not the KV heads, each rank reading its heads' KV head of it
+    (``collectives.copy``)."""
+    return collectives.copy(w, p.tp) if p.partial and not p.kv_split else w
+
+
 def _project_qkv(p: Attention, x: torch.Tensor):
     bias = hasattr(p, "bq")
+    x = _local_in(p, x)
     return (_project(x, p.wq, p.bq if bias else None),
-            _project(x, p.wk, p.bk if bias else None),
-            _project(x, p.wv, p.bv if bias else None))
+            _project(x, _kv_leaf(p, p.wk), _kv_leaf(p, p.bk) if bias else None),
+            _project(x, _kv_leaf(p, p.wv), _kv_leaf(p, p.bv) if bias else None))
 
 
 def _out_proj(p: Attention, o: torch.Tensor) -> torch.Tensor:
@@ -282,12 +301,16 @@ def apply_cross_attention_seq(
     """A prompt or chunk's cross attention over the encoder ``memory``:
     its K/V projected once, written into the entry for the decode steps
     (the reference's ``precompute_cross_kv``) where one is given (the
-    training forward has none), and attended by K2."""
-    q = _project(x, p.wq, None)
-    k, v = _project(memory, p.wk, None), _project(memory, p.wv, None)
+    training forward has none), and attended by K2 (a shard's heads: the
+    KV heads its query heads read)."""
+    q = _project(_local_in(p, x), p.wq, None)
+    memory = _local_in(p, memory)
+    k, v = _project(memory, _kv_leaf(p, p.wk), None), _project(memory, _kv_leaf(p, p.wv), None)
     if kv_cache is not None:
         cache_lib.fill_cross_cache(kv_cache, k, v)
-    o = dispatch.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+    heads, _ = _kv_read(p)
+    o = dispatch.flash_attention(q.contiguous(), k[:, :, heads].contiguous(),
+                                 v[:, :, heads].contiguous(),
                                  q_positions=positions, k_positions=mem_positions,
                                  causal=False)
     return _out_proj(p, o)

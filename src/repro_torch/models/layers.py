@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels import dispatch
+from repro_torch.sharding import collectives
 
 
 def new_param(shape, dtype, device) -> nn.Parameter:
@@ -143,7 +144,7 @@ def embed_tokens(p: Embedding, tokens: torch.Tensor, scale: bool,
         local = tokens - p.vocab_start
         mine = (local >= 0) & (local < p.table.shape[0])
         x = F.embedding(torch.where(mine, local, 0), p.table)
-        x = p.tp.all_reduce(x.masked_fill(~mine[..., None], 0))
+        x = collectives.reduce(x.masked_fill(~mine[..., None], 0), p.tp)
     if scale:  # the factor is rounded to the activation dtype first, on the
         # host: a host-to-device copy could not be captured in a CUDA graph
         x = x * torch.tensor(math.sqrt(d_model), dtype=x.dtype).item()
@@ -197,9 +198,9 @@ def unembed(p: Embedding, x: torch.Tensor, softcap: float = 0.0) -> torch.Tensor
     vocabulary-sharded table gives its own columns, gathered from every
     rank into the full row the sampler reads (the same bytes on every
     rank); the softcap, elementwise, follows."""
-    logits = matmul_fp32(x, p.table.t())
+    logits = matmul_fp32(collectives.copy(x, p.tp), p.table.t())
     if p.tp is not None:
-        logits = p.tp.gather_last(logits)
+        logits = collectives.gather(logits, -1, p.tp)
     if softcap > 0.0:
         logits = torch.tanh(logits / softcap) * softcap
     return logits

@@ -3,7 +3,9 @@ the counterpart of ``repro/models/mlp.py``.
 
 A tensor-parallel shard of ``shards`` ranks holds 1 / shards of the
 hidden where that divides it (column-parallel ``wg``/``wu``, row-parallel
-``wd``: its output a partial sum), else the whole MLP (its output whole)."""
+``wd``: its output a partial sum), else the whole MLP (its output whole).
+Under grad a split MLP's input is ``collectives.copy``'d: its gradient is
+summed over the ranks."""
 
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ import torch
 from torch import nn
 
 from repro_torch.models.layers import act_fn, init_normal_, matmul_fp32, new_param
+from repro_torch.sharding import collectives
 from repro_torch.sharding.rules import divides, local_size
 
 
@@ -22,6 +25,7 @@ class MLP(nn.Module):
         # a shard's output is one rank's partial sum, kept in fp32 for the
         # sum over the ranks, where its hidden is split
         self.partial = divides(shards, d_ff)
+        self.tp = None  # a split MLP's mesh (set by ``Model``)
         d_ff = local_size(d_ff, shards)
         self.wg = new_param((d, d_ff), dtype, device)
         if gated:
@@ -37,6 +41,8 @@ class MLP(nn.Module):
 
 def apply_mlp(p: MLP, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
     """The FFN; a shard's partial sum in fp32."""
+    if p.partial:
+        x = collectives.copy(x, p.tp)
     h = act_fn(act)(torch.matmul(x, p.wg))
     if hasattr(p, "wu"):
         h = h * torch.matmul(x, p.wu)

@@ -40,7 +40,16 @@ embedding and the logits are vocabulary parallel (``layers.embed_tokens``,
 The residual stream, the logits and so every sampled token are the same
 on every rank.  ``sharding.partition.shard_model`` draws a shard's
 weights; ``init_cache`` makes the rank's cache, each leaf laid out as the
-reference's ``cache_shardings``.
+reference's ``cache_shardings``.  An encoder-decoder model's encoder and
+cross attention shard by the same rules (training only: no engine serves
+one).  Under grad the collectives are ``sharding.collectives``'
+differentiable ones.
+
+Sharded training adds FSDP over a data axis (``sharding/fsdp.py``, set as
+``Model.fsdp``): the model then stores each parameter's data shard, and
+``forward_train`` gathers a module's parameters just before it runs (each
+block in ``_run_stack``, the embedding, the head) and drops them after;
+the backward reduce-scatters their gradients.
 
 Entry points:
   * ``init(cfg, generator, device)`` — a model with random weights at the
@@ -62,8 +71,9 @@ Entry points:
 
 from __future__ import annotations
 
+import contextlib
 import functools
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, ContextManager, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -80,6 +90,7 @@ from repro_torch.models.layers import (
     Embedding, Norm, add_norm, embed_tokens, rope_tables, unembed,
 )
 from repro_torch.models.mlp import MLP, apply_mlp
+from repro_torch.sharding import collectives
 from repro_torch.sharding import rules as rules_lib
 
 SUPPORTED_BLOCKS = ("attn", "local_attn", "ffn", "rglru", "mlstm", "slstm")
@@ -127,7 +138,7 @@ class Block(nn.Module):
             self.mlp = MLP(d, cfg.d_ff, cfg.mlp_gated, dtype, device, shards)
         if cfg.is_encdec and kind in ATTN_BLOCKS:  # a decoder block of an enc-dec model
             self.norm_c = Norm(d, dtype, device)
-            self.cross = attn_lib.Attention(cfg, dtype, device, cross=True)
+            self.cross = attn_lib.Attention(cfg, dtype, device, cross=True, shards=shards)
 
 
 def _enc_cfg(cfg: ModelConfig) -> ModelConfig:
@@ -140,12 +151,13 @@ def _enc_cfg(cfg: ModelConfig) -> ModelConfig:
 
 class Encoder(nn.Module):
     """The encoder of an encoder-decoder model: ``layers`` of attention
-    blocks and a ``final_norm`` of its own, over ``_enc_cfg``."""
+    blocks and a ``final_norm`` of its own, over ``_enc_cfg``; each layer
+    one of ``shards`` ranks' shard."""
 
-    def __init__(self, cfg: ModelConfig, dtype, device):
+    def __init__(self, cfg: ModelConfig, dtype, device, shards: int = 1):
         super().__init__()
         self.cfg = _enc_cfg(cfg)
-        self.layers = nn.ModuleList(Block(self.cfg, "attn", dtype, device)
+        self.layers = nn.ModuleList(Block(self.cfg, "attn", dtype, device, shards)
                                     for _ in range(self.cfg.num_layers))
         self.final_norm = Norm(cfg.d_model, dtype, device)
 
@@ -214,10 +226,12 @@ def _apply_xlstm_block(p: Block, cfg: ModelConfig, x: torch.Tensor,
 def _cross(p: Block, cfg: ModelConfig, x: torch.Tensor, a: torch.Tensor,
            attend: Callable[[torch.Tensor], torch.Tensor]) -> Residual:
     """A decoder block's cross attention after its self-attention output
-    ``a``: ``a`` added in ``norm_c`` (K1's fused mode), ``attend`` on the
-    norm, its output left pending, as the reference's ``x = x + a; x = x +
-    cross(norm_c(x))``."""
-    x, hc = add_norm(p.norm_c, x, a, cfg.norm_eps)
+    ``a``: ``a`` (reduced over a shard's ranks) added in ``norm_c`` (K1's
+    fused mode), ``attend`` on the norm, its output left pending, as the
+    reference's ``x = x + a; x = x + cross(norm_c(x))``.  The cross
+    attention splits its heads as the self-attention does, so the pending
+    output is reduced as the self-attention's would be."""
+    x, hc = add_norm(p.norm_c, x, _reduce(p, x, (a, p.attn.partial)), cfg.norm_eps)
     return x, attend(hc)
 
 
@@ -232,7 +246,7 @@ def _reduce(p: Block, x: torch.Tensor, *parts: Tuple[torch.Tensor, bool]) -> tor
     partial = [t for t, is_partial in parts if is_partial]
     out = None
     if partial:
-        out = p.tp.all_reduce(functools.reduce(torch.add, partial)).to(x.dtype)
+        out = collectives.reduce(functools.reduce(torch.add, partial), p.tp).to(x.dtype)
     for t, is_partial in parts:
         if not is_partial:
             out = t if out is None else out + t
@@ -377,18 +391,28 @@ def _encoder_block(p: Block, cfg: ModelConfig, x: torch.Tensor, r: Optional[torc
     return _mlp_branch(p, cfg, x, h, a)
 
 
+Unit = Callable[[nn.Module], ContextManager]
+
+
+def _whole(module: nn.Module) -> ContextManager:
+    """A module's parameters as they are stored (no FSDP)."""
+    return contextlib.nullcontext()
+
+
 def _run_stack(layers, cfg: ModelConfig, x: torch.Tensor, remat: bool,
-               apply: Callable[[Block, torch.Tensor, Optional[torch.Tensor]], Residual]
-               ) -> Residual:
-    """``apply`` over ``layers`` in order from the residual pair (x, None).
+               apply: Callable[[Block, torch.Tensor, Optional[torch.Tensor]], Residual],
+               unit: Unit = _whole) -> Residual:
+    """``apply`` over ``layers`` in order from the residual pair (x, None),
+    each block inside ``unit(block)`` (FSDP's gather of its parameters).
     With ``remat`` each group (one repetition of ``cfg.block_pattern``)
     runs under ``checkpoint``, so the backward recomputes it instead of
     keeping its activations, as the reference's
-    ``jax.checkpoint(nothing_saveable)`` over its scanned groups; the
-    remainder layers are not wrapped."""
+    ``jax.checkpoint(nothing_saveable)`` over its scanned groups, and
+    gathers its parameters again; the remainder layers are not wrapped."""
     def run(x, r, blocks):
         for blk in blocks:
-            x, r = apply(blk, x, r)
+            with unit(blk):
+                x, r = apply(blk, x, r)
         return x, r
 
     plen, (n_groups, _) = len(cfg.block_pattern), cfg.layer_groups()
@@ -417,11 +441,13 @@ class Model(nn.Module):
         # a tensor-parallel shard: its modules at the shard's shapes, its
         # collectives on ``mesh``
         self.mesh = mesh
+        self.fsdp = None  # a data-sharded training model's FSDP (``sharding.fsdp``)
+        self.placement = None  # a training mesh rank's ``sharding.partition.Placement``
         tp, rank = (mesh.size, mesh.rank) if mesh is not None else (1, 0)
-        rules_lib.check_tp(cfg, tp)
+        rules_lib.check_train_tp(cfg, tp)
         self.shards = tp
         device = resolve_device(device)
-        if mesh is not None and device != mesh.device:
+        if mesh is not None and device != mesh.device and device.type != "meta":
             raise ValueError(f"a shard of the mesh on {mesh.device} cannot be built on {device}")
         shard = mesh if tp > 1 else None
         dtype = _dtype(cfg.param_dtype)
@@ -434,13 +460,12 @@ class Model(nn.Module):
                                      rank * v if vocab_tp else 0)
         self.layers = nn.ModuleList(Block(cfg, kind, dtype, device, tp)
                                     for kind in cfg.blocks())
-        for blk in self.layers:
-            for module in blk.modules():  # the block and the modules whose collectives need it
-                if hasattr(module, "tp"):
-                    module.tp = shard
         self.final_norm = Norm(cfg.d_model, dtype, device)
         if cfg.is_encdec:
-            self.encoder = Encoder(cfg, dtype, device)
+            self.encoder = Encoder(cfg, dtype, device, tp)
+        for module in self.modules():  # the blocks and the modules whose collectives need it
+            if hasattr(module, "tp") and not isinstance(module, Embedding):
+                module.tp = shard
 
     @property
     def device(self) -> torch.device:
@@ -448,6 +473,11 @@ class Model(nn.Module):
 
     def _head(self) -> Embedding:
         return self.lm_head if hasattr(self, "lm_head") else self.embed
+
+    def _unit(self) -> Unit:
+        """How ``forward_train`` holds a module's parameters while it runs:
+        gathered over the data axis under FSDP, else as stored."""
+        return self.fsdp.gathered if self.fsdp is not None else _whole
 
     def _embed_inputs(self, tokens: torch.Tensor,
                       vision_embeds: Optional[torch.Tensor]) -> torch.Tensor:
@@ -459,7 +489,8 @@ class Model(nn.Module):
             x = torch.cat([vision_embeds.to(x.dtype), x], dim=1)
         return x
 
-    def _encode(self, enc_embeds: Optional[torch.Tensor], remat: bool = False) -> Memory:
+    def _encode(self, enc_embeds: Optional[torch.Tensor], remat: bool = False,
+                unit: Unit = _whole) -> Memory:
         """The encoder over the frame embeddings (B, T, d), none without an
         encoder: its output and the frames' indices, which its attention
         rotates by and the decoder's cross attention takes as key
@@ -475,7 +506,7 @@ class Model(nn.Module):
         positions = torch.arange(T, dtype=torch.int32, device=x.device).expand(B, T).contiguous()
         rope = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
         x, r = _run_stack(enc.layers, cfg, x, remat,
-                          lambda blk, x, r: _encoder_block(blk, cfg, x, r, positions, rope))
+                          lambda blk, x, r: _encoder_block(blk, cfg, x, r, positions, rope), unit)
         _, memory = add_norm(enc.final_norm, x, r, cfg.norm_eps)
         return memory, positions
 
@@ -488,17 +519,21 @@ class Model(nn.Module):
         prefill's fused residual pattern.  ``remat`` recomputes each group
         of the decoder and of the encoder in the backward
         (``_run_stack``); the kernels' forwards launch again in a
-        recompute."""
+        recompute.  Under FSDP each module's parameters are gathered just
+        before it runs (``_unit``)."""
         cfg = self.cfg
-        x = self._embed_inputs(batch["tokens"], batch.get("vision_embeds"))
-        memory = self._encode(batch.get("enc_embeds"), remat=remat)
+        unit = self._unit()
+        with unit(self.embed):
+            x = self._embed_inputs(batch["tokens"], batch.get("vision_embeds"))
+        memory = self._encode(batch.get("enc_embeds"), remat=remat, unit=unit)
         B, S = x.shape[:2]
         positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S).contiguous()
         rope = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
         x, r = _run_stack(self.layers, cfg, x, remat, lambda blk, x, r: _apply_block_train(
-            blk, cfg, x, r, positions, rope, memory))
+            blk, cfg, x, r, positions, rope, memory), unit)
         _, h = add_norm(self.final_norm, x, r, cfg.norm_eps)
-        return unembed(self._head(), h, cfg.logit_softcap)
+        with unit(self._head()):
+            return unembed(self._head(), h, cfg.logit_softcap)
 
     def init_cache(self, batch: int, max_len: int, dtype=None, *,
                    layout: str = "contiguous", block_size: int = 16,

@@ -29,6 +29,20 @@ routed output is whole; a shared MLP whose width tp does not divide is
 whole too.  ``moe_parts`` gives the two outputs with their kind, and the
 model adds a whole one after the reduce of the partial ones.
 
+Under grad a split layer's input and its gates (rank-local uses of
+replicated tensors) are ``collectives.copy``'d and its router logits
+gathered by ``collectives.gather``.
+
+Data parallelism (training, ``p.dp``: the data axis, set by
+``sharding.fsdp`` while a batch's rows are split over it): the reference
+routes the global batch, so a data rank all-gathers its per-expert pair
+counts, offsets its pairs' positions by the counts of the data ranks
+before it, and takes the capacity from the global token count: it keeps
+and drops exactly the pairs the reference does.  Its buffer still holds
+C rows per expert, of which its own pairs fill some.  Under
+``apply_moe_blocked`` a data rank is one block, with its own capacity, as
+the reference's blocks are its data shards.
+
 ``routing(log, forced)`` records each call's routing or imposes one, to
 hold two runs to the same routes in checks (bf16 flips top-k sets).
 """
@@ -46,6 +60,7 @@ from torch import nn
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import act_fn, init_normal_, new_param
 from repro_torch.models.mlp import MLP, apply_mlp
+from repro_torch.sharding import collectives
 from repro_torch.sharding.rules import divides, local_size
 
 
@@ -76,8 +91,10 @@ class MoE(nn.Module):
         if cfg.num_shared_experts > 0:
             self.shared = MLP(d, ff * cfg.num_shared_experts, True, dtype, device, shards)
         # a tensor-parallel shard's mesh, for the router's gather (set by
-        # ``Model``)
+        # ``Model``), and the data axis whose ranks split the batch's rows
+        # (set by ``sharding.fsdp`` per batch)
         self.tp = None
+        self.dp = None
 
     def init_(self, gen: torch.Generator) -> None:
         # the reference's scales: wg and wu take Maker.normal's default,
@@ -144,7 +161,7 @@ def router_logits(p: MoE, xf: torch.Tensor) -> torch.Tensor:
     experts computes its own experts' columns (T, E/tp) and gathers every
     rank's, in rank order: the whole row, the same bytes on every rank."""
     logits = torch.matmul(xf.float(), p.router.float())
-    return p.tp.gather_last(logits) if p.partial else logits
+    return collectives.gather(logits, -1, p.tp) if p.partial else logits
 
 
 def positions_in_expert(e_flat: torch.Tensor, E: int) -> torch.Tensor:
@@ -159,17 +176,35 @@ def positions_in_expert(e_flat: torch.Tensor, E: int) -> torch.Tensor:
     return torch.empty_like(pos_sorted).scatter_(0, order, pos_sorted)
 
 
-def _moe_tokens(p: MoE, xf: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """The routed experts of tokens ``xf`` (T, d), capacity over these T:
+def _global_positions(p: MoE, idx: torch.Tensor, pos: torch.Tensor, E: int):
+    """A data rank's pairs' positions among the global batch's (the data
+    ranks' rows in rank order), and the global token count's factor:
+    each pair moves past the pairs of its expert on the ranks before."""
+    counts = torch.zeros(E, dtype=torch.int64, device=idx.device).index_add_(
+        0, idx.reshape(-1), torch.ones(idx.numel(), dtype=torch.int64, device=idx.device))
+    every = p.dp.gather(counts[None], 0)                     # (dp, E)
+    before = every[:p.dp.rank].sum(0)
+    return pos + before[idx], p.dp.size
+
+
+def _moe_tokens(p: MoE, xf: torch.Tensor, cfg: ModelConfig, block: bool = False
+                ) -> torch.Tensor:
+    """The routed experts of tokens ``xf`` (T, d), capacity over these T
+    (over the global batch's tokens on a data rank, unless ``block``):
     route, position in expert, dispatch, expert FFN, combine.  A shard
     routes over all E experts, dispatches the pairs of its own experts
     and returns its fp32 partial sum."""
     T, d = xf.shape
     E, k = cfg.num_experts, cfg.num_experts_per_tok
+    if p.partial:
+        xf = collectives.copy(xf, p.tp)
     weights, idx = route(router_logits(p, xf), k)          # (T, k) each
 
     pos = positions_in_expert(idx.reshape(-1), E).reshape(T, k)
-    C = capacity(T, E, k, cfg.moe_capacity_factor)
+    ranks = 1
+    if p.dp is not None and not block:
+        pos, ranks = _global_positions(p, idx, pos, E)
+    C = capacity(T * ranks, E, k, cfg.moe_capacity_factor)
     keep = pos < C
     if _Routing.log is not None:
         _Routing.log.append((idx, keep))
@@ -199,6 +234,8 @@ def _moe_tokens(p: MoE, xf: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     # pair (whose gathered row is some other pair's), sum over k; in the
     # activations' dtype, or a shard's fp32 partial
     yk = y[local, pos.clamp(max=C - 1)]                      # (T, k, d)
+    if p.partial:
+        weights = collectives.copy(weights, p.tp)
     gates = torch.where(keep, weights, 0)
     if p.partial:
         return torch.sum(yk.float() * gates[..., None], dim=1)
@@ -217,7 +254,8 @@ def moe_parts(p: MoE, x: torch.Tensor, cfg: ModelConfig, blocks: int = 0
         if (B * S) % n or (B % n and n > 1):
             n = 1
         xf = x.reshape(n, B * S // n, d)
-        routed = torch.cat([_moe_tokens(p, blk, cfg) for blk in xf]).reshape(B, S, d)
+        routed = torch.cat([_moe_tokens(p, blk, cfg, block=True)
+                            for blk in xf]).reshape(B, S, d)
     else:
         routed = _moe_tokens(p, x.reshape(B * S, d), cfg).reshape(B, S, d)
     parts = [(routed, p.partial)]

@@ -61,7 +61,11 @@ Tensor parallelism (a module built with ``shards`` > 1, its mesh in
 A dim tp does not divide is whole on every rank, and so is the output of
 a block whose width is whole (``p.partial`` False); an mLSTM whose heads
 tp does not divide runs its cell whole from its gathered state, as the
-sLSTM does.
+sLSTM does.  Under grad the collectives are ``sharding.collectives``': a
+split block's input, a gathered row before the rank's rows or columns of
+it, the cell's heads and the cell norm's reduced statistic are
+``copy``'d where a rank's own arithmetic reads them, so every gradient
+that reaches a replicated tensor is summed over the ranks.
 """
 
 from __future__ import annotations
@@ -78,6 +82,7 @@ from repro_torch.kernels import dispatch
 from repro_torch.models import flags
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import act_fn, init_normal_, matmul_fp32, new_param, rms_norm
+from repro_torch.sharding import collectives
 from repro_torch.sharding.rules import cache_dim, divides, local_size
 
 # a pad step's log input gate: below the -1e30 a stabilizer starts at, so
@@ -172,6 +177,7 @@ def _row_partials(tp, x: torch.Tensor, ws) -> torch.Tensor:
     Summed over the ranks and rounded to x's dtype they are the products
     of the whole weights, rounded once as one product rounds."""
     H, rows, _ = ws[0].shape
+    x = collectives.copy(x, tp)
     xh = x.reshape(*x.shape[:-1], H, -1)[..., tp.rank * rows:(tp.rank + 1) * rows].float()
     return torch.einsum("...hd,nhde->...nhe", xh, torch.stack(ws).float())
 
@@ -181,16 +187,16 @@ def _block_diag_gathered(p, x: torch.Tensor, ws) -> torch.Tensor:
     tp) of the width, whole: x gathered over the ranks, then the products
     of the whole row (partial over the rank's input rows, and reduced,
     where the weights split them); (..., n, W)."""
-    full = p.tp.gather(x, -1)
+    full = collectives.gather(x, -1, p.tp)
     if ws[0].shape[1] < ws[0].shape[2]:
-        part = p.tp.all_reduce(_row_partials(p.tp, full, ws))
+        part = collectives.reduce(_row_partials(p.tp, full, ws), p.tp)
         return part.to(x.dtype).reshape(*x.shape[:-1], len(ws), -1)
     return torch.stack([_block_diag_linear(full, w) for w in ws], dim=-2)
 
 
 def _own_cols(p, t: torch.Tensor, n: int) -> torch.Tensor:
     """The rank's ``n`` columns of the width ``t`` (..., W)."""
-    return t[..., p.tp.rank * n:(p.tp.rank + 1) * n]
+    return collectives.copy(t, p.tp)[..., p.tp.rank * n:(p.tp.rank + 1) * n]
 
 
 def _rglru_gates(p: RGLRU, xc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -222,6 +228,8 @@ def apply_rglru_seq(p: RGLRU, x: torch.Tensor, cfg: ModelConfig,
     pad steps are identity (a = 1, b = 0), so ``h[:, -1]`` is the state
     after each row's last valid input, and a row with none keeps its
     state bit for bit."""
+    if p.partial:
+        x = collectives.copy(x, p.tp)
     g = act_fn("gelu")(torch.matmul(x, p.in_g))
     xr = torch.matmul(x, p.in_x)
     lengths = None if valid is None else valid.sum(dim=1, dtype=torch.int32)
@@ -416,13 +424,13 @@ def _mlstm_qkv_gates(p: MLSTM, u: torch.Tensor, uc: torch.Tensor, H: int, D: int
         log_i = (torch.matmul(uc, p.w_i) + p.b_i).float()
         log_f = F.logsigmoid((torch.matmul(uc, p.w_f) + p.b_f).float())
         return q, k, v, log_i, log_f
-    both = p.tp.gather(torch.stack([uc, u], dim=-2), -1)           # (B, S, 2, W)
+    both = collectives.gather(torch.stack([uc, u], dim=-2), -1, p.tp)  # (B, S, 2, W)
     gates = matmul_fp32(uc, torch.cat([p.w_i, p.w_f], dim=-1))      # (B, S, 2H) partial
     if p.wq.shape[1] < D:  # the products' input rows split: one reduce with the gates'
         qk = _row_partials(p.tp, both[:, :, 0], (p.wq, p.wk))
         v = _row_partials(p.tp, both[:, :, 1], (p.wv,))
         flat = torch.cat([qk.reshape(B, S, -1), v.reshape(B, S, -1), gates], dim=-1)
-        flat = p.tp.all_reduce(flat)
+        flat = collectives.reduce(flat, p.tp)
         qkv = flat[..., :3 * H * D].to(u.dtype).float().reshape(B, S, 3, H, D)
         q, k, v = qkv.unbind(2)
         gates = flat[..., 3 * H * D:]
@@ -430,7 +438,7 @@ def _mlstm_qkv_gates(p: MLSTM, u: torch.Tensor, uc: torch.Tensor, H: int, D: int
         q = _block_diag_linear(both[:, :, 0], p.wq).reshape(B, S, H, D).float()
         k = _block_diag_linear(both[:, :, 0], p.wk).reshape(B, S, H, D).float()
         v = _block_diag_linear(both[:, :, 1], p.wv).reshape(B, S, H, D).float()
-        gates = p.tp.all_reduce(gates)
+        gates = collectives.reduce(gates, p.tp)
     gates = gates.to(u.dtype)
     log_i = (gates[..., :H] + p.b_i).float()
     log_f = F.logsigmoid((gates[..., H:] + p.b_f).float())
@@ -441,8 +449,9 @@ def _cell_norm(p, h: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """``rms_norm(h, norm_scale)`` over the whole width of a shard's slice
     ``h`` (..., W / tp): K1's split launches, the slice's fp32 sums of
     squares all-reduced between them."""
-    ss = p.tp.all_reduce(dispatch.rmsnorm_sumsq(h))
-    return dispatch.rmsnorm(h, p.norm_scale, eps, stat=ss, width=h.shape[-1] * p.tp.size)
+    ss = collectives.reduce(dispatch.rmsnorm_sumsq(h), p.tp)
+    return dispatch.rmsnorm(h, p.norm_scale, eps, stat=collectives.copy(ss, p.tp),
+                            width=h.shape[-1] * p.tp.size)
 
 
 def _mlstm_out(p: MLSTM, h: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
@@ -468,7 +477,7 @@ def _gathered_state(p, state: Dict[str, torch.Tensor], full: Dict[str, Tuple[int
         else:
             groups.setdefault((dim, state[leaf].dtype, tuple(state[leaf].shape)), []).append(leaf)
     for (dim, _, _), leaves in groups.items():
-        whole = p.tp.gather(torch.stack([state[leaf] for leaf in leaves]), dim + 1)
+        whole = collectives.gather(torch.stack([state[leaf] for leaf in leaves]), dim + 1, p.tp)
         out.update(zip(leaves, whole.unbind(0)))
     return out
 
@@ -500,7 +509,7 @@ def _mlstm_heads(p: MLSTM, *ts):
     if not p.heads_split:
         return ts
     n = ts[0].shape[2] // p.tp.size
-    return tuple(t[:, :, p.tp.rank * n:(p.tp.rank + 1) * n] for t in ts)
+    return tuple(collectives.copy(t, p.tp)[:, :, p.tp.rank * n:(p.tp.rank + 1) * n] for t in ts)
 
 
 def apply_mlstm_seq(p: MLSTM, x: torch.Tensor, cfg: ModelConfig,
@@ -515,6 +524,8 @@ def apply_mlstm_seq(p: MLSTM, x: torch.Tensor, cfg: ModelConfig,
     W = int(d * cfg.mlstm_proj_factor)
     H = cfg.resolved_rec_heads
     D = W // H
+    if p.partial:
+        x = collectives.copy(x, p.tp)
     u = torch.matmul(x, p.up_u)
     z = torch.matmul(x, p.up_z)
     lengths = None if valid is None else valid.sum(dim=1, dtype=torch.int32)
@@ -543,6 +554,8 @@ def apply_mlstm_step(p: MLSTM, x: torch.Tensor, cfg: ModelConfig,
     W = int(d * cfg.mlstm_proj_factor)
     H = cfg.resolved_rec_heads
     D = W // H
+    if p.partial:
+        x = collectives.copy(x, p.tp)
     u = torch.matmul(x, p.up_u)
     z = torch.matmul(x, p.up_z)
     uc, conv_hist = _causal_conv(u, p.conv_w, state["conv"])
@@ -682,8 +695,10 @@ def _slstm_out(p: SLSTM, h: torch.Tensor) -> torch.Tensor:
     """The cell's output: ``rms_norm`` (K1), then its GeLU FFN (a shard's
     fp32 partial where its width is split)."""
     h = rms_norm(h, p.norm_scale, 1e-6)
-    mm = matmul_fp32 if p.partial else torch.matmul
-    return mm(act_fn("gelu")(torch.matmul(h, p.ff_up)), p.ff_down)
+    if not p.partial:
+        return torch.matmul(act_fn("gelu")(torch.matmul(h, p.ff_up)), p.ff_down)
+    h = collectives.copy(h, p.tp)
+    return matmul_fp32(act_fn("gelu")(torch.matmul(h, p.ff_up)), p.ff_down)
 
 
 def _slstm_folded(p: SLSTM, carry, pre, device: torch.device):

@@ -1,6 +1,7 @@
-"""Tensor-parallel serving rules, the counterpart of
-``repro/sharding/rules.py``: ``TP_SERVE_RULES``, the divisibility rule of
-``logical_to_pspec`` and the cache layout of ``partition.cache_shardings``.
+"""Tensor-parallel serving rules and the training mesh's rules, the
+counterpart of ``repro/sharding/rules.py``: ``TP_SERVE_RULES`` and
+``DEFAULT_RULES``, the divisibility rule of ``logical_to_pspec`` and the
+cache layout of ``partition.cache_shardings``.
 
 The reference names every parameter dim by a logical axis and maps
 ``heads``, ``kv_heads``, ``ffn``, ``experts``, ``lru`` and ``vocab`` onto
@@ -26,10 +27,21 @@ reduce of the partial ones.  The cache follows ``cache_shardings``
 L, else replicated; a paged pool on the heads, else replicated; recurrent
 states on their heads or width.
 
-``check_tp`` refuses two things, each by name: an encoder (its training
-and dry-run shardings come first, ROADMAP items 2b/4b), and a rank whose
-query heads straddle two KV groups unevenly (tp divides the query heads,
-and neither of tp and the KV heads divides the other).
+Training (``DEFAULT_RULES`` on a ``("data", "model")`` mesh) keeps those
+model dims and adds each leaf's data dim (``DATA_DIMS``): the dim the
+reference names ``embed``, which FSDP splits over the data ranks
+(``data_dim``).  The norm scales (``act_embed``), the block-diagonal
+gates, the biases, the convolutions of a width and the recurrent ``r_*``
+replicate over data; an sLSTM's ``norm_scale`` and ``conv_w`` are on
+``embed`` and split.  Each axis is used once per leaf, the model and data
+dims of a leaf always differ, and a dim the axis does not divide
+replicates.  The encoder's attention and MLP and every decoder block's
+``cross`` attention take the Attention and MLP rules.
+
+``check_train_tp`` refuses a rank whose query heads straddle two KV
+groups unevenly (tp divides the query heads, and neither of tp and the KV
+heads divides the other); ``check_tp``, serving's check, refuses that and
+an encoder, each by name: neither package's engine serves one.
 """
 
 from __future__ import annotations
@@ -63,6 +75,21 @@ TP_SERVE_RULES: Dict[str, Dict[str, Rule]] = {
 }
 
 
+# owning module's class -> parameter leaf -> its data dim (the reference's
+# ``embed``), over which FSDP splits the leaf; a leaf without one replicates
+# over data
+DATA_DIMS: Dict[str, Dict[str, int]] = {
+    "Attention": {"wq": 0, "wk": 0, "wv": 0, "wo": 2},
+    "MLP": {"wg": 0, "wu": 0, "wd": 1},
+    "MoE": {"router": 0, "wg": 1, "wu": 1, "wd": 2},
+    "Embedding": {"table": 1},
+    "RGLRU": {"in_x": 0, "in_g": 0, "out": 1},
+    "MLSTM": {"up_u": 0, "up_z": 0, "down": 1},
+    "SLSTM": {"w_z": 0, "w_i": 0, "w_f": 0, "w_o": 0, "conv_w": 1, "norm_scale": 0,
+              "ff_up": 0, "ff_down": 1},
+}
+
+
 def divides(tp: int, n: int) -> bool:
     """Whether a dim of ``n`` shards over ``tp`` > 1 ranks."""
     return tp > 1 and n % tp == 0
@@ -74,26 +101,30 @@ def local_size(n: int, tp: int) -> int:
     return n // tp if divides(tp, n) else n
 
 
-def check_tp(cfg: ModelConfig, tp: int) -> None:
-    """Raise ``ValueError`` unless ``cfg`` can be served at ``tp``: any
-    decoder (attention, local attention, FFN, mixture-of-experts, RG-LRU,
-    mLSTM and sLSTM blocks, with or without a vision prefix) whose ranks'
-    query heads each read one KV group, or whole ones.  A dim tp does not
-    divide is replicated."""
+def check_train_tp(cfg: ModelConfig, tp: int) -> None:
+    """Raise ``ValueError`` unless ``cfg`` shards over ``tp`` model ranks:
+    any config (attention, local attention, FFN, mixture-of-experts,
+    RG-LRU, mLSTM and sLSTM blocks, an encoder and cross attention, a
+    vision prefix) whose ranks' query heads each read one KV group, or
+    whole ones.  A dim tp does not divide is replicated."""
     if tp < 1:
         raise ValueError(f"tp must be >= 1, got {tp}")
-    if tp == 1:
-        return
-    if cfg.is_encdec:
-        raise ValueError(
-            f"{cfg.name}: tp={tp} refuses an encoder and cross attention: their shardings "
-            f"come with sharded training and the dry-run's mesh (ROADMAP items 2b/4b)")
     hq, hkv = cfg.num_heads, cfg.num_kv_heads
-    if divides(tp, hq) and not divides(tp, hkv) and tp % hkv:
+    if tp > 1 and divides(tp, hq) and not divides(tp, hkv) and tp % hkv:
         raise ValueError(
             f"{cfg.name}: tp={tp} gives each rank {hq // tp} of the {hq} query heads, which "
             f"straddle two groups of the {hkv} KV heads (G = {hq // hkv}) unevenly: a rank's "
             f"query heads must read one KV group, or whole ones")
+
+
+def check_tp(cfg: ModelConfig, tp: int) -> None:
+    """Raise ``ValueError`` unless ``cfg`` can be served at ``tp``: what
+    ``check_train_tp`` accepts, but an encoder (no engine serves one)."""
+    check_train_tp(cfg, tp)
+    if tp > 1 and cfg.is_encdec:
+        raise ValueError(
+            f"{cfg.name}: tp={tp} refuses an encoder and cross attention: no engine serves "
+            f"an encoder-decoder model (training shards it over the model axis)")
 
 
 def leaf_rule(module, leaf: str) -> Optional[Rule]:
@@ -166,10 +197,25 @@ def local_slice(rule: Optional[Rule], full, rank: int, tp: int):
     """Rank ``rank``'s slice of the full parameter ``full`` (a tensor or an
     array) whose rule is ``rule``: the ``rank``-th of ``tp`` equal parts of
     its sharded dim."""
-    dim = shard_dim(rule, full.shape, tp)
+    return rank_slice(full, shard_dim(rule, full.shape, tp), rank, tp)
+
+
+def data_dim(module, leaf: str, shape: Sequence[int], dp: int) -> Optional[int]:
+    """The dim of ``module``'s parameter ``leaf`` of ``shape`` that splits
+    over ``dp`` data ranks, by the module's class, or None (replicated over
+    data: no data dim, dp = 1, or a dim dp does not divide)."""
+    dim = DATA_DIMS.get(type(module).__name__, {}).get(leaf)
+    if dim is None or not divides(dp, shape[dim]):
+        return None
+    return dim
+
+
+def rank_slice(t, dim: Optional[int], rank: int, parts: int):
+    """The ``rank``-th of ``parts`` equal slices of ``t`` along ``dim`` (a
+    tensor or an array; ``t`` itself where ``dim`` is None)."""
     if dim is None:
-        return full
-    n = full.shape[dim] // tp
-    index = [slice(None)] * len(full.shape)
+        return t
+    n = t.shape[dim] // parts
+    index = [slice(None)] * len(t.shape)
     index[dim] = slice(rank * n, (rank + 1) * n)
-    return full[tuple(index)]
+    return t[tuple(index)]

@@ -21,6 +21,11 @@ model.  The jobs:
 * ``Collectives``: the mesh's collectives, eager and from a CUDA graph.
 * ``Refusal``: what building the shard, or an engine over it, raises.
 
+``train_plan(mesh, jobs)`` runs ``Train`` jobs, each on a
+``("data", "model")`` mesh of its own shape over the same ranks (or
+whole, with ``mesh`` None): training steps from given or drawn weights,
+with checkpoints written and restored.
+
 A MoE model's ``Serve`` and ``Logits`` can record each MoE call's routing
 (``record``) and take given routes in place of their own top-k
 (``routes``, ``models.moe.routing``): bf16 rounding flips top-k sets, so
@@ -313,4 +318,262 @@ def run_plan(mesh, plan: List[Tuple[Weights, List[Any]]], device="cpu") -> List[
         del model
         if device.type == "cuda":
             torch.cuda.empty_cache()
+    return results
+
+
+@dataclasses.dataclass
+class Train:
+    """``len(batches)`` train steps of ``cfg`` (each batch the global one,
+    numpy; every rank is given it) on a ``("data", "model")`` mesh of
+    ``shape`` made from the plan's ranks (or on one device where the plan
+    runs without a mesh), from ``params`` (the port's names -> full
+    arrays) or the weights drawn from ``seed``; AdamW with a warm-up
+    cosine schedule of ``lr``, ``warmup``, ``total``.  ``ckpt_dir``: with
+    ``resume`` the latest checkpoint there is restored first (the steps
+    then take the batches from its step on), and with ``save_at`` > 0 one
+    is written after that many steps.  Returns each step's ``loss`` and
+    ``grad_norm``, ``accuracy`` and ``tokens``, the rank's parameter and
+    moment ``shapes``; on rank 0 the gathered gradients of the first step
+    run (``grads``), the gathered parameters just restored
+    (``restored``), and the final parameters and moments (``final``), each
+    by name as numpy (bf16 as fp32)."""
+    cfg: ModelConfig
+    batches: List[Dict[str, np.ndarray]]
+    shape: Tuple[int, int] = (1, 1)
+    params: Optional[Dict[str, np.ndarray]] = None
+    seed: int = 0
+    lr: float = 3e-3
+    warmup: int = 4
+    total: int = 12
+    microbatches: int = 1
+    remat: bool = False
+    ckpt_dir: str = ""
+    resume: bool = False
+    save_at: int = 0
+    routes: bool = False    # record each MoE call's routing on the first step run
+
+    def run(self, mesh, device):
+        from repro_torch.models import model as model_lib
+        from repro_torch.sharding import partition
+        from repro_torch.training import checkpoint as ckpt_lib
+        from repro_torch.training import optimizer as opt_lib
+        from repro_torch.training import step as step_lib
+
+        cfg = self.cfg
+        opt = opt_lib.AdamW(schedule=opt_lib.warmup_cosine_schedule(
+            self.lr, self.warmup, self.total))
+        if self.params is not None:
+            model = (partition.shard_params(cfg, self.params, mesh) if mesh is not None
+                     else _whole_model(cfg, self.params, device))
+        elif mesh is not None:
+            model = partition.shard_model(cfg, mesh, self.seed)
+        else:
+            model = model_lib.init(cfg, torch.Generator(device=device).manual_seed(self.seed),
+                                   device)
+        state = step_lib.train_state(model, opt)
+        placement = model.placement
+        step = step_lib.make_train_step(cfg, opt, remat=self.remat,
+                                        microbatches=self.microbatches, mesh=mesh)
+        out: Dict[str, Any] = {"shapes": {n: tuple(p.shape) for n, p in state.params().items()},
+                               "moment_shapes": {n: tuple(t.shape)
+                                                 for n, t in state.opt.mu.items()}}
+        lead = mesh is None or mesh.rank == 0
+
+        def gathered(tensors):
+            if mesh is None:
+                return {n: t.detach().float().cpu().numpy() for n, t in tensors.items()}
+            full = partition.gather_params(tensors, placement)
+            return {n: t.float().numpy() for n, t in full.items()} if lead else None
+
+        def tree():
+            return {"params": state.params(), "opt_mu": state.opt.mu, "opt_nu": state.opt.nu}
+
+        first = 0
+        if self.resume:
+            restored, manifest = ckpt_lib.restore(self.ckpt_dir, tree(), device=device,
+                                                  placement=placement)
+            with torch.no_grad():
+                for part in ("params", "opt_mu", "opt_nu"):
+                    for k, t in tree()[part].items():
+                        t.copy_(restored[part][k])
+            first = state.opt.count = state.step = manifest["step"]
+            out["restored"] = gathered(state.params())
+        metrics = {k: [] for k in ("loss", "grad_norm", "accuracy", "tokens")}
+        for i, batch in enumerate(self.batches[first:], start=first):
+            batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+            if i == first:  # the first step's gradients before clipping
+                _, grads = step_lib.grads_of(step_lib.make_loss_fn(cfg, remat=self.remat),
+                                             model, batch, mesh, self.microbatches)
+                out["grads"] = gathered(grads)
+                del grads
+            ctx, log = _routing(None, self.routes and i == first)
+            with ctx:
+                m = step(state, batch)
+            if log is not None:
+                out["routes"] = _routes_out(log)
+            for k in metrics:
+                metrics[k].append(float(m[k]))
+            if self.save_at and i + 1 == self.save_at:
+                ckpt_lib.save(self.ckpt_dir, i + 1, tree(), placement=placement,
+                              metadata={"data_offset": i + 1})
+        out.update(metrics)
+        out["final"] = {"params": gathered(state.params()), "mu": gathered(state.opt.mu),
+                        "nu": gathered(state.opt.nu)}
+        return out
+
+
+@dataclasses.dataclass
+class CollectiveGrads:
+    """``sharding.collectives`` under autograd on a mesh of ``shape``: a
+    small network split over the model axis (``copy`` into column-parallel
+    products, ``reduce`` of row-parallel partials, ``gather`` of a split
+    activation) and over the data axis (``fsdp_gather`` of a weight, each
+    data rank its own rows, summed or whole), run on the rank's slices of
+    inputs drawn from ``seed`` on every rank alike.  Returns, for each
+    output and gradient, the largest difference from the same function
+    run whole by autograd on one rank (its gradients sliced as the rank
+    holds them)."""
+    shape: Tuple[int, int] = (1, 1)
+    seed: int = 0
+
+    def run(self, mesh, device):
+        from repro_torch.sharding import collectives as col
+
+        data, model = mesh.data, mesh.model
+        gen = torch.Generator().manual_seed(self.seed)
+        B, d, h = 4 * data.size, 6, 4 * model.size
+        x, w1, w2, w3 = (torch.randn(*s, generator=gen).to(device)
+                         for s in ((B, d), (d, h), (h, d), (d, d)))
+
+        def net(x, w1, w2, w3, split):
+            """(reduce(copy(x) @ w1_r -> tanh -> @ w2_r), gather(copy(x) @ w1_r))."""
+            if split:
+                x = col.copy(x, model)
+            a = torch.tanh(x @ w1)
+            y = a @ w2
+            if split:
+                return col.reduce(y, model), col.gather(a, -1, model)
+            return y, a
+
+        def loss_of(y, a, w3):
+            return ((y @ w3).sin().sum() + a.cos().sum()) / B
+
+        # whole, on every rank alike
+        leaves = [t.clone().requires_grad_(True) for t in (x, w1, w2, w3)]
+        y, a = net(*leaves[:3], leaves[3], split=False)
+        whole_loss = loss_of(y, a, leaves[3])
+        whole = torch.autograd.grad(whole_loss, leaves)
+
+        # split: rows of x over data, w1's columns and w2's rows over model,
+        # w3 data-sharded by rows and gathered (its gradient summed back)
+        out = {}
+        for summed in (True, False):
+            rows = B // data.size
+            xr = x[data.rank * rows:(data.rank + 1) * rows] if summed else x
+            cols = h // model.size
+            parts = [xr.clone(), w1[:, model.rank * cols:(model.rank + 1) * cols].clone(),
+                     w2[model.rank * cols:(model.rank + 1) * cols].clone(),
+                     w3[data.rank * (d // data.size):(data.rank + 1) * (d // data.size)].clone()
+                     if d % data.size == 0 else w3.clone()]
+            parts = [t.requires_grad_(True) for t in parts]
+            w3_full = (col.fsdp_gather(parts[3], 0, data, summed) if d % data.size == 0
+                       else parts[3])
+            y, a = net(*parts[:3], w3_full, split=True)
+            loss = loss_of(y, a, w3_full)  # a data rank's rows: its part of the sum
+            grads = torch.autograd.grad(loss, parts)
+            total = data.all_reduce(loss.detach()) if summed else loss.detach()
+            tag = "summed" if summed else "whole_rows"
+            out[f"{tag}_loss"] = float((total - whole_loss.detach()).abs())
+            if summed and d % data.size:  # a whole w3 sums its data ranks' gradients here
+                grads = grads[:3] + (data.all_reduce(grads[3].contiguous()),)
+            want = [whole[0][data.rank * rows:(data.rank + 1) * rows] if summed else whole[0],
+                    whole[1][:, model.rank * cols:(model.rank + 1) * cols],
+                    whole[2][model.rank * cols:(model.rank + 1) * cols],
+                    whole[3][data.rank * (d // data.size):(data.rank + 1) * (d // data.size)]
+                    if d % data.size == 0 else whole[3]]
+            if summed:  # the data-replicated weights' gradients summed over data
+                grads = (grads[0],) + tuple(
+                    data.all_reduce(g.contiguous()) for g in grads[1:3]) + (grads[3],)
+            for name, g, wnt in zip(("x", "w1", "w2", "w3"), grads, want):
+                out[f"{tag}_{name}"] = float((g - wnt).abs().max())
+        return out
+
+
+@dataclasses.dataclass
+class DriverTrain:
+    """The training driver, ``launch.train.run(args, mesh=, cfg=)``, on
+    ``argv`` on a mesh of ``shape`` (``cfg``: a config cut in depth, in
+    place of the registry's config of ``--arch``).  Returns the printed
+    keys, the losses, each step's seconds, the rank's kernel launches over
+    the run and its peak device GiB.  With ``grads_to``, rank 0 also
+    writes (``torch.save``) the gradients of the step after the run: the
+    trained model's gradients before clipping (gathered over both axes)
+    on the batch the driver would take next, as a resumed driver draws it,
+    with that step's loss and index."""
+    argv: List[str]
+    cfg: Optional[ModelConfig] = None
+    shape: Tuple[int, int] = (2, 2)
+    grads_to: str = ""
+
+    def run(self, mesh, device):
+        from repro_torch.data.synthetic import SyntheticConfig, SyntheticDataset, batch_for_model
+        from repro_torch.kernels import dispatch
+        from repro_torch.launch import train as train_lib
+        from repro_torch.sharding import partition
+        from repro_torch.training import step as step_lib
+
+        args = train_lib.build_argparser().parse_args(self.argv)
+        for k in dispatch.KERNELS.values():
+            k.launches = 0
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(device)
+        printed, rec = train_lib.run(args, mesh=mesh, cfg=self.cfg)
+        out = dict(out=printed, losses=rec.losses, seconds=rec.seconds,
+                   launches={n: k.launches for n, k in dispatch.KERNELS.items()},
+                   peak_gib=(torch.cuda.max_memory_allocated(device) / 2**30
+                             if device.type == "cuda" else None))
+        model, rec.state = rec.state.model, None
+        if self.grads_to:
+            cfg, nxt = model.cfg, len(rec.losses)
+            ds = SyntheticDataset(SyntheticConfig(vocab_size=cfg.vocab_size, seq_len=args.seq_len,
+                                                  batch_size=args.batch, seed=args.seed))
+            batch = batch_for_model(cfg, ds.batch_at(nxt), np.random.default_rng(args.seed))
+            aux, grads = step_lib.grads_of(
+                step_lib.make_loss_fn(cfg, remat=args.remat), model,
+                {k: torch.from_numpy(v).to(device) for k, v in batch.items()}, mesh,
+                args.microbatches)
+            full = partition.gather_params(grads, model.placement)
+            if mesh.rank == 0:
+                torch.save({"step": nxt, "loss": float(aux["loss"]), "grads": full},
+                           self.grads_to)
+        return out
+
+
+def _whole_model(cfg: ModelConfig, params: Dict[str, np.ndarray], device):
+    from repro_torch.bridge import as_tensor
+    from repro_torch.models import model as model_lib
+
+    model = model_lib.Model(cfg, device=device)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.copy_(as_tensor(params[name]))
+    return model
+
+
+def train_plan(mesh, jobs: List[Any], device="cpu") -> List[Any]:
+    """Each job (``Train``, ``CollectiveGrads``, ``DriverTrain``) on a mesh of its ``shape``
+    made from ``mesh``'s ranks (every rank makes every job's mesh, in
+    order), or on ``device`` whole where ``mesh`` is None."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    results = []
+    for job in jobs:
+        if mesh is None:
+            results.append(job.run(None, torch.device(device)))
+            continue
+        sub = mesh if tuple(job.shape) == tuple(mesh.shape) else mesh_lib.make_mesh(
+            job.shape, mesh.device, mesh.backend)
+        results.append(job.run(sub, sub.device))
+        mesh.barrier()
     return results

@@ -12,8 +12,14 @@ A save writes ``step_XXXXXXXX.tmp`` and renames it into place with
 ``os.replace``, so a crash mid-write never corrupts a durable checkpoint,
 and keeps the last ``keep`` steps.  numpy has no bfloat16: a bf16 tensor
 is stored through an ``int16`` view of its bits and the manifest records
-``bfloat16`` as its dtype.  One process writes everything (the port
-trains on one device).
+``bfloat16`` as its dtype.  One process writes everything.
+
+Elastic: a save from the ranks of a mesh (``placement=``, a
+``sharding.partition.Placement``) gathers each leaf's shards over both
+axes and rank 0 writes the same files, in the same layout and dtypes, as
+a one-device save of the same state; a restore with ``placement=`` slices
+each full array by that placement's mesh, whatever mesh wrote it.  The
+tree's leaves are keyed ``<part>/<parameter name>``.
 """
 
 from __future__ import annotations
@@ -70,10 +76,28 @@ def _from_numpy(arr: np.ndarray, dtype: str, device) -> torch.Tensor:
     return t.to(device)
 
 
+def _name(key: str) -> str:
+    """The parameter name of a flattened leaf key ``<part>/<name>``."""
+    return key.split("/", 1)[-1]
+
+
 def save(ckpt_dir: str, step: int, tree: Mapping, *, metadata: Optional[Dict] = None,
-         keep: int = 3) -> str:
+         keep: int = 3, placement=None) -> str:
     """Atomically persist ``tree`` (nested dicts of tensors or arrays) for
-    ``step``; returns the final directory."""
+    ``step``; returns the final directory.  With ``placement`` every rank
+    of its mesh calls this with its shards; rank 0 writes the whole
+    arrays and the others wait for it."""
+    if placement is not None:
+        flat = {}
+        for key, leaf in _flatten(tree).items():  # every rank gathers; rank 0 keeps
+            full = placement.gather(_name(key), leaf)
+            if placement.mesh.rank == 0:
+                flat[key] = full
+        final = os.path.join(ckpt_dir, f"step_{step:08d}")
+        if placement.mesh.rank == 0:
+            save(ckpt_dir, step, flat, metadata=metadata, keep=keep)
+        placement.mesh.barrier()
+        return final
     os.makedirs(ckpt_dir, exist_ok=True)
     name = f"step_{step:08d}"
     tmp = os.path.join(ckpt_dir, name + ".tmp")
@@ -125,10 +149,11 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 
 def restore(ckpt_dir: str, template: Mapping, *, step: Optional[int] = None,
-            device="cpu") -> Tuple[Dict, Dict]:
+            device="cpu", placement=None) -> Tuple[Dict, Dict]:
     """Load a checkpoint (the latest by default) into ``template``'s
     structure, each leaf a tensor on ``device`` in the dtype it was saved
-    in; returns (tree, manifest)."""
+    in (with ``placement``, the rank's slice of it); returns (tree,
+    manifest)."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -136,7 +161,11 @@ def restore(ckpt_dir: str, template: Mapping, *, step: Optional[int] = None,
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
+    def place(key, arr):
+        if placement is not None:
+            arr = np.ascontiguousarray(placement.slice(_name(key), arr))
+        return _from_numpy(arr, manifest["arrays"][key]["dtype"], device)
+
     with np.load(os.path.join(d, "arrays.npz")) as z:
-        arrays = {k: _from_numpy(z[k], manifest["arrays"][k]["dtype"], device)
-                  for k in z.files}
+        arrays = {k: place(k, z[k]) for k in z.files}
     return _unflatten_into(template, arrays), manifest

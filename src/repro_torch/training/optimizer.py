@@ -146,21 +146,41 @@ class AdamW:
                 p.copy_(n)
 
 
-def global_norm(grads: Dict[str, torch.Tensor]) -> torch.Tensor:
+def _sum_squares(grads: List[torch.Tensor], device) -> torch.Tensor:
+    if not grads:
+        return torch.zeros((), dtype=torch.float32, device=device)
+    return torch.stack(torch._foreach_norm(grads, 2, dtype=torch.float32)).square().sum()
+
+
+def global_norm(grads: Dict[str, torch.Tensor], placement=None) -> torch.Tensor:
     """sqrt of the sum of every gradient's squares, in fp32 (a 0-d tensor
-    on the gradients' device: nothing waits for it)."""
-    norms = torch._foreach_norm(list(grads.values()), 2, dtype=torch.float32)
-    return torch.stack(norms).square().sum().sqrt()
+    on the gradients' device: nothing waits for it but a mesh's
+    collectives).  ``placement`` (``sharding.partition.Placement``): the
+    gradients are a rank's shards; each class of leaf (split over both
+    axes, data only, model only, neither) sums its squares over the axes
+    it splits over, so a leaf whole on several ranks counts once."""
+    if placement is None:
+        return _sum_squares(list(grads.values()), None).sqrt()
+    device = next(iter(grads.values())).device
+    parts = {}
+    for name, g in grads.items():
+        parts.setdefault(placement.sharded(name), []).append(g)
+    sums = {key: _sum_squares(parts.get(key, []), device)
+            for key in ((True, True), (True, False), (False, True), (False, False))}
+    over_data = placement.data.all_reduce(torch.stack([sums[True, True], sums[True, False]]))
+    over_model = placement.model.all_reduce(torch.stack([over_data[0], sums[False, True]]))
+    return (over_model[0] + over_data[1] + over_model[1] + sums[False, False]).sqrt()
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads: Dict[str, torch.Tensor], max_norm: float
+def clip_by_global_norm(grads: Dict[str, torch.Tensor], max_norm: float, placement=None
                         ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
     """Every gradient times min(1, max_norm / (norm + 1e-9)), computed in
     fp32 and cast back to the gradient's dtype, in place (one gradient's
     fp32 copy at a time); returns (the gradients, the norm before
-    clipping)."""
-    norm = global_norm(grads)
+    clipping).  ``placement``: the gradients are a rank's shards
+    (``global_norm``)."""
+    norm = global_norm(grads, placement)
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
     for g in grads.values():
         g.copy_(g.float() * scale)

@@ -1318,6 +1318,22 @@ def test_nccl_collectives_replay_from_a_cuda_graph(cuda):
         assert out[0][0] == {"eager": [0.0, 0.0], "replayed": [0.0, 0.0]}, rank
 
 
+def test_differentiable_collectives_on_a_one_rank_nccl_group(cuda):
+    """``sharding.collectives`` on a (1, 1) mesh over NCCL: ``copy``,
+    ``reduce``, ``gather`` and ``fsdp_gather`` (its reduce-scatter) run
+    their NCCL collectives under autograd, and the loss and every gradient
+    equal autograd's on the whole tensors."""
+    from repro_torch.launch.mesh import spawn_mesh
+    from repro_torch.sharding import runs
+
+    (out,), = spawn_mesh(runs.train_plan, (1, 1), "cuda", [runs.CollectiveGrads()],
+                         backend="nccl")
+    assert set(out) == {f"{tag}_{k}" for tag in ("summed", "whole_rows")
+                        for k in ("loss", "x", "w1", "w2", "w3")}
+    for key, err in out.items():
+        assert err <= 1e-5, (key, err)
+
+
 # -- training: the kernels' autograd Functions ------------------------------------
 
 def _grad_case(name, dtype, dev):
@@ -1331,6 +1347,14 @@ def _grad_case(name, dtype, dev):
             return [x, s], lambda x, s: rn_ops.rmsnorm(x, s), rn_ref.rmsnorm, rn_ops.rmsnorm
         return ([x, r, s], lambda x, r, s: rn_ops.add_rmsnorm(x, r, s), rn_ref.add_rmsnorm,
                 rn_ops.rmsnorm)
+    if name == "rmsnorm_sumsq":
+        (x,) = _on(dev, dtype, rng.standard_normal((33, 2048)))
+        return [x], rn_ops.rmsnorm_sumsq, rn_ref.sumsq, rn_ops.rmsnorm
+    if name == "rmsnorm_stat":  # one rank's half of a 4096 width, the reduced statistic
+        x, s = _on(dev, dtype, rng.standard_normal((33, 2048)), 0.1 * rng.standard_normal(2048))
+        (stat,) = _on(dev, "float32", 4096 * rng.uniform(0.5, 2.0, 33))
+        return ([x, s, stat], lambda x, s, st: rn_ops.rmsnorm(x, s, stat=st, width=4096),
+                lambda x, s, st: rn_ref.rmsnorm(x, s, 1e-6, st, 4096), rn_ops.rmsnorm)
     if name == "flash_attention":
         q, k, v, qp, kp = _flash_inputs(2, 160, 160, 8, 2, 64)
         q, k, v = _on(dev, dtype, q, k, v)
@@ -1346,6 +1370,7 @@ def _grad_case(name, dtype, dev):
 
 
 GRAD_CASES = [("rmsnorm", "float32"), ("rmsnorm", "bfloat16"), ("add_rmsnorm", "bfloat16"),
+              ("rmsnorm_sumsq", "bfloat16"), ("rmsnorm_stat", "bfloat16"),
               ("flash_attention", "float32"), ("flash_attention", "bfloat16"),
               ("linear_recurrence", "float32")]
 

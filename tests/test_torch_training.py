@@ -543,5 +543,8 @@ def test_train_driver_energy_window_holds_the_final_checkpoint(tmp_path, monkeyp
 
 
 def test_train_driver_refuses_sharded_training():
-    with pytest.raises(ValueError, match="queue 1 item 2b"):
+    """``--mesh production`` is the reference's 16 x 16 mesh: with fewer
+    than its 256 ranks (here the one process) the driver refuses before
+    any process group starts, naming both counts."""
+    with pytest.raises(ValueError, match=r"= 256 ranks .* the world has 1"):
         train_lib.main(DRIVER + ["--steps", "1", "--mesh", "production"])
