@@ -91,16 +91,22 @@ or of the ``repro`` package.  Phases:
    a 5 s window, NVML, ``--check``), closed loop at concurrency 8 and
    open loop at 4 requests/s: every request sent finished without an
    error with its budget, launch counts exact, the TTFT split printed.
-7. The dry-run (``dryrun_phase``), once llama3.1-8b is freed:
-   ``launch.dryrun.run_cell`` on this machine's host for one cell of each
-   shape (tinyllama-1.1b train_4k, qwen3-moe-30b-a3b prefill_32k,
-   command-r-plus-104b decode_32k, xlstm-1.3b long_500k; llama3.1-8b's
-   long_500k skipped, as ``should_skip`` says), no kernel launched; then
-   the calibration: llama3.1-8b at full width, its prefill of 1 x 8192
-   and its decode step at 32 x 8192 (every key filled) counted at
-   ``chips=1`` and run through K1-K3, timed by ``time_callable``, every
-   sample at least the dry-run's bound, launches exact; the dry-run's
-   FLOPs beside ``prefill_flops`` and ``train_flops``.
+7. The dry-run (``dryrun_phase``), run last, after phase 14, whose
+   counts it reads: ``launch.dryrun.run_cell`` on this machine's host in
+   ``DRYRUN_WORKERS`` processes started before phase 14 (they need the
+   CPU only, and run while its ranks do), no kernel launched, for one
+   cell of each shape at the production mesh's 16 x 16 (tinyllama-1.1b
+   train_4k, qwen3-moe-30b-a3b prefill_32k, command-r-plus-104b
+   decode_32k, xlstm-1.3b long_500k; llama3.1-8b's long_500k skipped, as
+   ``should_skip`` says), every per-device field filled; the sharded
+   phase's counted steps at (2, 2): their collectives equal, kind by kind
+   in count and bytes, what each rank counted, and their per-device peak
+   estimates within ``PEAK_BAND`` of each rank's measured peak; then the
+   calibration: llama3.1-8b at full width, its prefill of 1 x 8192 and
+   its decode step at 32 x 8192 counted on one device and run through
+   K1-K3, timed by ``time_callable``, every sample at least the dry-run's
+   bound, launches exact; the dry-run's FLOPs beside ``prefill_flops`` and
+   ``train_flops``.
 8. Phases 3-6 again for the RG-LRU hybrid recurrentgemma-2b (26 layers:
    18 RG-LRU, 8 local attention over a 2048-token ring), once llama3.1-8b
    is freed: measure with exact launch counts (K5 18 per forward pass),
@@ -242,7 +248,13 @@ or of the ``repro`` package.  Phases:
    (the sharded ones within 1.5x the bf16 path's distance) and steps 4-5
    run from it, step 4's loss within ``SHARDED_LOSS_RTOL`` of the sharded
    step 4's and both within it of the unsharded run's.  Step times are gloo host copies on one card, not
-   FSDP's latency across GPUs.
+   FSDP's latency across GPUs.  The same spawn first runs a prefill of 2 x
+   512 and 4 greedy decode steps of tinyllama-1.1b at full width on 8 of
+   its 22 layers (``Model.prefill``/``decode_step`` under FSDP, one row a
+   data rank), held to the one-device model of the same seed by the bf16
+   floor, K1-K3 launches exact on every rank; each rank counts its
+   collectives and measures its peak bytes in that prefill, each decode
+   step and each train step of tinyllama's run, for phase 7.
 15. The last line: ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line is printed; so does a
@@ -439,6 +451,19 @@ SHARDED_TRAIN = ["--batch", "8", "--seq-len", "1024", "--lr", "3e-5", "--warmup"
                  "--log-every", "1"]
 SHARDED_SEAMLESS = (2, ["--batch", "4", "--seq-len", "1024", "--lr", "3e-5", "--steps", "2"]
                     + FAMILY_ARGS)
+# prefill and decode on the same (data 2, model 2) mesh, in the same spawn:
+# tinyllama-1.1b at full width on 8 of its 22 layers, bf16, drawn from seed
+# 0; a prefill of 2 x 512 (one row a data rank) and 4 greedy decode steps
+SHARDED_SERVE_LAYERS = 8
+SHARDED_SERVE = (2, 512, 4)   # rows, prompt, decode steps
+# the dry-run's per-device peak estimate (arguments + temp) over a rank's
+# measured peak (``torch.cuda.max_memory_allocated`` over the step), for
+# the train step, the prefill and a decode step: the band predicted in
+# PERF.md (PR 31) before the first run; 1.5x either way bounds it anyway
+PEAK_BAND = (0.75, 1.15)
+# processes the dry-run's cells run in, side by side, on this host's CPU
+# while the sharded phase's ranks run (``start_dryrun``)
+DRYRUN_WORKERS = 3
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, published
 BF16_FLOPS = 989e12             # dense tensor-core bf16, published
 FP32_FLOPS = 67e12              # fp32 outside the tensor cores, published
@@ -4108,7 +4133,9 @@ def sharded_train_phase(dev, counters, paths):
             "--steps", str(SHARDED_STEPS), "--ckpt-dir", ckpt, "--energy"]
         layers, seam_argv = SHARDED_SEAMLESS
         seam_cfg = get_config(SEAMLESS).replace(num_layers=layers, num_encoder_layers=layers)
-        jobs = [runs.DriverTrain(tiny, shape=SHARDED_MESH, grads_to=grads_file),
+        serve = sharded_serve_job()
+        jobs = [serve,
+                runs.DriverTrain(tiny, shape=SHARDED_MESH, grads_to=grads_file, count=True),
                 runs.DriverTrain(["--arch", SEAMLESS] + seam_argv, cfg=seam_cfg,
                                  shape=SHARDED_MESH)]
         gc.collect()
@@ -4118,8 +4145,9 @@ def sharded_train_phase(dev, counters, paths):
                            threads=1)
         log(f"sharded train spawn ({SHARDED_MESH[0]} x {SHARDED_MESH[1]} gloo ranks on one "
             f"card) took {time.perf_counter() - t:.1f} s")
+        served = [r[0] for r in ranks]
         for j, (arch, cfg) in enumerate(((TRAIN_ARCH, get_config(TRAIN_ARCH)),
-                                         (SEAMLESS, seam_cfg))):
+                                         (SEAMLESS, seam_cfg)), start=1):
             done = [r[j] for r in ranks]
             want = train_launches(cfg, len(done[0]["losses"]))
             for rank, run in enumerate(done):
@@ -4143,6 +4171,12 @@ def sharded_train_phase(dev, counters, paths):
                        printed=done[0]["out"])
             log("sharded train: " + json.dumps(row))
             rows.append(row)
+        mesh_runs = {"train": [r[1]["steps"][1] for r in ranks],
+                     "prefill": [r["phases"][0] for r in served],
+                     "decode": [r["phases"][1] for r in served]}
+        check(all(r[1]["steps"][1]["step"] == 1 for r in ranks),
+              "the counted train step is not the sharded run's second")
+        rows.append(sharded_serve_check(dev, serve, served, counters, paths))
         tiny_losses = rows[0]["losses"]
         check("joules" in rows[0]["printed"],
               "the sharded run's --energy window printed no joules")
@@ -4178,7 +4212,100 @@ def sharded_train_phase(dev, counters, paths):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"sharded train phase took {time.perf_counter() - t0:.1f} s")
-    return rows
+    return rows, mesh_runs
+
+
+def sharded_serve_job():
+    """``sharding.runs.MeshLogits`` on ``SHARDED_MESH``: tinyllama-1.1b at
+    full width on ``SHARDED_SERVE_LAYERS`` layers from seed 0, a prompt of
+    ``SHARDED_SERVE`` random tokens (seeded) and its greedy decode steps."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.sharding import runs
+
+    B, P, n = SHARDED_SERVE
+    cfg = get_config(TRAIN_ARCH).replace(num_layers=SHARDED_SERVE_LAYERS)
+    tokens = np.random.default_rng(3).integers(0, cfg.vocab_size, (B, P))
+    return runs.MeshLogits(cfg=cfg, tokens=tokens, max_len=P + n, greedy=n,
+                           shape=SHARDED_MESH, seed=0)
+
+
+def sharded_serve_check(dev, job, served, counters, paths):
+    """The ranks' prefill and greedy decode steps (``sharded_serve_job``)
+    against the one-device model of the same seed: each data rank's rows
+    of the logits within twice the plain bf16 path's distance from an fp32
+    copy (the bf16 floor ``tp_compare`` holds tensor-parallel logits to),
+    top-1 equal wherever fp32's margin clears it, a data rank's model
+    ranks alike; K1, K2 and K3 launched on every rank exactly as often as
+    one device launches them for a prefill and the decode steps."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import model as model_lib
+
+    cfg, (B, P, n) = job.cfg, SHARDED_SERVE
+    want = expected_launches(cfg, 1, n)
+    for rank, r in enumerate(served):
+        check(r["launches"] == want, f"sharded serve rank {rank}: launches {r['launches']} "
+                                     f"!= {want}")
+    paths[f"{TRAIN_ARCH} sharded serve"] = {k: sum(r["launches"][k] for r in served)
+                                            for k in counters}
+    dp, tp = SHARDED_MESH
+    for i in range(dp):
+        for j in range(1, tp):
+            check(np.array_equal(served[i * tp + j]["logits"], served[i * tp]["logits"]),
+                  f"sharded serve: rank {i * tp + j}'s logits differ from rank {i * tp}'s")
+    got = np.concatenate([served[i * tp]["logits"] for i in range(dp)], axis=1)
+    check([served[i * tp]["row"] for i in range(dp)] == [i * (B // dp) for i in range(dp)],
+          "sharded serve: the data ranks' rows are not the batch's in order")
+    tokens = torch.from_numpy(job.tokens).to(dev)
+    model = model_lib.init(cfg, torch.Generator(device=dev).manual_seed(job.seed), dev)
+
+    def run(m, dtype=None, forced=None):
+        cache = m.init_cache(B, P + n, dtype)
+        logits = m.prefill({"tokens": tokens}, cache)[0]
+        out, toks = [logits], []
+        for i in range(n):
+            tok = logits.argmax(-1, keepdim=True) if forced is None else forced[i]
+            toks.append(tok)
+            logits, cache = m.decode_step(tok, P + i, cache)
+            out.append(logits)
+        return torch.stack(out).float(), toks
+
+    kern, toks = run(model)
+    with dispatch.use_backend("torch"):
+        plain, _ = run(model, forced=toks)
+        ref32 = model_lib.Model(cfg.replace(dtype="float32", param_dtype="float32"), device=dev)
+        with torch.no_grad():
+            for p32, p in zip(ref32.parameters(), model.parameters()):
+                p32.copy_(p)
+        ref, _ = run(ref32, torch.float32, forced=toks)
+    del model, ref32
+    floor = (plain - ref).abs().max().item()
+    tol = 2 * floor
+    kern = kern.cpu().numpy()
+    ref = ref.cpu().numpy()
+    diff = float(np.abs(got - kern).max())
+    top2 = np.sort(ref, axis=-1)[..., -2:]
+    decided = (top2[..., 1] - top2[..., 0]) > floor
+    agree = got.argmax(-1) == ref.argmax(-1)
+    row = dict(arch=cfg.name, layers=cfg.num_layers, rows=B, prompt=P, decode_steps=n,
+               mesh=dict(data=dp, model=tp), max_abs_diff_vs_one_device=diff, tol=tol,
+               plain_bf16_vs_fp32=floor, max_abs_logit=float(np.abs(ref).max()),
+               top1_agree_fp32=f"{int(agree.sum())}/{agree.size}",
+               decided_rows=int(decided.sum()),
+               launches_per_rank=want,
+               peak_bytes_per_rank={ph["phase"]: [r["phases"][k]["peak_bytes"] for r in served]
+                                    for k, ph in enumerate(served[0]["phases"])})
+    log("sharded serve: " + json.dumps(row))
+    check(diff <= tol, f"sharded serve: logits {diff} from the one-device model's, tol {tol}")
+    check(bool(agree[decided].all()),
+          "sharded serve: top-1 differs from fp32 on a row with a clear margin")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -4196,24 +4323,30 @@ CALIB_TRAIN = (8, 1024)     # the train phase's rows and positions
 CALIB_ITERS = {"prefill": (2, 5), "decode": (3, 20)}   # warm-up calls, timed calls
 
 
-def calibrate(dev, counters, cfg, prefill, decode):
-    """``cfg``'s prefill and decode step counted by the dry-run at
-    ``chips=1`` and run on ``dev`` through the kernels, each timed by
-    ``time_callable``; every timed sample must take at least the dry-run's
-    bound (the larger of its compute and memory terms).  The decode cache
-    is filled with random K/V at every position, so the step attends to
-    all of them.  Returns (rows, launches, dry-run results)."""
+def calibration_cells(cfg, prefill, decode):
+    """The dry-run jobs of ``calibrate``: ``cfg``'s prefill and decode step
+    on one device (mesh (1, 1))."""
+    from repro_torch.models.config import ShapeConfig
+
+    return [(cfg.name, ShapeConfig("calib_prefill", prefill[1], prefill[0], "prefill"),
+             dict(mesh=(1, 1))),
+            (cfg.name, ShapeConfig("calib_decode", decode[1], decode[0], "decode"),
+             dict(mesh=(1, 1)))]
+
+
+def calibrate(dev, counters, cfg, prefill, decode, counted):
+    """``cfg``'s prefill and decode step, counted by the dry-run on one
+    device (``counted``: the results of ``calibration_cells``), run on
+    ``dev`` through the kernels, each timed by ``time_callable``; every
+    timed sample must take at least the dry-run's bound (the largest of
+    its terms).  The decode cache is filled with random K/V at every
+    position, so the step attends to all of them.  Returns (rows,
+    launches)."""
     import torch
 
     from repro_torch.core.latency import time_callable
-    from repro_torch.launch import dryrun
     from repro_torch.models import model as model_lib
-    from repro_torch.models.config import ShapeConfig
 
-    counted = {"prefill": dryrun.run_cell(cfg.name, ShapeConfig("calib_prefill", prefill[1],
-                                                                prefill[0], "prefill"), chips=1),
-               "decode": dryrun.run_cell(cfg.name, ShapeConfig("calib_decode", decode[1],
-                                                               decode[0], "decode"), chips=1)}
     gen = torch.Generator(device=dev).manual_seed(0)
     model = model_lib.init(cfg, gen, dev)
     reset_counts(counters)
@@ -4258,47 +4391,147 @@ def calibrate(dev, counters, cfg, prefill, decode):
               f"{cfg.name} {kind} ran in {row['ms_min']:.3f} ms, under the dry-run's bound "
               f"{bound_ms:.3f} ms: the count or the bytes are wrong")
         rows.append(row)
-    return rows, launches, counted
+    return rows, launches
 
 
-def dryrun_phase(dev, counters, paths):
-    """``launch.dryrun.run_cell`` on this machine's host for ``DRYRUN_CELLS``
-    (each ``ok``, or ``skipped`` where ``should_skip`` says; no kernel
-    launched), then ``calibrate`` on llama3.1-8b at full width (prefill 1 x
-    8192, decode 32 x 8192; launches exact), then the dry-run's FLOPs
-    beside this script's own: ``prefill_flops`` for the same prefill and
-    ``train_flops`` for tinyllama-1.1b's train step at the train phase's
-    8 x 1024."""
+def mesh_cells():
+    """The dry-run jobs of the sharded phase's counted steps at
+    ``SHARDED_MESH``: tinyllama-1.1b's train step at 8 x 1024 (full depth,
+    one microbatch, no remat, as the driver ran it), and the 8-layer
+    model's prefill and decode step of ``SHARDED_SERVE``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import ShapeConfig
+
+    B, P, n = SHARDED_SERVE
+    tb, ts = CALIB_TRAIN
+    cfg = get_config(TRAIN_ARCH).replace(num_layers=SHARDED_SERVE_LAYERS)
+    return {"train": (TRAIN_ARCH, ShapeConfig("sharded_train", ts, tb, "train", 1),
+                      dict(mesh=SHARDED_MESH, remat=False)),
+            "prefill": (TRAIN_ARCH, ShapeConfig("sharded_prefill", P, B, "prefill"),
+                        dict(mesh=SHARDED_MESH, cfg=cfg)),
+            "decode": (TRAIN_ARCH, ShapeConfig("sharded_decode", P + n, B, "decode"),
+                       dict(mesh=SHARDED_MESH, cfg=cfg))}
+
+
+def dryrun_jobs():
+    """Every dry-run cell of ``dryrun_phase``, as ``run_cells`` takes them:
+    ``DRYRUN_CELLS`` at 16 x 16, ``mesh_cells``, ``calibration_cells`` and
+    tinyllama-1.1b's train step at the train phase's 8 x 1024 on one
+    device."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import ShapeConfig
+
+    tb, ts = CALIB_TRAIN
+    return ([(arch, shape, {}) for arch, shape in DRYRUN_CELLS] + list(mesh_cells().values())
+            + calibration_cells(get_config(ARCH), CALIB_PREFILL, CALIB_DECODE)
+            + [(TRAIN_ARCH, ShapeConfig("calib_train", ts, tb, "train"), dict(mesh=(1, 1)))])
+
+
+def start_dryrun():
+    """``dryrun_jobs`` in ``DRYRUN_WORKERS`` processes on this host, from
+    a thread, so the cells (CPU only, meta tensors) run while the sharded
+    phase's ranks do; ``dryrun_phase`` reads the future.  Returns (the
+    future, its start time)."""
+    import concurrent.futures
+
+    from repro_torch.launch import dryrun
+
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    future = pool.submit(dryrun.run_cells, dryrun_jobs(), DRYRUN_WORKERS)
+    pool.shutdown(wait=False)
+    return future, time.perf_counter()
+
+
+def dryrun_phase(dev, counters, paths, mesh_runs, cells):
+    """``launch.dryrun.run_cell`` on this machine's host (``cells``:
+    ``start_dryrun``'s future of ``dryrun_jobs``, run in
+    ``DRYRUN_WORKERS`` processes), no kernel launched in any:
+    ``DRYRUN_CELLS`` at the production mesh's 16 x 16 (each ``ok`` with
+    every per-device field filled, or ``skipped`` where ``should_skip``
+    says); the sharded phase's steps at ``SHARDED_MESH`` (``mesh_cells``),
+    whose collectives must equal, kind by kind in count and bytes, what
+    each rank counted in them (``mesh_runs``), and whose per-device peak
+    estimates must be within ``PEAK_BAND`` (and 1.5x) of each rank's
+    measured peak; then ``calibrate`` on llama3.1-8b at full width
+    (prefill 1 x 8192, decode 32 x 8192; launches exact), then the
+    dry-run's FLOPs beside this script's own: ``prefill_flops`` for the
+    same prefill and ``train_flops`` for tinyllama-1.1b's train step at
+    the train phase's 8 x 1024."""
     import torch
 
     from repro_torch.configs import SHAPES, get_config
     from repro_torch.core.size import profile_size
     from repro_torch.launch import dryrun
-    from repro_torch.models.config import ShapeConfig
     from repro_torch.models.model import Model
 
     t0 = time.perf_counter()
-    reset_counts(counters)
-    for arch, shape in DRYRUN_CELLS:
+    cfg = get_config(ARCH)
+    tb, ts = CALIB_TRAIN
+    mesh_jobs = mesh_cells()
+    future, started = cells
+    out = future.result()
+    log(f"dryrun cells ({len(out)} in {DRYRUN_WORKERS} processes, started "
+        f"{t0 - started:.1f} s before this phase) done after {time.perf_counter() - t0:.1f} s "
+        f"of waiting; each cell's count_s and rank_count_s below")
+    check(all(n == 0 for _, launches in out for n in launches.values()),
+          "the dry-run launched a kernel")
+    results = [res for res, _ in out]
+    for (arch, shape), res in zip(DRYRUN_CELLS, results):
         want = "skipped" if dryrun.should_skip(get_config(arch), SHAPES[shape]) else "ok"
-        res = dryrun.run_cell(arch, shape)
         check(res["status"] == want, f"dry-run {arch} {shape}: {res['status']}, want {want}")
-        row = {"arch": arch, "shape": shape, "status": res["status"]}
+        row = {"arch": arch, "shape": shape, "status": res["status"], "mesh": res["mesh"]}
         if want == "ok":
-            r = res["roofline"]
-            row.update(count_s=res["count_s"], flops=res["cost"]["flops_global"],
+            r, mem, coll = res["roofline"], res["memory"], res["collectives"]
+            row.update(count_s=res["count_s"], rank_count_s=res["rank_count_s"],
+                       flops=res["cost"]["flops_global"],
+                       flops_perdev=res["cost"]["flops_perdev_corrected"],
                        microbatches=res["cost"]["microbatches"],
-                       argument_bytes=res["memory"]["argument_bytes_global"],
+                       argument_bytes=mem["argument_bytes_global"],
+                       argument_bytes_per_device=mem["argument_bytes_per_device"],
+                       temp_bytes_per_device=mem["temp_bytes_per_device"],
+                       peak_bytes_estimate=mem["peak_bytes_estimate"],
+                       collective_counts=coll["counts"],
+                       collective_bytes_per_device=coll["bytes_perdev_corrected"],
                        compute_term_ms=r["compute_term_s"] * 1e3,
-                       memory_term_ms=r["memory_term_s"] * 1e3, dominant=r["dominant"],
+                       memory_term_ms=r["memory_term_s"] * 1e3,
+                       collective_term_ms=r["collective_term_s"] * 1e3, dominant=r["dominant"],
                        model_flops=r["model_flops"], useful_flops_ratio=r["useful_flops_ratio"])
             check(math.isfinite(row["flops"]) and row["flops"] > 0, f"no count for {arch} {shape}")
+            check(res["mesh"] == "16x16" and all(
+                v is not None for part in ("memory", "collectives") for v in res[part].values())
+                  and res["cost"]["flops_perdev_corrected"] > 0
+                  and res["roofline"]["collective_term_s"] is not None,
+                  f"dry-run {arch} {shape}: a per-device field is null")
         log("dryrun cell: " + json.dumps(row))
-    check(all(n == 0 for n in read_counts(counters).values()), "the dry-run launched a kernel")
-    log(f"dryrun sweep cells took {time.perf_counter() - t0:.1f} s")
 
-    cfg = get_config(ARCH)
-    rows, launches, counted = calibrate(dev, counters, cfg, CALIB_PREFILL, CALIB_DECODE)
+    mesh_res = dict(zip(mesh_jobs, results[len(DRYRUN_CELLS):]))
+    for kind, res in mesh_res.items():
+        coll, mem = res["collectives"], res["memory"]
+        want = (coll["counts"], coll["bytes_by_kind_perdev_once"])
+        estimate = mem["peak_bytes_estimate"]
+        ratios = [estimate / r["peak_bytes"] for r in mesh_runs[kind]]
+        log(f"dryrun {kind} at {res['mesh']}: " + json.dumps({
+            "collective_counts": coll["counts"], "bytes_by_kind": coll["bytes_by_kind_perdev_once"],
+            "ranks_counted": [r["collectives"]["counts"] for r in mesh_runs[kind]],
+            "argument_bytes_per_device": mem["argument_bytes_per_device"],
+            "temp_bytes_per_device": mem["temp_bytes_per_device"],
+            "peak_bytes_estimate": estimate,
+            "measured_peak_bytes_per_rank": [r["peak_bytes"] for r in mesh_runs[kind]],
+            "measured_base_bytes_per_rank": [r["base_bytes"] for r in mesh_runs[kind]],
+            "estimate_over_measured": ratios, "band": PEAK_BAND, "card": card()}))
+        for rank, r in enumerate(mesh_runs[kind]):
+            got = (r["collectives"]["counts"], r["collectives"]["bytes_by_kind"])
+            check(got == want, f"dry-run {kind} at {res['mesh']}: rank {rank} counted {got}, "
+                               f"the dry-run {want}")
+        for rank, ratio in enumerate(ratios):
+            check(PEAK_BAND[0] <= ratio <= PEAK_BAND[1] and 1 / 1.5 <= ratio <= 1.5,
+                  f"dry-run {kind}: peak estimate over rank {rank}'s measured peak {ratio:.3f}, "
+                  f"outside {PEAK_BAND}")
+
+    first = len(DRYRUN_CELLS) + len(mesh_jobs)
+    counted = {"prefill": results[first], "decode": results[first + 1]}
+    train = results[first + 2]
+    rows, launches = calibrate(dev, counters, cfg, CALIB_PREFILL, CALIB_DECODE, counted)
     paths[f"{ARCH} dryrun calibration"] = launches
     (wp, ip), (wd, idc) = CALIB_ITERS["prefill"], CALIB_ITERS["decode"]
     want = expected_launches(cfg, wp + ip, wd + idc)
@@ -4310,8 +4543,6 @@ def dryrun_phase(dev, counters, paths):
     mine = prefill_flops(cfg, size.param_count - tables, B * S)
     theirs = counted["prefill"]["cost"]["flops_global"]
     tcfg = get_config(TRAIN_ARCH)
-    tb, ts = CALIB_TRAIN
-    train = dryrun.run_cell(TRAIN_ARCH, ShapeConfig("calib_train", ts, tb, "train"), chips=1)
     analytic = train_flops(tcfg, Model(tcfg, device="meta"), tb, ts)
     log("dryrun flops: " + json.dumps({
         f"{ARCH} prefill {B}x{S}": {"dryrun": theirs, "prefill_flops": mine,
@@ -4392,7 +4623,6 @@ def main():
     paths.update(bench_serve_phase(counters))
     gc.collect()
     torch.cuda.empty_cache()
-    dryrun_phase(dev, counters, paths)
     for path, decode in (("http serve", "paged_decode_attention"),
                          ("open loop", "paged_decode_attention"),
                          ("bench_serve closed", "decode_attention"),
@@ -4445,10 +4675,17 @@ def main():
     for arch in (SEAMLESS, MOONSHOT, LLAVA):
         check(all(paths[f"{arch} train"][k] > 0 for k in ("rmsnorm", "flash_attention")),
               f"K1 or K2 never launched on the {arch} train path")
-    sharded_train_phase(dev, counters, paths)
+    cells = start_dryrun()
+    _, mesh_runs = sharded_train_phase(dev, counters, paths)
     for arch in (TRAIN_ARCH, SEAMLESS):
         check(all(paths[f"{arch} sharded train"][k] > 0 for k in ("rmsnorm", "flash_attention")),
               f"K1 or K2 never launched on the {arch} sharded train path")
+    check(all(paths[f"{TRAIN_ARCH} sharded serve"][k] > 0
+              for k in ("rmsnorm", "flash_attention", "decode_attention")),
+          f"K1, K2 or K3 never launched on the {TRAIN_ARCH} sharded serve path")
+    gc.collect()
+    torch.cuda.empty_cache()
+    dryrun_phase(dev, counters, paths, mesh_runs, cells)
     for entry in entries:
         k = entry["name"]
         entry["launches_by_path"] = {path: counts[k] for path, counts in paths.items()}

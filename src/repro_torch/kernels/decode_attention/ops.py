@@ -135,6 +135,14 @@ def _partials(q, n_parts: int, D: int, n_split: int):
     return [stats[0].data_ptr(), stats[1].data_ptr(), acc.data_ptr()], (stats, acc)
 
 
+def workspace_bytes(B: int, Hq: int, Hkv: int, L: int, D: int, sms: int) -> int:
+    """The fp32 scratch a call allocates for pass 1 of its split (``_partials``):
+    m, l and acc of every (row, KV head, chunk, query head of the group);
+    0 for one chunk, which writes the output itself."""
+    n_split, _ = split_plan(B, Hkv, L, sms)
+    return 0 if n_split == 1 else 4 * (2 + D) * B * Hq * n_split
+
+
 @functools.cache
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count

@@ -6,6 +6,10 @@ launches or raises), a CPU tensor to the plain version.  The one switch is
 ``use_backend("torch")``, which sends CUDA tensors to the plain versions
 too, so a run can compare the two on the same inputs.
 
+Under the dry-run's live-bytes tracker (``core/cost.py``) a meta tensor's
+call is counted as the card's kernel allocates (``cost.as_kernel``): its
+outputs and a split launch's workspace, its plain version run unseen.
+
 Launch accounting: each wrapper counts one launch per call on its
 ``launches``.  On a tensor-parallel rank an mLSTM cell's norm over a width
 tp splits is K1's two split launches (``rmsnorm_sumsq``, the ranks'
@@ -23,6 +27,7 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
+from repro_torch.core import cost
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.decode_attention import ref as decode_ref
 from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -66,6 +71,9 @@ def flash_attention(q, k, v, *, q_positions, k_positions, causal, window=0,
               window=window, softcap=softcap)
     if _kernel(q):
         return flash_ops.flash_attention(q, k, v, **kw)
+    if cost.tracking(q):
+        return cost.as_kernel(lambda q, k, v: flash_ref.plain_attention(q, k, v, **kw),
+                              (q, k, v))
     return flash_ref.plain_attention(q, k, v, **kw)
 
 
@@ -75,6 +83,10 @@ def decode_attention(q, k_cache, v_cache, *, q_positions, k_positions,
               softcap=softcap)
     if _kernel(q):
         return decode_ops.decode_attention(q, k_cache, v_cache, **kw)
+    if cost.tracking(q):
+        (B, _, Hq, D), (L, Hkv) = q.shape, k_cache.shape[1:3]
+        return cost.as_kernel(lambda q: decode_ref.decode_attention(q, k_cache, v_cache, **kw),
+                              (q,), decode_ops.workspace_bytes(B, Hq, Hkv, L, D, cost.CARD_SMS))
     return decode_ref.decode_attention(q, k_cache, v_cache, **kw)
 
 
@@ -86,6 +98,13 @@ def paged_decode_attention(q, k_pool, v_pool, *, block_tables, q_positions,
               softcap=softcap, q_head0=q_head0, group=group)
     if _kernel(q):
         return decode_ops.paged_decode_attention(q, k_pool, v_pool, **kw)
+    if cost.tracking(q):
+        B, _, Hq, D = q.shape
+        heads = decode_ref.pool_heads(Hq, k_pool.shape[2], q_head0, group)
+        L = block_tables.shape[1] * k_pool.shape[1]
+        return cost.as_kernel(
+            lambda q: decode_ref.paged_decode_attention(q, k_pool, v_pool, **kw), (q,),
+            decode_ops.workspace_bytes(B, Hq, heads.stop - heads.start, L, D, cost.CARD_SMS))
     return decode_ref.paged_decode_attention(q, k_pool, v_pool, **kw)
 
 
@@ -93,6 +112,9 @@ def linear_recurrence(a, b, h0):
     """h_t = a_t * h_{t-1} + b_t over axis 1.  a, b: (B, S, W) fp32; h0: (B, W)."""
     if _kernel(a):
         return linrec_ops.linear_recurrence(a, b, h0)
+    if cost.tracking(a):
+        return cost.as_kernel(linrec_ref.linear_recurrence, (a, b, h0),
+                              linrec_ops.workspace_bytes(*a.shape, cost.CARD_SMS))
     return linrec_ref.linear_recurrence(a, b, h0)
 
 
@@ -101,6 +123,12 @@ def rmsnorm(x, scale, eps=1e-6, stat=None, width=0):
     width`` (a width the ranks split, ``rmsnorm_sumsq``'s sums reduced)."""
     if _kernel(x):
         return rmsnorm_ops.rmsnorm(x, scale, eps=eps, stat=stat, width=width)
+    if cost.tracking(x):
+        if stat is None:
+            return cost.as_kernel(lambda x, s: rmsnorm_ref.rmsnorm(x, s, eps=eps), (x, scale))
+        return cost.as_kernel(lambda x, s, st: rmsnorm_ref.rmsnorm(x, s, eps=eps, stat=st,
+                                                                  width=width),
+                              (x, scale, stat))
     return rmsnorm_ref.rmsnorm(x, scale, eps=eps, stat=stat, width=width)
 
 
@@ -108,6 +136,8 @@ def rmsnorm_sumsq(x):
     """Each row's fp32 sum of squares over the last dim: K1's statistic."""
     if _kernel(x):
         return rmsnorm_ops.rmsnorm_sumsq(x)
+    if cost.tracking(x):
+        return cost.as_kernel(rmsnorm_ref.sumsq, (x,))
     return rmsnorm_ref.sumsq(x)
 
 
@@ -115,6 +145,9 @@ def add_rmsnorm(x, r, scale, eps=1e-6):
     """``(x + r, rmsnorm(x + r))``: the residual add fused into K1."""
     if _kernel(x):
         return rmsnorm_ops.add_rmsnorm(x, r, scale, eps=eps)
+    if cost.tracking(x):
+        return cost.as_kernel(lambda x, r, s: rmsnorm_ref.add_rmsnorm(x, r, s, eps=eps),
+                              (x, r, scale))
     return rmsnorm_ref.add_rmsnorm(x, r, scale, eps=eps)
 
 

@@ -50,6 +50,13 @@ def check_plan(S: int, n_chunks: int, chunk: int) -> None:
         raise ValueError(f"{n_chunks} chunks of {chunk} steps do not tile {S} steps")
 
 
+def workspace_bytes(B: int, S: int, W: int, sms: int) -> int:
+    """The fp32 chunk aggregates (A, B) a split scan allocates for pass 1;
+    0 for one chunk."""
+    n_chunks, _ = scan_plan(B, S, W, sms)
+    return 0 if n_chunks == 1 else 4 * 2 * B * n_chunks * W
+
+
 @functools.cache
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count

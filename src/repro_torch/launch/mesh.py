@@ -29,8 +29,11 @@ rank ``i·tp + j`` is data index i and model index j.  ``Mesh.model`` is a
 collectives run on as they do for serving; ``Mesh.data`` is one over the
 data axis, which FSDP gathers parameters and reduce-scatters gradients on
 (``sharding/fsdp.py``).  ``make_production_mesh`` is the reference's 16 x
-16 over the world's ranks; ``make_host_mesh`` puts every rank on data (one
-rank: the one-device run).
+16 over the world's ranks (``multi_pod``: its two pods, a data axis of 32
+with a ``pod`` axis across them); ``make_host_mesh`` puts every rank on
+data (one rank: the one-device run).  ``Mesh.count(log)`` counts each
+axis's collectives into a ``sharding.record.CollectiveLog`` (off by
+default), by the rule the dry-run's recording mesh counts them.
 
 ``spawn_mesh(fn, shape, device, *args)`` starts ``prod(shape)`` rank
 processes (``torch.multiprocessing``, "spawn"), makes each rank's mesh
@@ -56,6 +59,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import resolve_device
+from repro_torch.sharding.record import CollectiveLog, tensor_bytes
 
 # how long a rank waits in a host broadcast for rank 0's next command: a
 # served engine may sit idle between requests
@@ -75,6 +79,8 @@ class TPMesh:
     shared: bool                 # ranks share a device (draw weights in turn)
     group: Any                   # the ("tp",) device mesh's group: the model's collectives
     host_group: Any              # gloo: the engine's host broadcasts
+    axis: str = "tp"             # the axis's name in a ``CollectiveLog``
+    log: Optional[CollectiveLog] = None  # where the collectives are counted (off: None)
 
     @property
     def capturable(self) -> bool:
@@ -87,8 +93,17 @@ class TPMesh:
                 f"{', ranks share the device' if self.shared else ''})")
 
     # -- the model's collectives ----------------------------------------------
+    def _count(self, kind: str, t: torch.Tensor) -> None:
+        """Log a collective whose result is ``t`` (``sharding/record.py``)."""
+        if self.log is not None:
+            self.log.add(self.axis, kind, tensor_bytes(t))
+
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
         """The sum of ``t`` over the ranks, the same bytes on every rank."""
+        self._count("all-reduce", t)
+        return self._all_reduce(t)
+
+    def _all_reduce(self, t: torch.Tensor) -> torch.Tensor:
         if self.staged:
             host = t.cpu()
             dist.all_reduce(host, group=self.group)
@@ -112,7 +127,9 @@ class TPMesh:
             out = torch.stack(parts).to(t.device)
         shape = list(t.shape)
         shape[dim] *= self.size
-        return out.movedim(0, dim).reshape(shape)
+        out = out.movedim(0, dim).reshape(shape)
+        self._count("all-gather", out)
+        return out
 
     def gather_root(self, t: torch.Tensor, dim: int) -> Optional[torch.Tensor]:
         """Each rank's ``t`` side by side along ``dim`` on the axis's rank 0
@@ -127,15 +144,20 @@ class TPMesh:
     def reduce_scatter(self, t: torch.Tensor, dim: int) -> torch.Tensor:
         """The sum of ``t`` over the ranks, cut into ``size`` equal parts
         along ``dim``: the rank's part (``size`` divides the dim).  Gloo
-        all-reduces and keeps the part."""
+        all-reduces, keeps a copy of the part and frees the whole; it
+        counts as one reduce-scatter."""
         dim = dim % t.dim()
         n = t.shape[dim] // self.size
         if self.backend == "nccl":
             src = t.movedim(dim, 0).contiguous()
             out = torch.empty((n,) + tuple(src.shape[1:]), dtype=t.dtype, device=t.device)
             dist.reduce_scatter_tensor(out, src, group=self.group)
-            return out.movedim(0, dim)
-        return self.all_reduce(t if self.staged else t.clone()).narrow(dim, self.rank * n, n)
+            out = out.movedim(0, dim)
+        else:
+            whole = self._all_reduce(t if self.staged else t.clone())
+            out = whole.narrow(dim, self.rank * n, n).clone()
+        self._count("reduce-scatter", out)
+        return out
 
     def gather_last(self, t: torch.Tensor) -> torch.Tensor:
         """Each rank's ``t`` (..., n) side by side along the last dim, rank
@@ -193,7 +215,11 @@ class Mesh:
     """One rank's view of a ``("data", "model")`` mesh of ``dp`` x ``tp``
     ranks: ``data`` and ``model`` are ``TPMesh`` views of its two axes
     (each with the axis's group, size and this rank's index on it), so
-    the model's tensor-parallel collectives run on ``model`` unchanged."""
+    the model's tensor-parallel collectives run on ``model`` unchanged.
+    A mesh of several pods (the reference's ``("pod", "data", "model")``
+    with the data axis over pod and data) has ``pod``: the axis across
+    the pods, which a parameter that the whole data axis does not divide
+    splits over (``rules.data_split``)."""
     shape: Tuple[int, int]
     rank: int
     device: torch.device
@@ -203,10 +229,21 @@ class Mesh:
     data: TPMesh
     model: TPMesh
     host_group: Any              # gloo over every rank: preemption votes, turns
+    pod: Optional[TPMesh] = None
 
     @property
     def size(self) -> int:
         return self.shape[0] * self.shape[1]
+
+    @property
+    def pods(self) -> int:
+        return self.pod.size if self.pod is not None else 1
+
+    def count(self, log: Optional[CollectiveLog]) -> None:
+        """Count every axis's collectives into ``log`` (None: stop)."""
+        for axis in (self.data, self.model, self.pod):
+            if axis is not None:
+                axis.log = log
 
     def barrier(self) -> None:
         dist.barrier(group=self.host_group)
@@ -247,15 +284,21 @@ def _join(world: int, device, backend: Optional[str]) -> Tuple[torch.device, str
     return dev, backend, count, rank
 
 
-def make_mesh(shape: Sequence[int], device="cuda", backend: Optional[str] = None) -> Mesh:
+def make_mesh(shape: Sequence[int], device="cuda", backend: Optional[str] = None,
+              pods: int = 1) -> Mesh:
     """Join this process to a ``("data", "model")`` mesh of ``shape`` = (dp,
     tp) ranks and return its view; the world (``WORLD_SIZE``) must hold dp
-    x tp ranks.  The backend is chosen as ``make_tp_mesh`` chooses it.  A
-    process already in the world's group (another mesh of the same ranks)
-    makes the new mesh's groups only: every rank must call it."""
+    x tp ranks.  ``pods`` > 1 splits the data axis into that many pods
+    (data index ``p·dp/pods + k`` is index k of pod p) and adds the
+    ``pod`` axis across them.  The backend is chosen as ``make_tp_mesh``
+    chooses it.  A process already in the world's group (another mesh of
+    the same ranks) makes the new mesh's groups only: every rank must
+    call it."""
     dp, tp = (int(n) for n in shape)
     if dp < 1 or tp < 1:
         raise ValueError(f"a mesh's axes must be >= 1, got (data {dp}, model {tp})")
+    if pods < 1 or dp % pods:
+        raise ValueError(f"{pods} pods do not split a data axis of {dp}")
     dev, backend, count, rank = _join(dp * tp, device, backend)
     from torch.distributed.device_mesh import init_device_mesh
 
@@ -265,30 +308,46 @@ def make_mesh(shape: Sequence[int], device="cuda", backend: Optional[str] = None
     staged = backend == "gloo" and dev.type == "cuda"
     shared = dev.type == "cuda" and count < dp * tp
 
-    def axis(name: str, size: int, index: int) -> TPMesh:
+    def axis(name: str, size: int, index: int, group) -> TPMesh:
         return TPMesh(size=size, rank=index, device=dev, backend=backend, staged=staged,
-                      shared=shared, group=mesh.get_group(name), host_group=host_group)
+                      shared=shared, group=group, host_group=host_group, axis=name)
 
+    pod = None
+    if pods > 1:  # every rank makes every pod group, in one order
+        per = dp // pods
+        for k in range(per):
+            for j in range(tp):
+                group = dist.new_group([(p * per + k) * tp + j for p in range(pods)])
+                if (rank // tp) % per == k and rank % tp == j:
+                    pod = axis("pod", pods, (rank // tp) // per, group)
     return Mesh(shape=(dp, tp), rank=rank, device=dev, backend=backend, staged=staged,
-                shared=shared, data=axis("data", dp, rank // tp),
-                model=axis("model", tp, rank % tp), host_group=host_group)
+                shared=shared, data=axis("data", dp, rank // tp, mesh.get_group("data")),
+                model=axis("model", tp, rank % tp, mesh.get_group("model")),
+                host_group=host_group, pod=pod)
 
 
 PRODUCTION_SHAPE = (16, 16)
+# two pods of it: (pod 2, data 16, model 16), the data axis over pod and data
+PRODUCTION_PODS = 2
 
 
-def make_production_mesh(device="cuda", backend: Optional[str] = None) -> Mesh:
+def make_production_mesh(device="cuda", backend: Optional[str] = None,
+                         multi_pod: bool = False) -> Mesh:
     """The reference's production mesh, 16 x 16 over ``("data", "model")``,
-    over the world's ranks; fewer than 256 raise ``ValueError`` naming the
-    count, as the reference's ``jax.make_mesh`` raises for too few
-    devices."""
-    need = math.prod(PRODUCTION_SHAPE)
+    or with ``multi_pod`` two pods of it (512 ranks, the data axis of 32
+    over pod and data), over the world's ranks; another world size raises
+    ``ValueError`` naming the count, as the reference's ``jax.make_mesh``
+    raises for too few devices."""
+    pods = PRODUCTION_PODS if multi_pod else 1
+    dp, tp = PRODUCTION_SHAPE[0] * pods, PRODUCTION_SHAPE[1]
+    need = dp * tp
     have = int(os.environ.get("WORLD_SIZE", "1"))
     if have != need:
-        raise ValueError(f"--mesh production is {PRODUCTION_SHAPE[0]} x {PRODUCTION_SHAPE[1]} "
-                         f"= {need} ranks (data, model), but the world has {have}; "
-                         f"start {need} ranks with torchrun, or use --mesh host")
-    return make_mesh(PRODUCTION_SHAPE, device, backend)
+        what = f"{pods} x " if pods > 1 else ""
+        raise ValueError(f"--mesh production is {what}{PRODUCTION_SHAPE[0]} x "
+                         f"{PRODUCTION_SHAPE[1]} = {need} ranks (data, model), but the world "
+                         f"has {have}; start {need} ranks with torchrun, or use --mesh host")
+    return make_mesh((dp, tp), device, backend, pods=pods)
 
 
 def make_host_mesh(device="cuda", backend: Optional[str] = None) -> Mesh:

@@ -38,11 +38,12 @@ in the one-device layout, and restore onto any mesh.  Rank 0 prints; with
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, ContextManager, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -123,10 +124,13 @@ def _mesh_gpus(mesh) -> List[int]:
     return sorted(set(every))
 
 
-def run(args, mesh=None, cfg=None) -> Tuple[Dict[str, float], TrainRun]:
+def run(args, mesh=None, cfg=None, around_step: Optional[Callable[[int], ContextManager]] = None
+        ) -> Tuple[Dict[str, float], TrainRun]:
     """Train as ``args`` say, on ``mesh`` (a ``launch.mesh.Mesh`` this
     process is a rank of) or the one ``--mesh`` names; ``cfg`` in place of
-    ``--arch``'s config (one cut in depth, say)."""
+    ``--arch``'s config (one cut in depth, say).  ``around_step(i)``: a
+    context each step i runs in, its loss read inside (a caller's
+    measurement of one step)."""
     if mesh is None:
         mesh = _mesh(args)
     device = mesh.device if mesh is not None else resolve_device(args.device)
@@ -193,8 +197,9 @@ def run(args, mesh=None, cfg=None) -> Tuple[Dict[str, float], TrainRun]:
                 break
             batch = {k: torch.from_numpy(v).to(device) for k, v in host_batch.items()}
             watchdog.start_step()
-            metrics = train_step(state, batch)
-            loss = float(metrics["loss"])  # waits for the step
+            with around_step(i) if around_step else contextlib.nullcontext():
+                metrics = train_step(state, batch)
+                loss = float(metrics["loss"])  # waits for the step
             timing = watchdog.end_step(i)
             record.steps.append(i)
             record.losses.append(loss)

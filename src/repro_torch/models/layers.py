@@ -152,7 +152,9 @@ def embed_tokens(p: Embedding, tokens: torch.Tensor, scale: bool,
 
 
 def _matmul_fp32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    if x.is_cuda and x.dtype != torch.float32:
+    # meta takes the card's product too: the dry-run counts what the card
+    # allocates, and an fp32 copy of ``w`` is not part of it
+    if (x.is_cuda or x.is_meta) and x.dtype != torch.float32:
         return torch.mm(x.reshape(-1, x.shape[-1]), w,
                         out_dtype=torch.float32).reshape(*x.shape[:-1], -1)
     return torch.matmul(x.float(), w.float())

@@ -45,11 +45,15 @@ cross attention shard by the same rules (training only: no engine serves
 one).  Under grad the collectives are ``sharding.collectives``'
 differentiable ones.
 
-Sharded training adds FSDP over a data axis (``sharding/fsdp.py``, set as
-``Model.fsdp``): the model then stores each parameter's data shard, and
-``forward_train`` gathers a module's parameters just before it runs (each
-block in ``_run_stack``, the embedding, the head) and drops them after;
-the backward reduce-scatters their gradients.
+A ``("data", "model")`` mesh adds FSDP over the data axis
+(``sharding/fsdp.py``, set as ``Model.fsdp``): the model then stores each
+parameter's data shard, and ``forward_train``, ``prefill`` and
+``decode_step`` gather a module's parameters just before it runs (each
+block, the encoder's blocks, the embedding, the head) and drop them
+after; the backward reduce-scatters their gradients.  The caller gives
+``prefill`` and ``decode_step`` the rank's rows of the batch and its
+cache (``sharding.partition.rank_rows``, ``rank_cache``).  Without FSDP
+each module runs as stored.
 
 Entry points:
   * ``init(cfg, generator, device)`` — a model with random weights at the
@@ -475,7 +479,7 @@ class Model(nn.Module):
         return self.lm_head if hasattr(self, "lm_head") else self.embed
 
     def _unit(self) -> Unit:
-        """How ``forward_train`` holds a module's parameters while it runs:
+        """How a forward holds a module's parameters while it runs:
         gathered over the data axis under FSDP, else as stored."""
         return self.fsdp.gathered if self.fsdp is not None else _whole
 
@@ -563,17 +567,21 @@ class Model(nn.Module):
         ``batch["vision_embeds"]`` (B, nv, d) at positions 0..nv-1, the
         tokens after them (the first decode position is then nv + S)."""
         cfg = self.cfg
-        x = self._embed_inputs(batch["tokens"], batch.get("vision_embeds"))
-        memory = self._encode(batch.get("enc_embeds"))
+        unit = self._unit()
+        with unit(self.embed):
+            x = self._embed_inputs(batch["tokens"], batch.get("vision_embeds"))
+        memory = self._encode(batch.get("enc_embeds"), unit=unit)
         B, S = x.shape[:2]
         positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S).contiguous()
         rope = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
         r = None
         for blk, entry in zip(self.layers, cache):
-            x, r = _apply_block_seq(blk, cfg, x, r, positions, rope, entry, block_tables,
-                                    memory)
+            with unit(blk):
+                x, r = _apply_block_seq(blk, cfg, x, r, positions, rope, entry, block_tables,
+                                        memory)
         _, h = add_norm(self.final_norm, x, r, cfg.norm_eps)
-        logits = unembed(self._head(), h[:, -1:], cfg.logit_softcap)[:, 0]
+        with unit(self._head()):
+            logits = unembed(self._head(), h[:, -1:], cfg.logit_softcap)[:, 0]
         return logits, cache
 
     @torch.no_grad()
@@ -649,14 +657,18 @@ class Model(nn.Module):
         B = token.shape[0]
         positions = torch.as_tensor(position, dtype=torch.int32,
                                     device=token.device).expand(B).contiguous()
-        x = embed_tokens(self.embed, token, cfg.emb_scale, cfg.d_model)
+        unit = self._unit()
+        with unit(self.embed):
+            x = embed_tokens(self.embed, token, cfg.emb_scale, cfg.d_model)
         rope = rope_tables(positions[:, None], cfg.resolved_head_dim, cfg.rope_theta)
         r = None
         for blk, entry in zip(self.layers, cache):
-            x, r = _apply_block_decode(blk, cfg, x, r, positions, rope, entry, block_tables,
-                                       update_mask)
+            with unit(blk):
+                x, r = _apply_block_decode(blk, cfg, x, r, positions, rope, entry,
+                                           block_tables, update_mask)
         _, h = add_norm(self.final_norm, x, r, cfg.norm_eps)
-        logits = unembed(self._head(), h, cfg.logit_softcap)[:, 0]
+        with unit(self._head()):
+            logits = unembed(self._head(), h, cfg.logit_softcap)[:, 0]
         return logits, cache
 
 

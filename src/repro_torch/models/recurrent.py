@@ -675,17 +675,17 @@ def apply_slstm_seq(p: SLSTM, x: torch.Tensor, cfg: ModelConfig,
     carry = (state["c"], state["n"], state["m"], state["h"])
     if flags.fold_loops():
         h, carry = _slstm_folded(p, carry, pre, x.device)
-        return _slstm_out(p, h.reshape(B, S, d).to(x.dtype)), {
-            "c": carry[0], "n": carry[1], "m": carry[2], "h": carry[3], "conv": conv_hist}
-    hs = []
-    for t in range(S):
-        new = _slstm_cell(p, carry, [g[:, t] for g in pre])
-        if valid is not None:
-            v_t = valid[:, t, None, None]
-            new = tuple(torch.where(v_t, nw, od) for nw, od in zip(new, carry))
-        carry = new
-        hs.append(carry[3])
-    h = torch.stack(hs, dim=1).reshape(B, S, d).to(x.dtype)
+        h = h.reshape(B, S, d).to(x.dtype)
+    else:
+        hs = []
+        for t in range(S):
+            new = _slstm_cell(p, carry, [g[:, t] for g in pre])
+            if valid is not None:
+                v_t = valid[:, t, None, None]
+                new = tuple(torch.where(v_t, nw, od) for nw, od in zip(new, carry))
+            carry = new
+            hs.append(carry[3])
+        h = torch.stack(hs, dim=1).reshape(B, S, d).to(x.dtype)
     c, n, m, h_fin = carry
     new = {"c": c, "n": n, "m": m, "h": h_fin, "conv": conv_hist}
     return _slstm_out(p, h), (_own_state(p, new, whole) if whole else new)

@@ -23,7 +23,9 @@ between the two, each with its backward:
   the whole (model-shard) parameter; forward all-gathers over the data
   axis, backward reduce-scatters the gradient, summing the data ranks'
   (``summed``: their rows differ) or, for a batch every data rank holds
-  whole, taking the rank's slice of the gradient they share.
+  whole, taking the rank's slice of the gradient they share; a leaf split
+  over the pods only (``over``: the wider data axis the rows split over)
+  has its gradient all-reduced over that axis and takes its part.
 
 With grad off, or on a tensor that needs none, each is the plain
 collective (or nothing), so the serving paths and their CUDA-graph
@@ -84,15 +86,20 @@ class _Gather(torch.autograd.Function):
 
 class _FSDPGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, shard, dim, mesh, summed):
-        ctx.dim, ctx.mesh, ctx.summed = dim, mesh, summed
+    def forward(ctx, shard, dim, mesh, summed, over):
+        ctx.dim, ctx.mesh, ctx.summed, ctx.over = dim, mesh, summed, over
         return mesh.gather(shard, dim)
 
     @staticmethod
     def backward(ctx, g):
-        if ctx.summed:
-            return ctx.mesh.reduce_scatter(g.contiguous(), ctx.dim), None, None, None
-        return _slice(g, ctx.dim, ctx.mesh.rank, ctx.mesh.size), None, None, None
+        none = (None,) * 4
+        if not ctx.summed:
+            return (_slice(g, ctx.dim, ctx.mesh.rank, ctx.mesh.size),) + none
+        if ctx.over is None:
+            return (ctx.mesh.reduce_scatter(g.contiguous(), ctx.dim),) + none
+        # the rows split over the whole data axis: its sum, the pod's part
+        return (_slice(_summed(ctx.over, g.contiguous()), ctx.dim, ctx.mesh.rank,
+                       ctx.mesh.size),) + none
 
 
 def reduce(t: torch.Tensor, mesh) -> torch.Tensor:
@@ -118,10 +125,13 @@ def gather(t: torch.Tensor, dim: int, mesh) -> torch.Tensor:
     return mesh.gather(t, dim)
 
 
-def fsdp_gather(shard: torch.Tensor, dim: int, mesh, summed: bool = True) -> torch.Tensor:
+def fsdp_gather(shard: torch.Tensor, dim: int, mesh, summed: bool = True,
+                over=None) -> torch.Tensor:
     """A parameter's data shards gathered along ``dim`` over the data axis
     ``mesh``; in the backward its gradient reduce-scattered (``summed``)
-    or sliced."""
+    or sliced.  ``over``: the axis the rows split over where it is wider
+    than ``mesh`` (the data axis, for a leaf split over the pods only):
+    the gradient is all-reduced over it and the rank's part taken."""
     if _differentiable(shard):
-        return _FSDPGather.apply(shard, dim, mesh, summed)
+        return _FSDPGather.apply(shard, dim, mesh, summed, over)
     return mesh.gather(shard, dim)

@@ -35,7 +35,13 @@ rank's 2-D shard, ``shard_params`` places a full state dict (bridged from
 the reference, or restored from a checkpoint: the elastic restore),
 ``gather_params`` brings the whole state dict to rank 0, and
 ``batch_rows`` is a rank's rows of a batch (``batch_shardings``).  The
-moments shard like their parameters (``opt_state_shardings``).
+moments shard like their parameters (``opt_state_shardings``).  A prefill
+or decode step on such a rank takes ``rank_rows`` of the global batch
+(which also points a MoE layer at the global batch) and ``rank_cache``
+(the batch dim over data where dp divides it, as the reference's
+``cache_shardings`` on that mesh).  On a mesh of pods a leaf that the
+whole data axis does not divide splits over the pods
+(``rules.data_split``, ``Placement.data_axis``).
 """
 
 from __future__ import annotations
@@ -52,17 +58,19 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import Model
 from repro_torch.sharding.fsdp import FSDP
 from repro_torch.sharding.rules import (
-    check_tp, data_dim, leaf_rule, local_shape, rank_slice, shard_dim,
+    check_tp, data_split, leaf_rule, local_shape, rank_slice, shard_dim,
 )
 
 
 @dataclasses.dataclass(frozen=True)
 class Leaf:
-    """A parameter's full shape and the dims that split over the model and
-    data axes (None: whole over that axis)."""
+    """A parameter's full shape, the dims that split over the model and
+    data axes (None: whole over that axis), and the data dim's parts: dp,
+    or the pods where dp does not divide it (``rules.data_split``)."""
     shape: Tuple[int, ...]
     model_dim: Optional[int]
     data_dim: Optional[int]
+    data_parts: int = 1
 
 
 class Placement:
@@ -75,6 +83,7 @@ class Placement:
         self.model = getattr(mesh, "model", mesh)
         self.dp = self.data.size if self.data is not None else 1
         self.tp = self.model.size
+        self.pods = getattr(mesh, "pods", 1)
         full = Model(cfg, device="meta")  # the full shapes, no memory
         self.leaves: Dict[str, Leaf] = {}
         for prefix, module in full.named_modules():
@@ -82,25 +91,37 @@ class Placement:
                 shape = tuple(p.shape)
                 self.leaves[f"{prefix}.{leaf}" if prefix else leaf] = Leaf(
                     shape, shard_dim(leaf_rule(module, leaf), shape, self.tp),
-                    data_dim(module, leaf, shape, self.dp))
+                    *data_split(module, leaf, shape, self.dp, self.pods))
 
     def shape(self, name: str) -> Tuple[int, ...]:
         """The rank's shape of parameter ``name``."""
         leaf = self.leaves[name]
         return local_shape(local_shape(leaf.shape, leaf.model_dim, self.tp),
-                           leaf.data_dim, self.dp)
+                           leaf.data_dim, leaf.data_parts)
+
+    def data_axis(self, name: str):
+        """The axis parameter ``name``'s data dim splits over: the data
+        axis, or the pod axis where only the pods divide it."""
+        return self.data if self.leaves[name].data_parts == self.dp else self.mesh.pod
 
     def slice(self, name: str, full):
         """The rank's slice of the full parameter ``name`` (a tensor or an
         array of its full shape)."""
         leaf = self.leaves[name]
         part = rank_slice(full, leaf.model_dim, self.model.rank, self.tp)
-        return rank_slice(part, leaf.data_dim, self.data.rank if self.data else 0, self.dp)
+        if leaf.data_dim is None:
+            return part
+        return rank_slice(part, leaf.data_dim, self.data_axis(name).rank, leaf.data_parts)
 
     def sharded(self, name: str) -> Tuple[bool, bool]:
         """Whether parameter ``name`` splits over (data, model)."""
         leaf = self.leaves[name]
         return leaf.data_dim is not None, leaf.model_dim is not None
+
+    def data_replicas(self, name: str) -> int:
+        """How many data ranks hold the same data shard of ``name``: 1 where
+        it splits over the data axis, dp / pods over the pods, dp whole."""
+        return self.dp // self.leaves[name].data_parts
 
     def gather(self, name: str, t: torch.Tensor) -> Optional[torch.Tensor]:
         """The full parameter ``name`` (or a gradient or moment of it) on
@@ -110,13 +131,24 @@ class Placement:
         tensor, never the live one of a leaf whole on every rank."""
         leaf, src = self.leaves[name], t.detach()
         t = src
-        for axis, dim in ((self.data, leaf.data_dim), (self.model, leaf.model_dim)):
-            if axis is not None and axis.rank != 0:
-                if dim is not None:
-                    axis.gather_root(t, dim)
+        if leaf.data_dim is not None and self.data_replicas(name) > 1:
+            # over the pods, in every pod group alike; then data rank 0's
+            t = self.mesh.pod.gather_root(t, leaf.data_dim)
+            if self.data.rank != 0:
                 return None
-            if dim is not None:
-                t = axis.gather_root(t, dim)
+        elif self.data is not None:
+            if self.data.rank != 0:
+                if leaf.data_dim is not None:
+                    self.data.gather_root(t, leaf.data_dim)
+                return None
+            if leaf.data_dim is not None:
+                t = self.data.gather_root(t, leaf.data_dim)
+        if self.model.rank != 0:
+            if leaf.model_dim is not None:
+                self.model.gather_root(t, leaf.model_dim)
+            return None
+        if leaf.model_dim is not None:
+            t = self.model.gather_root(t, leaf.model_dim)
         return t.to("cpu", copy=True) if t is src else t.cpu()
 
 
@@ -139,8 +171,9 @@ def _rank_model(cfg: ModelConfig, mesh) -> Model:
     model = Model(cfg, device="meta", mesh=mesh.model if mesh.model.size > 1 else None)
     _materialize(model, placement, mesh.device)
     model.placement = placement
-    model.fsdp = FSDP(model, mesh.data, {name: leaf.data_dim
-                                         for name, leaf in placement.leaves.items()})
+    model.fsdp = FSDP(model, mesh.data, {
+        name: None if leaf.data_dim is None else (leaf.data_dim, placement.data_axis(name))
+        for name, leaf in placement.leaves.items()})
     return model
 
 
@@ -229,3 +262,28 @@ def batch_rows(batch: Mapping[str, torch.Tensor], mesh) -> Tuple[Dict, bool]:
         return dict(batch), False
     n = B // dp
     return {k: v[mesh.data.rank * n:(mesh.data.rank + 1) * n] for k, v in batch.items()}, True
+
+
+def rank_rows(model: Model, batch: Mapping[str, torch.Tensor]) -> Dict:
+    """The rank's rows of ``batch`` (a prefill's inputs, or a decode step's
+    ``token`` and ``positions``) for ``model``, a rank's shard of a 2-D
+    mesh, its FSDP told whether they split the batch (so a MoE layer
+    routes the global batch, as in training); the batch itself for a
+    model without FSDP."""
+    if model.fsdp is None:
+        return dict(batch)
+    rows, summed = batch_rows(batch, model.placement.mesh)
+    model.fsdp.set_rows(summed)
+    return rows
+
+
+def rank_cache(model: Model, batch: int, max_len: int, dtype=None, **layout):
+    """The rank's cache for a global batch of ``batch`` rows, the
+    reference's ``cache_shardings`` on the (data, model) mesh: the batch
+    dim over data where dp divides it (else whole), each leaf's model dim
+    by ``rules.cache_dim``; ``Model.init_cache`` for a model without
+    FSDP."""
+    dp = model.placement.mesh.data.size if model.fsdp is not None else 1
+    if dp > 1 and batch % dp == 0:  # as ``batch_rows`` splits the rows
+        batch //= dp
+    return model.init_cache(batch, max_len, dtype, **layout)

@@ -29,8 +29,9 @@ states on their heads or width.
 
 Training (``DEFAULT_RULES`` on a ``("data", "model")`` mesh) keeps those
 model dims and adds each leaf's data dim (``DATA_DIMS``): the dim the
-reference names ``embed``, which FSDP splits over the data ranks
-(``data_dim``).  The norm scales (``act_embed``), the block-diagonal
+reference names ``embed``, which FSDP splits over the data ranks, or on a
+mesh of several pods over the pods where the whole data axis does not
+divide it (``data_split``).  The norm scales (``act_embed``), the block-diagonal
 gates, the biases, the convolutions of a width and the recurrent ``r_*``
 replicate over data; an sLSTM's ``norm_scale`` and ``conv_w`` are on
 ``embed`` and split.  Each axis is used once per leaf, the model and data
@@ -200,14 +201,24 @@ def local_slice(rule: Optional[Rule], full, rank: int, tp: int):
     return rank_slice(full, shard_dim(rule, full.shape, tp), rank, tp)
 
 
-def data_dim(module, leaf: str, shape: Sequence[int], dp: int) -> Optional[int]:
-    """The dim of ``module``'s parameter ``leaf`` of ``shape`` that splits
-    over ``dp`` data ranks, by the module's class, or None (replicated over
-    data: no data dim, dp = 1, or a dim dp does not divide)."""
+def data_split(module, leaf: str, shape: Sequence[int], dp: int,
+               pods: int = 1) -> Tuple[Optional[int], int]:
+    """(the dim of ``module``'s parameter ``leaf`` of ``shape`` that splits
+    over the data axis, into how many parts), by the module's class: over
+    the ``dp`` data ranks where dp divides it; on a mesh of ``pods`` pods
+    (the reference's data axes ``("pod", "data")``) where dp does not,
+    over the pods where they divide it, as ``logical_to_pspec`` falls back
+    to the first of the two axes that divides the dim (the pod axis:
+    where 2 pods do not divide a dim, 16 data ranks do not either); else
+    (None, 1), replicated over data (no data dim, dp = 1, or a dim
+    neither divides)."""
     dim = DATA_DIMS.get(type(module).__name__, {}).get(leaf)
-    if dim is None or not divides(dp, shape[dim]):
-        return None
-    return dim
+    if dim is None:
+        return None, 1
+    for parts in (dp, pods):
+        if divides(parts, shape[dim]):
+            return dim, parts
+    return None, 1
 
 
 def rank_slice(t, dim: Optional[int], rank: int, parts: int):

@@ -24,7 +24,10 @@ model.  The jobs:
 ``train_plan(mesh, jobs)`` runs ``Train`` jobs, each on a
 ``("data", "model")`` mesh of its own shape over the same ranks (or
 whole, with ``mesh`` None): training steps from given or drawn weights,
-with checkpoints written and restored.
+with checkpoints written and restored; the training driver
+(``DriverTrain``, with each step's collectives counted on request); and
+``MeshLogits``, a prefill and decode steps on such a mesh, the rank's
+collectives counted.
 
 A MoE model's ``Serve`` and ``Logits`` can record each MoE call's routing
 (``record``) and take given routes in place of their own top-k
@@ -35,6 +38,7 @@ numbers, not routing.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any, Dict, List, Mapping, Optional, Tuple
@@ -351,6 +355,7 @@ class Train:
     resume: bool = False
     save_at: int = 0
     routes: bool = False    # record each MoE call's routing on the first step run
+    pods: int = 1           # the data axis split into pods (``launch.mesh.make_mesh``)
 
     def run(self, mesh, device):
         from repro_torch.models import model as model_lib
@@ -514,6 +519,7 @@ class DriverTrain:
     cfg: Optional[ModelConfig] = None
     shape: Tuple[int, int] = (2, 2)
     grads_to: str = ""
+    count: bool = False     # each step's collectives and peak bytes (``steps``)
 
     def run(self, mesh, device):
         from repro_torch.data.synthetic import SyntheticConfig, SyntheticDataset, batch_for_model
@@ -528,11 +534,20 @@ class DriverTrain:
         if device.type == "cuda":
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats(device)
-        printed, rec = train_lib.run(args, mesh=mesh, cfg=self.cfg)
+        steps: List[Dict[str, Any]] = []
+        counted = _Counted(mesh, device, steps) if self.count else None
+        try:
+            printed, rec = train_lib.run(
+                args, mesh=mesh, cfg=self.cfg,
+                around_step=counted and (lambda i: counted.measured(step=i)))
+        finally:
+            if counted:
+                mesh.count(None)
+        peak = counted.peak() if counted else (
+            torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None)
         out = dict(out=printed, losses=rec.losses, seconds=rec.seconds,
                    launches={n: k.launches for n, k in dispatch.KERNELS.items()},
-                   peak_gib=(torch.cuda.max_memory_allocated(device) / 2**30
-                             if device.type == "cuda" else None))
+                   peak_gib=peak / 2**30 if peak is not None else None, steps=steps)
         model, rec.state = rec.state.model, None
         if self.grads_to:
             cfg, nxt = model.cfg, len(rec.losses)
@@ -550,6 +565,119 @@ class DriverTrain:
         return out
 
 
+class _Counted:
+    """``mesh``'s collectives counted (``Mesh.count``) for the work inside
+    ``measured(**tags)``, each such span appended to ``records`` with its
+    tags, its collectives (``CollectiveLog.summary``) and, on a GPU, the
+    bytes allocated at its start and at its peak; ``peak`` is the peak
+    over everything since it began (each span resets the allocator's)."""
+
+    def __init__(self, mesh, device, records: List[Dict[str, Any]]):
+        from repro_torch.sharding.record import CollectiveLog
+
+        self.log, self.device, self.records = CollectiveLog(), device, records
+        self.cuda = device.type == "cuda"
+        self.seen = 0
+        mesh.count(self.log)
+
+    def peak(self) -> Optional[int]:
+        if not self.cuda:
+            return None
+        return max(self.seen, torch.cuda.max_memory_allocated(self.device))
+
+    @contextlib.contextmanager
+    def measured(self, **tags):
+        mark, base = self.log.mark(), None
+        if self.cuda:
+            torch.cuda.synchronize(self.device)
+            self.seen = self.peak()
+            torch.cuda.reset_peak_memory_stats(self.device)
+            base = torch.cuda.memory_allocated(self.device)
+        yield
+        if self.cuda:
+            torch.cuda.synchronize(self.device)
+        self.records.append(dict(tags, collectives=self.log.summary(mark), base_bytes=base,
+                                 peak_bytes=(torch.cuda.max_memory_allocated(self.device)
+                                             if self.cuda else None)))
+
+
+@dataclasses.dataclass
+class MeshLogits:
+    """A prefill and decode steps on a ``("data", "model")`` mesh of
+    ``shape`` (or whole, with the plan's mesh None): the rank's shard of
+    ``params`` (the port's names -> full arrays) or of the weights drawn
+    from ``seed``; ``tokens`` (B, S) prefilled (after ``vision`` (B, nv,
+    d) patch embeddings, over ``enc`` (B, T, d) frames), the rank's rows
+    of it (``partition.rank_rows``) into its cache
+    (``partition.rank_cache``), then one decode step on each row of
+    ``steps`` (n, B), or with ``steps`` None ``greedy`` steps on each
+    step's argmax.  Returns the rank's fp32 ``logits`` (n + 1, rows,
+    vocab), its first ``row`` of the batch, its kernel ``launches`` over
+    the job, and for the prefill and each decode step its collectives and
+    (on a GPU) the bytes allocated at its start and at its peak
+    (``phases``)."""
+    cfg: ModelConfig
+    tokens: np.ndarray
+    max_len: int
+    steps: Optional[np.ndarray] = None
+    greedy: int = 0
+    shape: Tuple[int, int] = (2, 2)
+    params: Optional[Dict[str, np.ndarray]] = None
+    seed: int = 0
+    enc: Optional[np.ndarray] = None
+    vision: Optional[np.ndarray] = None
+
+    def run(self, mesh, device):
+        from repro_torch.kernels import dispatch
+        from repro_torch.models import model as model_lib
+        from repro_torch.sharding import partition
+
+        cfg = self.cfg
+        if mesh is None:
+            model = (_whole_model(cfg, self.params, device) if self.params is not None
+                     else model_lib.init(cfg, torch.Generator(device=device).manual_seed(
+                         self.seed), device))
+        elif self.params is not None:
+            model = partition.shard_params(cfg, self.params, mesh)
+        else:
+            model = partition.shard_model(cfg, mesh, self.seed)
+        for k in dispatch.KERNELS.values():
+            k.launches = 0
+        phases: List[Dict[str, Any]] = []
+        measured = (_Counted(mesh, device, phases).measured if mesh is not None
+                    else lambda **_: contextlib.nullcontext())
+        batch = {"tokens": torch.from_numpy(self.tokens).to(device)}
+        for key, a in (("enc_embeds", self.enc), ("vision_embeds", self.vision)):
+            if a is not None:
+                batch[key] = torch.from_numpy(a).to(device, getattr(torch, cfg.dtype))
+        B, S = self.tokens.shape
+        nv = cfg.num_vision_tokens if self.vision is not None else 0
+        try:
+            rows = partition.rank_rows(model, batch)
+            cache = partition.rank_cache(model, B, self.max_len)
+            with measured(phase="prefill"):
+                logits = model.prefill(rows, cache)[0]
+            out = [logits]
+            n = self.greedy if self.steps is None else len(self.steps)
+            for i in range(n):
+                if self.steps is None:
+                    tok = logits.argmax(-1, keepdim=True)
+                else:
+                    tok = torch.from_numpy(np.asarray(self.steps[i])).to(device)[:, None]
+                    tok = partition.rank_rows(model, {"token": tok})["token"]
+                with measured(phase=f"decode {i}"):
+                    logits, cache = model.decode_step(tok, nv + S + i, cache)
+                out.append(logits)
+        finally:
+            if mesh is not None:
+                mesh.count(None)
+        n_rows = rows["tokens"].shape[0]
+        return dict(logits=torch.stack(out).float().cpu().numpy(),
+                    row=(mesh.data.rank * n_rows if mesh is not None and n_rows < B else 0),
+                    launches={name: k.launches for name, k in dispatch.KERNELS.items()},
+                    phases=phases)
+
+
 def _whole_model(cfg: ModelConfig, params: Dict[str, np.ndarray], device):
     from repro_torch.bridge import as_tensor
     from repro_torch.models import model as model_lib
@@ -562,7 +690,8 @@ def _whole_model(cfg: ModelConfig, params: Dict[str, np.ndarray], device):
 
 
 def train_plan(mesh, jobs: List[Any], device="cpu") -> List[Any]:
-    """Each job (``Train``, ``CollectiveGrads``, ``DriverTrain``) on a mesh of its ``shape``
+    """Each job (``Train``, ``CollectiveGrads``, ``DriverTrain``,
+    ``MeshLogits``) on a mesh of its ``shape``
     made from ``mesh``'s ranks (every rank makes every job's mesh, in
     order), or on ``device`` whole where ``mesh`` is None."""
     from repro_torch.launch import mesh as mesh_lib
@@ -572,8 +701,9 @@ def train_plan(mesh, jobs: List[Any], device="cpu") -> List[Any]:
         if mesh is None:
             results.append(job.run(None, torch.device(device)))
             continue
-        sub = mesh if tuple(job.shape) == tuple(mesh.shape) else mesh_lib.make_mesh(
-            job.shape, mesh.device, mesh.backend)
+        pods = getattr(job, "pods", 1)
+        sub = mesh if (tuple(job.shape), pods) == (tuple(mesh.shape), mesh.pods) else \
+            mesh_lib.make_mesh(job.shape, mesh.device, mesh.backend, pods=pods)
         results.append(job.run(sub, sub.device))
         mesh.barrier()
     return results

@@ -158,15 +158,20 @@ def global_norm(grads: Dict[str, torch.Tensor], placement=None) -> torch.Tensor:
     collectives).  ``placement`` (``sharding.partition.Placement``): the
     gradients are a rank's shards; each class of leaf (split over both
     axes, data only, model only, neither) sums its squares over the axes
-    it splits over, so a leaf whole on several ranks counts once."""
+    it splits over, so a leaf whole on several ranks counts once (a
+    leaf split over the pods only, once per pod)."""
     if placement is None:
         return _sum_squares(list(grads.values()), None).sqrt()
     device = next(iter(grads.values())).device
-    parts = {}
+    parts, pods = {}, {}
     for name, g in grads.items():
-        parts.setdefault(placement.sharded(name), []).append(g)
+        key = placement.sharded(name)
+        shared = key[0] and placement.data_replicas(name) > 1
+        (pods if shared else parts).setdefault(key, []).append(g)
     sums = {key: _sum_squares(parts.get(key, []), device)
             for key in ((True, True), (True, False), (False, True), (False, False))}
+    for key, gs in pods.items():  # a pod's shard is on dp / pods data ranks: once
+        sums[key] = sums[key] + _sum_squares(gs, device) / (placement.dp // placement.pods)
     over_data = placement.data.all_reduce(torch.stack([sums[True, True], sums[True, False]]))
     over_model = placement.model.all_reduce(torch.stack([over_data[0], sums[False, True]]))
     return (over_model[0] + over_data[1] + over_model[1] + sums[False, False]).sqrt()

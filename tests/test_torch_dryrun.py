@@ -11,8 +11,10 @@ reference's ``repro/launch/dryrun.py``:
   ``_unrolled_flops`` lowering, under ``use_unroll``.  Equal, or equal
   after the divergences ``divergence`` names, each exact;
 * the folded sLSTM and mLSTM loops count what the loops do;
-* a dry-run allocates nothing off ``meta``; the CLI writes its JSON and
-  refuses the mesh options; ``--opt moe_block`` reaches the blocked MoE.
+* a dry-run allocates nothing off ``meta`` and fills the per-device keys
+  (``tests/test_torch_dryrun_mesh.py`` holds them to the reference's
+  shardings); the CLI writes its JSON, takes ``--opt shard_grads`` and
+  refuses ``serve_repl``; ``--opt moe_block`` reaches the blocked MoE.
 
 Importing ``repro.launch.dryrun`` sets ``XLA_FLAGS`` to 512 host devices,
 and the reference's dry-run sets its kernel backend to ``xla``; the
@@ -347,9 +349,10 @@ REFERENCE_KEYS = {  # the reference's run_cell result, an ``ok`` cell
 
 def test_run_cell_allocates_nothing_off_meta_and_keeps_the_reference_keys(monkeypatch):
     """Every output of every op a cell runs (train with AdamW, prefill,
-    decode; the sLSTM folded; smoke configs) lives on ``meta``; the result
-    has the reference's keys, with the per-device and collective ones
-    null."""
+    decode; the sLSTM folded; smoke configs), the whole program's and the
+    (2, 2) mesh's rank 0's, lives on ``meta``; the result has the
+    reference's keys, the per-device and collective ones filled from the
+    rank's program."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     class Devices(TorchDispatchMode):
@@ -371,52 +374,76 @@ def test_run_cell_allocates_nothing_off_meta_and_keeps_the_reference_keys(monkey
     for arch, shape in cells:
         mode = Devices()
         with mode:
-            res = dryrun.run_cell(arch, shape, chips=4)
+            res = dryrun.run_cell(arch, shape, mesh=(2, 2))
         assert res["status"] == "ok" and mode.seen == {"meta"}, (arch, mode.seen)
         for part, keys in REFERENCE_KEYS.items():
             assert keys <= set(res[part] if part else res), part
-        assert res["chips"] == 4 and res["mesh"] is None
-        assert all(v is None for v in res["collectives"].values())
-        assert res["memory"]["argument_bytes_per_device"] is None
+        assert res["chips"] == 4 and res["mesh"] == "2x2"
+        assert all(v is not None for v in res["collectives"].values())
+        assert res["collectives"]["bytes_perdev_corrected"] > 0
+        mem = res["memory"]
+        assert all(mem[k] > 0 for k in REFERENCE_KEYS["memory"])
+        assert mem["argument_bytes_per_device"] < mem["argument_bytes_global"]
+        assert mem["peak_bytes_estimate"] == (mem["argument_bytes_per_device"]
+                                              + mem["temp_bytes_per_device"])
+        assert res["cost"]["flops_perdev_corrected"] > 0
         r = res["roofline"]
         assert r["compute_term_s"] == res["cost"]["flops_global"] / (4 * 67e12)  # fp32
-        assert r["memory_term_s"] == res["memory"]["argument_bytes_global"] / (4 * 3.35e12)
+        assert r["memory_term_s"] == mem["argument_bytes_per_device"] / 3.35e12
+        assert r["collective_term_s"] == (res["collectives"]["bytes_perdev_corrected"]
+                                          / (18 * 25e9))
         assert r["useful_flops_ratio"] == r["model_flops"] / res["cost"]["flops_global"]
 
 
 def test_train_cell_microbatches_follow_the_reference(monkeypatch):
     """A named train cell takes the reference's microbatches, capped by
-    the data axis (chips / 16); a skipped cell says why."""
+    the data axis (16, or 32 on the multi-pod mesh, 1 on one device), in
+    the whole program's count and the rank's; a skipped cell says why."""
     seen = []
-    monkeypatch.setattr(dryrun, "count_step", lambda cfg, shape: seen.append(
+    monkeypatch.setattr(dryrun, "count_step", lambda cfg, shape, remat=True: seen.append(
         shape.microbatches) or dryrun.cost_lib.CostSummary(1.0, 1, {}))
-    for arch, chips, mb in (("minitron-4b", 256, 8), ("command-r-plus-104b", 256, 16),
-                            ("command-r-plus-104b", 512, 8), ("xlstm-1.3b", 1, 8)):
-        assert dryrun.run_cell(arch, "train_4k", chips=chips)["cost"]["microbatches"] == mb
-    assert seen == [8, 16, 8, 8]
+    rank = dryrun.cost_lib.CostSummary(1.0, 1, {}, output_bytes=1, temp_bytes=1)
+    monkeypatch.setattr(dryrun, "count_rank_step", lambda cfg, shape, mesh, remat=True: (
+        seen.append(shape.microbatches) or dryrun.RankArguments(None, None, None, {}, {}, None,
+                                                                  {"params": 1}),
+        rank, dryrun.record.CollectiveLog().summary()))
+    for arch, mesh, mb in (("minitron-4b", (16, 16), 8), ("command-r-plus-104b", (16, 16), 16),
+                           ("command-r-plus-104b", (2, 16, 16), 8), ("xlstm-1.3b", (1, 1), 8)):
+        res = dryrun.run_cell(arch, "train_4k", mesh=mesh)
+        assert res["cost"]["microbatches"] == mb and res["chips"] == math.prod(mesh)
+    assert seen == [8, 8, 16, 16, 8, 8, 8, 8]
     skipped = dryrun.run_cell("tinyllama-1.1b", "long_500k")
     assert skipped["status"] == "skipped" and "sub-quadratic" in skipped["reason"]
 
 
 def test_cli_dryrun_writes_its_json_and_refuses_mesh_options(tmp_path, capsys):
+    """The CLI writes each cell's JSON, 16 x 16 by default and (pod 2,
+    data 16, model 16) under ``--multi-pod``; ``--opt shard_grads`` is
+    taken (the port's one program), ``serve_repl`` refused by name."""
     assert cli.main(["dryrun", "--arch", "tinyllama-1.1b", "--shape", "decode_32k",
                      "--out-dir", str(tmp_path)]) == 0
     res = json.loads((tmp_path / "tinyllama-1.1b__decode_32k__16x16.json").read_text())
     assert res["status"] == "ok" and res["chips"] == 256 and res["device"] == "meta"
+    assert res["mesh"] == "16x16" and res["memory"]["peak_bytes_estimate"] > 0
     assert res["cost"]["flops_global"] > 0 and "tinyllama-1.1b__decode_32k" in \
         capsys.readouterr().out
     assert dryrun.main(["--arch", "xlstm-1.3b", "--shape", "decode_32k", "--multi-pod",
                         "--opt", "moe_block", "--out-dir", str(tmp_path)]) == 0
     res = json.loads((tmp_path / "xlstm-1.3b__decode_32k__2x16x16__opt-moe_block.json")
                      .read_text())
-    assert res["chips"] == 512 and res["opts"] == ["moe_block"]
-    for opt in ("shard_grads", "serve_repl"):
-        with pytest.raises(SystemExit):
-            cli.main(["dryrun", "--arch", "tinyllama-1.1b", "--opt", opt,
-                      "--out-dir", str(tmp_path)])
-        assert opt in capsys.readouterr().err
-        with pytest.raises(ValueError, match=opt):
-            dryrun.run_cell("tinyllama-1.1b", "decode_32k", opts={opt})
+    assert res["chips"] == 512 and res["opts"] == ["moe_block"] and res["mesh"] == "2x16x16"
+    assert cli.main(["dryrun", "--arch", "tinyllama-1.1b", "--shape", "decode_32k", "--opt",
+                     "shard_grads", "--out-dir", str(tmp_path)]) == 0
+    res = json.loads((tmp_path / "tinyllama-1.1b__decode_32k__16x16__opt-shard_grads.json")
+                     .read_text())
+    assert res["status"] == "ok" and res["opts"] == ["shard_grads"]
+    capsys.readouterr()
+    with pytest.raises(SystemExit):
+        cli.main(["dryrun", "--arch", "tinyllama-1.1b", "--opt", "serve_repl",
+                  "--out-dir", str(tmp_path)])
+    assert "serve_repl" in capsys.readouterr().err
+    with pytest.raises(ValueError, match="serve_repl"):
+        dryrun.run_cell("tinyllama-1.1b", "decode_32k", opts={"serve_repl"})
     with pytest.raises(SystemExit):
         dryrun.main(["--shape", "decode_32k"])  # neither --arch nor --all
 

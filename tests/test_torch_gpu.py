@@ -1555,8 +1555,8 @@ def test_time_callable_synchronizes_the_result_device(cuda, monkeypatch):
 def test_prefill_time_is_at_least_the_dry_run_bound(cuda):
     """tinyllama-1.1b at full width, prefill of 1 x 2048 through the
     kernels: every sample of ``time_callable`` takes at least the dry-run's
-    bound at ``chips=1`` (a time under it means the count or the bytes are
-    wrong); the dry-run itself launched nothing."""
+    bound on one device, mesh (1, 1) (a time under it means the count or
+    the bytes are wrong); the dry-run itself launched nothing."""
     from repro_torch.configs import get_config
     from repro_torch.core.latency import time_callable
     from repro_torch.launch import dryrun
@@ -1565,7 +1565,7 @@ def test_prefill_time_is_at_least_the_dry_run_bound(cuda):
 
     cfg = get_config("tinyllama-1.1b")
     before = {k: fn.launches for k, fn in dispatch.KERNELS.items()}
-    res = dryrun.run_cell(cfg.name, ShapeConfig("p", 2048, 1, "prefill"), chips=1)
+    res = dryrun.run_cell(cfg.name, ShapeConfig("p", 2048, 1, "prefill"), mesh=(1, 1))
     assert {k: fn.launches for k, fn in dispatch.KERNELS.items()} == before
     gen = torch.Generator(device=cuda).manual_seed(0)
     model = model_lib.init(cfg, gen, cuda)

@@ -29,7 +29,17 @@ from the same ranks, while this process computes the reference's runs:
   one device bit for bit, its files equal a one-device save's, and the
   run resumed at (2, 2) equals the uninterrupted one;
 * (e) the differentiable collectives' gradients against whole-tensor
-  autograd.
+  autograd;
+* (f) prefill and decode on the (2, 2) mesh (``Model.prefill`` and
+  ``decode_step`` under FSDP, ``partition.rank_rows``/``rank_cache``), fp32,
+  for tinyllama-1.1b's smoke config, a MoE, an RG-LRU and the
+  encoder-decoder model: the ranks' logits within 1e-5 of the largest
+  |logit| of the reference's ``prefill``/``decode_step`` on the same
+  parameters;
+* (g) the collectives each rank counted (``Mesh.count``) in a train step
+  past the first (the training driver's), that prefill and a decode step
+  equal ``launch.dryrun.run_cell(..., mesh=(2, 2))``'s counts and bytes
+  by kind exactly.
 """
 
 import concurrent.futures
@@ -45,6 +55,7 @@ torch = pytest.importorskip("torch")
 pytest.importorskip("jax")
 
 import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
 from jax.sharding import AbstractMesh, PartitionSpec  # noqa: E402
 
 from repro.configs import get_config as jax_config  # noqa: E402
@@ -55,7 +66,9 @@ from repro.training import optimizer as jax_opt  # noqa: E402
 from repro.training import step as jax_step  # noqa: E402
 from repro_torch.bridge import reference_by_port_name  # noqa: E402
 from repro_torch.configs import get_config, list_archs  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.mesh import spawn_mesh  # noqa: E402
+from repro_torch.models.config import ShapeConfig  # noqa: E402
 from repro_torch.sharding import partition, runs  # noqa: E402
 from repro_torch.training import checkpoint as ckpt_lib  # noqa: E402
 from repro_torch.training import optimizer as opt_lib  # noqa: E402
@@ -76,6 +89,17 @@ SAVE_AT = 2
 # tinyllama's runs: (batch, microbatches)
 TINY_RUNS = {"b8": (8, 1), "mb2": (8, 2), "b3": (3, 1)}
 CHAOTIC = {"xlstm-1.3b"}
+# prefill and decode on the mesh: (batch, prompt positions, decode steps);
+# an encoder-decoder's prompt is half frames, half tokens, as input_specs
+SERVED = ["tinyllama-1.1b", "qwen3-moe-30b-a3b", "recurrentgemma-2b", "seamless-m4t-large-v2"]
+SERVE_B, SERVE_S, SERVE_STEPS = 4, 16, 3
+SERVE_LEN = SERVE_S + SERVE_STEPS + 1
+# d = 54 on (data 4 = 2 pods x 2, model 1): 4 does not divide the embed dims,
+# 2 does, so they split over the pods (the reference's fallback)
+POD_CFG = get_config(TINY, smoke=True).replace(d_model=54)
+# the training driver's steps, each rank's collectives counted
+DRIVER = ["--arch", TINY, "--smoke", "--device", "cpu", "--steps", "2", "--batch", "8",
+          "--seq-len", "32", "--log-every", "100"]
 
 
 def _full(arch):
@@ -112,7 +136,26 @@ def _jobs(ckpt):
                                 routes=get_config(arch, smoke=True).is_moe)
     for shape in (MESH, (4, 1), (1, 4)):
         jobs[f"collectives{shape}"] = runs.CollectiveGrads(shape=shape)
+    for arch in SERVED:
+        jobs[f"served {arch}"] = runs.MeshLogits(shape=MESH, params=_full(arch),
+                                                 max_len=SERVE_LEN, **_served_inputs(arch))
+    jobs["driver"] = runs.DriverTrain(DRIVER, shape=MESH, count=True)
+    jobs["pods"] = runs.Train(cfg=POD_CFG, batches=_batches(TINY, 8, STEPS), shape=(4, 1), pods=2,
+                              lr=LR, warmup=WARMUP, total=STEPS)
     return jobs
+
+
+def _served_inputs(arch):
+    """The prompt (and frames) and decode tokens of ``arch``'s mesh job."""
+    cfg = get_config(arch, smoke=True)
+    rng = np.random.default_rng(5)
+    text = SERVE_S // 2 if cfg.is_encdec else SERVE_S
+    out = dict(cfg=cfg, tokens=rng.integers(0, cfg.vocab_size, (SERVE_B, text)),
+               steps=rng.integers(0, cfg.vocab_size, (SERVE_STEPS, SERVE_B)))
+    if cfg.is_encdec:
+        out["enc"] = (0.1 * rng.standard_normal((SERVE_B, SERVE_S // 2, cfg.d_model))
+                      ).astype(np.float32)
+    return out
 
 
 @functools.lru_cache(maxsize=None)
@@ -146,10 +189,32 @@ def results(tmp_path_factory, one_thread):
         for arch in FAMILIES:
             refs[arch] = _reference(arch, FAMILY_B, FAMILY_STEPS)
         whole = runs.train_plan(None, [dataclasses.replace(jobs[arch], shape=(1, 1))
-                                       for arch in FAMILIES])
+                                       for arch in FAMILIES + ["pods"]])
         out = ranks.result()
     by_name = {name: [r[i] for r in out] for i, name in enumerate(jobs)}
-    return by_name, refs, ckpt, dict(zip(FAMILIES, whole))
+    return by_name, refs, ckpt, dict(zip(FAMILIES + ["pods"], whole))
+
+
+def _reference_served(arch):
+    """The reference's prefill and decode steps on the mesh job's inputs:
+    fp32 logits (steps + 1, B, vocab)."""
+    inputs = _served_inputs(arch)
+    jcfg = jax_config(arch, smoke=True)
+    params = reference_params(arch)
+    batch = {"tokens": jnp.asarray(inputs["tokens"], jnp.int32)}
+    if "enc" in inputs:
+        batch["enc_embeds"] = jnp.asarray(inputs["enc"])
+    cache = jax_model.init_cache(jcfg, SERVE_B, SERVE_LEN, jnp.float32)
+    logits, cache = jax.jit(lambda p, b, c: jax_model.prefill(jcfg, p, b, c))(params, batch,
+                                                                             cache)
+    out = [logits]
+    decode = jax.jit(lambda p, t, pos, c: jax_model.decode_step(jcfg, p, t, pos, c))
+    start = inputs["tokens"].shape[1]
+    for i, tok in enumerate(inputs["steps"]):
+        logits, cache = decode(params, jnp.asarray(tok, jnp.int32)[:, None],
+                               jnp.asarray(start + i, jnp.int32), cache)
+        out.append(logits)
+    return np.stack([np.asarray(x) for x in out])
 
 
 def _assert_close(got, ref, rel, skip=()):
@@ -178,11 +243,19 @@ class _MetaMesh:
         self.device, self.rank, self.size = torch.device("meta"), 0, dp * tp
 
 
-def reference_train_shards(cfg, jcfg, dp, tp):
+def reference_mesh(dp, tp, pods=1):
+    """The reference's ``AbstractMesh`` of (dp, tp): ``("data", "model")``,
+    or with ``pods`` > 1 ``("pod", "data", "model")``, dp over pod x data."""
+    if pods > 1:
+        return AbstractMesh((pods, dp // pods, tp), ("pod", "data", "model"))
+    return AbstractMesh((dp, tp), ("data", "model"))
+
+
+def reference_train_shards(cfg, jcfg, dp, tp, pods=1):
     """The reference's per-device parameter shapes of ``jcfg`` under
-    ``DEFAULT_RULES`` on an ``AbstractMesh((dp, tp), ("data", "model"))``,
-    by the port's names (the stacked ``layers`` axis split away)."""
-    mesh = AbstractMesh((dp, tp), ("data", "model"))
+    ``DEFAULT_RULES`` on ``reference_mesh(dp, tp, pods)``, by the port's
+    names (the stacked ``layers`` axis split away)."""
+    mesh = reference_mesh(dp, tp, pods)
     shapes, axes = jax_model.param_axes(jcfg)
     specs = param_pspecs(axes, shapes, mesh, DEFAULT_RULES)
 
@@ -435,3 +508,74 @@ def test_collectives_gradients_match_whole_tensor_autograd(results, shape):
     for rank, out in enumerate(results[0][f"collectives{shape}"]):
         for key, err in out.items():
             assert err <= 1e-5, (shape, rank, key, err)
+
+
+# -- (f) prefill and decode on the mesh --------------------------------------------------
+
+@pytest.mark.parametrize("arch", SERVED)
+def test_sharded_prefill_and_decode_match_the_reference(results, arch):
+    """The (2, 2) ranks' prefill and 3 decode steps, each data rank its
+    half of the rows, its cache the reference's ``cache_shardings`` on the
+    mesh: their fp32 logits, rows in data-rank order, within 1e-5 of the
+    largest |logit| of the reference's ``prefill``/``decode_step`` on the
+    same parameters and tokens (the tp tests' bound); a data rank's two
+    model ranks give the same logits."""
+    ranks = results[0][f"served {arch}"]
+    for r in (1, 3):
+        np.testing.assert_array_equal(ranks[r]["logits"], ranks[r - 1]["logits"])
+    assert [ranks[r]["row"] for r in (0, 2)] == [0, SERVE_B // 2]
+    got = np.concatenate([ranks[r]["logits"] for r in (0, 2)], axis=1)
+    want = _reference_served(arch)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * float(np.abs(want).max()))
+
+
+# -- (g) the counted collectives against the dry-run -----------------------------------------
+
+def _counted(summary):
+    return summary["counts"], summary["bytes_by_kind"]
+
+
+@pytest.mark.parametrize("what", ["train"] + SERVED)
+def test_counted_collectives_equal_the_dry_run(results, what):
+    """Each rank's collectives (``Mesh.count``) equal, kind by kind in
+    count and bytes, what ``dryrun.run_cell`` at mesh (2, 2) counts for
+    rank 0 of the same step on meta: the training driver's second step
+    (8 x 32, no remat, as the driver runs), and each model's prefill and
+    first decode step; every rank counts the same."""
+    by_name = results[0]
+    if what == "train":
+        got = [_counted(r["steps"][1]["collectives"]) for r in by_name["driver"]]
+        assert all(r["steps"][1]["step"] == 1 for r in by_name["driver"])
+        res = dryrun.run_cell(TINY, ShapeConfig("driver", 32, 8, "train", 1), mesh=MESH,
+                              cfg=get_config(TINY, smoke=True), remat=False)
+        wants = [res]
+        phases = [[g] for g in got]
+    else:
+        cfg = get_config(what, smoke=True)
+        wants = [dryrun.run_cell(what, ShapeConfig(kind, seq, SERVE_B, kind), mesh=MESH, cfg=cfg)
+                 for kind, seq in (("prefill", SERVE_S), ("decode", SERVE_LEN))]
+        phases = [[_counted(p["collectives"]) for p in r["phases"][:2]]
+                  for r in by_name[f"served {what}"]]
+    for rank, mine in enumerate(phases):
+        for phase, res in zip(mine, wants):
+            c = res["collectives"]
+            assert phase == (c["counts"], c["bytes_by_kind_perdev_once"]), (rank, res["kind"])
+
+
+def test_pod_split_leaves_train_as_the_whole_model(results):
+    """d = 54 on (data 4 as 2 pods x 2, model 1): each ``embed`` dim splits
+    over the pods only (27 a rank; ``rules.data_split``), is gathered over
+    the pod axis and its gradient summed over the whole data axis; the
+    global norm counts each pod shard once.  The 12 steps equal the
+    one-device run from the same seed within rtol 1e-4, and the final
+    parameters, gathered over the pods, within 5 % of the learning rate."""
+    by_name, _, _, whole = results
+    ranks, want = by_name["pods"], whole["pods"]
+    assert ranks[0]["shapes"]["layers.0.attn.wq"][0] == 27
+    assert ranks[0]["shapes"]["layers.0.norm1.scale"] == (54,)
+    for key in ("loss", "grad_norm"):
+        np.testing.assert_allclose(ranks[0][key], want[key], rtol=1e-4, err_msg=key)
+    for k, a in want["final"]["params"].items():
+        np.testing.assert_allclose(ranks[0]["final"]["params"][k], a, rtol=0, atol=0.05 * LR,
+                                   err_msg=k)
