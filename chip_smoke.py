@@ -38,8 +38,12 @@ or of the ``repro`` package.  Phases:
    one query over 272 memory rows of which 256 are filled, K1 at d =
    1024); K1's split norm (each slice's sum of squares, their sum, each
    slice normalised with it) at xlstm-1.3b's cell norm over W = 4096 cut
-   to a tp = 2 and a tp = 4 rank's slice, held to the whole rows' plain
-   norm and timed under ``modes``; one ``{"kernels": [...]}`` line.
+   to a tp = 2 and a tp = 4 rank's slice, and at the weight-stationary
+   decode's residual stream (2 rows over d = 2048 and 12288 cut by data
+   2), held to the whole rows' plain norm and timed under ``modes``; K3 at
+   that decode's (data 2, model 2) rank, one row and a model rank's heads
+   of tinyllama-1.1b and command-r-plus-104b over 516 slots, under
+   ``serve_repl``; one ``{"kernels": [...]}`` line.
 3. The measured path at full width: ``Elana("llama3.1-8b").measure``
    (TTFT eager; TPOT and TTLT from the decode step replayed from a CUDA
    graph), then the same with NVML energy; size and cache reports; launch
@@ -97,10 +101,13 @@ or of the ``repro`` package.  Phases:
    CPU only, and run while its ranks do), no kernel launched, for one
    cell of each shape at the production mesh's 16 x 16 (tinyllama-1.1b
    train_4k, qwen3-moe-30b-a3b prefill_32k, command-r-plus-104b
-   decode_32k, xlstm-1.3b long_500k; llama3.1-8b's long_500k skipped, as
+   decode_32k under FSDP and with ``serve_repl``, printed side by side,
+   the all-gathers falling by at least 0.95 of the weights FSDP gathers,
+   xlstm-1.3b long_500k; llama3.1-8b's long_500k skipped, as
    ``should_skip`` says), every per-device field filled; the sharded
-   phase's counted steps at (2, 2): their collectives equal, kind by kind
-   in count and bytes, what each rank counted, and their per-device peak
+   phase's counted steps at (2, 2), the two weight-stationary decode
+   steps among them: their collectives equal, by axis and kind in count
+   and bytes, what each rank counted, and their per-device peak
    estimates within ``PEAK_BAND`` of each rank's measured peak; then the
    calibration: llama3.1-8b at full width, its prefill of 1 x 8192 and
    its decode step at 32 x 8192 counted on one device and run through
@@ -252,9 +259,18 @@ or of the ``repro`` package.  Phases:
    512 and 4 greedy decode steps of tinyllama-1.1b at full width on 8 of
    its 22 layers (``Model.prefill``/``decode_step`` under FSDP, one row a
    data rank), held to the one-device model of the same seed by the bf16
-   floor, K1-K3 launches exact on every rank; each rank counts its
-   collectives and measures its peak bytes in that prefill, each decode
-   step and each train step of tinyllama's run, for phase 7.
+   floor, K1-K3 launches exact on every rank; then the same prefill and
+   greedy decode steps under the serve rules (weight-stationary: the
+   residual stream split over data, the batch whole on every rank, no
+   weight gathered) for tinyllama-1.1b on those 8 layers and
+   command-r-plus-104b at full width on 2 of its 64 (``SERVE_REPL``):
+   every rank's logits equal rank 0's, within twice the bf16 floor of the
+   one-device model's and of its fp32 copy's, top-1 equal on decided
+   rows, K1 two launches a norm (its split mode) and K3 one an attention
+   layer a step on every rank; each rank counts its collectives and
+   measures its peak bytes in each prefill, each decode step and each
+   train step of tinyllama's run, for phase 7.  Each serve job's time on
+   rank 0 is printed by part; they are gloo host copies, not latencies.
 15. The last line: ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line is printed; so does a
@@ -456,6 +472,14 @@ SHARDED_SEAMLESS = (2, ["--batch", "4", "--seq-len", "1024", "--lr", "3e-5", "--
 # 0; a prefill of 2 x 512 (one row a data rank) and 4 greedy decode steps
 SHARDED_SERVE_LAYERS = 8
 SHARDED_SERVE = (2, 512, 4)   # rows, prompt, decode steps
+# the weight-stationary decode (``sharding.rules.use_serve_rules``, the
+# reference's ``--opt serve_repl``) in the same spawn: the same prefill,
+# then its greedy decode steps under the serve rules on the same cache;
+# arch -> layers at full width: tinyllama-1.1b on ``SHARDED_SERVE_LAYERS``
+# and command-r-plus-104b on 2 of its 64 (~12.6 GB in bf16, a quarter a
+# rank; the check's one-device model and its fp32 copy ~38 GB more, drawn
+# once the ranks are gone)
+SERVE_REPL = {TRAIN_ARCH: SHARDED_SERVE_LAYERS, COMMAND_R: 2}
 # the dry-run's per-device peak estimate (arguments + temp) over a rank's
 # measured peak (``torch.cuda.max_memory_allocated`` over the step), for
 # the train step, the prefill and a decode step: the band predicted in
@@ -990,6 +1014,18 @@ def kernel_phase(dev):
         tps.append(dict(arch=arch, path=f"tp={tp} measure decode", max_abs_err=err,
                         **da_row(case)))
     moe_rows(entries[-1], tps, "tp")
+    # the weight-stationary decode on a (data 2, model 2) rank: one row of
+    # the batch (its cache's), a model rank's heads, over the sharded
+    # phase's prompt and decode steps
+    B2, P2, n2 = SHARDED_SERVE
+    repl = []
+    for arch, Hq, Hkv, D in ((TRAIN_ARCH, 16, 2, 64), (COMMAND_R, 48, 4, 128)):
+        case, err = da_case(f"{arch} serve_repl rank B={B2 // SHARDED_MESH[0]} L={P2 + n2} "
+                            f"Hq={Hq} Hkv={Hkv} D={D}", B2 // SHARDED_MESH[0], P2 + n2, Hq, Hkv,
+                            D, bf16, q_at=P2 + n2 - 1, filled=P2 + n2)
+        repl.append(dict(arch=arch, path="serve_repl decode", max_abs_err=err,
+                         **da_row(case)))
+    moe_rows(entries[-1], repl, "serve_repl")
 
     # -- K4 paged decode attention ---------------------------------------------
     def pda_case(name, B, Hq, Hkv, D, dtype, q_pos, bs=16, nb=64, N=513, window=0,
@@ -1227,41 +1263,44 @@ def kernel_phase(dev):
         log("time " + json.dumps(mode))
         modes.append(mode)
     # the split norm of a tensor-parallel rank: xlstm-1.3b's mLSTM cell norm
-    # over W = 4096 cut to W / 2 and W / 4 (its decode and prompt rows), K1's
-    # two launches around a sum of every slice's statistic (the ranks'
+    # over W = 4096 cut to W / 2 and W / 4 (its decode and prompt rows); and
+    # of a weight-stationary decode step's residual stream, the whole batch
+    # over d cut to d / 2 by data 2 (tinyllama-1.1b, command-r-plus-104b):
+    # K1's two launches around a sum of every slice's statistic (the ranks'
     # all-reduce), the slices side by side held to the plain norm of the
     # whole rows; one rank's two launches timed
-    W = 4096
-    for tp in (2, 4):
-        for rows in (1, PROMPT):
-            x, sc = randn(rows, W, dtype=bf16), (randn(W) * 0.1).to(bf16)
-            parts = [t.contiguous() for t in x.chunk(tp, -1)]
-            scs = [t.contiguous() for t in sc.chunk(tp, -1)]
-            stat = sum(rn_ops.rmsnorm_sumsq(t) for t in parts)
-            out = torch.cat([rn_ops.rmsnorm(t, g, 1e-6, stat=stat, width=W)
-                             for t, g in zip(parts, scs)], -1)
-            ref = rn_ref.rmsnorm(x, sc, 1e-6)
-            torch.cuda.synchronize()
-            err = max_err(out, ref)
-            close(out, ref, tol[bf16])
-            errs.append(err)
-            d = W // tp
-            numel = rows * d
-            log(f"check split rmsnorm {rows}x{W} over tp={tp}: max_abs_err={err:.3e} "
-                f"tol={tol[bf16]}")
-            n = copies(2 * 2 * numel) if rows >= PROMPT else 1
-            sets = [parts[0].clone() for _ in range(n)]
-            kern = lambda i: rn_ops.rmsnorm(  # noqa: E731
-                sets[i], scs[0], 1e-6, stat=rn_ops.rmsnorm_sumsq(sets[i]), width=W)
-            plain = lambda i: rn_ref.rmsnorm(  # noqa: E731
-                sets[i], scs[0], 1e-6, stat=rn_ref.sumsq(sets[i]), width=W)
-            mode = dict(mode="split rmsnorm (sumsq, then stat)",
-                        shape=f"({rows},{d}) bf16, a slice of W = {W} at tp = {tp}",
-                        max_abs_err=err, ms=cuda_ms(kern, n), plain_ms=cuda_ms(plain, n),
-                        library_ms=None, host_us=host_us(lambda: kern(0)),
-                        **bound(2 * (2 * numel + d) + 4 * rows, 4 * numel, FP32_FLOPS))
-            log("time " + json.dumps(mode))
-            modes.append(mode)
+    split_norms = [(4096, tp, rows, "tp") for tp in (2, 4) for rows in (1, PROMPT)]
+    split_norms += [(d, SHARDED_MESH[0], SHARDED_SERVE[0], "data")
+                    for d in (2048, 12288)]
+    for W, tp, rows, axis in split_norms:
+        x, sc = randn(rows, W, dtype=bf16), (randn(W) * 0.1).to(bf16)
+        parts = [t.contiguous() for t in x.chunk(tp, -1)]
+        scs = [t.contiguous() for t in sc.chunk(tp, -1)]
+        stat = sum(rn_ops.rmsnorm_sumsq(t) for t in parts)
+        out = torch.cat([rn_ops.rmsnorm(t, g, 1e-6, stat=stat, width=W)
+                         for t, g in zip(parts, scs)], -1)
+        ref = rn_ref.rmsnorm(x, sc, 1e-6)
+        torch.cuda.synchronize()
+        err = max_err(out, ref)
+        close(out, ref, tol[bf16])
+        errs.append(err)
+        d = W // tp
+        numel = rows * d
+        log(f"check split rmsnorm {rows}x{W} over {axis}={tp}: max_abs_err={err:.3e} "
+            f"tol={tol[bf16]}")
+        n = copies(2 * 2 * numel) if rows >= PROMPT else 1
+        sets = [parts[0].clone() for _ in range(n)]
+        kern = lambda i: rn_ops.rmsnorm(  # noqa: E731
+            sets[i], scs[0], 1e-6, stat=rn_ops.rmsnorm_sumsq(sets[i]), width=W)
+        plain = lambda i: rn_ref.rmsnorm(  # noqa: E731
+            sets[i], scs[0], 1e-6, stat=rn_ref.sumsq(sets[i]), width=W)
+        mode = dict(mode="split rmsnorm (sumsq, then stat)",
+                    shape=f"({rows},{d}) bf16, a slice of W = {W} at {axis} = {tp}",
+                    max_abs_err=err, ms=cuda_ms(kern, n), plain_ms=cuda_ms(plain, n),
+                    library_ms=None, host_us=host_us(lambda: kern(0)),
+                    **bound(2 * (2 * numel + d) + 4 * rows, 4 * numel, FP32_FLOPS))
+        log("time " + json.dumps(mode))
+        modes.append(mode)
     table = next(m for m in modes
                  if m["mode"] == "rmsnorm" and m["shape"].startswith(f"({PROMPT},"))
     entries.append(dict(
@@ -4134,10 +4173,12 @@ def sharded_train_phase(dev, counters, paths):
         layers, seam_argv = SHARDED_SEAMLESS
         seam_cfg = get_config(SEAMLESS).replace(num_layers=layers, num_encoder_layers=layers)
         serve = sharded_serve_job()
-        jobs = [serve,
-                runs.DriverTrain(tiny, shape=SHARDED_MESH, grads_to=grads_file, count=True),
-                runs.DriverTrain(["--arch", SEAMLESS] + seam_argv, cfg=seam_cfg,
-                                 shape=SHARDED_MESH)]
+        repl = [sharded_serve_job(arch, n, serve=True) for arch, n in SERVE_REPL.items()]
+        first = 1 + len(repl)  # the training jobs' index
+        jobs = [serve] + repl + [
+            runs.DriverTrain(tiny, shape=SHARDED_MESH, grads_to=grads_file, count=True),
+            runs.DriverTrain(["--arch", SEAMLESS] + seam_argv, cfg=seam_cfg,
+                             shape=SHARDED_MESH)]
         gc.collect()
         torch.cuda.empty_cache()
         t = time.perf_counter()
@@ -4146,8 +4187,12 @@ def sharded_train_phase(dev, counters, paths):
         log(f"sharded train spawn ({SHARDED_MESH[0]} x {SHARDED_MESH[1]} gloo ranks on one "
             f"card) took {time.perf_counter() - t:.1f} s")
         served = [r[0] for r in ranks]
+        for j, job in enumerate([serve] + repl):
+            log(f"sharded {job.cfg.name} {'serve_repl' if job.serve else 'serve'} job on rank "
+                f"0: {ranks[0][j]['seconds']:.1f} s, of which " + ", ".join(
+                    f"{ph['phase']} {ph['seconds']:.2f} s" for ph in ranks[0][j]["phases"]))
         for j, (arch, cfg) in enumerate(((TRAIN_ARCH, get_config(TRAIN_ARCH)),
-                                         (SEAMLESS, seam_cfg)), start=1):
+                                         (SEAMLESS, seam_cfg)), start=first):
             done = [r[j] for r in ranks]
             want = train_launches(cfg, len(done[0]["losses"]))
             for rank, run in enumerate(done):
@@ -4171,12 +4216,18 @@ def sharded_train_phase(dev, counters, paths):
                        printed=done[0]["out"])
             log("sharded train: " + json.dumps(row))
             rows.append(row)
-        mesh_runs = {"train": [r[1]["steps"][1] for r in ranks],
+        mesh_runs = {"train": [r[first]["steps"][1] for r in ranks],
                      "prefill": [r["phases"][0] for r in served],
                      "decode": [r["phases"][1] for r in served]}
-        check(all(r[1]["steps"][1]["step"] == 1 for r in ranks),
+        for k, job in enumerate(repl, start=1):
+            mesh_runs[f"{job.cfg.name} serve_repl decode"] = [r[k]["phases"][1] for r in ranks]
+        check(all(r[first]["steps"][1]["step"] == 1 for r in ranks),
               "the counted train step is not the sharded run's second")
         rows.append(sharded_serve_check(dev, serve, served, counters, paths))
+        for k, job in enumerate(repl, start=1):
+            t = time.perf_counter()
+            rows.append(sharded_serve_check(dev, job, [r[k] for r in ranks], counters, paths))
+            log(f"{job.cfg.name} serve_repl check took {time.perf_counter() - t:.1f} s")
         tiny_losses = rows[0]["losses"]
         check("joules" in rows[0]["printed"],
               "the sharded run's --energy window printed no joules")
@@ -4215,30 +4266,36 @@ def sharded_train_phase(dev, counters, paths):
     return rows, mesh_runs
 
 
-def sharded_serve_job():
-    """``sharding.runs.MeshLogits`` on ``SHARDED_MESH``: tinyllama-1.1b at
-    full width on ``SHARDED_SERVE_LAYERS`` layers from seed 0, a prompt of
-    ``SHARDED_SERVE`` random tokens (seeded) and its greedy decode steps."""
+def sharded_serve_job(arch=TRAIN_ARCH, layers=SHARDED_SERVE_LAYERS, serve=False):
+    """``sharding.runs.MeshLogits`` on ``SHARDED_MESH``: ``arch`` at full
+    width on ``layers`` layers from seed 0, a prompt of ``SHARDED_SERVE``
+    random tokens (seeded) and its greedy decode steps; with ``serve``
+    those under the serve rules (weight-stationary)."""
     import numpy as np
 
     from repro_torch.configs import get_config
     from repro_torch.sharding import runs
 
     B, P, n = SHARDED_SERVE
-    cfg = get_config(TRAIN_ARCH).replace(num_layers=SHARDED_SERVE_LAYERS)
+    cfg = get_config(arch).replace(num_layers=layers)
     tokens = np.random.default_rng(3).integers(0, cfg.vocab_size, (B, P))
     return runs.MeshLogits(cfg=cfg, tokens=tokens, max_len=P + n, greedy=n,
-                           shape=SHARDED_MESH, seed=0)
+                           shape=SHARDED_MESH, seed=0, serve=serve)
 
 
 def sharded_serve_check(dev, job, served, counters, paths):
     """The ranks' prefill and greedy decode steps (``sharded_serve_job``)
-    against the one-device model of the same seed: each data rank's rows
-    of the logits within twice the plain bf16 path's distance from an fp32
-    copy (the bf16 floor ``tp_compare`` holds tensor-parallel logits to),
-    top-1 equal wherever fp32's margin clears it, a data rank's model
-    ranks alike; K1, K2 and K3 launched on every rank exactly as often as
-    one device launches them for a prefill and the decode steps."""
+    against the one-device model of the same seed fed the ranks' greedy
+    tokens: the logits within twice the plain bf16 path's distance from
+    an fp32 copy (the bf16 floor ``tp_compare`` holds tensor-parallel
+    logits to) of both that copy's and the one-device kernels' logits,
+    top-1 equal wherever fp32's margin clears it; a data
+    rank's model ranks alike (every rank alike under the serve rules,
+    whose steps return the whole batch); K1, K2 and K3 launched on every
+    rank exactly as often as one device launches them for a prefill and
+    the decode steps, but K1's split norms twice under the serve rules.
+    The path's counts go to ``"<arch> sharded serve"`` or ``"<arch>
+    serve_repl"``."""
     import numpy as np
     import torch
 
@@ -4247,62 +4304,75 @@ def sharded_serve_check(dev, job, served, counters, paths):
 
     cfg, (B, P, n) = job.cfg, SHARDED_SERVE
     want = expected_launches(cfg, 1, n)
+    if job.serve:  # K1 in its split mode: two launches a norm in a decode step
+        want["rmsnorm"] += expected_launches(cfg, 0, n)["rmsnorm"]
+    what = "serve_repl" if job.serve else "sharded serve"
     for rank, r in enumerate(served):
-        check(r["launches"] == want, f"sharded serve rank {rank}: launches {r['launches']} "
-                                     f"!= {want}")
-    paths[f"{TRAIN_ARCH} sharded serve"] = {k: sum(r["launches"][k] for r in served)
-                                            for k in counters}
+        check(r["launches"] == want, f"{cfg.name} {what} rank {rank}: launches "
+                                     f"{r['launches']} != {want}")
+    paths[f"{cfg.name} {what}"] = {k: sum(r["launches"][k] for r in served) for k in counters}
     dp, tp = SHARDED_MESH
-    for i in range(dp):
-        for j in range(1, tp):
-            check(np.array_equal(served[i * tp + j]["logits"], served[i * tp]["logits"]),
-                  f"sharded serve: rank {i * tp + j}'s logits differ from rank {i * tp}'s")
-    got = np.concatenate([served[i * tp]["logits"] for i in range(dp)], axis=1)
-    check([served[i * tp]["row"] for i in range(dp)] == [i * (B // dp) for i in range(dp)],
-          "sharded serve: the data ranks' rows are not the batch's in order")
+    if job.serve:
+        for rank in range(1, dp * tp):
+            check(np.array_equal(served[rank]["logits"], served[0]["logits"]),
+                  f"{what}: rank {rank}'s logits differ from rank 0's")
+        got = served[0]["logits"]
+    else:
+        for i in range(dp):
+            for j in range(1, tp):
+                check(np.array_equal(served[i * tp + j]["logits"], served[i * tp]["logits"]),
+                      f"{what}: rank {i * tp + j}'s logits differ from rank {i * tp}'s")
+        got = np.concatenate([served[i * tp]["logits"] for i in range(dp)], axis=1)
+        check([served[i * tp]["row"] for i in range(dp)] == [i * (B // dp) for i in range(dp)],
+              f"{what}: the data ranks' rows are not the batch's in order")
     tokens = torch.from_numpy(job.tokens).to(dev)
+    picked = [torch.from_numpy(got[i].argmax(-1)).to(dev)[:, None] for i in range(n)]
     model = model_lib.init(cfg, torch.Generator(device=dev).manual_seed(job.seed), dev)
 
-    def run(m, dtype=None, forced=None):
+    def run(m, dtype=None):
         cache = m.init_cache(B, P + n, dtype)
         logits = m.prefill({"tokens": tokens}, cache)[0]
-        out, toks = [logits], []
+        out = [logits]
         for i in range(n):
-            tok = logits.argmax(-1, keepdim=True) if forced is None else forced[i]
-            toks.append(tok)
-            logits, cache = m.decode_step(tok, P + i, cache)
+            logits, cache = m.decode_step(picked[i], P + i, cache)
             out.append(logits)
-        return torch.stack(out).float(), toks
+        return torch.stack(out).float()
 
-    kern, toks = run(model)
+    kern = run(model).cpu().numpy()
     with dispatch.use_backend("torch"):
-        plain, _ = run(model, forced=toks)
+        plain = run(model)
         ref32 = model_lib.Model(cfg.replace(dtype="float32", param_dtype="float32"), device=dev)
         with torch.no_grad():
             for p32, p in zip(ref32.parameters(), model.parameters()):
                 p32.copy_(p)
-        ref, _ = run(ref32, torch.float32, forced=toks)
-    del model, ref32
+        del model
+        ref = run(ref32, torch.float32)
+    del ref32
     floor = (plain - ref).abs().max().item()
     tol = 2 * floor
-    kern = kern.cpu().numpy()
     ref = ref.cpu().numpy()
     diff = float(np.abs(got - kern).max())
+    diff32 = float(np.abs(got - ref).max())
     top2 = np.sort(ref, axis=-1)[..., -2:]
     decided = (top2[..., 1] - top2[..., 0]) > floor
     agree = got.argmax(-1) == ref.argmax(-1)
-    row = dict(arch=cfg.name, layers=cfg.num_layers, rows=B, prompt=P, decode_steps=n,
-               mesh=dict(data=dp, model=tp), max_abs_diff_vs_one_device=diff, tol=tol,
+    row = dict(arch=cfg.name, run=what, layers=cfg.num_layers, rows=B, prompt=P, decode_steps=n,
+               mesh=dict(data=dp, model=tp), max_abs_diff_vs_one_device=diff,
+               max_abs_diff_vs_fp32=diff32, tol=tol,
                plain_bf16_vs_fp32=floor, max_abs_logit=float(np.abs(ref).max()),
                top1_agree_fp32=f"{int(agree.sum())}/{agree.size}",
-               decided_rows=int(decided.sum()),
+               decided_rows=int(decided.sum()), card=", ".join(card()),
                launches_per_rank=want,
+               seconds_rank0={"job": served[0]["seconds"],
+                              **{ph["phase"]: ph["seconds"] for ph in served[0]["phases"]}},
                peak_bytes_per_rank={ph["phase"]: [r["phases"][k]["peak_bytes"] for r in served]
                                     for k, ph in enumerate(served[0]["phases"])})
-    log("sharded serve: " + json.dumps(row))
-    check(diff <= tol, f"sharded serve: logits {diff} from the one-device model's, tol {tol}")
+    log(f"{what}: " + json.dumps(row))
+    check(diff <= tol, f"{cfg.name} {what}: logits {diff} from the one-device model's, "
+                       f"tol {tol}")
+    check(diff32 <= tol, f"{cfg.name} {what}: logits {diff32} from the fp32 copy's, tol {tol}")
     check(bool(agree[decided].all()),
-          "sharded serve: top-1 differs from fp32 on a row with a clear margin")
+          f"{cfg.name} {what}: top-1 differs from fp32 on a row with a clear margin")
     gc.collect()
     torch.cuda.empty_cache()
     return row
@@ -4313,10 +4383,12 @@ def sharded_serve_check(dev, job, served, counters, paths):
 # held to measured times
 # ---------------------------------------------------------------------------
 
-# one cell of each of the reference's shapes, four families; the last is
-# skipped, as the reference's should_skip says
-DRYRUN_CELLS = [(TRAIN_ARCH, "train_4k"), (QWEN_MOE, "prefill_32k"), (COMMAND_R, "decode_32k"),
-                (XLSTM, "long_500k"), (ARCH, "long_500k")]
+# one cell of each of the reference's shapes, four families, each with its
+# options: command-r-plus-104b's decode under FSDP and weight-stationary
+# (``serve_repl``); the last is skipped, as the reference's should_skip says
+DRYRUN_CELLS = [(TRAIN_ARCH, "train_4k", ()), (QWEN_MOE, "prefill_32k", ()),
+                (COMMAND_R, "decode_32k", ()), (COMMAND_R, "decode_32k", ("serve_repl",)),
+                (XLSTM, "long_500k", ()), (ARCH, "long_500k", ())]
 CALIB_PREFILL = (1, 8192)   # rows, positions
 CALIB_DECODE = (32, 8192)   # rows, cache length; the step at the last position
 CALIB_TRAIN = (8, 1024)     # the train phase's rows and positions
@@ -4397,20 +4469,27 @@ def calibrate(dev, counters, cfg, prefill, decode, counted):
 def mesh_cells():
     """The dry-run jobs of the sharded phase's counted steps at
     ``SHARDED_MESH``: tinyllama-1.1b's train step at 8 x 1024 (full depth,
-    one microbatch, no remat, as the driver ran it), and the 8-layer
-    model's prefill and decode step of ``SHARDED_SERVE``."""
+    one microbatch, no remat, as the driver ran it), the 8-layer model's
+    prefill and decode step of ``SHARDED_SERVE``, and each ``SERVE_REPL``
+    model's weight-stationary decode step (``serve_repl``)."""
     from repro_torch.configs import get_config
     from repro_torch.models.config import ShapeConfig
 
     B, P, n = SHARDED_SERVE
     tb, ts = CALIB_TRAIN
     cfg = get_config(TRAIN_ARCH).replace(num_layers=SHARDED_SERVE_LAYERS)
-    return {"train": (TRAIN_ARCH, ShapeConfig("sharded_train", ts, tb, "train", 1),
-                      dict(mesh=SHARDED_MESH, remat=False)),
-            "prefill": (TRAIN_ARCH, ShapeConfig("sharded_prefill", P, B, "prefill"),
-                        dict(mesh=SHARDED_MESH, cfg=cfg)),
-            "decode": (TRAIN_ARCH, ShapeConfig("sharded_decode", P + n, B, "decode"),
-                       dict(mesh=SHARDED_MESH, cfg=cfg))}
+    cells = {"train": (TRAIN_ARCH, ShapeConfig("sharded_train", ts, tb, "train", 1),
+                       dict(mesh=SHARDED_MESH, remat=False)),
+             "prefill": (TRAIN_ARCH, ShapeConfig("sharded_prefill", P, B, "prefill"),
+                         dict(mesh=SHARDED_MESH, cfg=cfg)),
+             "decode": (TRAIN_ARCH, ShapeConfig("sharded_decode", P + n, B, "decode"),
+                        dict(mesh=SHARDED_MESH, cfg=cfg))}
+    for arch, layers in SERVE_REPL.items():
+        cells[f"{arch} serve_repl decode"] = (
+            arch, ShapeConfig("serve_repl_decode", P + n, B, "decode"),
+            dict(mesh=SHARDED_MESH, cfg=get_config(arch).replace(num_layers=layers),
+                 opts=("serve_repl",)))
+    return cells
 
 
 def dryrun_jobs():
@@ -4422,7 +4501,8 @@ def dryrun_jobs():
     from repro_torch.models.config import ShapeConfig
 
     tb, ts = CALIB_TRAIN
-    return ([(arch, shape, {}) for arch, shape in DRYRUN_CELLS] + list(mesh_cells().values())
+    return ([(arch, shape, dict(opts=opts)) for arch, shape, opts in DRYRUN_CELLS]
+            + list(mesh_cells().values())
             + calibration_cells(get_config(ARCH), CALIB_PREFILL, CALIB_DECODE)
             + [(TRAIN_ARCH, ShapeConfig("calib_train", ts, tb, "train"), dict(mesh=(1, 1)))])
 
@@ -4448,9 +4528,10 @@ def dryrun_phase(dev, counters, paths, mesh_runs, cells):
     ``DRYRUN_WORKERS`` processes), no kernel launched in any:
     ``DRYRUN_CELLS`` at the production mesh's 16 x 16 (each ``ok`` with
     every per-device field filled, or ``skipped`` where ``should_skip``
-    says); the sharded phase's steps at ``SHARDED_MESH`` (``mesh_cells``),
-    whose collectives must equal, kind by kind in count and bytes, what
-    each rank counted in them (``mesh_runs``), and whose per-device peak
+    says; command-r-plus-104b's decode under FSDP beside ``serve_repl``);
+    the sharded phase's steps at ``SHARDED_MESH`` (``mesh_cells``),
+    whose collectives must equal, by axis and kind in count and bytes,
+    what each rank counted in them (``mesh_runs``), and whose per-device peak
     estimates must be within ``PEAK_BAND`` (and 1.5x) of each rank's
     measured peak; then ``calibrate`` on llama3.1-8b at full width
     (prefill 1 x 8192, decode 32 x 8192; launches exact), then the
@@ -4476,10 +4557,11 @@ def dryrun_phase(dev, counters, paths, mesh_runs, cells):
     check(all(n == 0 for _, launches in out for n in launches.values()),
           "the dry-run launched a kernel")
     results = [res for res, _ in out]
-    for (arch, shape), res in zip(DRYRUN_CELLS, results):
+    for (arch, shape, opts), res in zip(DRYRUN_CELLS, results):
         want = "skipped" if dryrun.should_skip(get_config(arch), SHAPES[shape]) else "ok"
         check(res["status"] == want, f"dry-run {arch} {shape}: {res['status']}, want {want}")
-        row = {"arch": arch, "shape": shape, "status": res["status"], "mesh": res["mesh"]}
+        row = {"arch": arch, "shape": shape, "opts": list(opts), "status": res["status"],
+               "mesh": res["mesh"]}
         if want == "ok":
             r, mem, coll = res["roofline"], res["memory"], res["collectives"]
             row.update(count_s=res["count_s"], rank_count_s=res["rank_count_s"],
@@ -4492,6 +4574,7 @@ def dryrun_phase(dev, counters, paths, mesh_runs, cells):
                        peak_bytes_estimate=mem["peak_bytes_estimate"],
                        collective_counts=coll["counts"],
                        collective_bytes_per_device=coll["bytes_perdev_corrected"],
+                       collectives_by_axis_kind=coll["by_axis_kind_perdev"],
                        compute_term_ms=r["compute_term_s"] * 1e3,
                        memory_term_ms=r["memory_term_s"] * 1e3,
                        collective_term_ms=r["collective_term_s"] * 1e3, dominant=r["dominant"],
@@ -4503,11 +4586,23 @@ def dryrun_phase(dev, counters, paths, mesh_runs, cells):
                   and res["roofline"]["collective_term_s"] is not None,
                   f"dry-run {arch} {shape}: a per-device field is null")
         log("dryrun cell: " + json.dumps(row))
+    by_cell = dict(zip(DRYRUN_CELLS, results))
+    fsdp, repl = (by_cell[(COMMAND_R, "decode_32k", opts)]["collectives"]
+                  for opts in ((), ("serve_repl",)))
+    weights = fsdp["by_axis_kind_perdev"]["data all-gather"][1]  # FSDP's weight gathers
+    fall = (fsdp["bytes_by_kind_perdev_once"]["all-gather"]
+            - repl["bytes_by_kind_perdev_once"]["all-gather"])
+    log(f"dryrun {COMMAND_R} decode_32k at 16x16, FSDP beside serve_repl: " + json.dumps({
+        "all_gather_bytes": [c["bytes_by_kind_perdev_once"]["all-gather"] for c in (fsdp, repl)],
+        "collective_bytes": [c["bytes_perdev_corrected"] for c in (fsdp, repl)],
+        "fsdp_weight_gather_bytes": weights, "all_gather_fall": fall}))
+    check(fall >= 0.95 * weights, f"serve_repl's all-gathers fall by {fall} B, less than the "
+                                  f"{weights} B of weights FSDP gathers")
 
     mesh_res = dict(zip(mesh_jobs, results[len(DRYRUN_CELLS):]))
     for kind, res in mesh_res.items():
         coll, mem = res["collectives"], res["memory"]
-        want = (coll["counts"], coll["bytes_by_kind_perdev_once"])
+        want = (coll["counts"], coll["bytes_by_kind_perdev_once"], coll["by_axis_kind_perdev"])
         estimate = mem["peak_bytes_estimate"]
         ratios = [estimate / r["peak_bytes"] for r in mesh_runs[kind]]
         log(f"dryrun {kind} at {res['mesh']}: " + json.dumps({
@@ -4520,7 +4615,8 @@ def dryrun_phase(dev, counters, paths, mesh_runs, cells):
             "measured_base_bytes_per_rank": [r["base_bytes"] for r in mesh_runs[kind]],
             "estimate_over_measured": ratios, "band": PEAK_BAND, "card": card()}))
         for rank, r in enumerate(mesh_runs[kind]):
-            got = (r["collectives"]["counts"], r["collectives"]["bytes_by_kind"])
+            got = (r["collectives"]["counts"], r["collectives"]["bytes_by_kind"],
+                   r["collectives"]["by_axis_kind"])
             check(got == want, f"dry-run {kind} at {res['mesh']}: rank {rank} counted {got}, "
                                f"the dry-run {want}")
         for rank, ratio in enumerate(ratios):
@@ -4680,9 +4776,9 @@ def main():
     for arch in (TRAIN_ARCH, SEAMLESS):
         check(all(paths[f"{arch} sharded train"][k] > 0 for k in ("rmsnorm", "flash_attention")),
               f"K1 or K2 never launched on the {arch} sharded train path")
-    check(all(paths[f"{TRAIN_ARCH} sharded serve"][k] > 0
-              for k in ("rmsnorm", "flash_attention", "decode_attention")),
-          f"K1, K2 or K3 never launched on the {TRAIN_ARCH} sharded serve path")
+    for path in [f"{TRAIN_ARCH} sharded serve"] + [f"{arch} serve_repl" for arch in SERVE_REPL]:
+        check(all(paths[path][k] > 0 for k in ("rmsnorm", "flash_attention", "decode_attention")),
+              f"K1, K2 or K3 never launched on the {path} path")
     gc.collect()
     torch.cuda.empty_cache()
     dryrun_phase(dev, counters, paths, mesh_runs, cells)

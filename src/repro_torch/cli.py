@@ -225,7 +225,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--arch", required=True)
     p.add_argument("--shape", default="train_4k")
     p.add_argument("--multi-pod", action="store_true")
-    p.add_argument("--opt", default="", help="comma list: moe_block")
+    p.add_argument("--opt", default="",
+                   help="comma list: moe_block, shard_grads, serve_repl (a decode cell's "
+                        "weight-stationary step: the attention and dense-MLP families)")
     p.add_argument("--out-dir", default=None)
     p.set_defaults(fn=cmd_dryrun)
     return ap

@@ -38,7 +38,14 @@ Nothing is allocated off ``meta`` and nothing is launched: the dry-run has
 no device argument.  ``--opt moe_block`` routes MoE layers through the
 blocked dispatch; ``shard_grads`` counts the same program (the port's
 FSDP always reduce-scatters a gradient into its shard); ``serve_repl``
-needs a decode step the port lacks and is refused.
+counts a decode cell's rank step under the serve rules
+(``sharding.rules.use_serve_rules``: weight-stationary, the residual
+stream split over data, the batch whole) and a train or prefill cell's
+as without it, as the reference's does; a config with a block the serve
+rules do not run (MoE, RG-LRU, mLSTM, sLSTM) is refused by name
+(``rules.check_serve``), and the command line records its cells as
+skipped with that reason.  The
+whole-program FLOPs are the mesh-free step's either way.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch minitron-4b --shape train_4k
@@ -70,6 +77,7 @@ from repro_torch.models import flags
 from repro_torch.models.config import ModelConfig, ShapeConfig
 from repro_torch.models.model import Model
 from repro_torch.sharding import partition, record
+from repro_torch.sharding import rules as rules_lib
 from repro_torch.training import step as step_lib
 from repro_torch.training.optimizer import AdamW, constant_schedule
 
@@ -90,12 +98,7 @@ TRAIN_MICROBATCHES = {
 # (pod 2, data 16, model 16), whose data axis is pod x data
 MESH = (16, 16)
 MESH_MULTI_POD = (2, 16, 16)
-OPTS = ("moe_block", "shard_grads")
-REFUSED_OPTS = {
-    "serve_repl": "--opt serve_repl needs a decode step whose residual stream is split over "
-                  "data and whose batch is replicated (the reference's SERVE_RULES): a 2-D "
-                  "tensor-parallel decode the port does not have (ROADMAP queue 1)",
-}
+OPTS = ("moe_block", "shard_grads", "serve_repl")
 # the H100's NVLink: 18 links of 25 GB/s each way (``core/hardware.py``)
 LINK_BW = H100.link_bw * H100.num_links
 
@@ -120,6 +123,9 @@ NOTES = [
     "leaves an 8-GPU NVLink domain, so this is a lower bound",
     "shard_grads: the port's FSDP always reduce-scatters a data-sharded leaf's gradient "
     "into its shard, so with or without it the port runs (and counts) one program",
+    "serve_repl: a decode cell's rank step is weight-stationary (the residual stream split "
+    "over data, the batch whole, no weight gathered); a train or prefill cell counts the "
+    "same program as without it",
 ]
 
 
@@ -190,10 +196,8 @@ def count_step(cfg: ModelConfig, shape: ShapeConfig, remat: bool = True
 def check_opts(opts) -> frozenset:
     opts = frozenset(opts)
     for o in sorted(opts):
-        if o in REFUSED_OPTS:
-            raise ValueError(REFUSED_OPTS[o])
         if o not in OPTS:
-            raise ValueError(f"unknown --opt {o!r}; known: {OPTS + tuple(REFUSED_OPTS)}")
+            raise ValueError(f"unknown --opt {o!r}; known: {OPTS}")
     return opts
 
 
@@ -233,10 +237,12 @@ def rank_arguments(cfg: ModelConfig, shape: ShapeConfig, mesh=MESH) -> RankArgum
     without drawing a weight: ``partition._rank_model`` with a recording
     mesh as both axes, its train state (a train cell), its cache shard
     (``partition.rank_cache``: batch over data where dp divides it, model
-    dims by ``rules.cache_dim``) and its batch rows (``batch_rows``)."""
+    dims by ``rules.cache_dim``) and its batch rows (``batch_rows``).  A
+    decode cell under the serve rules holds its norm scales' data slices
+    (``partition.Placement(serve=True)``)."""
     dp, tp, pods = mesh_axes(mesh)
     rec = record.RecordingMesh((dp, tp), pods=pods)
-    model = partition._rank_model(cfg, rec)
+    model = partition._rank_model(cfg, rec, rules_lib.serve_rules() and shape.kind == "decode")
     specs = input_specs(cfg, shape)
     state, cache, batch = None, None, specs
     if shape.kind == "train":  # the step takes the global batch and cuts its rows
@@ -287,9 +293,13 @@ def run_cell(arch: str, shape: Union[str, ShapeConfig], *, mesh=MESH, opts=froze
     as it is.  ``cfg``: a config in place of the registry's (one cut in
     depth, say); ``remat`` False counts a train step without remat (the
     reference's dry-run always remats), as a driver without ``--remat``
-    runs it."""
+    runs it.  ``serve_repl`` counts a decode cell's rank step under the
+    serve rules, and raises ``rules.ServeRefusal`` (a ``ValueError``) for
+    a config whose blocks they do not run."""
     opts = check_opts(opts)
     cfg = cfg or get_config(arch)
+    if "serve_repl" in opts:
+        rules_lib.check_serve(cfg)
     dp, tp, pods = mesh_axes(mesh)
     chips = dp * tp
     if isinstance(shape, str):
@@ -310,11 +320,13 @@ def run_cell(arch: str, shape: Union[str, ShapeConfig], *, mesh=MESH, opts=froze
     result["opts"] = sorted(opts)
     result["remat"] = remat
     moe_ctx = flags.use_moe_blocked() if "moe_block" in opts else contextlib.nullcontext()
+    serve = "serve_repl" in opts and shape.kind == "decode"
     t0 = time.perf_counter()
     with moe_ctx, flags.use_fold_loops():
         summary = count_step(cfg, shape, remat)
         t1 = time.perf_counter()
-        args, rank, coll = count_rank_step(cfg, shape, mesh, remat)
+        with rules_lib.use_serve_rules() if serve else contextlib.nullcontext():
+            args, rank, coll = count_rank_step(cfg, shape, mesh, remat)
     t2 = time.perf_counter()
 
     peak = PEAK_FLOPS[cfg.dtype]
@@ -354,6 +366,7 @@ def run_cell(arch: str, shape: Union[str, ShapeConfig], *, mesh=MESH, opts=froze
             "bytes_perdev_once": coll["bytes"],
             "bytes_perdev_corrected": coll["bytes"],
             "bytes_by_axis_perdev": coll["bytes_by_axis"],
+            "by_axis_kind_perdev": coll["by_axis_kind"],
         },
         "roofline": {
             "hardware": H100.name,
@@ -410,7 +423,7 @@ def main(argv=None) -> int:
                     help="every cell of the reference's ten assigned architectures")
     ap.add_argument("--multi-pod", action="store_true",
                     help="the (pod 2, data 16, model 16) mesh of 512 chips, not 16 x 16")
-    ap.add_argument("--opt", default="", help="comma list: moe_block, shard_grads")
+    ap.add_argument("--opt", default="", help="comma list: moe_block, shard_grads, serve_repl")
     ap.add_argument("--out-dir", default=None)
     args = ap.parse_args(argv)
     if not args.all and not args.arch:
@@ -437,6 +450,9 @@ def main(argv=None) -> int:
             try:
                 res = run_cell(arch, shape_name, opts=opts,
                                mesh=MESH_MULTI_POD if args.multi_pod else MESH)
+            except rules_lib.ServeRefusal as e:  # a block the serve rules do not run yet
+                res = {"arch": arch, "shape": shape_name, "status": "skipped",
+                       "reason": str(e)}
             except Exception:  # a failed cell is recorded, the sweep goes on
                 failures += 1
                 res = {"arch": arch, "shape": shape_name, "status": "error",

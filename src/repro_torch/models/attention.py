@@ -20,6 +20,14 @@ attention's input and any whole K/V weights its ranks read in part are
 ``collectives.copy``'d, so their gradients sum over the ranks; the
 encoder's attention and a decoder's cross attention shard alike
 (training).
+
+A decode step under the serve rules (``layers.ServeLayout``) takes the
+whole batch's input as the rank's slice of ``d``: its q/k/v products are
+summed over the slices in one all-reduce (``layers.project_in``), the
+biases added after; the rank writes and attends over the rows whose
+cache it holds (``serve.rows``), and their outputs are gathered over
+data into the whole batch before the out projection, whose output is
+the rank's slice of ``d``.
 """
 
 from __future__ import annotations
@@ -33,7 +41,9 @@ from torch import nn
 from repro_torch.kernels import dispatch
 from repro_torch.models import cache as cache_lib
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import apply_rope, init_normal_, matmul_fp32, new_param
+from repro_torch.models.layers import (
+    ServeLayout, apply_rope, init_normal_, matmul_fp32, new_param, project_in,
+)
 from repro_torch.sharding import collectives
 from repro_torch.sharding.rules import divides, local_size
 
@@ -86,11 +96,25 @@ def _kv_read(p: Attention) -> Tuple[slice, int]:
     return slice(kv0, kv0 + 1), q0
 
 
-def _project(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor]):
-    """"bsd,dhk->bshk" (+ bias) as one matrix product."""
-    B, S, d = x.shape
-    y = torch.matmul(x, w.reshape(d, -1)).reshape(B, S, *w.shape[1:])
+def _heads(y: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor]):
+    """A product ``y`` (B, S, h·hd) of ``w`` (d, h, hd) as (B, S, h, hd),
+    plus the bias."""
+    y = y.reshape(*y.shape[:2], *w.shape[1:])
     return y if b is None else y + b
+
+
+def _project(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
+             serve: Optional[ServeLayout] = None):
+    """"bsd,dhk->bshk" (+ bias) as one matrix product."""
+    return _project_all(x, (w,), (b,), serve)[0]
+
+
+def _project_all(x: torch.Tensor, ws, bs, serve: Optional[ServeLayout] = None):
+    """``_project`` of ``x`` by each weight of ``ws`` with its bias of
+    ``bs``: on a serve layout one all-reduce for them all, each bias added
+    after it."""
+    ys = project_in(x, [w.reshape(w.shape[0], -1) for w in ws], serve)
+    return [_heads(y, w, b) for y, w, b in zip(ys, ws, bs)]
 
 
 def _local_in(p: Attention, x: torch.Tensor) -> torch.Tensor:
@@ -106,12 +130,27 @@ def _kv_leaf(p: Attention, w: torch.Tensor) -> torch.Tensor:
     return collectives.copy(w, p.tp) if p.partial and not p.kv_split else w
 
 
-def _project_qkv(p: Attention, x: torch.Tensor):
+def _project_qkv(p: Attention, x: torch.Tensor, serve: Optional[ServeLayout] = None):
     bias = hasattr(p, "bq")
-    x = _local_in(p, x)
-    return (_project(x, p.wq, p.bq if bias else None),
-            _project(x, _kv_leaf(p, p.wk), _kv_leaf(p, p.bk) if bias else None),
-            _project(x, _kv_leaf(p, p.wv), _kv_leaf(p, p.bv) if bias else None))
+    ws = (p.wq, _kv_leaf(p, p.wk), _kv_leaf(p, p.wv))
+    bs = (p.bq, _kv_leaf(p, p.bk), _kv_leaf(p, p.bv)) if bias else (None,) * 3
+    return _project_all(_local_in(p, x), ws, bs, serve)
+
+
+def _own_rows(serve: Optional[ServeLayout], *ts):
+    """Each of ``ts`` cut to the rows whose cache the rank holds under the
+    serve rules (all of them otherwise; None stays None)."""
+    if serve is None or serve.rows is None:
+        return ts
+    return tuple(None if t is None else t[serve.rows] for t in ts)
+
+
+def _whole_rows(serve: Optional[ServeLayout], o: torch.Tensor) -> torch.Tensor:
+    """The attention's output of the rank's rows gathered over data into
+    the whole batch's, under the serve rules."""
+    if serve is None or serve.rows is None:
+        return o
+    return collectives.gather(o, 0, serve.data)
 
 
 def _out_proj(p: Attention, o: torch.Tensor) -> torch.Tensor:
@@ -252,11 +291,18 @@ def apply_attention_decode(
     window: int = 0,
     block_tables: Optional[torch.Tensor] = None,
     update_mask: Optional[torch.Tensor] = None,
+    serve: Optional[ServeLayout] = None,
 ) -> Tuple[torch.Tensor, Dict]:
-    pos_b = positions[:, None]
-    q, k_new, v_new = _project_qkv(p, x)
+    """One token's attention: its K/V written at ``positions`` into the
+    cache, K3 (contiguous or ring) or K4 (paged) over it.  Under the serve
+    rules (``serve``) only the rows whose cache the rank holds are written
+    and attended."""
+    q, k_new, v_new = _project_qkv(p, x, serve)
     q = apply_rope(q, rope)
     k_new = apply_rope(k_new, rope)
+    q, k_new, v_new, positions, update_mask = _own_rows(serve, q, k_new, v_new, positions,
+                                                        update_mask)
+    pos_b = positions[:, None]
     heads, q_head0 = _kv_read(p)
     if "kp" in kv_cache:  # paged: append through the table, attend on the pool
         kv_cache = cache_lib.update_paged_cache(kv_cache, k_new, v_new, positions,
@@ -275,7 +321,7 @@ def apply_attention_decode(
         q_positions=pos_b.contiguous(), k_positions=kv_cache["pos"],
         window=window, softcap=cfg.logit_softcap,
     )
-    return _out_proj(p, o), kv_cache
+    return _out_proj(p, _whole_rows(serve, o)), kv_cache
 
 
 # -- cross attention (encoder-decoder) ---------------------------------------
@@ -321,11 +367,13 @@ def apply_cross_attention_decode(
     x: torch.Tensor,           # (B, 1, d)
     positions: torch.Tensor,   # (B,) int32, the new token's positions
     kv_cache: Dict,
+    serve: Optional[ServeLayout] = None,
 ) -> torch.Tensor:
     """One decode step's cross attention over the memory in the entry,
-    through K3."""
-    q = _project(x, p.wq, None)
+    through K3 (under the serve rules, the rows whose memory the rank
+    holds, each masked by its own ``cross_pos``)."""
+    q, positions = _own_rows(serve, _project(x, p.wq, None, serve), positions)
     o = dispatch.decode_attention(q.contiguous(), kv_cache["cross_k"], kv_cache["cross_v"],
                                   q_positions=positions[:, None].contiguous(),
                                   k_positions=kv_cache["cross_pos"])
-    return _out_proj(p, o)
+    return _out_proj(p, _whole_rows(serve, o))

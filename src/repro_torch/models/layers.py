@@ -7,12 +7,20 @@ bridge and the size report map one onto the other.  Every parameter is
 created empty on the caller's device and filled by ``init_`` from an
 explicit ``torch.Generator`` at the reference initializer's scales
 (``Maker.normal``: fan-in scaling on the first dimension).
+
+A decode step under the serve rules (``sharding.rules.use_serve_rules``)
+runs on a ``ServeLayout``: the residual stream is the rank's slice of
+``d``, so a norm is K1's split mode around an all-reduce of its
+statistic (``add_norm``), a product into a branch contracts the slice and
+all-reduces its fp32 partials (``project_in``), and the head's logits are
+summed over the slices before the vocabulary gather (``unembed``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -50,6 +58,39 @@ class Norm(nn.Module):
         self.scale.zero_()
 
 
+@dataclasses.dataclass(frozen=True)
+class ServeLayout:
+    """A weight-stationary decode step on one rank of a ``("data",
+    "model")`` mesh (the reference's ``SERVE_RULES``): the batch whole on
+    every rank, the residual stream the rank's ``index``-th of ``parts``
+    slices of its ``width`` (``d_model``) along ``axis``, the axis the
+    weights' ``embed`` dim splits over (the data axis, or the pod axis
+    where only the pods divide it; None: the stream whole, as those
+    weights are).  ``rows`` is the slice of the batch whose cache the rank
+    holds, its attention's outputs gathered over ``data`` after (None:
+    the cache holds every row)."""
+    axis: Any
+    index: int
+    parts: int
+    width: int
+    data: Any
+    rows: Optional[slice]
+
+    @property
+    def split(self) -> bool:
+        """Whether the residual stream is a slice of the width."""
+        return self.axis is not None
+
+    def local(self, t: torch.Tensor) -> torch.Tensor:
+        """The rank's slice of a norm scale: one stored whole (as a
+        prefill under FSDP reads it) narrowed, one stored as the slice
+        (the serve rules' placement) as it is."""
+        if not self.split or t.shape[-1] != self.width:
+            return t
+        n = self.width // self.parts
+        return t.narrow(-1, self.index * n, n)
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return dispatch.rmsnorm(x, scale, eps)
 
@@ -59,13 +100,36 @@ def apply_norm(p: Norm, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 
 
 def add_norm(p: Norm, x: torch.Tensor, r: Optional[torch.Tensor],
-             eps: float = 1e-6) -> Tuple[torch.Tensor, torch.Tensor]:
+             eps: float = 1e-6, serve: Optional[ServeLayout] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The residual add ``x + r`` and the norm of the sum, one kernel:
     returns ``(x + r, norm(x + r))``, or ``(x, norm(x))`` when ``r`` is
-    None.  The reference's ``x = x + r; apply_norm(p, x)``, bit for bit."""
+    None.  The reference's ``x = x + r; apply_norm(p, x)``, bit for bit.
+    On a ``serve`` layout's slice of the width, the add is the slice's and
+    the norm K1's split mode: the slice's fp32 sums of squares, their
+    all-reduce over the slices, then the slice normalised over the whole
+    width with its part of the scale."""
+    if serve is not None and serve.split:
+        if r is not None:
+            x = x + r
+        stat = collectives.reduce(dispatch.rmsnorm_sumsq(x), serve.axis)
+        return x, dispatch.rmsnorm(x, serve.local(p.scale), eps, stat=stat, width=serve.width)
     if r is None:
         return x, apply_norm(p, x, eps)
     return dispatch.add_rmsnorm(x, r, p.scale, eps)
+
+
+def project_in(x: torch.Tensor, ws: Sequence[torch.Tensor],
+               serve: Optional[ServeLayout] = None) -> List[torch.Tensor]:
+    """``x @ w`` (x (..., k), each w (k, n)) for each of ``ws``, in x's
+    dtype.  On a ``serve`` layout's slice of the width each is the rank's
+    fp32 partial product over its rows of ``w``, the partials of ``ws``
+    all-reduced over the slices in one call and each sum rounded once."""
+    if serve is None or not serve.split:
+        return [torch.matmul(x, w) for w in ws]
+    parts = torch.cat([matmul_fp32(x, w) for w in ws], dim=-1)
+    summed = collectives.reduce(parts, serve.axis)
+    return [t.to(x.dtype) for t in summed.split([w.shape[-1] for w in ws], dim=-1)]
 
 
 # --------------------------------------------------------------------------
@@ -137,7 +201,9 @@ def embed_tokens(p: Embedding, tokens: torch.Tensor, scale: bool,
                  d_model: int) -> torch.Tensor:
     """The table's rows for ``tokens``.  A vocabulary-sharded table looks
     up the tokens in its own rows, zeros the others, and sums over the
-    ranks: each row is one rank's and zeros, so the sum is exact."""
+    ranks: each row is one rank's and zeros, so the sum is exact.  A
+    table whose width is a data slice (a decode step under the serve
+    rules) gives that slice of each row; the scale is still √d_model."""
     if p.tp is None:
         x = F.embedding(tokens, p.table)
     else:
@@ -193,14 +259,19 @@ def matmul_fp32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return _matmul_fp32(x, w)
 
 
-def unembed(p: Embedding, x: torch.Tensor, softcap: float = 0.0) -> torch.Tensor:
+def unembed(p: Embedding, x: torch.Tensor, softcap: float = 0.0,
+            serve: Optional[ServeLayout] = None) -> torch.Tensor:
     """fp32 logits (..., vocab).  As with the reference's
     ``preferred_element_type=float32``, bf16 products are summed and
     returned in fp32, never rounded to bf16 on the way.  A
     vocabulary-sharded table gives its own columns, gathered from every
     rank into the full row the sampler reads (the same bytes on every
-    rank); the softcap, elementwise, follows."""
+    rank); the softcap, elementwise, follows.  On a ``serve`` layout's
+    slice of the width the products over the slice are all-reduced over
+    the slices first."""
     logits = matmul_fp32(collectives.copy(x, p.tp), p.table.t())
+    if serve is not None and serve.split:
+        logits = collectives.reduce(logits, serve.axis)
     if p.tp is not None:
         logits = collectives.gather(logits, -1, p.tp)
     if softcap > 0.0:

@@ -5,16 +5,22 @@ A tensor-parallel shard of ``shards`` ranks holds 1 / shards of the
 hidden where that divides it (column-parallel ``wg``/``wu``, row-parallel
 ``wd``: its output a partial sum), else the whole MLP (its output whole).
 Under grad a split MLP's input is ``collectives.copy``'d: its gradient is
-summed over the ranks."""
+summed over the ranks.  On a decode step under the serve rules the input
+is the rank's slice of ``d`` and so are ``wg``/``wu``'s rows and ``wd``'s
+columns: the gate and up products are summed over the slices
+(``layers.project_in``), and the output is the rank's slice of ``d``."""
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 from torch import nn
 
-from repro_torch.models.layers import act_fn, init_normal_, matmul_fp32, new_param
+from repro_torch.models.layers import (
+    ServeLayout, act_fn, init_normal_, matmul_fp32, new_param, project_in,
+)
 from repro_torch.sharding import collectives
 from repro_torch.sharding.rules import divides, local_size
 
@@ -39,11 +45,13 @@ class MLP(nn.Module):
             init_normal_(self.wu, gen)
 
 
-def apply_mlp(p: MLP, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+def apply_mlp(p: MLP, x: torch.Tensor, act: str = "silu",
+              serve: Optional[ServeLayout] = None) -> torch.Tensor:
     """The FFN; a shard's partial sum in fp32."""
     if p.partial:
         x = collectives.copy(x, p.tp)
-    h = act_fn(act)(torch.matmul(x, p.wg))
-    if hasattr(p, "wu"):
-        h = h * torch.matmul(x, p.wu)
+    g, *u = project_in(x, [p.wg] + ([p.wu] if hasattr(p, "wu") else []), serve)
+    h = act_fn(act)(g)
+    if u:
+        h = h * u[0]
     return (matmul_fp32 if p.partial else torch.matmul)(h, p.wd)

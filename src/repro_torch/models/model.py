@@ -55,6 +55,20 @@ after; the backward reduce-scatters their gradients.  The caller gives
 cache (``sharding.partition.rank_rows``, ``rank_cache``).  Without FSDP
 each module runs as stored.
 
+Under the serve rules (``sharding.rules.use_serve_rules``, the
+reference's ``SERVE_RULES``) ``decode_step`` on such a rank is
+weight-stationary: nothing is gathered per weight.  It gathers the
+rank's rows of the token and positions over data once, so the batch is
+whole on every rank, and runs every module on its stored 2-D shard with
+the residual stream as the rank's slice of ``d`` (``layers.ServeLayout``,
+the slices of the weights' ``embed`` dim): the embedding's table slice,
+K1's split norms, products into a branch summed over the slices, the
+attention over the rows whose cache the rank holds (its outputs gathered
+over data), products out of a branch reduced over model once as above,
+and the head's logits summed over the slices and gathered over model.
+Every rank returns the whole batch's logits.  It runs the attention and
+dense-MLP blocks (``rules.check_serve`` refuses the others by name).
+
 Entry points:
   * ``init(cfg, generator, device)`` — a model with random weights at the
     reference initializer's scales.
@@ -91,7 +105,7 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import recurrent as rec_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
-    Embedding, Norm, add_norm, embed_tokens, rope_tables, unembed,
+    Embedding, Norm, ServeLayout, add_norm, embed_tokens, rope_tables, unembed,
 )
 from repro_torch.models.mlp import MLP, apply_mlp
 from repro_torch.sharding import collectives
@@ -228,14 +242,15 @@ def _apply_xlstm_block(p: Block, cfg: ModelConfig, x: torch.Tensor,
 
 
 def _cross(p: Block, cfg: ModelConfig, x: torch.Tensor, a: torch.Tensor,
-           attend: Callable[[torch.Tensor], torch.Tensor]) -> Residual:
+           attend: Callable[[torch.Tensor], torch.Tensor],
+           serve: Optional[ServeLayout] = None) -> Residual:
     """A decoder block's cross attention after its self-attention output
     ``a``: ``a`` (reduced over a shard's ranks) added in ``norm_c`` (K1's
     fused mode), ``attend`` on the norm, its output left pending, as the
     reference's ``x = x + a; x = x + cross(norm_c(x))``.  The cross
     attention splits its heads as the self-attention does, so the pending
     output is reduced as the self-attention's would be."""
-    x, hc = add_norm(p.norm_c, x, _reduce(p, x, (a, p.attn.partial)), cfg.norm_eps)
+    x, hc = add_norm(p.norm_c, x, _reduce(p, x, (a, p.attn.partial)), cfg.norm_eps, serve)
     return x, attend(hc)
 
 
@@ -258,31 +273,32 @@ def _reduce(p: Block, x: torch.Tensor, *parts: Tuple[torch.Tensor, bool]) -> tor
 
 
 def _ffn_block(p: Block, cfg: ModelConfig, x: torch.Tensor,
-               r: Optional[torch.Tensor]) -> Residual:
-    x, h = add_norm(p.norm, x, r, cfg.norm_eps)
-    return x, _reduce(p, x, (apply_mlp(p.mlp, h, cfg.mlp_act), p.mlp.partial))
+               r: Optional[torch.Tensor], serve: Optional[ServeLayout] = None) -> Residual:
+    x, h = add_norm(p.norm, x, r, cfg.norm_eps, serve)
+    return x, _reduce(p, x, (apply_mlp(p.mlp, h, cfg.mlp_act, serve), p.mlp.partial))
 
 
 def _mlp_branch(p: Block, cfg: ModelConfig, x: torch.Tensor, h: torch.Tensor,
-                a: torch.Tensor) -> Residual:
+                a: torch.Tensor, serve: Optional[ServeLayout] = None) -> Residual:
     """An attention block after its attention output ``a``: the MLP branch
     (the mixture of experts in a MoE config), left pending.  A parallel
     block's MLP reads the shared pre-norm ``h`` and adds ``a`` first, as
     the reference adds ``(x + a) + m``; on a tensor-parallel shard its two
     partial outputs are summed and reduced once, ``x + (a + m)``.  A MoE
     shard's routed and shared partials are summed in the layer and reduced
-    once."""
+    once.  Under the serve rules (``serve``) each branch is the rank's
+    slice of ``d``."""
     if cfg.parallel_block:
         if p.tp is not None:
             return x, _reduce(p, x, (a, p.attn.partial),
-                              (apply_mlp(p.mlp, h, cfg.mlp_act), p.mlp.partial))
+                              (apply_mlp(p.mlp, h, cfg.mlp_act, serve), p.mlp.partial))
         x = x + a
     else:
-        x, h = add_norm(p.norm2, x, _reduce(p, x, (a, p.attn.partial)), cfg.norm_eps)
+        x, h = add_norm(p.norm2, x, _reduce(p, x, (a, p.attn.partial)), cfg.norm_eps, serve)
     if cfg.is_moe:
         moe_fn = moe_lib.apply_moe_blocked if flags.moe_blocked() else moe_lib.apply_moe
         return x, _reduce(p, x, *moe_fn(p.mlp, h, cfg, parts=True))
-    return x, _reduce(p, x, (apply_mlp(p.mlp, h, cfg.mlp_act), p.mlp.partial))
+    return x, _reduce(p, x, (apply_mlp(p.mlp, h, cfg.mlp_act, serve), p.mlp.partial))
 
 
 def _apply_block_seq(p: Block, cfg: ModelConfig, x: torch.Tensor,
@@ -338,22 +354,26 @@ def _apply_block_chunk(p: Block, cfg: ModelConfig, x: torch.Tensor,
 def _apply_block_decode(p: Block, cfg: ModelConfig, x: torch.Tensor,
                         r: Optional[torch.Tensor], positions: torch.Tensor, rope,
                         entry: Dict, block_tables: Optional[torch.Tensor],
-                        update_mask: Optional[torch.Tensor]) -> Residual:
+                        update_mask: Optional[torch.Tensor],
+                        serve: Optional[ServeLayout] = None) -> Residual:
+    """One block of a decode step; under the serve rules (``serve``: an
+    attention or FFN block, ``rules.check_serve``) on the rank's slice of
+    the residual stream."""
     if p.kind == "rglru":
         return _apply_rglru_block(p, cfg, x, r, entry, update_mask)
     if p.kind in XLSTM_BLOCKS:
         return _apply_xlstm_block(p, cfg, x, r, entry, update_mask=update_mask, step=True)
     if p.kind == "ffn":
-        return _ffn_block(p, cfg, x, r)
-    x, h = add_norm(p.norm1, x, r, cfg.norm_eps)
+        return _ffn_block(p, cfg, x, r, serve)
+    x, h = add_norm(p.norm1, x, r, cfg.norm_eps, serve)
     a, _ = attn_lib.apply_attention_decode(p.attn, h, cfg, positions, entry, rope=rope,
                                            window=_window(cfg, p.kind),
                                            block_tables=block_tables,
-                                           update_mask=update_mask)
+                                           update_mask=update_mask, serve=serve)
     if hasattr(p, "cross"):
         x, a = _cross(p, cfg, x, a, lambda hc: attn_lib.apply_cross_attention_decode(
-            p.cross, hc, positions, entry))
-    return _mlp_branch(p, cfg, x, h, a)
+            p.cross, hc, positions, entry, serve), serve)
+    return _mlp_branch(p, cfg, x, h, a, serve)
 
 
 def _apply_block_train(p: Block, cfg: ModelConfig, x: torch.Tensor,
@@ -652,12 +672,23 @@ class Model(nn.Module):
         cache.  ``update_mask`` (B,) bool freezes the cache writes and
         recurrent states of masked-off rows.  Updates ``cache`` in place;
         returns fp32 logits (B, vocab).  Nothing here waits for the device,
-        so a CUDA graph can capture the step."""
+        so a CUDA graph can capture the step.
+
+        Under FSDP each module's parameters are gathered as it runs; under
+        the serve rules too (``rules.use_serve_rules``) the step is
+        weight-stationary instead (the module docstring): it takes the
+        rank's rows of ``token``, ``position`` and ``update_mask`` (as
+        ``sharding.partition.rank_rows`` gives them) and returns the whole
+        batch's logits."""
         cfg = self.cfg
         B = token.shape[0]
         positions = torch.as_tensor(position, dtype=torch.int32,
                                     device=token.device).expand(B).contiguous()
-        unit = self._unit()
+        unit, serve = self._unit(), None
+        if self.fsdp is not None and rules_lib.serve_rules():
+            serve, token, positions, update_mask = self._serve_inputs(
+                token, positions, update_mask, block_tables)
+            unit = _whole
         with unit(self.embed):
             x = embed_tokens(self.embed, token, cfg.emb_scale, cfg.d_model)
         rope = rope_tables(positions[:, None], cfg.resolved_head_dim, cfg.rope_theta)
@@ -665,11 +696,40 @@ class Model(nn.Module):
         for blk, entry in zip(self.layers, cache):
             with unit(blk):
                 x, r = _apply_block_decode(blk, cfg, x, r, positions, rope, entry,
-                                           block_tables, update_mask)
-        _, h = add_norm(self.final_norm, x, r, cfg.norm_eps)
+                                           block_tables, update_mask, serve)
+        _, h = add_norm(self.final_norm, x, r, cfg.norm_eps, serve)
         with unit(self._head()):
-            logits = unembed(self._head(), h, cfg.logit_softcap)[:, 0]
+            logits = unembed(self._head(), h, cfg.logit_softcap, serve)[:, 0]
         return logits, cache
+
+    def _serve_inputs(self, token: torch.Tensor, positions: torch.Tensor,
+                      update_mask: Optional[torch.Tensor],
+                      block_tables: Optional[torch.Tensor]):
+        """A weight-stationary decode step's layout and its whole batch:
+        the rank's rows of the token, positions (and update mask) gathered
+        over data in one int32 all-gather where the rows split the batch
+        (``FSDP.summed``, set by ``rank_rows``).  Returns (the
+        ``ServeLayout``, token (B, 1), positions (B,), the mask)."""
+        rules_lib.check_serve(self.cfg)
+        if block_tables is not None:
+            raise ValueError("a decode step under the serve rules runs a contiguous cache, "
+                             "not block tables")
+        placement, data = self.placement, self.fsdp.data
+        rows = None
+        if self.fsdp.summed:
+            n = token.shape[0]
+            cols = [token.reshape(n).to(torch.int32), positions]
+            if update_mask is not None:
+                cols.append(update_mask.to(torch.int32))
+            whole = collectives.gather(torch.stack(cols, dim=-1), 0, data)
+            token, positions = whole[:, :1].contiguous(), whole[:, 1].contiguous()
+            if update_mask is not None:
+                update_mask = whole[:, 2] != 0
+            rows = slice(data.rank * n, (data.rank + 1) * n)
+        axis, parts = placement.residual_split()
+        serve = ServeLayout(axis=axis, index=axis.rank if axis is not None else 0, parts=parts,
+                            width=self.cfg.d_model, data=data, rows=rows)
+        return serve, token, positions, update_mask
 
 
 @torch.no_grad()

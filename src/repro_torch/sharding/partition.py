@@ -41,7 +41,13 @@ or decode step on such a rank takes ``rank_rows`` of the global batch
 (the batch dim over data where dp divides it, as the reference's
 ``cache_shardings`` on that mesh).  On a mesh of pods a leaf that the
 whole data axis does not divide splits over the pods
-(``rules.data_split``, ``Placement.data_axis``).
+(``rules.data_split``, ``Placement.data_axis``).  A decode step under the
+serve rules takes the same arguments, as the reference's ``SERVE_RULES``
+keeps the parameter and cache shardings, but for the norm scales, which
+it splits over data (``Placement(serve=True)``; a rank that also runs a
+prefill under FSDP keeps them whole and reads its slice); its residual
+stream splits as the weights' ``embed`` dim does
+(``Placement.residual_split``).
 """
 
 from __future__ import annotations
@@ -75,9 +81,11 @@ class Leaf:
 
 class Placement:
     """Where each parameter of ``cfg`` lives on ``mesh``: a
-    ``launch.mesh.Mesh`` of (dp, tp) ranks, or a ``TPMesh`` (dp = 1)."""
+    ``launch.mesh.Mesh`` of (dp, tp) ranks, or a ``TPMesh`` (dp = 1).
+    ``serve``: under the serve rules, the norm scales split over data too
+    (``rules.SERVE_DATA_DIMS``)."""
 
-    def __init__(self, cfg: ModelConfig, mesh):
+    def __init__(self, cfg: ModelConfig, mesh, serve: bool = False):
         self.cfg, self.mesh = cfg, mesh
         self.data = getattr(mesh, "data", None)
         self.model = getattr(mesh, "model", mesh)
@@ -91,7 +99,7 @@ class Placement:
                 shape = tuple(p.shape)
                 self.leaves[f"{prefix}.{leaf}" if prefix else leaf] = Leaf(
                     shape, shard_dim(leaf_rule(module, leaf), shape, self.tp),
-                    *data_split(module, leaf, shape, self.dp, self.pods))
+                    *data_split(module, leaf, shape, self.dp, self.pods, serve))
 
     def shape(self, name: str) -> Tuple[int, ...]:
         """The rank's shape of parameter ``name``."""
@@ -117,6 +125,18 @@ class Placement:
         """Whether parameter ``name`` splits over (data, model)."""
         leaf = self.leaves[name]
         return leaf.data_dim is not None, leaf.model_dim is not None
+
+    def residual_split(self):
+        """(the axis the residual stream's width splits over in a decode
+        step under the serve rules, into how many parts): the split of the
+        weights' ``embed`` dim, which is ``d_model`` in every leaf that has
+        one (the embedding table's, read here): the data axis, or the pod
+        axis where only the pods divide it; (None, 1) where it is whole."""
+        name = "embed.table"
+        leaf = self.leaves[name]
+        if leaf.data_dim is None:
+            return None, 1
+        return self.data_axis(name), leaf.data_parts
 
     def data_replicas(self, name: str) -> int:
         """How many data ranks hold the same data shard of ``name``: 1 where
@@ -164,10 +184,11 @@ def _materialize(model: Model, placement: Placement, device) -> None:
                 requires_grad=False)
 
 
-def _rank_model(cfg: ModelConfig, mesh) -> Model:
+def _rank_model(cfg: ModelConfig, mesh, serve: bool = False) -> Model:
     """A rank's model of the 2-D ``mesh``, its storage empty, with its
-    ``placement`` and, where data splits anything, its FSDP."""
-    placement = Placement(cfg, mesh)
+    ``placement`` (``serve``: under the serve rules) and, where data
+    splits anything, its FSDP."""
+    placement = Placement(cfg, mesh, serve)
     model = Model(cfg, device="meta", mesh=mesh.model if mesh.model.size > 1 else None)
     _materialize(model, placement, mesh.device)
     model.placement = placement
@@ -268,8 +289,9 @@ def rank_rows(model: Model, batch: Mapping[str, torch.Tensor]) -> Dict:
     """The rank's rows of ``batch`` (a prefill's inputs, or a decode step's
     ``token`` and ``positions``) for ``model``, a rank's shard of a 2-D
     mesh, its FSDP told whether they split the batch (so a MoE layer
-    routes the global batch, as in training); the batch itself for a
-    model without FSDP."""
+    routes the global batch, as in training, and a decode step under the
+    serve rules gathers them whole); the batch itself for a model without
+    FSDP."""
     if model.fsdp is None:
         return dict(batch)
     rows, summed = batch_rows(batch, model.placement.mesh)

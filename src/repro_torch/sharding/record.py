@@ -54,16 +54,21 @@ class CollectiveLog:
     def summary(self, since: int = 0) -> Dict:
         """Counts and bytes by kind (and bytes by axis) of the entries from
         ``since`` on, with the reference's keys: ``counts``,
-        ``bytes_by_kind``, ``bytes``, and ``bytes_by_axis``."""
+        ``bytes_by_kind``, ``bytes``, and ``bytes_by_axis``; and
+        ``by_axis_kind``: "<axis> <kind>" -> [count, bytes]."""
         counts: Dict[str, int] = {}
         by_kind: Dict[str, int] = {}
         by_axis: Dict[str, int] = {}
+        both: Dict[str, List[int]] = {}
         for axis, kind, n in self.entries[since:]:
             counts[kind] = counts.get(kind, 0) + 1
             by_kind[kind] = by_kind.get(kind, 0) + n
             by_axis[axis] = by_axis.get(axis, 0) + n
+            cell = both.setdefault(f"{axis} {kind}", [0, 0])
+            cell[0] += 1
+            cell[1] += n
         return {"counts": counts, "bytes_by_kind": by_kind, "bytes": sum(by_kind.values()),
-                "bytes_by_axis": by_axis}
+                "bytes_by_axis": by_axis, "by_axis_kind": both}
 
 
 @dataclasses.dataclass

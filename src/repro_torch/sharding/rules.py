@@ -43,11 +43,30 @@ replicates.  The encoder's attention and MLP and every decoder block's
 groups unevenly (tp divides the query heads, and neither of tp and the KV
 heads divides the other); ``check_tp``, serving's check, refuses that and
 an encoder, each by name: neither package's engine serves one.
+
+The reference's weight-stationary decode (``SERVE_RULES``, ``--opt
+serve_repl``) keeps every parameter and cache in its 2-D sharding and
+changes only the activations: the batch replicated, the residual stream
+split over data (``act_embed``), so each product contracts the rank's
+slice of ``d`` on both mesh axes and every per-layer weight gather
+becomes a small activation all-reduce.  ``use_serve_rules()`` is the
+counterpart of ``rules.use_mesh(mesh, SERVE_RULES)``: a ``decode_step``
+run inside it on a rank of a ``("data", "model")`` mesh takes that
+layout (``models/model.py``); prefill, training and the engine's
+``("tp",)`` mesh do not read it.  It covers the blocks of
+``SERVE_BLOCKS`` (attention and a dense MLP); ``check_serve`` refuses the
+others by name.  ``act_embed`` also names the norm scales, so under
+those rules they split over data too (``SERVE_DATA_DIMS``), as the
+residual stream does: where the weights' ``embed`` dim splits (over the
+data axis, or the pods on a mesh of pods where the reference's bare
+``"data"`` would not align with them).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+import contextlib
+import threading
+from typing import Dict, Iterator, Optional, Sequence, Tuple
 
 from repro_torch.models.config import ModelConfig
 
@@ -91,6 +110,11 @@ DATA_DIMS: Dict[str, Dict[str, int]] = {
 }
 
 
+# the leaves the serve rules add to ``DATA_DIMS``: the norm scales (the
+# reference's ``act_embed``), split over data as the residual stream is
+SERVE_DATA_DIMS: Dict[str, Dict[str, int]] = {"Norm": {"scale": 0}}
+
+
 def divides(tp: int, n: int) -> bool:
     """Whether a dim of ``n`` shards over ``tp`` > 1 ranks."""
     return tp > 1 and n % tp == 0
@@ -126,6 +150,50 @@ def check_tp(cfg: ModelConfig, tp: int) -> None:
         raise ValueError(
             f"{cfg.name}: tp={tp} refuses an encoder and cross attention: no engine serves "
             f"an encoder-decoder model (training shards it over the model axis)")
+
+
+# the block kinds a decode step under the serve rules runs: attention (a
+# cross attention too) and a dense MLP
+SERVE_BLOCKS = ("attn", "local_attn", "ffn")
+
+
+class ServeRefusal(ValueError):
+    """A config with a block the serve rules do not cover yet."""
+
+
+def check_serve(cfg: ModelConfig) -> None:
+    """Raise ``ServeRefusal`` (a ``ValueError``) naming the block kinds of
+    ``cfg`` that a decode step under the serve rules does not run: a
+    mixture of experts, RG-LRU, mLSTM and sLSTM blocks."""
+    kinds = ["moe"] if cfg.is_moe else []
+    kinds += sorted({k for k in cfg.blocks() if k not in SERVE_BLOCKS})
+    if kinds:
+        raise ServeRefusal(
+            f"{cfg.name}: --opt serve_repl (the weight-stationary decode) runs attention and "
+            f"dense-MLP blocks; its {', '.join(kinds)} block(s) under the serve rules are "
+            f"ROADMAP item 4d")
+
+
+class _ServeState(threading.local):
+    on = False
+
+
+_SERVE = _ServeState()
+
+
+@contextlib.contextmanager
+def use_serve_rules() -> Iterator[None]:
+    """Decode steps run inside take the serve rules (on this thread)."""
+    prev, _SERVE.on = _SERVE.on, True
+    try:
+        yield
+    finally:
+        _SERVE.on = prev
+
+
+def serve_rules() -> bool:
+    """Whether the serve rules are on (``use_serve_rules``)."""
+    return _SERVE.on
 
 
 def leaf_rule(module, leaf: str) -> Optional[Rule]:
@@ -202,7 +270,7 @@ def local_slice(rule: Optional[Rule], full, rank: int, tp: int):
 
 
 def data_split(module, leaf: str, shape: Sequence[int], dp: int,
-               pods: int = 1) -> Tuple[Optional[int], int]:
+               pods: int = 1, serve: bool = False) -> Tuple[Optional[int], int]:
     """(the dim of ``module``'s parameter ``leaf`` of ``shape`` that splits
     over the data axis, into how many parts), by the module's class: over
     the ``dp`` data ranks where dp divides it; on a mesh of ``pods`` pods
@@ -211,8 +279,12 @@ def data_split(module, leaf: str, shape: Sequence[int], dp: int,
     to the first of the two axes that divides the dim (the pod axis:
     where 2 pods do not divide a dim, 16 data ranks do not either); else
     (None, 1), replicated over data (no data dim, dp = 1, or a dim
-    neither divides)."""
-    dim = DATA_DIMS.get(type(module).__name__, {}).get(leaf)
+    neither divides).  ``serve``: under the serve rules, whose
+    ``SERVE_DATA_DIMS`` add the norm scales."""
+    name = type(module).__name__
+    dim = DATA_DIMS.get(name, {}).get(leaf)
+    if serve and dim is None:
+        dim = SERVE_DATA_DIMS.get(name, {}).get(leaf)
     if dim is None:
         return None, 1
     for parts in (dp, pods):

@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import time
 from typing import Any, Dict, List, Mapping, Optional, Tuple
 
@@ -568,9 +569,10 @@ class DriverTrain:
 class _Counted:
     """``mesh``'s collectives counted (``Mesh.count``) for the work inside
     ``measured(**tags)``, each such span appended to ``records`` with its
-    tags, its collectives (``CollectiveLog.summary``) and, on a GPU, the
-    bytes allocated at its start and at its peak; ``peak`` is the peak
-    over everything since it began (each span resets the allocator's)."""
+    tags, its collectives (``CollectiveLog.summary``), its host seconds
+    and, on a GPU, the bytes allocated at its start and at its peak;
+    ``peak`` is the peak over everything since it began (each span resets
+    the allocator's)."""
 
     def __init__(self, mesh, device, records: List[Dict[str, Any]]):
         from repro_torch.sharding.record import CollectiveLog
@@ -593,10 +595,12 @@ class _Counted:
             self.seen = self.peak()
             torch.cuda.reset_peak_memory_stats(self.device)
             base = torch.cuda.memory_allocated(self.device)
+        t0 = time.perf_counter()
         yield
         if self.cuda:
             torch.cuda.synchronize(self.device)
         self.records.append(dict(tags, collectives=self.log.summary(mark), base_bytes=base,
+                                 seconds=time.perf_counter() - t0,
                                  peak_bytes=(torch.cuda.max_memory_allocated(self.device)
                                              if self.cuda else None)))
 
@@ -613,9 +617,18 @@ class MeshLogits:
     ``steps`` (n, B), or with ``steps`` None ``greedy`` steps on each
     step's argmax.  Returns the rank's fp32 ``logits`` (n + 1, rows,
     vocab), its first ``row`` of the batch, its kernel ``launches`` over
-    the job, and for the prefill and each decode step its collectives and
-    (on a GPU) the bytes allocated at its start and at its peak
-    (``phases``)."""
+    the job, the job's host ``seconds`` (the weights drawn or placed
+    too), and for the prefill and each decode step its collectives, host
+    seconds and (on a GPU) the bytes allocated at its start and at its
+    peak (``phases``).
+
+    With ``serve`` the decode steps run under the serve rules
+    (``rules.use_serve_rules``: weight-stationary, on the prefill's
+    cache), each given the rank's rows of the token and of the positions,
+    and each returning the whole batch's logits; the prefill's rows are
+    gathered over data after its phase, so ``logits`` is (n + 1, B,
+    vocab) on every rank and ``row`` 0.  ``pods`` > 1 splits the data
+    axis into pods (``launch.mesh.make_mesh``)."""
     cfg: ModelConfig
     tokens: np.ndarray
     max_len: int
@@ -626,13 +639,16 @@ class MeshLogits:
     seed: int = 0
     enc: Optional[np.ndarray] = None
     vision: Optional[np.ndarray] = None
+    serve: bool = False
+    pods: int = 1
 
     def run(self, mesh, device):
         from repro_torch.kernels import dispatch
         from repro_torch.models import model as model_lib
-        from repro_torch.sharding import partition
+        from repro_torch.sharding import collectives, partition, rules
 
         cfg = self.cfg
+        t0 = time.perf_counter()
         if mesh is None:
             model = (_whole_model(cfg, self.params, device) if self.params is not None
                      else model_lib.init(cfg, torch.Generator(device=device).manual_seed(
@@ -652,30 +668,38 @@ class MeshLogits:
                 batch[key] = torch.from_numpy(a).to(device, getattr(torch, cfg.dtype))
         B, S = self.tokens.shape
         nv = cfg.num_vision_tokens if self.vision is not None else 0
+        serve = rules.use_serve_rules if self.serve else contextlib.nullcontext
         try:
             rows = partition.rank_rows(model, batch)
+            n_rows = rows["tokens"].shape[0]
+            row = mesh.data.rank * n_rows if mesh is not None and n_rows < B else 0
             cache = partition.rank_cache(model, B, self.max_len)
             with measured(phase="prefill"):
                 logits = model.prefill(rows, cache)[0]
             out = [logits]
+            if self.serve and n_rows < B:  # the whole batch, as the decode steps give it
+                out = [collectives.gather(logits, 0, mesh.data)]
             n = self.greedy if self.steps is None else len(self.steps)
             for i in range(n):
-                if self.steps is None:
+                if self.steps is None:  # the rank's rows of the argmax
                     tok = logits.argmax(-1, keepdim=True)
+                    tok = tok[row:row + n_rows] if tok.shape[0] > n_rows else tok
                 else:
                     tok = torch.from_numpy(np.asarray(self.steps[i])).to(device)[:, None]
                     tok = partition.rank_rows(model, {"token": tok})["token"]
-                with measured(phase=f"decode {i}"):
-                    logits, cache = model.decode_step(tok, nv + S + i, cache)
+                pos = nv + S + i
+                if self.serve:
+                    pos = torch.full((n_rows,), pos, dtype=torch.int32, device=device)
+                with measured(phase=f"decode {i}"), serve():
+                    logits, cache = model.decode_step(tok, pos, cache)
                 out.append(logits)
         finally:
             if mesh is not None:
                 mesh.count(None)
-        n_rows = rows["tokens"].shape[0]
         return dict(logits=torch.stack(out).float().cpu().numpy(),
-                    row=(mesh.data.rank * n_rows if mesh is not None and n_rows < B else 0),
+                    row=0 if self.serve else row,
                     launches={name: k.launches for name, k in dispatch.KERNELS.items()},
-                    phases=phases)
+                    seconds=time.perf_counter() - t0, phases=phases)
 
 
 def _whole_model(cfg: ModelConfig, params: Dict[str, np.ndarray], device):
@@ -693,7 +717,8 @@ def train_plan(mesh, jobs: List[Any], device="cpu") -> List[Any]:
     """Each job (``Train``, ``CollectiveGrads``, ``DriverTrain``,
     ``MeshLogits``) on a mesh of its ``shape``
     made from ``mesh``'s ranks (every rank makes every job's mesh, in
-    order), or on ``device`` whole where ``mesh`` is None."""
+    order), or on ``device`` whole where ``mesh`` is None; a GPU's cached
+    blocks are released after each job, for the next one's."""
     from repro_torch.launch import mesh as mesh_lib
 
     results = []
@@ -705,5 +730,8 @@ def train_plan(mesh, jobs: List[Any], device="cpu") -> List[Any]:
         sub = mesh if (tuple(job.shape), pods) == (tuple(mesh.shape), mesh.pods) else \
             mesh_lib.make_mesh(job.shape, mesh.device, mesh.backend, pods=pods)
         results.append(job.run(sub, sub.device))
+        if sub.device.type == "cuda":
+            gc.collect()
+            torch.cuda.empty_cache()
         mesh.barrier()
     return results

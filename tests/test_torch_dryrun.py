@@ -419,7 +419,9 @@ def test_train_cell_microbatches_follow_the_reference(monkeypatch):
 def test_cli_dryrun_writes_its_json_and_refuses_mesh_options(tmp_path, capsys):
     """The CLI writes each cell's JSON, 16 x 16 by default and (pod 2,
     data 16, model 16) under ``--multi-pod``; ``--opt shard_grads`` is
-    taken (the port's one program), ``serve_repl`` refused by name."""
+    taken (the port's one program) and so is ``serve_repl`` (the
+    weight-stationary decode); ``serve_repl`` on a config with a block it
+    does not run is refused by name, a skipped cell on the command line."""
     assert cli.main(["dryrun", "--arch", "tinyllama-1.1b", "--shape", "decode_32k",
                      "--out-dir", str(tmp_path)]) == 0
     res = json.loads((tmp_path / "tinyllama-1.1b__decode_32k__16x16.json").read_text())
@@ -437,13 +439,26 @@ def test_cli_dryrun_writes_its_json_and_refuses_mesh_options(tmp_path, capsys):
     res = json.loads((tmp_path / "tinyllama-1.1b__decode_32k__16x16__opt-shard_grads.json")
                      .read_text())
     assert res["status"] == "ok" and res["opts"] == ["shard_grads"]
+    assert cli.main(["dryrun", "--arch", "tinyllama-1.1b", "--shape", "decode_32k", "--opt",
+                     "serve_repl", "--out-dir", str(tmp_path)]) == 0
+    repl = json.loads((tmp_path / "tinyllama-1.1b__decode_32k__16x16__opt-serve_repl.json")
+                      .read_text())
+    assert repl["status"] == "ok" and repl["opts"] == ["serve_repl"]
+    assert repl["cost"]["flops_global"] == res["cost"]["flops_global"]
+    assert (repl["collectives"]["bytes_perdev_corrected"]
+            < res["collectives"]["bytes_perdev_corrected"])
+    assert cli.main(["dryrun", "--arch", "xlstm-1.3b", "--shape", "decode_32k", "--opt",
+                     "serve_repl", "--out-dir", str(tmp_path)]) == 0
+    skipped = json.loads((tmp_path / "xlstm-1.3b__decode_32k__16x16__opt-serve_repl.json")
+                         .read_text())
+    assert skipped["status"] == "skipped" and "item 4d" in skipped["reason"]
     capsys.readouterr()
     with pytest.raises(SystemExit):
-        cli.main(["dryrun", "--arch", "tinyllama-1.1b", "--opt", "serve_repl",
+        cli.main(["dryrun", "--arch", "tinyllama-1.1b", "--opt", "serve_all",
                   "--out-dir", str(tmp_path)])
-    assert "serve_repl" in capsys.readouterr().err
-    with pytest.raises(ValueError, match="serve_repl"):
-        dryrun.run_cell("tinyllama-1.1b", "decode_32k", opts={"serve_repl"})
+    assert "serve_all" in capsys.readouterr().err
+    with pytest.raises(ValueError, match="serve_repl.*item 4d"):
+        dryrun.run_cell("recurrentgemma-2b", "decode_32k", opts={"serve_repl"})
     with pytest.raises(SystemExit):
         dryrun.main(["--shape", "decode_32k"])  # neither --arch nor --all
 

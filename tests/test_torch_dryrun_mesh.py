@@ -20,11 +20,21 @@ reference's shardings, on the CPU and the meta device:
   forward counted as its kernel allocates (its output, not the plain
   version's scores), K3's split workspace, K2's backward's plain VJP;
 * (d) ``--opt shard_grads`` accepted and equal to the default,
-  ``serve_repl`` refused by name, and every per-device field filled.
+  ``serve_repl`` counting train and prefill cells as without it and
+  refusing the blocks it does not run by name, and every per-device field
+  filled;
+* (e) ``serve_repl``'s weight-stationary decode for every ``decode_32k``
+  cell of the attention and dense-MLP families, at 16 x 16 and (pod 2,
+  data 16, model 16): rank 0's argument bytes are the reference's under
+  ``SERVE_RULES``, no collective moves a parameter, and the all-gathers
+  fall from the FSDP decode's by at least the weights it gathers; the
+  MoE and recurrent configs are refused by name; on the pod fallback
+  (d = 48) the residual splits over the pods.
 """
 
 import dataclasses
 import functools
+import json
 import math
 
 import pytest
@@ -39,13 +49,13 @@ from jax.sharding import NamedSharding, PartitionSpec  # noqa: E402
 from repro.configs import get_config as jax_config  # noqa: E402
 from repro.models import model as jax_model  # noqa: E402
 from repro.sharding.partition import batch_shardings, cache_shardings, param_pspecs  # noqa: E402
-from repro.sharding.rules import DEFAULT_RULES  # noqa: E402
+from repro.sharding.rules import DEFAULT_RULES, SERVE_RULES  # noqa: E402
 from repro_torch.configs import ASSIGNED, SHAPES, get_config  # noqa: E402
 from repro_torch.core import cost  # noqa: E402
 from repro_torch.kernels import dispatch  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.models.config import ShapeConfig  # noqa: E402
-from repro_torch.sharding import partition, record  # noqa: E402
+from repro_torch.sharding import partition, record, rules  # noqa: E402
 from test_torch_sharded_train import reference_mesh, reference_train_shards  # noqa: E402
 from test_torch_unified import one_thread  # noqa: E402,F401 (autouse)
 
@@ -68,13 +78,14 @@ def _param_axes(arch):
     return jax_model.param_axes(jax_config(arch))
 
 
-def reference_rank_bytes(arch, shape, dp, tp, pods):
+def reference_rank_bytes(arch, shape, dp, tp, pods, rules_=DEFAULT_RULES):
     """The reference's per-device bytes of the cell's arguments by part, as
-    ``repro/launch/dryrun.py:_build_cell`` shards them."""
+    ``repro/launch/dryrun.py:_build_cell`` shards them (its parameters
+    under ``rules_``)."""
     jcfg = jax_config(arch)
     mesh = reference_mesh(dp, tp, pods)
     shapes, axes = _param_axes(arch)
-    specs = param_pspecs(axes, shapes, mesh, DEFAULT_RULES)
+    specs = param_pspecs(axes, shapes, mesh, rules_)
     local = jax.tree.map(lambda sp, s: _bytes(NamedSharding(mesh, sp).shard_shape(s.shape),
                                               s.dtype),
                          specs, shapes, is_leaf=lambda x: isinstance(x, PartitionSpec))
@@ -252,18 +263,32 @@ SMALL = get_config("tinyllama-1.1b", smoke=True)
 def test_shard_grads_is_the_default_program_and_serve_repl_is_refused():
     """``shard_grads`` counts the one program the port runs (its FSDP
     always reduce-scatters), so its result equals the default's but for
-    ``opts``; ``serve_repl`` is refused by name, before anything runs."""
-    shape = ShapeConfig("t", 16, 8, "train", 2)
-    base = dryrun.run_cell("tinyllama-1.1b", shape, mesh=(2, 2), cfg=SMALL)
-    grads = dryrun.run_cell("tinyllama-1.1b", shape, mesh=(2, 2), cfg=SMALL,
-                            opts={"shard_grads"})
-    assert grads["opts"] == ["shard_grads"] and base["opts"] == []
-    for part in ("memory", "collectives", "cost"):
-        assert grads[part] == base[part], part
-    assert base["collectives"]["counts"]["reduce-scatter"] > 0
+    ``opts``; so does ``serve_repl`` on a train and a prefill cell, as the
+    reference's serve rules change only a decode cell's step.
+    ``serve_repl`` is refused by name, before anything runs, for a config
+    with a block the serve rules do not run."""
+    for kind in ("train", "prefill"):
+        shape = ShapeConfig("t", 16, 8, kind, 2 if kind == "train" else 1)
+        base = dryrun.run_cell("tinyllama-1.1b", shape, mesh=(2, 2), cfg=SMALL)
+        for opt in ("shard_grads", "serve_repl"):
+            other = dryrun.run_cell("tinyllama-1.1b", shape, mesh=(2, 2), cfg=SMALL,
+                                    opts={opt})
+            assert other["opts"] == [opt] and base["opts"] == []
+            for part in ("memory", "collectives", "cost"):
+                assert other[part] == base[part], (kind, opt, part)
+        if kind == "train":
+            assert base["collectives"]["counts"]["reduce-scatter"] > 0
     assert any("shard_grads" in n for n in base["notes"])
-    with pytest.raises(ValueError, match="serve_repl"):
-        dryrun.run_cell("tinyllama-1.1b", "decode_32k", opts={"serve_repl"})
+    assert any("serve_repl" in n for n in base["notes"])
+    decode = ShapeConfig("d", 16, 8, "decode")
+    fsdp = dryrun.run_cell("tinyllama-1.1b", decode, mesh=(2, 2), cfg=SMALL)
+    repl = dryrun.run_cell("tinyllama-1.1b", decode, mesh=(2, 2), cfg=SMALL,
+                           opts={"serve_repl"})
+    assert repl["cost"]["flops_global"] == fsdp["cost"]["flops_global"]
+    assert (repl["collectives"]["bytes_by_kind_perdev_once"]["all-gather"]
+            < fsdp["collectives"]["bytes_by_kind_perdev_once"]["all-gather"])
+    with pytest.raises(ValueError, match="serve_repl.*item 4d"):
+        dryrun.run_cell("qwen3-moe-30b-a3b", "decode_32k", opts={"serve_repl"})
 
 
 @pytest.mark.parametrize("mesh", [(2, 2), (2, 2, 2)])
@@ -289,3 +314,188 @@ def test_every_per_device_field_is_filled(kind, mesh):
     assert r["memory_term_s"] == mem["argument_bytes_per_device"] / 3.35e12
     terms = {k: r[f"{k}_term_s"] for k in ("compute", "memory", "collective")}
     assert r["bound_s"] == max(terms.values()) and r["dominant"] == max(terms, key=terms.get)
+
+
+# -- (e) the weight-stationary decode (serve_repl) -------------------------------------
+
+SERVE_ARCHS = ["minitron-4b", "tinyllama-1.1b", "qwen1.5-0.5b", "command-r-plus-104b",
+               "llava-next-34b", "seamless-m4t-large-v2"]
+REFUSED = {"qwen3-moe-30b-a3b": "moe", "moonshot-v1-16b-a3b": "moe",
+           "recurrentgemma-2b": "rglru", "xlstm-1.3b": "mlstm, slstm",
+           "nemotron-h-8b": "mlstm"}
+
+
+def _mesh_arg(mesh):
+    dp, tp, pods = MESHES[mesh]
+    return (pods, dp // pods, tp) if pods > 1 else (dp, tp)
+
+
+@functools.lru_cache(maxsize=None)
+def _decode_steps(arch, mesh):
+    """Rank 0's ``decode_32k`` step on ``mesh``, counted on meta under the
+    serve rules and under FSDP alone: (the serve step's arguments, its
+    collectives one by one, the FSDP step's arguments, its summary)."""
+    cfg, shape = get_config(arch), SHAPES["decode_32k"]
+    with rules.use_serve_rules():
+        args, _, _ = dryrun.count_rank_step(cfg, shape, _mesh_arg(mesh))
+    fsdp, _, summary = dryrun.count_rank_step(cfg, shape, _mesh_arg(mesh))
+    return args, list(args.mesh.log.entries), fsdp, summary
+
+
+def test_serve_archs_are_the_assigned_attention_and_dense_mlp_families():
+    """The six ``ASSIGNED`` architectures ``serve_repl`` runs; the other four
+    are refused."""
+    ran = []
+    for arch in ASSIGNED:
+        try:
+            rules.check_serve(get_config(arch))
+            ran.append(arch)
+        except rules.ServeRefusal:
+            assert arch in REFUSED
+    assert sorted(ran) == sorted(SERVE_ARCHS)
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
+def test_serve_repl_rank_arguments_are_the_reference_serve_shardings(arch, mesh):
+    """A weight-stationary decode cell's rank-0 arguments, byte for byte the
+    reference's ``param_pspecs`` under ``SERVE_RULES`` (``DEFAULT_RULES``'
+    parameter rules, and the norm scales' ``act_embed`` over data),
+    ``cache_shardings`` and the token's and positions' ``batch_shardings``.
+    On the mesh of pods the norm scales split over pod x data (32), as the
+    residual stream and the weights do, where the reference's bare
+    ``"data"`` splits them over 16: a named divergence of half a slice
+    each."""
+    dp, tp, pods = MESHES[mesh]
+    args = _decode_steps(arch, mesh)[0]
+    got = dict(args.bytes)
+    got["cache"] -= sum(e["cross_pos"].numel() * e["cross_pos"].element_size()
+                        for e in args.cache if "cross_pos" in e)
+    scales = [p for name, p in args.model.named_parameters() if name.endswith("norm1.scale")
+              or name.endswith("norm2.scale") or name.endswith("norm_c.scale")
+              or name.endswith("norm.scale")]
+    assert all(p.shape[0] == get_config(arch).d_model // dp for p in scales)
+    if pods > 1:  # the reference's slices of 16 are twice the port's of 32
+        got["params"] += sum(p.numel() * p.element_size() for p in scales)
+    assert got == reference_rank_bytes(arch, SHAPES["decode_32k"], dp, tp, pods, SERVE_RULES)
+
+
+def _split_cache_gather(cfg, mesh) -> int:
+    """The bytes of one L-sharded K/V entry's gather (0: model divides the
+    KV heads): the rank's rows of k and v over every slot."""
+    dp, tp, _ = MESHES[mesh]
+    if cfg.num_kv_heads % tp == 0:
+        return 0
+    shape = SHAPES["decode_32k"]
+    rows = shape.global_batch // dp if shape.global_batch % dp == 0 else shape.global_batch
+    return 2 * rows * shape.seq_len * cfg.num_kv_heads * cfg.resolved_head_dim * 2
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
+def test_serve_repl_moves_no_parameter(arch, mesh):
+    """No collective of the weight-stationary step moves a parameter: each
+    moves at most B x the step's widest activation x 4 bytes, but for an
+    L-sharded cache's gather; the data axis gathers only the inputs (once)
+    and each attention's outputs, the model axis only the logits and those
+    caches."""
+    cfg = get_config(arch)
+    _, entries, _, _ = _decode_steps(arch, mesh)
+    hd = cfg.resolved_head_dim
+    widest = max(cfg.vocab_size, cfg.d_ff, cfg.d_model,
+                 (cfg.num_heads + 2 * cfg.num_kv_heads) * hd)
+    bound = SHAPES["decode_32k"].global_batch * widest * 4
+    cache = _split_cache_gather(cfg, mesh)
+    for axis, kind, n in entries:
+        assert n <= bound or (axis, kind, n) == ("model", "all-gather", cache), (axis, kind, n)
+    gathers = [(axis, n) for axis, kind, n in entries if kind == "all-gather"]
+    attns = sum(k in ("attn", "local_attn") for k in cfg.blocks()) * (2 if cfg.is_encdec else 1)
+    assert sum(axis == "data" for axis, _ in gathers) == 1 + attns
+    split = sum(n == cache for axis, n in gathers if axis == "model") if cache else 0
+    assert split == (cfg.num_layers if cache else 0)
+    vocab = cfg.vocab_size % MESHES[mesh][1] == 0  # the logits gathered over model
+    assert sum(axis == "model" for axis, _ in gathers) == split + vocab
+
+
+def _gathers(entries):
+    """All-gather bytes of a collective log's entries by axis."""
+    out = {"data": 0, "model": 0}
+    for axis, kind, n in entries:
+        if kind == "all-gather":
+            out[axis] += n
+    return out
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
+def test_serve_repl_drops_the_weight_gathers(arch, mesh):
+    """The FSDP decode gathers every data-sharded weight's model shard over
+    data each step (a tied table twice; an encoder's none); the weight-stationary step
+    gathers none: over data only the inputs (B x 2 int32) and each
+    attention's outputs (B x its heads x hd), over model what FSDP does
+    but the whole batch's logits where FSDP gathers the rank's rows.  So
+    its all-gathers fall by the weights' bytes less those activations."""
+    cfg = get_config(arch)
+    dp, tp, _ = MESHES[mesh]
+    B = SHAPES["decode_32k"].global_batch
+    _, serve, fsdp, _ = _decode_steps(arch, mesh)
+    placement = fsdp.model.placement
+    params = dict(fsdp.model.named_parameters())
+
+    def whole(name):  # a leaf's model shard, as FSDP gathers it
+        leaf = placement.leaves[name]
+        return math.prod(rules.local_shape(leaf.shape, leaf.model_dim, tp)) * \
+            params[name].element_size()
+
+    weights = sum(whole(n) for n, leaf in placement.leaves.items()  # the encoder's: no decode
+                  if leaf.data_dim is not None and not n.startswith("encoder."))
+    again = whole("embed.table") if cfg.tie_embeddings else 0  # the head's gather
+    fsdp = list(fsdp.mesh.log.entries)
+    before, after = _gathers(fsdp), _gathers(serve)
+    assert before["data"] == weights + again > 0
+    heads = cfg.num_heads // tp if cfg.num_heads % tp == 0 else cfg.num_heads
+    attns = sum(k in ("attn", "local_attn") for k in cfg.blocks()) * (2 if cfg.is_encdec else 1)
+    itemsize = torch.empty(0, dtype=getattr(torch, cfg.dtype)).element_size()
+    assert after["data"] == B * 2 * 4 + attns * B * heads * cfg.resolved_head_dim * itemsize
+    logits = (B - B // dp) * cfg.vocab_size * 4 if cfg.vocab_size % tp == 0 else 0
+    assert after["model"] == before["model"] + logits
+    assert sum(before.values()) - sum(after.values()) == (
+        weights + again - after["data"] - logits)
+
+
+@pytest.mark.parametrize("arch", list(REFUSED))
+def test_serve_repl_refuses_moe_and_recurrent_blocks_by_name(arch):
+    """A config with a MoE, RG-LRU, mLSTM or sLSTM block is refused under
+    ``serve_repl`` with a ``ValueError`` naming the block kinds and ROADMAP
+    item 4d, on every kind of cell."""
+    for shape in ("decode_32k", "prefill_32k"):
+        with pytest.raises(ValueError, match=f"its {REFUSED[arch]} block.*item 4d"):
+            dryrun.run_cell(arch, shape, opts={"serve_repl"})
+
+
+def test_serve_repl_sweep_skips_the_refused_cells(tmp_path, monkeypatch, capsys):
+    """``--all --opt serve_repl`` records a refused config's cells as
+    skipped with the refusal's reason and goes on (exit 0)."""
+    monkeypatch.setattr(dryrun, "ASSIGNED", ["qwen3-moe-30b-a3b", "xlstm-1.3b"])
+    assert dryrun.main(["--all", "--shapes", "decode_32k,train_4k", "--opt", "serve_repl",
+                        "--out-dir", str(tmp_path)]) == 0
+    for arch in ("qwen3-moe-30b-a3b", "xlstm-1.3b"):
+        for shape in ("decode_32k", "train_4k"):
+            res = json.loads((tmp_path / f"{arch}__{shape}__16x16__opt-serve_repl.json")
+                             .read_text())
+            assert res["status"] == "skipped" and "item 4d" in res["reason"]
+    assert "4 cells" in capsys.readouterr().out
+
+
+def test_serve_repl_on_the_pod_fallback_splits_the_residual_over_the_pods():
+    """d = 48 at (pod 2, data 16, model 16): only the pods divide the
+    weights' ``embed`` dim, so the residual stream splits over ``pod``
+    (its sums all-reduced there, none on ``data``); at d = 64 over
+    ``data``."""
+    shape = ShapeConfig("pod", 16, 64, "decode")
+    for cfg, axis, other in ((POD_CFG, "pod", "data"), (SMALL, "data", "pod")):
+        res = dryrun.run_cell("tinyllama-1.1b", shape, mesh=(2, 16, 16), cfg=cfg,
+                              opts={"serve_repl"})
+        counted = res["collectives"]["by_axis_kind_perdev"]
+        assert f"{axis} all-reduce" in counted and f"{other} all-reduce" not in counted
+        assert counted["data all-gather"][0] == 1 + cfg.num_layers

@@ -39,7 +39,18 @@ from the same ranks, while this process computes the reference's runs:
 * (g) the collectives each rank counted (``Mesh.count``) in a train step
   past the first (the training driver's), that prefill and a decode step
   equal ``launch.dryrun.run_cell(..., mesh=(2, 2))``'s counts and bytes
-  by kind exactly.
+  by kind exactly;
+* (h) the weight-stationary decode (``rules.use_serve_rules``, the
+  reference's ``SERVE_RULES``) after that prefill, fp32, for
+  tinyllama-1.1b, command-r-plus-104b (parallel block), llava-next-34b,
+  seamless-m4t-large-v2 (cross attention) and tinyllama with one KV head
+  (an L-sharded cache): every rank's whole-batch logits equal rank 0's
+  and lie within 1e-5 of the largest |logit| of the reference's
+  ``decode_step``; each rank's collectives by axis and kind equal
+  ``run_cell(mesh=(2, 2), opts={"serve_repl"})``'s, and gather no weight;
+  and on (data 4 as 2 pods x 2, model 1) at d = 54, where only the pods
+  divide the weights' ``embed`` dim, the residual splits over the pods
+  and the logits are the one-device model's.
 """
 
 import concurrent.futures
@@ -74,7 +85,7 @@ from repro_torch.training import checkpoint as ckpt_lib  # noqa: E402
 from repro_torch.training import optimizer as opt_lib  # noqa: E402
 
 from test_torch_train_families import (  # noqa: E402
-    _one_ulp, _reference_run, family_batch, reference_params, zero_gradients,
+    PERTURBED, _one_ulp, _reference_run, family_batch, reference_params, zero_gradients,
 )
 from test_torch_training import GRAD_TOL, LR, STEPS, WARMUP, _by_name  # noqa: E402
 from test_torch_unified import one_thread  # noqa: E402,F401 (autouse)
@@ -97,6 +108,12 @@ SERVE_LEN = SERVE_S + SERVE_STEPS + 1
 # d = 54 on (data 4 = 2 pods x 2, model 1): 4 does not divide the embed dims,
 # 2 does, so they split over the pods (the reference's fallback)
 POD_CFG = get_config(TINY, smoke=True).replace(d_model=54)
+# the weight-stationary decode after the prefill on the mesh: name -> (arch,
+# config changes); one KV head, which model does not divide, L-shards the cache
+SERVE_REPL = {TINY: (TINY, {}), "command-r-plus-104b": ("command-r-plus-104b", {}),
+              "llava-next-34b": ("llava-next-34b", {}),
+              "seamless-m4t-large-v2": ("seamless-m4t-large-v2", {}),
+              f"{TINY} kv1": (TINY, {"num_kv_heads": 1})}
 # the training driver's steps, each rank's collectives counted
 DRIVER = ["--arch", TINY, "--smoke", "--device", "cpu", "--steps", "2", "--batch", "8",
           "--seq-len", "32", "--log-every", "100"]
@@ -106,6 +123,28 @@ def _full(arch):
     """The reference's perturbed smoke parameters by the port's names."""
     cfg = get_config(arch, smoke=True)
     return {k: np.asarray(v) for k, v in _by_name(cfg, reference_params(arch)).items()}
+
+
+@functools.lru_cache(maxsize=None)
+def _serve_repl_case(name):
+    """(the port's config, the reference's, the reference's perturbed
+    parameters) of a ``SERVE_REPL`` case; a changed config's parameters
+    from the reference's own init, perturbed as ``reference_params``."""
+    arch, changes = SERVE_REPL[name]
+    cfg = get_config(arch, smoke=True).replace(**changes)
+    jcfg = jax_config(arch, smoke=True).replace(**changes)
+    if not changes:
+        return cfg, jcfg, reference_params(arch)
+    tree = jax.tree.map(np.asarray, jax.jit(lambda k: jax_model.init(jcfg, k)[0])(
+        jax.random.PRNGKey(0)))
+    rng = np.random.default_rng(0)
+
+    def leaf(path, arr):
+        if str(getattr(path[-1], "key", "")) in PERTURBED:
+            arr = arr + 0.1 * rng.standard_normal(arr.shape).astype(arr.dtype)
+        return arr
+
+    return cfg, jcfg, jax.tree_util.tree_map_with_path(leaf, tree)
 
 
 def _batches(arch, B, steps):
@@ -139,15 +178,23 @@ def _jobs(ckpt):
     for arch in SERVED:
         jobs[f"served {arch}"] = runs.MeshLogits(shape=MESH, params=_full(arch),
                                                  max_len=SERVE_LEN, **_served_inputs(arch))
+    for name in SERVE_REPL:
+        cfg, _, tree = _serve_repl_case(name)
+        jobs[f"serve_repl {name}"] = runs.MeshLogits(
+            shape=MESH, params={k: np.asarray(v) for k, v in _by_name(cfg, tree).items()},
+            max_len=SERVE_LEN, serve=True, **_served_inputs(SERVE_REPL[name][0], cfg))
+    jobs["serve_repl pods"] = runs.MeshLogits(shape=(4, 1), pods=2, max_len=SERVE_LEN,
+                                              serve=True, **_served_inputs(TINY, POD_CFG))
     jobs["driver"] = runs.DriverTrain(DRIVER, shape=MESH, count=True)
     jobs["pods"] = runs.Train(cfg=POD_CFG, batches=_batches(TINY, 8, STEPS), shape=(4, 1), pods=2,
                               lr=LR, warmup=WARMUP, total=STEPS)
     return jobs
 
 
-def _served_inputs(arch):
-    """The prompt (and frames) and decode tokens of ``arch``'s mesh job."""
-    cfg = get_config(arch, smoke=True)
+def _served_inputs(arch, cfg=None):
+    """The prompt (and frames) and decode tokens of ``arch``'s mesh job
+    (``cfg``: its smoke config, or one changed from it)."""
+    cfg = cfg or get_config(arch, smoke=True)
     rng = np.random.default_rng(5)
     text = SERVE_S // 2 if cfg.is_encdec else SERVE_S
     out = dict(cfg=cfg, tokens=rng.integers(0, cfg.vocab_size, (SERVE_B, text)),
@@ -188,19 +235,21 @@ def results(tmp_path_factory, one_thread):
         refs = {name: _reference(TINY, B, STEPS, mb) for name, (B, mb) in TINY_RUNS.items()}
         for arch in FAMILIES:
             refs[arch] = _reference(arch, FAMILY_B, FAMILY_STEPS)
-        whole = runs.train_plan(None, [dataclasses.replace(jobs[arch], shape=(1, 1))
-                                       for arch in FAMILIES + ["pods"]])
+        alone = FAMILIES + ["pods", "serve_repl pods"]
+        whole = runs.train_plan(None, [dataclasses.replace(jobs[name], shape=(1, 1))
+                                       for name in alone])
         out = ranks.result()
     by_name = {name: [r[i] for r in out] for i, name in enumerate(jobs)}
-    return by_name, refs, ckpt, dict(zip(FAMILIES + ["pods"], whole))
+    return by_name, refs, ckpt, dict(zip(alone, whole))
 
 
-def _reference_served(arch):
+def _reference_served(arch, jcfg=None, params=None):
     """The reference's prefill and decode steps on the mesh job's inputs:
-    fp32 logits (steps + 1, B, vocab)."""
+    fp32 logits (steps + 1, B, vocab); ``jcfg`` and ``params`` in place of
+    ``arch``'s smoke config and perturbed parameters."""
     inputs = _served_inputs(arch)
-    jcfg = jax_config(arch, smoke=True)
-    params = reference_params(arch)
+    jcfg = jcfg or jax_config(arch, smoke=True)
+    params = reference_params(arch) if params is None else params
     batch = {"tokens": jnp.asarray(inputs["tokens"], jnp.int32)}
     if "enc" in inputs:
         batch["enc_embeds"] = jnp.asarray(inputs["enc"])
@@ -579,3 +628,71 @@ def test_pod_split_leaves_train_as_the_whole_model(results):
     for k, a in want["final"]["params"].items():
         np.testing.assert_allclose(ranks[0]["final"]["params"][k], a, rtol=0, atol=0.05 * LR,
                                    err_msg=k)
+
+
+# -- (h) the weight-stationary decode (serve_repl) ------------------------------------------
+
+def _serve_repl_cell(name):
+    """``run_cell``'s count of the (2, 2) rank's decode step under the
+    serve rules, for ``SERVE_REPL`` case ``name``."""
+    cfg = _serve_repl_case(name)[0]
+    return dryrun.run_cell(SERVE_REPL[name][0], ShapeConfig("decode", SERVE_LEN, SERVE_B, "decode"),
+                           mesh=MESH, cfg=cfg, opts={"serve_repl"})
+
+
+@pytest.mark.parametrize("name", list(SERVE_REPL))
+def test_serve_repl_decode_matches_the_reference(results, name):
+    """The (2, 2) ranks' prefill (each data rank its rows, as (f)), then 3
+    weight-stationary decode steps on the same cache, each given the
+    rank's rows of the token and positions: every rank returns the whole
+    batch's logits, equal to rank 0's bit for bit, within 1e-5 of the
+    largest |logit| of the reference's ``prefill``/``decode_step``."""
+    ranks = results[0][f"serve_repl {name}"]
+    for r in ranks[1:]:
+        np.testing.assert_array_equal(r["logits"], ranks[0]["logits"])
+    _, jcfg, params = _serve_repl_case(name)
+    want = _reference_served(SERVE_REPL[name][0], jcfg, params)
+    got = ranks[0]["logits"]
+    assert got.shape == want.shape == (SERVE_STEPS + 1, SERVE_B, jcfg.vocab_size)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * float(np.abs(want).max()))
+
+
+@pytest.mark.parametrize("name", list(SERVE_REPL))
+def test_serve_repl_counted_collectives_equal_the_dry_run(results, name):
+    """Each rank's collectives in each weight-stationary decode step, by
+    axis and kind in count and bytes, equal ``run_cell(mesh=(2, 2),
+    opts={"serve_repl"})``'s for rank 0 on meta; no weight is gathered:
+    the data axis's all-gathers are the inputs' one and one for each
+    attention's outputs, and the model axis gathers only the logits (and
+    an L-sharded cache)."""
+    want = _serve_repl_cell(name)["collectives"]["by_axis_kind_perdev"]
+    for rank, r in enumerate(results[0][f"serve_repl {name}"]):
+        for phase in r["phases"][1:]:
+            assert phase["collectives"]["by_axis_kind"] == want, (rank, phase["phase"])
+    cfg = _serve_repl_case(name)[0]
+    attns = sum(k in ("attn", "local_attn") for k in cfg.blocks()) * (2 if cfg.is_encdec else 1)
+    assert want["data all-gather"][0] == 1 + attns
+    split_cache = cfg.num_kv_heads % MESH[1] != 0
+    assert want["model all-gather"][0] == 1 + (cfg.num_layers if split_cache else 0)
+
+
+def test_serve_repl_on_pods_splits_the_residual_as_the_weights(results):
+    """d = 54 on (data 4 as 2 pods x 2, model 1): only the pods divide the
+    weights' ``embed`` dim, so the residual stream splits over the pods
+    (its sums all-reduced on ``pod``, nothing summed on ``data``, which
+    gathers the rows); every rank's logits equal rank 0's, within 1e-5 of
+    the largest |logit| of the one-device model's from the same seed, and
+    the counts equal the dry-run's on (pod 2, data 2, model 1)."""
+    ranks, want = results[0]["serve_repl pods"], results[3]["serve_repl pods"]
+    for r in ranks[1:]:
+        np.testing.assert_array_equal(r["logits"], ranks[0]["logits"])
+    ref = want["logits"]
+    np.testing.assert_allclose(ranks[0]["logits"], ref, rtol=0,
+                               atol=1e-5 * float(np.abs(ref).max()))
+    res = dryrun.run_cell(TINY, ShapeConfig("decode", SERVE_LEN, SERVE_B, "decode"),
+                          mesh=(2, 2, 1), cfg=POD_CFG, opts={"serve_repl"})
+    counted = res["collectives"]["by_axis_kind_perdev"]
+    assert "pod all-reduce" in counted and "data all-reduce" not in counted
+    for r in ranks:
+        for phase in r["phases"][1:]:
+            assert phase["collectives"]["by_axis_kind"] == counted
